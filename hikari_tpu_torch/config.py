@@ -1,0 +1,160 @@
+"""Renderer configuration (the port of hikari_tpu/config.py).
+
+Fields that pick pipeline structure (taa, upscale, denoise, reuse toggles,
+bounce count) are static: they select which passes the frame runs. Numeric
+knobs ride the per-frame uniform dict (`make_frame_uniform`), which here is
+plain Python scalars: the kernels take them through their parameter vectors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Tuple
+
+import numpy as np
+
+
+class Taa(enum.Enum):
+    """Temporal anti-aliasing method."""
+
+    JASMINE = "jasmine"
+    NONE = "none"
+
+
+class UpscaleMode(enum.Enum):
+    FSR1 = "fsr1"
+    SMAA_TU4X = "smaa_tu4x"
+    NONE = "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class Upscale:
+    """Upscaler selection; `ratio` is clamped to [1, 2]."""
+
+    mode: UpscaleMode = UpscaleMode.SMAA_TU4X
+    ratio: float = 2.0
+    sharpness: float = 0.0
+
+    @staticmethod
+    def fsr1(ratio: float = 2.0, sharpness: float = 0.0) -> "Upscale":
+        return Upscale(UpscaleMode.FSR1, ratio, sharpness)
+
+    @staticmethod
+    def smaa_tu4x(ratio: float = 2.0) -> "Upscale":
+        return Upscale(UpscaleMode.SMAA_TU4X, ratio)
+
+    @staticmethod
+    def none() -> "Upscale":
+        """No upscaling: lighting runs at full resolution."""
+        return Upscale(UpscaleMode.NONE, 1.0)
+
+    @property
+    def clamped_ratio(self) -> float:
+        return float(min(2.0, max(1.0, self.ratio)))
+
+
+@dataclasses.dataclass(frozen=True)
+class HikariSettings:
+    """Per-camera renderer settings; defaults equal hikari_tpu's."""
+
+    direct_validate_interval: int = 3
+    emissive_validate_interval: int = 5
+    max_temporal_reuse_count: int = 50
+    max_spatial_reuse_count: int = 800
+    max_reservoir_lifetime: float = 100.0
+    solar_angle: float = 0.046
+    indirect_bounces: int = 1
+    max_indirect_luminance: float = 10.0
+    clear_color: Tuple[float, float, float, float] = (0.4, 0.4, 0.4, 1.0)
+    temporal_reuse: bool = True
+    emissive_spatial_reuse: bool = False
+    indirect_spatial_reuse: bool = True
+    denoise: bool = True
+    taa: Taa = Taa.JASMINE
+    upscale: Upscale = dataclasses.field(default_factory=Upscale)
+    checkerboard_lighting: bool = False
+    spatial_tap_scramble: bool = False
+
+    @property
+    def upscale_ratio(self) -> float:
+        return self.upscale.clamped_ratio
+
+    def static_key(self) -> tuple:
+        """Fields that specialize the frame pipeline."""
+        return (
+            self.taa,
+            self.upscale.mode,
+            self.upscale.clamped_ratio,
+            self.denoise,
+            self.temporal_reuse,
+            self.emissive_spatial_reuse,
+            self.indirect_spatial_reuse,
+            self.indirect_bounces,
+            self.checkerboard_lighting,
+            self.spatial_tap_scramble,
+        )
+
+
+# 3x3 a-trous kernel (reference src/view.rs:125-129).
+ATROUS_KERNEL = np.array(
+    [
+        [0.0625, 0.125, 0.0625],
+        [0.125, 0.25, 0.125],
+        [0.0625, 0.125, 0.0625],
+    ],
+    dtype=np.float32,
+)
+
+
+def halton(base: int, index: int) -> float:
+    """Halton low-discrepancy sequence."""
+    result = 0.0
+    f = 1.0
+    i = index
+    while i > 0:
+        f /= base
+        result += f * (i % base)
+        i //= base
+    return result
+
+
+# 16 sub-pixel jitter points (halton bases 2 and 3, indices 0..15).
+HALTON_JITTER = np.array(
+    [[halton(2, i), halton(3, i)] for i in range(16)], dtype=np.float32
+)
+
+
+def make_frame_uniform(settings: HikariSettings, frame_number: int) -> dict:
+    """Per-frame scalars as Python numbers (float32-rounded where the
+    reference holds them as f32)."""
+    f32 = lambda v: float(np.float32(v))
+    return {
+        "number": int(frame_number),
+        "direct_validate_interval": int(settings.direct_validate_interval),
+        "emissive_validate_interval": int(settings.emissive_validate_interval),
+        "indirect_bounces": int(settings.indirect_bounces),
+        "max_temporal_reuse_count": f32(settings.max_temporal_reuse_count),
+        "max_spatial_reuse_count": f32(settings.max_spatial_reuse_count),
+        "max_reservoir_lifetime": f32(
+            min(settings.max_reservoir_lifetime, 254.0)),
+        "solar_angle": f32(settings.solar_angle),
+        "max_indirect_luminance": f32(settings.max_indirect_luminance),
+        "clear_color": tuple(f32(c) for c in settings.clear_color),
+        "upscale_ratio": f32(settings.upscale_ratio),
+    }
+
+
+def frame_uniform_from_jax(frame: dict) -> dict:
+    """Convert hikari_tpu's frame-uniform dict (numpy/JAX scalars) to this
+    package's Python-scalar form."""
+    out = {}
+    for k, v in frame.items():
+        a = np.asarray(v)
+        if k == "clear_color":
+            out[k] = tuple(float(c) for c in a.astype(np.float32))
+        elif a.dtype.kind in "ui":
+            out[k] = int(a)
+        else:
+            out[k] = float(a.astype(np.float32))
+    return out

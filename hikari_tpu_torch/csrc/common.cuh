@@ -1,0 +1,288 @@
+// Device functions shared by the port's kernels: Moller-Trumbore loops,
+// the material lookup and the Burley/GGX shading chain of light.wgsl.
+//
+// Every expression keeps the operand order of its Python counterpart
+// (hikari_tpu/ops/light_fused.py and the plain PyTorch versions beside each
+// wrapper), and the sources are compiled with --fmad=false and IEEE
+// division and square root, so a kernel rounds like its plain version one
+// operation at a time.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define HK_F32_MAX 3.402823466e38f
+#define HK_F32_EPS 1.1920929e-7f
+#define HK_DISTANCE_MAX 65535.0f
+#define HK_RAY_BIAS 0.02f
+#define HK_GOLDEN 1.618033989f
+#define HK_TAU 6.283185307f
+// Python folds 2.0 * INV_TAU and 1.0 / PI in double before the f32 multiply
+#define HK_TWO_INV_TAU ((float)(2.0 * 0.159154943))
+#define HK_INV_PI ((float)(1.0 / 3.14159265358979))
+
+// Floats per table row in shared memory.
+#define HK_TRI 10   // v0 v1 v2 (9) + instance id
+#define HK_MAT 11   // base rgba, emissive rgba, roughness, metallic, reflectance
+
+struct f3 {
+  float x, y, z;
+};
+
+__device__ __forceinline__ f3 mk3(float x, float y, float z) {
+  f3 r;
+  r.x = x;
+  r.y = y;
+  r.z = z;
+  return r;
+}
+
+__device__ __forceinline__ float dot3(f3 a, f3 b) {
+  return a.x * b.x + a.y * b.y + a.z * b.z;
+}
+
+__device__ __forceinline__ f3 sub3(f3 a, f3 b) {
+  return mk3(a.x - b.x, a.y - b.y, a.z - b.z);
+}
+
+__device__ __forceinline__ f3 add3(f3 a, f3 b) {
+  return mk3(a.x + b.x, a.y + b.y, a.z + b.z);
+}
+
+// a + d * t (component-wise), the ray-point form of the Python code
+__device__ __forceinline__ f3 ray_at(f3 o, f3 d, float t) {
+  return mk3(o.x + d.x * t, o.y + d.y * t, o.z + d.z * t);
+}
+
+__device__ __forceinline__ f3 rsqrt_n(f3 v) {
+  float inv = rsqrtf(fmaxf(v.x * v.x + v.y * v.y + v.z * v.z, 1e-20f));
+  return mk3(v.x * inv, v.y * inv, v.z * inv);
+}
+
+__device__ __forceinline__ float lum3(float r, float g, float b) {
+  return 0.2126f * r + 0.7152f * g + 0.0722f * b;
+}
+
+__device__ __forceinline__ float clip01(float x) {
+  return fminf(fmaxf(x, 0.0f), 1.0f);
+}
+
+__device__ __forceinline__ float pow5(float x) {
+  float x2 = x * x;
+  return x2 * x2 * x;
+}
+
+__device__ __forceinline__ float sgnf(float x) {
+  return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
+}
+
+// apply_normal_basis (utils.wgsl:42-50): rotate l (z-up) into n's frame
+__device__ __forceinline__ f3 onb_apply(f3 n, f3 l) {
+  float s = fminf(sgnf(n.z) * 2.0f + 1.0f, 1.0f);
+  float u = -1.0f / (s + n.z);
+  float v = n.x * n.y * u;
+  float tx = 1.0f + s * n.x * n.x * u;
+  float ty = s * v;
+  float tz = -s * n.x;
+  float bx = v;
+  float by = s + n.y * n.y * u;
+  float bz = -n.y;
+  return mk3(tx * l.x + bx * l.y + n.x * l.z,
+             ty * l.x + by * l.y + n.y * l.z,
+             tz * l.x + bz * l.y + n.z * l.z);
+}
+
+// Karis EnvBRDFApprox for one colour
+__device__ __forceinline__ f3 env_brdf_approx(f3 f0, float pr, float nov) {
+  float r0 = 1.0f - pr;
+  float r1 = 0.0425f - 0.0275f * pr;
+  float r2 = 1.04f - 0.572f * pr;
+  float r3 = 0.022f * pr - 0.04f;
+  float a004 = fminf(r0 * r0, exp2f(-9.28f * nov)) * r0 + r1;
+  float ab_x = -1.04f * a004 + r2;
+  float ab_y = 1.04f * a004 + r3;
+  return mk3(f0.x * ab_x + ab_y, f0.y * ab_x + ab_y, f0.z * ab_x + ab_y);
+}
+
+struct Surface {
+  f3 em;
+  float em_a;
+  float rough;
+  f3 f0;
+  f3 diff;
+};
+
+// Row index of a float material id: hikari_tpu's select-sweep keeps row 0
+// unless the id equals a row number exactly.
+__device__ __forceinline__ int row_of(float f, int n) {
+  int i = (int)f;
+  return (i >= 0 && i < n && (float)i == f) ? i : 0;
+}
+
+__device__ __forceinline__ Surface surface_of(const float* mats, int n_mats,
+                                              float mat_f) {
+  const float* m = mats + HK_MAT * row_of(mat_f, n_mats);
+  Surface s;
+  float br = m[0], bg = m[1], bb = m[2];
+  s.em = mk3(m[4], m[5], m[6]);
+  s.em_a = m[7];
+  float clamped = fminf(fmaxf(m[8], 0.089f), 1.0f);
+  s.rough = clamped * clamped;
+  float metal = m[9];
+  float refl = m[10];
+  float f = 0.16f * refl * refl * (1.0f - metal);
+  s.f0 = mk3(f + br * metal, f + bg * metal, f + bb * metal);
+  s.diff = mk3(br * (1.0f - metal), bg * (1.0f - metal), bb * (1.0f - metal));
+  return s;
+}
+
+// shading() (light.wgsl:869-888): lit * a + ambient * (1 - a)
+__device__ __forceinline__ f3 shade(const Surface& s, f3 amb, f3 v, f3 n,
+                                    f3 l, f3 rad, float rad_a) {
+  f3 h = rsqrt_n(add3(l, v));
+  float nol = clip01(dot3(n, l));
+  float noh = clip01(dot3(n, h));
+  float loh = clip01(dot3(l, h));
+  float nov = fmaxf(dot3(n, v), 0.0001f);
+  float rough = s.rough;
+  float f90 = 0.5f + 2.0f * rough * loh * loh;
+  float fd = (1.0f + (f90 - 1.0f) * pow5(1.0f - nol)) *
+             (1.0f + (f90 - 1.0f) * pow5(1.0f - nov)) * HK_INV_PI;
+  float one_minus = 1.0f - noh * noh;
+  float a_ = noh * rough;
+  float k = rough / (one_minus + a_ * a_);
+  float d = k * k * HK_INV_PI;
+  float a2 = rough * rough;
+  float lam_v = nol * sqrtf((nov - a2 * nov) * nov + a2);
+  float lam_l = nov * sqrtf((nol - a2 * nol) * nol + a2);
+  float vis = 0.5f / fmaxf(lam_v + lam_l, 1e-7f);
+  float dv = d * vis;
+  float fr90 = clip01((s.f0.x + s.f0.y + s.f0.z) * 16.5f);
+  float sch = pow5(1.0f - loh);
+  float fr = s.f0.x + (fr90 - s.f0.x) * sch;
+  float fg = s.f0.y + (fr90 - s.f0.y) * sch;
+  float fb = s.f0.z + (fr90 - s.f0.z) * sch;
+  float lit_r = (dv * fr + s.diff.x * fd) * rad.x * nol;
+  float lit_g = (dv * fg + s.diff.y * fd) * rad.y * nol;
+  float lit_b = (dv * fb + s.diff.z * fd) * rad.z * nol;
+  f3 da = env_brdf_approx(s.diff, 1.0f, nov);
+  f3 sa = env_brdf_approx(s.f0, rough, nov);
+  float am_r = (da.x + sa.x) * amb.x;
+  float am_g = (da.y + sa.y) * amb.y;
+  float am_b = (da.z + sa.z) * amb.z;
+  float one_m = 1.0f - rad_a;
+  return mk3(lit_r * rad_a + am_r * one_m, lit_g * rad_a + am_g * one_m,
+             lit_b * rad_a + am_b * one_m);
+}
+
+struct Hit {
+  float t;
+  f3 n;       // interpolated, not normalized
+  float mat;  // -1 on a miss
+  float inst; // -1 on a miss
+};
+
+// Nearest hit with normal + material interpolation
+// (trace_pallas._kernel_full): tris rows of HK_TRI floats, attrs rows of
+// `astride` floats holding the 9 vertex normals at 0 and the material at 9.
+// incl < 0 accepts every instance.
+__device__ __forceinline__ Hit trace_full(const float* tris, const float* attrs,
+                                          int n, f3 o, f3 d, float maxt,
+                                          float excl, float incl) {
+  Hit hit;
+  hit.t = HK_F32_MAX;
+  hit.n = mk3(0.0f, 0.0f, 0.0f);
+  hit.mat = -1.0f;
+  hit.inst = -1.0f;
+  for (int i = 0; i < n; i++) {
+    const float* r = tris + HK_TRI * i;
+    float inst = r[9];
+    if (!(inst >= 0.0f) || inst == excl || !(incl < 0.0f || inst == incl))
+      continue;
+    float abx = r[3] - r[0], aby = r[4] - r[1], abz = r[5] - r[2];
+    float acx = r[6] - r[0], acy = r[7] - r[1], acz = r[8] - r[2];
+    float ux = d.y * acz - d.z * acy;
+    float uy = d.z * acx - d.x * acz;
+    float uz = d.x * acy - d.y * acx;
+    float det = abx * ux + aby * uy + abz * uz;
+    float inv_det = fabsf(det) < HK_F32_EPS ? 0.0f : 1.0f / det;
+    float aox = o.x - r[0], aoy = o.y - r[1], aoz = o.z - r[2];
+    float u = (aox * ux + aoy * uy + aoz * uz) * inv_det;
+    float vx = aoy * abz - aoz * aby;
+    float vy = aoz * abx - aox * abz;
+    float vz = aox * aby - aoy * abx;
+    float v = (d.x * vx + d.y * vy + d.z * vz) * inv_det;
+    float dist = (acx * vx + acy * vy + acz * vz) * inv_det;
+    bool ok = fabsf(det) >= HK_F32_EPS && u >= 0.0f && u <= 1.0f &&
+              v >= 0.0f && u + v <= 1.0f && dist > HK_F32_EPS &&
+              dist < maxt && dist < hit.t;
+    if (ok) {
+      const float* a = attrs + HK_TRI * i;
+      hit.t = dist;
+      hit.n = mk3(a[0] + u * (a[3] - a[0]) + v * (a[6] - a[0]),
+                  a[1] + u * (a[4] - a[1]) + v * (a[7] - a[1]),
+                  a[2] + u * (a[5] - a[2]) + v * (a[8] - a[2]));
+      hit.mat = a[9];
+      hit.inst = inst;
+    }
+  }
+  return hit;
+}
+
+struct Shadow {
+  bool occluded;
+  float t;    // nearest accepted hit distance, F32_MAX if none
+  float inst; // -1 if none
+};
+
+// Division-free occlusion loop (trace_pallas._kernel_shadow): the nearest
+// accepted hit with t in (eps, maxt), skipping instance `excl`.
+__device__ __forceinline__ Shadow shadow_sweep(const float* tris, int n, f3 o,
+                                               f3 d, float maxt, float excl) {
+  float td_best = HK_F32_MAX, ads_best = 1.0f, inst_best = -1.0f;
+  for (int i = 0; i < n; i++) {
+    const float* r = tris + HK_TRI * i;
+    float inst = r[9];
+    if (!(inst >= 0.0f) || inst == excl) continue;
+    float abx = r[3] - r[0], aby = r[4] - r[1], abz = r[5] - r[2];
+    float acx = r[6] - r[0], acy = r[7] - r[1], acz = r[8] - r[2];
+    float ux = d.y * acz - d.z * acy;
+    float uy = d.z * acx - d.x * acz;
+    float uz = d.x * acy - d.y * acx;
+    float det = abx * ux + aby * uy + abz * uz;
+    float s = sgnf(det);
+    float ads = det * s;
+    float aox = o.x - r[0], aoy = o.y - r[1], aoz = o.z - r[2];
+    float ud = (aox * ux + aoy * uy + aoz * uz) * s;
+    float vx = aoy * abz - aoz * aby;
+    float vy = aoz * abx - aox * abz;
+    float vz = aox * aby - aoy * abx;
+    float vd = (d.x * vx + d.y * vy + d.z * vz) * s;
+    float td = (acx * vx + acy * vy + acz * vz) * s;
+    bool ok = ads >= HK_F32_EPS && ud >= 0.0f && vd >= 0.0f &&
+              ud + vd <= ads && td > HK_F32_EPS * ads && td < maxt * ads &&
+              td * ads_best < td_best * ads;
+    if (ok) {
+      td_best = td;
+      ads_best = ads;
+      inst_best = inst;
+    }
+  }
+  Shadow sh;
+  sh.occluded = inst_best >= 0.0f;
+  sh.t = sh.occluded ? td_best / ads_best : HK_F32_MAX;
+  sh.inst = inst_best;
+  return sh;
+}
+
+// Copy `rows` rows of `cols` floats (source row stride `stride`, starting
+// at column `col0`) into shared memory, all threads of the block helping.
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
+                                           int rows, int cols, int stride,
+                                           int col0) {
+  for (int k = threadIdx.x; k < rows * cols; k += blockDim.x) {
+    int r = k / cols, c = k % cols;
+    dst[k] = src[r * stride + col0 + c];
+  }
+}

@@ -1,0 +1,90 @@
+"""Triangle meshes and the procedural shapes the port supports so far
+(plane, box/cube, quad), with Bevy's vertex layouts as in
+hikari_tpu/models/mesh.py."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class Mesh:
+    positions: np.ndarray  # [V,3] f32
+    normals: np.ndarray  # [V,3] f32
+    uvs: np.ndarray  # [V,2] f32
+    indices: np.ndarray  # [F,3] u32 triangle list
+
+    def __post_init__(self):
+        self.positions = np.ascontiguousarray(self.positions, dtype=np.float32)
+        self.normals = np.ascontiguousarray(self.normals, dtype=np.float32)
+        self.uvs = np.ascontiguousarray(self.uvs, dtype=np.float32)
+        self.indices = np.ascontiguousarray(
+            self.indices, dtype=np.uint32).reshape(-1, 3)
+
+    @property
+    def num_vertices(self) -> int:
+        return len(self.positions)
+
+    @property
+    def num_triangles(self) -> int:
+        return len(self.indices)
+
+
+def plane(size: float = 1.0) -> Mesh:
+    """Bevy shape::Plane: square in XZ at y=0, +Y normal."""
+    e = size / 2.0
+    positions = np.array(
+        [[e, 0, -e], [-e, 0, -e], [-e, 0, e], [e, 0, e]], dtype=np.float32)
+    normals = np.tile([0.0, 1.0, 0.0], (4, 1)).astype(np.float32)
+    uvs = np.array([[1, 0], [0, 0], [0, 1], [1, 1]], dtype=np.float32)
+    indices = np.array([[0, 2, 1], [0, 3, 2]], dtype=np.uint32)
+    return Mesh(positions, normals, uvs, indices)
+
+
+def box(x_length: float, y_length: float, z_length: float) -> Mesh:
+    """Bevy shape::Box (axis-aligned, centered): 24 vertices, 12 triangles."""
+    hx, hy, hz = x_length / 2.0, y_length / 2.0, z_length / 2.0
+    faces = [
+        ([[-hx, -hy, hz], [hx, -hy, hz], [hx, hy, hz], [-hx, hy, hz]],
+         [0, 0, 1]),
+        ([[-hx, hy, -hz], [hx, hy, -hz], [hx, -hy, -hz], [-hx, -hy, -hz]],
+         [0, 0, -1]),
+        ([[hx, -hy, -hz], [hx, hy, -hz], [hx, hy, hz], [hx, -hy, hz]],
+         [1, 0, 0]),
+        ([[-hx, -hy, hz], [-hx, hy, hz], [-hx, hy, -hz], [-hx, -hy, -hz]],
+         [-1, 0, 0]),
+        ([[hx, hy, -hz], [-hx, hy, -hz], [-hx, hy, hz], [hx, hy, hz]],
+         [0, 1, 0]),
+        ([[hx, -hy, hz], [-hx, -hy, hz], [-hx, -hy, -hz], [hx, -hy, -hz]],
+         [0, -1, 0]),
+    ]
+    uv_quad = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], dtype=np.float32)
+    positions, normals, uvs, indices = [], [], [], []
+    for fi, (quad_pts, n) in enumerate(faces):
+        base = 4 * fi
+        positions.extend(quad_pts)
+        normals.extend([n] * 4)
+        uvs.extend(uv_quad)
+        indices.extend([[base, base + 1, base + 2], [base + 2, base + 3, base]])
+    return Mesh(np.asarray(positions, np.float32),
+                np.asarray(normals, np.float32),
+                np.asarray(uvs, np.float32),
+                np.asarray(indices, np.uint32))
+
+
+def cube(size: float = 1.0) -> Mesh:
+    return box(size, size, size)
+
+
+def quad(width: float = 1.0, height: float = 1.0) -> Mesh:
+    """Quad in XY at z=0, +Z normal."""
+    hw, hh = width / 2.0, height / 2.0
+    positions = np.array(
+        [[-hw, -hh, 0], [hw, -hh, 0], [hw, hh, 0], [-hw, hh, 0]],
+        dtype=np.float32)
+    normals = np.tile([0.0, 0.0, 1.0], (4, 1)).astype(np.float32)
+    uvs = np.array([[0, 1], [1, 1], [1, 0], [0, 0]], dtype=np.float32)
+    indices = np.array([[0, 1, 2], [0, 2, 3]], dtype=np.uint32)
+    return Mesh(positions, normals, uvs, indices)

@@ -1,0 +1,215 @@
+"""Fused G-buffer prepass: kernel A (csrc/prepass_fused.cu) and its plain
+version.
+
+The port of hikari_tpu/ops/prepass_fused.py at full resolution: per pixel
+the jittered camera ray, the nearest hit with normal/uv/material
+interpolation, position and NDC depth, instance/material ids (+0.5),
+velocity through the per-instance motion matrix, and the env-BRDF albedo.
+`_assemble` adds the depth gradients (forward differences, plain tensor
+ops as on the TPU) and returns ops/prepass.py's G-buffer contract.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
+                                          host_values, on_cpu, ptr, stream)
+from hikari_tpu_torch.ops.light_fused import (MAX_MATERIALS, MAX_TRIS,
+                                              _env_brdf_approx, _mt,
+                                              _row_index, _rsqrt_n, _Surface)
+from hikari_tpu_torch.ops.prepass import camera_rays
+from hikari_tpu_torch.utils.math import F32_EPSILON, F32_MAX
+
+DISTANCE_MAX = 65535.0
+MAX_INSTANCES = 16
+
+# parameter vector layout (hikari_tpu's _P_* offsets)
+_P_INV_VP = 0     # inverse view_proj, row-major 16
+_P_VP = 16        # view_proj 16
+_P_PREV_VP = 32   # previous view_proj 16
+_P_CAM = 48       # camera world position 3
+_P_JIT = 51       # jitter pixels x, y
+_P_WH = 53        # width, height (f32)
+_P_COUNT = 55
+
+
+def prepass_caps_error(scene):
+    """The reason the scene exceeds kernel A's caps, or None."""
+    if scene["tri_pos_flat"].shape[0] > MAX_TRIS:
+        return f"{scene['tri_pos_flat'].shape[0]} triangles > {MAX_TRIS}"
+    if scene["mat_packed"].shape[0] > MAX_MATERIALS:
+        return f"{scene['mat_packed'].shape[0]} materials > {MAX_MATERIALS}"
+    if scene["inst_motion"].shape[0] > MAX_INSTANCES:
+        return f"{scene['inst_motion'].shape[0]} instances > {MAX_INSTANCES}"
+    return None
+
+
+def pack_params(view, prev_view, jitter, size) -> torch.Tensor:
+    """[55] f32 parameter vector on the view's device."""
+    h, w = size
+    dev = view["view_proj"].device
+    tail = host_values([jitter[0], jitter[1], w, h], dev)
+    return torch.cat([view["inverse_view_proj"].reshape(-1),
+                      view["view_proj"].reshape(-1),
+                      prev_view["view_proj"].reshape(-1),
+                      view["world_position"].reshape(-1)[:3], tail])
+
+
+def _project(m, px, py, pz):
+    """Rows of a row-major 4x4 (numpy f32 [16]) applied to (p, 1)."""
+    f = [float(x) for x in m]
+    return tuple(px * f[4 * r] + py * f[4 * r + 1] + pz * f[4 * r + 2]
+                 + f[4 * r + 3] for r in range(4))
+
+
+def prepass_plain(params, tris, attrs, motion, mats, size):
+    """Kernel A's body over whole planes. Returns (position [h,w,4],
+    normal [h,w,3], instance_material [h,w,2], velocity_uv [h,w,4],
+    albedo [h,w,4])."""
+    h, w = size
+    dev = params.device
+    p = params.cpu().numpy()
+    view = {"inverse_view_proj": params[_P_INV_VP:_P_INV_VP + 16].reshape(4, 4),
+            "world_position": params[_P_CAM:_P_CAM + 3]}
+    origin, direction = camera_rays(view, size, p[_P_JIT:_P_JIT + 2])
+    o = origin.unbind(-1)
+    dx, dy, dz = direction.unbind(-1)
+
+    t_best = torch.full((h, w), F32_MAX, device=dev)
+    z = torch.zeros((h, w), device=dev)
+    nx, ny, nz, uvx, uvy = z, z, z, z, z
+    mat_f = torch.full((h, w), -1.0, device=dev)
+    inst_f = torch.full((h, w), -1.0, device=dev)
+    for r, a in zip(tris.cpu().numpy(), attrs.cpu().numpy()):
+        inst_i = float(r[9])
+        if not inst_i >= 0.0:
+            continue
+        det, uu, vv, dist = _mt(o, (dx, dy, dz), r)
+        inv_det = torch.where(torch.abs(det) < F32_EPSILON, 0.0, div(1.0, det))
+        uu = uu * inv_det
+        vv = vv * inv_det
+        dist = dist * inv_det
+        ok = ((torch.abs(det) >= F32_EPSILON)
+              & (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+              & (dist > F32_EPSILON) & (dist < t_best))
+
+        def interp(c0, c1, c2):
+            d1 = float(np.float32(a[c1]) - np.float32(a[c0]))
+            d2 = float(np.float32(a[c2]) - np.float32(a[c0]))
+            return float(a[c0]) + uu * d1 + vv * d2
+
+        t_best = torch.where(ok, dist, t_best)
+        nx = torch.where(ok, interp(0, 3, 6), nx)
+        ny = torch.where(ok, interp(1, 4, 7), ny)
+        nz = torch.where(ok, interp(2, 5, 8), nz)
+        uvx = torch.where(ok, interp(9, 11, 13), uvx)
+        uvy = torch.where(ok, interp(10, 12, 14), uvy)
+        mat_f = torch.where(ok, float(a[16]), mat_f)
+        inst_f = torch.where(ok, inst_i, inst_f)
+
+    mask = inst_f >= 0.0
+    nx, ny, nz = (torch.where(mask, c, z) for c in _rsqrt_n(nx, ny, nz))
+    tt = torch.where(mask, t_best, DISTANCE_MAX)
+    wx = o[0] + dx * tt
+    wy = o[1] + dy * tt
+    wz = o[2] + dz * tt
+
+    cx, cy, cz, cw = _project(p[_P_VP:_P_VP + 16], wx, wy, wz)
+    depth = torch.where(mask, div(cz, cw), z)
+
+    mm = motion[_row_index(torch.clamp(inst_f, min=0.0), motion.shape[0])]
+    m = [mm[..., c] for c in range(16)]
+    inv_pw = div(1.0, m[12] * wx + m[13] * wy + m[14] * wz + m[15])
+    pwx = (m[0] * wx + m[1] * wy + m[2] * wz + m[3]) * inv_pw
+    pwy = (m[4] * wx + m[5] * wy + m[6] * wz + m[7]) * inv_pw
+    pwz = (m[8] * wx + m[9] * wy + m[10] * wz + m[11]) * inv_pw
+
+    def clip_uv(cx_, cy_, cw_):
+        return ((div(cx_, cw_) + 1.0) * 0.5,
+                1.0 - (div(cy_, cw_) + 1.0) * 0.5)
+
+    un, vn = clip_uv(cx, cy, cw)
+    pcx, pcy, _pcz, pcw = _project(p[_P_PREV_VP:_P_PREV_VP + 16],
+                                   pwx, pwy, pwz)
+    up, vp = clip_uv(pcx, pcy, pcw)
+
+    valid = depth >= F32_EPSILON
+    surf = _Surface(mats, torch.clamp(mat_f, min=0.0))
+    vvx, vvy, vvz = _rsqrt_n(o[0] - wx, o[1] - wy, o[2] - wz)
+    nov = torch.clamp(nx * vvx + ny * vvy + nz * vvz, min=0.0001)
+    da = _env_brdf_approx(*surf.diff, torch.ones_like(nov), nov)
+    sa = _env_brdf_approx(*surf.f0, surf.rough, nov)
+
+    position = torch.stack([torch.where(mask, wx, z), torch.where(mask, wy, z),
+                            torch.where(mask, wz, z), depth], -1)
+    normal = torch.stack([nx, ny, nz], -1)
+    inst_mat = torch.stack([inst_f + 0.5, mat_f + 0.5], -1)
+    vel_uv = torch.stack([torch.where(mask, un - up, z),
+                          torch.where(mask, vn - vp, z),
+                          torch.where(mask, uvx, z),
+                          torch.where(mask, uvy, z)], -1)
+    albedo = torch.stack([torch.where(valid, da[i] + sa[i], z)
+                          for i in range(3)] + [valid.to(torch.float32)], -1)
+    return position, normal, inst_mat, vel_uv, albedo
+
+
+def prepass_kernel(params, tris, attrs, motion, mats, size):
+    """Kernel A: runs `prepass_plain` for CPU tensors and launches
+    csrc/prepass_fused.cu for CUDA tensors."""
+    if on_cpu(params):
+        return prepass_plain(params, tris, attrs, motion, mats, size)
+    from hikari_tpu_torch.build import load_cuda
+
+    dev = params.device
+    h, w = size
+    f = torch.float32
+    check("params", params, f, (_P_COUNT,), dev)
+    check("tris", tris, f, (tris.shape[0], 10), dev)
+    check("attrs", attrs, f, (tris.shape[0], 17), dev)
+    check("motion", motion, f, (motion.shape[0], 16), dev)
+    check("mats", mats, f, (mats.shape[0], 15), dev)
+    outs = [torch.empty((h, w, c), dtype=f, device=dev)
+            for c in (4, 3, 2, 4, 4)]
+    fn = bind(load_cuda("prepass_fused"), "hk_prepass_fused",
+              "pppipipiiipppppp")
+    rc = fn(ptr(params), ptr(tris), ptr(attrs), tris.shape[0], ptr(motion),
+            motion.shape[0], ptr(mats), mats.shape[0], h, w,
+            *[ptr(t) for t in outs], stream(dev))
+    check_launch(rc, "prepass_fused")
+    prepass_kernel.launches += 1
+    return tuple(outs)
+
+
+prepass_kernel.launches = 0
+
+
+def _assemble(position, normal, inst_mat, vel_uv, albedo):
+    """Kernel outputs -> (gbuf dict, albedo [h,w,4]); depth gradients are
+    forward differences (the last row/column repeats its neighbour's)."""
+    depth = position[..., 3]
+    ddx = torch.cat([depth[:, 1:] - depth[:, :-1],
+                     depth[:, -1:] - depth[:, -2:-1]], dim=1)
+    ddy = torch.cat([depth[1:, :] - depth[:-1, :],
+                     depth[-1:, :] - depth[-2:-1, :]], dim=0)
+    gbuf = {
+        "position": position,
+        "normal": normal,
+        "depth_gradient": torch.stack([ddx, ddy], -1),
+        "instance_material": inst_mat,
+        "velocity_uv": vel_uv,
+    }
+    return gbuf, albedo
+
+
+def prepass_fused(scene, view, prev_view, jitter, size):
+    """Returns (gbuf dict matching ops/prepass.py's contract, albedo
+    [H,W,4]). jitter: (x, y) pixel jitter (ops/prepass.frame_jitter)."""
+    err = prepass_caps_error(scene)
+    if err is not None:
+        raise NotImplementedError(f"scene beyond the prepass kernel: {err}")
+    params = pack_params(view, prev_view, jitter, size)
+    planes = prepass_kernel(params, scene["tri_pos_flat"], scene["tri_attr"],
+                            scene["inst_motion"], scene["mat_packed"], size)
+    return _assemble(*planes)

@@ -1,0 +1,50 @@
+"""The parts of hikari_tpu/ops/restir.py the no-reuse frame uses: the
+jittered-deferred G-buffer lookup (the identity at upscale ratio 1), the
+primary surface, and the sun-less direct channel."""
+
+from __future__ import annotations
+
+import torch
+
+from hikari_tpu_torch.ops.shading import (compute_emissive_radiance,
+                                          retrieve_surface)
+from hikari_tpu_torch.utils.math import F32_EPSILON
+
+
+def resample_deferred(img, render_size, frame_number: int, ratio: float):
+    """Jittered-deferred lookup of a full-res [H,W,...] buffer at render
+    resolution: the identity at ratio 1, the only ratio ported so far."""
+    if ratio == 1.0 and tuple(img.shape[:2]) == tuple(render_size):
+        return img
+    raise NotImplementedError(
+        f"upscale ratio {ratio} (render size {render_size}) is not ported")
+
+
+def resample_gbuffer(gbuf, render_size, frame_number: int, ratio: float):
+    """Every G-buffer plane through resample_deferred."""
+    return {k: resample_deferred(v, render_size, frame_number, ratio)
+            for k, v in gbuf.items()}
+
+
+def primary_surface(scene, g, no_texture: bool):
+    """The G-buffer pixel's material surface (light.wgsl:729-781)."""
+    material = g["instance_material"][..., 1].to(torch.int32)
+    return retrieve_surface(scene, material, no_texture)
+
+
+def emissive_surface_channel(scene, g, no_texture: bool, render_size,
+                             surface=None):
+    """Direct channel of a scene with no directional light: only the
+    surface-emission add of RENDER_EMISSIVE remains (light.wgsl:1237-1247),
+    with zero variance. Returns {"render" [h,w,4], "variance" [h,w]}."""
+    h, w = render_size
+    depth = g["position"][..., 3]
+    valid = depth >= F32_EPSILON
+    if surface is None:
+        surface = primary_surface(scene, g, no_texture)
+    out = compute_emissive_radiance(surface["emissive"])
+    render = torch.where(
+        valid[..., None], torch.cat([out, torch.ones_like(depth)[..., None]],
+                                    -1), 0.0)
+    return {"render": render,
+            "variance": torch.zeros((h, w), device=depth.device)}

@@ -1,0 +1,18 @@
+"""Channel combine + Reinhard tone mapping (tone_mapping.wgsl:21-31)."""
+
+from __future__ import annotations
+
+import torch
+
+from hikari_tpu_torch.ops._kernel import host_values
+from hikari_tpu_torch.utils.math import reinhard_luminance
+
+
+def tone_mapping(direct, emissive, indirect, clear_color):
+    """[h,w,4] channels -> tone-mapped [h,w,4]; pixels with alpha 0 take
+    the clear colour."""
+    color = direct + emissive + indirect
+    rgb = reinhard_luminance(torch.clamp(color[..., :3], min=0.0039))
+    out = torch.cat([rgb, color[..., 3:4]], -1)
+    clear = host_values(clear_color, out.device)
+    return torch.where(color[..., 3:4] > 0.0, out, clear)

@@ -1,0 +1,54 @@
+"""Tensor math helpers (the part of hikari_tpu/utils/math.py the port's
+no-reuse frame uses), batched over trailing ...x3 / ...x4 axes."""
+
+from __future__ import annotations
+
+import torch
+
+F32_EPSILON = 1.1920929e-7
+F32_MAX = 3.402823466e38
+TAU = 6.283185307
+INV_TAU = 0.159154943
+PI = 3.14159265358979
+GOLDEN_RATIO = 1.618033989
+
+# Rec. 709 luminance coefficients.
+LUMA = (0.2126, 0.7152, 0.0722)
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """Rec.709 luminance over the trailing rgb axis."""
+    return (LUMA[0] * rgb[..., 0] + LUMA[1] * rgb[..., 1]
+            + LUMA[2] * rgb[..., 2])
+
+
+def dot3(a, b):
+    return (a * b).sum(-1)
+
+
+def normalize(v, eps=1e-20):
+    return v * torch.rsqrt(torch.clamp(dot3(v, v), min=eps))[..., None]
+
+
+def perceptual_roughness_to_roughness(perceptual):
+    clamped = torch.clamp(perceptual, 0.089, 1.0)
+    return clamped * clamped
+
+
+def change_luminance(c_in, l_out):
+    l_in = torch.clamp(luminance(c_in), min=1e-8)
+    return c_in * (l_out / l_in)[..., None]
+
+
+def reinhard_luminance(color):
+    """Bevy's luminance-based Reinhard tone map."""
+    l_old = luminance(color)
+    l_new = l_old / (1.0 + l_old)
+    return change_luminance(color, l_new)
+
+
+def inverse_reinhard_luminance(color):
+    """Inverse Reinhard (overlay.wgsl:28-33)."""
+    l_old = torch.clamp(luminance(color), 0.0005, 0.995)
+    l_new = l_old / (1.0 - l_old)
+    return change_luminance(color, l_new)

@@ -1,0 +1,147 @@
+"""The port's boundaries: it imports neither JAX nor hikari_tpu, refuses
+what it has not ported, renders on CUDA unless asked for the CPU, and its
+kernel wrappers marshal their launches correctly."""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+import hikari_tpu_torch as ht
+from tests.cornell_box import EYE, TARGET, build_cornell_box
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "hikari_tpu_torch")
+
+
+def _flagship(**changes):
+    return dataclasses.replace(
+        ht.HikariSettings(), temporal_reuse=False, indirect_bounces=1,
+        taa=ht.Taa.NONE, upscale=ht.Upscale.none(),
+        emissive_spatial_reuse=False, indirect_spatial_reuse=False,
+        **changes)
+
+
+def _camera():
+    return ht.Camera.from_look_at(EYE, TARGET, width=16, height=12)
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = ("import sys, hikari_tpu_torch, hikari_tpu_torch.frame;"
+            "bad = [m for m in sys.modules if m == 'jax' "
+            "or m.startswith('jax.') or m == 'hikari_tpu' "
+            "or m.startswith('hikari_tpu.')];"
+            "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_sources_do_not_reference_jax_or_the_reference_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
+    pattern = re.compile(r"import jax|from jax|\bhikari_tpu\.|"
+                         r"from hikari_tpu |import hikari_tpu\b")
+    for path in files:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                assert not pattern.search(line), f"{path}:{i}: {line}"
+
+
+@pytest.mark.parametrize("changes", [
+    {"temporal_reuse": True},
+    {"emissive_spatial_reuse": True},
+    {"indirect_spatial_reuse": True},
+    {"checkerboard_lighting": True},
+    {"taa": ht.Taa.JASMINE},
+    {"upscale": ht.Upscale.smaa_tu4x(2.0)},
+    {"upscale": ht.Upscale.fsr1(1.5)},
+], ids=lambda c: next(iter(c)))
+def test_settings_outside_the_slice_raise(changes):
+    settings = dataclasses.replace(_flagship(), **changes)
+    with pytest.raises(NotImplementedError):
+        ht.Renderer(build_cornell_box("hikari_tpu_torch"), _camera(),
+                    settings, device="cpu")
+
+
+def test_scene_beyond_the_caps_raises():
+    from hikari_tpu_torch.models import mesh as shapes
+    from hikari_tpu_torch.models.scene import make_transform
+
+    sc = build_cornell_box("hikari_tpu_torch")
+    cube = sc.add_mesh(shapes.cube(0.1))
+    for i in range(17):                    # 25 instances > 16
+        sc.spawn(cube, 0, make_transform((0.1 * i - 0.8, 0.05, 0.8)))
+    with pytest.raises(NotImplementedError):
+        ht.Renderer(sc, _camera(), _flagship(), device="cpu")
+
+
+def test_default_device_needs_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ht.Renderer(build_cornell_box("hikari_tpu_torch"), _camera(),
+                    _flagship())
+
+
+class _FakeLibrary:
+    """Stands in for a built kernel library: checks each call against the
+    ctypes signature the wrapper declared, and records it."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def fn(*args):
+            assert len(args) == len(fn.argtypes), name
+            for a, t in zip(args, fn.argtypes):
+                want = int if t is ctypes.c_int else ctypes.c_void_p
+                assert isinstance(a, want), (name, a)
+            self.calls.append(name)
+            return 0
+
+        setattr(self, name, fn)
+        return fn
+
+
+def test_cuda_wrappers_marshal_and_count(monkeypatch):
+    """The wrappers' CUDA branch, up to the C call: argument checks,
+    ctypes signatures and launch counts of one frame (1, 1, 4)."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.ops import denoise_fused, light_fused, prepass_fused
+
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    wrappers = (prepass_fused.prepass_kernel, light_fused.lighting_kernel,
+                denoise_fused.atrous_level)
+    for mod in (prepass_fused, light_fused, denoise_fused):
+        monkeypatch.setattr(mod, "on_cpu", lambda t: False)
+        monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", 0)
+    r = ht.Renderer(build_cornell_box("hikari_tpu_torch"), _camera(),
+                    _flagship(), device="cpu")
+    r.render_frame()
+    assert fake.calls == (["hk_prepass_fused", "hk_light_fused"]
+                          + ["hk_atrous_level"] * 4)
+    assert [fn.launches for fn in wrappers] == [1, 1, 4]
+
+
+def test_cuda_wrapper_rejects_bad_arguments(monkeypatch):
+    from hikari_tpu_torch.ops import denoise_fused
+
+    monkeypatch.setattr(denoise_fused, "on_cpu", lambda t: False)
+    irr = torch.zeros((6, 4, 4), dtype=torch.float32)    # not bf16
+    geo = torch.zeros((4, 4, 4), dtype=torch.bfloat16)
+    f32s = torch.zeros((5, 4, 4))
+    with pytest.raises(TypeError):
+        denoise_fused.atrous_level(irr, geo, f32s, step=1, nch=2,
+                                   ffs=(True, True))
