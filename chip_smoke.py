@@ -301,6 +301,10 @@ def check_kernels(ht, scene_host):
         replaces="hikari_tpu/ops/denoise_fused.py:60", launches=None,
         max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None))
+    for rec in records:
+        print(f"  {rec['name']}: {rec['ms']:.4f} ms per launch, plain "
+              f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']})")
     return records
 
 
