@@ -1,10 +1,12 @@
 """hikari_tpu_torch: the PyTorch + CUDA port of hikari_tpu, a realtime
 deferred hybrid path tracer, for NVIDIA Hopper (H100).
 
-So far the port covers the no-reuse frame: the fused G-buffer prepass,
-the no-reuse lighting channels and the a-trous denoiser, each a CUDA
-kernel written by hand (hikari_tpu_torch/csrc/) beside a plain PyTorch
-version of the same function. Kernels build with nvcc on first use into
+So far the port covers the flagship frame without reuse, with temporal
+ReSTIR reuse and with temporal + fused spatial reuse: the fused G-buffer
+prepass, the lighting channels (temporal reuse in the kernel), the
+reprojection gather, the spatial pass and the a-trous denoiser, each a
+CUDA kernel written by hand (hikari_tpu_torch/csrc/) beside a plain
+PyTorch version of the same function. Kernels build with nvcc on first use into
 build/hikari_tpu_torch/. A Renderer runs on CUDA unless the caller passes
 device="cpu", where the plain versions run instead.
 """

@@ -276,6 +276,169 @@ __device__ __forceinline__ Shadow shadow_sweep(const float* tris, int n, f3 o,
   return sh;
 }
 
+// ---- the 64 B packed reservoir (ops/reservoir.py): 16 float planes of an
+// [h,16,w] tensor, plane c of pixel (y, x) at ((y * 16 + c) * w + x).
+// bf16 rounds to nearest even on the raw bits, unorm16/snorm8 with rintf
+// (half to even, as torch.round), and every packed word is a u32 pattern.
+
+struct Rsv {
+  float vpx, vpy, vpz, vpd, spx, spy, spz, spw, vinst;
+  float rad_r, rad_g, rad_b, rad_a, rnd0, rnd1, rnd2, rnd3;
+  float vnx, vny, vnz, life, snx, sny, snz;
+  float count, w, w_sum, w2_sum;
+};
+
+__device__ __forceinline__ uint32_t hk_rne16(float f) {
+  uint32_t u = __float_as_uint(f);
+  return (u + 0x7FFFu + ((u >> 16) & 1u)) >> 16;
+}
+
+__device__ __forceinline__ float bf16_pair(float a, float b) {
+  return __uint_as_float(hk_rne16(a) | (hk_rne16(b) << 16));
+}
+
+__device__ __forceinline__ void bf16_unpair(float lane, float& a, float& b) {
+  uint32_t u = __float_as_uint(lane);
+  a = __uint_as_float((u & 0xFFFFu) << 16);
+  b = __uint_as_float(u & 0xFFFF0000u);
+}
+
+__device__ __forceinline__ uint32_t hk_unorm16(float a) {
+  return (uint32_t)(int)rintf(fminf(fmaxf(a, 0.0f), 1.0f) * 65535.0f);
+}
+
+__device__ __forceinline__ uint32_t hk_snorm8(float v) {
+  return (uint32_t)(int)rintf((fminf(fmaxf(v, -1.0f), 1.0f) * 0.5f + 0.5f) *
+                              255.0f);
+}
+
+__device__ __forceinline__ float snorm8_vec(float x, float y, float z,
+                                            float extra) {
+  return __uint_as_float(hk_snorm8(x) | (hk_snorm8(y) << 8) |
+                         (hk_snorm8(z) << 16) | ((uint32_t)(int)extra << 24));
+}
+
+__device__ __forceinline__ float snorm8_dec(uint32_t u, int shift) {
+  return (float)((u >> shift) & 0xFFu) / 255.0f * 2.0f - 1.0f;
+}
+
+__device__ __forceinline__ Rsv rsv_empty() {
+  Rsv r;
+  r.vpx = r.vpy = r.vpz = r.vpd = 0.0f;
+  r.spx = r.spy = r.spz = r.spw = 0.0f;
+  r.vinst = -1.0f;
+  r.rad_r = r.rad_g = r.rad_b = r.rad_a = 0.0f;
+  r.rnd0 = r.rnd1 = r.rnd2 = r.rnd3 = 0.0f;
+  r.vnx = r.vny = r.vnz = r.life = 0.0f;
+  r.snx = r.sny = r.snz = 0.0f;
+  r.count = r.w = r.w_sum = r.w2_sum = 0.0f;
+  return r;
+}
+
+// Unpack the reservoir whose plane 0 sits at t[base] (planes w apart).
+__device__ __forceinline__ Rsv rsv_load(const float* t, long long base,
+                                        int w) {
+  Rsv r;
+  r.vpx = t[base];
+  r.vpy = t[base + w];
+  r.vpz = t[base + 2LL * w];
+  r.vpd = t[base + 3LL * w];
+  r.spx = t[base + 4LL * w];
+  r.spy = t[base + 5LL * w];
+  r.spz = t[base + 6LL * w];
+  r.vinst = t[base + 7LL * w];
+  bf16_unpair(t[base + 8LL * w], r.rad_r, r.rad_g);
+  bf16_unpair(t[base + 9LL * w], r.rad_b, r.rad_a);
+  uint32_t u = __float_as_uint(t[base + 10LL * w]);
+  r.rnd0 = (float)(u & 0xFFFFu) / 65535.0f;
+  r.rnd1 = (float)(u >> 16) / 65535.0f;
+  u = __float_as_uint(t[base + 11LL * w]);
+  r.rnd2 = (float)(u & 0xFFFFu) / 65535.0f;
+  r.rnd3 = (float)(u >> 16) / 65535.0f;
+  u = __float_as_uint(t[base + 12LL * w]);
+  r.vnx = snorm8_dec(u, 0);
+  r.vny = snorm8_dec(u, 8);
+  r.vnz = snorm8_dec(u, 16);
+  r.life = (float)(u >> 24);
+  u = __float_as_uint(t[base + 13LL * w]);
+  r.snx = snorm8_dec(u, 0);
+  r.sny = snorm8_dec(u, 8);
+  r.snz = snorm8_dec(u, 16);
+  r.spw = (float)(u >> 24) > 127.0f ? 1.0f : 0.0f;
+  bf16_unpair(t[base + 14LL * w], r.count, r.w);
+  bf16_unpair(t[base + 15LL * w], r.w_sum, r.w2_sum);
+  return r;
+}
+
+__device__ __forceinline__ void rsv_store(float* t, long long base, int w,
+                                          const Rsv& r) {
+  t[base] = r.vpx;
+  t[base + w] = r.vpy;
+  t[base + 2LL * w] = r.vpz;
+  t[base + 3LL * w] = r.vpd;
+  t[base + 4LL * w] = r.spx;
+  t[base + 5LL * w] = r.spy;
+  t[base + 6LL * w] = r.spz;
+  t[base + 7LL * w] = r.vinst;
+  t[base + 8LL * w] = bf16_pair(r.rad_r, r.rad_g);
+  t[base + 9LL * w] = bf16_pair(r.rad_b, r.rad_a);
+  t[base + 10LL * w] =
+      __uint_as_float(hk_unorm16(r.rnd0) | (hk_unorm16(r.rnd1) << 16));
+  t[base + 11LL * w] =
+      __uint_as_float(hk_unorm16(r.rnd2) | (hk_unorm16(r.rnd3) << 16));
+  t[base + 12LL * w] =
+      snorm8_vec(r.vnx, r.vny, r.vnz, fminf(fmaxf(r.life, 0.0f), 255.0f));
+  t[base + 13LL * w] =
+      snorm8_vec(r.snx, r.sny, r.snz, r.spw > 0.5f ? 255.0f : 0.0f);
+  t[base + 14LL * w] = bf16_pair(r.count, r.w);
+  t[base + 15LL * w] = bf16_pair(r.w_sum, r.w2_sum);
+}
+
+// The sample fields a WRS replace copies (everything but the statistics
+// count, w, w_sum, w2_sum and the lifetime).
+__device__ __forceinline__ void rsv_take_sample(Rsv& r, const Rsv& s) {
+  r.vpx = s.vpx;
+  r.vpy = s.vpy;
+  r.vpz = s.vpz;
+  r.vpd = s.vpd;
+  r.spx = s.spx;
+  r.spy = s.spy;
+  r.spz = s.spz;
+  r.spw = s.spw;
+  r.vinst = s.vinst;
+  r.rad_r = s.rad_r;
+  r.rad_g = s.rad_g;
+  r.rad_b = s.rad_b;
+  r.rad_a = s.rad_a;
+  r.rnd0 = s.rnd0;
+  r.rnd1 = s.rnd1;
+  r.rnd2 = s.rnd2;
+  r.rnd3 = s.rnd3;
+  r.vnx = s.vnx;
+  r.vny = s.vny;
+  r.vnz = s.vnz;
+  r.snx = s.snx;
+  r.sny = s.sny;
+  r.snz = s.snz;
+}
+
+// History clamp (light.wgsl:944-951, 1645-1651)
+__device__ __forceinline__ void rsv_clamp(Rsv& r, float m) {
+  bool over = r.count > m;
+  float scale = over ? m / fmaxf(r.count, 1e-30f) : 1.0f;
+  r.w_sum = r.w_sum * scale;
+  r.w2_sum = r.w2_sum * scale;
+  r.count = fminf(r.count, m);
+}
+
+// Stored variance (light.wgsl:1224-1227), before the cap of 10
+__device__ __forceinline__ float rsv_variance(const Rsv& r) {
+  float cnt = fmaxf(r.count, 1e-30f);
+  float mean = r.w_sum / cnt;
+  float var = r.w2_sum / cnt - mean * mean;
+  return r.count < 1.0f ? var : var / cnt;
+}
+
 // Copy `rows` rows of `cols` floats (source row stride `stride`, starting
 // at column `col0`) into shared memory, all threads of the block helping.
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,

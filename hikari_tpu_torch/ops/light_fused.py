@@ -1,11 +1,17 @@
-"""No-reuse lighting: kernel B (csrc/light_fused.cu) and its plain version.
+"""Lighting: kernels B (no reuse) and 4 (temporal reuse), both in
+csrc/light_fused.cu, and their plain version.
 
-The port of hikari_tpu/ops/light_fused.py with temporal=False: for every
-pixel, the direct (solar NEE), emissive (emissive-BVH walk, alias pick,
-probe, shadow) and indirect (cosine bounces with NEE) channels, shaded
-with the Burley/GGX chain of light.wgsl. `fused_lighting` keeps the TPU
-wrapper's contract: render-res G-buffer dict + [h,w,4] blue noise in,
-{d,e,i}_render [h,w,4] (rgb + valid alpha) out, for the channels present.
+The port of hikari_tpu/ops/light_fused.py: for every pixel, the direct
+(solar NEE), emissive (emissive-BVH walk, alias pick, probe, shadow) and
+indirect (cosine bounces with NEE) channels, shaded with the Burley/GGX
+chain of light.wgsl. With temporal reuse each channel also merges its
+reprojected previous reservoir in the kernel (gates, WRS, the validation
+retrace on validation frames, finalize, 64 B repack), and can emit the
+flags and scatter reservoirs the spatial pass needs. `fused_lighting`
+keeps the TPU wrapper's contract: render-res G-buffer dict + [h,w,4] blue
+noise (+ gathered previous reservoirs) in, {d,e,i}_render [h,w,4] (rgb +
+valid alpha) (+ variance, packed reservoir, flags, scatter) out, for the
+channels present.
 
 `lighting_plain` is the kernel body transcribed to whole-plane tensor
 operations, one operation at a time in the kernel's order. The wrapper
@@ -15,9 +21,12 @@ CUDA tensors.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
+from hikari_tpu_torch.ops import reservoir as rsv
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div, f32,
                                           host_values, on_cpu, ptr, stream)
 from hikari_tpu_torch.utils.math import (F32_EPSILON, F32_MAX, GOLDEN_RATIO,
@@ -44,12 +53,13 @@ _P_COS_SOLAR = 9
 _P_CAM = 10        # camera world position xyz
 _P_MAX_IND = 13    # max_indirect_luminance
 _P_ADV = 14        # frame_number * GOLDEN_RATIO
-#                    (15: the temporal kernel's reuse cap; unused here)
+_P_MAXCNT = 15     # max_temporal_reuse_count (temporal reuse)
 _P_EM = 16         # per-emissive stride-10 block (leaf order):
 #                    cx cy cz radius inst alias_off alias_count area tri_off 0
 _EM_STRIDE = 10
 _P_ALIAS = 96      # alias slots (prob, alias) pairs
-_P_COUNT = 224
+_P_VAL = 224       # validation flags of this frame: direct, emissive (0/1)
+_P_COUNT = 228
 
 
 def lighting_caps_error(scene, num_emissives: int):
@@ -70,19 +80,35 @@ def lighting_caps_error(scene, num_emissives: int):
     return None
 
 
-def pack_params(scene, view, frame, n_em: int) -> torch.Tensor:
-    """[224] f32 parameter vector on the scene's device."""
+def validation_flags(frame, has_sun: bool, n_em: int):
+    """(direct, emissive) validation flags of this frame, from host
+    integers: number % max(interval, 1) == 0, for active channels only
+    (they pick the kernel variant, so an absent channel never forces the
+    retrace)."""
+    num = int(frame["number"])
+    d = num % max(int(frame["direct_validate_interval"]), 1) == 0
+    e = num % max(int(frame["emissive_validate_interval"]), 1) == 0
+    return float(d and has_sun), float(e and n_em > 0)
+
+
+def pack_params(scene, view, frame, n_em: int,
+                has_sun: bool = True) -> torch.Tensor:
+    """[228] f32 parameter vector on the scene's device."""
     dev = scene["dir_to_light"].device
     cos_solar = np.cos(np.float32(frame["solar_angle"]))
     adv = np.float32(frame["number"]) * np.float32(GOLDEN_RATIO)
+    maxcnt = min(np.float32(frame.get("max_temporal_reuse_count", 0.0)),
+                 np.float32(1e30))
     host = host_values([cos_solar, frame["max_indirect_luminance"], adv,
-                        0.0], dev)
+                        maxcnt], dev)
+    val = host_values(list(validation_flags(frame, has_sun, n_em))
+                      + [0.0, 0.0], dev)
     head = torch.cat([
         scene["dir_to_light"][:3], scene["dir_color"][:3],
         scene["ambient_color"][:3], host[:1], view["world_position"][:3],
         host[1:]])
     em = torch.zeros(_P_ALIAS - _P_EM, dtype=torch.float32, device=dev)
-    alias = torch.zeros(_P_COUNT - _P_ALIAS, dtype=torch.float32, device=dev)
+    alias = torch.zeros(_P_VAL - _P_ALIAS, dtype=torch.float32, device=dev)
     if n_em > 0:
         order = scene["em_leaf_order"][:n_em].long()
         rows = scene["em_packed"][order]                # [E,12] leaf order
@@ -94,7 +120,7 @@ def pack_params(scene, view, frame, n_em: int) -> torch.Tensor:
         em[:_EM_STRIDE * n_em] = block.reshape(-1)
         flat = scene["alias_packed"].reshape(-1)
         alias[:flat.numel()] = flat
-    return torch.cat([head, em, alias])
+    return torch.cat([head, em, alias, val])
 
 
 # ---------------------------------------------------------------------------
@@ -342,7 +368,9 @@ def _emissive_candidate(tb, rand, px, py, pz, nx, ny, nz, excl):
                 "info_inst": torch.full_like(r0, -1.0),
                 "info_mat": torch.full_like(r0, -1.0),
                 "sp": (px + rdx0 * DISTANCE_MAX, py + rdy0 * DISTANCE_MAX,
-                       pz + rdz0 * DISTANCE_MAX)}
+                       pz + rdz0 * DISTANCE_MAX),
+                "spw": torch.zeros_like(r0),
+                "sn": (torch.zeros_like(r0),) * 3}
 
     picked = torch.full_like(r0, -1.0)
     count = torch.zeros_like(r0)
@@ -428,11 +456,56 @@ def _emissive_candidate(tb, rand, px, py, pz, nx, ny, nz, excl):
         "sp": (torch.where(sel, hpx, rox + rdx0 * DISTANCE_MAX),
                torch.where(sel, hpy, roy + rdy0 * DISTANCE_MAX),
                torch.where(sel, hpz, roz + rdz0 * DISTANCE_MAX)),
+        "spw": sel.to(torch.float32),
+        "sn": (torch.where(sel, pnx, 0.0), torch.where(sel, pny, 0.0),
+               torch.where(sel, pnz, 0.0)),
     }
 
 
-def _shade_channel(tb, cand, directional, p, n, v, surf, amb, valid):
-    """Candidate -> shadow -> input radiance -> shading * w."""
+def _solar_candidate(tb, rand, pos):
+    """The solar-cone candidate (sampling.py:157): p = 1, no emitter, the
+    sample point DISTANCE_MAX along the direction from `pos`."""
+    cz = 1.0 - tb.one_minus_cos_solar * rand[2]
+    theta = TAU * rand[3]
+    cr = torch.sqrt(torch.clamp(1.0 - cz * cz, min=0.0))
+    dl = [torch.full_like(cz, tb.s(_P_DIRL + i)) for i in range(3)]
+    d = _onb_apply(*dl, cr * torch.cos(theta), cr * torch.sin(theta), cz)
+    zero = torch.zeros_like(cz)
+    return {"d": d, "p": torch.ones_like(cz),
+            "maxd": torch.full_like(cz, F32_MAX),
+            "em_inst": torch.full_like(cz, -1.0),
+            "info_inst": torch.full_like(cz, -1.0),
+            "info_mat": torch.full_like(cz, -1.0),
+            "sp": (pos[0] + d[0] * DISTANCE_MAX, pos[1] + d[1] * DISTANCE_MAX,
+                   pos[2] + d[2] * DISTANCE_MAX),
+            "spw": zero, "sn": (zero, zero, zero)}
+
+
+def _input_radiance(tb, directional, d, info_inst, info_mat, em_inst):
+    """input_radiance (sample_ambient=False): the sun through the solar
+    cone, or the emission of the emitter the ray was aimed at."""
+    miss = info_inst < 0.0
+    zero = torch.zeros_like(info_inst)
+    if directional:
+        cosdl = _dot(*d, tb.s(_P_DIRL), tb.s(_P_DIRL + 1), tb.s(_P_DIRL + 2))
+        take_dir = miss & (cosdl >= tb.s(_P_COS_SOLAR))
+        rad = [torch.where(take_dir, tb.s(_P_DIRC + i), zero)
+               for i in range(3)]
+        rad_a = 1.0 - (miss & ~take_dir).to(torch.float32)
+    else:
+        hsurf = _Surface(tb.mats, torch.clamp(info_mat, min=0.0))
+        take_em = (~miss) & (info_inst == em_inst)
+        s255 = 255.0 * hsurf.em[3]
+        rad = [torch.where(take_em, s255 * hsurf.em[i], zero)
+               for i in range(3)]
+        rad_a = 1.0 - miss.to(torch.float32)
+    return rad, rad_a
+
+
+def _trace_candidate(tb, cand, directional, p, n):
+    """Candidate -> shadow -> input radiance. Returns (rad rgba, lum,
+    w_new, sample point, sample flag, sample normal), occluders
+    overriding the probe's hit."""
     px, py, pz = p
     nx, ny, nz = n
     rdx, rdy, rdz = cand["d"]
@@ -447,41 +520,39 @@ def _shade_channel(tb, cand, directional, p, n, v, surf, amb, valid):
         cand["em_inst"])
     info_inst = torch.where(occluded, sh_inst, cand["info_inst"])
     info_mat = torch.where(occluded, -1.0, cand["info_mat"])
-    spx = torch.where(occluded, rox + rdx * sh_t, cand["sp"][0])
-    spy = torch.where(occluded, roy + rdy * sh_t, cand["sp"][1])
-    spz = torch.where(occluded, roz + rdz * sh_t, cand["sp"][2])
-    miss = info_inst < 0.0
+    sp = (torch.where(occluded, rox + rdx * sh_t, cand["sp"][0]),
+          torch.where(occluded, roy + rdy * sh_t, cand["sp"][1]),
+          torch.where(occluded, roz + rdz * sh_t, cand["sp"][2]))
+    spw = torch.where(occluded, 1.0, cand["spw"])
+    sn = tuple(torch.where(occluded, 0.0, c) for c in cand["sn"])
+    rad, rad_a = _input_radiance(tb, directional, cand["d"], info_inst,
+                                 info_mat, cand["em_inst"])
     zero = torch.zeros_like(px)
-    if directional:
-        cosdl = _dot(rdx, rdy, rdz, tb.s(_P_DIRL), tb.s(_P_DIRL + 1),
-                     tb.s(_P_DIRL + 2))
-        take_dir = miss & (cosdl >= tb.s(_P_COS_SOLAR))
-        rad = [torch.where(take_dir, tb.s(_P_DIRC + i), zero)
-               for i in range(3)]
-        rad_a = 1.0 - (miss & ~take_dir).to(torch.float32)
-    else:
-        hsurf = _Surface(tb.mats, torch.clamp(info_mat, min=0.0))
-        take_em = (~miss) & (info_inst == cand["em_inst"])
-        s255 = 255.0 * hsurf.em[3]
-        rad = [torch.where(take_em, s255 * hsurf.em[i], zero)
-               for i in range(3)]
-        rad_a = 1.0 - miss.to(torch.float32)
     rad = [torch.where(trace_ok, c, zero) for c in rad]
     rad_a = torch.where(trace_ok, rad_a, zero)
     lum = _lum(*rad)
     w_new = torch.where(cand["p"] > 0.0,
                         div(lum, torch.clamp(cand["p"], min=1e-30)), zero)
+    return (*rad, rad_a), lum, w_new, sp, spw, sn
+
+
+def _shade_channel(tb, cand, directional, p, n, v, surf, amb, valid):
+    """Candidate -> shadow -> input radiance -> shading * w (no reuse)."""
+    px, py, pz = p
+    rad, lum, w_new, sp, _, _ = _trace_candidate(tb, cand, directional, p, n)
+    zero = torch.zeros_like(px)
     w_f = torch.where(lum > 0.0, div(w_new, torch.clamp(lum, min=1e-30)),
                       zero)
     w2d = torch.where(valid, w_f, zero)
-    lx, ly, lz = _rsqrt_n(spx - px, spy - py, spz - pz)
-    o_r, o_g, o_b = _shade(surf, amb, *v, nx, ny, nz, lx, ly, lz, *rad,
-                           rad_a)
+    lx, ly, lz = _rsqrt_n(sp[0] - px, sp[1] - py, sp[2] - pz)
+    o_r, o_g, o_b = _shade(surf, amb, *v, *n, lx, ly, lz, *rad)
     return o_r * w2d, o_g * w2d, o_b * w2d
 
 
-def _indirect_channel(tb, bounces, rand, p, n, v, surf, amb, valid):
-    """Cosine bounce(s) with per-bounce NEE (light.wgsl:1264-1498)."""
+def _indirect_bounces(tb, bounces, rand, p, n, amb):
+    """Cosine bounce(s) with per-bounce NEE (light.wgsl:1264-1498): the
+    gathered radiance and the first bounce's hit, before shading at the
+    visible point."""
     px, py, pz = p
     r0 = rand[0]
     zero = torch.zeros_like(r0)
@@ -493,6 +564,8 @@ def _indirect_channel(tb, bounces, rand, p, n, v, surf, amb, valid):
     tot_r, tot_g, tot_b, tot_a = zero, zero, zero, zero
     alive = torch.ones_like(r0, dtype=torch.bool)
     first = (zero, zero, zero)
+    first_n = (zero, zero, zero)
+    first_hit = torch.zeros_like(r0, dtype=torch.bool)
     pdf0 = zero
     adv = tb.s(_P_ADV)
     max_ind = tb.s(_P_MAX_IND)
@@ -523,6 +596,8 @@ def _indirect_channel(tb, bounces, rand, p, n, v, surf, amb, valid):
         hnz = torch.where(hit_ok, hnz, zero)
         if n_b == 0:
             first = (hpx, hpy, hpz)
+            first_n = (hnx, hny, hnz)
+            first_hit = hit_ok
             pdf0 = bpdf
         hsurf = _Surface(tb.mats, torch.where(hit_ok, hmat, zero))
         hsurf.rough = torch.ones_like(r0)  # roughness := 1 at bounces
@@ -593,79 +668,300 @@ def _indirect_channel(tb, bounces, rand, p, n, v, surf, amb, valid):
         b_ny = torch.where(hit_ok, hny, b_ny)
         b_nz = torch.where(hit_ok, hnz, b_nz)
 
-    tot_a = torch.clamp(tot_a, max=1.0)
-    lx, ly, lz = _rsqrt_n(first[0] - px, first[1] - py, first[2] - pz)
-    s = _shade(surf, amb, *v, bnx, bny, bnz, lx, ly, lz, tot_r, tot_g, tot_b,
-               tot_a)
+    return {"tot": (tot_r, tot_g, tot_b, torch.clamp(tot_a, max=1.0)),
+            "first": first, "first_n": first_n, "first_hit": first_hit,
+            "pdf0": pdf0, "bn": (bnx, bny, bnz)}
+
+
+def _indirect_sample(px, ind):
+    """Shading of the gathered radiance at the visible point, and its
+    resampling weight."""
+    l = _rsqrt_n(ind["first"][0] - px.p[0], ind["first"][1] - px.p[1],
+                 ind["first"][2] - px.p[2])
+    s = _shade(px.surf, px.amb, *px.v, *ind["bn"], *l, *ind["tot"])
     lum_s = _lum(*s)
-    w_new = torch.where(pdf0 > 0.0, div(lum_s, torch.clamp(pdf0, min=1e-30)),
-                        zero)
-    w2d = torch.where(valid & (lum_s > 0.0),
-                      div(w_new, torch.clamp(lum_s, min=1e-30)), zero)
-    return tuple(c * w2d for c in s)
+    zero = torch.zeros_like(lum_s)
+    w_new = torch.where(ind["pdf0"] > 0.0,
+                        div(lum_s, torch.clamp(ind["pdf0"], min=1e-30)), zero)
+    return s, lum_s, w_new
+
+
+class _Pixel:
+    """The visible point of every pixel, shared by the channels."""
+
+    def __init__(self, tb, position, normal, inst_mat, rand):
+        px, py, pz, self.depth = position.unbind(-1)
+        self.p = (px, py, pz)
+        self.n = normal.unbind(-1)
+        self.nrm_n = _rsqrt_n(*self.n)
+        self.inst_f = inst_mat[..., 0].to(torch.int32).to(torch.float32)
+        self.mat_f = torch.clamp(inst_mat[..., 1].to(torch.int32),
+                                 min=0).to(torch.float32)
+        self.rnd = rand.unbind(-1)
+        self.valid = self.depth >= F32_EPSILON
+        self.amb = [tb.s(_P_AMB + i) for i in range(3)]
+        self.surf = _Surface(tb.mats, self.mat_f)
+        self.v = _rsqrt_n(tb.s(_P_CAM) - px, tb.s(_P_CAM + 1) - py,
+                          tb.s(_P_CAM + 2) - pz)
+
+
+# ---- temporal reservoirs (light.wgsl:917-952, 1156-1259) over field dicts
+
+def _gates(prev, px):
+    """check_previous_reservoir (light.wgsl:917-935): the gated reservoir
+    and the miss mask."""
+    depth = px.depth
+    ratio = div(prev["vpd"], torch.where(depth == 0.0, 1e-30, depth))
+    ratio = torch.where(ratio < 1.0,
+                        div(1.0, torch.where(ratio == 0.0, 1e-30, ratio)),
+                        ratio)
+    depth_miss = ratio > 1.05 * (1.0 + 0.5 * px.rnd[0])
+    inst_miss = prev["vinst"] != px.inst_f
+    normal_miss = _dot(*px.nrm_n, prev["vnx"], prev["vny"],
+                       prev["vnz"]) < 0.9
+    miss = depth_miss | inst_miss | normal_miss
+    return rsv.zero_fields_where(miss, prev), miss
+
+
+def _sample(rad, rnd, p, depth, n, inst_f, sp, spw, sn):
+    return {"rad_r": rad[0], "rad_g": rad[1], "rad_b": rad[2],
+            "rad_a": rad[3],
+            "rnd0": rnd[0], "rnd1": rnd[1], "rnd2": rnd[2], "rnd3": rnd[3],
+            "vpx": p[0], "vpy": p[1], "vpz": p[2], "vpd": depth,
+            "vnx": n[0], "vny": n[1], "vnz": n[2], "vinst": inst_f,
+            "spx": sp[0], "spy": sp[1], "spz": sp[2], "spw": spw,
+            "snx": sn[0], "sny": sn[1], "snz": sn[2]}
+
+
+def _rsv_update(r, s, w_new, mask):
+    """WRS update (reservoir.update_reservoir, light.wgsl:146-173)."""
+    w_sum = r["w_sum"] + w_new
+    w2_sum = r["w2_sum"] + w_new * w_new
+    count = r["count"] + 1.0
+    rand = torch.fmod(s["rnd0"] + s["rnd1"] + s["rnd2"] + s["rnd3"], 1.0)
+    replace = mask & (rand < div(w_new, torch.clamp(w_sum, min=1e-30)))
+    out = dict(r)
+    out["w_sum"] = torch.where(mask, w_sum, r["w_sum"])
+    out["w2_sum"] = torch.where(mask, w2_sum, r["w2_sum"])
+    out["count"] = torch.where(mask, count, r["count"])
+    for k in rsv.SAMPLE_KEYS:
+        out[k] = torch.where(replace, s[k], r[k])
+    return out
+
+
+def rsv_clamp(r, max_count: float):
+    """History clamp (light.wgsl:944-951, 1645-1651)."""
+    over = r["count"] > max_count
+    scale = torch.where(over, div(max_count,
+                                  torch.clamp(r["count"], min=1e-30)), 1.0)
+    out = dict(r)
+    out["w_sum"] = r["w_sum"] * scale
+    out["w2_sum"] = r["w2_sum"] * scale
+    out["count"] = torch.clamp(r["count"], max=max_count)
+    return out
+
+
+def rsv_variance(r):
+    """Stored variance (light.wgsl:1224-1227), before the 10 cap."""
+    cnt = torch.clamp(r["count"], min=1e-30)
+    mean = div(r["w_sum"], cnt)
+    var = div(r["w2_sum"], cnt) - mean * mean
+    return torch.where(r["count"] < 1.0, var, div(var, cnt))
+
+
+def _finish(r, px, normal):
+    """Visible point := this frame's, life + 1, the capped variance, and
+    the empty reservoir on invalid pixels."""
+    r = dict(r)
+    for k, v in zip(("vpx", "vpy", "vpz", "vpd", "vnx", "vny", "vnz"),
+                    (*px.p, px.depth, *normal)):
+        r[k] = v
+    r["life"] = r["life"] + 1.0
+    var = torch.where(px.valid, torch.clamp(rsv_variance(r), max=10.0), 0.0)
+    return rsv.zero_fields_where(~px.valid, r), var
+
+
+def _reuse_channel(tb, px, cand_fn, prev_planes, directional, is_val,
+                   validation):
+    """The temporal path of direct_lit (light.wgsl:1045-1261) for the
+    direct or emissive channel. Returns (rgb, variance, reservoir,
+    (gate miss, validation miss, scatter reservoir))."""
+    r, gate_miss = _gates(rsv.unpack_fields(prev_planes), px)
+    cand = cand_fn(px.rnd, px.p, px.n)
+    rad, _, w_new, sp, spw, sn = _trace_candidate(tb, cand, directional,
+                                                  px.p, px.n)
+    s2 = _sample(rad, px.rnd, px.p, px.depth, px.n, px.inst_f, sp, spw, sn)
+    gate = px.valid if is_val < 0.5 else px.valid & (r["count"] < 4.0)
+    rcur = rsv_clamp(_rsv_update(r, s2, w_new, gate), tb.s(_P_MAXCNT))
+    r_scatter = dict(rcur)
+    val_miss = torch.zeros_like(px.valid)
+    if validation and is_val > 0.5:
+        # retrace of the reservoir's remembered sample (light.wgsl:
+        # 1156-1213): candidate re-select at the stored point, shadow ray
+        # from this frame's point towards the stored sample
+        cand_v = cand_fn((r["rnd0"], r["rnd1"], r["rnd2"], r["rnd3"]),
+                         (r["vpx"], r["vpy"], r["vpz"]),
+                         (r["vnx"], r["vny"], r["vnz"]))
+        rv = _rsqrt_n(r["spx"] - px.p[0], r["spy"] - px.p[1],
+                      r["spz"] - px.p[2])
+        trace_ok = ((_dot(*cand_v["d"], r["vnx"], r["vny"], r["vnz"]) > 0.0)
+                    & (cand_v["p"] > 0.0))
+        if not directional:
+            trace_ok = trace_ok & (cand_v["em_inst"] >= 0.0)
+        ro = tuple(px.p[i] + px.n[i] * RAY_BIAS for i in range(3))
+        occ, sh_t, sh_inst = shadow_sweep(tb.tris, ro, rv, cand_v["maxd"],
+                                          cand_v["em_inst"])
+        vi_inst = torch.where(occ, sh_inst, cand_v["info_inst"])
+        vi_mat = torch.where(occ, -1.0, cand_v["info_mat"])
+        vsp = [torch.where(occ, ro[i] + rv[i] * sh_t, cand_v["sp"][i])
+               for i in range(3)]
+        vspw = torch.where(occ, 1.0, cand_v["spw"])
+        vsn = [torch.where(occ, 0.0, c) for c in cand_v["sn"]]
+        vrad, vrad_a = _input_radiance(tb, directional, rv, vi_inst, vi_mat,
+                                       cand_v["em_inst"])
+        zero = torch.zeros_like(vi_inst)
+        vrad = [torch.where(trace_ok, c, zero) for c in vrad + [vrad_a]]
+        reuse_validate = r["count"] >= 4.0
+        s2v = dict(s2)
+        for k, v in zip(("rnd0", "rnd1", "rnd2", "rnd3", "spx", "spy", "spz",
+                         "spw", "snx", "sny", "snz", "rad_r", "rad_g",
+                         "rad_b", "rad_a"),
+                        (r["rnd0"], r["rnd1"], r["rnd2"], r["rnd3"], *vsp,
+                         vspw, *vsn, *vrad)):
+            s2v[k] = torch.where(reuse_validate, v, s2[k])
+        lum_ratio = div(_lum(*vrad[:3]),
+                        torch.clamp(_lum(r["rad_r"], r["rad_g"], r["rad_b"]),
+                                    min=1e-4))
+        take_v = ((lum_ratio > 1.25) | (lum_ratio < 0.8)) & px.valid
+        w_new_v = torch.where(
+            cand_v["p"] > 0.0,
+            div(_lum(s2v["rad_r"], s2v["rad_g"], s2v["rad_b"]),
+                torch.clamp(cand_v["p"], min=1e-30)), zero)
+        fresh = dict(s2v, count=torch.ones_like(zero), life=zero, w=zero,
+                     w_sum=w_new_v, w2_sum=w_new_v * w_new_v)
+        rcur = {k: torch.where(take_v, fresh[k], v) for k, v in rcur.items()}
+        val_miss = take_v
+    # finalize (light.wgsl:1216-1259)
+    tot = rcur["count"] * _lum(rcur["rad_r"], rcur["rad_g"], rcur["rad_b"])
+    rcur["w"] = torch.where(tot > 0.0, div(rcur["w_sum"],
+                                           torch.clamp(tot, min=1e-30)), 0.0)
+    rcur, var = _finish(rcur, px, px.n)
+    ld = _rsqrt_n(rcur["spx"] - rcur["vpx"], rcur["spy"] - rcur["vpy"],
+                  rcur["spz"] - rcur["vpz"])
+    o = _shade(px.surf, px.amb, *px.v, *px.n, *ld, rcur["rad_r"],
+               rcur["rad_g"], rcur["rad_b"], rcur["rad_a"])
+    o = [c * rcur["w"] for c in o]
+    return o, var, rcur, (gate_miss & px.valid, val_miss, r_scatter)
+
+
+def _indirect_reuse(tb, px, ind, prev_planes):
+    """The temporal path of indirect_lit_ambient (light.wgsl:1452-1497):
+    the reservoir keeps the raw bounce radiance and shades the merged
+    sample. Returns (rgb, variance, reservoir, gate miss)."""
+    _, _, w_new = _indirect_sample(px, ind)
+    r, gate_miss = _gates(rsv.unpack_fields(prev_planes), px)
+    s = _sample(ind["tot"], px.rnd, px.p, px.depth, ind["bn"], px.inst_f,
+                ind["first"], ind["first_hit"].to(torch.float32),
+                ind["first_n"])
+    r = rsv_clamp(_rsv_update(r, s, w_new, px.valid), tb.s(_P_MAXCNT))
+    ld = _rsqrt_n(r["spx"] - r["vpx"], r["spy"] - r["vpy"],
+                  r["spz"] - r["vpz"])
+    o = _shade(px.surf, px.amb, *px.v, r["vnx"], r["vny"], r["vnz"], *ld,
+               r["rad_r"], r["rad_g"], r["rad_b"], r["rad_a"])
+    tot2 = r["count"] * _lum(*o)
+    r["w"] = torch.where(tot2 > 0.0, div(r["w_sum"],
+                                         torch.clamp(tot2, min=1e-30)), 0.0)
+    r, var = _finish(r, px, ind["bn"])
+    return [c * r["w"] for c in o], var, r, gate_miss & px.valid
 
 
 def lighting_plain(params, tris, attrs, em_tris, em_attrs, mats, position,
-                   normal, inst_mat, rand, *, has_sun: bool, n_em: int,
-                   n_alias: int, bounces: int):
-    """The kernel body over whole planes. Returns (d, e, i) [h,w,4] renders
-    (None for a channel that is off)."""
+                   normal, inst_mat, rand, prev=(), *, has_sun: bool,
+                   n_em: int, n_alias: int, bounces: int,
+                   temporal: bool = False, validation: bool = True,
+                   track_de: bool = False, track_ind: bool = False):
+    """The kernel body over whole planes. prev: with temporal, the gathered
+    previous reservoir planes [h,16,w] of the active channels in d/e/i
+    order. Returns {d,e,i}_render [h,w,4] for the active channels, and
+    with temporal {d,e,i}_var, {d,e,i}_packed, and when tracking
+    {d,e}_flags, {d,e}_scatter, i_flags (fused_lighting's contract)."""
     tb = _Tables(params, tris, attrs, em_tris, em_attrs, mats, n_em, n_alias)
-    px, py, pz, depth = position.unbind(-1)
-    n = normal.unbind(-1)
-    inst_f = inst_mat[..., 0].to(torch.int32).to(torch.float32)
-    mat_f = torch.clamp(inst_mat[..., 1].to(torch.int32), min=0).to(
-        torch.float32)
-    rnd = rand.unbind(-1)
-    valid = depth >= F32_EPSILON
-    zero = torch.zeros_like(depth)
+    px = _Pixel(tb, position, normal, inst_mat, rand)
+    valid = px.valid
+    zero = torch.zeros_like(px.depth)
     alpha = valid.to(torch.float32)
-    amb = [tb.s(_P_AMB + i) for i in range(3)]
-    surf = _Surface(mats, mat_f)
-    v = _rsqrt_n(tb.s(_P_CAM) - px, tb.s(_P_CAM + 1) - py,
-                 tb.s(_P_CAM + 2) - pz)
+    prev = list(prev)
+    out = {}
 
     def render(rgb):
         return torch.stack([torch.where(valid, c, zero) for c in rgb]
                            + [alpha], -1)
 
-    d_out = e_out = i_out = None
+    def reuse(slot, cand_fn, directional, is_val, add):
+        o, var, r, (gate_miss, val_miss, r_scatter) = _reuse_channel(
+            tb, px, cand_fn, prev.pop(0), directional, is_val, validation)
+        out[f"{slot}_render"] = render([o[i] + add[i] for i in range(3)])
+        out[f"{slot}_var"] = var
+        out[f"{slot}_packed"] = rsv.pack_fields(r)
+        if track_de:
+            out[f"{slot}_flags"] = (gate_miss.to(torch.float32)
+                                    + 2.0 * val_miss.to(torch.float32))
+            out[f"{slot}_scatter"] = rsv.pack_fields(r_scatter)
+
     if has_sun:
-        cz = 1.0 - tb.one_minus_cos_solar * rnd[2]
-        theta = TAU * rnd[3]
-        cr = torch.sqrt(torch.clamp(1.0 - cz * cz, min=0.0))
-        dl = [torch.full_like(depth, tb.s(_P_DIRL + i)) for i in range(3)]
-        d = _onb_apply(*dl, cr * torch.cos(theta), cr * torch.sin(theta), cz)
-        cand = {"d": d, "p": torch.ones_like(depth),
-                "maxd": torch.full_like(depth, F32_MAX),
-                "em_inst": torch.full_like(depth, -1.0),
-                "info_inst": torch.full_like(depth, -1.0),
-                "info_mat": torch.full_like(depth, -1.0),
-                "sp": (px + d[0] * DISTANCE_MAX, py + d[1] * DISTANCE_MAX,
-                       pz + d[2] * DISTANCE_MAX)}
-        o = _shade_channel(tb, cand, True, (px, py, pz), n, v, surf, amb,
-                           valid)
-        em_add = 255.0 * surf.em[3]
-        d_out = render([o[i] + em_add * surf.em[i] for i in range(3)])
+        def solar(rand4, pos, nrm):
+            return _solar_candidate(tb, rand4, pos)
+
+        em_add = 255.0 * px.surf.em[3]
+        add = [em_add * px.surf.em[i] for i in range(3)]
+        if temporal:
+            reuse("d", solar, True, tb.s(_P_VAL), add)
+        else:
+            o = _shade_channel(tb, solar(px.rnd, px.p, px.n), True, px.p,
+                               px.n, px.v, px.surf, px.amb, valid)
+            out["d_render"] = render([o[i] + add[i] for i in range(3)])
     if n_em > 0:
-        cand = _emissive_candidate(tb, rnd, px, py, pz, *n, inst_f)
-        e_out = render(_shade_channel(tb, cand, False, (px, py, pz), n, v,
-                                      surf, amb, valid))
+        def emissive(rand4, pos, nrm):
+            return _emissive_candidate(tb, rand4, *pos, *nrm, px.inst_f)
+
+        if temporal:
+            reuse("e", emissive, False, tb.s(_P_VAL + 1), (0.0,) * 3)
+        else:
+            out["e_render"] = render(_shade_channel(
+                tb, emissive(px.rnd, px.p, px.n), False, px.p, px.n, px.v,
+                px.surf, px.amb, valid))
     if bounces > 0:
-        i_out = render(_indirect_channel(tb, bounces, rnd, (px, py, pz), n, v,
-                                         surf, amb, valid))
-    return d_out, e_out, i_out
+        ind = _indirect_bounces(tb, bounces, px.rnd, px.p, px.n, px.amb)
+        if temporal:
+            o, var, r, gate_miss = _indirect_reuse(tb, px, ind, prev.pop(0))
+            out["i_render"] = render(o)
+            out["i_var"] = var
+            out["i_packed"] = rsv.pack_fields(r)
+            if track_ind:
+                out["i_flags"] = gate_miss.to(torch.float32)
+        else:
+            s, lum_s, w_new = _indirect_sample(px, ind)
+            w2d = torch.where(valid & (lum_s > 0.0),
+                              div(w_new, torch.clamp(lum_s, min=1e-30)), zero)
+            out["i_render"] = render([c * w2d for c in s])
+    return out
 
 
 def lighting_kernel(params, tris, attrs, em_tris, em_attrs, mats, position,
-                    normal, inst_mat, rand, *, has_sun: bool, n_em: int,
-                    n_alias: int, bounces: int):
-    """Kernel B: runs `lighting_plain` for CPU tensors and launches
-    csrc/light_fused.cu for CUDA tensors."""
-    kw = dict(has_sun=has_sun, n_em=n_em, n_alias=n_alias, bounces=bounces)
+                    normal, inst_mat, rand, prev=(), *, has_sun: bool,
+                    n_em: int, n_alias: int, bounces: int,
+                    temporal: bool = False, validation: bool = True,
+                    track_de: bool = False, track_ind: bool = False):
+    """Kernels B (no reuse) and 4 (temporal reuse): runs `lighting_plain`
+    for CPU tensors and launches csrc/light_fused.cu for CUDA tensors. The
+    variant (temporal, validation retrace, tracking outputs) is chosen from
+    these Python values, never from a device value."""
+    kw = dict(has_sun=has_sun, n_em=n_em, n_alias=n_alias, bounces=bounces,
+              temporal=temporal, validation=validation, track_de=track_de,
+              track_ind=track_ind)
     if on_cpu(position):
         return lighting_plain(params, tris, attrs, em_tris, em_attrs, mats,
-                              position, normal, inst_mat, rand, **kw)
+                              position, normal, inst_mat, rand, prev, **kw)
     from hikari_tpu_torch.build import load_cuda
 
     dev = position.device
@@ -683,32 +979,64 @@ def lighting_kernel(params, tris, attrs, em_tris, em_attrs, mats, position,
     check("rand", rand, f, (h, w, 4), dev)
     if not 0 <= n_em <= MAX_EMISSIVES or not 0 <= n_alias <= MAX_ALIAS_SLOTS:
         raise ValueError(f"n_em={n_em}, n_alias={n_alias} beyond the caps")
+    active = (has_sun, n_em > 0, bounces > 0)
+    prev = list(prev)
+    if temporal and len(prev) != sum(active):
+        raise ValueError(f"{len(prev)} previous reservoirs for "
+                         f"{sum(active)} active channels")
 
-    def out(on):
-        return torch.empty((h, w, 4), dtype=f, device=dev) if on else None
+    def new(*shape):
+        return torch.empty(shape, dtype=f, device=dev)
 
-    d_out, e_out, i_out = out(has_sun), out(n_em > 0), out(bounces > 0)
+    # io pointers, per channel d/e/i: render, var, packed, flags, scatter,
+    # prev (null where the variant or the channel has none)
+    io = {k: [None] * 3 for k in ("render", "var", "packed", "flags",
+                                  "scatter", "prev")}
+    out = {}
+    for c, slot in enumerate("dei"):
+        if not active[c]:
+            continue
+        io["render"][c] = out[f"{slot}_render"] = new(h, w, 4)
+        if not temporal:
+            continue
+        io["prev"][c] = prev.pop(0)
+        check(f"prev[{slot}]", io["prev"][c], f, (h, 16, w), dev)
+        io["var"][c] = out[f"{slot}_var"] = new(h, w)
+        io["packed"][c] = out[f"{slot}_packed"] = new(h, 16, w)
+        if (slot != "i" and track_de) or (slot == "i" and track_ind):
+            io["flags"][c] = out[f"{slot}_flags"] = new(h, w)
+        if slot != "i" and track_de:
+            io["scatter"][c] = out[f"{slot}_scatter"] = new(h, 16, w)
+    table = (ctypes.c_void_p * 18)(*(ptr(t).value for k in io
+                                     for t in io[k]))
     fn = bind(load_cuda("light_fused"), "hk_light_fused",
-              "pppippipippppiiiiipppp")
+              "pppippipippppiiiiipiiiip")
     rc = fn(ptr(params), ptr(tris), ptr(attrs), tris.shape[0], ptr(em_tris),
             ptr(em_attrs), em_tris.shape[0], ptr(mats), mats.shape[0],
             ptr(position), ptr(normal), ptr(inst_mat), ptr(rand), h, w, n_em,
-            n_alias, bounces, ptr(d_out), ptr(e_out), ptr(i_out),
+            n_alias, bounces, ctypes.c_void_p(ctypes.addressof(table)),
+            int(temporal), int(validation), int(track_de), int(track_ind),
             stream(dev))
     check_launch(rc, "light_fused")
     lighting_kernel.launches += 1
-    return d_out, e_out, i_out
+    return out
 
 
 lighting_kernel.launches = 0
 
 
 def fused_lighting(scene, g, view, frame, rand, *, has_sun: bool,
-                   num_emissives: int, bounces: int, render_size):
-    """No-reuse lighting for every active channel. g: render-res G-buffer
-    dict; rand: [h,w,4] blue noise. Returns {d,e,i}_render [h,w,4] for the
-    active channels (their variance is identically zero on this path)."""
-    h, w = render_size
+                   num_emissives: int, bounces: int, render_size,
+                   temporal: bool = False, prev_planes=None,
+                   track_de: bool = False, track_ind: bool = False):
+    """Lighting of every active channel in one launch. g: render-res
+    G-buffer dict; rand: [h,w,4] blue noise. Returns {d,e,i}_render [h,w,4]
+    (their variance is identically zero without reuse). temporal=True
+    also takes prev_planes, the gathered [h,16,w] reservoirs of the active
+    channels in d/e/i order, and returns {d,e,i}_var, {d,e,i}_packed and,
+    when tracking spatial reuse, {d,e}_flags, {d,e}_scatter, i_flags. The
+    validation retrace runs only on frames where an active channel's
+    validate interval fires."""
     err = lighting_caps_error(scene, num_emissives)
     if err is not None:
         raise NotImplementedError(f"scene beyond the lighting kernel: {err}")
@@ -720,13 +1048,11 @@ def fused_lighting(scene, g, view, frame, rand, *, has_sun: bool,
     else:
         em_tris, em_attrs = tris[:1], attrs[:1]
         n_alias = 0
-    params = pack_params(scene, view, frame, n_em)
-    d, e, i = lighting_kernel(
+    params = pack_params(scene, view, frame, n_em, has_sun)
+    validation = temporal and sum(validation_flags(frame, has_sun, n_em)) > 0
+    return lighting_kernel(
         params, tris, attrs, em_tris, em_attrs, scene["mat_packed"],
         g["position"], g["normal"], g["instance_material"], rand,
-        has_sun=has_sun, n_em=n_em, n_alias=n_alias, bounces=bounces)
-    out = {}
-    for slot, r in (("d", d), ("e", e), ("i", i)):
-        if r is not None:
-            out[f"{slot}_render"] = r
-    return out
+        list(prev_planes) if temporal else [], has_sun=has_sun, n_em=n_em,
+        n_alias=n_alias, bounces=bounces, temporal=temporal,
+        validation=validation, track_de=track_de, track_ind=track_ind)

@@ -1,0 +1,224 @@
+"""ReSTIR reservoirs and their 64 B packed carry (the port of
+hikari_tpu/ops/reservoir.py's empty reservoir and channel-plane layout).
+
+A reservoir has two working forms here:
+
+* the structured dict of hikari_tpu (`empty_reservoir`,
+  `pack_reservoir_planes`, `unpack_reservoir_planes`): [h,w,C] fields,
+  `visible_instance` int32;
+* the flat field dict the lighting and spatial kernels work on
+  (`unpack_fields`, `pack_fields`): one [h,w] float32 plane per scalar
+  field (vpx vpy vpz vpd, spx spy spz spw, vinst, rad_r..rad_a,
+  rnd0..rnd3, vnx vny vnz, life, snx sny snz, count, w, w_sum, w2_sum).
+
+Both pack into the same [h,16,w] channel planes, bit for bit as hikari_tpu
+does, so carries cross between the two packages:
+
+    0-3  visible position xyz + depth     4-6  sample position xyz
+    7    visible instance (as float)      8-9  radiance rgba, bf16 pairs
+    10-11 randoms, unorm16 pairs          12   visible normal snorm8 x3 + life u8
+    13   sample normal snorm8 x3 + (sample flag * 255) u8
+    14   count, w (bf16)                  15   w_sum, w2_sum (bf16)
+
+bf16 is round-to-nearest-even on the raw bits; unorm16/snorm8 round half
+to even (torch.round), and every packed word is a u32 bit pattern viewed
+as float32 (never an arithmetic cast).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from hikari_tpu_torch.ops._kernel import div
+
+PACKED_WIDTH = 16
+
+# the sample fields a WRS replace copies (light_fused._RSV_SAMPLE_KEYS)
+SAMPLE_KEYS = ("rad_r", "rad_g", "rad_b", "rad_a",
+               "rnd0", "rnd1", "rnd2", "rnd3",
+               "vpx", "vpy", "vpz", "vpd",
+               "vnx", "vny", "vnz", "vinst",
+               "spx", "spy", "spz", "spw",
+               "snx", "sny", "snz")
+
+_U32 = 0xFFFFFFFF
+
+
+def _bits(f: torch.Tensor) -> torch.Tensor:
+    """The u32 bit pattern of a float32 tensor, as int64."""
+    return f.contiguous().view(torch.int32).to(torch.int64) & _U32
+
+
+def _fbits(u: torch.Tensor) -> torch.Tensor:
+    """float32 tensor whose bits are the u32 values in an int64 tensor."""
+    u = u & _U32
+    return torch.where(u >= 2 ** 31, u - 2 ** 32, u).to(torch.int32).view(
+        torch.float32)
+
+
+def _rne16(f):
+    """float32 -> bf16 bits, round to nearest even (u32 arithmetic)."""
+    u = _bits(f)
+    return ((u + 0x7FFF + ((u >> 16) & 1)) & _U32) >> 16
+
+
+def bf16_pair(a, b):
+    return _fbits(_rne16(a) | (_rne16(b) << 16))
+
+
+def bf16_unpair(lane):
+    u = _bits(lane)
+    return _fbits((u & 0xFFFF) << 16), _fbits(u & 0xFFFF0000)
+
+
+def _unorm16(a):
+    return torch.round(torch.clamp(a, 0.0, 1.0) * 65535.0).to(torch.int64)
+
+
+def unorm16_pair(a, b):
+    return _fbits(_unorm16(a) | (_unorm16(b) << 16))
+
+
+def unorm16_unpair(lane):
+    u = _bits(lane)
+    return (div((u & 0xFFFF).to(torch.float32), 65535.0),
+            div((u >> 16).to(torch.float32), 65535.0))
+
+
+def snorm8_vec(nx, ny, nz, extra_u8):
+    def enc(v):
+        return torch.round((torch.clamp(v, -1.0, 1.0) * 0.5 + 0.5)
+                           * 255.0).to(torch.int64)
+
+    return _fbits(enc(nx) | (enc(ny) << 8) | (enc(nz) << 16)
+                  | (extra_u8.to(torch.int64) << 24))
+
+
+def snorm8_unvec(lane):
+    u = _bits(lane)
+
+    def dec(shift):
+        return div(((u >> shift) & 0xFF).to(torch.float32), 255.0) * 2.0 - 1.0
+
+    return (dec(0), dec(8), dec(16)), (u >> 24).to(torch.float32)
+
+
+def unpack_fields(t: torch.Tensor) -> dict:
+    """[h,16,w] channel planes -> flat field dict of [h,w] planes."""
+    rad01 = bf16_unpair(t[:, 8])
+    rad23 = bf16_unpair(t[:, 9])
+    rnd01 = unorm16_unpair(t[:, 10])
+    rnd23 = unorm16_unpair(t[:, 11])
+    (vnx, vny, vnz), life = snorm8_unvec(t[:, 12])
+    (snx, sny, snz), sflag = snorm8_unvec(t[:, 13])
+    count, w = bf16_unpair(t[:, 14])
+    w_sum, w2_sum = bf16_unpair(t[:, 15])
+    return {
+        "vpx": t[:, 0], "vpy": t[:, 1], "vpz": t[:, 2], "vpd": t[:, 3],
+        "spx": t[:, 4], "spy": t[:, 5], "spz": t[:, 6],
+        "spw": (sflag > 127.0).to(torch.float32),
+        "vinst": t[:, 7],
+        "rad_r": rad01[0], "rad_g": rad01[1],
+        "rad_b": rad23[0], "rad_a": rad23[1],
+        "rnd0": rnd01[0], "rnd1": rnd01[1],
+        "rnd2": rnd23[0], "rnd3": rnd23[1],
+        "vnx": vnx, "vny": vny, "vnz": vnz, "life": life,
+        "snx": snx, "sny": sny, "snz": snz,
+        "count": count, "w": w, "w_sum": w_sum, "w2_sum": w2_sum,
+    }
+
+
+def pack_fields(r: dict) -> torch.Tensor:
+    """Flat field dict -> [h,16,w] channel planes (inverse of
+    unpack_fields up to the packing's quantization)."""
+    planes = [
+        r["vpx"], r["vpy"], r["vpz"], r["vpd"],
+        r["spx"], r["spy"], r["spz"], r["vinst"],
+        bf16_pair(r["rad_r"], r["rad_g"]),
+        bf16_pair(r["rad_b"], r["rad_a"]),
+        unorm16_pair(r["rnd0"], r["rnd1"]),
+        unorm16_pair(r["rnd2"], r["rnd3"]),
+        snorm8_vec(r["vnx"], r["vny"], r["vnz"],
+                   torch.clamp(r["life"], 0.0, 255.0)),
+        snorm8_vec(r["snx"], r["sny"], r["snz"],
+                   (r["spw"] > 0.5).to(torch.float32) * 255.0),
+        bf16_pair(r["count"], r["w"]),
+        bf16_pair(r["w_sum"], r["w2_sum"]),
+    ]
+    return torch.stack(planes, 1)
+
+
+def zero_fields_where(mask, r: dict) -> dict:
+    """The empty reservoir where `mask` (visible instance -1)."""
+    out = {k: torch.where(mask, 0.0, v) for k, v in r.items()}
+    out["vinst"] = torch.where(mask, -1.0, r["vinst"])
+    return out
+
+
+def empty_reservoir(size, device=None) -> dict:
+    h, w = size
+
+    def f(*c):
+        return torch.zeros((h, w) + c, dtype=torch.float32, device=device)
+
+    return {
+        "radiance": f(4),
+        "random": f(4),
+        "visible_position": f(4),
+        "visible_normal": f(3),
+        "visible_instance": torch.full((h, w), -1, dtype=torch.int32,
+                                       device=device),
+        "sample_position": f(4),
+        "sample_normal": f(3),
+        "count": f(),
+        "lifetime": f(),
+        "w": f(),
+        "w_sum": f(),
+        "w2_sum": f(),
+    }
+
+
+def pack_reservoir_planes(r: dict) -> torch.Tensor:
+    """Structured reservoir -> [h,16,w] channel planes."""
+    vp, sp, rad, rnd = (r["visible_position"], r["sample_position"],
+                        r["radiance"], r["random"])
+    vn, sn = r["visible_normal"], r["sample_normal"]
+    return pack_fields({
+        "vpx": vp[..., 0], "vpy": vp[..., 1], "vpz": vp[..., 2],
+        "vpd": vp[..., 3],
+        "spx": sp[..., 0], "spy": sp[..., 1], "spz": sp[..., 2],
+        "spw": sp[..., 3],
+        "vinst": r["visible_instance"].to(torch.float32),
+        "rad_r": rad[..., 0], "rad_g": rad[..., 1], "rad_b": rad[..., 2],
+        "rad_a": rad[..., 3],
+        "rnd0": rnd[..., 0], "rnd1": rnd[..., 1], "rnd2": rnd[..., 2],
+        "rnd3": rnd[..., 3],
+        "vnx": vn[..., 0], "vny": vn[..., 1], "vnz": vn[..., 2],
+        "life": r["lifetime"],
+        "snx": sn[..., 0], "sny": sn[..., 1], "snz": sn[..., 2],
+        "count": r["count"], "w": r["w"], "w_sum": r["w_sum"],
+        "w2_sum": r["w2_sum"],
+    })
+
+
+def unpack_reservoir_planes(t: torch.Tensor) -> dict:
+    """[h,16,w] channel planes -> structured reservoir."""
+    f = unpack_fields(t)
+
+    def st(*keys):
+        return torch.stack([f[k] for k in keys], -1)
+
+    return {
+        "visible_position": st("vpx", "vpy", "vpz", "vpd"),
+        "sample_position": st("spx", "spy", "spz", "spw"),
+        "visible_instance": f["vinst"].to(torch.int32),
+        "radiance": st("rad_r", "rad_g", "rad_b", "rad_a"),
+        "random": st("rnd0", "rnd1", "rnd2", "rnd3"),
+        "visible_normal": st("vnx", "vny", "vnz"),
+        "sample_normal": st("snx", "sny", "snz"),
+        "lifetime": f["life"],
+        "count": f["count"],
+        "w": f["w"],
+        "w_sum": f["w_sum"],
+        "w2_sum": f["w2_sum"],
+    }

@@ -1,14 +1,56 @@
-"""The parts of hikari_tpu/ops/restir.py the no-reuse frame uses: the
+"""The parts of hikari_tpu/ops/restir.py the ported frames use: the
 jittered-deferred G-buffer lookup (the identity at upscale ratio 1), the
-primary surface, and the sun-less direct channel."""
+primary surface, the sun-less direct channel, and the per-frame
+reprojection (previous-frame coordinates) of the reuse paths."""
 
 from __future__ import annotations
 
 import torch
 
+from hikari_tpu_torch.ops._kernel import div
 from hikari_tpu_torch.ops.shading import (compute_emissive_radiance,
                                           retrieve_surface)
 from hikari_tpu_torch.utils.math import F32_EPSILON
+
+
+def pixel_uv(size, device=None):
+    """Texel-centre uv [h,w,2] (u along x)."""
+    h, w = size
+    x = div(torch.arange(w, dtype=torch.float32, device=device) + 0.5,
+            float(w))
+    y = div(torch.arange(h, dtype=torch.float32, device=device) + 0.5,
+            float(h))
+    v, u = torch.meshgrid(y, x, indexing="ij")
+    return torch.stack([u, v], -1)
+
+
+def uv_to_coords(uv, size):
+    """uv -> (y, x) int32 pixel coordinates, truncated and clamped."""
+    h, w = size
+    x = torch.clamp((uv[..., 0] * w).to(torch.int32), 0, w - 1)
+    y = torch.clamp((uv[..., 1] * h).to(torch.int32), 0, h - 1)
+    return y, x
+
+
+def in_unit_box(uv, strict=True):
+    d = torch.abs(uv - 0.5)
+    return (d < 0.5).all(-1) if strict else (d <= 0.5).all(-1)
+
+
+def reprojection(g, render_size):
+    """Previous-frame uv, coordinates and bounds shared by every channel
+    (light.wgsl:1089). g: render-res G-buffer."""
+    uv = pixel_uv(render_size, g["velocity_uv"].device)
+    previous_uv = uv - g["velocity_uv"][..., :2]
+    piy, pix = uv_to_coords(previous_uv, render_size)
+    return {
+        "uv": uv,
+        "previous_uv": previous_uv,
+        "piy": piy,
+        "pix": pix,
+        "in_strict": in_unit_box(previous_uv, strict=True),
+        "in_loose": in_unit_box(previous_uv, strict=False),
+    }
 
 
 def resample_deferred(img, render_size, frame_number: int, ratio: float):

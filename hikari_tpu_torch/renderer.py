@@ -1,6 +1,7 @@
 """Top-level Renderer: owns the device scene, the frame function for the
 current settings, and the frame carry (the port of hikari_tpu/renderer.py
-for the no-reuse slice)."""
+for the ported slices: no reuse, temporal reuse, temporal + spatial
+reuse)."""
 
 from __future__ import annotations
 
@@ -66,7 +67,7 @@ class Renderer:
         return self._view
 
     def reset(self):
-        self.carry = init_carry(self.device)
+        self.carry = init_carry(self.full_size, self.settings, self.device)
         self._frame_index = 0
         self._prev_view_initialized = False
 
@@ -115,6 +116,8 @@ class Renderer:
         return img.cpu().numpy()
 
     def save_state(self, path: str):
+        """Write the frame carry (view matrices and reservoir planes, bit
+        for bit) and the frame index to a pickle."""
         state = {
             "carry": {k: v.cpu().numpy() if torch.is_tensor(v) else v
                       for k, v in self.carry.items()},

@@ -1,8 +1,10 @@
-"""Tensor math helpers (the part of hikari_tpu/utils/math.py the port's
-no-reuse frame uses), batched over trailing ...x3 / ...x4 axes."""
+"""Math helpers (the part of hikari_tpu/utils/math.py the port's frames
+use): tensor helpers batched over trailing ...x3 / ...x4 axes, and the
+per-frame integer hash on the host."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 F32_EPSILON = 1.1920929e-7
@@ -28,6 +30,25 @@ def dot3(a, b):
 
 def normalize(v, eps=1e-20):
     return v * torch.rsqrt(torch.clamp(dot3(v, v), min=eps))[..., None]
+
+
+def pcg_hash(value) -> np.uint32:
+    """Integer hash (utils.wgsl:15-25) of one uint32, on the host."""
+    m = np.uint64(0xFFFFFFFF)
+    k = np.uint64(2654435769)
+    state = (np.uint64(value) & m) ^ np.uint64(2747636419)
+    state = (state * k) & m
+    state = state ^ (state >> np.uint64(16))
+    state = (state * k) & m
+    state = state ^ (state >> np.uint64(16))
+    state = (state * k) & m
+    return np.uint32(state)
+
+
+def random_float(value) -> np.float32:
+    """uint32 -> [0,1] float32 (utils.wgsl:27-29), on the host: one scalar
+    per frame (the spatial spiral's rotation)."""
+    return np.float32(pcg_hash(value)) / np.float32(4294967295.0)
 
 
 def perceptual_roughness_to_roughness(perceptual):

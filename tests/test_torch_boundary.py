@@ -58,7 +58,14 @@ def test_sources_do_not_reference_jax_or_the_reference_package():
 
 
 @pytest.mark.parametrize("changes", [
-    {"temporal_reuse": True},
+    # temporal reuse is ported; under checkerboard lighting hikari_tpu
+    # sends it to the modular path, which is not
+    pytest.param({"temporal_reuse": True, "checkerboard_lighting": True},
+                 id="temporal_reuse"),
+    pytest.param({"temporal_reuse": True, "indirect_spatial_reuse": True,
+                  "spatial_tap_scramble": True},
+                 id="temporal_reuse_tap_scramble"),
+    # spatial reuse without temporal reuse takes the modular path
     {"emissive_spatial_reuse": True},
     {"indirect_spatial_reuse": True},
     {"checkerboard_lighting": True},
@@ -98,6 +105,7 @@ class _FakeLibrary:
 
     def __init__(self):
         self.calls = []
+        self.args = []
 
     def __getattr__(self, name):
         def fn(*args):
@@ -106,6 +114,7 @@ class _FakeLibrary:
                 want = int if t is ctypes.c_int else ctypes.c_void_p
                 assert isinstance(a, want), (name, a)
             self.calls.append(name)
+            self.args.append(args)
             return 0
 
         setattr(self, name, fn)
@@ -133,6 +142,52 @@ def test_cuda_wrappers_marshal_and_count(monkeypatch):
     assert fake.calls == (["hk_prepass_fused", "hk_light_fused"]
                           + ["hk_atrous_level"] * 4)
     assert [fn.launches for fn in wrappers] == [1, 1, 4]
+
+
+@pytest.mark.parametrize("path", ["R", "S"])
+def test_cuda_wrappers_marshal_and_count_with_reuse(monkeypatch, path):
+    """The reuse paths' launches per frame: R gather 1, lighting 1,
+    a-trous 4; S adds the spatial pass of the emissive and the indirect
+    channel. The lighting variant follows the frame number: frame 0
+    validates the emissive channel, frame 1 validates nothing."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.ops import (denoise_fused, light_fused,
+                                      prepass_fused, reproj_gather,
+                                      spatial_fused)
+
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    mods = (prepass_fused, reproj_gather, light_fused, spatial_fused,
+            denoise_fused)
+    wrappers = (prepass_fused.prepass_kernel, reproj_gather.reproj_gather,
+                light_fused.lighting_kernel, spatial_fused.spatial_kernel,
+                denoise_fused.atrous_level)
+    for mod in mods:
+        monkeypatch.setattr(mod, "on_cpu", lambda t: False)
+        monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", 0)
+    spatial = path == "S"
+    r = ht.Renderer(build_cornell_box("hikari_tpu_torch"), _camera(),
+                    dataclasses.replace(_flagship(), temporal_reuse=True,
+                                        emissive_spatial_reuse=spatial,
+                                        indirect_spatial_reuse=spatial),
+                    device="cpu")
+    variants = []
+    for _ in range(2):
+        fake.calls.clear()
+        fake.args.clear()
+        r.render_frame()
+        assert fake.calls == (["hk_prepass_fused", "hk_reproj_gather",
+                               "hk_light_fused"]
+                              + ["hk_spatial_fused"] * (2 * spatial)
+                              + ["hk_atrous_level"] * 4)
+        gather = fake.args[1]
+        assert gather[12] == (4 if spatial else 2)        # sources
+        variants.append(fake.args[2][-5:-1])
+    assert variants == [(1, 1, int(spatial), int(spatial)),
+                        (1, 0, int(spatial), int(spatial))]
+    assert [fn.launches for fn in wrappers] == [2, 2, 2, 4 * spatial, 8]
 
 
 def test_cuda_wrapper_rejects_bad_arguments(monkeypatch):

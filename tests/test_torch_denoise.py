@@ -75,9 +75,8 @@ def test_atrous_levels_match_pallas(nch, ffs):
         irr = ref
 
 
-def test_denoise_channels_matches_reference():
-    """Demodulation + the 4-level cascade + remodulation, two channels."""
-    rng = np.random.default_rng(5)
+def _denoise_inputs(seed):
+    rng = np.random.default_rng(seed)
     h, w = 24, 64
     n = rng.normal(size=(h, w, 3)).astype(np.float32)
     depth = rng.uniform(0.05, 1.0, size=(h, w)).astype(np.float32)
@@ -97,6 +96,11 @@ def test_denoise_channels_matches_reference():
     chans = [(rng.uniform(0.0, 3.0, size=(h, w, 4)).astype(np.float32),
               rng.uniform(0.0, 0.5, size=(h, w)).astype(np.float32), ff)
              for ff in (False, True)]
+    return g, albedo, chans, (h, w), rng
+
+
+def _check_denoise(g, albedo, chans, size):
+    h, w = size
     ref = denoise_ref(jax.tree.map(jnp.asarray, g), jnp.asarray(albedo),
                       [(jnp.asarray(r), jnp.asarray(v), f)
                        for r, v, f in chans],
@@ -111,3 +115,25 @@ def test_denoise_channels_matches_reference():
         assert np.isfinite(a.numpy()).all()
         assert diff.max() < 0.05 and diff.mean() < 1e-3, (diff.max(),
                                                            diff.mean())
+
+
+def test_denoise_channels_matches_reference():
+    """Demodulation + the 4-level cascade + remodulation, two channels."""
+    g, albedo, chans, size, _ = _denoise_inputs(5)
+    _check_denoise(g, albedo, chans, size)
+
+
+def test_denoise_channels_with_variance_matches_reference():
+    """The same with the variance the reuse paths give the denoiser:
+    seeded, non-zero, up to the cap of 10, with NaN and values beyond the
+    float32 range (inf), which the 3x3 prefilter must skip (the luminance
+    weight of every level reads it)."""
+    g, albedo, chans, size, rng = _denoise_inputs(6)
+    out = []
+    for render, _, ff in chans:
+        var = rng.uniform(0.0, 10.0, size=size).astype(np.float32)
+        var[rng.uniform(size=size) < 0.05] = np.nan
+        var[rng.uniform(size=size) < 0.05] = np.float32(np.inf)
+        var[rng.uniform(size=size) < 0.02] = -1.0
+        out.append((render, var, ff))
+    _check_denoise(g, albedo, out, size)
