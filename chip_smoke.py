@@ -537,8 +537,12 @@ def check_reuse(ht, build_box):
         plain_ = event_ms(lambda: lf.lighting_plain(*a, **k), PLAIN_REPS)
         p = a[0].cpu().numpy()
         val = (bool(p[lf._P_VAL]), bool(p[lf._P_VAL + 1]))
-        n_ch = sum((k["has_sun"], k["n_em"] > 0, k["bounces"] > 0))
-        out_b = 4 * (4 + 1 + 16) * n_ch + 4 * (1 + 16) * k["track_de"] * 2
+        n_de = int(k["has_sun"]) + int(k["n_em"] > 0)
+        n_ch = n_de + int(k["bounces"] > 0)
+        # per active channel: render, var, packed; flags + scatter only for
+        # active d/e channels under track_de, i_flags only under track_ind
+        out_b = (4 * (4 + 1 + 16) * n_ch + 4 * (1 + 16) * n_de * k["track_de"]
+                 + 4 * int(k["bounces"] > 0) * k["track_ind"])
         nbytes = npix * (4 * (4 + 3 + 2 + 4) + 64 * n_ch + out_b)
         tests = tri_tests(gpu, k["has_sun"], k["n_em"], k["bounces"], val)
         flops = npix * (tests * FLOPS_PER_TRI_TEST

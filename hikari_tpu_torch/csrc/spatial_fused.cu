@@ -21,10 +21,10 @@
 // the reservoir unchanged, so it is skipped. The winning sample is carried
 // as its 16 packed words and unpacked once after the loop.
 //
-// Bound on the H100: operations for the indirect channel (16 taps, each a
-// full Burley/GGX shading besides the gates and Jacobian: ~3e3 flops per
-// pixel against ~200 bytes in and out); the emissive channel (8 taps,
-// luminance only) sits near the balance point.
+// Bound on the H100: bytes for both channels (chip_smoke.py counts both
+// sides). Each pixel reads and writes 232 B; even the indirect channel's
+// 16 shaded taps, about 6.1e9 flops over a 1080p frame of the box, take
+// under two thirds of the time those bytes take at the memory rate.
 
 #include "common.cuh"
 

@@ -79,18 +79,14 @@ def unsupported_scene(scene, no_texture: bool, num_emissives: int):
     return reasons
 
 
-def spatial_fused_active(scene, settings: HikariSettings,
-                         no_texture: bool) -> bool:
+def spatial_fused_active(scene, settings: HikariSettings) -> bool:
     """The fused spatial path (kernel 10) runs: spatial reuse on top of the
-    fused temporal path, no checkerboard, no tap scramble, a scene within
-    the kernel's class (hikari_tpu/frame.py:44-76)."""
-    if not (any(_tracks(settings)) and settings.temporal_reuse):
-        return False
-    if settings.checkerboard_lighting:
-        return False
-    return _sf.spatial_fused_eligible(
-        scene, no_texture=no_texture,
-        scramble=settings.spatial_tap_scramble)
+    fused temporal path and a scene within the kernel's material cap
+    (hikari_tpu/frame.py:44-76). hikari_tpu's other conditions (no
+    checkerboard, no tap scramble, no textures) are settings and scenes
+    that unsupported_settings / unsupported_scene reject for the frame."""
+    return (any(_tracks(settings)) and settings.temporal_reuse
+            and _sf.spatial_fused_eligible(scene))
 
 
 def carry_keys(settings: HikariSettings):
@@ -138,12 +134,11 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
     NotImplementedError for anything outside the ported slices."""
     reasons = (unsupported_settings(settings)
                + unsupported_scene(scene, no_texture, num_emissives))
-    fused_sp = spatial_fused_active(scene, settings, no_texture)
-    if any(_tracks(settings)) and settings.temporal_reuse and not fused_sp:
-        reasons.append("spatial reuse outside the fused spatial kernel")
     if reasons:
         raise NotImplementedError(
             "outside the ported slices: " + ", ".join(reasons))
+    # within the caps above, spatial reuse always takes the fused kernel
+    fused_sp = spatial_fused_active(scene, settings)
     # no upscaler: lighting runs at the output size (ratio 1)
     render_size = tuple(full_size)
     ratio = settings.upscale_ratio

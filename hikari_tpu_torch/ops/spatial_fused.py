@@ -59,12 +59,10 @@ def channel_taps(emissive_lit: bool):
     return (8, 10) if emissive_lit else (16, 20)
 
 
-def spatial_fused_eligible(scene, *, no_texture: bool, scramble: bool) -> bool:
-    """The kernel shades every tap from the material table, so the scene
-    class of the lighting kernel; the per-pixel tap scramble is not a
-    per-frame spiral."""
-    if not no_texture or scramble:
-        return False
+def spatial_fused_eligible(scene) -> bool:
+    """The kernel shades every tap from the material table, so it takes the
+    lighting kernel's material cap. Textures and the per-pixel tap scramble
+    are rejected for the whole frame (frame.unsupported_*)."""
     return scene["mat_packed"].shape[0] <= MAX_MATERIALS
 
 
