@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py [--profile]
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the five CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
+2. builds the six CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
    each, started together) and prints their register and spill counts;
 3. holds kernels A, B and C against their plain PyTorch versions on the
    card at the 1080p flagship shapes of the no-reuse frame;
@@ -17,21 +17,28 @@ Run from the repository root on a machine with an NVIDIA H100:
    pass) on both channels, and kernel C on path R's real variance;
 5. runs the directional branch of kernels 4 and 10 on the box with a sun
    at 270x480;
-6. checks small CUDA renders of the three paths against the plain
+6. drives the post paths at 1080p with the camera panning (D, the literal
+   HikariSettings(), and P, the flagship + TAA + SMAA 2.0) and holds
+   kernel 8 (the SMAA parity quads) against its plain version and against
+   kernel A's strided planes, kernels 11 and 12 (the history warps: TAA's
+   at 1920x1080, SMAA's at 960x540) against their plain versions, and
+   kernels B, 9, 4, 10 and C at the 960x540 render size;
+7. checks small CUDA renders of the five paths against the plain
    versions on the CPU;
-7. renders the box through Renderer at 1920x1080 on the three paths
-   (no reuse; temporal reuse R; temporal + spatial reuse S): 3 warm-up
-   frames, then timed frames with the launch counters set to 0, which
-   must rise by exactly 1/1/4 (prepass, lighting, a-trous), 1/1/1/4
-   (prepass, gather, lighting, a-trous) and 1/1/1/2/4 (+ spatial) per
-   frame;
-8. prints frame_ms_1080p, frame_ms_reuse and frame_ms_spatial, one JSON
-   line of per-kernel numbers, and last {"ok": true, "device": {...}}.
+8. renders the box through Renderer at 1920x1080 on the five paths
+   (no reuse; temporal reuse R; temporal + spatial reuse S; P; D): 3
+   warm-up frames, then timed frames with the launch counters set to 0,
+   which must rise per frame by exactly the counts of PATHS below;
+9. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
+   frame_ms_smaa2 and frame_ms_default, one JSON line of per-kernel
+   numbers, and last {"ok": true, "device": {...}}.
 
-Tolerances: kernels A, B, C as stated at their checks; kernel 9 bit for
-bit; kernels 4 and 10: >= 99% of pixels with all 16 packed words equal,
-and >= 99% of render and variance values within 1e-3 * max(|ref|, 1)
-(NaN-coded variances NaN at the same pixels).
+Tolerances: kernels A, B, C as stated at their checks; kernels 9, 8 and
+12 bit for bit (8 also against kernel A's planes); kernel 11 bit for bit
+for nearest sources and within 1e-5 * max(|ref|, 1) on >= 99.99% of
+values for the filtered ones; kernels 4 and 10: >= 99% of pixels with all
+16 packed words equal, and >= 99% of render and variance values within
+1e-3 * max(|ref|, 1) (NaN-coded variances NaN at the same pixels).
 
 With --profile it also prints a torch.profiler table of device time by
 kernel over two frames of each path. Any failed check raises: the exit
@@ -174,14 +181,43 @@ def flagship_settings(ht, **changes):
     return dataclasses.replace(ht.HikariSettings(), **{**base, **changes})
 
 
-# the three paths: settings changes over the flagship, and the launches
-# per frame of (prepass, gather, lighting, spatial, a-trous)
+def default_settings(ht):
+    """The literal HikariSettings(): temporal + indirect spatial reuse,
+    denoise, TAA Jasmine, SMAA TU4X at ratio 2 (bench.py:148)."""
+    return ht.HikariSettings()
+
+
+# the five paths: their settings, and the launches per frame of COUNTERS
+COUNTERS = ("prepass", "quads", "gather", "lighting", "spatial", "a-trous",
+            "warp_band", "warp_multi")
 PATHS = {
-    "no-reuse": ({}, (1, 0, 1, 0, 4)),
-    "R": ({"temporal_reuse": True}, (1, 1, 1, 0, 4)),
-    "S": ({"temporal_reuse": True, "emissive_spatial_reuse": True,
-           "indirect_spatial_reuse": True}, (1, 1, 1, 2, 4)),
+    "no-reuse": (flagship_settings, (1, 0, 0, 1, 0, 4, 0, 0)),
+    "R": (lambda ht: flagship_settings(ht, temporal_reuse=True),
+          (1, 0, 1, 1, 0, 4, 0, 0)),
+    "S": (lambda ht: flagship_settings(
+        ht, temporal_reuse=True, emissive_spatial_reuse=True,
+        indirect_spatial_reuse=True), (1, 0, 1, 1, 2, 4, 0, 0)),
+    # the flagship + TAA + SMAA 2.0 (bench.py:142-144): lighting at 960x540
+    "P": (lambda ht: flagship_settings(ht, taa=ht.Taa.JASMINE,
+                                       upscale=ht.Upscale.smaa_tu4x(2.0)),
+          (1, 1, 0, 1, 0, 4, 2, 1)),
+    "D": (default_settings, (1, 1, 1, 1, 1, 4, 2, 1)),
 }
+
+
+def counter_wrappers():
+    """The launch counters of COUNTERS, in order."""
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import light_fused as lf
+    from hikari_tpu_torch.ops import prepass_fused as pf
+    from hikari_tpu_torch.ops import reproj_gather as rg
+    from hikari_tpu_torch.ops import spatial_fused as sf
+    from hikari_tpu_torch.ops import warp2 as w2
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    return (pf.prepass_kernel, pf.prepass_quads_kernel, rg.reproj_gather,
+            lf.lighting_kernel, sf.spatial_kernel, dnf.atrous_level,
+            wb.warp_band, w2.warp_multi)
 
 
 def real_tris(t):
@@ -287,15 +323,7 @@ def check_kernels(ht, scene_host):
           f"of values (need >= 0.99); max abs err {max_err:.3g}")
     if min(fracs) < 0.99:
         fail("kernel B disagrees with its plain version")
-    ms = event_ms(lambda: lf.lighting_kernel(*b_args, **b_kw), REPS)
-    plain_ms = event_ms(lambda: lf.lighting_plain(*b_args, **b_kw),
-                        PLAIN_REPS)
-    n_out = len(got)
-    nbytes = 4 * (lparams.numel() + sum(t.numel() for t in b_args[1:6])
-                  + npix * (4 + 3 + 2 + 4) + npix * 4 * n_out)
-    tests = tri_tests(gpu, b_kw["has_sun"], n_em, b_kw["bounces"])
-    flops = npix * (tests * FLOPS_PER_TRI_TEST + 400 * n_out)
-    b_ms, b_by = bound_ms(nbytes, flops)
+    ms, plain_ms, (b_ms, b_by) = light_record(lf, gpu, b_args, b_kw)
     records.append(dict(
         name="light_fused", route="cuda",
         source="hikari_tpu_torch/csrc/light_fused.cu",
@@ -335,9 +363,7 @@ def check_kernels(ht, scene_host):
     ms = event_ms(lambda: cascade(dnf.atrous_level), REPS) / len(dn.STEPS)
     plain_ms = event_ms(lambda: cascade(dnf.atrous_plain),
                         PLAIN_REPS) / len(dn.STEPS)
-    nbytes = npix * (2 * 3 * nch + 2 * (2 + nch) + 4 * 5 + 2 * 3 * nch)
-    flops = npix * (8 * (20 + 25 * nch) + 30 * nch)
-    b_ms, b_by = bound_ms(nbytes, flops)
+    b_ms, b_by = atrous_bound(npix, nch)
     records.append(dict(
         name="denoise_fused", route="cuda",
         source="hikari_tpu_torch/csrc/denoise_fused.cu",
@@ -394,7 +420,7 @@ class Capture:
         setattr(self.mod, self.name, self.fn)
 
 
-def drive(ht, scene_host, size, changes, frames, captures, keep):
+def drive(ht, scene_host, size, settings, frames, captures, keep):
     """Renders `frames` frames of the box at `size` with the camera
     panning PAN_PX per frame, recording the kernel calls of the frames in
     `keep`."""
@@ -408,7 +434,7 @@ def drive(ht, scene_host, size, changes, frames, captures, keep):
                                      tuple(np.add(box.TARGET, d)),
                                      width=w, height=h)
         if r is None:
-            r = ht.Renderer(scene_host, cam, flagship_settings(ht, **changes))
+            r = ht.Renderer(scene_host, cam, settings)
         r.camera = cam
         for c in captures:
             c.on = i in keep
@@ -465,43 +491,29 @@ def check_spatial_calls(sf, calls, label):
     return max_err
 
 
-def check_reuse(ht, build_box):
-    """Kernels 9, 4, 10 (and C on real variance) against their plain
-    versions on the inputs the reuse paths give them at 1080p, and the
-    directional branch at 270x480. Returns the records of 9, 4, 10."""
-    from hikari_tpu_torch import frame as fr
-    from hikari_tpu_torch.ops import denoise_fused as dnf
-    from hikari_tpu_torch.ops import light_fused as lf
-    from hikari_tpu_torch.ops import reproj_gather as rg
-    from hikari_tpu_torch.ops import spatial_fused as sf
-
-    h, w = FULL
-    npix = h * w
-    box_host = build_box()
-    gpu = box_host.compile()
-    caps = [Capture(fr, "reproj_gather"), Capture(lf, "lighting_kernel"),
-            Capture(sf, "spatial_kernel")]
-    keep = (CHECK_FRAMES - 3, CHECK_FRAMES - 2)      # frames 4 and 5
-    with caps[0], caps[1], caps[2]:
-        drive(ht, box_host, FULL, PATHS["S"][0], CHECK_FRAMES - 1, caps,
-              keep)
-    gather_calls, light_s, spatial_s = (c.calls for c in caps)
-
-    # --- kernel 9: bit for bit
-    for a, _ in gather_calls:
+def check_gather_calls(rg, calls, label):
+    """Kernel 9 against its plain version on captured calls: bit for bit."""
+    for a, _ in calls:
         got = rg.reproj_gather(*a)
         ref = rg.gather_plain(*a)
         torch.cuda.synchronize()
         eq = min(float((g_.view(torch.int32) == r_.view(torch.int32))
                        .float().mean()) for g_, r_ in zip(got, ref))
+        w = a[2].shape[1]
         moved = float((a[2] != torch.arange(w, device=a[2].device))
                       .float().mean())
-        print(f"kernel 9 gather ({len(a[0])} sources, {moved:.3f} of pixels "
-              f"reproject off their column): words equal on {eq:.6f} "
-              f"(need 1)")
+        print(f"kernel 9 gather {label} ({len(a[0])} sources, {moved:.3f} of "
+              f"pixels reproject off their column): words equal on "
+              f"{eq:.6f} (need 1)")
         if eq != 1.0:
             fail("kernel 9 disagrees with its plain version")
-    srcs, piy, pix = gather_calls[-1][0]
+
+
+def gather_record(rg, call):
+    """(ms, plain ms, library ms, bound) of one captured gather call."""
+    srcs, piy, pix = call[0]
+    h, w = piy.shape
+    npix = h * w
     ms = event_ms(lambda: rg.reproj_gather(srcs, piy, pix), REPS)
     plain_ms = event_ms(lambda: rg.gather_plain(srcs, piy, pix), PLAIN_REPS)
     # yardstick: one PyTorch indexing call fetching the same 64 B rows, on
@@ -513,7 +525,95 @@ def check_reuse(ht, build_box):
     idx = torch.where(ok, piy * w + pix, h * w).reshape(-1)
     lib_ms = event_ms(lambda: rows[:, idx], REPS)
     nbytes = n * npix * 16 * 4 * 2 + npix * 8
-    b_ms, b_by = bound_ms(nbytes, 0)
+    return ms, plain_ms, lib_ms, bound_ms(nbytes, 0)
+
+
+def light_record(lf, gpu, a, k):
+    """(ms, plain ms, (bound ms, bound by)) of one captured call of the
+    lighting kernel, B (no reuse) or 4 (temporal)."""
+    h, w = a[6].shape[:2]
+    npix = h * w
+    ms_ = event_ms(lambda: lf.lighting_kernel(*a, **k), REPS)
+    plain_ = event_ms(lambda: lf.lighting_plain(*a, **k), PLAIN_REPS)
+    p = a[0].cpu().numpy()
+    temporal = k.get("temporal", False)
+    val = ((bool(p[lf._P_VAL]), bool(p[lf._P_VAL + 1])) if temporal
+           else (False, False))
+    n_de = int(k["has_sun"]) + int(k["n_em"] > 0)
+    n_ch = n_de + int(k["bounces"] > 0)
+    if temporal:
+        # per active channel: render, var, packed; flags + scatter only for
+        # active d/e channels under track_de, i_flags only under track_ind
+        out_b = (4 * (4 + 1 + 16) * n_ch
+                 + 4 * (1 + 16) * n_de * k["track_de"]
+                 + 4 * int(k["bounces"] > 0) * k["track_ind"])
+        nbytes = npix * (4 * (4 + 3 + 2 + 4) + 64 * n_ch + out_b)
+        flops = npix * (FLOPS_RESERVOIR + 400) * n_ch
+    else:
+        # G-buffer + noise in, one render per active channel out
+        nbytes = npix * (4 * (4 + 3 + 2 + 4) + 16 * n_ch)
+        flops = npix * 400 * n_ch
+    tests = tri_tests(gpu, k["has_sun"], k["n_em"], k["bounces"], val)
+    flops += npix * tests * FLOPS_PER_TRI_TEST
+    return ms_, plain_, bound_ms(nbytes, flops)
+
+
+def spatial_record(sf, a, k):
+    """(ms, plain ms, (bound ms, bound by)) of one captured call of kernel
+    10, counting the taps this frame's data evaluates: valid pixels whose
+    tap lands in the image."""
+    h, w = a[4].shape[:2]
+    npix = h * w
+    ms_ = event_ms(lambda: sf.spatial_kernel(*a, **k), REPS)
+    plain_ = event_ms(lambda: sf.spatial_plain(*a, **k), PLAIN_REPS)
+    p = a[0].cpu().numpy()
+    valid = a[4][..., 3] >= 1.1920929e-7
+    taps = 0
+    for t in range(sf.channel_taps(k["emissive_lit"])[0]):
+        oy, ox = (int(v) for v in p[sf._S_TAPS + sf._TAP_STRIDE * t:
+                                    sf._S_TAPS + sf._TAP_STRIDE * t + 2])
+        taps += int(valid[max(0, -oy):h - max(0, oy),
+                          max(0, -ox):w - max(0, ox)].sum())
+    per_tap = FLOPS_TAP + (0 if k["emissive_lit"] else FLOPS_SHADE)
+    flops = npix * (FLOPS_RESERVOIR + FLOPS_SHADE) + taps * per_tap
+    nbytes = npix * (64 + 64 + 16 + 4 + 16 + 4 + 64)
+    out = (ms_, plain_, bound_ms(nbytes, flops))
+    print(f"  kernel 10 {'emissive' if k['emissive_lit'] else 'indirect'} "
+          f"{h}x{w}: {ms_:.4f} ms, plain {plain_:.1f} ms, bound "
+          f"{out[2][0]:.4f} ms ({out[2][1]}), {taps} taps")
+    return out
+
+
+def atrous_bound(npix, nch):
+    """Bytes and flops of one a-trous level over nch channels."""
+    nbytes = npix * (2 * 3 * nch + 2 * (2 + nch) + 4 * 5 + 2 * 3 * nch)
+    flops = npix * (8 * (20 + 25 * nch) + 30 * nch)
+    return bound_ms(nbytes, flops)
+
+
+def check_reuse(ht, build_box):
+    """Kernels 9, 4, 10 (and C on real variance) against their plain
+    versions on the inputs the reuse paths give them at 1080p, and the
+    directional branch at 270x480. Returns the records of 9, 4, 10."""
+    from hikari_tpu_torch import frame as fr
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import light_fused as lf
+    from hikari_tpu_torch.ops import reproj_gather as rg
+    from hikari_tpu_torch.ops import spatial_fused as sf
+
+    box_host = build_box()
+    gpu = box_host.compile()
+    caps = [Capture(fr, "reproj_gather"), Capture(lf, "lighting_kernel"),
+            Capture(sf, "spatial_kernel")]
+    keep = (CHECK_FRAMES - 3, CHECK_FRAMES - 2)      # frames 4 and 5
+    with caps[0], caps[1], caps[2]:
+        drive(ht, box_host, FULL, PATHS["S"][0](ht), CHECK_FRAMES - 1, caps,
+              keep)
+    gather_calls, light_s, spatial_s = (c.calls for c in caps)
+
+    # --- kernel 9: bit for bit
+    check_gather_calls(rg, gather_calls, "path S")
+    ms, plain_ms, lib_ms, (b_ms, b_by) = gather_record(rg, gather_calls[-1])
     rec9 = dict(
         name="reproj_gather", route="cuda",
         source="hikari_tpu_torch/csrc/reproj_gather.cu",
@@ -526,32 +626,15 @@ def check_reuse(ht, build_box):
     err4 = check_lighting_calls(lf, light_s, "path S")
     caps = [Capture(lf, "lighting_kernel"), Capture(dnf, "atrous_level")]
     with caps[0], caps[1]:
-        drive(ht, box_host, FULL, PATHS["R"][0], CHECK_FRAMES - 1, caps,
+        drive(ht, box_host, FULL, PATHS["R"][0](ht), CHECK_FRAMES - 1, caps,
               keep)
     light_r, levels_r = caps[0].calls, caps[1].calls
     err4 = max(err4, check_lighting_calls(lf, light_r, "path R"))
     check_levels(dnf, levels_r[-4:], "path R's real variance")
 
-    def light_record(a, k):
-        ms_ = event_ms(lambda: lf.lighting_kernel(*a, **k), REPS)
-        plain_ = event_ms(lambda: lf.lighting_plain(*a, **k), PLAIN_REPS)
-        p = a[0].cpu().numpy()
-        val = (bool(p[lf._P_VAL]), bool(p[lf._P_VAL + 1]))
-        n_de = int(k["has_sun"]) + int(k["n_em"] > 0)
-        n_ch = n_de + int(k["bounces"] > 0)
-        # per active channel: render, var, packed; flags + scatter only for
-        # active d/e channels under track_de, i_flags only under track_ind
-        out_b = (4 * (4 + 1 + 16) * n_ch + 4 * (1 + 16) * n_de * k["track_de"]
-                 + 4 * int(k["bounces"] > 0) * k["track_ind"])
-        nbytes = npix * (4 * (4 + 3 + 2 + 4) + 64 * n_ch + out_b)
-        tests = tri_tests(gpu, k["has_sun"], k["n_em"], k["bounces"], val)
-        flops = npix * (tests * FLOPS_PER_TRI_TEST
-                        + (400 + FLOPS_RESERVOIR) * n_ch)
-        return ms_, plain_, bound_ms(nbytes, flops)
-
     (a_nv, k_nv), (a_v, k_v) = light_s
-    ms4, plain4, (b4, by4) = light_record(a_nv, k_nv)
-    ms4v, plain4v, (b4v, _) = light_record(a_v, k_v)
+    ms4, plain4, (b4, by4) = light_record(lf, gpu, a_nv, k_nv)
+    ms4v, plain4v, (b4v, _) = light_record(lf, gpu, a_v, k_v)
     print(f"  kernel 4 path S: {ms4:.4f} ms (no validation, bound "
           f"{b4:.4f}), {ms4v:.4f} ms (emissive validation, bound "
           f"{b4v:.4f}); plain {plain4:.1f} / {plain4v:.1f} ms")
@@ -565,28 +648,7 @@ def check_reuse(ht, build_box):
 
     # --- kernel 10, both channels of the last captured S frame
     err10 = check_spatial_calls(sf, spatial_s, "path S")
-    per = []
-    for a, k in spatial_s[-2:]:
-        ms_ = event_ms(lambda: sf.spatial_kernel(*a, **k), REPS)
-        plain_ = event_ms(lambda: sf.spatial_plain(*a, **k), PLAIN_REPS)
-        # the taps this frame's data evaluates: valid pixels whose tap
-        # lands in the image
-        p = a[0].cpu().numpy()
-        valid = a[4][..., 3] >= 1.1920929e-7
-        n_taps = sf.channel_taps(k["emissive_lit"])[0]
-        taps = 0
-        for t in range(n_taps):
-            oy, ox = (int(v) for v in p[sf._S_TAPS + sf._TAP_STRIDE * t:
-                                        sf._S_TAPS + sf._TAP_STRIDE * t + 2])
-            taps += int(valid[max(0, -oy):h - max(0, oy),
-                              max(0, -ox):w - max(0, ox)].sum())
-        per_tap = FLOPS_TAP + (0 if k["emissive_lit"] else FLOPS_SHADE)
-        flops = npix * (FLOPS_RESERVOIR + FLOPS_SHADE) + taps * per_tap
-        nbytes = npix * (64 + 64 + 16 + 4 + 16 + 4 + 64)
-        per.append((ms_, plain_, bound_ms(nbytes, flops)))
-        print(f"  kernel 10 {'emissive' if k['emissive_lit'] else 'indirect'}"
-              f": {ms_:.4f} ms, plain {plain_:.1f} ms, bound "
-              f"{per[-1][2][0]:.4f} ms ({per[-1][2][1]}), {taps} taps")
+    per = [spatial_record(sf, a, k) for a, k in spatial_s[-2:]]
     rec10 = dict(
         name="spatial_fused", route="cuda",
         source="hikari_tpu_torch/csrc/spatial_fused.cu",
@@ -603,7 +665,7 @@ def check_reuse(ht, build_box):
         illuminance=10000.0, direction=(0.25, -0.5, -1.0))
     caps = [Capture(lf, "lighting_kernel"), Capture(sf, "spatial_kernel")]
     with caps[0], caps[1]:
-        r = drive(ht, sun_host, SUN, PATHS["S"][0], CHECK_FRAMES, caps,
+        r = drive(ht, sun_host, SUN, PATHS["S"][0](ht), CHECK_FRAMES, caps,
                   (CHECK_FRAMES - 3, CHECK_FRAMES - 2, CHECK_FRAMES - 1))
     if not r.gpu_scene.has_sun:
         fail("the sun scene has no sun")
@@ -612,15 +674,240 @@ def check_reuse(ht, build_box):
     return [rec9, rec4, rec10]
 
 
+def words_equal(got, ref):
+    """Every float of the tensors equal to the bit."""
+    return all(torch.equal(g.view(torch.int32), r.view(torch.int32))
+               for g, r in zip(got, ref))
+
+
+def grid_nearest(src, sy, sx):
+    """One torch.nn.functional.grid_sample call (nearest, border) over the
+    HWC source at the coords: the time yardstick of the nearest warps (its
+    tie rule differs, so it is not a parity reference)."""
+    import torch.nn.functional as F
+
+    hs, ws = src.shape[:2]
+    inp = src.permute(2, 0, 1)[None].contiguous()
+    grid = torch.stack([(2.0 * sx + 1.0) / ws - 1.0,
+                        (2.0 * sy + 1.0) / hs - 1.0], -1)[None]
+    return lambda: F.grid_sample(inp, grid, mode="nearest",
+                                 padding_mode="border", align_corners=False)
+
+
+def check_quads(pf, quad_calls, a_calls, n_tri):
+    """Kernel 8 against its plain version and kernel A's strided planes
+    (ops/smaa.parity_quads of its G-buffer), bit for bit, on the captured
+    calls; returns its record."""
+    from hikari_tpu_torch.ops.smaa import parity_quads
+
+    def strided(a_args):
+        quads = parity_quads(pf._assemble(*pf.prepass_kernel(*a_args))[0])
+        return [quads[ab][k] for k in ("depth", "velocity", "instance")
+                for ab in pf.QUAD_PARITIES]
+
+    for (qa, _), (aa, _) in zip(quad_calls, a_calls):
+        if not torch.equal(qa[0], aa[0]):
+            fail("kernel 8 and kernel A got different parameters")
+        got = pf.prepass_quads_kernel(*qa)
+        ref = pf.quads_plain(*qa)
+        eq_a = words_equal([p for t in got for p in t], strided(aa))
+        torch.cuda.synchronize()
+        eq_plain = words_equal(got, ref)
+        print(f"kernel 8 quads {tuple(qa[3])} x 4 parities: equal to the "
+              f"plain version {eq_plain}, to kernel A's strided planes "
+              f"{eq_a} (need both)")
+        if not (eq_plain and eq_a):
+            fail("kernel 8 disagrees with its plain version or kernel A")
+    qa, aa = quad_calls[-1][0], a_calls[-1][0]
+    ms = event_ms(lambda: pf.prepass_quads_kernel(*qa), REPS)
+    plain_ms = event_ms(lambda: pf.quads_plain(*qa), PLAIN_REPS)
+    views = parity_quads(pf._assemble(*pf.prepass_kernel(*aa))[0])
+    lib_ms = event_ms(lambda: [t.contiguous() for q in views.values()
+                               for t in q.values()], REPS)
+    h, w = qa[3]
+    npix = 4 * h * w
+    nbytes = 4 * (qa[0].numel() + qa[1].numel() + qa[2].numel()) + npix * 16
+    # ray generation + the depth/velocity tail ~150 flops per pixel
+    b_ms, b_by = bound_ms(nbytes, npix * (n_tri * FLOPS_PER_TRI_TEST + 150))
+    return dict(
+        name="prepass_quads", route="cuda",
+        source="hikari_tpu_torch/csrc/prepass_fused.cu",
+        replaces="hikari_tpu/ops/prepass_fused.py:276", launches=None,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms)
+
+
+def warp_band_record(wb, call):
+    """(ms, plain ms, bound, library ms) of one captured kernel 11 call;
+    the library yardstick only for an all-nearest call."""
+    sources, kinds, sy, sx = call[0]
+    h, w = sy.shape
+    hs = sources[0].shape[0]
+    ms = event_ms(lambda: wb.warp_band(*call[0]), REPS)
+    plain_ms = event_ms(lambda: wb.band_plain(*call[0]), PLAIN_REPS)
+    fs = [s.shape[2] for s in sources]
+    nbytes = 4 * (hs * w * sum(fs) + h * w * (2 + sum(fs)))
+    # a filtered channel: 16 taps of a multiply-add and the 4 row sums;
+    # its 8 weights ~10 flops each
+    flops = h * w * sum(40 * f + 80 for f, k in zip(fs, kinds)
+                        if k != "nearest")
+    lib_ms = None
+    if set(kinds) == {"nearest"}:
+        lib_ms = event_ms(grid_nearest(sources[0], sy, sx), REPS)
+    return ms, plain_ms, bound_ms(nbytes, flops), lib_ms
+
+
+def check_warps(wb, w2, band_calls, multi_calls):
+    """Kernels 11 and 12 against their plain versions on the captured
+    calls; returns their records (row 11: the TAA call at the output
+    size, with SMAA's tone call beside it)."""
+    for a, _ in band_calls:
+        _, kinds, sy, _ = a
+        got = wb.warp_band(*a)
+        ref = wb.band_plain(*a)
+        torch.cuda.synchronize()
+        for kind, g, r in zip(kinds, got, ref):
+            if kind == "nearest":
+                ok = words_equal([g], [r])
+                frac, err = float(ok), float((g - r).abs().max())
+                need = 1.0
+            else:
+                frac, err = rel_close(g, r, 1e-5)
+                need = 0.9999
+            print(f"kernel 11 warp_band {tuple(sy.shape)} {kind} "
+                  f"x{g.shape[2]}: equal / within 1e-5*max(|ref|,1) on "
+                  f"{frac:.6f} (need {need}); max abs err {err:.3g}")
+            if frac < need:
+                fail("kernel 11 disagrees with its plain version")
+    for a, k in multi_calls:
+        got = w2.warp_multi(*a, **k)
+        ref = w2.multi_plain(*a, k.get("dtype") == torch.bfloat16)
+        torch.cuda.synchronize()
+        ok = words_equal(got, ref)
+        print(f"kernel 12 warp_multi {tuple(a[1].shape)} from "
+              f"{tuple(a[0].shape)}: words equal {ok} (need True)")
+        if not ok:
+            fail("kernel 12 disagrees with its plain version")
+
+    taa = next(c for c in reversed(band_calls) if "catmull" in c[0][1])
+    smaa = next(c for c in reversed(band_calls) if c[0][1] == ("nearest",))
+    ms, plain_ms, (b_ms, b_by), _ = warp_band_record(wb, taa)
+    ms_s, plain_s, (b_s, _), lib_s = warp_band_record(wb, smaa)
+    rec11 = dict(
+        name="warp_band", route="cuda", source="hikari_tpu_torch/csrc/warp.cu",
+        replaces="hikari_tpu/ops/warp_band.py:95", launches=None,
+        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=None, ms_smaa_call=ms_s,
+        plain_ms_smaa_call=plain_s, bound_ms_smaa_call=b_s,
+        library_ms_smaa_call=lib_s)
+    a, k = multi_calls[-1]
+    src, sy, sx = a[:3]
+    h, w = sy.shape
+    nbytes = 4 * (src.numel() + h * w * 2 + h * w * src.shape[2])
+    b_ms, b_by = bound_ms(nbytes, 0)
+    rec12 = dict(
+        name="warp_multi", route="cuda", source="hikari_tpu_torch/csrc/warp.cu",
+        replaces="hikari_tpu/ops/warp2.py:68", launches=None,
+        max_abs_err=0.0, ms=event_ms(lambda: w2.warp_multi(*a, **k), REPS),
+        plain_ms=event_ms(
+            lambda: w2.multi_plain(*a, k.get("dtype") == torch.bfloat16),
+            PLAIN_REPS),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=event_ms(grid_nearest(src, sy, sx), REPS))
+    return rec11, rec12
+
+
+def check_post(ht, build_box):
+    """Kernels 8, 11 and 12 on the inputs the post paths give them at
+    1080p with the camera panning, and kernels B, 9, 4, 10 and C at the
+    960x540 render size. Returns (the records of 8, 11 and 12, {record
+    name: its 960x540 numbers})."""
+    from contextlib import ExitStack
+
+    from hikari_tpu_torch import frame as fr
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import light_fused as lf
+    from hikari_tpu_torch.ops import prepass_fused as pf
+    from hikari_tpu_torch.ops import reproj_gather as rg
+    from hikari_tpu_torch.ops import spatial_fused as sf
+    from hikari_tpu_torch.ops import warp2 as w2
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    box_host = build_box()
+    gpu = box_host.compile()
+    caps = [Capture(pf, "prepass_kernel"), Capture(pf, "prepass_quads_kernel"),
+            Capture(fr, "reproj_gather"), Capture(lf, "lighting_kernel"),
+            Capture(sf, "spatial_kernel"), Capture(dnf, "atrous_level"),
+            Capture(wb, "warp_band"), Capture(w2, "warp_multi")]
+    keep = (CHECK_FRAMES - 3, CHECK_FRAMES - 2)      # frames 4 and 5
+    with ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        drive(ht, box_host, FULL, default_settings(ht), CHECK_FRAMES - 1,
+              caps, keep)
+    a_calls, q_calls, g_calls, l_calls, s_calls, c_calls, wb_calls, \
+        wm_calls = (c.calls for c in caps)
+
+    records = [check_quads(pf, q_calls, a_calls,
+                           real_tris(gpu.arrays["tri_pos_flat"]))]
+    records += check_warps(wb, w2, wb_calls, wm_calls)
+
+    # --- kernels 9, 4, 10 and C at 960x540 on path D
+    label = "path D 960x540"
+    check_gather_calls(rg, g_calls, label)
+    extra = {}
+    ms, plain_ms, _, (b_ms, _) = gather_record(rg, g_calls[-1])
+    extra["reproj_gather"] = (ms, plain_ms, b_ms)
+    check_lighting_calls(lf, l_calls, label)
+    ms, plain_ms, (b_ms, _) = light_record(lf, gpu, *l_calls[0])
+    extra["light_fused_temporal"] = (ms, plain_ms, b_ms)
+    check_spatial_calls(sf, s_calls, label)
+    ms, plain_ms, (b_ms, _) = spatial_record(sf, *s_calls[-1])
+    extra["spatial_fused"] = (ms, plain_ms, b_ms)
+    levels = c_calls[-4:]
+    check_levels(dnf, levels, label)
+
+    def cascade(level):
+        return [level(*a, **k) for a, k in levels]
+
+    irr = levels[0][0][0]
+    extra["denoise_fused"] = (
+        event_ms(lambda: cascade(dnf.atrous_level), REPS) / len(levels),
+        event_ms(lambda: cascade(dnf.atrous_plain), PLAIN_REPS)
+        / len(levels),
+        atrous_bound(irr.shape[1] * irr.shape[2], levels[0][1]["nch"])[0])
+
+    # --- kernel B at 960x540 on path P
+    cap = Capture(lf, "lighting_kernel")
+    with cap:
+        drive(ht, build_box(), FULL, PATHS["P"][0](ht), 3, [cap], (2,))
+    a, k = cap.calls[-1]
+    got, ref = lf.lighting_kernel(*a, **k), lf.lighting_plain(*a, **k)
+    torch.cuda.synchronize()
+    frac = min(rel_close(got[n], ref[n], 1e-3)[0] for n in ref)
+    print(f"kernel B lighting path P 960x540: within 1e-3*max(|ref|,1) on "
+          f"{frac:.6f} of values (need >= 0.99)")
+    if frac < 0.99:
+        fail("kernel B disagrees with its plain version at 960x540")
+    ms, plain_ms, (b_ms, _) = light_record(lf, gpu, a, k)
+    extra["light_fused"] = (ms, plain_ms, b_ms)
+    extra = {n: dict(ms_540p=v[0], plain_ms_540p=v[1], bound_ms_540p=v[2])
+             for n, v in extra.items()}
+    for n, v in extra.items():
+        print(f"  {n} at 960x540: {v['ms_540p']:.4f} ms, plain "
+              f"{v['plain_ms_540p']:.3f} ms, bound {v['bound_ms_540p']:.4f}")
+    return records, extra
+
+
 def check_small_render(ht, build_box):
-    """Small CUDA renders of the three paths against the plain versions on
+    """Small CUDA renders of the five paths against the plain versions on
     the CPU."""
     box = load_box_module()
     h, w = SMALL
     cam = ht.Camera.from_look_at(box.EYE, box.TARGET, width=w, height=h)
-    for name, (changes, _) in PATHS.items():
+    for name, (settings_of, _) in PATHS.items():
         frames = 3 if name == "no-reuse" else 4
-        settings = flagship_settings(ht, **changes)
+        settings = settings_of(ht)
         img_gpu = ht.Renderer(build_box(), cam, settings).render(frames)
         img_cpu = ht.Renderer(build_box(), cam, settings,
                               device="cpu").render(frames)
@@ -637,23 +924,16 @@ def check_small_render(ht, build_box):
 
 def main_path(ht, build_box, name, timed, profile):
     """One path through Renderer at 1080p. Returns (frame times, launch
-    counts per wrapper over the timed frames)."""
-    from hikari_tpu_torch.ops import denoise_fused as dnf
-    from hikari_tpu_torch.ops import light_fused as lf
-    from hikari_tpu_torch.ops import prepass_fused as pf
-    from hikari_tpu_torch.ops import reproj_gather as rg
-    from hikari_tpu_torch.ops import spatial_fused as sf
-
+    counts per wrapper of COUNTERS over the timed frames)."""
     box = load_box_module()
-    changes, per_frame = PATHS[name]
+    settings_of, per_frame = PATHS[name]
     h, w = FULL
     cam = ht.Camera.from_look_at(box.EYE, box.TARGET, width=w, height=h)
-    r = ht.Renderer(build_box(), cam, flagship_settings(ht, **changes))
+    r = ht.Renderer(build_box(), cam, settings_of(ht))
     for _ in range(WARMUP_FRAMES):
         r.render_frame()
     torch.cuda.synchronize()
-    wrappers = (pf.prepass_kernel, rg.reproj_gather, lf.lighting_kernel,
-                sf.spatial_kernel, dnf.atrous_level)
+    wrappers = counter_wrappers()
     for fn in wrappers:
         fn.launches = 0
     times = []
@@ -665,8 +945,8 @@ def main_path(ht, build_box, name, timed, profile):
         times.append((time.perf_counter() - t) * 1e3)
     counts = [fn.launches for fn in wrappers]
     expected = [timed * k for k in per_frame]
-    print(f"path {name}: launches over {timed} frames (prepass, gather, "
-          f"lighting, spatial, a-trous): {counts} (need {expected})")
+    print(f"path {name}: launches over {timed} frames "
+          f"({', '.join(COUNTERS)}): {counts} (need {expected})")
     if counts != expected:
         fail(f"path {name} did not launch each kernel as expected")
     out = img.cpu()
@@ -726,7 +1006,10 @@ def main():
     t0 = time.perf_counter()
     records = check_kernels(ht, build_box())
     records += check_reuse(ht, build_box)
+    post_records, at_540p = check_post(ht, build_box)
+    records += post_records
     for rec in records:
+        rec.update(at_540p.get(rec["name"], {}))
         print(f"  {rec['name']}: {rec['ms']:.4f} ms per launch, plain "
               f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}), library {rec['library_ms']}")
@@ -738,15 +1021,23 @@ def main():
         times, counts = main_path(ht, build_box, name, TIMED_FRAMES,
                                   args.profile)
         frame_ms[name] = (float(np.median(times)), times)
-        launches[name] = counts
-    # launches over the timed frames of the path(s) running each kernel:
-    # A and C on all three, B on no-reuse, 4 and 9 on R and S, 10 on S
-    total = [sum(launches[p][i] for p in PATHS) for i in range(5)]
+        launches[name] = dict(zip(COUNTERS, counts))
+
+    def total(counter, paths=tuple(PATHS)):
+        return sum(launches[p][counter] for p in paths)
+
+    # launches over the timed frames of the paths running each kernel:
+    # B runs on no-reuse and P, kernel 4 on R, S and D
     by_name = {
-        "prepass_fused": total[0], "light_fused": launches["no-reuse"][2],
-        "denoise_fused": total[4], "reproj_gather": total[1],
-        "light_fused_temporal": launches["R"][2] + launches["S"][2],
-        "spatial_fused": total[3]}
+        "prepass_fused": total("prepass"),
+        "light_fused": total("lighting", ("no-reuse", "P")),
+        "denoise_fused": total("a-trous"),
+        "reproj_gather": total("gather"),
+        "light_fused_temporal": total("lighting", ("R", "S", "D")),
+        "spatial_fused": total("spatial"),
+        "prepass_quads": total("quads"),
+        "warp_band": total("warp_band"),
+        "warp_multi": total("warp_multi")}
     for rec in records:
         rec["launches"] = by_name[rec["name"]]
 
@@ -756,10 +1047,10 @@ def main():
         "frame_ms_1080p": m, "mrays_per_s": rays / m / 1e3,
         "frames": TIMED_FRAMES, "reps_ms": frame_ms["no-reuse"][1],
         "card": card}))
-    print(json.dumps({"frame_ms_reuse": frame_ms["R"][0],
-                      "reps_ms": frame_ms["R"][1], "card": card}))
-    print(json.dumps({"frame_ms_spatial": frame_ms["S"][0],
-                      "reps_ms": frame_ms["S"][1], "card": card}))
+    for key, name in (("frame_ms_reuse", "R"), ("frame_ms_spatial", "S"),
+                      ("frame_ms_smaa2", "P"), ("frame_ms_default", "D")):
+        print(json.dumps({key: frame_ms[name][0],
+                          "reps_ms": frame_ms[name][1], "card": card}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,19 @@
-// Kernel A: the fused G-buffer prepass, one thread per pixel.
+// Kernel A: the fused G-buffer prepass, one thread per pixel; and kernel 8:
+// the SMAA parity quads, one thread per decimated pixel and parity.
 //
-// Replaces hikari_tpu/ops/prepass_fused.py:_build_kernel (the Pallas body,
-// launched by _call_planes). Per pixel: the jittered camera ray, the
-// nearest hit over every scene triangle with normal/uv/material
+// Kernel A replaces hikari_tpu/ops/prepass_fused.py:_build_kernel (the
+// Pallas body, launched by _call_planes). Per pixel: the jittered camera
+// ray, the nearest hit over every scene triangle with normal/uv/material
 // interpolation, world position and NDC depth, instance and material ids
 // (+0.5), velocity through the per-instance motion matrix, and the
 // env-BRDF albedo of the no-texture surface.
+//
+// Kernel 8 replaces prepass_fused.py:_build_kernel_slim (launched by
+// prepass_fused_quads, once per parity there): depth, velocity and
+// instance (+0.5) at the pixels (2y+a, 2x+b) of all four parities (a, b)
+// in one launch (grid y = parity). It shares kernel A's ray, hit test and
+// depth/velocity code, so its planes equal kernel A's strided planes
+// [a::2, b::2] bit for bit; it skips the attribute interpolation.
 //
 // Design: the triangle table (<= 768 rows x 26 floats, ~80 KB), the motion
 // matrices and the materials sit in dynamic shared memory; every thread of
@@ -15,9 +23,9 @@
 // warp stores contiguous runs.
 //
 // Bound on the H100: operations. Each pixel runs ~60 flops per
-// ray-triangle test against 68 bytes of output; at 1080p with the
-// 36-triangle box that is ~4.5 GFLOP (67 us at 67 TFLOP/s f32) against
-// ~141 MB (42 us at 3.35 TB/s).
+// ray-triangle test against 68 bytes of output (16 for kernel 8); at 1080p
+// with the 36-triangle box that is ~4.5 GFLOP (67 us at 67 TFLOP/s f32)
+// against ~141 MB (42 us at 3.35 TB/s).
 
 #include "common.cuh"
 
@@ -39,6 +47,104 @@ __device__ __forceinline__ f3 project3(const float* m, f3 p, float* w_out) {
   float cz = m[8] * p.x + m[9] * p.y + m[10] * p.z + m[11];
   *w_out = m[12] * p.x + m[13] * p.y + m[14] * p.z + m[15];
   return mk3(cx, cy, cz);
+}
+
+// The jittered camera ray through image pixel (x, y)
+// (ops/prepass.py camera_rays): unit direction into *d, origin returned.
+__device__ __forceinline__ f3 camera_ray(const float* params, float x,
+                                         float y, f3* d_out) {
+  float w_img = params[P_WH], h_img = params[P_WH + 1];
+  float u = (x + 0.5f + params[P_JIT]) / w_img;
+  float v = (y + 0.5f + params[P_JIT + 1]) / h_img;
+  float ndc_x = u * 2.0f - 1.0f;
+  float ndc_y = (1.0f - v) * 2.0f - 1.0f;
+  f3 a, b;
+  {
+    const float* m = params + P_INV_VP;
+    float hw;
+    hw = m[12] * ndc_x + m[13] * ndc_y + m[14] * 0.9f + m[15];
+    float inv = 1.0f / hw;
+    a = mk3((m[0] * ndc_x + m[1] * ndc_y + m[2] * 0.9f + m[3]) * inv,
+            (m[4] * ndc_x + m[5] * ndc_y + m[6] * 0.9f + m[7]) * inv,
+            (m[8] * ndc_x + m[9] * ndc_y + m[10] * 0.9f + m[11]) * inv);
+    hw = m[12] * ndc_x + m[13] * ndc_y + m[14] * 0.1f + m[15];
+    inv = 1.0f / hw;
+    b = mk3((m[0] * ndc_x + m[1] * ndc_y + m[2] * 0.1f + m[3]) * inv,
+            (m[4] * ndc_x + m[5] * ndc_y + m[6] * 0.1f + m[7]) * inv,
+            (m[8] * ndc_x + m[9] * ndc_y + m[10] * 0.1f + m[11]) * inv);
+  }
+  f3 d = sub3(b, a);
+  float inv_len = rsqrtf(fmaxf(d.x * d.x + d.y * d.y + d.z * d.z, 1e-30f));
+  *d_out = mk3(d.x * inv_len, d.y * inv_len, d.z * inv_len);
+  return mk3(params[P_CAM], params[P_CAM + 1], params[P_CAM + 2]);
+}
+
+// Moller-Trumbore against table row r: true on an accepted hit nearer than
+// t_best, with the barycentrics and distance in *uu, *vv, *dist.
+__device__ __forceinline__ bool hit_test(const float* r, f3 o, f3 d,
+                                         float t_best, float* uu_out,
+                                         float* vv_out, float* dist_out) {
+  float abx = r[3] - r[0], aby = r[4] - r[1], abz = r[5] - r[2];
+  float acx = r[6] - r[0], acy = r[7] - r[1], acz = r[8] - r[2];
+  float ux = d.y * acz - d.z * acy;
+  float uy = d.z * acx - d.x * acz;
+  float uz = d.x * acy - d.y * acx;
+  float det = abx * ux + aby * uy + abz * uz;
+  float inv_det = fabsf(det) < HK_F32_EPS ? 0.0f : 1.0f / det;
+  float aox = o.x - r[0], aoy = o.y - r[1], aoz = o.z - r[2];
+  float uu = (aox * ux + aoy * uy + aoz * uz) * inv_det;
+  float vx = aoy * abz - aoz * aby;
+  float vy = aoz * abx - aox * abz;
+  float vz = aox * aby - aoy * abx;
+  float vv = (d.x * vx + d.y * vy + d.z * vz) * inv_det;
+  float dist = (acx * vx + acy * vy + acz * vz) * inv_det;
+  *uu_out = uu;
+  *vv_out = vv;
+  *dist_out = dist;
+  return fabsf(det) >= HK_F32_EPS && uu >= 0.0f && uu <= 1.0f &&
+         vv >= 0.0f && uu + vv <= 1.0f && dist > HK_F32_EPS &&
+         dist < t_best;
+}
+
+struct SurfacePoint {
+  bool mask;  // a triangle was hit
+  f3 wp;      // world position (the far point on a miss)
+  float depth, velu, velv;
+};
+
+// World position, NDC depth and velocity through the hit instance's motion
+// matrix, from the nearest hit (t_best, inst_f).
+__device__ __forceinline__ SurfacePoint surface_point(const float* params,
+                                                      const float* motion,
+                                                      int n_inst, f3 o, f3 d,
+                                                      float t_best,
+                                                      float inst_f) {
+  SurfacePoint s;
+  s.mask = inst_f >= 0.0f;
+  float tt = s.mask ? t_best : HK_DISTANCE_MAX;
+  s.wp = ray_at(o, d, tt);
+  f3 wp = s.wp;
+
+  float cw;
+  f3 c = project3(params + P_VP, wp, &cw);
+  s.depth = s.mask ? c.z / cw : 0.0f;
+
+  const float* mm = motion + 16 * row_of(fmaxf(inst_f, 0.0f), n_inst);
+  float pw = mm[12] * wp.x + mm[13] * wp.y + mm[14] * wp.z + mm[15];
+  float inv_pw = 1.0f / pw;
+  f3 pwp = mk3((mm[0] * wp.x + mm[1] * wp.y + mm[2] * wp.z + mm[3]) * inv_pw,
+               (mm[4] * wp.x + mm[5] * wp.y + mm[6] * wp.z + mm[7]) * inv_pw,
+               (mm[8] * wp.x + mm[9] * wp.y + mm[10] * wp.z + mm[11]) *
+                   inv_pw);
+  float un = (c.x / cw + 1.0f) * 0.5f;
+  float vn = 1.0f - (c.y / cw + 1.0f) * 0.5f;
+  float pcw;
+  f3 pc = project3(params + P_PREV_VP, pwp, &pcw);
+  float up = (pc.x / pcw + 1.0f) * 0.5f;
+  float vp = 1.0f - (pc.y / pcw + 1.0f) * 0.5f;
+  s.velu = s.mask ? un - up : 0.0f;
+  s.velv = s.mask ? vn - vp : 0.0f;
+  return s;
 }
 
 __global__ void __launch_bounds__(256)
@@ -70,34 +176,8 @@ prepass_kernel(const float* __restrict__ params_g,
 
   int pix = blockIdx.x * blockDim.x + threadIdx.x;
   if (pix >= h * w) return;
-  float y = (float)(pix / w);
-  float x = (float)(pix % w);
-
-  // --- camera ray (ops/prepass.py camera_rays)
-  float w_img = params[P_WH], h_img = params[P_WH + 1];
-  float u = (x + 0.5f + params[P_JIT]) / w_img;
-  float v = (y + 0.5f + params[P_JIT + 1]) / h_img;
-  float ndc_x = u * 2.0f - 1.0f;
-  float ndc_y = (1.0f - v) * 2.0f - 1.0f;
-  f3 a, b;
-  {
-    const float* m = params + P_INV_VP;
-    float hw;
-    hw = m[12] * ndc_x + m[13] * ndc_y + m[14] * 0.9f + m[15];
-    float inv = 1.0f / hw;
-    a = mk3((m[0] * ndc_x + m[1] * ndc_y + m[2] * 0.9f + m[3]) * inv,
-            (m[4] * ndc_x + m[5] * ndc_y + m[6] * 0.9f + m[7]) * inv,
-            (m[8] * ndc_x + m[9] * ndc_y + m[10] * 0.9f + m[11]) * inv);
-    hw = m[12] * ndc_x + m[13] * ndc_y + m[14] * 0.1f + m[15];
-    inv = 1.0f / hw;
-    b = mk3((m[0] * ndc_x + m[1] * ndc_y + m[2] * 0.1f + m[3]) * inv,
-            (m[4] * ndc_x + m[5] * ndc_y + m[6] * 0.1f + m[7]) * inv,
-            (m[8] * ndc_x + m[9] * ndc_y + m[10] * 0.1f + m[11]) * inv);
-  }
-  f3 d = sub3(b, a);
-  float inv_len = rsqrtf(fmaxf(d.x * d.x + d.y * d.y + d.z * d.z, 1e-30f));
-  d = mk3(d.x * inv_len, d.y * inv_len, d.z * inv_len);
-  f3 o = mk3(params[P_CAM], params[P_CAM + 1], params[P_CAM + 2]);
+  f3 d;
+  f3 o = camera_ray(params, (float)(pix % w), (float)(pix / w), &d);
 
   // --- nearest hit with attribute interpolation
   float t_best = HK_F32_MAX;
@@ -107,24 +187,8 @@ prepass_kernel(const float* __restrict__ params_g,
     const float* r = tris + HK_TRI * i;
     float inst = r[9];
     if (!(inst >= 0.0f)) continue;
-    float abx = r[3] - r[0], aby = r[4] - r[1], abz = r[5] - r[2];
-    float acx = r[6] - r[0], acy = r[7] - r[1], acz = r[8] - r[2];
-    float ux = d.y * acz - d.z * acy;
-    float uy = d.z * acx - d.x * acz;
-    float uz = d.x * acy - d.y * acx;
-    float det = abx * ux + aby * uy + abz * uz;
-    float inv_det = fabsf(det) < HK_F32_EPS ? 0.0f : 1.0f / det;
-    float aox = o.x - r[0], aoy = o.y - r[1], aoz = o.z - r[2];
-    float uu = (aox * ux + aoy * uy + aoz * uz) * inv_det;
-    float vx = aoy * abz - aoz * aby;
-    float vy = aoz * abx - aox * abz;
-    float vz = aox * aby - aoy * abx;
-    float vv = (d.x * vx + d.y * vy + d.z * vz) * inv_det;
-    float dist = (acx * vx + acy * vy + acz * vz) * inv_det;
-    bool ok = fabsf(det) >= HK_F32_EPS && uu >= 0.0f && uu <= 1.0f &&
-              vv >= 0.0f && uu + vv <= 1.0f && dist > HK_F32_EPS &&
-              dist < t_best;
-    if (ok) {
+    float uu, vv, dist;
+    if (hit_test(r, o, d, t_best, &uu, &vv, &dist)) {
       const float* q = attrs + A_STRIDE * i;
       t_best = dist;
       n = mk3(q[0] + uu * (q[3] - q[0]) + vv * (q[6] - q[0]),
@@ -136,34 +200,15 @@ prepass_kernel(const float* __restrict__ params_g,
       inst_f = inst;
     }
   }
-  bool mask = inst_f >= 0.0f;
+  SurfacePoint sp = surface_point(params, motion, n_inst, o, d, t_best,
+                                  inst_f);
+  bool mask = sp.mask;
+  f3 wp = sp.wp;
   n = rsqrt_n(n);
   if (!mask) n = mk3(0.0f, 0.0f, 0.0f);
-  float tt = mask ? t_best : HK_DISTANCE_MAX;
-  f3 wp = ray_at(o, d, tt);
-
-  // --- NDC depth
-  float cw;
-  f3 c = project3(params + P_VP, wp, &cw);
-  float depth = mask ? c.z / cw : 0.0f;
-
-  // --- velocity through the motion matrix of the hit instance
-  const float* mm = motion + 16 * row_of(fmaxf(inst_f, 0.0f), n_inst);
-  float pw = mm[12] * wp.x + mm[13] * wp.y + mm[14] * wp.z + mm[15];
-  float inv_pw = 1.0f / pw;
-  f3 pwp = mk3((mm[0] * wp.x + mm[1] * wp.y + mm[2] * wp.z + mm[3]) * inv_pw,
-               (mm[4] * wp.x + mm[5] * wp.y + mm[6] * wp.z + mm[7]) * inv_pw,
-               (mm[8] * wp.x + mm[9] * wp.y + mm[10] * wp.z + mm[11]) *
-                   inv_pw);
-  float un = (c.x / cw + 1.0f) * 0.5f;
-  float vn = 1.0f - (c.y / cw + 1.0f) * 0.5f;
-  float pcw;
-  f3 pc = project3(params + P_PREV_VP, pwp, &pcw);
-  float up = (pc.x / pcw + 1.0f) * 0.5f;
-  float vp = 1.0f - (pc.y / pcw + 1.0f) * 0.5f;
 
   // --- full-screen albedo (env_brdf of the no-texture surface)
-  bool valid = depth >= HK_F32_EPS;
+  bool valid = sp.depth >= HK_F32_EPS;
   Surface s = surface_of(mats, n_mats, fmaxf(mat_f, 0.0f));
   f3 vdir = rsqrt_n(mk3(params[P_CAM] - wp.x, params[P_CAM + 1] - wp.y,
                         params[P_CAM + 2] - wp.z));
@@ -173,18 +218,61 @@ prepass_kernel(const float* __restrict__ params_g,
 
   float4* pos4 = reinterpret_cast<float4*>(position);
   pos4[pix] = make_float4(mask ? wp.x : 0.0f, mask ? wp.y : 0.0f,
-                          mask ? wp.z : 0.0f, depth);
+                          mask ? wp.z : 0.0f, sp.depth);
   normal[3 * pix] = n.x;
   normal[3 * pix + 1] = n.y;
   normal[3 * pix + 2] = n.z;
   reinterpret_cast<float2*>(inst_mat)[pix] =
       make_float2(inst_f + 0.5f, mat_f + 0.5f);
   reinterpret_cast<float4*>(vel_uv)[pix] =
-      make_float4(mask ? un - up : 0.0f, mask ? vn - vp : 0.0f,
-                  mask ? uvx : 0.0f, mask ? uvy : 0.0f);
+      make_float4(sp.velu, sp.velv, mask ? uvx : 0.0f, mask ? uvy : 0.0f);
   reinterpret_cast<float4*>(albedo)[pix] =
       make_float4(valid ? da.x + sa.x : 0.0f, valid ? da.y + sa.y : 0.0f,
                   valid ? da.z + sa.z : 0.0f, valid ? 1.0f : 0.0f);
+}
+
+// Kernel 8: plane p = 2a + b of depth [4,h,w], velocity [4,h,w,2] and
+// instance [4,h,w] holds image pixel (2y+a, 2x+b) at (y, x).
+__global__ void __launch_bounds__(256)
+quads_kernel(const float* __restrict__ params_g,
+             const float* __restrict__ tris_g, int n_tris,
+             const float* __restrict__ motion_g, int n_inst, int h, int w,
+             float* __restrict__ depth, float* __restrict__ velocity,
+             float* __restrict__ instance) {
+  extern __shared__ float smem[];
+  float* params = smem;
+  float* tris = params + P_COUNT + 1;
+  float* motion = tris + HK_TRI * n_tris;
+
+  stage_rows(params, params_g, 1, P_COUNT, P_COUNT, 0);
+  stage_rows(tris, tris_g, n_tris, HK_TRI, HK_TRI, 0);
+  stage_rows(motion, motion_g, n_inst, 16, 16, 0);
+  __syncthreads();
+
+  int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= h * w) return;
+  int parity = blockIdx.y;
+  f3 d;
+  f3 o = camera_ray(params, (float)(2 * (pix % w) + (parity & 1)),
+                    (float)(2 * (pix / w) + (parity >> 1)), &d);
+
+  float t_best = HK_F32_MAX, inst_f = -1.0f;
+  for (int i = 0; i < n_tris; i++) {
+    const float* r = tris + HK_TRI * i;
+    float inst = r[9];
+    if (!(inst >= 0.0f)) continue;
+    float uu, vv, dist;
+    if (hit_test(r, o, d, t_best, &uu, &vv, &dist)) {
+      t_best = dist;
+      inst_f = inst;
+    }
+  }
+  SurfacePoint sp = surface_point(params, motion, n_inst, o, d, t_best,
+                                  inst_f);
+  long long i = (long long)parity * h * w + pix;
+  depth[i] = sp.depth;
+  reinterpret_cast<float2*>(velocity)[i] = make_float2(sp.velu, sp.velv);
+  instance[i] = inst_f + 0.5f;
 }
 
 extern "C" int hk_prepass_fused(const float* params, const float* tris,
@@ -205,5 +293,22 @@ extern "C" int hk_prepass_fused(const float* params, const float* tris,
   prepass_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       params, tris, tri_attr, n_tris, motion, n_inst, mats, n_mats, h, w,
       position, normal, inst_mat, vel_uv, albedo);
+  return (int)cudaGetLastError();
+}
+
+// h, w: the decimated size (half the image's, which params hold)
+extern "C" int hk_prepass_quads(const float* params, const float* tris,
+                                int n_tris, const float* motion, int n_inst,
+                                int h, int w, float* depth, float* velocity,
+                                float* instance, void* stream) {
+  size_t smem =
+      sizeof(float) * (P_COUNT + 1 + HK_TRI * n_tris + 16 * n_inst);
+  cudaError_t err = cudaFuncSetAttribute(
+      quads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int threads = 256;
+  dim3 grid((h * w + threads - 1) / threads, 4);
+  quads_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+      params, tris, n_tris, motion, n_inst, h, w, depth, velocity, instance);
   return (int)cudaGetLastError();
 }

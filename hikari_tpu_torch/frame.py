@@ -1,8 +1,10 @@
 """Frame pipeline: the fused branches of hikari_tpu/frame.py.
 
-One frame: fused prepass (kernel A) -> blue noise -> lighting -> a-trous
-denoise (kernel C, four levels) -> tone mapping -> the pass-through post
-chain. The lighting is one of
+One frame: fused prepass (kernel A; at upscale ratio 2 the render-size
+G-buffer is its strided planes, and SMAA's parity quads come from kernel
+8) -> blue noise -> lighting -> a-trous denoise (kernel C, four levels) at
+the render size -> tone mapping -> the post chain (SMAA TU4X, TAA Jasmine;
+kernels 11 and 12). The lighting is one of
 
 * no reuse: kernel B; the direct channel is the surface-emission term when
   the scene has no sun;
@@ -14,16 +16,21 @@ chain. The lighting is one of
   reservoirs, and kernel 10 runs once per spatial channel (emissive,
   indirect) after the scatter-replace.
 
-The carry holds the previous view matrices (velocity) and, with reuse, the
-[h,16,w] temporal and spatial reservoir planes.
+The carry holds the previous view matrices (velocity); with reuse the
+[h,16,w] temporal and spatial reservoir planes at the render size; with
+SMAA or TAA the previous full-res G-buffer; with SMAA the previous tone
+image (render size); with TAA the previous TAA output (post size).
 
 Settings outside the ported slices raise NotImplementedError when the
-frame function is built: checkerboard lighting (with or without temporal
-reuse), the spatial tap scramble, spatial reuse without temporal reuse,
-TAA, any upscaler, textures, and scenes beyond the kernels' caps.
+frame function is built: FSR, SMAA at any ratio but 2, other ratios than
+1 and 2, ratio 2 at an odd output size, checkerboard lighting (with or
+without temporal reuse), the spatial tap scramble, spatial reuse without
+temporal reuse, textures, and scenes beyond the kernels' caps.
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -36,12 +43,30 @@ from hikari_tpu_torch.ops import restir
 from hikari_tpu_torch.ops import spatial_fused as _sf
 from hikari_tpu_torch.ops.denoise import denoise_channels
 from hikari_tpu_torch.ops.noise import sample_blue_noise
+from hikari_tpu_torch.ops.post import post_chain, post_sizes
 from hikari_tpu_torch.ops.prepass import frame_jitter
 from hikari_tpu_torch.ops.reproj_gather import reproj_gather
 from hikari_tpu_torch.ops.tonemap import tone_mapping
 
 TEMPORAL_KEYS = ("direct_temporal", "emissive_temporal", "indirect_temporal")
 SPATIAL_KEYS = ("spatial_de", "spatial_indirect")
+# the planes of the previous full-res G-buffer the post chain carries
+PREV_GBUFFER_KEYS = ("position", "normal", "instance_material",
+                     "velocity_uv")
+
+
+def scaled_size(full_size, ratio: float):
+    """ceil(size / ratio) (post_process.rs:1172-1174)."""
+    h, w = full_size
+    return (max(1, math.ceil(h / ratio)), max(1, math.ceil(w / ratio)))
+
+
+def _smaa(settings: HikariSettings) -> bool:
+    return settings.upscale.mode == UpscaleMode.SMAA_TU4X
+
+
+def _taa(settings: HikariSettings) -> bool:
+    return settings.taa == Taa.JASMINE
 
 
 def _tracks(settings: HikariSettings):
@@ -50,9 +75,20 @@ def _tracks(settings: HikariSettings):
             settings.indirect_spatial_reuse and settings.indirect_bounces > 0)
 
 
-def unsupported_settings(settings: HikariSettings):
-    """The reasons these settings lie outside the ported slices."""
+def unsupported_settings(settings: HikariSettings, full_size):
+    """The reasons these settings, at output size `full_size`, lie outside
+    the ported slices."""
     reasons = []
+    ratio = settings.upscale_ratio
+    if settings.upscale.mode == UpscaleMode.FSR1:
+        reasons.append("upscale=fsr1")
+    elif _smaa(settings) and ratio != 2.0:
+        reasons.append(f"smaa_tu4x at ratio {ratio}")
+    elif ratio not in (1.0, 2.0):
+        reasons.append(f"upscale ratio {ratio}")
+    elif ratio == 2.0 and not restir.exact_half(
+            full_size, scaled_size(full_size, ratio)):
+        reasons.append(f"ratio 2 at the odd output size {tuple(full_size)}")
     if any(_tracks(settings)):
         if not settings.temporal_reuse:
             reasons.append("spatial reuse without temporal_reuse")
@@ -60,10 +96,6 @@ def unsupported_settings(settings: HikariSettings):
         reasons.append("checkerboard_lighting")
     if settings.spatial_tap_scramble:
         reasons.append("spatial_tap_scramble")
-    if settings.taa != Taa.NONE:
-        reasons.append(f"taa={settings.taa.value}")
-    if settings.upscale.mode != UpscaleMode.NONE:
-        reasons.append(f"upscale={settings.upscale.mode.value}")
     return reasons
 
 
@@ -96,32 +128,70 @@ def carry_keys(settings: HikariSettings):
     return TEMPORAL_KEYS + (SPATIAL_KEYS if any(_tracks(settings)) else ())
 
 
+def post_carry_shapes(full_size, settings: HikariSettings) -> dict:
+    """The post chain's carries the frame of these settings reads, with
+    their shapes (hikari_tpu/frame.py:103-116): the previous G-buffer at
+    full size for SMAA or TAA, the previous tone image (render size) for
+    SMAA, the previous TAA output (post size) for TAA."""
+    h, w = full_size
+    render_size = scaled_size(full_size, settings.upscale_ratio)
+    shapes = {}
+    if _smaa(settings) or _taa(settings):
+        shapes["prev_gbuffer"] = {"position": (h, w, 4), "normal": (h, w, 3),
+                                  "instance_material": (h, w, 2),
+                                  "velocity_uv": (h, w, 4)}
+    if _smaa(settings):
+        shapes["prev_tone"] = tuple(render_size) + (4,)
+    if _taa(settings):
+        shapes["prev_taa"] = post_sizes(settings, render_size) + (4,)
+    return shapes
+
+
 def init_carry(full_size, settings: HikariSettings, device) -> dict:
-    """Persistent frame state: the previous view matrices, and with
-    temporal reuse the three [h,16,w] temporal reservoir carries and the
-    two spatial ones (all zero: no history)."""
+    """Persistent frame state: the previous view matrices; with temporal
+    reuse the three [h,16,w] temporal reservoir carries and the two spatial
+    ones at the render size; and the post chain's history
+    (post_carry_shapes). All zero: no history."""
     eye = torch.eye(4, dtype=torch.float32, device=device)
     carry = {"prev_view_proj": eye, "prev_inverse_view_proj": eye.clone()}
-    h, w = full_size   # no upscaler: lighting runs at the output size
+    h, w = scaled_size(full_size, settings.upscale_ratio)
     for k in carry_keys(settings):
         carry[k] = torch.zeros((h, rsv.PACKED_WIDTH, w), dtype=torch.float32,
                                device=device)
+
+    def zeros(shape):
+        if isinstance(shape, dict):
+            return {k: zeros(v) for k, v in shape.items()}
+        return torch.zeros(shape, dtype=torch.float32, device=device)
+
+    carry.update(zeros(post_carry_shapes(full_size, settings)))
     return carry
 
 
-def carry_from_jax(carry, settings: HikariSettings, device) -> dict:
+def carry_from_jax(carry, settings: HikariSettings, device,
+                   full_size=None) -> dict:
     """The port's carry for `settings` from a hikari_tpu frame carry given
     as numpy arrays (the counterpart of scene_from_arrays): the view
-    matrices and the [h,16,w] reservoir planes, bit for bit."""
+    matrices, the [h,16,w] reservoir planes and, given the output size,
+    the post chain's history, bit for bit."""
+    def tensor(a):
+        a = np.ascontiguousarray(np.asarray(a, np.float32))
+        return torch.from_numpy(a.copy()).to(device)
+
     out = {}
     for k in ("prev_view_proj", "prev_inverse_view_proj") \
             + carry_keys(settings):
-        a = np.ascontiguousarray(np.asarray(carry[k], np.float32))
-        if k not in ("prev_view_proj", "prev_inverse_view_proj") \
-                and a.shape[1] != rsv.PACKED_WIDTH:
-            raise ValueError(f"{k}: shape {a.shape}, not the [h,16,w] "
-                             "channel planes of the fused paths")
-        out[k] = torch.from_numpy(a.copy()).to(device)
+        out[k] = tensor(carry[k])
+        if k in TEMPORAL_KEYS + SPATIAL_KEYS \
+                and out[k].shape[1] != rsv.PACKED_WIDTH:
+            raise ValueError(f"{k}: shape {tuple(out[k].shape)}, not the "
+                             "[h,16,w] channel planes of the fused paths")
+    if full_size is not None:
+        for k, shape in post_carry_shapes(full_size, settings).items():
+            if isinstance(shape, dict):
+                out[k] = {p: tensor(carry[k][p]) for p in shape}
+            else:
+                out[k] = tensor(carry[k])
     return out
 
 
@@ -132,16 +202,18 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
     [H,W,4], albedo [H,W,4], carry), specialized on the static settings
     and scene facts (emissive count, sun presence). Raises
     NotImplementedError for anything outside the ported slices."""
-    reasons = (unsupported_settings(settings)
+    reasons = (unsupported_settings(settings, full_size)
                + unsupported_scene(scene, no_texture, num_emissives))
     if reasons:
         raise NotImplementedError(
             "outside the ported slices: " + ", ".join(reasons))
     # within the caps above, spatial reuse always takes the fused kernel
     fused_sp = spatial_fused_active(scene, settings)
-    # no upscaler: lighting runs at the output size (ratio 1)
-    render_size = tuple(full_size)
+    full_size = tuple(full_size)
     ratio = settings.upscale_ratio
+    render_size = scaled_size(full_size, ratio)
+    half = ratio == 2.0     # an exact half within the checks above
+    post_history = _smaa(settings) or _taa(settings)
     bounces = settings.indirect_bounces
     reuse = settings.temporal_reuse
     track_de, track_ind = _tracks(settings)
@@ -179,9 +251,19 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
                      "inverse_view_proj": carry["prev_inverse_view_proj"]}
         number = frame["number"]
         jit = frame_jitter(number, settings.taa, settings.upscale.mode)
-        gbuf, albedo = _pf.prepass_fused(scene, view, prev_view, jit,
-                                         full_size)
-        g = restir.resample_gbuffer(gbuf, render_size, number, ratio)
+        albedo_r = smaa_quads = None
+        if half:
+            # the render-size G-buffer: kernel A's strided planes
+            gbuf, albedo, g, albedo_r = _pf.prepass_fused(
+                scene, view, prev_view, jit, full_size,
+                dec_parity=number & 1)
+        else:
+            gbuf, albedo = _pf.prepass_fused(scene, view, prev_view, jit,
+                                             full_size)
+            g = restir.resample_gbuffer(gbuf, render_size, number, ratio)
+        if _smaa(settings):
+            smaa_quads = _pf.prepass_fused_quads(scene, view, prev_view, jit,
+                                                 full_size)
         rand = sample_blue_noise(noise, number, render_size)
         dev = albedo.device
         zero_render = torch.zeros(render_size + (4,), device=dev)
@@ -272,15 +354,20 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
                 slots.append("i")
             if dn_in:
                 outs = dict(zip(slots, denoise_channels(
-                    g, albedo, dn_in, frame, render_size, ratio)))
+                    g, albedo, dn_in, frame, render_size, ratio,
+                    albedo_r=albedo_r)))
                 d_render = outs.get("d", d_render)
                 e_render = outs.get("e", e_render)
                 i_render = outs.get("i", i_render)
 
         tone = tone_mapping(d_render, e_render, i_render,
                             frame["clear_color"])
-        # hikari_tpu's post_chain passes the frame through without SMAA,
-        # TAA or an upscaler, the only settings built above
-        return tone, albedo, new_carry
+        image, post_carry = post_chain(gbuf, carry, tone, frame, settings,
+                                       full_size, render_size, smaa_quads)
+        new_carry.update(post_carry)
+        if post_history:
+            new_carry["prev_gbuffer"] = {k: gbuf[k]
+                                         for k in PREV_GBUFFER_KEYS}
+        return image, albedo, new_carry
 
     return render_frame

@@ -46,13 +46,16 @@ def check_launch(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+
+
 def bind(lib, name: str, signature: str):
     """Declare the ctypes signature of `name`: one letter per argument,
-    'p' for a pointer or stream (c_void_p), 'i' for an int."""
+    'p' for a pointer or stream (c_void_p), 'i' for an int, 'f' for a
+    float."""
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                   for c in signature]
+    fn.argtypes = [_CTYPES[c] for c in signature]
     return fn
 
 

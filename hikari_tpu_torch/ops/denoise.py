@@ -36,11 +36,16 @@ def demodulate(albedo_r, render, variance, render_size):
     return irr, var
 
 
-def denoise_channels(g, albedo, chans, frame, render_size, ratio: float):
+def denoise_channels(g, albedo, chans, frame, render_size, ratio: float,
+                     albedo_r=None):
     """Denoise several lighting channels in one cascade (the edge-stopping
     geometry weights are shared). chans: list of (render [h,w,4], variance
-    [h,w], firefly bool). Returns the denoised [h,w,4] renders."""
-    albedo_r = resample_deferred(albedo, render_size, frame["number"], ratio)
+    [h,w], firefly bool). albedo_r: the albedo at render size, when the
+    caller has it (the decimated prepass at ratio 2); else it is resampled
+    from the full-res `albedo`. Returns the denoised [h,w,4] renders."""
+    if albedo_r is None:
+        albedo_r = resample_deferred(albedo, render_size, frame["number"],
+                                     ratio)
     depth = g["position"][..., 3]
     valid = depth >= F32_EPSILON
     normal = normalize(g["normal"])

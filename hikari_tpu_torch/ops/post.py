@@ -1,12 +1,54 @@
-"""The overlay of hikari_tpu/ops/post.py. Its post chain (SMAA, TAA,
-upscalers) is not ported: at the settings the port supports it passes the
-tone-mapped frame through (frame.py)."""
+"""Post-process routing (the port of hikari_tpu/ops/post.py): SMAA -> TAA
+-> resample to the output, then the overlay.
+
+Replicates PostProcessNode::run's texture routing
+(post_process.rs:1140-1312, 930-1060): SMAA reads the tone-mapping history
+and doubles the working size; TAA reads the SMAA output (or the tone
+output) and its own history. The overlay resamples to the camera target
+and NaN pixels fall back to albedo (overlay.wgsl:36-47). FSR is not
+ported: its settings raise when the frame is built.
+"""
 
 from __future__ import annotations
 
 import torch
 
+from hikari_tpu_torch.config import HikariSettings, Taa, UpscaleMode
+from hikari_tpu_torch.ops.filters import resize_bilinear
+from hikari_tpu_torch.ops.smaa import smaa_tu4x
+from hikari_tpu_torch.ops.taa import taa_jasmine
 from hikari_tpu_torch.utils.math import inverse_reinhard_luminance
+
+
+def post_sizes(settings: HikariSettings, render_size):
+    """Static size of the TAA stage's input and history."""
+    if settings.upscale.mode == UpscaleMode.SMAA_TU4X:
+        return (2 * render_size[0], 2 * render_size[1])
+    return tuple(render_size)
+
+
+def post_chain(gbuf, carry, tone, frame, settings: HikariSettings,
+               full_size, render_size, smaa_quads=None):
+    """Returns (final [H,W,4] at full_size, post carry {"prev_tone",
+    "prev_taa"} for the stages that ran). smaa_quads: kernel 8's parity
+    quads for SMAA. hikari_tpu also carries prev_upscale (the chain's
+    output), which nothing reads at these settings; the port leaves it
+    out."""
+    full_size = tuple(full_size)
+    cur = tone
+    post_carry = {}
+    if settings.upscale.mode == UpscaleMode.SMAA_TU4X:
+        cur = smaa_tu4x(gbuf, carry["prev_gbuffer"], carry["prev_tone"],
+                        tone, frame, render_size, quads=smaa_quads)
+        post_carry["prev_tone"] = tone
+    if settings.taa == Taa.JASMINE:
+        cur = taa_jasmine(gbuf, carry["prev_gbuffer"], carry["prev_taa"], cur,
+                          frame, frame["clear_color"],
+                          post_sizes(settings, render_size))
+        post_carry["prev_taa"] = cur
+    if tuple(cur.shape[:2]) != full_size:
+        cur = resize_bilinear(cur, full_size)
+    return cur, post_carry
 
 
 def overlay_compose(image, albedo, hdr: bool):

@@ -7,6 +7,9 @@ interpolation, position and NDC depth, instance/material ids (+0.5),
 velocity through the per-instance motion matrix, and the env-BRDF albedo.
 `_assemble` adds the depth gradients (forward differences, plain tensor
 ops as on the TPU) and returns ops/prepass.py's G-buffer contract.
+
+Kernel 8 (`prepass_quads_kernel`, same source) traces the four SMAA
+parity quads at half resolution: depth, velocity and instance only.
 """
 
 from __future__ import annotations
@@ -24,6 +27,8 @@ from hikari_tpu_torch.utils.math import F32_EPSILON, F32_MAX
 
 DISTANCE_MAX = 65535.0
 MAX_INSTANCES = 16
+# the SMAA parity quads (a, b) in kernel 8's plane order 2a + b
+QUAD_PARITIES = ((0, 0), (0, 1), (1, 0), (1, 1))
 
 # parameter vector layout (hikari_tpu's _P_* offsets)
 _P_INV_VP = 0     # inverse view_proj, row-major 16
@@ -64,53 +69,27 @@ def _project(m, px, py, pz):
                  + f[4 * r + 3] for r in range(4))
 
 
-def prepass_plain(params, tris, attrs, motion, mats, size):
-    """Kernel A's body over whole planes. Returns (position [h,w,4],
-    normal [h,w,3], instance_material [h,w,2], velocity_uv [h,w,4],
-    albedo [h,w,4])."""
-    h, w = size
-    dev = params.device
-    p = params.cpu().numpy()
-    view = {"inverse_view_proj": params[_P_INV_VP:_P_INV_VP + 16].reshape(4, 4),
-            "world_position": params[_P_CAM:_P_CAM + 3]}
-    origin, direction = camera_rays(view, size, p[_P_JIT:_P_JIT + 2])
-    o = origin.unbind(-1)
-    dx, dy, dz = direction.unbind(-1)
+def _hit_mask(o, d, r, t_best):
+    """Kernel A's hit test against one triangle row (numpy f32): the
+    accept mask and the barycentrics and distance (hikari_tpu's ok)."""
+    det, uu, vv, dist = _mt(o, d, r)
+    inv_det = torch.where(torch.abs(det) < F32_EPSILON, 0.0, div(1.0, det))
+    uu = uu * inv_det
+    vv = vv * inv_det
+    dist = dist * inv_det
+    ok = ((torch.abs(det) >= F32_EPSILON)
+          & (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0) & (uu + vv <= 1.0)
+          & (dist > F32_EPSILON) & (dist < t_best))
+    return ok, uu, vv, dist
 
-    t_best = torch.full((h, w), F32_MAX, device=dev)
-    z = torch.zeros((h, w), device=dev)
-    nx, ny, nz, uvx, uvy = z, z, z, z, z
-    mat_f = torch.full((h, w), -1.0, device=dev)
-    inst_f = torch.full((h, w), -1.0, device=dev)
-    for r, a in zip(tris.cpu().numpy(), attrs.cpu().numpy()):
-        inst_i = float(r[9])
-        if not inst_i >= 0.0:
-            continue
-        det, uu, vv, dist = _mt(o, (dx, dy, dz), r)
-        inv_det = torch.where(torch.abs(det) < F32_EPSILON, 0.0, div(1.0, det))
-        uu = uu * inv_det
-        vv = vv * inv_det
-        dist = dist * inv_det
-        ok = ((torch.abs(det) >= F32_EPSILON)
-              & (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-              & (dist > F32_EPSILON) & (dist < t_best))
 
-        def interp(c0, c1, c2):
-            d1 = float(np.float32(a[c1]) - np.float32(a[c0]))
-            d2 = float(np.float32(a[c2]) - np.float32(a[c0]))
-            return float(a[c0]) + uu * d1 + vv * d2
-
-        t_best = torch.where(ok, dist, t_best)
-        nx = torch.where(ok, interp(0, 3, 6), nx)
-        ny = torch.where(ok, interp(1, 4, 7), ny)
-        nz = torch.where(ok, interp(2, 5, 8), nz)
-        uvx = torch.where(ok, interp(9, 11, 13), uvx)
-        uvy = torch.where(ok, interp(10, 12, 14), uvy)
-        mat_f = torch.where(ok, float(a[16]), mat_f)
-        inst_f = torch.where(ok, inst_i, inst_f)
-
+def _surface_point(p, o, d, t_best, inst_f, motion):
+    """World position, NDC depth and velocity of the nearest hit (kernel
+    A's and kernel 8's shared tail). p: the numpy parameter vector.
+    Returns (mask, (wx, wy, wz), depth, velocity u, velocity v)."""
+    z = torch.zeros_like(t_best)
+    dx, dy, dz = d
     mask = inst_f >= 0.0
-    nx, ny, nz = (torch.where(mask, c, z) for c in _rsqrt_n(nx, ny, nz))
     tt = torch.where(mask, t_best, DISTANCE_MAX)
     wx = o[0] + dx * tt
     wy = o[1] + dy * tt
@@ -134,6 +113,56 @@ def prepass_plain(params, tris, attrs, motion, mats, size):
     pcx, pcy, _pcz, pcw = _project(p[_P_PREV_VP:_P_PREV_VP + 16],
                                    pwx, pwy, pwz)
     up, vp = clip_uv(pcx, pcy, pcw)
+    return (mask, (wx, wy, wz), depth, torch.where(mask, un - up, z),
+            torch.where(mask, vn - vp, z))
+
+
+def _params_view(params):
+    return {"inverse_view_proj":
+            params[_P_INV_VP:_P_INV_VP + 16].reshape(4, 4),
+            "world_position": params[_P_CAM:_P_CAM + 3]}
+
+
+def prepass_plain(params, tris, attrs, motion, mats, size):
+    """Kernel A's body over whole planes. Returns (position [h,w,4],
+    normal [h,w,3], instance_material [h,w,2], velocity_uv [h,w,4],
+    albedo [h,w,4])."""
+    h, w = size
+    dev = params.device
+    p = params.cpu().numpy()
+    origin, direction = camera_rays(_params_view(params), size,
+                                    p[_P_JIT:_P_JIT + 2])
+    o = origin.unbind(-1)
+    d = direction.unbind(-1)
+
+    t_best = torch.full((h, w), F32_MAX, device=dev)
+    z = torch.zeros((h, w), device=dev)
+    nx, ny, nz, uvx, uvy = z, z, z, z, z
+    mat_f = torch.full((h, w), -1.0, device=dev)
+    inst_f = torch.full((h, w), -1.0, device=dev)
+    for r, a in zip(tris.cpu().numpy(), attrs.cpu().numpy()):
+        inst_i = float(r[9])
+        if not inst_i >= 0.0:
+            continue
+        ok, uu, vv, dist = _hit_mask(o, d, r, t_best)
+
+        def interp(c0, c1, c2):
+            d1 = float(np.float32(a[c1]) - np.float32(a[c0]))
+            d2 = float(np.float32(a[c2]) - np.float32(a[c0]))
+            return float(a[c0]) + uu * d1 + vv * d2
+
+        t_best = torch.where(ok, dist, t_best)
+        nx = torch.where(ok, interp(0, 3, 6), nx)
+        ny = torch.where(ok, interp(1, 4, 7), ny)
+        nz = torch.where(ok, interp(2, 5, 8), nz)
+        uvx = torch.where(ok, interp(9, 11, 13), uvx)
+        uvy = torch.where(ok, interp(10, 12, 14), uvy)
+        mat_f = torch.where(ok, float(a[16]), mat_f)
+        inst_f = torch.where(ok, inst_i, inst_f)
+
+    mask, (wx, wy, wz), depth, velu, velv = _surface_point(
+        p, o, d, t_best, inst_f, motion)
+    nx, ny, nz = (torch.where(mask, c, z) for c in _rsqrt_n(nx, ny, nz))
 
     valid = depth >= F32_EPSILON
     surf = _Surface(mats, torch.clamp(mat_f, min=0.0))
@@ -146,9 +175,7 @@ def prepass_plain(params, tris, attrs, motion, mats, size):
                             torch.where(mask, wz, z), depth], -1)
     normal = torch.stack([nx, ny, nz], -1)
     inst_mat = torch.stack([inst_f + 0.5, mat_f + 0.5], -1)
-    vel_uv = torch.stack([torch.where(mask, un - up, z),
-                          torch.where(mask, vn - vp, z),
-                          torch.where(mask, uvx, z),
+    vel_uv = torch.stack([velu, velv, torch.where(mask, uvx, z),
                           torch.where(mask, uvy, z)], -1)
     albedo = torch.stack([torch.where(valid, da[i] + sa[i], z)
                           for i in range(3)] + [valid.to(torch.float32)], -1)
@@ -185,14 +212,83 @@ def prepass_kernel(params, tris, attrs, motion, mats, size):
 prepass_kernel.launches = 0
 
 
-def _assemble(position, normal, inst_mat, vel_uv, albedo):
+def quads_plain(params, tris, motion, dec_size):
+    """Kernel 8's body: depth, velocity and instance (+0.5) of image pixel
+    (2y+a, 2x+b) at (y, x) of a [h,w] plane for each parity (a, b) of
+    QUAD_PARITIES, with kernel A's ray, hit test and tail (no attribute
+    interpolation). Returns (depth [4,h,w], velocity [4,h,w,2], instance
+    [4,h,w])."""
+    h, w = dec_size
+    dev = params.device
+    p = params.cpu().numpy()
+    full = (int(p[_P_WH + 1]), int(p[_P_WH]))
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    rows = tris.cpu().numpy()
+    depth, vel, inst = [], [], []
+    for a, b in QUAD_PARITIES:
+        origin, direction = camera_rays(
+            _params_view(params), full, p[_P_JIT:_P_JIT + 2],
+            pixels=(2.0 * yy + a, 2.0 * xx + b))
+        o = origin.unbind(-1)
+        d = direction.unbind(-1)
+        t_best = torch.full((h, w), F32_MAX, device=dev)
+        inst_f = torch.full((h, w), -1.0, device=dev)
+        for r in rows:
+            if not float(r[9]) >= 0.0:
+                continue
+            ok, _, _, dist = _hit_mask(o, d, r, t_best)
+            t_best = torch.where(ok, dist, t_best)
+            inst_f = torch.where(ok, float(r[9]), inst_f)
+        _, _, dep, velu, velv = _surface_point(p, o, d, t_best, inst_f,
+                                               motion)
+        depth.append(dep)
+        vel.append(torch.stack([velu, velv], -1))
+        inst.append(inst_f + 0.5)
+    return torch.stack(depth), torch.stack(vel), torch.stack(inst)
+
+
+def prepass_quads_kernel(params, tris, motion, dec_size):
+    """Kernel 8: runs `quads_plain` for CPU tensors and launches
+    csrc/prepass_fused.cu's quads kernel (all four parities in one launch)
+    for CUDA tensors."""
+    if on_cpu(params):
+        return quads_plain(params, tris, motion, dec_size)
+    from hikari_tpu_torch.build import load_cuda
+
+    dev = params.device
+    h, w = dec_size
+    f = torch.float32
+    check("params", params, f, (_P_COUNT,), dev)
+    check("tris", tris, f, (tris.shape[0], 10), dev)
+    check("motion", motion, f, (motion.shape[0], 16), dev)
+    depth = torch.empty((4, h, w), dtype=f, device=dev)
+    vel = torch.empty((4, h, w, 2), dtype=f, device=dev)
+    inst = torch.empty((4, h, w), dtype=f, device=dev)
+    fn = bind(load_cuda("prepass_fused"), "hk_prepass_quads", "ppipiiipppp")
+    rc = fn(ptr(params), ptr(tris), tris.shape[0], ptr(motion),
+            motion.shape[0], h, w, ptr(depth), ptr(vel), ptr(inst),
+            stream(dev))
+    check_launch(rc, "prepass_quads")
+    prepass_quads_kernel.launches += 1
+    return depth, vel, inst
+
+
+prepass_quads_kernel.launches = 0
+
+
+def _assemble(position, normal, inst_mat, vel_uv, albedo, grad_scale=1.0):
     """Kernel outputs -> (gbuf dict, albedo [h,w,4]); depth gradients are
-    forward differences (the last row/column repeats its neighbour's)."""
+    forward differences (the last row/column repeats its neighbour's) over
+    `grad_scale` image pixels (2 for the decimated planes)."""
     depth = position[..., 3]
     ddx = torch.cat([depth[:, 1:] - depth[:, :-1],
                      depth[:, -1:] - depth[:, -2:-1]], dim=1)
     ddy = torch.cat([depth[1:, :] - depth[:-1, :],
                      depth[-1:, :] - depth[-2:-1, :]], dim=0)
+    if grad_scale != 1.0:
+        ddx = ddx * (1.0 / grad_scale)
+        ddy = ddy * (1.0 / grad_scale)
     gbuf = {
         "position": position,
         "normal": normal,
@@ -203,13 +299,39 @@ def _assemble(position, normal, inst_mat, vel_uv, albedo):
     return gbuf, albedo
 
 
-def prepass_fused(scene, view, prev_view, jitter, size):
+def prepass_fused(scene, view, prev_view, jitter, size, dec_parity=None):
     """Returns (gbuf dict matching ops/prepass.py's contract, albedo
-    [H,W,4]). jitter: (x, y) pixel jitter (ops/prepass.frame_jitter)."""
+    [H,W,4]). jitter: (x, y) pixel jitter (ops/prepass.frame_jitter).
+
+    With dec_parity s (frame & 1) it also returns (g_dec, albedo_dec) at
+    half the size: hikari_tpu's decimated second pass, which traces pixels
+    (2y+s, 2x+s) with the full frame's jitter and size, so here they are
+    kernel A's strided planes [s::2, s::2] with no second launch. Only the
+    depth gradient is not a view: forward differences of the decimated
+    depth over two image pixels."""
     err = prepass_caps_error(scene)
     if err is not None:
         raise NotImplementedError(f"scene beyond the prepass kernel: {err}")
     params = pack_params(view, prev_view, jitter, size)
     planes = prepass_kernel(params, scene["tri_pos_flat"], scene["tri_attr"],
                             scene["inst_motion"], scene["mat_packed"], size)
-    return _assemble(*planes)
+    gbuf, albedo = _assemble(*planes)
+    if dec_parity is None:
+        return gbuf, albedo
+    s = dec_parity
+    g_dec, albedo_dec = _assemble(
+        *(t[s::2, s::2].contiguous() for t in planes), grad_scale=2.0)
+    return gbuf, albedo, g_dec, albedo_dec
+
+
+def prepass_fused_quads(scene, view, prev_view, jitter, size):
+    """The SMAA TU4X decimation context by kernel 8: {(a, b): {"depth"
+    [h,w], "velocity" [h,w,2], "instance" [h,w]}} of image pixels
+    (2y+a, 2x+b), h, w half of `size` (equal to the full G-buffer's planes
+    [a::2, b::2])."""
+    params = pack_params(view, prev_view, jitter, size)
+    dec_size = (size[0] // 2, size[1] // 2)
+    depth, vel, inst = prepass_quads_kernel(
+        params, scene["tri_pos_flat"], scene["inst_motion"], dec_size)
+    return {ab: {"depth": depth[i], "velocity": vel[i], "instance": inst[i]}
+            for i, ab in enumerate(QUAD_PARITIES)}

@@ -1,7 +1,8 @@
 """Top-level Renderer: owns the device scene, the frame function for the
 current settings, and the frame carry (the port of hikari_tpu/renderer.py
 for the ported slices: no reuse, temporal reuse, temporal + spatial
-reuse)."""
+reuse, and the post chain of SMAA TU4X at ratio 2 and TAA Jasmine, so
+HikariSettings() itself)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,13 @@ from hikari_tpu_torch.models.scene import GpuScene, Scene
 from hikari_tpu_torch.ops.noise import noise_constant
 from hikari_tpu_torch.ops.post import overlay_compose
 from hikari_tpu_torch.utils.math import reinhard_luminance
+
+
+def _tree_map(fn, tree):
+    """fn over the leaves of a carry (a dict of tensors and dicts)."""
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -116,11 +124,11 @@ class Renderer:
         return img.cpu().numpy()
 
     def save_state(self, path: str):
-        """Write the frame carry (view matrices and reservoir planes, bit
-        for bit) and the frame index to a pickle."""
+        """Write the frame carry (view matrices, reservoir planes and the
+        post chain's history, bit for bit) and the frame index to a
+        pickle."""
         state = {
-            "carry": {k: v.cpu().numpy() if torch.is_tensor(v) else v
-                      for k, v in self.carry.items()},
+            "carry": _tree_map(lambda v: v.cpu().numpy(), self.carry),
             "frame_index": self._frame_index,
         }
         with open(path, "wb") as f:
@@ -131,8 +139,7 @@ class Renderer:
         this program wrote)."""
         with open(path, "rb") as f:
             state = pickle.load(f)
-        self.carry = {k: torch.as_tensor(v, device=self.device)
-                      if isinstance(v, np.ndarray) else v
-                      for k, v in state["carry"].items()}
+        self.carry = _tree_map(
+            lambda v: torch.as_tensor(v, device=self.device), state["carry"])
         self._frame_index = state["frame_index"]
         self._prev_view_initialized = True

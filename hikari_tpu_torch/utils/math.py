@@ -7,6 +7,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hikari_tpu_torch.ops._kernel import div
+
 F32_EPSILON = 1.1920929e-7
 F32_MAX = 3.402823466e38
 TAU = 6.283185307
@@ -54,6 +56,33 @@ def random_float(value) -> np.float32:
 def perceptual_roughness_to_roughness(perceptual):
     clamped = torch.clamp(perceptual, 0.089, 1.0)
     return clamped * clamped
+
+
+def rgb_to_ycocg(rgb: torch.Tensor) -> torch.Tensor:
+    """Playdead TAA color space (taa.wgsl:20-26); the divisions by powers
+    of two are exact."""
+    r, g, b = rgb[..., 0], rgb[..., 1], rgb[..., 2]
+    y = r / 4.0 + g / 2.0 + b / 4.0
+    co = r / 2.0 - b / 2.0
+    cg = -r / 4.0 + g / 2.0 - b / 4.0
+    return torch.stack([y, co, cg], -1)
+
+
+def ycocg_to_rgb(ycocg: torch.Tensor) -> torch.Tensor:
+    y, co, cg = ycocg[..., 0], ycocg[..., 1], ycocg[..., 2]
+    return torch.clamp(torch.stack([y + co - cg, y + cg, y - co - cg], -1),
+                       0.0, 1.0)
+
+
+def clip_towards_aabb_center(prev_color, aabb_min, aabb_max):
+    """Variance clipping (taa.wgsl:37-45)."""
+    p_clip = 0.5 * (aabb_max + aabb_min)
+    e_clip = 0.5 * (aabb_max - aabb_min)
+    v_clip = prev_color - p_clip
+    v_unit = div(v_clip, torch.where(e_clip == 0.0, 1e-20, e_clip))
+    ma_unit = v_unit.abs().amax(-1, keepdim=True)
+    clipped = p_clip + div(v_clip, torch.clamp(ma_unit, min=1e-20))
+    return torch.where(ma_unit > 1.0, clipped, prev_color)
 
 
 def change_luminance(c_in, l_out):

@@ -11,6 +11,7 @@ import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -57,27 +58,48 @@ def test_sources_do_not_reference_jax_or_the_reference_package():
                 assert not pattern.search(line), f"{path}:{i}: {line}"
 
 
-@pytest.mark.parametrize("changes", [
+@pytest.mark.parametrize("changes,size", [
     # temporal reuse is ported; under checkerboard lighting hikari_tpu
     # sends it to the modular path, which is not
     pytest.param({"temporal_reuse": True, "checkerboard_lighting": True},
-                 id="temporal_reuse"),
+                 None, id="temporal_reuse"),
     pytest.param({"temporal_reuse": True, "indirect_spatial_reuse": True,
                   "spatial_tap_scramble": True},
-                 id="temporal_reuse_tap_scramble"),
+                 None, id="temporal_reuse_tap_scramble"),
     # spatial reuse without temporal reuse takes the modular path
-    {"emissive_spatial_reuse": True},
-    {"indirect_spatial_reuse": True},
-    {"checkerboard_lighting": True},
-    {"taa": ht.Taa.JASMINE},
-    {"upscale": ht.Upscale.smaa_tu4x(2.0)},
-    {"upscale": ht.Upscale.fsr1(1.5)},
-], ids=lambda c: next(iter(c)))
-def test_settings_outside_the_slice_raise(changes):
+    pytest.param({"emissive_spatial_reuse": True}, None,
+                 id="emissive_spatial_reuse"),
+    pytest.param({"indirect_spatial_reuse": True}, None,
+                 id="indirect_spatial_reuse"),
+    pytest.param({"checkerboard_lighting": True}, None,
+                 id="checkerboard_lighting"),
+    # SMAA only at ratio 2 (its ratio-1 supersampling and other ratios
+    # take hikari_tpu's generic resample), and only at even output sizes
+    pytest.param({"upscale": ht.Upscale.smaa_tu4x(1.5)}, None,
+                 id="smaa_ratio_1.5"),
+    pytest.param({"upscale": ht.Upscale.smaa_tu4x(1.0)}, None,
+                 id="smaa_ratio_1"),
+    pytest.param({"upscale": ht.Upscale.smaa_tu4x(2.0)}, (47, 64),
+                 id="smaa_ratio_2_odd_size"),
+    pytest.param({"upscale": ht.Upscale.fsr1(1.5)}, None, id="upscale"),
+])
+def test_settings_outside_the_slice_raise(changes, size):
     settings = dataclasses.replace(_flagship(), **changes)
+    cam = _camera() if size is None else ht.Camera.from_look_at(
+        EYE, TARGET, width=size[1], height=size[0])
     with pytest.raises(NotImplementedError):
-        ht.Renderer(build_cornell_box("hikari_tpu_torch"), _camera(),
-                    settings, device="cpu")
+        ht.Renderer(build_cornell_box("hikari_tpu_torch"), cam, settings,
+                    device="cpu")
+
+
+def test_reference_default_settings_render():
+    """HikariSettings() itself (temporal + indirect spatial reuse, TAA
+    Jasmine, SMAA TU4X at ratio 2) builds and renders on the CPU."""
+    r = ht.Renderer(build_cornell_box("hikari_tpu_torch"), _camera(),
+                    ht.HikariSettings(), device="cpu")
+    img = r.render(2)
+    assert img.shape == (12, 16, 4) and np.isfinite(img).all()
+    assert r.carry["indirect_temporal"].shape == (6, 16, 8)
 
 
 def test_scene_beyond_the_caps_raises():
@@ -111,7 +133,8 @@ class _FakeLibrary:
         def fn(*args):
             assert len(args) == len(fn.argtypes), name
             for a, t in zip(args, fn.argtypes):
-                want = int if t is ctypes.c_int else ctypes.c_void_p
+                want = {ctypes.c_int: int, ctypes.c_float: float}.get(
+                    t, ctypes.c_void_p)
                 assert isinstance(a, want), (name, a)
             self.calls.append(name)
             self.args.append(args)
@@ -188,6 +211,56 @@ def test_cuda_wrappers_marshal_and_count_with_reuse(monkeypatch, path):
     assert variants == [(1, 1, int(spatial), int(spatial)),
                         (1, 0, int(spatial), int(spatial))]
     assert [fn.launches for fn in wrappers] == [2, 2, 2, 4 * spatial, 8]
+
+
+@pytest.mark.parametrize("path", ["P", "D"])
+def test_cuda_wrappers_marshal_and_count_with_post(monkeypatch, path):
+    """The post paths' launches per frame. P (flagship + TAA + SMAA 2.0):
+    prepass 1, quads 1, lighting 1, a-trous 4, then SMAA's tone warp,
+    its G-buffer warp and TAA's warp. D (HikariSettings()) adds the
+    gather (3 sources) and the indirect spatial pass, and its lighting is
+    kernel 4 tracking the indirect channel only."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.ops import (denoise_fused, light_fused,
+                                      prepass_fused, reproj_gather,
+                                      spatial_fused, warp2, warp_band)
+
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    mods = (prepass_fused, reproj_gather, light_fused, spatial_fused,
+            denoise_fused, warp_band, warp2)
+    wrappers = (prepass_fused.prepass_kernel,
+                prepass_fused.prepass_quads_kernel,
+                reproj_gather.reproj_gather, light_fused.lighting_kernel,
+                spatial_fused.spatial_kernel, denoise_fused.atrous_level,
+                warp_band.warp_band, warp2.warp_multi)
+    for mod in mods:
+        monkeypatch.setattr(mod, "on_cpu", lambda t: False)
+        monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", 0)
+    default = path == "D"
+    settings = ht.HikariSettings() if default else dataclasses.replace(
+        _flagship(), taa=ht.Taa.JASMINE, upscale=ht.Upscale.smaa_tu4x(2.0))
+    r = ht.Renderer(build_cornell_box("hikari_tpu_torch"), _camera(),
+                    settings, device="cpu")
+    variants = []
+    for _ in range(2):
+        fake.calls.clear()
+        fake.args.clear()
+        r.render_frame()
+        assert fake.calls == (
+            ["hk_prepass_fused", "hk_prepass_quads"]
+            + ["hk_reproj_gather"] * default + ["hk_light_fused"]
+            + ["hk_spatial_fused"] * default + ["hk_atrous_level"] * 4
+            + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
+        if default:
+            assert fake.args[2][12] == 3                  # gather sources
+            variants.append(fake.args[3][-5:-1])
+    if default:
+        assert variants == [(1, 1, 0, 1), (1, 0, 0, 1)]
+    assert [fn.launches for fn in wrappers] == [
+        2, 2, 2 * default, 2, 2 * default, 8, 4, 2]
 
 
 def test_cuda_wrapper_rejects_bad_arguments(monkeypatch):

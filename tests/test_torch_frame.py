@@ -109,10 +109,10 @@ def render_both(monkeypatch, changes, pan: bool):
     return got, ref
 
 
-def assert_frames_close(got, ref):
+def assert_frames_close(got, ref, size=SIZE):
     """SSIM >= 0.98 and mean abs diff < 1e-3 (ROADMAP's whole-frame
-    bounds)."""
-    assert got.shape == ref.shape == SIZE + (4,)
+    bounds) of two [*size, 4] images."""
+    assert got.shape == ref.shape == tuple(size) + (4,)
     assert np.isfinite(got).all()
     s = ssim(np.clip(got[..., :3], 0, 1), np.clip(ref[..., :3], 0, 1))
     assert s >= 0.98, s
@@ -200,6 +200,6 @@ def test_update_settings():
     assert r._frame_index == 0
     assert not np.array_equal(r.render(1), raw)
     with pytest.raises(NotImplementedError):
-        r.update_settings(taa=ht.Taa.JASMINE)
-    assert r.settings.taa == ht.Taa.NONE
+        r.update_settings(upscale=ht.Upscale.fsr1(2.0))
+    assert r.settings.upscale == ht.Upscale.none()
     assert isinstance(r.render_frame(), torch.Tensor)
