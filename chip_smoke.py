@@ -492,13 +492,16 @@ def check_spatial_calls(sf, calls, label):
 
 
 def check_gather_calls(rg, calls, label):
-    """Kernel 9 against its plain version on captured calls: bit for bit."""
+    """Kernel 9 against its plain version on captured calls: bit for bit.
+    Returns the max abs error."""
+    err = 0.0
     for a, _ in calls:
         got = rg.reproj_gather(*a)
         ref = rg.gather_plain(*a)
         torch.cuda.synchronize()
         eq = min(float((g_.view(torch.int32) == r_.view(torch.int32))
                        .float().mean()) for g_, r_ in zip(got, ref))
+        err = max(err, max_abs_err(got, ref))
         w = a[2].shape[1]
         moved = float((a[2] != torch.arange(w, device=a[2].device))
                       .float().mean())
@@ -507,6 +510,7 @@ def check_gather_calls(rg, calls, label):
               f"{eq:.6f} (need 1)")
         if eq != 1.0:
             fail("kernel 9 disagrees with its plain version")
+    return err
 
 
 def gather_record(rg, call):
@@ -612,13 +616,13 @@ def check_reuse(ht, build_box):
     gather_calls, light_s, spatial_s = (c.calls for c in caps)
 
     # --- kernel 9: bit for bit
-    check_gather_calls(rg, gather_calls, "path S")
+    err9 = check_gather_calls(rg, gather_calls, "path S")
     ms, plain_ms, lib_ms, (b_ms, b_by) = gather_record(rg, gather_calls[-1])
     rec9 = dict(
         name="reproj_gather", route="cuda",
         source="hikari_tpu_torch/csrc/reproj_gather.cu",
         replaces="hikari_tpu/ops/reproj_gather.py:80", launches=None,
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        max_abs_err=err9, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
 
     # --- kernel 4 with tracking (S) on a no-validation and a validation
@@ -680,6 +684,28 @@ def words_equal(got, ref):
                for g, r in zip(got, ref))
 
 
+def max_abs_err(got, ref):
+    """The largest |got - ref| over paired tensors (equal values, infinities
+    included, and NaN at the same places count as 0)."""
+    worst = 0.0
+    for g, r in zip(got, ref):
+        g, r = g.float(), r.float()
+        same = (g == r) | (torch.isnan(g) & torch.isnan(r))
+        d = torch.where(same, 0.0, (g - r).abs())
+        worst = max(worst, float(torch.nan_to_num(d, nan=float("inf")).max()))
+    return worst
+
+
+def parity_quads(pf, gbuf):
+    """Kernel A's full-res G-buffer as SMAA's parity quads, strided views:
+    {(a, b): {"depth", "velocity", "instance"}} of pixels (2y+a, 2x+b),
+    the planes kernel 8 traces."""
+    return {(a, b): {"depth": gbuf["position"][a::2, b::2, 3],
+                     "velocity": gbuf["velocity_uv"][a::2, b::2, :2],
+                     "instance": gbuf["instance_material"][a::2, b::2, 0]}
+            for a, b in pf.QUAD_PARITIES}
+
+
 def grid_nearest(src, sy, sx):
     """One torch.nn.functional.grid_sample call (nearest, border) over the
     HWC source at the coords: the time yardstick of the nearest warps (its
@@ -696,15 +722,14 @@ def grid_nearest(src, sy, sx):
 
 def check_quads(pf, quad_calls, a_calls, n_tri):
     """Kernel 8 against its plain version and kernel A's strided planes
-    (ops/smaa.parity_quads of its G-buffer), bit for bit, on the captured
-    calls; returns its record."""
-    from hikari_tpu_torch.ops.smaa import parity_quads
-
+    (parity_quads of its G-buffer), bit for bit, on the captured calls;
+    returns its record."""
     def strided(a_args):
-        quads = parity_quads(pf._assemble(*pf.prepass_kernel(*a_args))[0])
+        quads = parity_quads(pf, pf._assemble(*pf.prepass_kernel(*a_args))[0])
         return [quads[ab][k] for k in ("depth", "velocity", "instance")
                 for ab in pf.QUAD_PARITIES]
 
+    err = 0.0
     for (qa, _), (aa, _) in zip(quad_calls, a_calls):
         if not torch.equal(qa[0], aa[0]):
             fail("kernel 8 and kernel A got different parameters")
@@ -713,6 +738,7 @@ def check_quads(pf, quad_calls, a_calls, n_tri):
         eq_a = words_equal([p for t in got for p in t], strided(aa))
         torch.cuda.synchronize()
         eq_plain = words_equal(got, ref)
+        err = max(err, max_abs_err(got, ref))
         print(f"kernel 8 quads {tuple(qa[3])} x 4 parities: equal to the "
               f"plain version {eq_plain}, to kernel A's strided planes "
               f"{eq_a} (need both)")
@@ -721,7 +747,7 @@ def check_quads(pf, quad_calls, a_calls, n_tri):
     qa, aa = quad_calls[-1][0], a_calls[-1][0]
     ms = event_ms(lambda: pf.prepass_quads_kernel(*qa), REPS)
     plain_ms = event_ms(lambda: pf.quads_plain(*qa), PLAIN_REPS)
-    views = parity_quads(pf._assemble(*pf.prepass_kernel(*aa))[0])
+    views = parity_quads(pf, pf._assemble(*pf.prepass_kernel(*aa))[0])
     lib_ms = event_ms(lambda: [t.contiguous() for q in views.values()
                                for t in q.values()], REPS)
     h, w = qa[3]
@@ -733,8 +759,22 @@ def check_quads(pf, quad_calls, a_calls, n_tri):
         name="prepass_quads", route="cuda",
         source="hikari_tpu_torch/csrc/prepass_fused.cu",
         replaces="hikari_tpu/ops/prepass_fused.py:276", launches=None,
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
+
+
+WARP_TAPS = {"nearest": 1, "bilinear": 4, "catmull": 16}
+
+
+def warp_work(n_out, n_src, reads):
+    """(bytes, flops) a warp needs at its least: for each (kind, channels)
+    read, the f32 texels its filter taps, at most the whole source; the two
+    coords and the outputs. A filtered channel costs 16 taps of a
+    multiply-add and the 4 row sums, its 8 weights ~10 flops each."""
+    texels = sum(f * min(WARP_TAPS[k] * n_out, n_src) for k, f in reads)
+    nbytes = 4 * (texels + n_out * (2 + sum(f for _, f in reads)))
+    flops = n_out * sum(40 * f + 80 for k, f in reads if k != "nearest")
+    return nbytes, flops
 
 
 def warp_band_record(wb, call):
@@ -745,12 +785,8 @@ def warp_band_record(wb, call):
     hs = sources[0].shape[0]
     ms = event_ms(lambda: wb.warp_band(*call[0]), REPS)
     plain_ms = event_ms(lambda: wb.band_plain(*call[0]), PLAIN_REPS)
-    fs = [s.shape[2] for s in sources]
-    nbytes = 4 * (hs * w * sum(fs) + h * w * (2 + sum(fs)))
-    # a filtered channel: 16 taps of a multiply-add and the 4 row sums;
-    # its 8 weights ~10 flops each
-    flops = h * w * sum(40 * f + 80 for f, k in zip(fs, kinds)
-                        if k != "nearest")
+    nbytes, flops = warp_work(h * w, hs * w, [
+        (k, s.shape[2]) for k, s in zip(kinds, sources)])
     lib_ms = None
     if set(kinds) == {"nearest"}:
         lib_ms = event_ms(grid_nearest(sources[0], sy, sx), REPS)
@@ -760,7 +796,8 @@ def warp_band_record(wb, call):
 def check_warps(wb, w2, band_calls, multi_calls):
     """Kernels 11 and 12 against their plain versions on the captured
     calls; returns their records (row 11: the TAA call at the output
-    size, with SMAA's tone call beside it)."""
+    size, with SMAA's tone call beside it; max_abs_err over every call)."""
+    err11 = err12 = 0.0
     for a, _ in band_calls:
         _, kinds, sy, _ = a
         got = wb.warp_band(*a)
@@ -768,12 +805,11 @@ def check_warps(wb, w2, band_calls, multi_calls):
         torch.cuda.synchronize()
         for kind, g, r in zip(kinds, got, ref):
             if kind == "nearest":
-                ok = words_equal([g], [r])
-                frac, err = float(ok), float((g - r).abs().max())
-                need = 1.0
+                frac, need = float(words_equal([g], [r])), 1.0
             else:
-                frac, err = rel_close(g, r, 1e-5)
-                need = 0.9999
+                frac, need = rel_close(g, r, 1e-5)[0], 0.9999
+            err = max_abs_err([g], [r])
+            err11 = max(err11, err)
             print(f"kernel 11 warp_band {tuple(sy.shape)} {kind} "
                   f"x{g.shape[2]}: equal / within 1e-5*max(|ref|,1) on "
                   f"{frac:.6f} (need {need}); max abs err {err:.3g}")
@@ -784,6 +820,7 @@ def check_warps(wb, w2, band_calls, multi_calls):
         ref = w2.multi_plain(*a, k.get("dtype") == torch.bfloat16)
         torch.cuda.synchronize()
         ok = words_equal(got, ref)
+        err12 = max(err12, max_abs_err(got, ref))
         print(f"kernel 12 warp_multi {tuple(a[1].shape)} from "
               f"{tuple(a[0].shape)}: words equal {ok} (need True)")
         if not ok:
@@ -796,19 +833,20 @@ def check_warps(wb, w2, band_calls, multi_calls):
     rec11 = dict(
         name="warp_band", route="cuda", source="hikari_tpu_torch/csrc/warp.cu",
         replaces="hikari_tpu/ops/warp_band.py:95", launches=None,
-        max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        max_abs_err=err11, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=None, ms_smaa_call=ms_s,
         plain_ms_smaa_call=plain_s, bound_ms_smaa_call=b_s,
         library_ms_smaa_call=lib_s)
     a, k = multi_calls[-1]
-    src, sy, sx = a[:3]
+    src, sy, sx, reduces = a[:4]
     h, w = sy.shape
-    nbytes = 4 * (src.numel() + h * w * 2 + h * w * src.shape[2])
-    b_ms, b_by = bound_ms(nbytes, 0)
+    b_ms, b_by = bound_ms(*warp_work(
+        h * w, src.shape[0] * src.shape[1],
+        [(kind, hi - lo) for kind, _, (lo, hi) in reduces]))
     rec12 = dict(
         name="warp_multi", route="cuda", source="hikari_tpu_torch/csrc/warp.cu",
         replaces="hikari_tpu/ops/warp2.py:68", launches=None,
-        max_abs_err=0.0, ms=event_ms(lambda: w2.warp_multi(*a, **k), REPS),
+        max_abs_err=err12, ms=event_ms(lambda: w2.warp_multi(*a, **k), REPS),
         plain_ms=event_ms(
             lambda: w2.multi_plain(*a, k.get("dtype") == torch.bfloat16),
             PLAIN_REPS),

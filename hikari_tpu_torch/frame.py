@@ -86,8 +86,7 @@ def unsupported_settings(settings: HikariSettings, full_size):
         reasons.append(f"smaa_tu4x at ratio {ratio}")
     elif ratio not in (1.0, 2.0):
         reasons.append(f"upscale ratio {ratio}")
-    elif ratio == 2.0 and not restir.exact_half(
-            full_size, scaled_size(full_size, ratio)):
+    elif ratio == 2.0 and (full_size[0] % 2 or full_size[1] % 2):
         reasons.append(f"ratio 2 at the odd output size {tuple(full_size)}")
     if any(_tracks(settings)):
         if not settings.temporal_reuse:

@@ -40,9 +40,10 @@ def denoise_channels(g, albedo, chans, frame, render_size, ratio: float,
                      albedo_r=None):
     """Denoise several lighting channels in one cascade (the edge-stopping
     geometry weights are shared). chans: list of (render [h,w,4], variance
-    [h,w], firefly bool). albedo_r: the albedo at render size, when the
-    caller has it (the decimated prepass at ratio 2); else it is resampled
-    from the full-res `albedo`. Returns the denoised [h,w,4] renders."""
+    [h,w], firefly bool). albedo_r: the albedo at render size, which the
+    ratio-2 frame takes from the decimated prepass; without it (ratio 1)
+    the full-res `albedo` is the render-size one. Returns the denoised
+    [h,w,4] renders."""
     if albedo_r is None:
         albedo_r = resample_deferred(albedo, render_size, frame["number"],
                                      ratio)

@@ -28,18 +28,18 @@ def post_sizes(settings: HikariSettings, render_size):
 
 
 def post_chain(gbuf, carry, tone, frame, settings: HikariSettings,
-               full_size, render_size, smaa_quads=None):
+               full_size, render_size, smaa_quads):
     """Returns (final [H,W,4] at full_size, post carry {"prev_tone",
     "prev_taa"} for the stages that ran). smaa_quads: kernel 8's parity
-    quads for SMAA. hikari_tpu also carries prev_upscale (the chain's
-    output), which nothing reads at these settings; the port leaves it
-    out."""
+    quads of this frame with SMAA, else None. hikari_tpu also carries
+    prev_upscale (the chain's output), which nothing reads at these
+    settings; the port leaves it out."""
     full_size = tuple(full_size)
     cur = tone
     post_carry = {}
     if settings.upscale.mode == UpscaleMode.SMAA_TU4X:
-        cur = smaa_tu4x(gbuf, carry["prev_gbuffer"], carry["prev_tone"],
-                        tone, frame, render_size, quads=smaa_quads)
+        cur = smaa_tu4x(smaa_quads, carry["prev_gbuffer"], carry["prev_tone"],
+                        tone, frame, render_size)
         post_carry["prev_tone"] = tone
     if settings.taa == Taa.JASMINE:
         cur = taa_jasmine(gbuf, carry["prev_gbuffer"], carry["prev_taa"], cur,

@@ -1,5 +1,6 @@
 """The parts of hikari_tpu/ops/restir.py the ported frames use: the
-jittered-deferred G-buffer lookup (upscale ratios 1 and 2), the
+jittered-deferred G-buffer lookup (the identity at upscale ratio 1; at
+ratio 2 the frame takes prepass_fused's decimated planes instead), the
 primary surface, the sun-less direct channel, and the per-frame
 reprojection (previous-frame coordinates) of the reuse paths."""
 
@@ -53,23 +54,12 @@ def reprojection(g, render_size):
     }
 
 
-def exact_half(full_size, render_size) -> bool:
-    """The output is exactly twice the render size on both axes."""
-    return (full_size[0] == 2 * render_size[0]
-            and full_size[1] == 2 * render_size[1])
-
-
 def resample_deferred(img, render_size, frame_number: int, ratio: float):
     """Jittered-deferred lookup of a full-res [H,W,...] buffer at render
-    resolution: the identity at ratio 1; at ratio 2 with an even output,
-    pixels (2y, 2x) on even frames and (2y+1, 2x+1) on odd ones, as a
-    strided view. hikari_tpu's other ratios (separable takes) are not
-    ported."""
+    resolution: the identity at ratio 1, the only ratio it serves (the
+    ratio-2 frame reads prepass_fused's decimated planes)."""
     if ratio == 1.0 and tuple(img.shape[:2]) == tuple(render_size):
         return img
-    if ratio == 2.0 and exact_half(img.shape[:2], render_size):
-        s = frame_number & 1
-        return img[s::2, s::2]
     raise NotImplementedError(
         f"upscale ratio {ratio} (render size {render_size}) is not ported")
 

@@ -6,8 +6,8 @@ It renders at half size with alternating diagonal jitter; each frame fills
 reprojected history with clip rejection), and the extrapolate pass fills
 the other diagonal by differential blending of N/E/S/W luminance
 gradients. Taps of the current G-buffer at output coords 2c + parity + k
-are static shifts of its four parity quads (kernel 8's planes, or strided
-views of the full G-buffer); the two history fetches are kernel 11
+are static shifts of its four parity quads (kernel 8's planes); the two
+history fetches are kernel 11
 (previous tone, nearest) and kernel 12 (previous depth / instance /
 velocity, nearest, bf16 window).
 
@@ -33,17 +33,6 @@ from hikari_tpu_torch.utils.math import (TAU, clip_towards_aabb_center,
                                          ycocg_to_rgb)
 
 _BIAS = 2.5
-QUADS = ((0, 0), (0, 1), (1, 0), (1, 1))
-
-
-def parity_quads(gbuf):
-    """SMAA's decimation context from the full G-buffer as strided views:
-    {(a, b): {"depth", "velocity", "instance"}} of pixels (2y+a, 2x+b)
-    (the planes kernel 8 traces)."""
-    return {(a, b): {"depth": gbuf["position"][a::2, b::2, 3],
-                     "velocity": gbuf["velocity_uv"][a::2, b::2, :2],
-                     "instance": gbuf["instance_material"][a::2, b::2, 0]}
-            for a, b in QUADS}
 
 
 def parity_sample(quads, key, parity: int, ky: int = 0, kx: int = 0):
@@ -54,16 +43,13 @@ def parity_sample(quads, key, parity: int, ky: int = 0, kx: int = 0):
     return shift_edge(quads[(jy % 2, jx % 2)][key], jy // 2, jx // 2)
 
 
-def smaa_tu4x(gbuf, prev_gbuf, prev_tone, tone, frame, render_size,
-              quads=None):
-    """Pass 1 + 2; returns [2rh, 2rw, 4]. gbuf / prev_gbuf at output
-    (full) res; tone / prev_tone at render res; quads: kernel 8's planes
-    (default: strided views of gbuf, the same values)."""
+def smaa_tu4x(quads, prev_gbuf, prev_tone, tone, frame, render_size):
+    """Pass 1 + 2; returns [2rh, 2rw, 4]. quads: kernel 8's parity planes
+    of the current frame ({(a, b): {"depth", "velocity", "instance"}});
+    prev_gbuf at output (full) res; tone / prev_tone at render res."""
     rh, rw = render_size
     oh, ow = 2 * rh, 2 * rw
     dev = tone.device
-    if quads is None:
-        quads = parity_quads(gbuf)
     even_frame = (frame["number"] & 1) == 0
     prev_j = 1 if even_frame else 0
 

@@ -134,8 +134,7 @@ def test_smaa_matches_reference(frames, number, history):
     prev_tone = _tone(rng, RENDER) if history else torch.zeros(RENDER + (4,))
     tone = _tone(rng, RENDER)
     fp, fr = _frames(number, 2.0)
-    got = smaa_tu4x(f["gbuf"], prev_gbuf, prev_tone, tone, fp, RENDER,
-                    quads=f["quads"])
+    got = smaa_tu4x(f["quads"], prev_gbuf, prev_tone, tone, fp, RENDER)
     ref = smaa_ref(_np(f["gbuf"]), _np(prev_gbuf), _np(prev_tone), _np(tone),
                    fr, RENDER)
     _assert_close("smaa", got, ref)
@@ -186,7 +185,7 @@ def test_post_chain_resizes_to_the_output():
     sj = dataclasses.replace(hj.HikariSettings(), taa=hj.Taa.NONE,
                              upscale=hj.Upscale(hj.UpscaleMode.NONE, 2.0))
     image, pc = post.post_chain({}, {}, tone, _frames(0, 2.0)[0], s, FULL,
-                                RENDER)
+                                RENDER, None)
     ref, _ = post_ref.post_chain({}, {"prev_gbuffer": {}, "prev_taa": None},
                                  _np(tone), _frames(0, 2.0)[1], sj, FULL,
                                  RENDER)
