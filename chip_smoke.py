@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py [--profile]
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the six CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
+2. builds the seven CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
    each, started together) and prints their register and spill counts;
 3. holds kernels A, B and C against their plain PyTorch versions on the
    card at the 1080p flagship shapes of the no-reuse frame;
@@ -23,22 +23,34 @@ Run from the repository root on a machine with an NVIDIA H100:
    kernel A's strided planes, kernels 11 and 12 (the history warps: TAA's
    at 1920x1080, SMAA's at 960x540) against their plain versions, and
    kernels B, 9, 4, 10 and C at the 960x540 render size;
-7. checks small CUDA renders of the five paths against the plain
-   versions on the CPU;
-8. renders the box through Renderer at 1920x1080 on the five paths
-   (no reuse; temporal reuse R; temporal + spatial reuse S; P; D): 3
-   warm-up frames, then timed frames with the launch counters set to 0,
-   which must rise per frame by exactly the counts of PATHS below;
-9. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
-   frame_ms_smaa2 and frame_ms_default, one JSON line of per-kernel
-   numbers, and last {"ok": true, "device": {...}}.
+7. drives the checkerboard paths at 1080p with the camera panning: KR
+   (checkerboard + temporal reuse, the modular lighting path) through an
+   emissive validation frame and a frame without one, holding kernels 5,
+   6 and 7 (the brute-force tracer) and kernel 9 against their plain
+   versions bit for bit and kernel C on KR's reconstructed variance; and
+   K (checkerboard, no reuse), holding kernel B on its compressed
+   1080x960 domain;
+8. checks small CUDA renders of the seven paths against the plain
+   versions on the CPU, and KR on the box with a sun at 270x480 (the
+   solar branch of the modular path, kernel 7 on sun rays);
+9. renders the box through Renderer at 1920x1080 on the seven paths
+   (no reuse; temporal reuse R; temporal + spatial reuse S; P; D;
+   checkerboard K; checkerboard + temporal reuse KR): 3 warm-up frames,
+   then timed frames with the launch counters set to 0, which must rise
+   by exactly the counts of PATHS below (per frame number: KR's
+   validation frames trace more);
+10. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
+   frame_ms_smaa2, frame_ms_default, frame_ms_ckb and
+   frame_ms_ckb_reuse, one JSON line of per-kernel numbers, and last
+   {"ok": true, "device": {...}}.
 
-Tolerances: kernels A, B, C as stated at their checks; kernels 9, 8 and
-12 bit for bit (8 also against kernel A's planes); kernel 11 bit for bit
-for nearest sources and within 1e-5 * max(|ref|, 1) on >= 99.99% of
-values for the filtered ones; kernels 4 and 10: >= 99% of pixels with all
-16 packed words equal, and >= 99% of render and variance values within
-1e-3 * max(|ref|, 1) (NaN-coded variances NaN at the same pixels).
+Tolerances: kernels A, B, C as stated at their checks; kernels 5, 6, 7,
+9, 8 and 12 bit for bit (8 also against kernel A's planes); kernel 11 bit
+for bit for nearest sources and within 1e-5 * max(|ref|, 1) on >= 99.99%
+of values for the filtered ones; kernels 4 and 10: >= 99% of pixels with
+all 16 packed words equal, and >= 99% of render and variance values
+within 1e-3 * max(|ref|, 1) (NaN-coded variances NaN at the same pixels);
+small renders SSIM >= 0.98 and mean abs diff < 1e-3.
 
 With --profile it also prints a torch.profiler table of device time by
 kernel over two frames of each path. Any failed check raises: the exit
@@ -187,21 +199,43 @@ def default_settings(ht):
     return ht.HikariSettings()
 
 
-# the five paths: their settings, and the launches per frame of COUNTERS
+def fixed(*counts):
+    """Launches per frame that do not depend on the frame number."""
+    return lambda settings, number: counts
+
+
+def kr_launches(settings, number):
+    """Path KR's launches in frame `number`: the emissive channel's probe
+    (kernel 6) and shadow ray (kernel 7), both again on its validation
+    frames, and the indirect bounce (kernel 5) with its probe and shadow
+    ray; the box has no sun, so the direct channel traces nothing."""
+    v = int(number % settings.emissive_validate_interval == 0)
+    return (1, 0, 1, 0, 0, 4, 0, 0, 1, 2 + v, 2 + v)
+
+
+# the seven paths: their settings, and the launches of COUNTERS in a frame
 COUNTERS = ("prepass", "quads", "gather", "lighting", "spatial", "a-trous",
-            "warp_band", "warp_multi")
+            "warp_band", "warp_multi", "trace_closest", "trace_full",
+            "trace_shadow")
 PATHS = {
-    "no-reuse": (flagship_settings, (1, 0, 0, 1, 0, 4, 0, 0)),
+    "no-reuse": (flagship_settings, fixed(1, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0)),
     "R": (lambda ht: flagship_settings(ht, temporal_reuse=True),
-          (1, 0, 1, 1, 0, 4, 0, 0)),
+          fixed(1, 0, 1, 1, 0, 4, 0, 0, 0, 0, 0)),
     "S": (lambda ht: flagship_settings(
         ht, temporal_reuse=True, emissive_spatial_reuse=True,
-        indirect_spatial_reuse=True), (1, 0, 1, 1, 2, 4, 0, 0)),
+        indirect_spatial_reuse=True), fixed(1, 0, 1, 1, 2, 4, 0, 0, 0, 0, 0)),
     # the flagship + TAA + SMAA 2.0 (bench.py:142-144): lighting at 960x540
     "P": (lambda ht: flagship_settings(ht, taa=ht.Taa.JASMINE,
                                        upscale=ht.Upscale.smaa_tu4x(2.0)),
-          (1, 1, 0, 1, 0, 4, 2, 1)),
-    "D": (default_settings, (1, 1, 1, 1, 1, 4, 2, 1)),
+          fixed(1, 1, 0, 1, 0, 4, 2, 1, 0, 0, 0)),
+    "D": (default_settings, fixed(1, 1, 1, 1, 1, 4, 2, 1, 0, 0, 0)),
+    # checkerboard lighting (bench.py:140-141): kernel B over 1080x960
+    "K": (lambda ht: flagship_settings(ht, checkerboard_lighting=True),
+          fixed(1, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0)),
+    # checkerboard + temporal reuse (bench.py:155-157): the modular path
+    "KR": (lambda ht: flagship_settings(ht, temporal_reuse=True,
+                                        checkerboard_lighting=True),
+           kr_launches),
 }
 
 
@@ -212,12 +246,14 @@ def counter_wrappers():
     from hikari_tpu_torch.ops import prepass_fused as pf
     from hikari_tpu_torch.ops import reproj_gather as rg
     from hikari_tpu_torch.ops import spatial_fused as sf
+    from hikari_tpu_torch.ops import trace_pallas as tp
     from hikari_tpu_torch.ops import warp2 as w2
     from hikari_tpu_torch.ops import warp_band as wb
 
     return (pf.prepass_kernel, pf.prepass_quads_kernel, rg.reproj_gather,
             lf.lighting_kernel, sf.spatial_kernel, dnf.atrous_level,
-            wb.warp_band, w2.warp_multi)
+            wb.warp_band, w2.warp_multi, tp.trace_closest, tp.trace_full,
+            tp.trace_shadow)
 
 
 def real_tris(t):
@@ -664,9 +700,7 @@ def check_reuse(ht, build_box):
         ms_emissive=per[0][0], ms_indirect=per[1][0])
 
     # --- the directional branch: the box with a sun, path S at 270x480
-    sun_host = build_box()
-    sun_host.directional_light = type(sun_host.directional_light)(
-        illuminance=10000.0, direction=(0.25, -0.5, -1.0))
+    sun_host = sun_box(build_box)
     caps = [Capture(lf, "lighting_kernel"), Capture(sf, "spatial_kernel")]
     with caps[0], caps[1]:
         r = drive(ht, sun_host, SUN, PATHS["S"][0](ht), CHECK_FRAMES, caps,
@@ -937,27 +971,190 @@ def check_post(ht, build_box):
     return records, extra
 
 
-def check_small_render(ht, build_box):
-    """Small CUDA renders of the five paths against the plain versions on
-    the CPU."""
+# the tracer kernels: (wrapper, plain version, TPU kernel it replaces,
+# bytes per ray written)
+TRACE_KERNELS = (
+    ("trace_closest", "closest_plain", "hikari_tpu/ops/trace_pallas.py:151",
+     4 * 5),
+    ("trace_full", "full_plain", "hikari_tpu/ops/trace_pallas.py:88",
+     4 * (1 + 1 + 3 + 2 + 1 + 1)),
+    ("trace_shadow", "shadow_plain", "hikari_tpu/ops/trace_pallas.py:192",
+     4 * 2),
+)
+# kernel 6's interpolation of the winner's normal and uv: 5 lerps of 5 flops
+FLOPS_INTERP = 25
+
+
+def trace_tests(tris, excl, incl):
+    """Ray-triangle tests a tracer kernel runs on these rays: the real
+    triangles each ray's instance masks accept (the loop skips the rest)."""
+    inst = tris[:, 9][None]
+    ex = excl.float()[:, None]
+    inc = incl.float()[:, None]
+    accepted = (inst >= 0) & (inst != ex) & ((inc < 0) | (inst == inc))
+    return int(accepted.sum())
+
+
+def trace_record(tp, name, plain, replaces, out_bytes, call):
+    """The record of a tracer kernel from one captured call: its time, its
+    plain version's, and its bound from the tests this call's masks let
+    through."""
+    a = call[0]
+    tris, (ro, _, _, excl, incl) = a[0], a[-5:]
+    n = ro.shape[0]
+    fn, ref = getattr(tp, name), getattr(tp, plain)
+    ms = event_ms(lambda: fn(*a), REPS)
+    plain_ms = event_ms(lambda: ref(*a), PLAIN_REPS)
+    flops = trace_tests(tris, excl, incl) * FLOPS_PER_TRI_TEST
+    table = sum(t.numel() for t in a[:len(a) - 5]) * 4
+    if name == "trace_full":
+        flops += int((fn(*a)["prim"] >= 0).sum()) * FLOPS_INTERP
+    b_ms, b_by = bound_ms(table + n * (4 * (3 + 3 + 1 + 1 + 1) + out_bytes),
+                          flops)
+    print(f"  kernel {name} {n} rays x {tris.shape[0]} triangles: {ms:.4f} "
+          f"ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(name=name, route="cuda",
+                source="hikari_tpu_torch/csrc/trace.cu", replaces=replaces,
+                launches=None, max_abs_err=None, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def check_checkerboard(ht, build_box):
+    """Kernels 5, 6, 7 and 9 bit for bit and kernel C on the inputs path KR
+    gives them at 1080p with the camera panning (an emissive validation
+    frame and a frame without one), and kernel B on path K's compressed
+    1080x960 domain. Returns (the records of 5, 6, 7, {record name: its
+    checkerboard numbers})."""
+    from contextlib import ExitStack
+
+    from hikari_tpu_torch import frame as fr
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import light_fused as lf
+    from hikari_tpu_torch.ops import reproj_gather as rg
+    from hikari_tpu_torch.ops import trace_pallas as tp
+
+    box_host = build_box()
+    gpu = box_host.compile()
+    caps = [Capture(tp, name) for name, *_ in TRACE_KERNELS]
+    caps += [Capture(fr, "reproj_gather"), Capture(dnf, "atrous_level")]
+    settings = PATHS["KR"][0](ht)
+    # frames 4 and 5: frame 5 validates the emissive channel (interval 5)
+    keep = (CHECK_FRAMES - 3, CHECK_FRAMES - 2)
+    with ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        drive(ht, box_host, FULL, settings, CHECK_FRAMES - 1, caps, keep)
+    *trace_calls, g_calls, c_calls = (c.calls for c in caps)
+
+    records = []
+    for (name, plain, replaces, out_bytes), calls in zip(TRACE_KERNELS,
+                                                         trace_calls):
+        err = 0.0
+        for a, _ in calls:
+            got = getattr(tp, name)(*a)
+            ref = getattr(tp, plain)(*a)
+            torch.cuda.synchronize()
+            keys = sorted(ref)
+            eq = words_equal([got[k] for k in keys], [ref[k] for k in keys])
+            err = max(err, max_abs_err([got[k] for k in keys],
+                                       [ref[k] for k in keys]))
+            hits = float((got["inst"] >= 0).float().mean())
+            print(f"kernel {name} KR {a[-5].shape[0]} rays x "
+                  f"{a[0].shape[0]} triangles ({hits:.3f} hit): "
+                  f"{', '.join(keys)} equal to the plain version {eq} "
+                  f"(need True)")
+            if not eq:
+                fail(f"{name} disagrees with its plain version")
+        # the record from the frame without validation: its first call
+        rec = trace_record(tp, name, plain, replaces, out_bytes, calls[0])
+        rec["max_abs_err"] = err
+        records.append(rec)
+    first = COUNTERS.index("trace_closest")
+    want = [kr_launches(settings, n)[first:] for n in keep]
+    got_calls = [len(c) for c in trace_calls]
+    if got_calls != [sum(col) for col in zip(*want)]:
+        fail(f"KR's two captured frames called the tracer kernels "
+             f"{got_calls} times")
+
+    extra = {}
+    if any(len(a[0]) != 2 for a, _ in g_calls):
+        fail("KR's gather does not read 2 sources")
+    check_gather_calls(rg, g_calls, "path KR")
+    check_levels(dnf, c_calls[-4:], "path KR's reconstructed variance")
+
+    # --- kernel B on path K's compressed domain
+    cap = Capture(lf, "lighting_kernel")
+    with cap:
+        drive(ht, build_box(), FULL, PATHS["K"][0](ht), 3, [cap], (2,))
+    a, k = cap.calls[-1]
+    got, ref = lf.lighting_kernel(*a, **k), lf.lighting_plain(*a, **k)
+    torch.cuda.synchronize()
+    frac = min(rel_close(got[n], ref[n], 1e-3)[0] for n in ref)
+    print(f"kernel B lighting path K {tuple(a[6].shape[:2])}: within "
+          f"1e-3*max(|ref|,1) on {frac:.6f} of values (need >= 0.99)")
+    if frac < 0.99:
+        fail("kernel B disagrees with its plain version on path K")
+    ms, plain_ms, (b_ms, _) = light_record(lf, gpu, a, k)
+    extra["light_fused"] = dict(ms_ckb=ms, plain_ms_ckb=plain_ms,
+                                bound_ms_ckb=b_ms)
+    ms, plain_ms, _, (b_ms, _) = gather_record(rg, g_calls[-1])
+    extra["reproj_gather"] = dict(ms_ckb_reuse=ms, plain_ms_ckb_reuse=plain_ms,
+                                  bound_ms_ckb_reuse=b_ms)
+    levels = c_calls[-4:]
+
+    def cascade(level):
+        return [level(*a, **k) for a, k in levels]
+
+    irr = levels[0][0][0]
+    extra["denoise_fused"] = dict(
+        ms_ckb_reuse=event_ms(lambda: cascade(dnf.atrous_level), REPS)
+        / len(levels),
+        plain_ms_ckb_reuse=event_ms(lambda: cascade(dnf.atrous_plain),
+                                    PLAIN_REPS) / len(levels),
+        bound_ms_ckb_reuse=atrous_bound(irr.shape[1] * irr.shape[2],
+                                        levels[0][1]["nch"])[0])
+    for n, v in extra.items():
+        print(f"  {n}: " + ", ".join(f"{key} {val:.4f}"
+                                     for key, val in v.items()))
+    return records, extra
+
+
+def sun_box(build_box):
+    """The box with a sun (the directional-branch checks)."""
+    sc = build_box()
+    sc.directional_light = type(sc.directional_light)(
+        illuminance=10000.0, direction=(0.25, -0.5, -1.0))
+    return sc
+
+
+def compare_renders(ht, scene_of, size, name, settings, frames):
+    """A CUDA render against the plain versions' render on the CPU: SSIM
+    >= 0.98 and mean abs diff < 1e-3."""
     box = load_box_module()
-    h, w = SMALL
+    h, w = size
     cam = ht.Camera.from_look_at(box.EYE, box.TARGET, width=w, height=h)
+    img_gpu = ht.Renderer(scene_of(), cam, settings).render(frames)
+    img_cpu = ht.Renderer(scene_of(), cam, settings,
+                          device="cpu").render(frames)
+    s = ssim(np.clip(img_gpu[..., :3], 0, 1), np.clip(img_cpu[..., :3], 0, 1))
+    mad = float(np.abs(img_gpu - img_cpu).mean())
+    print(f"small render {name} {h}x{w}, {frames} frames, CUDA vs CPU "
+          f"plain: SSIM {s:.5f} (need >= 0.98), mean abs diff {mad:.3g} "
+          f"(need < 1e-3)")
+    if not np.isfinite(img_gpu).all() or s < 0.98 or mad >= 1e-3:
+        fail(f"the CUDA render of {name} disagrees with the CPU plain "
+             "render")
+
+
+def check_small_render(ht, build_box):
+    """Small CUDA renders of the seven paths against the plain versions on
+    the CPU, and KR on the box with a sun at 270x480 (the modular path's
+    solar channel)."""
     for name, (settings_of, _) in PATHS.items():
-        frames = 3 if name == "no-reuse" else 4
-        settings = settings_of(ht)
-        img_gpu = ht.Renderer(build_box(), cam, settings).render(frames)
-        img_cpu = ht.Renderer(build_box(), cam, settings,
-                              device="cpu").render(frames)
-        s = ssim(np.clip(img_gpu[..., :3], 0, 1),
-                 np.clip(img_cpu[..., :3], 0, 1))
-        mad = float(np.abs(img_gpu - img_cpu).mean())
-        print(f"small render {name} {h}x{w}, {frames} frames, CUDA vs CPU "
-              f"plain: SSIM {s:.5f} (need >= 0.98), mean abs diff {mad:.3g} "
-              f"(need < 1e-3)")
-        if not np.isfinite(img_gpu).all() or s < 0.98 or mad >= 1e-3:
-            fail(f"the CUDA render of {name} disagrees with the CPU plain "
-                 "render")
+        compare_renders(ht, build_box, SMALL, name, settings_of(ht),
+                        3 if name == "no-reuse" else 4)
+    compare_renders(ht, lambda: sun_box(build_box), SUN, "KR with a sun",
+                    PATHS["KR"][0](ht), 4)
 
 
 def main_path(ht, build_box, name, timed, profile):
@@ -982,7 +1179,10 @@ def main_path(ht, build_box, name, timed, profile):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t) * 1e3)
     counts = [fn.launches for fn in wrappers]
-    expected = [timed * k for k in per_frame]
+    settings = settings_of(ht)
+    expected = [sum(col) for col in zip(*(
+        per_frame(settings, n)
+        for n in range(WARMUP_FRAMES, WARMUP_FRAMES + timed)))]
     print(f"path {name}: launches over {timed} frames "
           f"({', '.join(COUNTERS)}): {counts} (need {expected})")
     if counts != expected:
@@ -1046,8 +1246,11 @@ def main():
     records += check_reuse(ht, build_box)
     post_records, at_540p = check_post(ht, build_box)
     records += post_records
+    ckb_records, at_ckb = check_checkerboard(ht, build_box)
+    records += ckb_records
     for rec in records:
         rec.update(at_540p.get(rec["name"], {}))
+        rec.update(at_ckb.get(rec["name"], {}))
         print(f"  {rec['name']}: {rec['ms']:.4f} ms per launch, plain "
               f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}), library {rec['library_ms']}")
@@ -1065,17 +1268,20 @@ def main():
         return sum(launches[p][counter] for p in paths)
 
     # launches over the timed frames of the paths running each kernel:
-    # B runs on no-reuse and P, kernel 4 on R, S and D
+    # B runs on no-reuse, P and K, kernel 4 on R, S and D
     by_name = {
         "prepass_fused": total("prepass"),
-        "light_fused": total("lighting", ("no-reuse", "P")),
+        "light_fused": total("lighting", ("no-reuse", "P", "K")),
         "denoise_fused": total("a-trous"),
         "reproj_gather": total("gather"),
         "light_fused_temporal": total("lighting", ("R", "S", "D")),
         "spatial_fused": total("spatial"),
         "prepass_quads": total("quads"),
         "warp_band": total("warp_band"),
-        "warp_multi": total("warp_multi")}
+        "warp_multi": total("warp_multi"),
+        "trace_closest": total("trace_closest"),
+        "trace_full": total("trace_full"),
+        "trace_shadow": total("trace_shadow")}
     for rec in records:
         rec["launches"] = by_name[rec["name"]]
 
@@ -1086,7 +1292,8 @@ def main():
         "frames": TIMED_FRAMES, "reps_ms": frame_ms["no-reuse"][1],
         "card": card}))
     for key, name in (("frame_ms_reuse", "R"), ("frame_ms_spatial", "S"),
-                      ("frame_ms_smaa2", "P"), ("frame_ms_default", "D")):
+                      ("frame_ms_smaa2", "P"), ("frame_ms_default", "D"),
+                      ("frame_ms_ckb", "K"), ("frame_ms_ckb_reuse", "KR")):
         print(json.dumps({key: frame_ms[name][0],
                           "reps_ms": frame_ms[name][1], "card": card}))
     print(json.dumps({"kernels": records}))

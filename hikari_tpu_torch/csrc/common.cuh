@@ -176,6 +176,90 @@ __device__ __forceinline__ f3 shade(const Surface& s, f3 amb, f3 v, f3 n,
              lit_b * rad_a + am_b * one_m);
 }
 
+// ---- the one Moller-Trumbore routine of the port's ray loops
+// (trace_pallas._mt8 and its division-free twin in _kernel_shadow): the
+// kernels of trace.cu (5, 6, 7) and light_fused.cu (B, 4) all go through
+// mt_terms, mt_accepts, closest_hit and shadow_sweep.
+
+// Per-triangle terms of a row of HK_TRI floats (v0 v1 v2, instance): the
+// determinant and the numerators of u, v and t.
+struct MT {
+  float det, uu, vv, dist;
+};
+
+__device__ __forceinline__ MT mt_terms(const float* r, f3 o, f3 d) {
+  float abx = r[3] - r[0], aby = r[4] - r[1], abz = r[5] - r[2];
+  float acx = r[6] - r[0], acy = r[7] - r[1], acz = r[8] - r[2];
+  float ux = d.y * acz - d.z * acy;
+  float uy = d.z * acx - d.x * acz;
+  float uz = d.x * acy - d.y * acx;
+  MT m;
+  m.det = abx * ux + aby * uy + abz * uz;
+  float aox = o.x - r[0], aoy = o.y - r[1], aoz = o.z - r[2];
+  m.uu = aox * ux + aoy * uy + aoz * uz;
+  float vx = aoy * abz - aoz * aby;
+  float vy = aoz * abx - aox * abz;
+  float vz = aox * aby - aoy * abx;
+  m.vv = d.x * vx + d.y * vy + d.z * vz;
+  m.dist = acx * vx + acy * vy + acz * vz;
+  return m;
+}
+
+// The instance masks, on float ids: real triangles only (padding rows
+// carry -1), not the excluded instance, and the included one when
+// incl >= 0 (incl < 0, the probe's "no pick" -2 included, accepts all).
+__device__ __forceinline__ bool mt_accepts(float inst, float excl,
+                                           float incl) {
+  return inst >= 0.0f && inst != excl && (incl < 0.0f || inst == incl);
+}
+
+struct Closest {
+  float t, u, v;  // t = F32_MAX, u = v = 0 on a miss
+  int prim;       // triangle index, -1 on a miss
+  float inst;     // -1 on a miss
+};
+
+// Nearest accepted hit over tris rows in index order (trace_pallas._kernel):
+// a triangle wins only when strictly nearer, so the lowest index wins ties.
+__device__ __forceinline__ Closest closest_hit(const float* tris, int n, f3 o,
+                                               f3 d, float maxt, float excl,
+                                               float incl) {
+  Closest c;
+  c.t = HK_F32_MAX;
+  c.u = 0.0f;
+  c.v = 0.0f;
+  c.prim = -1;
+  c.inst = -1.0f;
+  for (int i = 0; i < n; i++) {
+    const float* r = tris + HK_TRI * i;
+    float inst = r[9];
+    if (!mt_accepts(inst, excl, incl)) continue;
+    MT m = mt_terms(r, o, d);
+    float inv_det = fabsf(m.det) < HK_F32_EPS ? 0.0f : 1.0f / m.det;
+    float u = m.uu * inv_det;
+    float v = m.vv * inv_det;
+    float dist = m.dist * inv_det;
+    bool ok = fabsf(m.det) >= HK_F32_EPS && u >= 0.0f && u <= 1.0f &&
+              v >= 0.0f && u + v <= 1.0f && dist > HK_F32_EPS &&
+              dist < maxt && dist < c.t;
+    if (ok) {
+      c.t = dist;
+      c.u = u;
+      c.v = v;
+      c.prim = i;
+      c.inst = inst;
+    }
+  }
+  return c;
+}
+
+// a0 + u * (a1 - a0) + v * (a2 - a0), the attribute interpolation of
+// trace_pallas._kernel_full and trace.hit_info_onehot
+__device__ __forceinline__ float interp(float a0, float a1, float a2, float u,
+                                        float v) {
+  return a0 + u * (a1 - a0) + v * (a2 - a0);
+}
+
 struct Hit {
   float t;
   f3 n;       // interpolated, not normalized
@@ -183,49 +267,24 @@ struct Hit {
   float inst; // -1 on a miss
 };
 
-// Nearest hit with normal + material interpolation
-// (trace_pallas._kernel_full): tris rows of HK_TRI floats, attrs rows of
-// `astride` floats holding the 9 vertex normals at 0 and the material at 9.
-// incl < 0 accepts every instance.
+// Nearest hit with normal + material interpolation from the winner's row:
+// tris rows of HK_TRI floats, attrs rows of HK_TRI floats holding the 9
+// vertex normals at 0 and the material at 9.
 __device__ __forceinline__ Hit trace_full(const float* tris, const float* attrs,
                                           int n, f3 o, f3 d, float maxt,
                                           float excl, float incl) {
+  Closest c = closest_hit(tris, n, o, d, maxt, excl, incl);
   Hit hit;
-  hit.t = HK_F32_MAX;
+  hit.t = c.t;
+  hit.inst = c.inst;
   hit.n = mk3(0.0f, 0.0f, 0.0f);
   hit.mat = -1.0f;
-  hit.inst = -1.0f;
-  for (int i = 0; i < n; i++) {
-    const float* r = tris + HK_TRI * i;
-    float inst = r[9];
-    if (!(inst >= 0.0f) || inst == excl || !(incl < 0.0f || inst == incl))
-      continue;
-    float abx = r[3] - r[0], aby = r[4] - r[1], abz = r[5] - r[2];
-    float acx = r[6] - r[0], acy = r[7] - r[1], acz = r[8] - r[2];
-    float ux = d.y * acz - d.z * acy;
-    float uy = d.z * acx - d.x * acz;
-    float uz = d.x * acy - d.y * acx;
-    float det = abx * ux + aby * uy + abz * uz;
-    float inv_det = fabsf(det) < HK_F32_EPS ? 0.0f : 1.0f / det;
-    float aox = o.x - r[0], aoy = o.y - r[1], aoz = o.z - r[2];
-    float u = (aox * ux + aoy * uy + aoz * uz) * inv_det;
-    float vx = aoy * abz - aoz * aby;
-    float vy = aoz * abx - aox * abz;
-    float vz = aox * aby - aoy * abx;
-    float v = (d.x * vx + d.y * vy + d.z * vz) * inv_det;
-    float dist = (acx * vx + acy * vy + acz * vz) * inv_det;
-    bool ok = fabsf(det) >= HK_F32_EPS && u >= 0.0f && u <= 1.0f &&
-              v >= 0.0f && u + v <= 1.0f && dist > HK_F32_EPS &&
-              dist < maxt && dist < hit.t;
-    if (ok) {
-      const float* a = attrs + HK_TRI * i;
-      hit.t = dist;
-      hit.n = mk3(a[0] + u * (a[3] - a[0]) + v * (a[6] - a[0]),
-                  a[1] + u * (a[4] - a[1]) + v * (a[7] - a[1]),
-                  a[2] + u * (a[5] - a[2]) + v * (a[8] - a[2]));
-      hit.mat = a[9];
-      hit.inst = inst;
-    }
+  if (c.prim >= 0) {
+    const float* a = attrs + HK_TRI * c.prim;
+    hit.n = mk3(interp(a[0], a[3], a[6], c.u, c.v),
+                interp(a[1], a[4], a[7], c.u, c.v),
+                interp(a[2], a[5], a[8], c.u, c.v));
+    hit.mat = a[9];
   }
   return hit;
 }
@@ -236,30 +295,23 @@ struct Shadow {
   float inst; // -1 if none
 };
 
-// Division-free occlusion loop (trace_pallas._kernel_shadow): the nearest
-// accepted hit with t in (eps, maxt), skipping instance `excl`.
+// Division-free nearest-occluder loop (trace_pallas._kernel_shadow): every
+// test multiplied by |det|, the nearest compare by cross-multiplication,
+// one division per ray at the end.
 __device__ __forceinline__ Shadow shadow_sweep(const float* tris, int n, f3 o,
-                                               f3 d, float maxt, float excl) {
+                                               f3 d, float maxt, float excl,
+                                               float incl) {
   float td_best = HK_F32_MAX, ads_best = 1.0f, inst_best = -1.0f;
   for (int i = 0; i < n; i++) {
     const float* r = tris + HK_TRI * i;
     float inst = r[9];
-    if (!(inst >= 0.0f) || inst == excl) continue;
-    float abx = r[3] - r[0], aby = r[4] - r[1], abz = r[5] - r[2];
-    float acx = r[6] - r[0], acy = r[7] - r[1], acz = r[8] - r[2];
-    float ux = d.y * acz - d.z * acy;
-    float uy = d.z * acx - d.x * acz;
-    float uz = d.x * acy - d.y * acx;
-    float det = abx * ux + aby * uy + abz * uz;
-    float s = sgnf(det);
-    float ads = det * s;
-    float aox = o.x - r[0], aoy = o.y - r[1], aoz = o.z - r[2];
-    float ud = (aox * ux + aoy * uy + aoz * uz) * s;
-    float vx = aoy * abz - aoz * aby;
-    float vy = aoz * abx - aox * abz;
-    float vz = aox * aby - aoy * abx;
-    float vd = (d.x * vx + d.y * vy + d.z * vz) * s;
-    float td = (acx * vx + acy * vy + acz * vz) * s;
+    if (!mt_accepts(inst, excl, incl)) continue;
+    MT m = mt_terms(r, o, d);
+    float s = sgnf(m.det);
+    float ads = m.det * s;
+    float ud = m.uu * s;
+    float vd = m.vv * s;
+    float td = m.dist * s;
     bool ok = ads >= HK_F32_EPS && ud >= 0.0f && vd >= 0.0f &&
               ud + vd <= ads && td > HK_F32_EPS * ads && td < maxt * ads &&
               td * ads_best < td_best * ads;

@@ -254,7 +254,8 @@ __device__ Traced trace_candidate(const Tables& tb, const Cand& c,
   if (!directional) trace_ok = trace_ok && (c.em_inst >= 0.0f);
   f3 ro = mk3(p.x + n.x * HK_RAY_BIAS, p.y + n.y * HK_RAY_BIAS,
               p.z + n.z * HK_RAY_BIAS);
-  Shadow sh = shadow_sweep(tb.tris, tb.n_tris, ro, c.d, c.maxd, c.em_inst);
+  Shadow sh = shadow_sweep(tb.tris, tb.n_tris, ro, c.d, c.maxd, c.em_inst,
+                           -1.0f);
   float info_inst = sh.occluded ? sh.inst : c.info_inst;
   float info_mat = sh.occluded ? -1.0f : c.info_mat;
   Traced t;
@@ -344,7 +345,8 @@ __device__ Ind indirect_bounces(const Tables& tb, int bounces, const Px& px) {
     bool nee_ok = (dot3(c.d, hn) > 0.0f) && (c.p > 0.0f);
     f3 ro2 = mk3(hp.x + hn.x * HK_RAY_BIAS, hp.y + hn.y * HK_RAY_BIAS,
                  hp.z + hn.z * HK_RAY_BIAS);
-    Shadow sh = shadow_sweep(tb.tris, tb.n_tris, ro2, c.d, c.maxd, c.em_inst);
+    Shadow sh = shadow_sweep(tb.tris, tb.n_tris, ro2, c.d, c.maxd, c.em_inst,
+                             -1.0f);
     float ci_inst = sh.occluded ? sh.inst : c.info_inst;
     float ci_mat = sh.occluded ? -1.0f : c.info_mat;
     // input_radiance with sample_directional=True
@@ -539,7 +541,8 @@ __device__ f3 reuse_channel(const Tables& tb, bool directional, const Px& px,
     if (!directional) trace_ok = trace_ok && (cv.em_inst >= 0.0f);
     f3 ro = mk3(px.p.x + px.n.x * HK_RAY_BIAS, px.p.y + px.n.y * HK_RAY_BIAS,
                 px.p.z + px.n.z * HK_RAY_BIAS);
-    Shadow sh = shadow_sweep(tb.tris, tb.n_tris, ro, rv, cv.maxd, cv.em_inst);
+    Shadow sh = shadow_sweep(tb.tris, tb.n_tris, ro, rv, cv.maxd, cv.em_inst,
+                             -1.0f);
     float vi_inst = sh.occluded ? sh.inst : cv.info_inst;
     float vi_mat = sh.occluded ? -1.0f : cv.info_mat;
     f3 vsp = sh.occluded ? ray_at(ro, rv, sh.t) : cv.sp;

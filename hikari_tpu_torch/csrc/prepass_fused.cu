@@ -79,33 +79,6 @@ __device__ __forceinline__ f3 camera_ray(const float* params, float x,
   return mk3(params[P_CAM], params[P_CAM + 1], params[P_CAM + 2]);
 }
 
-// Moller-Trumbore against table row r: true on an accepted hit nearer than
-// t_best, with the barycentrics and distance in *uu, *vv, *dist.
-__device__ __forceinline__ bool hit_test(const float* r, f3 o, f3 d,
-                                         float t_best, float* uu_out,
-                                         float* vv_out, float* dist_out) {
-  float abx = r[3] - r[0], aby = r[4] - r[1], abz = r[5] - r[2];
-  float acx = r[6] - r[0], acy = r[7] - r[1], acz = r[8] - r[2];
-  float ux = d.y * acz - d.z * acy;
-  float uy = d.z * acx - d.x * acz;
-  float uz = d.x * acy - d.y * acx;
-  float det = abx * ux + aby * uy + abz * uz;
-  float inv_det = fabsf(det) < HK_F32_EPS ? 0.0f : 1.0f / det;
-  float aox = o.x - r[0], aoy = o.y - r[1], aoz = o.z - r[2];
-  float uu = (aox * ux + aoy * uy + aoz * uz) * inv_det;
-  float vx = aoy * abz - aoz * aby;
-  float vy = aoz * abx - aox * abz;
-  float vz = aox * aby - aoy * abx;
-  float vv = (d.x * vx + d.y * vy + d.z * vz) * inv_det;
-  float dist = (acx * vx + acy * vy + acz * vz) * inv_det;
-  *uu_out = uu;
-  *vv_out = vv;
-  *dist_out = dist;
-  return fabsf(det) >= HK_F32_EPS && uu >= 0.0f && uu <= 1.0f &&
-         vv >= 0.0f && uu + vv <= 1.0f && dist > HK_F32_EPS &&
-         dist < t_best;
-}
-
 struct SurfacePoint {
   bool mask;  // a triangle was hit
   f3 wp;      // world position (the far point on a miss)
@@ -179,26 +152,19 @@ prepass_kernel(const float* __restrict__ params_g,
   f3 d;
   f3 o = camera_ray(params, (float)(pix % w), (float)(pix / w), &d);
 
-  // --- nearest hit with attribute interpolation
-  float t_best = HK_F32_MAX;
+  // --- nearest hit with attribute interpolation from the winner's row
+  Closest hit = closest_hit(tris, n_tris, o, d, HK_F32_MAX, -1.0f, -1.0f);
+  float t_best = hit.t, inst_f = hit.inst;
   f3 n = mk3(0.0f, 0.0f, 0.0f);
-  float uvx = 0.0f, uvy = 0.0f, mat_f = -1.0f, inst_f = -1.0f;
-  for (int i = 0; i < n_tris; i++) {
-    const float* r = tris + HK_TRI * i;
-    float inst = r[9];
-    if (!(inst >= 0.0f)) continue;
-    float uu, vv, dist;
-    if (hit_test(r, o, d, t_best, &uu, &vv, &dist)) {
-      const float* q = attrs + A_STRIDE * i;
-      t_best = dist;
-      n = mk3(q[0] + uu * (q[3] - q[0]) + vv * (q[6] - q[0]),
-              q[1] + uu * (q[4] - q[1]) + vv * (q[7] - q[1]),
-              q[2] + uu * (q[5] - q[2]) + vv * (q[8] - q[2]));
-      uvx = q[9] + uu * (q[11] - q[9]) + vv * (q[13] - q[9]);
-      uvy = q[10] + uu * (q[12] - q[10]) + vv * (q[14] - q[10]);
-      mat_f = q[15];
-      inst_f = inst;
-    }
+  float uvx = 0.0f, uvy = 0.0f, mat_f = -1.0f;
+  if (hit.prim >= 0) {
+    const float* q = attrs + A_STRIDE * hit.prim;
+    n = mk3(interp(q[0], q[3], q[6], hit.u, hit.v),
+            interp(q[1], q[4], q[7], hit.u, hit.v),
+            interp(q[2], q[5], q[8], hit.u, hit.v));
+    uvx = interp(q[9], q[11], q[13], hit.u, hit.v);
+    uvy = interp(q[10], q[12], q[14], hit.u, hit.v);
+    mat_f = q[15];
   }
   SurfacePoint sp = surface_point(params, motion, n_inst, o, d, t_best,
                                   inst_f);
@@ -256,17 +222,8 @@ quads_kernel(const float* __restrict__ params_g,
   f3 o = camera_ray(params, (float)(2 * (pix % w) + (parity & 1)),
                     (float)(2 * (pix / w) + (parity >> 1)), &d);
 
-  float t_best = HK_F32_MAX, inst_f = -1.0f;
-  for (int i = 0; i < n_tris; i++) {
-    const float* r = tris + HK_TRI * i;
-    float inst = r[9];
-    if (!(inst >= 0.0f)) continue;
-    float uu, vv, dist;
-    if (hit_test(r, o, d, t_best, &uu, &vv, &dist)) {
-      t_best = dist;
-      inst_f = inst;
-    }
-  }
+  Closest hit = closest_hit(tris, n_tris, o, d, HK_F32_MAX, -1.0f, -1.0f);
+  float t_best = hit.t, inst_f = hit.inst;
   SurfacePoint sp = surface_point(params, motion, n_inst, o, d, t_best,
                                   inst_f);
   long long i = (long long)parity * h * w + pix;

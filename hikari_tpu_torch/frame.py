@@ -16,6 +16,19 @@ kernels 11 and 12). The lighting is one of
   reservoirs, and kernel 10 runs once per spatial channel (emissive,
   indirect) after the scatter-replace.
 
+Checkerboard lighting (at an even render width) lights half the pixels,
+(x + y + frame) % 2 == 0, on the compressed [h, w/2] domain
+(ops/checkerboard.py), and reconstructs the other half of every channel
+in one shared pass before the denoiser:
+
+* without reuse (path K) kernel B runs over the compressed domain;
+* with temporal reuse (path KR) the frame takes hikari_tpu's modular
+  lighting path (ops/restir.py direct_lit / indirect_lit_ambient, whose
+  rays go through kernels 5, 6 and 7): the gather runs at the full render
+  size, its fields are compressed, and the new reservoirs of the lit
+  pixels are merged into the full-size carry (the unlit half keeps its
+  reservoirs).
+
 The carry holds the previous view matrices (velocity); with reuse the
 [h,16,w] temporal and spatial reservoir planes at the render size; with
 SMAA or TAA the previous full-res G-buffer; with SMAA the previous tone
@@ -23,8 +36,8 @@ image (render size); with TAA the previous TAA output (post size).
 
 Settings outside the ported slices raise NotImplementedError when the
 frame function is built: FSR, SMAA at any ratio but 2, other ratios than
-1 and 2, ratio 2 at an odd output size, checkerboard lighting (with or
-without temporal reuse), the spatial tap scramble, spatial reuse without
+1 and 2, ratio 2 at an odd output size, checkerboard lighting at ratio 2
+or with spatial reuse, the spatial tap scramble, spatial reuse without
 temporal reuse, textures, and scenes beyond the kernels' caps.
 """
 
@@ -36,6 +49,7 @@ import numpy as np
 import torch
 
 from hikari_tpu_torch.config import HikariSettings, Taa, UpscaleMode
+from hikari_tpu_torch.ops import checkerboard as ckb_ops
 from hikari_tpu_torch.ops import light_fused as _lf
 from hikari_tpu_torch.ops import prepass_fused as _pf
 from hikari_tpu_torch.ops import reservoir as rsv
@@ -50,6 +64,8 @@ from hikari_tpu_torch.ops.tonemap import tone_mapping
 
 TEMPORAL_KEYS = ("direct_temporal", "emissive_temporal", "indirect_temporal")
 SPATIAL_KEYS = ("spatial_de", "spatial_indirect")
+# the G-buffer planes the lighting reads (compressed under checkerboard)
+LIGHT_KEYS = ("position", "normal", "instance_material", "velocity_uv")
 # the planes of the previous full-res G-buffer the post chain carries
 PREV_GBUFFER_KEYS = ("position", "normal", "instance_material",
                      "velocity_uv")
@@ -75,6 +91,14 @@ def _tracks(settings: HikariSettings):
             settings.indirect_spatial_reuse and settings.indirect_bounces > 0)
 
 
+def checkerboard_active(settings: HikariSettings, full_size) -> bool:
+    """Checkerboard lighting runs: asked for, at an even render width
+    (hikari_tpu/frame.py:142); at an odd width the frame lights every
+    pixel."""
+    render_size = scaled_size(full_size, settings.upscale_ratio)
+    return settings.checkerboard_lighting and render_size[1] % 2 == 0
+
+
 def unsupported_settings(settings: HikariSettings, full_size):
     """The reasons these settings, at output size `full_size`, lie outside
     the ported slices."""
@@ -91,8 +115,10 @@ def unsupported_settings(settings: HikariSettings, full_size):
     if any(_tracks(settings)):
         if not settings.temporal_reuse:
             reasons.append("spatial reuse without temporal_reuse")
-    if settings.checkerboard_lighting:
-        reasons.append("checkerboard_lighting")
+    if settings.checkerboard_lighting and ratio != 1.0:
+        reasons.append(f"checkerboard_lighting at upscale ratio {ratio}")
+    elif checkerboard_active(settings, full_size) and any(_tracks(settings)):
+        reasons.append("checkerboard_lighting with spatial reuse")
     if settings.spatial_tap_scramble:
         reasons.append("spatial_tap_scramble")
     return reasons
@@ -194,13 +220,28 @@ def carry_from_jax(carry, settings: HikariSettings, device,
     return out
 
 
+def _prev_fields(planes, par: int):
+    """A gathered full-size [h,16,w] reservoir as the compressed structured
+    reservoir the modular channels take: the lit pixels' planes (a
+    selection, so compressing before the per-pixel unpack equals
+    hikari_tpu's unpack-then-compress bit for bit), with visible instance
+    -1 where the count is 0 (the packed empty reservoir decodes instance 0,
+    which would match instance 0 in the temporal gates)."""
+    r = rsv.unpack_reservoir_planes(ckb_ops.compress_planes(planes, par))
+    r["visible_instance"] = torch.where(r["count"] > 0.0,
+                                        r["visible_instance"], -1)
+    return r
+
+
 def build_render_frame(settings: HikariSettings, full_size, scene,
                        no_texture: bool, num_emissives: int = 1,
-                       has_sun: bool = True):
+                       has_sun: bool = True, tracer=None):
     """Returns render_frame(scene, view, frame, noise, carry) -> (image
     [H,W,4], albedo [H,W,4], carry), specialized on the static settings
-    and scene facts (emissive count, sun presence). Raises
-    NotImplementedError for anything outside the ported slices."""
+    and scene facts (emissive count, sun presence). `tracer` (ops/trace.py)
+    serves the modular lighting path of checkerboard lighting with temporal
+    reuse. Raises NotImplementedError for anything outside the ported
+    slices."""
     reasons = (unsupported_settings(settings, full_size)
                + unsupported_scene(scene, no_texture, num_emissives))
     if reasons:
@@ -219,6 +260,13 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
     # channels that trace rays this configuration
     active = (has_sun, num_emissives > 0, bounces > 0)
     any_active = any(active)
+    ckb = checkerboard_active(settings, full_size)
+    # hikari_tpu's fused lighting kernel refuses temporal reuse under
+    # checkerboard lighting (light_fused.py:100-101): the modular path
+    modular = reuse and ckb
+    if modular and tracer is None:
+        raise ValueError("the modular lighting path needs a tracer")
+    light_size = (render_size[0], render_size[1] // 2) if ckb else render_size
     sp_sources = []
     if fused_sp:
         if track_de and num_emissives > 0:
@@ -245,6 +293,53 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
                                      fl[f"{slot}_scatter"], prev_p)
         return prev_p
 
+    def modular_lighting(scene, g_l, view, frame, rand_l, gathered, carry,
+                         par):
+        """direct_lit / indirect_lit_ambient of the active channels on the
+        compressed domain (hikari_tpu/frame.py:412-532 without its spatial
+        parts). Returns ({slot: (render, variance)} on the compressed
+        domain, the new full-size temporal carries)."""
+        slots = [slot for c, slot in enumerate("dei") if active[c]]
+        prev = {slot: _prev_fields(p, par)
+                for slot, p in zip(slots, gathered)}
+        kw = dict(temporal_reuse=True, no_texture=no_texture,
+                  render_size=light_size,
+                  surface=restir.primary_surface(scene, g_l, no_texture))
+        out = {}
+        if has_sun:
+            out["d"] = restir.direct_lit(scene, tracer, g_l, view, frame,
+                                         rand_l, prev["d"],
+                                         emissive_lit=False, **kw)
+        if num_emissives > 0:
+            out["e"] = restir.direct_lit(scene, tracer, g_l, view, frame,
+                                         rand_l, prev["e"],
+                                         emissive_lit=True, **kw)
+        if bounces > 0:
+            out["i"] = restir.indirect_lit_ambient(
+                scene, tracer, g_l, view, frame, rand_l, prev["i"],
+                bounces=bounces, **kw)
+        temporal = {}
+        for c, slot in enumerate("dei"):
+            if slot in out:
+                k = TEMPORAL_KEYS[c]
+                temporal[k] = ckb_ops.merge_packed_planes(
+                    rsv.pack_reservoir_planes(out[slot]["temporal"]),
+                    carry[k], par)
+        return ({k: (v["render"], v["variance"]) for k, v in out.items()},
+                temporal)
+
+    def to_full(lit, par, g):
+        """Every lit channel's (render, variance) from the compressed
+        domain to the render size in one reconstruction (the neighbour
+        gates are shared)."""
+        cat = torch.cat([torch.cat([r, v[..., None]], -1)
+                         for r, v in lit.values()], -1)
+        amask = ckb_ops.active_mask(par, render_size, cat.device)
+        bf = ckb_ops.reconstruct(ckb_ops.expand(cat, par), amask,
+                                 g["position"][..., 3], g["normal"])
+        return {slot: (bf[..., 5 * i:5 * i + 4], bf[..., 5 * i + 4])
+                for i, slot in enumerate(lit)}
+
     def render_frame(scene, view, frame, noise, carry):
         prev_view = {"view_proj": carry["prev_view_proj"],
                      "inverse_view_proj": carry["prev_inverse_view_proj"]}
@@ -264,6 +359,13 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
             smaa_quads = _pf.prepass_fused_quads(scene, view, prev_view, jit,
                                                  full_size)
         rand = sample_blue_noise(noise, number, render_size)
+        par = None
+        g_l, rand_l = g, rand
+        if ckb:
+            # the lighting domain: this frame's lit pixels, compressed
+            par = ckb_ops.frame_parity(number)
+            g_l = {k: ckb_ops.compress(g[k], par) for k in LIGHT_KEYS}
+            rand_l = ckb_ops.compress(rand, par)
         dev = albedo.device
         zero_render = torch.zeros(render_size + (4,), device=dev)
         zero_var = torch.zeros(render_size, device=dev)
@@ -275,7 +377,8 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
         gathered, sp_gathered, reproj = [], {}, None
         if reuse and any_active:
             # one gather launch for every active temporal channel and
-            # spatial source; pixels outside the strict unit box read -1
+            # spatial source, at the render size (under checkerboard too);
+            # pixels outside the strict unit box read -1
             reproj = restir.reprojection(g, render_size)
             piy_m = torch.where(reproj["in_strict"], reproj["piy"],
                                 -1).to(torch.int32).contiguous()
@@ -284,37 +387,45 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
                                  piy_m, reproj["pix"].contiguous())
             gathered = outs[:len(keys)]
             sp_gathered = dict(zip(sp_sources, outs[len(keys):]))
-
-        fl = {}
-        if any_active:
-            fl = _lf.fused_lighting(
-                scene, g, view, frame, rand, has_sun=has_sun,
-                num_emissives=num_emissives, bounces=bounces,
-                render_size=render_size, temporal=reuse,
-                prev_planes=gathered, track_de=track_de and fused_sp,
-                track_ind=track_ind and fused_sp)
         if reuse:
-            for c, slot in enumerate("dei"):
-                k = TEMPORAL_KEYS[c]
-                new_carry[k] = fl[f"{slot}_packed"] if active[c] else carry[k]
-            for k in SPATIAL_KEYS:
+            for k in TEMPORAL_KEYS + SPATIAL_KEYS:
                 if k in carry:
                     new_carry[k] = carry[k]
 
-        def var_of(slot):
-            return fl[f"{slot}_var"] if reuse else zero_var
+        # {slot: (render, variance)} of the channels that trace rays, on
+        # the lighting domain
+        lit, fl = {}, {}
+        if modular:
+            lit, temporal = modular_lighting(scene, g_l, view, frame, rand_l,
+                                             gathered, carry, par)
+            new_carry.update(temporal)
+        elif any_active:
+            fl = _lf.fused_lighting(
+                scene, g_l, view, frame, rand_l, has_sun=has_sun,
+                num_emissives=num_emissives, bounces=bounces,
+                render_size=light_size, temporal=reuse,
+                prev_planes=gathered, track_de=track_de and fused_sp,
+                track_ind=track_ind and fused_sp)
+            zero_l = torch.zeros(light_size, device=dev)
+            for c, slot in enumerate("dei"):
+                if active[c]:
+                    lit[slot] = (fl[f"{slot}_render"],
+                                 fl[f"{slot}_var"] if reuse else zero_l)
+                    if reuse:
+                        new_carry[TEMPORAL_KEYS[c]] = fl[f"{slot}_packed"]
+        if ckb and lit:
+            lit = to_full(lit, par, g)
 
         if has_sun:
-            d_render, d_var = fl["d_render"], var_of("d")
+            d_render, d_var = lit["d"]
         else:
-            # the deterministic surface-emission term (no rays)
+            # the deterministic surface-emission term (no rays), at the
+            # render size
             d = restir.emissive_surface_channel(scene, g, no_texture,
                                                 render_size)
             d_render, d_var = d["render"], d["variance"]
-        e_render = fl.get("e_render", zero_render)
-        e_var = var_of("e") if active[1] else zero_var
-        i_render = fl.get("i_render", zero_render)
-        i_var = var_of("i") if active[2] else zero_var
+        e_render, e_var = lit.get("e", (zero_render, zero_var))
+        i_render, i_var = lit.get("i", (zero_render, zero_var))
 
         if "spatial_de" in sp_gathered:
             prev_de = apply_scatters(

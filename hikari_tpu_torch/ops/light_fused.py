@@ -29,10 +29,11 @@ import torch
 from hikari_tpu_torch.ops import reservoir as rsv
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div, f32,
                                           host_values, on_cpu, ptr, stream)
+from hikari_tpu_torch.ops.trace_pallas import (DISTANCE_MAX, shadow_sweep,
+                                               trace_full_sweep)
 from hikari_tpu_torch.utils.math import (F32_EPSILON, F32_MAX, GOLDEN_RATIO,
                                          INV_TAU, PI, TAU)
 
-DISTANCE_MAX = 65535.0
 RAY_BIAS = 0.02
 _TWO_INV_TAU = f32(2.0 * INV_TAU)
 _INV_PI = f32(1.0 / PI)
@@ -238,97 +239,6 @@ def _shade(surf, amb, vx, vy, vz, nx, ny, nz, lx, ly, lz,
     return (lit_r * rad_a + am_r * one_m,
             lit_g * rad_a + am_g * one_m,
             lit_b * rad_a + am_b * one_m)
-
-
-def _tri_scalars(r):
-    """Per-triangle float32 constants of the Moller-Trumbore loop."""
-    v0 = r[0:3]
-    ab = r[3:6] - v0
-    ac = r[6:9] - v0
-    return [float(x) for x in (*v0, *ab, *ac)]
-
-
-def _mt(o, d, r):
-    """Shared Moller-Trumbore terms for one triangle row (numpy f32)."""
-    v0x, v0y, v0z, abx, aby, abz, acx, acy, acz = _tri_scalars(r)
-    ox, oy, oz = o
-    dx, dy, dz = d
-    ux = dy * acz - dz * acy
-    uy = dz * acx - dx * acz
-    uz = dx * acy - dy * acx
-    det = ux * abx + uy * aby + uz * abz
-    aox, aoy, aoz = ox - v0x, oy - v0y, oz - v0z
-    uu = aox * ux + aoy * uy + aoz * uz
-    vx = aoy * abz - aoz * aby
-    vy = aoz * abx - aox * abz
-    vz = aox * aby - aoy * abx
-    vv = dx * vx + dy * vy + dz * vz
-    dist = vx * acx + vy * acy + vz * acz
-    return det, uu, vv, dist
-
-
-def trace_full_sweep(tris, attrs, o, d, maxt, excl, incl):
-    """Nearest hit with normal/material interpolation over numpy f32 rows
-    tris [T,10], attrs [T,17]. Returns (t, (nx, ny, nz) unnormalized, mat,
-    inst); a miss has inst -1."""
-    shape, dev = o[0].shape, o[0].device
-    t_best = torch.full(shape, F32_MAX, device=dev)
-    nx = torch.zeros(shape, device=dev)
-    ny = torch.zeros(shape, device=dev)
-    nz = torch.zeros(shape, device=dev)
-    mat = torch.full(shape, -1.0, device=dev)
-    inst = torch.full(shape, -1.0, device=dev)
-    for r, a in zip(tris, attrs):
-        inst_i = float(r[9])
-        if not inst_i >= 0.0:
-            continue
-        det, uu, vv, dist = _mt(o, d, r)
-        inv_det = torch.where(torch.abs(det) < F32_EPSILON, 0.0, div(1.0, det))
-        u = uu * inv_det
-        v = vv * inv_det
-        dist = dist * inv_det
-        ok = ((torch.abs(det) >= F32_EPSILON)
-              & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-              & (dist > F32_EPSILON) & (dist < maxt) & (dist < t_best)
-              & (excl != inst_i) & ((incl < 0.0) | (incl == inst_i)))
-        a = [float(x) for x in a]
-        d1 = [f32(np.float32(a[c + 3]) - np.float32(a[c])) for c in range(3)]
-        d2 = [f32(np.float32(a[c + 6]) - np.float32(a[c])) for c in range(3)]
-        t_best = torch.where(ok, dist, t_best)
-        nx = torch.where(ok, a[0] + u * d1[0] + v * d2[0], nx)
-        ny = torch.where(ok, a[1] + u * d1[1] + v * d2[1], ny)
-        nz = torch.where(ok, a[2] + u * d1[2] + v * d2[2], nz)
-        mat = torch.where(ok, a[16], mat)
-        inst = torch.where(ok, inst_i, inst)
-    return t_best, (nx, ny, nz), mat, inst
-
-
-def shadow_sweep(tris, o, d, maxt, excl):
-    """Division-free occlusion loop. Returns (occluded, t, inst)."""
-    shape, dev = o[0].shape, o[0].device
-    td_best = torch.full(shape, F32_MAX, device=dev)
-    ads_best = torch.ones(shape, device=dev)
-    inst_best = torch.full(shape, -1.0, device=dev)
-    for r in tris:
-        inst_i = float(r[9])
-        if not inst_i >= 0.0:
-            continue
-        det, uu, vv, dist = _mt(o, d, r)
-        s = torch.sign(det)
-        ads = det * s
-        ud = uu * s
-        vd = vv * s
-        td = dist * s
-        ok = ((ads >= F32_EPSILON) & (ud >= 0.0) & (vd >= 0.0)
-              & (ud + vd <= ads) & (td > F32_EPSILON * ads)
-              & (td < maxt * ads) & (td * ads_best < td_best * ads)
-              & (excl != inst_i))
-        td_best = torch.where(ok, td, td_best)
-        ads_best = torch.where(ok, ads, ads_best)
-        inst_best = torch.where(ok, inst_i, inst_best)
-    occluded = inst_best >= 0.0
-    t = torch.where(occluded, div(td_best, ads_best), F32_MAX)
-    return occluded, t, inst_best
 
 
 class _Tables:

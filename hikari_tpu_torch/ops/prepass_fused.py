@@ -14,15 +14,15 @@ parity quads at half resolution: depth, velocity and instance only.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
                                           host_values, on_cpu, ptr, stream)
 from hikari_tpu_torch.ops.light_fused import (MAX_MATERIALS, MAX_TRIS,
-                                              _env_brdf_approx, _mt,
-                                              _row_index, _rsqrt_n, _Surface)
+                                              _env_brdf_approx, _row_index,
+                                              _rsqrt_n, _Surface)
 from hikari_tpu_torch.ops.prepass import camera_rays
+from hikari_tpu_torch.ops.trace_pallas import closest_sweep, interpolate
 from hikari_tpu_torch.utils.math import F32_EPSILON, F32_MAX
 
 DISTANCE_MAX = 65535.0
@@ -67,20 +67,6 @@ def _project(m, px, py, pz):
     f = [float(x) for x in m]
     return tuple(px * f[4 * r] + py * f[4 * r + 1] + pz * f[4 * r + 2]
                  + f[4 * r + 3] for r in range(4))
-
-
-def _hit_mask(o, d, r, t_best):
-    """Kernel A's hit test against one triangle row (numpy f32): the
-    accept mask and the barycentrics and distance (hikari_tpu's ok)."""
-    det, uu, vv, dist = _mt(o, d, r)
-    inv_det = torch.where(torch.abs(det) < F32_EPSILON, 0.0, div(1.0, det))
-    uu = uu * inv_det
-    vv = vv * inv_det
-    dist = dist * inv_det
-    ok = ((torch.abs(det) >= F32_EPSILON)
-          & (uu >= 0.0) & (uu <= 1.0) & (vv >= 0.0) & (uu + vv <= 1.0)
-          & (dist > F32_EPSILON) & (dist < t_best))
-    return ok, uu, vv, dist
 
 
 def _surface_point(p, o, d, t_best, inst_f, motion):
@@ -135,31 +121,11 @@ def prepass_plain(params, tris, attrs, motion, mats, size):
     o = origin.unbind(-1)
     d = direction.unbind(-1)
 
-    t_best = torch.full((h, w), F32_MAX, device=dev)
+    # the nearest hit, attributes interpolated from the winner's row
+    t_best, uu, vv, prim, inst_f = closest_sweep(tris.cpu().numpy(), o, d,
+                                                 F32_MAX, -1.0)
+    (nx, ny, nz), (uvx, uvy), mat_f = interpolate(attrs, prim, uu, vv)
     z = torch.zeros((h, w), device=dev)
-    nx, ny, nz, uvx, uvy = z, z, z, z, z
-    mat_f = torch.full((h, w), -1.0, device=dev)
-    inst_f = torch.full((h, w), -1.0, device=dev)
-    for r, a in zip(tris.cpu().numpy(), attrs.cpu().numpy()):
-        inst_i = float(r[9])
-        if not inst_i >= 0.0:
-            continue
-        ok, uu, vv, dist = _hit_mask(o, d, r, t_best)
-
-        def interp(c0, c1, c2):
-            d1 = float(np.float32(a[c1]) - np.float32(a[c0]))
-            d2 = float(np.float32(a[c2]) - np.float32(a[c0]))
-            return float(a[c0]) + uu * d1 + vv * d2
-
-        t_best = torch.where(ok, dist, t_best)
-        nx = torch.where(ok, interp(0, 3, 6), nx)
-        ny = torch.where(ok, interp(1, 4, 7), ny)
-        nz = torch.where(ok, interp(2, 5, 8), nz)
-        uvx = torch.where(ok, interp(9, 11, 13), uvx)
-        uvy = torch.where(ok, interp(10, 12, 14), uvy)
-        mat_f = torch.where(ok, float(a[16]), mat_f)
-        inst_f = torch.where(ok, inst_i, inst_f)
-
     mask, (wx, wy, wz), depth, velu, velv = _surface_point(
         p, o, d, t_best, inst_f, motion)
     nx, ny, nz = (torch.where(mask, c, z) for c in _rsqrt_n(nx, ny, nz))
@@ -232,14 +198,7 @@ def quads_plain(params, tris, motion, dec_size):
             pixels=(2.0 * yy + a, 2.0 * xx + b))
         o = origin.unbind(-1)
         d = direction.unbind(-1)
-        t_best = torch.full((h, w), F32_MAX, device=dev)
-        inst_f = torch.full((h, w), -1.0, device=dev)
-        for r in rows:
-            if not float(r[9]) >= 0.0:
-                continue
-            ok, _, _, dist = _hit_mask(o, d, r, t_best)
-            t_best = torch.where(ok, dist, t_best)
-            inst_f = torch.where(ok, float(r[9]), inst_f)
+        t_best, _, _, _, inst_f = closest_sweep(rows, o, d, F32_MAX, -1.0)
         _, _, dep, velu, velv = _surface_point(p, o, d, t_best, inst_f,
                                                motion)
         depth.append(dep)

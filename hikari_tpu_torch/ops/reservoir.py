@@ -1,5 +1,6 @@
 """ReSTIR reservoirs and their 64 B packed carry (the port of
-hikari_tpu/ops/reservoir.py's empty reservoir and channel-plane layout).
+hikari_tpu/ops/reservoir.py: the empty reservoir, the channel-plane layout
+and the structured reservoir algebra of the modular lighting path).
 
 A reservoir has two working forms here:
 
@@ -222,3 +223,129 @@ def unpack_reservoir_planes(t: torch.Tensor) -> dict:
         "w_sum": f["w_sum"],
         "w2_sum": f["w2_sum"],
     }
+
+
+# ---------------------------------------------------------------------------
+# the structured reservoir algebra of the modular lighting path
+# (hikari_tpu/ops/reservoir.py, light.wgsl:138-179, 917-952)
+# ---------------------------------------------------------------------------
+
+MAX_VARIANCE = 10.0
+# the sample fields an update copies (everything but the statistics)
+_STRUCT_SAMPLE_KEYS = ("radiance", "random", "visible_position",
+                       "visible_normal", "visible_instance",
+                       "sample_position", "sample_normal")
+
+
+def _bcast(mask, t):
+    """mask shaped to broadcast over t's trailing channel axis, if any."""
+    return mask[..., None] if t.dim() > mask.dim() else mask
+
+
+def where_reservoir(mask, a: dict, b: dict) -> dict:
+    """Per-pixel select between two reservoirs (mask [h,w] bool)."""
+    return {k: torch.where(_bcast(mask, a[k]), a[k], b[k]) for k in a}
+
+
+def zero_where(mask, r: dict) -> dict:
+    """The empty reservoir where `mask`."""
+    return where_reservoir(mask, empty_reservoir(r["count"].shape,
+                                                 r["count"].device), r)
+
+
+def make_sample(radiance, random, visible_position, visible_normal,
+                visible_instance, sample_position, sample_normal) -> dict:
+    return {"radiance": radiance, "random": random,
+            "visible_position": visible_position,
+            "visible_normal": visible_normal,
+            "visible_instance": visible_instance,
+            "sample_position": sample_position,
+            "sample_normal": sample_normal}
+
+
+def set_reservoir(s: dict, w_new) -> dict:
+    """A fresh reservoir of one sample (light.wgsl:138-144)."""
+    r = dict(s)
+    r["count"] = torch.ones_like(w_new)
+    r["lifetime"] = torch.zeros_like(w_new)
+    r["w"] = torch.zeros_like(w_new)
+    r["w_sum"] = w_new
+    r["w2_sum"] = w_new * w_new
+    return r
+
+
+def update_reservoir(r: dict, s: dict, w_new, mask=None) -> dict:
+    """Weighted reservoir update (light.wgsl:146-173); `mask` gates the
+    whole update."""
+    if mask is None:
+        mask = torch.ones_like(w_new, dtype=torch.bool)
+    w_sum = r["w_sum"] + w_new
+    w2_sum = r["w2_sum"] + w_new * w_new
+    count = r["count"] + 1.0
+    rnd = s["random"]
+    rand = torch.fmod(rnd[..., 0] + rnd[..., 1] + rnd[..., 2] + rnd[..., 3],
+                      1.0)
+    replace = mask & (rand < div(w_new, torch.clamp(w_sum, min=1e-30)))
+    out = dict(r)
+    out["w_sum"] = torch.where(mask, w_sum, r["w_sum"])
+    out["w2_sum"] = torch.where(mask, w2_sum, r["w2_sum"])
+    out["count"] = torch.where(mask, count, r["count"])
+    for k in _STRUCT_SAMPLE_KEYS:
+        out[k] = torch.where(_bcast(replace, r[k]), s[k], r[k])
+    return out
+
+
+def clamp_reservoir(r: dict, max_count: float) -> dict:
+    """History clamp (light.wgsl:944-951, 1645-1651)."""
+    over = r["count"] > max_count
+    scale = torch.where(over, div(max_count,
+                                  torch.clamp(r["count"], min=1e-30)), 1.0)
+    out = dict(r)
+    out["w_sum"] = r["w_sum"] * scale
+    out["w2_sum"] = r["w2_sum"] * scale
+    out["count"] = torch.clamp(r["count"], max=max_count)
+    return out
+
+
+def temporal_restir(r: dict, s: dict, w_new, max_count: float,
+                    mask=None) -> dict:
+    """update + clamp (light.wgsl:937-952)."""
+    return clamp_reservoir(update_reservoir(r, s, w_new, mask), max_count)
+
+
+def reservoir_variance(r: dict):
+    """Stored variance (light.wgsl:1224-1227), capped at MAX_VARIANCE."""
+    count = torch.clamp(r["count"], min=1e-30)
+    mean = div(r["w_sum"], count)
+    var = div(r["w2_sum"], count) - mean * mean
+    var = torch.where(r["count"] < 1.0, var, div(var, count))
+    return torch.clamp(var, max=MAX_VARIANCE)
+
+
+def finalize_w(r: dict, target_luminance) -> dict:
+    """r.w = w_sum / (count * lum(target)) (light.wgsl:1216-1217)."""
+    total = r["count"] * target_luminance
+    out = dict(r)
+    out["w"] = torch.where(total > 0.0, div(r["w_sum"],
+                                            torch.clamp(total, min=1e-30)),
+                           0.0)
+    return out
+
+
+def check_previous_reservoir(r: dict, s: dict):
+    """Temporal reprojection rejection (light.wgsl:917-935): depth ratio,
+    normal dot, instance id. Returns (the reservoir, emptied where
+    rejected; the ok mask)."""
+    sd = s["visible_position"][..., 3]
+    ratio = div(r["visible_position"][..., 3],
+                torch.where(sd == 0.0, 1e-30, sd))
+    ratio = torch.where(ratio < 1.0,
+                        div(1.0, torch.where(ratio == 0.0, 1e-30, ratio)),
+                        ratio)
+    depth_miss = ratio > 1.05 * (1.0 + 0.5 * s["random"][..., 0])
+    instance_miss = r["visible_instance"] != s["visible_instance"]
+    vn, rn = s["visible_normal"], r["visible_normal"]
+    normal_miss = (vn[..., 0] * rn[..., 0] + vn[..., 1] * rn[..., 1]
+                   + vn[..., 2] * rn[..., 2]) < 0.9
+    ok = ~(depth_miss | normal_miss | instance_miss)
+    return zero_where(~ok, r), ok

@@ -1,17 +1,37 @@
 """The parts of hikari_tpu/ops/restir.py the ported frames use: the
 jittered-deferred G-buffer lookup (the identity at upscale ratio 1; at
 ratio 2 the frame takes prepass_fused's decimated planes instead), the
-primary surface, the sun-less direct channel, and the per-frame
-reprojection (previous-frame coordinates) of the reuse paths."""
+primary surface, the sun-less direct channel, the per-frame reprojection
+(previous-frame coordinates) of the reuse paths, and the modular
+lighting channels `direct_lit` and `indirect_lit_ambient`
+in their temporal-reuse form (the path the frame takes under checkerboard
+lighting with temporal reuse).
+
+The modular channels are tensor passes over the flattened [h*w] pixels;
+their rays go through the tracer (ops/trace.py: kernels 5, 6, 7). Their
+no-reuse specializations are reached only by scenes beyond the fused
+lighting kernel (textures, or its caps), which the port rejects, so they
+raise; so does the spatial-reuse tracking (the cross-pixel invalidation
+scatters), whose consumer, the modular spatial pass, is not ported."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from hikari_tpu_torch.ops._kernel import div
-from hikari_tpu_torch.ops.shading import (compute_emissive_radiance,
-                                          retrieve_surface)
-from hikari_tpu_torch.utils.math import F32_EPSILON
+from hikari_tpu_torch.ops import reservoir as rsv
+from hikari_tpu_torch.ops._kernel import div, f32
+from hikari_tpu_torch.ops.sampling import (RAY_BIAS, occlude_hit_info,
+                                           select_light_candidate)
+from hikari_tpu_torch.ops.shading import (calculate_view,
+                                          compute_emissive_radiance,
+                                          env_brdf, input_radiance,
+                                          retrieve_surface, shading)
+from hikari_tpu_torch.utils.math import (F32_EPSILON, F32_MAX, GOLDEN_RATIO,
+                                         apply_normal_basis, dot3, luminance,
+                                         normalize, sample_cosine_hemisphere)
+
+VALIDATION_COUNT_THRESHOLD = 4.0
 
 
 def pixel_uv(size, device=None):
@@ -73,7 +93,8 @@ def resample_gbuffer(gbuf, render_size, frame_number: int, ratio: float):
 def primary_surface(scene, g, no_texture: bool):
     """The G-buffer pixel's material surface (light.wgsl:729-781)."""
     material = g["instance_material"][..., 1].to(torch.int32)
-    return retrieve_surface(scene, material, no_texture)
+    return retrieve_surface(scene, material, g["velocity_uv"][..., 2:4],
+                            no_texture)
 
 
 def emissive_surface_channel(scene, g, no_texture: bool, render_size,
@@ -92,3 +113,295 @@ def emissive_surface_channel(scene, g, no_texture: bool, render_size,
                                     -1), 0.0)
     return {"render": render,
             "variance": torch.zeros((h, w), device=depth.device)}
+
+
+# ---------------------------------------------------------------------------
+# the modular lighting channels (light.wgsl:1045-1498), temporal reuse
+# ---------------------------------------------------------------------------
+
+def cos_solar(frame) -> float:
+    """cos(solar angle) as float32 on the host."""
+    return f32(np.cos(np.float32(frame["solar_angle"])))
+
+
+def make_sample_from_gbuffer(g, noise_rand, render_size):
+    h, w = render_size
+    dev = noise_rand.device
+    depth = g["position"][..., 3]
+    return rsv.make_sample(
+        radiance=torch.zeros((h, w, 4), device=dev),
+        random=noise_rand,
+        visible_position=torch.cat([g["position"][..., :3],
+                                    depth[..., None]], -1),
+        visible_normal=g["normal"],
+        visible_instance=g["instance_material"][..., 0].to(torch.int32),
+        sample_position=torch.zeros((h, w, 4), device=dev),
+        sample_normal=torch.zeros((h, w, 3), device=dev))
+
+
+def _flat(x):
+    return x.reshape((-1,) + tuple(x.shape[2:]))
+
+
+def _unflat(x, size):
+    return x.reshape(tuple(size) + tuple(x.shape[1:]))
+
+
+def _trace_radiance(scene, tracer, cand, info, ro, rd, trace_ok, frame,
+                    directional: bool, no_texture: bool):
+    """Shadow ray (kernel 7) -> occluded info -> input radiance, zero where
+    the candidate cannot be traced. Returns (radiance [N,4], info)."""
+    hit = tracer.shadow(scene, ro, rd, cand["max_distance"],
+                        cand["emissive_instance"], None)
+    info = occlude_hit_info(ro, rd, hit, info)
+    rad = input_radiance(
+        scene, rd, info["instance"], info["material"], info["uv"],
+        sample_directional=directional,
+        sample_emissive=cand["emissive_instance"], sample_ambient=False,
+        cos_solar=cos_solar(frame), no_texture=no_texture)
+    return torch.where(trace_ok[:, None], rad, 0.0), info
+
+
+def _finish_channel(r, s, valid):
+    """Visible point := this frame's, lifetime + 1, the variance, and the
+    empty reservoir on invalid pixels."""
+    r = dict(r)
+    r["visible_position"] = s["visible_position"]
+    r["visible_normal"] = s["visible_normal"]
+    r["lifetime"] = r["lifetime"] + 1.0
+    variance = torch.where(valid, rsv.reservoir_variance(r), 0.0)
+    return rsv.zero_where(~valid, r), variance
+
+
+def direct_lit(scene, tracer, g, view, frame, noise_rand, prev_r, *,
+               emissive_lit: bool, temporal_reuse: bool, no_texture: bool,
+               render_size, surface=None):
+    """One direct-light channel (light.wgsl:1045-1261): the sun
+    (emissive_lit=False, RENDER_EMISSIVE: the surface emission is added) or
+    the emissives. g: the lighting domain's G-buffer; prev_r: the previous
+    temporal reservoir gathered at the reprojected coordinates. On the
+    channel's validation frames (frame number % interval == 0, a host
+    branch) the carried sample is re-traced. Returns {render [h,w,4],
+    variance [h,w], temporal (the new reservoir)}."""
+    if not temporal_reuse:
+        raise NotImplementedError(
+            "the no-reuse modular lighting path (scenes beyond the fused "
+            "lighting kernel) is not ported")
+    depth = g["position"][..., 3]
+    valid = depth >= F32_EPSILON
+    s = make_sample_from_gbuffer(g, noise_rand, render_size)
+    if surface is None:
+        surface = primary_surface(scene, g, no_texture)
+    r, _ = rsv.check_previous_reservoir(prev_r, s)
+    interval = (frame["emissive_validate_interval"] if emissive_lit
+                else frame["direct_validate_interval"])
+    is_validation = int(frame["number"]) % max(int(interval), 1) == 0
+
+    pos_f = _flat(s["visible_position"][..., :3])
+    nrm_f = _flat(s["visible_normal"])
+    rand_f = _flat(s["random"])
+    inst_f = _flat(s["visible_instance"])
+    cs = cos_solar(frame)
+
+    # this frame's candidate
+    cand, info = select_light_candidate(scene, tracer, rand_f, pos_f, nrm_f,
+                                        inst_f, cs, emissive_lit)
+    ro = pos_f + nrm_f * RAY_BIAS
+    rd = cand["direction"]
+    trace_ok = (dot3(rd, nrm_f) > 0.0) & (cand["p"] > 0.0)
+    if emissive_lit:
+        trace_ok = trace_ok & (cand["emissive_instance"] >= 0)
+    rad, info = _trace_radiance(scene, tracer, cand, info, ro, rd, trace_ok,
+                                frame, not emissive_lit, no_texture)
+    s = dict(s)
+    s["radiance"] = _unflat(rad, render_size)
+    s["sample_position"] = _unflat(info["position"], render_size)
+    s["sample_normal"] = _unflat(info["normal"], render_size)
+    w_new = _unflat(torch.where(cand["p"] > 0.0, div(
+        luminance(rad), torch.clamp(cand["p"], min=1e-30)), 0.0), render_size)
+    gate = valid & (r["count"] < VALIDATION_COUNT_THRESHOLD) \
+        if is_validation else valid
+    r = rsv.temporal_restir(r, s, w_new, frame["max_temporal_reuse_count"],
+                            gate)
+
+    if is_validation:
+        # re-trace the carried sample (light.wgsl:1156-1213): the candidate
+        # from the reservoir's randoms, position and normal, the ray from
+        # this pixel's point towards the reservoir's sample, excluding this
+        # pixel's instance
+        r_nrm = _flat(r["visible_normal"])
+        cand, info = select_light_candidate(
+            scene, tracer, _flat(r["random"]),
+            _flat(r["visible_position"][..., :3]), r_nrm, inst_f, cs,
+            emissive_lit)
+        rd = normalize(_flat(r["sample_position"][..., :3]) - pos_f)
+        trace_ok = (dot3(cand["direction"], r_nrm) > 0.0) & (cand["p"] > 0.0)
+        if emissive_lit:
+            trace_ok = trace_ok & (cand["emissive_instance"] >= 0)
+        vrad, info = _trace_radiance(scene, tracer, cand, info, ro, rd,
+                                     trace_ok, frame, not emissive_lit,
+                                     no_texture)
+        vrad2 = _unflat(vrad, render_size)
+        reuse_validate = r["count"] >= VALIDATION_COUNT_THRESHOLD
+        s2 = dict(s)
+        for key, val in (("random", r["random"]),
+                         ("sample_position",
+                          _unflat(info["position"], render_size)),
+                         ("sample_normal",
+                          _unflat(info["normal"], render_size)),
+                         ("radiance", vrad2)):
+            s2[key] = torch.where(reuse_validate[..., None], val, s2[key])
+        lum_ratio = div(luminance(vrad2),
+                        torch.clamp(luminance(r["radiance"]), min=1e-4))
+        lum_miss = ((lum_ratio > 1.25) | (lum_ratio < 0.8)) & valid
+        p2 = _unflat(cand["p"], render_size)
+        w_new = torch.where(p2 > 0.0, div(luminance(s2["radiance"]),
+                                          torch.clamp(p2, min=1e-30)), 0.0)
+        r = rsv.where_reservoir(lum_miss, rsv.set_reservoir(s2, w_new), r)
+        s = s2
+
+    r = rsv.finalize_w(r, luminance(r["radiance"]))
+    r, variance = _finish_channel(r, s, valid)
+
+    # shade (light.wgsl:1233-1259)
+    view_dir = calculate_view(view, g["position"])
+    l_dir = normalize(r["sample_position"][..., :3]
+                      - r["visible_position"][..., :3])
+    out = shading(scene, view_dir, r["visible_normal"], l_dir, surface,
+                  r["radiance"]) * r["w"][..., None]
+    if not emissive_lit:
+        out = out + compute_emissive_radiance(surface["emissive"])
+    render = torch.where(valid[..., None], torch.cat(
+        [out, torch.ones_like(depth)[..., None]], -1), 0.0)
+    return {"render": render, "variance": variance, "temporal": r}
+
+
+def indirect_lit_ambient(scene, tracer, g, view, frame, noise_rand, prev_r,
+                         *, bounces: int, temporal_reuse: bool,
+                         no_texture: bool, render_size, surface=None):
+    """The indirect channel (light.wgsl:1264-1498): cosine bounces (kernel
+    5 + the winner's attributes), NEE at each bounce hit (probe kernel 6,
+    shadow kernel 7), the radiance clamp, then temporal ReSTIR of the
+    gathered radiance. Returns {render, variance, temporal}."""
+    if not temporal_reuse:
+        raise NotImplementedError(
+            "the no-reuse modular lighting path (scenes beyond the fused "
+            "lighting kernel) is not ported")
+    h, w = render_size
+    dev = noise_rand.device
+    depth = g["position"][..., 3]
+    valid = depth >= F32_EPSILON
+    normal = normalize(g["normal"])
+    s = make_sample_from_gbuffer(g, noise_rand, render_size)
+    s["visible_normal"] = normal
+
+    n_pix = h * w
+    b_pos = _flat(s["visible_position"][..., :3])
+    b_nrm = _flat(normal)
+    b_rand = _flat(noise_rand)
+    transport = torch.ones((n_pix, 3), device=dev)
+    total_rad = torch.zeros((n_pix, 4), device=dev)
+    first_pos = torch.zeros((n_pix, 4), device=dev)
+    first_nrm = torch.zeros((n_pix, 3), device=dev)
+    pdf = torch.zeros((n_pix,), device=dev)
+    alive = torch.ones((n_pix,), dtype=torch.bool, device=dev)
+    amb = scene["ambient_color"][:3]
+    max_ind = frame["max_indirect_luminance"]
+    cs = cos_solar(frame)
+    # frame_number * GOLDEN_RATIO in float32 (restir.py:608)
+    advance = f32(np.float32(frame["number"]) * np.float32(GOLDEN_RATIO))
+
+    for n_b in range(bounces):
+        local, bounce_pdf = sample_cosine_hemisphere(b_rand[:, :2])
+        rd = apply_normal_basis(b_nrm, local)
+        ro = b_pos + b_nrm * RAY_BIAS
+        info = tracer.with_info(scene, ro, rd,
+                                torch.full((n_pix,), F32_MAX, device=dev))
+        hit_ok = info["instance"] >= 0
+        hit_pos = info["position"][:, :3]
+        if n_b == 0:
+            first_pos = info["position"]
+            first_nrm = info["normal"]
+            pdf = bounce_pdf
+        b_surface = dict(retrieve_surface(scene, info["material"], info["uv"],
+                                          no_texture))
+        b_surface["roughness"] = torch.ones_like(b_surface["roughness"])
+
+        cand, cinfo = select_light_candidate(scene, tracer, b_rand, hit_pos,
+                                             info["normal"], info["instance"],
+                                             cs, True)
+        sample_directional = cand["emissive_instance"] < 0
+        bounce_view = normalize(b_pos - hit_pos)
+        nee_ok = ((dot3(cand["direction"], info["normal"]) > 0.0)
+                  & (cand["p"] > 0.0))
+        ro2 = hit_pos + info["normal"] * RAY_BIAS
+        hit2 = tracer.shadow(scene, ro2, cand["direction"],
+                             cand["max_distance"], cand["emissive_instance"],
+                             None)
+        cinfo = occlude_hit_info(ro2, cand["direction"], hit2, cinfo)
+        in_rad = input_radiance(
+            scene, cand["direction"], cinfo["instance"], cinfo["material"],
+            cinfo["uv"], sample_directional=True,
+            sample_emissive=cand["emissive_instance"], sample_ambient=False,
+            cos_solar=cs, no_texture=no_texture)
+        # NEE radiance only for directional picks or hits on the emitter
+        keep = sample_directional | (cinfo["instance"]
+                                     == cand["emissive_instance"])
+        in_rad = torch.cat([torch.where(keep[:, None], in_rad[:, :3], 0.0),
+                            in_rad[:, 3:4]], -1)
+        out_rad = shading(scene, bounce_view, info["normal"],
+                          cand["direction"], b_surface, in_rad)
+        out_rad = div(out_rad, torch.clamp(cand["p"][:, None], min=1e-30))
+        if n_b > 0:
+            out_rad = torch.where(
+                bounce_pdf[:, None] < 0.01, 0.0,
+                div(out_rad, torch.clamp(bounce_pdf[:, None], min=1e-30)))
+        lum = luminance(out_rad)
+        scale = torch.where(lum > max_ind,
+                            div(max_ind, torch.clamp(lum, min=1e-30)), 1.0)
+        out_rad = out_rad * scale[:, None]
+        add = alive & hit_ok & nee_ok
+        add_hit = torch.where(add[:, None], transport * out_rad, 0.0)
+        total_rad = total_rad + torch.cat(
+            [add_hit, add.to(torch.float32)[:, None]], -1)
+        add_miss = torch.where((alive & ~hit_ok)[:, None], transport * amb,
+                               0.0)
+        total_rad = total_rad + torch.cat(
+            [add_miss, torch.zeros((n_pix, 1), device=dev)], -1)
+        transport = torch.where(
+            (alive & hit_ok)[:, None],
+            transport * env_brdf(b_surface, bounce_view, info["normal"]),
+            transport)
+        alive = alive & hit_ok & (transport > 0.01).any(-1)
+        b_rand = torch.fmod(b_rand + advance, 1.0)
+        b_pos = torch.where(hit_ok[:, None], hit_pos, b_pos)
+        b_nrm = torch.where(hit_ok[:, None], info["normal"], b_nrm)
+
+    rad = _unflat(total_rad, render_size)
+    s["radiance"] = torch.cat([rad[..., :3],
+                               torch.clamp(rad[..., 3:4], max=1.0)], -1)
+    s["sample_position"] = _unflat(first_pos, render_size)
+    s["sample_normal"] = _unflat(first_nrm, render_size)
+
+    # temporal ReSTIR (light.wgsl:1452-1497)
+    if surface is None:
+        surface = primary_surface(scene, g, no_texture)
+    view_dir = calculate_view(view, g["position"])
+    sample_rad = shading(scene, view_dir, s["visible_normal"], normalize(
+        s["sample_position"][..., :3] - s["visible_position"][..., :3]),
+        surface, s["radiance"])
+    pdf2 = _unflat(pdf, render_size)
+    w_new = torch.where(pdf2 > 0.0, div(luminance(sample_rad),
+                                        torch.clamp(pdf2, min=1e-30)), 0.0)
+    r, _ = rsv.check_previous_reservoir(prev_r, s)
+    r = rsv.temporal_restir(r, s, w_new, frame["max_temporal_reuse_count"],
+                            valid)
+    out_rad = shading(scene, view_dir, r["visible_normal"], normalize(
+        r["sample_position"][..., :3] - r["visible_position"][..., :3]),
+        surface, r["radiance"])
+    r = rsv.finalize_w(r, luminance(out_rad))
+    r, variance = _finish_channel(r, s, valid)
+    render = torch.where(valid[..., None], torch.cat(
+        [out_rad * r["w"][..., None], torch.ones((h, w, 1), device=dev)], -1),
+        0.0)
+    return {"render": render, "variance": variance, "temporal": r}

@@ -1,8 +1,9 @@
-"""Top-level Renderer: owns the device scene, the frame function for the
-current settings, and the frame carry (the port of hikari_tpu/renderer.py
-for the ported slices: no reuse, temporal reuse, temporal + spatial
-reuse, and the post chain of SMAA TU4X at ratio 2 and TAA Jasmine, so
-HikariSettings() itself)."""
+"""Top-level Renderer: owns the device scene, its tracer, the frame
+function for the current settings, and the frame carry (the port of
+hikari_tpu/renderer.py for the ported slices: no reuse, temporal reuse,
+temporal + spatial reuse, the post chain of SMAA TU4X at ratio 2 and TAA
+Jasmine, so HikariSettings() itself, and checkerboard lighting with and
+without temporal reuse)."""
 
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ from hikari_tpu_torch.frame import build_render_frame, init_carry
 from hikari_tpu_torch.models.scene import GpuScene, Scene
 from hikari_tpu_torch.ops.noise import noise_constant
 from hikari_tpu_torch.ops.post import overlay_compose
+from hikari_tpu_torch.ops.trace import make_tracer
 from hikari_tpu_torch.utils.math import reinhard_luminance
 
 
@@ -54,6 +56,8 @@ class Renderer:
         self.scene_dev = self.gpu_scene.as_pytree(self.device)
         self.noise = noise_constant(self.device)
         self.full_size = (camera.height, camera.width)
+        # the ray tracer of the modular lighting path, once per scene
+        self.tracer = make_tracer(self.gpu_scene.num_triangles)
         self._frame_fn = self._build()
         self.reset()
 
@@ -62,7 +66,7 @@ class Renderer:
             self.settings, self.full_size, self.scene_dev,
             self.gpu_scene.num_textures == 0,
             num_emissives=self.gpu_scene.num_emissives,
-            has_sun=self.gpu_scene.has_sun)
+            has_sun=self.gpu_scene.has_sun, tracer=self.tracer)
 
     def _views(self):
         """The camera's view uniform on the device, cached on the pose."""

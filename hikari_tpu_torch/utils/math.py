@@ -1,13 +1,14 @@
 """Math helpers (the part of hikari_tpu/utils/math.py the port's frames
-use): tensor helpers batched over trailing ...x3 / ...x4 axes, and the
-per-frame integer hash on the host."""
+use): tensor helpers batched over trailing ...x3 / ...x4 axes, the Bevy
+PBR BRDF terms and low-discrepancy samplers of the modular lighting path,
+and the per-frame integer hash on the host."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from hikari_tpu_torch.ops._kernel import div
+from hikari_tpu_torch.ops._kernel import div, f32
 
 F32_EPSILON = 1.1920929e-7
 F32_MAX = 3.402823466e38
@@ -53,9 +54,118 @@ def random_float(value) -> np.float32:
     return np.float32(pcg_hash(value)) / np.float32(4294967295.0)
 
 
+def saturate(x):
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def apply_normal_basis(n: torch.Tensor, local: torch.Tensor) -> torch.Tensor:
+    """Rotate `local` (z-up) into the branchless basis around n
+    (utils.wgsl:42-50), without building per-pixel 3x3 matrices."""
+    nx, ny, nz = n[..., 0], n[..., 1], n[..., 2]
+    s = torch.clamp(torch.sign(nz) * 2.0 + 1.0, max=1.0)
+    u = div(-1.0, s + nz)
+    v = nx * ny * u
+    tx = 1.0 + s * nx * nx * u
+    ty = s * v
+    tz = -s * nx
+    bx = v
+    by = s + ny * ny * u
+    bz = -ny
+    lx, ly, lz = local[..., 0], local[..., 1], local[..., 2]
+    return torch.stack([tx * lx + bx * ly + nx * lz,
+                        ty * lx + by * ly + ny * lz,
+                        tz * lx + bz * ly + nz * lz], -1)
+
+
+def sample_uniform_disk(rand2):
+    r = torch.sqrt(rand2[..., 0])
+    theta = TAU * rand2[..., 1]
+    return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], -1)
+
+
+def sample_cosine_hemisphere(rand2):
+    """([..., 3] direction in the +z hemisphere, [...] pdf)."""
+    t = sample_uniform_disk(rand2)
+    tx, ty = t[..., 0], t[..., 1]
+    z = torch.sqrt(torch.clamp(1.0 - (tx * tx + ty * ty), min=0.0))
+    return torch.cat([t, z[..., None]], -1), f32(2.0 * INV_TAU) * z
+
+
+def sample_uniform_cone(rand2, cos_angle: float):
+    """Cone sample around +z with cos(half-apex angle) `cos_angle` (a host
+    float32 value); returns (direction, pdf)."""
+    one_minus = f32(np.float32(1.0) - np.float32(cos_angle))
+    z = 1.0 - one_minus * rand2[..., 0]
+    theta = TAU * rand2[..., 1]
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    direction = torch.stack([r * torch.cos(theta), r * torch.sin(theta), z],
+                            -1)
+    return direction, f32(np.float32(INV_TAU)
+                          / max(np.float32(one_minus), np.float32(1e-7)))
+
+
+def sample_uniform_triangle_barycentric(rand2):
+    srx = torch.sqrt(rand2[..., 0])
+    return torch.stack([1.0 - srx, rand2[..., 1] * srx], -1)
+
+
 def perceptual_roughness_to_roughness(perceptual):
     clamped = torch.clamp(perceptual, 0.089, 1.0)
     return clamped * clamped
+
+
+def _pow5(x):
+    x2 = x * x
+    return x2 * x2 * x
+
+
+def f_schlick_scalar(f0, f90, voh):
+    return f0 + (f90 - f0) * _pow5(1.0 - voh)
+
+
+def fd_burley(roughness, nov, nol, loh):
+    f90 = 0.5 + 2.0 * roughness * loh * loh
+    light_scatter = f_schlick_scalar(1.0, f90, nol)
+    view_scatter = f_schlick_scalar(1.0, f90, nov)
+    return light_scatter * view_scatter * f32(1.0 / PI)
+
+
+def d_ggx(roughness, noh):
+    one_minus = 1.0 - noh * noh
+    a = noh * roughness
+    k = div(roughness, one_minus + a * a)
+    return k * k * f32(1.0 / PI)
+
+
+def v_smith_ggx_correlated(roughness, nov, nol):
+    a2 = roughness * roughness
+    lambda_v = nol * torch.sqrt((nov - a2 * nov) * nov + a2)
+    lambda_l = nov * torch.sqrt((nol - a2 * nol) * nol + a2)
+    return div(0.5, torch.clamp(lambda_v + lambda_l, min=1e-7))
+
+
+def fresnel(f0, loh):
+    f90 = saturate(dot3(f0, torch.full_like(f0, f32(50.0 * 0.33))))
+    return f0 + (f90[..., None] - f0) * _pow5(1.0 - loh)[..., None]
+
+
+def specular_brdf(f0, roughness, nov, nol, noh, loh):
+    d = d_ggx(roughness, noh)
+    v = v_smith_ggx_correlated(roughness, nov, nol)
+    return (d * v)[..., None] * fresnel(f0, loh)
+
+
+def env_brdf_approx(f0, perceptual_roughness, nov):
+    """Karis mobile EnvBRDF approximation (Bevy's EnvBRDFApprox)."""
+    pr = perceptual_roughness
+    r0 = pr * -1.0 + 1.0
+    r1 = pr * -0.0275 + 0.0425
+    r2 = pr * -0.572 + 1.04
+    r3 = pr * 0.022 + -0.04
+    a004 = torch.minimum(r0 * r0, torch.exp2(-9.28 * nov)) * r0 + r1
+    ab_x = -1.04 * a004 + r2
+    ab_y = 1.04 * a004 + r3
+    return f0 * ab_x[..., None] + ab_y[..., None]
 
 
 def rgb_to_ycocg(rgb: torch.Tensor) -> torch.Tensor:

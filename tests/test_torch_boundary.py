@@ -59,9 +59,10 @@ def test_sources_do_not_reference_jax_or_the_reference_package():
 
 
 @pytest.mark.parametrize("changes,size", [
-    # temporal reuse is ported; under checkerboard lighting hikari_tpu
-    # sends it to the modular path, which is not
-    pytest.param({"temporal_reuse": True, "checkerboard_lighting": True},
+    # temporal reuse under checkerboard lighting takes the modular path,
+    # which is ported without its spatial reuse
+    pytest.param({"temporal_reuse": True, "checkerboard_lighting": True,
+                  "indirect_spatial_reuse": True},
                  None, id="temporal_reuse"),
     pytest.param({"temporal_reuse": True, "indirect_spatial_reuse": True,
                   "spatial_tap_scramble": True},
@@ -71,7 +72,9 @@ def test_sources_do_not_reference_jax_or_the_reference_package():
                  id="emissive_spatial_reuse"),
     pytest.param({"indirect_spatial_reuse": True}, None,
                  id="indirect_spatial_reuse"),
-    pytest.param({"checkerboard_lighting": True}, None,
+    # checkerboard lighting is ported at upscale ratio 1 only
+    pytest.param({"checkerboard_lighting": True,
+                  "upscale": ht.Upscale.smaa_tu4x(2.0)}, None,
                  id="checkerboard_lighting"),
     # SMAA only at ratio 2 (its ratio-1 supersampling and other ratios
     # take hikari_tpu's generic resample), and only at even output sizes
@@ -90,6 +93,23 @@ def test_settings_outside_the_slice_raise(changes, size):
     with pytest.raises(NotImplementedError):
         ht.Renderer(build_cornell_box("hikari_tpu_torch"), cam, settings,
                     device="cpu")
+
+
+@pytest.mark.parametrize("reuse", [False, True], ids=["K", "KR"])
+def test_checkerboard_at_an_odd_width_lights_every_pixel(reuse):
+    """At an odd render width checkerboard lighting is off, as in
+    hikari_tpu (frame.py:142): the frame renders on the CPU exactly as
+    without it."""
+    cam = ht.Camera.from_look_at(EYE, TARGET, width=15, height=12)
+    images = []
+    for ckb in (True, False):
+        settings = dataclasses.replace(_flagship(), temporal_reuse=reuse,
+                                       checkerboard_lighting=ckb)
+        r = ht.Renderer(build_cornell_box("hikari_tpu_torch"), cam, settings,
+                        device="cpu")
+        images.append(r.render(2))
+    assert images[0].shape == (12, 15, 4) and np.isfinite(images[0]).all()
+    np.testing.assert_array_equal(images[0], images[1])
 
 
 def test_reference_default_settings_render():
@@ -261,6 +281,88 @@ def test_cuda_wrappers_marshal_and_count_with_post(monkeypatch, path):
         assert variants == [(1, 1, 0, 1), (1, 0, 0, 1)]
     assert [fn.launches for fn in wrappers] == [
         2, 2, 2 * default, 2, 2 * default, 8, 4, 2]
+
+
+# the tracer kernels' outputs, zeroed by the fake so that the frame indexes
+# the attribute table in range: (index of the ray count n, floats per ray
+# of each output that follows it)
+_TRACE_OUTPUTS = {"hk_trace_closest": (7, (1, 1, 1, 1, 1)),
+                  "hk_trace_full": (8, (1, 1, 3, 2, 1, 1)),
+                  "hk_trace_shadow": (7, (1, 1))}
+
+
+class _ZeroingLibrary(_FakeLibrary):
+    """A fake library whose tracer kernels write zeros to their outputs."""
+
+    def __getattr__(self, name):
+        fn = super().__getattr__(name)
+        if name not in _TRACE_OUTPUTS:
+            return fn
+        at, widths = _TRACE_OUTPUTS[name]
+
+        def zeroing(*args):
+            fn.argtypes = zeroing.argtypes
+            rc = fn(*args)
+            for k, width in enumerate(widths):
+                ctypes.memset(args[at + 1 + k], 0, 4 * width * args[at])
+            return rc
+
+        setattr(self, name, zeroing)
+        return zeroing
+
+
+@pytest.mark.parametrize("path", ["K", "KR"])
+def test_cuda_wrappers_marshal_and_count_with_checkerboard(monkeypatch,
+                                                           path):
+    """The checkerboard paths' launches per frame. K: prepass 1, kernel B
+    1 over the compressed domain, a-trous 4. KR (the modular path, no sun
+    on the box): the gather of 2 sources, then the emissive channel's
+    probe (kernel 6) and shadow ray (kernel 7), once more each on its
+    validation frames (frame 0 here), then the indirect bounce (kernel 5),
+    its probe and its shadow ray, and a-trous 4."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.ops import (denoise_fused, light_fused,
+                                      prepass_fused, reproj_gather,
+                                      trace_pallas)
+
+    fake = _ZeroingLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    mods = (prepass_fused, reproj_gather, light_fused, trace_pallas,
+            denoise_fused)
+    wrappers = (prepass_fused.prepass_kernel, reproj_gather.reproj_gather,
+                light_fused.lighting_kernel, trace_pallas.trace_closest,
+                trace_pallas.trace_full, trace_pallas.trace_shadow,
+                denoise_fused.atrous_level)
+    for mod in mods:
+        monkeypatch.setattr(mod, "on_cpu", lambda t: False)
+        monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", 0)
+    reuse = path == "KR"
+    r = ht.Renderer(build_cornell_box("hikari_tpu_torch"), _camera(),
+                    dataclasses.replace(_flagship(), temporal_reuse=reuse,
+                                        checkerboard_lighting=True),
+                    device="cpu")
+    for validation in (True, False):
+        fake.calls.clear()
+        fake.args.clear()
+        r.render_frame()
+        if reuse:
+            emissive = ["hk_trace_full", "hk_trace_shadow"] * (1 + validation)
+            middle = (["hk_reproj_gather"] + emissive
+                      + ["hk_trace_closest", "hk_trace_full",
+                         "hk_trace_shadow"])
+        else:
+            middle = ["hk_light_fused"]
+        assert fake.calls == (["hk_prepass_fused"] + middle
+                              + ["hk_atrous_level"] * 4)
+        if reuse:
+            assert fake.args[1][12] == 2                  # gather sources
+        for name, a in zip(fake.calls, fake.args):
+            if name in _TRACE_OUTPUTS:                    # the lit half
+                assert a[_TRACE_OUTPUTS[name][0]] == 12 * 16 // 2
+    assert [fn.launches for fn in wrappers] == (
+        [2, 2, 0, 2, 5, 5, 8] if reuse else [2, 0, 2, 0, 0, 0, 8])
 
 
 def test_cuda_wrapper_rejects_bad_arguments(monkeypatch):
