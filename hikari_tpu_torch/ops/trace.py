@@ -3,10 +3,11 @@ hikari_tpu/ops/trace.py's make_tracer (its Pallas branch, `kind`
 "brute_force_pallas") over kernels 5, 6 and 7 (ops/trace_pallas.py).
 
 * `trace`: kernel 5 over the scene table;
-* `with_info`: kernel 5 plus the winner's attributes, `tri_attr[prim]`
-  (hikari_tpu's `hit_info_onehot` fetches them with a one-hot matmul, a
-  TPU device; the values are the same), while the attribute table has at
-  most 256 rows, and kernel 6 above that;
+* `with_info`: kernel 5 plus the winner's attributes, `tri_attr[prim]`.
+  hikari_tpu fetches them with a one-hot matmul (`hit_info_onehot`) up to
+  256 rows and takes kernel 6 above that, because the matmul grows with
+  the table; the index does not, and interpolates the winner's row with
+  kernel 6's expressions, so it serves every table size;
 * `shadow`: kernel 7 over the scene table;
 * `probe_info`: kernel 6 over the emissive-only table (the probe ray is
   include-masked to one emitter, so only its triangles can win).
@@ -21,9 +22,6 @@ import torch
 
 from hikari_tpu_torch.ops import trace_pallas as _tp
 from hikari_tpu_torch.utils.math import normalize
-
-# with_info's one-hot attribute fetch serves tables up to this many rows
-ONEHOT_MAX_ROWS = 256
 
 
 def _ids(ids, n, device):
@@ -65,18 +63,12 @@ class BruteForceTracer:
 
     def with_info(self, scene, ro, rd, max_t, exclude_instance=None,
                   include_instance=None):
-        n, dev = ro.shape[0], ro.device
-        excl = _ids(exclude_instance, n, dev)
-        incl = _ids(include_instance, n, dev)
-        if scene["tri_attr"].shape[0] <= ONEHOT_MAX_ROWS:
-            hit = _tp.brute_force(scene["tri_pos_flat"], ro, rd, max_t, excl,
-                                  incl)
-            info = hit_info(scene, ro, rd, hit)
-            info["t"] = hit["t"]
-            info["prim"] = hit["prim"]
-            return info
-        return _tp.brute_force_full(scene["tri_pos_flat"], scene["tri_attr"],
-                                    ro, rd, max_t, excl, incl)
+        hit = self.trace(scene, ro, rd, max_t, exclude_instance,
+                         include_instance)
+        info = hit_info(scene, ro, rd, hit)
+        info["t"] = hit["t"]
+        info["prim"] = hit["prim"]
+        return info
 
     def shadow(self, scene, ro, rd, max_t, exclude_instance=None,
                include_instance=None):
@@ -94,11 +86,10 @@ class BruteForceTracer:
                                     _ids(include_instance, n, dev))
 
 
-def make_tracer(num_triangles: int,
-                brute_force_max: int = _tp.MAX_TRIS) -> BruteForceTracer:
+def make_tracer(num_triangles: int) -> BruteForceTracer:
     """The engine for a scene of `num_triangles` (built once per scene)."""
-    if num_triangles > min(brute_force_max, _tp.MAX_TRIS):
+    if num_triangles > _tp.MAX_TRIS:
         raise NotImplementedError(
-            f"{num_triangles} triangles > {brute_force_max}: the tile-cull "
+            f"{num_triangles} triangles > {_tp.MAX_TRIS}: the tile-cull "
             "engine (kernel 13) is not ported yet")
     return BruteForceTracer()

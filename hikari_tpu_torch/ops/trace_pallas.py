@@ -40,7 +40,8 @@ from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
 from hikari_tpu_torch.utils.math import F32_EPSILON, F32_MAX, normalize
 
 DISTANCE_MAX = 65535.0
-# the small-scene engine's cap (make_tracer's brute_force_max)
+# the small-scene engine's cap (hikari_tpu's brute_force_max); make_tracer
+# raises above it
 MAX_TRIS = 768
 
 

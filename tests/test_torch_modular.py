@@ -256,11 +256,14 @@ def test_direct_lit_matches_reference(case):
                   f"direct_lit {kind} frame {number} reservoir")
 
 
-def test_indirect_lit_ambient_matches_reference():
+@pytest.mark.parametrize("bounces", [1, 2])
+def test_indirect_lit_ambient_matches_reference(bounces):
+    """One bounce, as the frame runs, and two, where the second bounce's
+    randoms are the first's advanced by frame_number * GOLDEN_RATIO."""
     r, g, rand, view = inputs(sun=False)
     prev = _prev(g, 11)
     f = frame(7)
-    kw = dict(bounces=1, temporal_reuse=True, no_texture=True,
+    kw = dict(bounces=bounces, temporal_reuse=True, no_texture=True,
               render_size=SIZE)
     ref = restir_ref.indirect_lit_ambient(
         jax_scene(r), PallasTracer(), {k: jnp.asarray(v) for k, v in g.items()},
@@ -273,6 +276,6 @@ def test_indirect_lit_ambient_matches_reference():
         {k: t(v) for k, v in prev.items()}, **kw)
     assert_fields({"render": got["render"], "variance": got["variance"]},
                   {"render": ref["render"], "variance": ref["variance"]},
-                  "indirect_lit_ambient")
+                  f"indirect_lit_ambient bounces={bounces}")
     assert_fields(got["temporal"], ref["temporal"],
-                  "indirect_lit_ambient reservoir")
+                  f"indirect_lit_ambient bounces={bounces} reservoir")

@@ -3,8 +3,9 @@ versions against hikari_tpu's pallas_brute_force, pallas_brute_force_full
 and pallas_shadow in interpret mode, on the box's triangle table and on
 tests/test_trace.py's simple_scene, with random rays, rays aimed at
 triangle edges, exclude and include masks (the probe's -2 include among
-them) and finite max_t; and the tracer's hit_info against
-hit_info_onehot.
+them) and finite max_t; the tracer's hit_info against hit_info_onehot;
+and its with_info on a table above 256 rows (simple_scene with a sphere)
+against kernel 6, which hikari_tpu's with_info takes there.
 
 Bars: prim, instance and material equal on >= 99.9% of the random rays,
 and every ray whose ids differ is aimed at an edge or lies within 1e-5 of
@@ -24,6 +25,9 @@ import numpy as np
 import pytest
 import torch
 
+from hikari_tpu.models import mesh as shapes
+from hikari_tpu.models.material import StandardMaterial
+from hikari_tpu.models.scene import make_transform
 from hikari_tpu.ops import trace_pallas as tp_ref
 from hikari_tpu.ops.trace import hit_info_onehot
 from hikari_tpu_torch.ops import trace_pallas as tp
@@ -37,15 +41,23 @@ F32_MAX = np.float32(3.402823466e38)
 
 
 def tables(name):
-    """The compiled triangle tables of the box or simple_scene (built with
+    """The compiled triangle tables of the box, simple_scene, or
+    simple_scene with a 288-triangle sphere beside the cube (built with
     hikari_tpu; the port compiles them bit for bit, test_torch_compile)."""
-    sc = build_cornell_box("hikari_tpu") if name == "box" else simple_scene()
+    if name == "box":
+        return build_cornell_box("hikari_tpu").compile().arrays
+    sc = simple_scene()
+    if name == "sphere":
+        sc.spawn(sc.add_mesh(shapes.uv_sphere(0.5, sectors=16, stacks=10)),
+                 sc.add_material(StandardMaterial.from_color(0.2, 0.4, 0.9)),
+                 make_transform((2.0, 0.5, -2.0)))
     return sc.compile().arrays
 
 
 # (low, high) corners of the free space the ray origins come from
 ORIGINS = {"box": ((-0.9, 0.1, 1.0), (0.9, 1.9, 3.0)),
-           "simple": ((-3.0, 1.2, -3.0), (3.0, 3.0, 3.0))}
+           "simple": ((-3.0, 1.2, -3.0), (3.0, 3.0, 3.0)),
+           "sphere": ((-3.0, 1.2, -3.0), (3.0, 3.0, 3.0))}
 
 
 def rays(arrays, name, seed):
@@ -216,6 +228,30 @@ def test_hit_info_matches_onehot(name):
         assert (np.abs(g - r) <= 1e-5 * np.maximum(np.abs(r), 1.0)).all(), k
     assert make_tracer(len(arrays["tri_pos_flat"])).kind == \
         "brute_force_pallas"
+
+
+def test_with_info_above_256_rows_matches_kernel6():
+    """Above 256 attribute rows hikari_tpu's with_info is kernel 6
+    (pallas_brute_force_full); the port's stays kernel 5 + tri_attr[prim],
+    at kernel 6's bars."""
+    arrays = tables("sphere")
+    assert arrays["tri_attr"].shape[0] > 256
+    ro, rd, max_t, excl, incl = rays(arrays, "sphere", 2)
+    ref = tp_ref.pallas_brute_force_full(
+        *(jnp.asarray(x) for x in (arrays["tri_pos_flat"], arrays["tri_attr"],
+                                   ro, rd, max_t, excl, incl)),
+        interpret=True)
+    scene = {k: torch.from_numpy(arrays[k])
+             for k in ("tri_pos_flat", "tri_attr")}
+    got = make_tracer(len(arrays["tri_pos_flat"])).with_info(
+        scene, *(torch.from_numpy(x) for x in (ro, rd, max_t, excl, incl)))
+    assert got.keys() == ref.keys()
+    sphere = arrays["tri_pos_flat"][:, 9].max()     # the last instance
+    assert (got["instance"].numpy() == sphere).mean() > 0.05
+    check({k: v.numpy() for k, v in got.items()},
+          {k: np.asarray(v) for k, v in ref.items()},
+          ("prim", "instance", "material"), ("t", "position", "normal", "uv"),
+          near_edge(arrays, ro, rd))
 
 
 def test_tracer_without_ids_masks_nothing():
