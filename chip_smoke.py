@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py [--profile]
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the seven CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
+2. builds the eight CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
    each, started together) and prints their register and spill counts;
 3. holds kernels A, B and C against their plain PyTorch versions on the
    card at the 1080p flagship shapes of the no-reuse frame;
@@ -30,27 +30,42 @@ Run from the repository root on a machine with an NVIDIA H100:
    versions bit for bit and kernel C on KR's reconstructed variance; and
    K (checkerboard, no reuse), holding kernel B on its compressed
    1080x960 domain;
-8. checks small CUDA renders of the seven paths against the plain
-   versions on the CPU, and KR on the box with a sun at 270x480 (the
-   solar branch of the modular path, kernel 7 on sun rays);
-9. renders the box through Renderer at 1920x1080 on the seven paths
+8. drives the city (BASELINE config 5: 122 instances, 2,618 triangles)
+   at 1920x1080 output, HikariSettings() with SMAA 2.0 and an HDR camera,
+   the sphere turning each frame through the on-device refit, and holds
+   kernel 13 (the BVH walk: the 1080p primary rays, the include-masked
+   probes, the shadow rays and the bounce) against its plain version bit
+   for bit on the calls it got, kernels 9 (3 sources), C, 11 and 12 on
+   the city's calls, kernel 13 on the box against kernels 5 and 7, and the
+   CUDA refit against the CPU refit;
+9. checks small CUDA renders of the seven paths against the plain
+   versions on the CPU, KR on the box with a sun at 270x480 (the solar
+   branch of the modular path, kernel 7 on sun rays), and the city at
+   48x256 with the sphere turning;
+10. renders the box through Renderer at 1920x1080 on the seven paths
    (no reuse; temporal reuse R; temporal + spatial reuse S; P; D;
    checkerboard K; checkerboard + temporal reuse KR): 3 warm-up frames,
    then timed frames with the launch counters set to 0, which must rise
-   by exactly the counts of PATHS below (per frame number: KR's
-   validation frames trace more);
-10. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
-   frame_ms_smaa2, frame_ms_default, frame_ms_ckb and
-   frame_ms_ckb_reuse, one JSON line of per-kernel numbers, and last
-   {"ok": true, "device": {...}}.
+   by exactly the counts of PATHS below (per frame number: KR's and the
+   city's validation frames trace more); then the city the same way, each
+   frame update_scene(rotate_sphere(...), fast=True) + render_frame();
+11. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
+   frame_ms_smaa2, frame_ms_default, frame_ms_ckb, frame_ms_ckb_reuse
+   and frame_ms_city with city_refit_ms, one JSON line of per-kernel
+   numbers of the kernels the paths run, one of kernel 13's mode `hit`
+   (no path traces without attributes), and last {"ok": true, "device":
+   {...}}.
 
 Tolerances: kernels A, B, C as stated at their checks; kernels 5, 6, 7,
-9, 8 and 12 bit for bit (8 also against kernel A's planes); kernel 11 bit
-for bit for nearest sources and within 1e-5 * max(|ref|, 1) on >= 99.99%
-of values for the filtered ones; kernels 4 and 10: >= 99% of pixels with
-all 16 packed words equal, and >= 99% of render and variance values
-within 1e-3 * max(|ref|, 1) (NaN-coded variances NaN at the same pixels);
-small renders SSIM >= 0.98 and mean abs diff < 1e-3.
+9, 8, 12 and 13 bit for bit (8 also against kernel A's planes; 13 against
+5 and 7 on the box: ids equal but at ties, floats equal where they agree);
+kernel 11 bit for bit for nearest sources and within 1e-5 * max(|ref|, 1)
+on >= 99.99% of values for the filtered ones; kernels 4 and 10: >= 99% of
+pixels with all 16 packed words equal, and >= 99% of render and variance
+values within 1e-3 * max(|ref|, 1) (NaN-coded variances NaN at the same
+pixels); the refit within 1e-6 * max(|ref|, 1), its BVH boxes bit for bit
+against the CPU pyramid of the CUDA triangles; small renders SSIM >= 0.98
+and mean abs diff < 1e-3.
 
 With --profile it also prints a torch.profiler table of device time by
 kernel over two frames of each path. Any failed check raises: the exit
@@ -76,6 +91,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 FULL = (1080, 1920)   # (height, width) of the flagship frame
 SUN = (270, 480)      # the directional-branch check
 SMALL = (48, 64)
+CITY_SMALL = (48, 256)  # the city's CUDA-vs-CPU render (128-wide groups)
+CITY_EYE, CITY_TARGET = (0.0, 2.5, 20.0), (0.0, 0.0, 0.0)
+# where check_city makes its own tensors (a CPU rehearsal of this script
+# sets "cpu")
+DEVICE = "cuda"
 WARMUP_FRAMES = 3
 TIMED_FRAMES = 10
 REPS = 20             # kernel timing repetitions
@@ -91,8 +111,9 @@ PEAK_BYTES = 3.35e12
 PEAK_F32 = 67e12
 # Floating-point operations of one ray-triangle test (Moller-Trumbore
 # with its accept tests, as written in csrc/common.cuh): the unit of the
-# operation counts below.
+# operation counts below; and of one slab test of a BVH node (kernel 13).
 FLOPS_PER_TRI_TEST = 60
+FLOPS_PER_NODE = 30
 # per-pixel allowances of the reservoir algebra (unpack, gates, WRS,
 # finalize, repack) and of one spatial tap (unpack, march, gates,
 # Jacobian, WRS; + one Burley/GGX shading for the indirect channel)
@@ -210,28 +231,44 @@ def kr_launches(settings, number):
     frames, and the indirect bounce (kernel 5) with its probe and shadow
     ray; the box has no sun, so the direct channel traces nothing."""
     v = int(number % settings.emissive_validate_interval == 0)
-    return (1, 0, 1, 0, 0, 4, 0, 0, 1, 2 + v, 2 + v)
+    return (1, 0, 1, 0, 0, 4, 0, 0, 1, 2 + v, 2 + v, 0, 0, 0)
 
 
-# the seven paths: their settings, and the launches of COUNTERS in a frame
+def city_launches(settings, number):
+    """The city's launches in frame `number` (kernel 13 for every ray: the
+    1,224-row emissive table is above kernel 6's 768): the primary rays
+    (full), the gather of 3 sources, the sun's shadow ray, the emissive
+    channel's probe (full) and shadow ray, the bounce (full), its probe
+    (full) and shadow ray; the direct channel traces its shadow ray again
+    on its validation frames, the emissive one its probe and shadow ray;
+    a-trous 4, SMAA's two warps and TAA's."""
+    vd = int(number % settings.direct_validate_interval == 0)
+    ve = int(number % settings.emissive_validate_interval == 0)
+    return (0, 0, 1, 0, 0, 4, 2, 1, 0, 0, 0, 0, 4 + ve, 3 + vd + ve)
+
+
+# the seven paths of the box: their settings, and the launches of COUNTERS
+# in a frame
 COUNTERS = ("prepass", "quads", "gather", "lighting", "spatial", "a-trous",
             "warp_band", "warp_multi", "trace_closest", "trace_full",
-            "trace_shadow")
+            "trace_shadow", "bvh_closest", "bvh_full", "bvh_shadow")
 PATHS = {
-    "no-reuse": (flagship_settings, fixed(1, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0)),
+    "no-reuse": (flagship_settings,
+                 fixed(1, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0, 0, 0, 0)),
     "R": (lambda ht: flagship_settings(ht, temporal_reuse=True),
-          fixed(1, 0, 1, 1, 0, 4, 0, 0, 0, 0, 0)),
+          fixed(1, 0, 1, 1, 0, 4, 0, 0, 0, 0, 0, 0, 0, 0)),
     "S": (lambda ht: flagship_settings(
         ht, temporal_reuse=True, emissive_spatial_reuse=True,
-        indirect_spatial_reuse=True), fixed(1, 0, 1, 1, 2, 4, 0, 0, 0, 0, 0)),
+        indirect_spatial_reuse=True),
+        fixed(1, 0, 1, 1, 2, 4, 0, 0, 0, 0, 0, 0, 0, 0)),
     # the flagship + TAA + SMAA 2.0 (bench.py:142-144): lighting at 960x540
     "P": (lambda ht: flagship_settings(ht, taa=ht.Taa.JASMINE,
                                        upscale=ht.Upscale.smaa_tu4x(2.0)),
-          fixed(1, 1, 0, 1, 0, 4, 2, 1, 0, 0, 0)),
-    "D": (default_settings, fixed(1, 1, 1, 1, 1, 4, 2, 1, 0, 0, 0)),
+          fixed(1, 1, 0, 1, 0, 4, 2, 1, 0, 0, 0, 0, 0, 0)),
+    "D": (default_settings, fixed(1, 1, 1, 1, 1, 4, 2, 1, 0, 0, 0, 0, 0, 0)),
     # checkerboard lighting (bench.py:140-141): kernel B over 1080x960
     "K": (lambda ht: flagship_settings(ht, checkerboard_lighting=True),
-          fixed(1, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0)),
+          fixed(1, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0, 0, 0, 0)),
     # checkerboard + temporal reuse (bench.py:155-157): the modular path
     "KR": (lambda ht: flagship_settings(ht, temporal_reuse=True,
                                         checkerboard_lighting=True),
@@ -246,6 +283,7 @@ def counter_wrappers():
     from hikari_tpu_torch.ops import prepass_fused as pf
     from hikari_tpu_torch.ops import reproj_gather as rg
     from hikari_tpu_torch.ops import spatial_fused as sf
+    from hikari_tpu_torch.ops import trace_cull as tc
     from hikari_tpu_torch.ops import trace_pallas as tp
     from hikari_tpu_torch.ops import warp2 as w2
     from hikari_tpu_torch.ops import warp_band as wb
@@ -253,7 +291,7 @@ def counter_wrappers():
     return (pf.prepass_kernel, pf.prepass_quads_kernel, rg.reproj_gather,
             lf.lighting_kernel, sf.spatial_kernel, dnf.atrous_level,
             wb.warp_band, w2.warp_multi, tp.trace_closest, tp.trace_full,
-            tp.trace_shadow)
+            tp.trace_shadow, tc.bvh_closest, tc.bvh_full, tc.bvh_shadow)
 
 
 def real_tris(t):
@@ -730,16 +768,6 @@ def max_abs_err(got, ref):
     return worst
 
 
-def parity_quads(pf, gbuf):
-    """Kernel A's full-res G-buffer as SMAA's parity quads, strided views:
-    {(a, b): {"depth", "velocity", "instance"}} of pixels (2y+a, 2x+b),
-    the planes kernel 8 traces."""
-    return {(a, b): {"depth": gbuf["position"][a::2, b::2, 3],
-                     "velocity": gbuf["velocity_uv"][a::2, b::2, :2],
-                     "instance": gbuf["instance_material"][a::2, b::2, 0]}
-            for a, b in pf.QUAD_PARITIES}
-
-
 def grid_nearest(src, sy, sx):
     """One torch.nn.functional.grid_sample call (nearest, border) over the
     HWC source at the coords: the time yardstick of the nearest warps (its
@@ -758,8 +786,10 @@ def check_quads(pf, quad_calls, a_calls, n_tri):
     """Kernel 8 against its plain version and kernel A's strided planes
     (parity_quads of its G-buffer), bit for bit, on the captured calls;
     returns its record."""
+    from hikari_tpu_torch.ops.smaa import parity_quads
+
     def strided(a_args):
-        quads = parity_quads(pf, pf._assemble(*pf.prepass_kernel(*a_args))[0])
+        quads = parity_quads(pf._assemble(*pf.prepass_kernel(*a_args))[0])
         return [quads[ab][k] for k in ("depth", "velocity", "instance")
                 for ab in pf.QUAD_PARITIES]
 
@@ -781,7 +811,7 @@ def check_quads(pf, quad_calls, a_calls, n_tri):
     qa, aa = quad_calls[-1][0], a_calls[-1][0]
     ms = event_ms(lambda: pf.prepass_quads_kernel(*qa), REPS)
     plain_ms = event_ms(lambda: pf.quads_plain(*qa), PLAIN_REPS)
-    views = parity_quads(pf, pf._assemble(*pf.prepass_kernel(*aa))[0])
+    views = parity_quads(pf._assemble(*pf.prepass_kernel(*aa))[0])
     lib_ms = event_ms(lambda: [t.contiguous() for q in views.values()
                                for t in q.values()], REPS)
     h, w = qa[3]
@@ -1070,7 +1100,7 @@ def check_checkerboard(ht, build_box):
         rec["max_abs_err"] = err
         records.append(rec)
     first = COUNTERS.index("trace_closest")
-    want = [kr_launches(settings, n)[first:] for n in keep]
+    want = [kr_launches(settings, n)[first:first + 3] for n in keep]
     got_calls = [len(c) for c in trace_calls]
     if got_calls != [sum(col) for col in zip(*want)]:
         fail(f"KR's two captured frames called the tracer kernels "
@@ -1119,6 +1149,309 @@ def check_checkerboard(ht, build_box):
     return records, extra
 
 
+def city_camera(ht, size):
+    """bench.py's city camera: HDR, from (0, 2.5, 20) at the origin."""
+    return ht.Camera.from_look_at(CITY_EYE, CITY_TARGET, width=size[1],
+                                  height=size[0], hdr=True)
+
+
+def city_angle(f):
+    """The sphere's angle in the city's frame f (bench.py:184)."""
+    return 0.2 * (f + 1) / 60.0
+
+
+# kernel 13's modes: (wrapper, bytes per ray written)
+WALK_MODES = {"hit": ("bvh_closest", 4 * 5),
+              "full": ("bvh_full", 4 * (1 + 1 + 3 + 2 + 1 + 1)),
+              "shadow": ("bvh_shadow", 4 * 2)}
+
+
+def walk_plain_of(tc, mode, a, stats=None):
+    """Kernel 13's plain version on a captured call's arguments."""
+    if mode == "full":
+        return tc.walk_plain(mode, *a, stats=stats)
+    return tc.walk_plain(mode, a[0], a[1], None, *a[2:], stats=stats)
+
+
+def walk_record(tc, mode, a):
+    """(ms, plain ms, (bound ms, by), stats) of kernel 13 on one call: the
+    work is the node visits and triangle tests its plain version counts on
+    these rays (~30 flops per slab test, 60 per triangle test, 25 per
+    full-mode hit's interpolation); the bytes each ray's inputs (36 B) and
+    outputs once, and the tables once."""
+    fn = getattr(tc, WALK_MODES[mode][0])
+    n = a[-5].shape[0]
+    ms = event_ms(lambda: fn(*a), REPS)
+    plain_ms = event_ms(lambda: walk_plain_of(tc, mode, a), 1)
+    stats = {}
+    out = walk_plain_of(tc, mode, a, stats)
+    flops = (stats["nodes"] * FLOPS_PER_NODE
+             + stats["tests"] * FLOPS_PER_TRI_TEST)
+    if mode == "full":
+        flops += int((out["prim"] >= 0).sum()) * FLOPS_INTERP
+    table = sum(t.numel() for t in a[:len(a) - 5]) * 4
+    bound = bound_ms(table + n * (36 + WALK_MODES[mode][1]), flops)
+    print(f"  kernel 13 {mode} {n} rays: {ms:.4f} ms, plain {plain_ms:.1f} "
+          f"ms, bound {bound[0]:.4f} ms ({bound[1]}); {stats['nodes']} node "
+          f"visits, {stats['tests']} triangle tests")
+    return ms, plain_ms, bound, stats
+
+
+def check_walk_calls(tc, mode, calls, label):
+    """Kernel 13 against its plain version on captured calls, every output
+    word; returns the max abs error."""
+    fn = getattr(tc, WALK_MODES[mode][0])
+    err = 0.0
+    for a, _ in calls:
+        got = fn(*a)
+        ref = walk_plain_of(tc, mode, a)
+        torch.cuda.synchronize()
+        keys = sorted(ref)
+        eq = words_equal([got[k] for k in keys], [ref[k] for k in keys])
+        err = max(err, max_abs_err([got[k] for k in keys],
+                                   [ref[k] for k in keys]))
+        hits = float((got["inst"] >= 0).float().mean())
+        masked = float((a[-1] >= 0).float().mean())
+        print(f"kernel 13 {mode} {label} {a[-5].shape[0]} rays ({hits:.3f} "
+              f"hit, {masked:.3f} include-masked): {', '.join(keys)} equal "
+              f"to the plain version {eq} (need True)")
+        if not eq:
+            fail(f"kernel 13 ({mode}) disagrees with its plain version")
+    return err
+
+
+def check_walk_on_box(ht, tc, tp, build_box):
+    """Kernel 13 against kernels 5 (hit, and full with the winner's row)
+    and 7 (shadow) on the box, 1,048,576 random rays with masks and finite
+    max_t: ids equal but at ties (t within 1e-6, or a hit within 1e-5 of an
+    edge two triangles share), floats equal where the ids agree."""
+    dev = torch.device(DEVICE)
+    scene = build_box().compile().as_pytree(dev)
+    g = torch.Generator().manual_seed(13)
+    n = 1 << 20
+    ro = (torch.rand((n, 3), generator=g) * 1.8 - 0.9).to(dev)
+    rd = torch.randn((n, 3), generator=g)
+    rd = (rd / rd.norm(dim=1, keepdim=True)).to(dev)
+    max_t = torch.where(torch.rand(n, generator=g) < 0.3, 0.7,
+                        3.4028234663852886e38).to(dev)
+    excl = torch.randint(-1, 3, (n,), generator=g, dtype=torch.int32).to(dev)
+    incl = torch.where(torch.rand(n, generator=g) < 0.2, 1, -1).to(
+        torch.int32).to(dev)
+    rays = (ro, rd, max_t, excl, incl)
+    bvh, tris, attrs = (scene["bvh_packed"], scene["tri_pos_flat"],
+                        scene["tri_attr"])
+    hit5 = tp.trace_closest(tris, *rays)
+    hit13 = tc.bvh_closest(bvh, tris, *rays)
+
+    def edge(h):
+        u, v = h["u"], h["v"]
+        return torch.minimum(torch.minimum(u, v), 1.0 - u - v) < 1e-5
+
+    for mode, got, ref, ids in (
+            ("hit", hit13, hit5, ("prim", "inst")),
+            ("full", tc.bvh_full(bvh, tris, attrs, *rays),
+             tp.trace_full(tris, attrs, *rays), ("prim", "inst")),
+            ("shadow", tc.bvh_shadow(bvh, tris, *rays),
+             tp.trace_shadow(tris, *rays), ("inst",))):
+        torch.cuda.synchronize()
+        differ = torch.zeros(n, dtype=torch.bool, device=dev)
+        for k in ids:
+            differ |= got[k] != ref[k]
+        tie = (torch.isclose(got["t"], ref["t"], rtol=1e-6, atol=0.0)
+               | edge(hit5) | edge(hit13))
+        same = ~differ
+        floats_eq = all(torch.equal(got[k][same], ref[k][same])
+                        for k in ref)
+        print(f"kernel 13 {mode} vs kernel {5 if mode != 'shadow' else 7} "
+              f"on the box, {n} rays: ids differ on {int(differ.sum())} "
+              f"(all at ties: {not bool((differ & ~tie).any())}), outputs "
+              f"equal where they agree: {floats_eq} (need both)")
+        if bool((differ & ~tie).any()) or not floats_eq:
+            fail(f"kernel 13 ({mode}) disagrees with the brute-force kernels")
+
+
+def check_refit(ht, city):
+    """The refit on CUDA against the refit on the CPU: every table within
+    1e-6 * max(|ref|, 1), the BVH boxes bit for bit against the CPU pyramid
+    of the CUDA triangles."""
+    from hikari_tpu_torch.models.refit_device import DeviceRefitter
+
+    gpu = city.build_scene(3).compile()
+    sc = city.rotate_sphere(city.build_scene(3), 0.5)
+    vis = [i for i in sc.instances if i.visible]
+    cur = torch.from_numpy(np.stack([np.asarray(i.transform, np.float32)
+                                     for i in vis]))
+    prev = torch.from_numpy(np.stack([np.asarray(i.prev_transform,
+                                                 np.float32)
+                                      if i.prev_transform is not None else
+                                      np.asarray(i.transform, np.float32)
+                                      for i in vis]))
+    cpu_r = DeviceRefitter(gpu, "cpu")
+    ref = cpu_r.update(cur, prev)
+    got = DeviceRefitter(gpu, DEVICE).update(cur.to(DEVICE),
+                                             prev.to(DEVICE))
+    torch.cuda.synchronize()
+    worst, max_err = 1.0, 0.0
+    for k in ref:
+        frac, err = rel_close(got[k].cpu(), ref[k], 1e-6)
+        worst, max_err = min(worst, frac), max(max_err, err)
+    boxes = torch.equal(got["bvh_packed"].cpu(),
+                        cpu_r.bvh_rows(got["tri_pos"].cpu()))
+    print(f"refit CUDA vs CPU: {len(ref)} tables within 1e-6*max(|ref|,1) "
+          f"on {worst:.6f} of values (need 1), max abs err {max_err:.3g}; "
+          f"BVH boxes equal to the pyramid of the CUDA triangles {boxes}")
+    if worst < 1.0 or not boxes:
+        fail("the CUDA refit disagrees with the CPU refit")
+
+
+def check_city(ht, build_box):
+    """Kernel 13 (each mode), 9, C, 11 and 12 on the calls the city gives
+    them at 1920x1080 (a frame validating both direct channels and one
+    validating neither), kernel 13 on the box against 5 and 7, and the
+    refit. Returns (the records of kernel 13's full and shadow modes, the
+    record of its hit mode, {record name: its city numbers})."""
+    from contextlib import ExitStack
+
+    from hikari_tpu_torch import frame as fr
+    from hikari_tpu_torch.examples import city
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import reproj_gather as rg
+    from hikari_tpu_torch.ops import trace_cull as tc
+    from hikari_tpu_torch.ops import trace_pallas as tp
+    from hikari_tpu_torch.ops import warp2 as w2
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    sc = city.build_scene(3)
+    settings = ht.HikariSettings()
+    r = ht.Renderer(sc, city_camera(ht, FULL), settings)
+    caps = [Capture(tc, "bvh_full"), Capture(tc, "bvh_shadow"),
+            Capture(fr, "reproj_gather"), Capture(dnf, "atrous_level"),
+            Capture(wb, "warp_band"), Capture(w2, "warp_multi")]
+    with ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        for f in range(2):      # frame 0 validates both channels, 1 neither
+            r.update_scene(city.rotate_sphere(sc, city_angle(f)), fast=True)
+            for c in caps:
+                c.on = True
+            r.render_frame()
+        torch.cuda.synchronize()
+    full_calls, shadow_calls, g_calls, c_calls, wb_calls, wm_calls = (
+        c.calls for c in caps)
+    first = COUNTERS.index("bvh_full")
+    want = [city_launches(settings, n)[first:] for n in (0, 1)]
+    got_calls = [len(full_calls), len(shadow_calls)]
+    if got_calls != [sum(col) for col in zip(*want)]:
+        fail(f"the city's two captured frames called kernel 13 {got_calls} "
+             "times")
+    err_full = check_walk_calls(tc, "full", full_calls, "city")
+    err_shadow = check_walk_calls(tc, "shadow", shadow_calls, "city")
+
+    # frame 1's calls: full = primary, emissive probe, bounce, its probe;
+    # shadow = sun, emissive, bounce NEE
+    f1_full = full_calls[-4:]
+    f1_shadow = shadow_calls[-3:]
+    records = []
+    for mode, calls, names, err in (
+            ("full", f1_full, ("primary", "probe", "bounce", "bounce_probe"),
+             err_full),
+            ("shadow", f1_shadow, ("sun", "emissive", "bounce_nee"),
+             err_shadow)):
+        per = [walk_record(tc, mode, a) for a, _ in calls]
+        rec = dict(name=f"trace_bvh_{mode}", route="cuda",
+                   source="hikari_tpu_torch/csrc/trace_bvh.cu",
+                   replaces="hikari_tpu/ops/trace_cull.py:239",
+                   launches=None, max_abs_err=err, ms=per[0][0],
+                   plain_ms=per[0][1], bound_ms=per[0][2][0],
+                   bound_by=per[0][2][1], library_ms=None)
+        for nm, (ms, plain_ms, (b, _), st) in zip(names[1:], per[1:]):
+            rec.update({f"ms_{nm}": ms, f"plain_ms_{nm}": plain_ms,
+                        f"bound_ms_{nm}": b})
+        records.append(rec)
+    # the hit mode, which no path calls, on the primary call's rays
+    a_hit = (f1_full[0][0][0], f1_full[0][0][1]) + tuple(f1_full[0][0][3:])
+    ref = walk_plain_of(tc, "hit", a_hit)
+    got = tc.bvh_closest(*a_hit)
+    torch.cuda.synchronize()
+    if not words_equal([got[k] for k in sorted(ref)],
+                       [ref[k] for k in sorted(ref)]):
+        fail("kernel 13 (hit) disagrees with its plain version")
+    ms, plain_ms, (b, by), _ = walk_record(tc, "hit", a_hit)
+    hit_record = dict(name="trace_bvh_hit", route="cuda",
+                      source="hikari_tpu_torch/csrc/trace_bvh.cu",
+                      replaces="hikari_tpu/ops/trace_cull.py:239",
+                      launches=0, max_abs_err=max_abs_err(
+                          [got[k] for k in sorted(ref)],
+                          [ref[k] for k in sorted(ref)]),
+                      ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                      library_ms=None)
+    check_walk_on_box(ht, tc, tp, build_box)
+
+    # kernels 9 (3 sources), C, 11 and 12 on the city's calls
+    extra = {}
+    if any(len(a[0]) != 3 for a, _ in g_calls):
+        fail("the city's gather does not read 3 sources")
+    check_gather_calls(rg, g_calls, "city")
+    ms, plain_ms, _, (b_ms, _) = gather_record(rg, g_calls[-1])
+    extra["reproj_gather"] = dict(ms_city=ms, plain_ms_city=plain_ms,
+                                  bound_ms_city=b_ms)
+    levels = c_calls[-4:]
+    check_levels(dnf, levels, "city")
+
+    def cascade(level):
+        return [level(*a, **k) for a, k in levels]
+
+    irr = levels[0][0][0]
+    extra["denoise_fused"] = dict(
+        ms_city=event_ms(lambda: cascade(dnf.atrous_level), REPS)
+        / len(levels),
+        plain_ms_city=event_ms(lambda: cascade(dnf.atrous_plain),
+                               PLAIN_REPS) / len(levels),
+        bound_ms_city=atrous_bound(irr.shape[1] * irr.shape[2],
+                                   levels[0][1]["nch"])[0])
+    rec11, rec12 = check_warps(wb, w2, wb_calls, wm_calls)
+    extra["warp_band"] = dict(
+        ms_city=rec11["ms"], plain_ms_city=rec11["plain_ms"],
+        bound_ms_city=rec11["bound_ms"],
+        ms_smaa_call_city=rec11["ms_smaa_call"])
+    extra["warp_multi"] = dict(ms_city=rec12["ms"],
+                               plain_ms_city=rec12["plain_ms"],
+                               bound_ms_city=rec12["bound_ms"])
+    for n, v in extra.items():
+        print(f"  {n}: " + ", ".join(f"{key} {val:.4f}"
+                                     for key, val in v.items()))
+    check_refit(ht, city)
+    return records, hit_record, extra
+
+
+def compare_city_render(ht, size, frames):
+    """The city at `size` on CUDA against the plain versions on the CPU,
+    the sphere turning between frames: SSIM >= 0.98 and mean abs diff <
+    1e-3."""
+    from hikari_tpu_torch.examples import city
+
+    images = []
+    for device in (None, "cpu"):
+        sc = city.build_scene(3)
+        r = ht.Renderer(sc, city_camera(ht, size), ht.HikariSettings(),
+                        device=device)
+        for f in range(frames):
+            if f:
+                r.update_scene(city.rotate_sphere(sc, city_angle(f)),
+                               fast=True)
+            img = r.render_frame()
+        images.append(img.cpu().numpy())
+    img_gpu, img_cpu = images
+    s = ssim(np.clip(img_gpu[..., :3], 0, 1), np.clip(img_cpu[..., :3], 0, 1))
+    mad = float(np.abs(img_gpu - img_cpu).mean())
+    print(f"small render city {size[0]}x{size[1]}, {frames} frames, CUDA vs "
+          f"CPU plain: SSIM {s:.5f} (need >= 0.98), mean abs diff {mad:.3g} "
+          f"(need < 1e-3)")
+    if not np.isfinite(img_gpu).all() or s < 0.98 or mad >= 1e-3:
+        fail("the CUDA render of the city disagrees with the CPU plain "
+             "render")
+
+
 def sun_box(build_box):
     """The box with a sun (the directional-branch checks)."""
     sc = build_box()
@@ -1148,13 +1481,14 @@ def compare_renders(ht, scene_of, size, name, settings, frames):
 
 def check_small_render(ht, build_box):
     """Small CUDA renders of the seven paths against the plain versions on
-    the CPU, and KR on the box with a sun at 270x480 (the modular path's
-    solar channel)."""
+    the CPU, KR on the box with a sun at 270x480 (the modular path's solar
+    channel), and the city at 48x256."""
     for name, (settings_of, _) in PATHS.items():
         compare_renders(ht, build_box, SMALL, name, settings_of(ht),
                         3 if name == "no-reuse" else 4)
     compare_renders(ht, lambda: sun_box(build_box), SUN, "KR with a sun",
                     PATHS["KR"][0](ht), 4)
+    compare_city_render(ht, CITY_SMALL, 4)
 
 
 def main_path(ht, build_box, name, timed, profile):
@@ -1183,28 +1517,88 @@ def main_path(ht, build_box, name, timed, profile):
     expected = [sum(col) for col in zip(*(
         per_frame(settings, n)
         for n in range(WARMUP_FRAMES, WARMUP_FRAMES + timed)))]
+    check_run(name, counts, expected, img, timed)
+    if profile:
+        profile_frames(r.render_frame)
+    return times, counts
+
+
+def check_run(name, counts, expected, img, timed):
+    """Exact launch counts over the timed frames; a finite, not black
+    1080p image."""
     print(f"path {name}: launches over {timed} frames "
           f"({', '.join(COUNTERS)}): {counts} (need {expected})")
     if counts != expected:
         fail(f"path {name} did not launch each kernel as expected")
     out = img.cpu()
-    if tuple(out.shape) != (h, w, 4) or not torch.isfinite(out).all():
+    if tuple(out.shape) != FULL + (4,) or not torch.isfinite(out).all():
         fail(f"bad image on path {name}: shape {tuple(out.shape)}")
     mean = float(out[..., :3].mean())
     if mean <= 0.01:
         fail(f"image of path {name} is black (mean {mean})")
     print(f"  image {tuple(out.shape)} finite, mean rgb {mean:.4f}")
-    if profile:
-        from torch.profiler import ProfilerActivity, profile as prof_
 
-        with prof_(activities=[ProfilerActivity.CPU,
-                               ProfilerActivity.CUDA]) as prof:
-            for _ in range(2):
-                r.render_frame()
-            torch.cuda.synchronize()
-        print(prof.key_averages().table(sort_by="cuda_time_total",
-                                        row_limit=25))
-    return times, counts
+
+def profile_frames(step):
+    """Device time by kernel over two steps (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile as prof_
+
+    with prof_(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+
+def city_path(ht, timed, profile):
+    """The city through Renderer at 1920x1080, HikariSettings() (SMAA 2.0),
+    the HDR camera: each frame update_scene(rotate_sphere(...),
+    fast=True) + render_frame(), as bench.py:159-196. Returns (frame times
+    with the refit, refit times up to a synchronize, launch counts per
+    wrapper of COUNTERS over the timed frames)."""
+    from hikari_tpu_torch.examples import city
+
+    sc = city.build_scene(3)
+    settings = ht.HikariSettings()
+    r = ht.Renderer(sc, city_camera(ht, FULL), settings)
+    if (r.gpu_scene.num_instances, r.gpu_scene.num_triangles) != (122, 2618):
+        fail("the city is not the 122-instance, 2,618-triangle scene")
+    r.update_scene(city.rotate_sphere(sc, 0.001), fast=True)
+    r.render_frame()
+    f = 0
+
+    def step():
+        nonlocal f
+        r.update_scene(city.rotate_sphere(sc, city_angle(f)), fast=True)
+        f += 1
+        return r.render_frame()
+
+    for _ in range(WARMUP_FRAMES):
+        step()
+    torch.cuda.synchronize()
+    wrappers = counter_wrappers()
+    for fn in wrappers:
+        fn.launches = 0
+    times, refit = [], []
+    img = None
+    for _ in range(timed):
+        t = time.perf_counter()
+        r.update_scene(city.rotate_sphere(sc, city_angle(f)), fast=True)
+        torch.cuda.synchronize()
+        refit.append((time.perf_counter() - t) * 1e3)
+        img = r.render_frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        f += 1
+    counts = [fn.launches for fn in wrappers]
+    first = 1 + WARMUP_FRAMES       # the frame number of the first timed
+    expected = [sum(col) for col in zip(*(
+        city_launches(settings, n) for n in range(first, first + timed)))]
+    check_run("city", counts, expected, img, timed)
+    if profile:
+        profile_frames(step)
+    return times, refit, counts
 
 
 def main():
@@ -1248,9 +1642,12 @@ def main():
     records += post_records
     ckb_records, at_ckb = check_checkerboard(ht, build_box)
     records += ckb_records
-    for rec in records:
+    city_records, hit_record, at_city = check_city(ht, build_box)
+    records += city_records
+    for rec in records + [hit_record]:
         rec.update(at_540p.get(rec["name"], {}))
         rec.update(at_ckb.get(rec["name"], {}))
+        rec.update(at_city.get(rec["name"], {}))
         print(f"  {rec['name']}: {rec['ms']:.4f} ms per launch, plain "
               f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}), library {rec['library_ms']}")
@@ -1263,12 +1660,15 @@ def main():
                                   args.profile)
         frame_ms[name] = (float(np.median(times)), times)
         launches[name] = dict(zip(COUNTERS, counts))
+    times, refit, counts = city_path(ht, TIMED_FRAMES, args.profile)
+    frame_ms["city"] = (float(np.median(times)), times)
+    launches["city"] = dict(zip(COUNTERS, counts))
 
-    def total(counter, paths=tuple(PATHS)):
+    def total(counter, paths=tuple(launches)):
         return sum(launches[p][counter] for p in paths)
 
     # launches over the timed frames of the paths running each kernel:
-    # B runs on no-reuse, P and K, kernel 4 on R, S and D
+    # B runs on no-reuse, P and K, kernel 4 on R, S and D, 13 on the city
     by_name = {
         "prepass_fused": total("prepass"),
         "light_fused": total("lighting", ("no-reuse", "P", "K")),
@@ -1281,7 +1681,9 @@ def main():
         "warp_multi": total("warp_multi"),
         "trace_closest": total("trace_closest"),
         "trace_full": total("trace_full"),
-        "trace_shadow": total("trace_shadow")}
+        "trace_shadow": total("trace_shadow"),
+        "trace_bvh_full": total("bvh_full"),
+        "trace_bvh_shadow": total("bvh_shadow")}
     for rec in records:
         rec["launches"] = by_name[rec["name"]]
 
@@ -1296,6 +1698,12 @@ def main():
                       ("frame_ms_ckb", "K"), ("frame_ms_ckb_reuse", "KR")):
         print(json.dumps({key: frame_ms[name][0],
                           "reps_ms": frame_ms[name][1], "card": card}))
+    print(json.dumps({
+        "frame_ms_city": frame_ms["city"][0],
+        "city_refit_ms": float(np.median(refit)), "city_instances": 122,
+        "city_triangles": 2618, "reps_ms": frame_ms["city"][1],
+        "refit_reps_ms": refit, "card": card}))
+    print(json.dumps({"kernel_off_path": hit_record}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -178,8 +178,8 @@ __device__ __forceinline__ f3 shade(const Surface& s, f3 amb, f3 v, f3 n,
 
 // ---- the one Moller-Trumbore routine of the port's ray loops
 // (trace_pallas._mt8 and its division-free twin in _kernel_shadow): the
-// kernels of trace.cu (5, 6, 7) and light_fused.cu (B, 4) all go through
-// mt_terms, mt_accepts, closest_hit and shadow_sweep.
+// kernels of trace.cu (5, 6, 7), trace_bvh.cu (13) and light_fused.cu
+// (B, 4) all go through mt_terms, mt_accepts, closest_tri and shadow_tri.
 
 // Per-triangle terms of a row of HK_TRI floats (v0 v1 v2, instance): the
 // determinant and the numerators of u, v and t.
@@ -219,37 +219,49 @@ struct Closest {
   float inst;     // -1 on a miss
 };
 
-// Nearest accepted hit over tris rows in index order (trace_pallas._kernel):
-// a triangle wins only when strictly nearer, so the lowest index wins ties.
-__device__ __forceinline__ Closest closest_hit(const float* tris, int n, f3 o,
-                                               f3 d, float maxt, float excl,
-                                               float incl) {
+// One triangle row of a nearest-hit loop (trace_pallas.closest_accept):
+// takes the hit into c when the masks accept the triangle and it is
+// strictly nearer than c.t and below maxt.
+__device__ __forceinline__ void closest_tri(const float* r, int i, f3 o,
+                                            f3 d, float maxt, float excl,
+                                            float incl, Closest& c) {
+  float inst = r[9];
+  if (!mt_accepts(inst, excl, incl)) return;
+  MT m = mt_terms(r, o, d);
+  float inv_det = fabsf(m.det) < HK_F32_EPS ? 0.0f : 1.0f / m.det;
+  float u = m.uu * inv_det;
+  float v = m.vv * inv_det;
+  float dist = m.dist * inv_det;
+  bool ok = fabsf(m.det) >= HK_F32_EPS && u >= 0.0f && u <= 1.0f &&
+            v >= 0.0f && u + v <= 1.0f && dist > HK_F32_EPS &&
+            dist < maxt && dist < c.t;
+  if (ok) {
+    c.t = dist;
+    c.u = u;
+    c.v = v;
+    c.prim = i;
+    c.inst = inst;
+  }
+}
+
+__device__ __forceinline__ Closest closest_miss() {
   Closest c;
   c.t = HK_F32_MAX;
   c.u = 0.0f;
   c.v = 0.0f;
   c.prim = -1;
   c.inst = -1.0f;
-  for (int i = 0; i < n; i++) {
-    const float* r = tris + HK_TRI * i;
-    float inst = r[9];
-    if (!mt_accepts(inst, excl, incl)) continue;
-    MT m = mt_terms(r, o, d);
-    float inv_det = fabsf(m.det) < HK_F32_EPS ? 0.0f : 1.0f / m.det;
-    float u = m.uu * inv_det;
-    float v = m.vv * inv_det;
-    float dist = m.dist * inv_det;
-    bool ok = fabsf(m.det) >= HK_F32_EPS && u >= 0.0f && u <= 1.0f &&
-              v >= 0.0f && u + v <= 1.0f && dist > HK_F32_EPS &&
-              dist < maxt && dist < c.t;
-    if (ok) {
-      c.t = dist;
-      c.u = u;
-      c.v = v;
-      c.prim = i;
-      c.inst = inst;
-    }
-  }
+  return c;
+}
+
+// Nearest accepted hit over tris rows in index order (trace_pallas._kernel):
+// a triangle wins only when strictly nearer, so the lowest index wins ties.
+__device__ __forceinline__ Closest closest_hit(const float* tris, int n, f3 o,
+                                               f3 d, float maxt, float excl,
+                                               float incl) {
+  Closest c = closest_miss();
+  for (int i = 0; i < n; i++)
+    closest_tri(tris + HK_TRI * i, i, o, d, maxt, excl, incl, c);
   return c;
 }
 
@@ -295,37 +307,61 @@ struct Shadow {
   float inst; // -1 if none
 };
 
-// Division-free nearest-occluder loop (trace_pallas._kernel_shadow): every
-// test multiplied by |det|, the nearest compare by cross-multiplication,
-// one division per ray at the end.
+// The running nearest occluder of a division-free loop: t = td / ads.
+struct Occluder {
+  float td, ads, inst;
+};
+
+__device__ __forceinline__ Occluder occluder_none() {
+  Occluder b;
+  b.td = HK_F32_MAX;
+  b.ads = 1.0f;
+  b.inst = -1.0f;
+  return b;
+}
+
+// One triangle row of a division-free occluder loop
+// (trace_pallas.shadow_accept): every test multiplied by |det|, the
+// nearest compare by cross-multiplication.
+__device__ __forceinline__ void shadow_tri(const float* r, f3 o, f3 d,
+                                           float maxt, float excl,
+                                           float incl, Occluder& b) {
+  float inst = r[9];
+  if (!mt_accepts(inst, excl, incl)) return;
+  MT m = mt_terms(r, o, d);
+  float s = sgnf(m.det);
+  float ads = m.det * s;
+  float ud = m.uu * s;
+  float vd = m.vv * s;
+  float td = m.dist * s;
+  bool ok = ads >= HK_F32_EPS && ud >= 0.0f && vd >= 0.0f &&
+            ud + vd <= ads && td > HK_F32_EPS * ads && td < maxt * ads &&
+            td * b.ads < b.td * ads;
+  if (ok) {
+    b.td = td;
+    b.ads = ads;
+    b.inst = inst;
+  }
+}
+
+// One division per ray, at the end.
+__device__ __forceinline__ Shadow shadow_result(const Occluder& b) {
+  Shadow sh;
+  sh.occluded = b.inst >= 0.0f;
+  sh.t = sh.occluded ? b.td / b.ads : HK_F32_MAX;
+  sh.inst = b.inst;
+  return sh;
+}
+
+// Division-free nearest-occluder loop (trace_pallas._kernel_shadow) over
+// tris rows in index order.
 __device__ __forceinline__ Shadow shadow_sweep(const float* tris, int n, f3 o,
                                                f3 d, float maxt, float excl,
                                                float incl) {
-  float td_best = HK_F32_MAX, ads_best = 1.0f, inst_best = -1.0f;
-  for (int i = 0; i < n; i++) {
-    const float* r = tris + HK_TRI * i;
-    float inst = r[9];
-    if (!mt_accepts(inst, excl, incl)) continue;
-    MT m = mt_terms(r, o, d);
-    float s = sgnf(m.det);
-    float ads = m.det * s;
-    float ud = m.uu * s;
-    float vd = m.vv * s;
-    float td = m.dist * s;
-    bool ok = ads >= HK_F32_EPS && ud >= 0.0f && vd >= 0.0f &&
-              ud + vd <= ads && td > HK_F32_EPS * ads && td < maxt * ads &&
-              td * ads_best < td_best * ads;
-    if (ok) {
-      td_best = td;
-      ads_best = ads;
-      inst_best = inst;
-    }
-  }
-  Shadow sh;
-  sh.occluded = inst_best >= 0.0f;
-  sh.t = sh.occluded ? td_best / ads_best : HK_F32_MAX;
-  sh.inst = inst_best;
-  return sh;
+  Occluder b = occluder_none();
+  for (int i = 0; i < n; i++)
+    shadow_tri(tris + HK_TRI * i, o, d, maxt, excl, incl, b);
+  return shadow_result(b);
 }
 
 // ---- the 64 B packed reservoir (ops/reservoir.py): 16 float planes of an

@@ -1,44 +1,48 @@
-"""Frame pipeline: the fused branches of hikari_tpu/frame.py.
+"""Frame pipeline: the branches of hikari_tpu/frame.py the port serves.
 
-One frame: fused prepass (kernel A; at upscale ratio 2 the render-size
-G-buffer is its strided planes, and SMAA's parity quads come from kernel
-8) -> blue noise -> lighting -> a-trous denoise (kernel C, four levels) at
-the render size -> tone mapping -> the post chain (SMAA TU4X, TAA Jasmine;
-kernels 11 and 12). The lighting is one of
+One frame: the G-buffer prepass -> blue noise -> lighting -> a-trous
+denoise (kernel C, four levels) at the render size -> tone mapping -> the
+post chain (SMAA TU4X, TAA Jasmine; kernels 11 and 12). The gates are
+hikari_tpu's own predicates (`prepass_fused_eligible`, `fused_eligible`,
+`spatial_fused_active`), on the tracer's kind and the kernels' caps:
 
-* no reuse: kernel B; the direct channel is the surface-emission term when
-  the scene has no sun;
-* temporal reuse (path R): one reprojection gather (kernel 9) of every
-  active channel's previous reservoirs, then kernel 4, which merges them
-  in the lighting kernel and returns the new reservoirs and variances;
-* temporal + spatial reuse (path S): the same gather also fetches the
-  previous spatial reservoirs, kernel 4 also emits the flags and scatter
-  reservoirs, and kernel 10 runs once per spatial channel (emissive,
-  indirect) after the scatter-replace.
+* prepass: kernel A for scenes within its gate (at upscale ratio 2 the
+  render-size G-buffer is its strided planes, and SMAA's parity quads come
+  from kernel 8); otherwise the tracer's primary rays (ops/prepass.py:
+  prepass), the full-screen albedo, the parity decimation at ratio 2 and
+  SMAA's quads as strided views of the G-buffer;
+* lighting through the fused kernels where their gate holds: kernel B
+  without reuse; with temporal reuse one reprojection gather (kernel 9) of
+  every active channel's previous reservoirs, then kernel 4; with spatial
+  reuse the same gather fetches the previous spatial reservoirs, kernel 4
+  emits the flags and scatter reservoirs, and kernel 10 runs once per
+  spatial channel after the scatter-replace;
+* otherwise, with temporal reuse, the modular lighting path
+  (ops/restir.py direct_lit / indirect_lit_ambient, whose rays go through
+  the scene's tracer: kernels 5, 6, 7 or kernel 13), with the spatial
+  tracking scatters and ops/restir.py spatial_reuse at the render size.
 
 Checkerboard lighting (at an even render width) lights half the pixels,
 (x + y + frame) % 2 == 0, on the compressed [h, w/2] domain
 (ops/checkerboard.py), and reconstructs the other half of every channel
-in one shared pass before the denoiser:
-
-* without reuse (path K) kernel B runs over the compressed domain;
-* with temporal reuse (path KR) the frame takes hikari_tpu's modular
-  lighting path (ops/restir.py direct_lit / indirect_lit_ambient, whose
-  rays go through kernels 5, 6 and 7): the gather runs at the full render
-  size, its fields are compressed, and the new reservoirs of the lit
-  pixels are merged into the full-size carry (the unlit half keeps its
-  reservoirs).
+in one shared pass before the denoiser: without reuse kernel B runs over
+the compressed domain; with temporal reuse the frame takes the modular
+path, the gather runs at the full render size, its fields are compressed,
+the new reservoirs of the lit pixels are merged into the full-size carry,
+and spatial reuse runs at the full render size on the merged planes.
 
 The carry holds the previous view matrices (velocity); with reuse the
 [h,16,w] temporal and spatial reservoir planes at the render size; with
 SMAA or TAA the previous full-res G-buffer; with SMAA the previous tone
 image (render size); with TAA the previous TAA output (post size).
 
-Settings outside the ported slices raise NotImplementedError when the
-frame function is built: FSR, SMAA at any ratio but 2, other ratios than
-1 and 2, ratio 2 at an odd output size, checkerboard lighting at ratio 2
-or with spatial reuse, the spatial tap scramble, spatial reuse without
-temporal reuse, textures, and scenes beyond the kernels' caps.
+Settings and scenes outside the ported slices raise NotImplementedError
+when the frame function is built: FSR, SMAA at any ratio but 2, other
+ratios than 1 and 2, ratio 2 at an odd output size, checkerboard lighting
+at ratio 2, the spatial tap scramble, spatial reuse without temporal
+reuse, textures, more than 8 emissives, and the modular path without
+temporal reuse (scenes beyond the fused lighting kernel's gate at
+settings without reuse).
 """
 
 from __future__ import annotations
@@ -58,9 +62,12 @@ from hikari_tpu_torch.ops import spatial_fused as _sf
 from hikari_tpu_torch.ops.denoise import denoise_channels
 from hikari_tpu_torch.ops.noise import sample_blue_noise
 from hikari_tpu_torch.ops.post import post_chain, post_sizes
-from hikari_tpu_torch.ops.prepass import frame_jitter
+from hikari_tpu_torch.ops.prepass import frame_jitter, prepass
 from hikari_tpu_torch.ops.reproj_gather import reproj_gather
+from hikari_tpu_torch.ops.sampling import SMALL_EMISSIVE_MAX
+from hikari_tpu_torch.ops.smaa import parity_quads
 from hikari_tpu_torch.ops.tonemap import tone_mapping
+from hikari_tpu_torch.utils.math import F32_EPSILON
 
 TEMPORAL_KEYS = ("direct_temporal", "emissive_temporal", "indirect_temporal")
 SPATIAL_KEYS = ("spatial_de", "spatial_indirect")
@@ -112,38 +119,72 @@ def unsupported_settings(settings: HikariSettings, full_size):
         reasons.append(f"upscale ratio {ratio}")
     elif ratio == 2.0 and (full_size[0] % 2 or full_size[1] % 2):
         reasons.append(f"ratio 2 at the odd output size {tuple(full_size)}")
-    if any(_tracks(settings)):
-        if not settings.temporal_reuse:
-            reasons.append("spatial reuse without temporal_reuse")
+    if any(_tracks(settings)) and not settings.temporal_reuse:
+        reasons.append("spatial reuse without temporal_reuse")
     if settings.checkerboard_lighting and ratio != 1.0:
         reasons.append(f"checkerboard_lighting at upscale ratio {ratio}")
-    elif checkerboard_active(settings, full_size) and any(_tracks(settings)):
-        reasons.append("checkerboard_lighting with spatial reuse")
     if settings.spatial_tap_scramble:
         reasons.append("spatial_tap_scramble")
     return reasons
 
 
-def unsupported_scene(scene, no_texture: bool, num_emissives: int):
+def unsupported_scene(no_texture: bool, num_emissives: int):
     """The reasons a compiled scene lies outside the ported slices."""
     reasons = []
     if not no_texture:
         reasons.append("textures")
-    for err in (_pf.prepass_caps_error(scene),
-                _lf.lighting_caps_error(scene, num_emissives)):
-        if err is not None:
-            reasons.append(err)
+    if num_emissives > SMALL_EMISSIVE_MAX:
+        reasons.append(f"{num_emissives} emissives > {SMALL_EMISSIVE_MAX} "
+                       "(the emissive BVH walk)")
     return reasons
 
 
-def spatial_fused_active(scene, settings: HikariSettings) -> bool:
-    """The fused spatial path (kernel 10) runs: spatial reuse on top of the
-    fused temporal path and a scene within the kernel's material cap
-    (hikari_tpu/frame.py:44-76). hikari_tpu's other conditions (no
-    checkerboard, no tap scramble, no textures) are settings and scenes
-    that unsupported_settings / unsupported_scene reject for the frame."""
-    return (any(_tracks(settings)) and settings.temporal_reuse
-            and _sf.spatial_fused_eligible(scene))
+def prepass_fused_eligible(scene, tracer_kind: str) -> bool:
+    """Kernel A serves the prepass: the small-scene tracer and a scene
+    within its triangle, material and instance caps
+    (hikari_tpu/ops/prepass_fused.py:63-75)."""
+    return (tracer_kind == "brute_force_pallas"
+            and _pf.prepass_caps_error(scene) is None)
+
+
+def fused_eligible(scene, *, num_emissives: int, temporal_reuse: bool,
+                   track_de: bool, track_ind: bool, tracer_kind: str,
+                   has_sun: bool, bounces: int, ckb: bool) -> bool:
+    """Kernel B / 4 serves the lighting (hikari_tpu/ops/light_fused.py:
+    87-118): no spatial tracking outside the fused spatial path, not
+    temporal reuse under checkerboard (the carries live at the full render
+    size), a channel to light, the small-scene tracer and a scene within
+    the kernel's caps."""
+    if track_de or track_ind:
+        return False
+    if temporal_reuse and ckb:
+        return False
+    if not (has_sun or num_emissives > 0 or bounces > 0):
+        return False
+    if tracer_kind != "brute_force_pallas":
+        return False
+    return _lf.lighting_caps_error(scene, num_emissives) is None
+
+
+def spatial_fused_active(scene, settings: HikariSettings, tracer_kind: str,
+                         num_emissives: int, has_sun: bool,
+                         full_size) -> bool:
+    """Kernel 10 serves spatial reuse (hikari_tpu/frame.py:44-76): spatial
+    and temporal reuse on the fused temporal path (kernel 4), without
+    checkerboard lighting or the tap scramble, in a scene within kernel
+    10's material cap."""
+    if not (any(_tracks(settings)) and settings.temporal_reuse):
+        return False
+    if (checkerboard_active(settings, full_size)
+            or settings.spatial_tap_scramble):
+        return False
+    if not _sf.spatial_fused_eligible(scene):
+        return False
+    return fused_eligible(scene, num_emissives=num_emissives,
+                          temporal_reuse=True, track_de=False,
+                          track_ind=False, tracer_kind=tracer_kind,
+                          has_sun=has_sun,
+                          bounces=settings.indirect_bounces, ckb=False)
 
 
 def carry_keys(settings: HikariSettings):
@@ -198,7 +239,10 @@ def carry_from_jax(carry, settings: HikariSettings, device,
     """The port's carry for `settings` from a hikari_tpu frame carry given
     as numpy arrays (the counterpart of scene_from_arrays): the view
     matrices, the [h,16,w] reservoir planes and, given the output size,
-    the post chain's history, bit for bit."""
+    the post chain's history, bit for bit. hikari_tpu keeps the spatial
+    carries of its modular path as packed [h,w,16] rows, which are
+    transposed; at a render width of 16 the two layouts share a shape, and
+    such a carry raises."""
     def tensor(a):
         a = np.ascontiguousarray(np.asarray(a, np.float32))
         return torch.from_numpy(a.copy()).to(device)
@@ -206,11 +250,19 @@ def carry_from_jax(carry, settings: HikariSettings, device,
     out = {}
     for k in ("prev_view_proj", "prev_inverse_view_proj") \
             + carry_keys(settings):
-        out[k] = tensor(carry[k])
+        a = np.asarray(carry[k])
+        if k in SPATIAL_KEYS:
+            h, _, w = np.shape(carry[TEMPORAL_KEYS[0]])
+            if w == rsv.PACKED_WIDTH:
+                raise ValueError(f"{k}: a 16-wide carry's layout is "
+                                 "ambiguous")
+            if a.shape == (h, w, rsv.PACKED_WIDTH):
+                a = a.transpose(0, 2, 1)
+        out[k] = tensor(a)
         if k in TEMPORAL_KEYS + SPATIAL_KEYS \
                 and out[k].shape[1] != rsv.PACKED_WIDTH:
             raise ValueError(f"{k}: shape {tuple(out[k].shape)}, not the "
-                             "[h,16,w] channel planes of the fused paths")
+                             "[h,16,w] channel planes")
     if full_size is not None:
         for k, shape in post_carry_shapes(full_size, settings).items():
             if isinstance(shape, dict):
@@ -220,35 +272,37 @@ def carry_from_jax(carry, settings: HikariSettings, device,
     return out
 
 
-def _prev_fields(planes, par: int):
-    """A gathered full-size [h,16,w] reservoir as the compressed structured
-    reservoir the modular channels take: the lit pixels' planes (a
-    selection, so compressing before the per-pixel unpack equals
-    hikari_tpu's unpack-then-compress bit for bit), with visible instance
-    -1 where the count is 0 (the packed empty reservoir decodes instance 0,
-    which would match instance 0 in the temporal gates)."""
-    r = rsv.unpack_reservoir_planes(ckb_ops.compress_planes(planes, par))
+def _prev_fields(planes, par):
+    """A gathered full-size [h,16,w] reservoir as the structured reservoir
+    the modular channels take, compressed to the lit pixels under
+    checkerboard (par not None; a selection, so compressing before the
+    per-pixel unpack equals hikari_tpu's unpack-then-compress bit for bit),
+    with visible instance -1 where the count is 0 (the packed empty
+    reservoir decodes instance 0, which would match instance 0 in the
+    temporal gates)."""
+    if par is not None:
+        planes = ckb_ops.compress_planes(planes, par)
+    r = rsv.unpack_reservoir_planes(planes)
     r["visible_instance"] = torch.where(r["count"] > 0.0,
                                         r["visible_instance"], -1)
     return r
 
 
-def build_render_frame(settings: HikariSettings, full_size, scene,
+def _zero_planes_where(mask, planes):
+    return torch.where(mask[:, None, :], 0.0, planes)
+
+
+def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                        no_texture: bool, num_emissives: int = 1,
-                       has_sun: bool = True, tracer=None):
+                       has_sun: bool = True):
     """Returns render_frame(scene, view, frame, noise, carry) -> (image
     [H,W,4], albedo [H,W,4], carry), specialized on the static settings
-    and scene facts (emissive count, sun presence). `tracer` (ops/trace.py)
-    serves the modular lighting path of checkerboard lighting with temporal
-    reuse. Raises NotImplementedError for anything outside the ported
-    slices."""
+    and scene facts (emissive count, sun presence) and on the scene's
+    tracer (ops/trace.py), which serves the non-fused prepass and the
+    modular lighting path. Raises NotImplementedError for anything outside
+    the ported slices."""
     reasons = (unsupported_settings(settings, full_size)
-               + unsupported_scene(scene, no_texture, num_emissives))
-    if reasons:
-        raise NotImplementedError(
-            "outside the ported slices: " + ", ".join(reasons))
-    # within the caps above, spatial reuse always takes the fused kernel
-    fused_sp = spatial_fused_active(scene, settings)
+               + unsupported_scene(no_texture, num_emissives))
     full_size = tuple(full_size)
     ratio = settings.upscale_ratio
     render_size = scaled_size(full_size, ratio)
@@ -261,11 +315,22 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
     active = (has_sun, num_emissives > 0, bounces > 0)
     any_active = any(active)
     ckb = checkerboard_active(settings, full_size)
-    # hikari_tpu's fused lighting kernel refuses temporal reuse under
-    # checkerboard lighting (light_fused.py:100-101): the modular path
-    modular = reuse and ckb
-    if modular and tracer is None:
-        raise ValueError("the modular lighting path needs a tracer")
+    kind = tracer.kind
+    fused_pre = prepass_fused_eligible(scene, kind)
+    fused_sp = spatial_fused_active(scene, settings, kind, num_emissives,
+                                    has_sun, full_size)
+    use_fused = any_active and fused_eligible(
+        scene, num_emissives=num_emissives, temporal_reuse=reuse,
+        track_de=track_de and not fused_sp,
+        track_ind=track_ind and not fused_sp, tracer_kind=kind,
+        has_sun=has_sun, bounces=bounces, ckb=ckb)
+    modular = any_active and not use_fused
+    if modular and not reuse:
+        reasons.append("the modular lighting path without temporal_reuse "
+                       "(a scene beyond the fused lighting kernel's gate)")
+    if reasons:
+        raise NotImplementedError(
+            "outside the ported slices: " + ", ".join(reasons))
     light_size = (render_size[0], render_size[1] // 2) if ckb else render_size
     sp_sources = []
     if fused_sp:
@@ -293,40 +358,76 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
                                      fl[f"{slot}_scatter"], prev_p)
         return prev_p
 
-    def modular_lighting(scene, g_l, view, frame, rand_l, gathered, carry,
-                         par):
+    def modular_lighting(scene, g, g_l, view, frame, rand_l, reproj,
+                         gathered, carry, par):
         """direct_lit / indirect_lit_ambient of the active channels on the
-        compressed domain (hikari_tpu/frame.py:412-532 without its spatial
-        parts). Returns ({slot: (render, variance)} on the compressed
-        domain, the new full-size temporal carries)."""
+        lighting domain, with the spatial tracking scatters and the spatial
+        passes at the render size (hikari_tpu/frame.py:412-532). Returns
+        ({slot: (render, variance)} on the lighting domain, the new
+        reservoir carries, {slot: spatial pass result})."""
         slots = [slot for c, slot in enumerate("dei") if active[c]]
         prev = {slot: _prev_fields(p, par)
                 for slot, p in zip(slots, gathered)}
+        reproj_l = (reproj if par is None
+                    else restir.reprojection_ckb(g_l, render_size, par))
+        surf_l = restir.primary_surface(scene, g_l, no_texture)
         kw = dict(temporal_reuse=True, no_texture=no_texture,
-                  render_size=light_size,
-                  surface=restir.primary_surface(scene, g_l, no_texture))
+                  render_size=light_size, surface=surf_l, reproj=reproj_l)
+        buf = {"spatial_de": carry.get("spatial_de"),
+               "spatial_indirect": carry.get("spatial_indirect")}
         out = {}
         if has_sun:
-            out["d"] = restir.direct_lit(scene, tracer, g_l, view, frame,
-                                         rand_l, prev["d"],
-                                         emissive_lit=False, **kw)
+            out["d"] = restir.direct_lit(
+                scene, tracer, g_l, view, frame, rand_l, prev["d"],
+                emissive_lit=False, prev_spatial=buf["spatial_de"],
+                track_spatial=track_de, **kw)
+            buf["spatial_de"] = out["d"]["prev_spatial"]
         if num_emissives > 0:
-            out["e"] = restir.direct_lit(scene, tracer, g_l, view, frame,
-                                         rand_l, prev["e"],
-                                         emissive_lit=True, **kw)
+            out["e"] = restir.direct_lit(
+                scene, tracer, g_l, view, frame, rand_l, prev["e"],
+                emissive_lit=True, prev_spatial=buf["spatial_de"],
+                track_spatial=track_de, **kw)
+            buf["spatial_de"] = out["e"]["prev_spatial"]
         if bounces > 0:
             out["i"] = restir.indirect_lit_ambient(
                 scene, tracer, g_l, view, frame, rand_l, prev["i"],
-                bounces=bounces, **kw)
-        temporal = {}
+                bounces=bounces, prev_spatial=buf["spatial_indirect"],
+                track_spatial=track_ind, **kw)
+            buf["spatial_indirect"] = out["i"]["prev_spatial"]
+        carries = {}
         for c, slot in enumerate("dei"):
             if slot in out:
-                k = TEMPORAL_KEYS[c]
-                temporal[k] = ckb_ops.merge_packed_planes(
-                    rsv.pack_reservoir_planes(out[slot]["temporal"]),
-                    carry[k], par)
+                planes = rsv.pack_reservoir_planes(out[slot]["temporal"])
+                if par is not None:
+                    planes = ckb_ops.merge_packed_planes(
+                        planes, carry[TEMPORAL_KEYS[c]], par)
+                carries[TEMPORAL_KEYS[c]] = planes
+        spatial = {}
+        valid = g["position"][..., 3] >= F32_EPSILON
+        surf_r = surf_l if par is None else None
+        for slot, key, on in (("e", "spatial_de", track_de),
+                              ("i", "spatial_indirect", track_ind)):
+            if not on:
+                continue
+            carries[key] = buf[key]
+            if slot not in out:
+                continue
+            # the spatial pass runs at the render size: under checkerboard
+            # on the merged planes (new lit pixels, carried unlit ones)
+            temporal_r = (out[slot]["temporal"] if par is None else
+                          rsv.unpack_reservoir_planes(
+                              carries[TEMPORAL_KEYS["dei".index(slot)]]))
+            if surf_r is None:
+                surf_r = restir.primary_surface(scene, g, no_texture)
+            res = restir.spatial_reuse(
+                scene, g, view, frame, temporal_r, buf[key], reproj,
+                emissive_lit=slot == "e", render_size=render_size,
+                surface=surf_r)
+            carries[key] = _zero_planes_where(
+                ~valid, rsv.pack_reservoir_planes(res["spatial"]))
+            spatial[slot] = res
         return ({k: (v["render"], v["variance"]) for k, v in out.items()},
-                temporal)
+                carries, spatial)
 
     def to_full(lit, par, g):
         """Every lit channel's (render, variance) from the compressed
@@ -346,18 +447,23 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
         number = frame["number"]
         jit = frame_jitter(number, settings.taa, settings.upscale.mode)
         albedo_r = smaa_quads = None
-        if half:
+        if fused_pre and half:
             # the render-size G-buffer: kernel A's strided planes
             gbuf, albedo, g, albedo_r = _pf.prepass_fused(
                 scene, view, prev_view, jit, full_size,
                 dec_parity=number & 1)
-        else:
+        elif fused_pre:
             gbuf, albedo = _pf.prepass_fused(scene, view, prev_view, jit,
                                              full_size)
+        else:
+            gbuf = prepass(scene, tracer, view, prev_view, jit, full_size)
+            albedo = restir.full_screen_albedo(scene, gbuf, view)
+        if not (fused_pre and half):
             g = restir.resample_gbuffer(gbuf, render_size, number, ratio)
         if _smaa(settings):
-            smaa_quads = _pf.prepass_fused_quads(scene, view, prev_view, jit,
-                                                 full_size)
+            smaa_quads = (_pf.prepass_fused_quads(scene, view, prev_view,
+                                                  jit, full_size)
+                          if fused_pre else parity_quads(gbuf))
         rand = sample_blue_noise(noise, number, render_size)
         par = None
         g_l, rand_l = g, rand
@@ -394,11 +500,12 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
 
         # {slot: (render, variance)} of the channels that trace rays, on
         # the lighting domain
-        lit, fl = {}, {}
+        lit, fl, spatial = {}, {}, {}
         if modular:
-            lit, temporal = modular_lighting(scene, g_l, view, frame, rand_l,
-                                             gathered, carry, par)
-            new_carry.update(temporal)
+            lit, carries, spatial = modular_lighting(
+                scene, g, g_l, view, frame, rand_l, reproj, gathered, carry,
+                par)
+            new_carry.update(carries)
         elif any_active:
             fl = _lf.fused_lighting(
                 scene, g_l, view, frame, rand_l, has_sun=has_sun,
@@ -415,6 +522,11 @@ def build_render_frame(settings: HikariSettings, full_size, scene,
                         new_carry[TEMPORAL_KEYS[c]] = fl[f"{slot}_packed"]
         if ckb and lit:
             lit = to_full(lit, par, g)
+        # the modular spatial passes' renders, their variances where set
+        for slot, res in spatial.items():
+            lit[slot] = (res["render"],
+                         torch.where(torch.isnan(res["variance"]),
+                                     lit[slot][1], res["variance"]))
 
         if has_sun:
             d_render, d_var = lit["d"]

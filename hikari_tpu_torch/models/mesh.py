@@ -1,5 +1,5 @@
 """Triangle meshes and the procedural shapes the port supports so far
-(plane, box/cube, quad), with Bevy's vertex layouts as in
+(plane, box/cube, quad, UV sphere), with Bevy's vertex layouts as in
 hikari_tpu/models/mesh.py."""
 
 from __future__ import annotations
@@ -88,3 +88,34 @@ def quad(width: float = 1.0, height: float = 1.0) -> Mesh:
     uvs = np.array([[0, 1], [1, 1], [1, 0], [0, 0]], dtype=np.float32)
     indices = np.array([[0, 1, 2], [0, 2, 3]], dtype=np.uint32)
     return Mesh(positions, normals, uvs, indices)
+
+
+def uv_sphere(radius: float = 1.0, sectors: int = 36,
+              stacks: int = 18) -> Mesh:
+    """Bevy shape::UVSphere layout (sector/stack grid), in float64 cast to
+    float32 as hikari_tpu builds it."""
+    positions, normals, uvs = [], [], []
+    for i in range(stacks + 1):
+        stack_angle = np.pi / 2 - i * np.pi / stacks
+        xy = radius * np.cos(stack_angle)
+        z = radius * np.sin(stack_angle)
+        for j in range(sectors + 1):
+            sector_angle = j * 2 * np.pi / sectors
+            x = xy * np.cos(sector_angle)
+            y = xy * np.sin(sector_angle)
+            positions.append([x, y, z])
+            normals.append([x / radius, y / radius, z / radius])
+            uvs.append([j / sectors, i / stacks])
+    indices = []
+    for i in range(stacks):
+        k1 = i * (sectors + 1)
+        k2 = k1 + sectors + 1
+        for j in range(sectors):
+            if i != 0:
+                indices.append([k1 + j, k2 + j, k1 + j + 1])
+            if i != stacks - 1:
+                indices.append([k1 + j + 1, k2 + j, k2 + j + 1])
+    return Mesh(np.asarray(positions, np.float32),
+                np.asarray(normals, np.float32),
+                np.asarray(uvs, np.float32),
+                np.asarray(indices, np.uint32))

@@ -6,8 +6,11 @@ triangles are pre-transformed to world space into one triangle table with
 per-triangle instance/material ids, plus a world BVH, the emissive list,
 the emissive light BVH and per-instance alias tables (instance.rs:381-428).
 Host code stays numpy; `GpuScene.as_pytree(device)` uploads the arrays as
-torch tensors. Cluster tables (hikari_tpu builds them above 512 triangles
-for its tile-cull tracer) and texture atlases are not ported yet.
+torch tensors, and `GpuScene.bvh` keeps the BVH's topology for the
+on-device refit (models/refit_device.py). hikari_tpu's cluster tables
+(models/clusters.py, built above 512 triangles for its tile-cull tracer)
+are replaced by kernel 13's walk of `bvh_packed`; texture atlases are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -149,6 +152,7 @@ class GpuScene:
     num_instances: int
     num_emissives: int
     num_textures: int
+    bvh: object  # the world BVH's topology (host-only, for refit)
 
     def as_pytree(self, device) -> dict:
         return scene_from_arrays(self.arrays, device)
@@ -417,4 +421,5 @@ def compile_scene(scene: Scene) -> GpuScene:
         num_instances=len(visible),
         num_emissives=num_emissives,
         num_textures=0,
+        bvh=bvh,
     )

@@ -41,6 +41,18 @@ def active_mask(par: int, size, device=None) -> torch.Tensor:
     return (xx + yy + par) % 2 == 0
 
 
+def pixel_uv(size, par: int, device=None) -> torch.Tensor:
+    """[h, w/2, 2]: the true pixel-centre uv of each compressed-domain
+    pixel."""
+    h, w = size
+    o = (torch.arange(h, device=device)[:, None] + par) % 2
+    xs = 2 * torch.arange(w // 2, device=device)[None, :] + o
+    u = div(xs.to(torch.float32) + 0.5, float(w))
+    v = div(torch.arange(h, dtype=torch.float32, device=device) + 0.5,
+            float(h))[:, None].expand(u.shape)
+    return torch.stack([u, v], -1)
+
+
 def _rows(t: torch.Tensor, row_even: torch.Tensor) -> torch.Tensor:
     """row_even shaped to broadcast over t's trailing axes."""
     return row_even.reshape((-1,) + (1,) * (t.dim() - 1))

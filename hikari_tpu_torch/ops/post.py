@@ -30,10 +30,10 @@ def post_sizes(settings: HikariSettings, render_size):
 def post_chain(gbuf, carry, tone, frame, settings: HikariSettings,
                full_size, render_size, smaa_quads):
     """Returns (final [H,W,4] at full_size, post carry {"prev_tone",
-    "prev_taa"} for the stages that ran). smaa_quads: kernel 8's parity
-    quads of this frame with SMAA, else None. hikari_tpu also carries
-    prev_upscale (the chain's output), which nothing reads at these
-    settings; the port leaves it out."""
+    "prev_taa"} for the stages that ran). smaa_quads: this frame's parity
+    quads with SMAA (kernel 8's or smaa.parity_quads'), else None.
+    hikari_tpu also carries prev_upscale (the chain's output), which
+    nothing reads at these settings; the port leaves it out."""
     full_size = tuple(full_size)
     cur = tone
     post_carry = {}

@@ -1,6 +1,7 @@
-"""Primary-ray helpers of the G-buffer prepass (the port of the parts of
-hikari_tpu/ops/prepass.py the fused prepass uses): the per-frame Halton
-jitter and the camera rays."""
+"""The G-buffer prepass without kernel A (hikari_tpu/ops/prepass.py): the
+per-frame Halton jitter, the camera rays, the forward-difference depth
+gradient, and `prepass`, which traces the primary rays through the
+scene's tracer (`with_info`) for scenes beyond kernel A's gate."""
 
 from __future__ import annotations
 
@@ -60,3 +61,57 @@ def camera_rays(view, size, jitter_pixels, pixels=None):
     d = torch.stack([dx * inv_len, dy * inv_len, dz * inv_len], -1)
     o = view["world_position"].reshape(-1)[:3].to(torch.float32)
     return o.expand(*y.shape, 3), d
+
+
+def depth_gradient(depth, grad_scale: float = 1.0):
+    """[h,w,2] forward differences of the depth (the last row and column
+    repeat their neighbour's) over `grad_scale` image pixels."""
+    ddx = torch.cat([depth[:, 1:] - depth[:, :-1],
+                     depth[:, -1:] - depth[:, -2:-1]], dim=1)
+    ddy = torch.cat([depth[1:, :] - depth[:-1, :],
+                     depth[-1:, :] - depth[-2:-1, :]], dim=0)
+    if grad_scale != 1.0:
+        ddx = ddx * (1.0 / grad_scale)
+        ddy = ddy * (1.0 / grad_scale)
+    return torch.stack([ddx, ddy], -1)
+
+
+# the primary rays' max_t (hikari_tpu/ops/prepass.py:93)
+PRIMARY_MAX_T = 3.4e38
+
+
+def prepass(scene, tracer, view, prev_view, jitter, size):
+    """The full-resolution G-buffer of ops/prepass_fused.py's contract from
+    one jittered primary ray per pixel through `tracer.with_info`: position
+    (xyz + NDC depth, 0 on the background), normal, depth gradient,
+    instance / material ids + 0.5 (-0.5 on the background) and velocity +
+    mesh uv. The surface point, depth and velocity share kernel A's
+    expressions (prepass_fused._surface_point)."""
+    from hikari_tpu_torch.ops import prepass_fused as _pf
+
+    h, w = size
+    p = _pf.pack_params(view, prev_view, jitter, size).cpu().numpy()
+    origin, direction = camera_rays(view, size, jitter)
+    ro = origin.reshape(-1, 3).contiguous()
+    rd = direction.reshape(-1, 3).contiguous()
+    info = tracer.with_info(
+        scene, ro, rd, torch.full((h * w,), PRIMARY_MAX_T, device=ro.device))
+    inst_f = info["instance"].to(torch.float32)
+    mask, (wx, wy, wz), depth, velu, velv = _pf._surface_point(
+        p, ro.unbind(-1), rd.unbind(-1), info["t"], inst_f,
+        scene["inst_motion"])
+    z = torch.zeros_like(depth)
+    position = torch.stack([torch.where(mask, wx, z), torch.where(mask, wy, z),
+                            torch.where(mask, wz, z), depth], -1)
+    normal = torch.where(mask[:, None], info["normal"], 0.0)
+    inst_mat = torch.stack(
+        [inst_f + 0.5, info["material"].to(torch.float32) + 0.5], -1)
+    vel_uv = torch.cat([torch.stack([velu, velv], -1), info["uv"]], -1)
+    depth = depth.reshape(h, w)
+    return {
+        "position": position.reshape(h, w, 4),
+        "normal": normal.reshape(h, w, 3),
+        "depth_gradient": depth_gradient(depth),
+        "instance_material": inst_mat.reshape(h, w, 2),
+        "velocity_uv": vel_uv.reshape(h, w, 4),
+    }

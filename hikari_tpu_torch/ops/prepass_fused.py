@@ -21,7 +21,8 @@ from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
 from hikari_tpu_torch.ops.light_fused import (MAX_MATERIALS, MAX_TRIS,
                                               _env_brdf_approx, _row_index,
                                               _rsqrt_n, _Surface)
-from hikari_tpu_torch.ops.prepass import camera_rays
+from hikari_tpu_torch.ops.prepass import camera_rays, depth_gradient
+from hikari_tpu_torch.ops.restir import parity_decimate
 from hikari_tpu_torch.ops.trace_pallas import closest_sweep, interpolate
 from hikari_tpu_torch.utils.math import F32_EPSILON, F32_MAX
 
@@ -238,20 +239,12 @@ prepass_quads_kernel.launches = 0
 
 def _assemble(position, normal, inst_mat, vel_uv, albedo, grad_scale=1.0):
     """Kernel outputs -> (gbuf dict, albedo [h,w,4]); depth gradients are
-    forward differences (the last row/column repeats its neighbour's) over
-    `grad_scale` image pixels (2 for the decimated planes)."""
-    depth = position[..., 3]
-    ddx = torch.cat([depth[:, 1:] - depth[:, :-1],
-                     depth[:, -1:] - depth[:, -2:-1]], dim=1)
-    ddy = torch.cat([depth[1:, :] - depth[:-1, :],
-                     depth[-1:, :] - depth[-2:-1, :]], dim=0)
-    if grad_scale != 1.0:
-        ddx = ddx * (1.0 / grad_scale)
-        ddy = ddy * (1.0 / grad_scale)
+    forward differences over `grad_scale` image pixels (2 for the
+    decimated planes)."""
     gbuf = {
         "position": position,
         "normal": normal,
-        "depth_gradient": torch.stack([ddx, ddy], -1),
+        "depth_gradient": depth_gradient(position[..., 3], grad_scale),
         "instance_material": inst_mat,
         "velocity_uv": vel_uv,
     }
@@ -277,9 +270,8 @@ def prepass_fused(scene, view, prev_view, jitter, size, dec_parity=None):
     gbuf, albedo = _assemble(*planes)
     if dec_parity is None:
         return gbuf, albedo
-    s = dec_parity
     g_dec, albedo_dec = _assemble(
-        *(t[s::2, s::2].contiguous() for t in planes), grad_scale=2.0)
+        *parity_decimate(planes, dec_parity), grad_scale=2.0)
     return gbuf, albedo, g_dec, albedo_dec
 
 

@@ -295,6 +295,49 @@ def update_reservoir(r: dict, s: dict, w_new, mask=None) -> dict:
     return out
 
 
+def merge_reservoir(r: dict, other: dict, p, mask=None) -> dict:
+    """Merge another reservoir, count-weighted (light.wgsl:175-179)."""
+    if mask is None:
+        mask = torch.ones_like(p, dtype=torch.bool)
+    out = update_reservoir(r, {k: other[k] for k in _STRUCT_SAMPLE_KEYS},
+                           p * other["w"] * other["count"], mask)
+    out["count"] = torch.where(mask, r["count"] + other["count"], r["count"])
+    return out
+
+
+def gather_reservoir_planes(planes, iy, ix, valid) -> dict:
+    """The structured reservoirs of [h,16,w] planes at pixels (iy, ix)
+    ([h',w'] int coordinates), the empty reservoir (zero words, visible
+    instance -1) where not `valid`."""
+    g = planes[iy.long(), :, ix.long()]                     # [h', w', 16]
+    g = torch.where(valid[..., None], g, 0.0)
+    r = unpack_reservoir_planes(g.permute(0, 2, 1))
+    r["visible_instance"] = torch.where(valid, r["visible_instance"], -1)
+    return r
+
+
+def scatter_reservoir_planes(dst, iy, ix, src: dict, mask) -> torch.Tensor:
+    """dst[iy, :, ix] = the packed src where `mask`: the cross-pixel
+    invalidation scatter of the modular path (light.wgsl:1092-1095,
+    1199-1202) on [h,16,w] planes; src and the coordinates live on the
+    lighting domain [h',w']. Where several sources target one pixel the
+    highest source index (row-major on the lighting domain) wins, on every
+    device (the reference's scatter leaves it unspecified)."""
+    h, _, w = dst.shape
+    src_rows = pack_reservoir_planes(src).permute(0, 2, 1).reshape(
+        -1, PACKED_WIDTH)
+    target = (iy.long() * w + ix.long()).reshape(-1)
+    m = mask.reshape(-1)
+    source = torch.arange(m.numel(), device=dst.device)
+    winner = torch.full((h * w,), -1, dtype=torch.int64, device=dst.device)
+    winner = winner.scatter_reduce(0, target[m], source[m], "amax")
+    hit = winner >= 0
+    rows = dst.permute(0, 2, 1).reshape(h * w, PACKED_WIDTH)
+    rows = torch.where(hit[:, None], src_rows[torch.clamp(winner, min=0)],
+                       rows)
+    return rows.reshape(h, w, PACKED_WIDTH).permute(0, 2, 1).contiguous()
+
+
 def clamp_reservoir(r: dict, max_count: float) -> dict:
     """History clamp (light.wgsl:944-951, 1645-1651)."""
     over = r["count"] > max_count

@@ -1,25 +1,28 @@
 """The parts of hikari_tpu/ops/restir.py the ported frames use: the
-jittered-deferred G-buffer lookup (the identity at upscale ratio 1; at
-ratio 2 the frame takes prepass_fused's decimated planes instead), the
-primary surface, the sun-less direct channel, the per-frame reprojection
-(previous-frame coordinates) of the reuse paths, and the modular
-lighting channels `direct_lit` and `indirect_lit_ambient`
-in their temporal-reuse form (the path the frame takes under checkerboard
+jittered-deferred G-buffer lookup (the identity at upscale ratio 1, the
+parity decimation at ratio 2), the primary surface, the full-screen albedo
+of the non-fused prepass, the sun-less direct channel, the per-frame
+reprojection (previous-frame coordinates) of the reuse paths, and the
+modular lighting channels `direct_lit` and `indirect_lit_ambient` in their
+temporal-reuse form with the spatial-reuse tracking, and `spatial_reuse`
+(the path of scenes beyond the fused lighting kernel, and of checkerboard
 lighting with temporal reuse).
 
 The modular channels are tensor passes over the flattened [h*w] pixels;
-their rays go through the tracer (ops/trace.py: kernels 5, 6, 7). Their
-no-reuse specializations are reached only by scenes beyond the fused
-lighting kernel (textures, or its caps), which the port rejects, so they
-raise; so does the spatial-reuse tracking (the cross-pixel invalidation
-scatters), whose consumer, the modular spatial pass, is not ported."""
+their rays go through the scene's tracer (ops/trace.py: kernels 5, 6, 7,
+or kernel 13). Their no-reuse specializations are not ported: they raise.
+The spatial buffers stay [h,16,w] channel planes across the frame, and
+the cross-pixel invalidation scatters into them resolve collisions by
+ops/reservoir.scatter_reservoir_planes' rule."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from hikari_tpu_torch.ops import checkerboard as ckb_ops
 from hikari_tpu_torch.ops import reservoir as rsv
+from hikari_tpu_torch.ops import spatial_fused as _sf
 from hikari_tpu_torch.ops._kernel import div, f32
 from hikari_tpu_torch.ops.sampling import (RAY_BIAS, occlude_hit_info,
                                            select_light_candidate)
@@ -32,6 +35,7 @@ from hikari_tpu_torch.utils.math import (F32_EPSILON, F32_MAX, GOLDEN_RATIO,
                                          normalize, sample_cosine_hemisphere)
 
 VALIDATION_COUNT_THRESHOLD = 4.0
+SPATIAL_VARIANCE_SAMPLE_THRESHOLD = 4.0
 
 
 def pixel_uv(size, device=None):
@@ -58,10 +62,7 @@ def in_unit_box(uv, strict=True):
     return (d < 0.5).all(-1) if strict else (d <= 0.5).all(-1)
 
 
-def reprojection(g, render_size):
-    """Previous-frame uv, coordinates and bounds shared by every channel
-    (light.wgsl:1089). g: render-res G-buffer."""
-    uv = pixel_uv(render_size, g["velocity_uv"].device)
+def _reprojection(uv, g, render_size):
     previous_uv = uv - g["velocity_uv"][..., :2]
     piy, pix = uv_to_coords(previous_uv, render_size)
     return {
@@ -74,12 +75,37 @@ def reprojection(g, render_size):
     }
 
 
+def reprojection(g, render_size):
+    """Previous-frame uv, coordinates and bounds shared by every channel
+    (light.wgsl:1089). g: render-res G-buffer."""
+    return _reprojection(pixel_uv(render_size, g["velocity_uv"].device), g,
+                         render_size)
+
+
+def reprojection_ckb(g_c, render_size, par: int):
+    """`reprojection` of the compressed checkerboard domain: uv are the
+    lit pixels' true centres; piy / pix index the full render size."""
+    return _reprojection(
+        ckb_ops.pixel_uv(render_size, par, g_c["velocity_uv"].device), g_c,
+        render_size)
+
+
+def parity_decimate(planes, parity: int):
+    """Full-size [H,W,...] planes at pixels (2y + s, 2x + s), s = the
+    frame's parity: the ratio-2 selection of hikari_tpu's resample_deferred
+    (restir.py:105-115), which both prepass routes take."""
+    return [t[parity::2, parity::2].contiguous() for t in planes]
+
+
 def resample_deferred(img, render_size, frame_number: int, ratio: float):
     """Jittered-deferred lookup of a full-res [H,W,...] buffer at render
-    resolution: the identity at ratio 1, the only ratio it serves (the
-    ratio-2 frame reads prepass_fused's decimated planes)."""
+    resolution: the identity at ratio 1, the parity decimation at ratio 2
+    (the only ratios the port serves)."""
     if ratio == 1.0 and tuple(img.shape[:2]) == tuple(render_size):
         return img
+    if ratio == 2.0 and tuple(img.shape[:2]) == (2 * render_size[0],
+                                                 2 * render_size[1]):
+        return parity_decimate([img], frame_number & 1)[0]
     raise NotImplementedError(
         f"upscale ratio {ratio} (render size {render_size}) is not ported")
 
@@ -95,6 +121,19 @@ def primary_surface(scene, g, no_texture: bool):
     material = g["instance_material"][..., 1].to(torch.int32)
     return retrieve_surface(scene, material, g["velocity_uv"][..., 2:4],
                             no_texture)
+
+
+def full_screen_albedo(scene, gbuf, view, surface=None):
+    """The env-BRDF albedo of the full-res G-buffer (light.wgsl:1020-1042):
+    [H,W,4], alpha 1 on the valid pixels, zeros elsewhere."""
+    depth = gbuf["position"][..., 3]
+    valid = depth >= F32_EPSILON
+    if surface is None:
+        surface = primary_surface(scene, gbuf, True)
+    v = calculate_view(view, gbuf["position"])
+    albedo = env_brdf(surface, v, gbuf["normal"])
+    a = torch.cat([albedo, torch.ones_like(depth)[..., None]], -1)
+    return torch.where(valid[..., None], a, 0.0)
 
 
 def emissive_surface_channel(scene, g, no_texture: bool, render_size,
@@ -175,14 +214,18 @@ def _finish_channel(r, s, valid):
 
 def direct_lit(scene, tracer, g, view, frame, noise_rand, prev_r, *,
                emissive_lit: bool, temporal_reuse: bool, no_texture: bool,
-               render_size, surface=None):
+               render_size, surface=None, reproj=None, prev_spatial=None,
+               track_spatial: bool = False):
     """One direct-light channel (light.wgsl:1045-1261): the sun
     (emissive_lit=False, RENDER_EMISSIVE: the surface emission is added) or
     the emissives. g: the lighting domain's G-buffer; prev_r: the previous
     temporal reservoir gathered at the reprojected coordinates. On the
     channel's validation frames (frame number % interval == 0, a host
-    branch) the carried sample is re-traced. Returns {render [h,w,4],
-    variance [h,w], temporal (the new reservoir)}."""
+    branch) the carried sample is re-traced. With track_spatial the
+    rejected and re-validated reservoirs are scattered into the spatial
+    buffer prev_spatial ([h,16,w] planes at the render size) at reproj's
+    coordinates (light.wgsl:1092-1095, 1199-1202). Returns {render [h,w,4],
+    variance [h,w], temporal (the new reservoir), prev_spatial}."""
     if not temporal_reuse:
         raise NotImplementedError(
             "the no-reuse modular lighting path (scenes beyond the fused "
@@ -192,7 +235,11 @@ def direct_lit(scene, tracer, g, view, frame, noise_rand, prev_r, *,
     s = make_sample_from_gbuffer(g, noise_rand, render_size)
     if surface is None:
         surface = primary_surface(scene, g, no_texture)
-    r, _ = rsv.check_previous_reservoir(prev_r, s)
+    r, reproj_ok = rsv.check_previous_reservoir(prev_r, s)
+    if track_spatial:
+        prev_spatial = rsv.scatter_reservoir_planes(
+            prev_spatial, reproj["piy"], reproj["pix"], r,
+            ~reproj_ok & reproj["in_loose"] & valid)
     interval = (frame["emissive_validate_interval"] if emissive_lit
                 else frame["direct_validate_interval"])
     is_validation = int(frame["number"]) % max(int(interval), 1) == 0
@@ -254,6 +301,10 @@ def direct_lit(scene, tracer, g, view, frame, noise_rand, prev_r, *,
         lum_ratio = div(luminance(vrad2),
                         torch.clamp(luminance(r["radiance"]), min=1e-4))
         lum_miss = ((lum_ratio > 1.25) | (lum_ratio < 0.8)) & valid
+        if track_spatial:
+            prev_spatial = rsv.scatter_reservoir_planes(
+                prev_spatial, reproj["piy"], reproj["pix"], r,
+                lum_miss & reproj["in_loose"])
         p2 = _unflat(cand["p"], render_size)
         w_new = torch.where(p2 > 0.0, div(luminance(s2["radiance"]),
                                           torch.clamp(p2, min=1e-30)), 0.0)
@@ -273,16 +324,21 @@ def direct_lit(scene, tracer, g, view, frame, noise_rand, prev_r, *,
         out = out + compute_emissive_radiance(surface["emissive"])
     render = torch.where(valid[..., None], torch.cat(
         [out, torch.ones_like(depth)[..., None]], -1), 0.0)
-    return {"render": render, "variance": variance, "temporal": r}
+    return {"render": render, "variance": variance, "temporal": r,
+            "prev_spatial": prev_spatial}
 
 
 def indirect_lit_ambient(scene, tracer, g, view, frame, noise_rand, prev_r,
                          *, bounces: int, temporal_reuse: bool,
-                         no_texture: bool, render_size, surface=None):
-    """The indirect channel (light.wgsl:1264-1498): cosine bounces (kernel
-    5 + the winner's attributes), NEE at each bounce hit (probe kernel 6,
-    shadow kernel 7), the radiance clamp, then temporal ReSTIR of the
-    gathered radiance. Returns {render, variance, temporal}."""
+                         no_texture: bool, render_size, surface=None,
+                         reproj=None, prev_spatial=None,
+                         track_spatial: bool = False):
+    """The indirect channel (light.wgsl:1264-1498): cosine bounces (the
+    tracer's with_info), NEE at each bounce hit (its probe and shadow
+    rays), the radiance clamp, then temporal ReSTIR of the gathered
+    radiance; with track_spatial the rejected reservoirs are scattered into
+    prev_spatial as in direct_lit. Returns {render, variance, temporal,
+    prev_spatial}."""
     if not temporal_reuse:
         raise NotImplementedError(
             "the no-reuse modular lighting path (scenes beyond the fused "
@@ -393,7 +449,11 @@ def indirect_lit_ambient(scene, tracer, g, view, frame, noise_rand, prev_r,
     pdf2 = _unflat(pdf, render_size)
     w_new = torch.where(pdf2 > 0.0, div(luminance(sample_rad),
                                         torch.clamp(pdf2, min=1e-30)), 0.0)
-    r, _ = rsv.check_previous_reservoir(prev_r, s)
+    r, reproj_ok = rsv.check_previous_reservoir(prev_r, s)
+    if track_spatial:
+        prev_spatial = rsv.scatter_reservoir_planes(
+            prev_spatial, reproj["piy"], reproj["pix"], r,
+            ~reproj_ok & reproj["in_loose"] & valid)
     r = rsv.temporal_restir(r, s, w_new, frame["max_temporal_reuse_count"],
                             valid)
     out_rad = shading(scene, view_dir, r["visible_normal"], normalize(
@@ -404,4 +464,120 @@ def indirect_lit_ambient(scene, tracer, g, view, frame, noise_rand, prev_r,
     render = torch.where(valid[..., None], torch.cat(
         [out_rad * r["w"][..., None], torch.ones((h, w, 1), device=dev)], -1),
         0.0)
-    return {"render": render, "variance": variance, "temporal": r}
+    return {"render": render, "variance": variance, "temporal": r,
+            "prev_spatial": prev_spatial}
+
+
+# ---------------------------------------------------------------------------
+# spatial reuse (light.wgsl:1503-1684)
+# ---------------------------------------------------------------------------
+
+def compute_jacobian(q, s):
+    """GRIS Jacobian (light.wgsl:985-1004): q the neighbour's reservoir, s
+    this pixel's sample."""
+    n = q["sample_normal"]
+    q_sp = q["sample_position"][..., :3]
+    q_vp = q["visible_position"][..., :3]
+    s_vp = s["visible_position"][..., :3]
+    cos1 = torch.abs(dot3(normalize(s_vp - q_sp), n))
+    cos2 = torch.abs(dot3(normalize(q_vp - q_sp), n))
+    term1 = div(cos1, torch.clamp(cos2, min=1e-4))
+    num = ((q_vp - q_sp) ** 2).sum(-1)
+    den = ((s_vp - q_sp) ** 2).sum(-1)
+    term2 = div(num, torch.clamp(den, min=1e-4))
+    return torch.clamp(term1 * term2, 1.0, 50.0)
+
+
+def _roll2d(x, dy, dx):
+    """out[y, x] = x[y + dy, x + dx], wrapping ([h,w,...] tensors)."""
+    return torch.roll(x, shifts=(-dy, -dx), dims=(0, 1))
+
+
+def spatial_reuse(scene, g, view, frame, temporal_r, prev_spatial, reproj, *,
+                  emissive_lit: bool, render_size, surface=None):
+    """The modular spatial ReSTIR pass of one channel at the render size:
+    the previous spatial reservoir gathered at reproj's coordinates where
+    the temporal lifetime is within max_reservoir_lifetime, this pixel's
+    temporal reservoir merged in, then the frame's spiral taps (wrapping
+    rolls of the packed temporal reservoirs, the occlusion march over the
+    depth) with the clamped GRIS Jacobian. temporal_r: this frame's
+    temporal reservoirs (structured); prev_spatial: [h,16,w] planes.
+    Returns {render [h,w,4], variance [h,w] (NaN where the frame keeps the
+    temporal variance), spatial (the new reservoir)}."""
+    h, w = render_size
+    dev = g["position"].device
+    depth = g["position"][..., 3]
+    valid = depth >= F32_EPSILON
+    if surface is None:
+        surface = primary_surface(scene, g, True)
+    view_dir = calculate_view(view, g["position"])
+
+    q0 = temporal_r
+    s = {k: q0[k] for k in ("radiance", "random", "visible_position",
+                            "visible_normal", "visible_instance",
+                            "sample_position", "sample_normal")}
+    s_vp = s["visible_position"][..., :3]
+    use_spatial_variance = q0["count"] <= SPATIAL_VARIANCE_SAMPLE_THRESHOLD
+    prev_sp = rsv.gather_reservoir_planes(prev_spatial, reproj["piy"],
+                                          reproj["pix"], reproj["in_strict"])
+    life = frame["max_reservoir_lifetime"]
+    max_life = F32_MAX if life <= 1.0 else life
+    r = rsv.where_reservoir(q0["lifetime"] <= max_life, prev_sp, q0)
+
+    def shade(l_dir, radiance):
+        return shading(scene, view_dir, s["visible_normal"], l_dir, surface,
+                       radiance)
+
+    if emissive_lit:
+        merge_w0 = luminance(q0["radiance"])
+    else:
+        merge_w0 = luminance(shade(normalize(
+            s["sample_position"][..., :3] - s_vp), s["radiance"]))
+    r = rsv.merge_reservoir(r, q0, merge_w0, valid)
+    r["visible_position"] = s["visible_position"]
+    r["visible_normal"] = s["visible_normal"]
+
+    temporal_planes = rsv.pack_reservoir_planes(temporal_r)
+    ys = torch.arange(h, device=dev)[:, None]
+    xs = torch.arange(w, device=dev)[None, :]
+    for oy, ox, steps in _sf.tap_offsets(*_sf.channel_taps(emissive_lit),
+                                         int(frame["number"])):
+        q = rsv.unpack_reservoir_planes(torch.roll(
+            temporal_planes, shifts=(-oy, -ox), dims=(0, 2)))
+        sample_depth = _roll2d(depth, oy, ox)
+        in_b = ((ys + oy >= 0) & (ys + oy < h) & (xs + ox >= 0)
+                & (xs + ox < w))
+        # screen-space depth ray-march occlusion (light.wgsl:1608-1628)
+        occluded = torch.zeros_like(valid)
+        for toy, tox, frac in steps:
+            ref_depth = depth + (sample_depth - depth) * float(frac)
+            occluded = occluded | (_roll2d(depth, toy, tox)
+                                   > ref_depth + 1e-5)
+        ratio = div(depth, torch.where(sample_depth == 0.0, 1e-30,
+                                       sample_depth))
+        ok = in_b & (ratio >= 0.9) & (ratio <= 1.1)
+        ok = ok & (q["count"] >= F32_EPSILON)
+        ok = ok & (dot3(s["visible_normal"], q["visible_normal"]) >= 0.866)
+        sample_dir = normalize(q["sample_position"][..., :3] - s_vp)
+        ok = ok & (dot3(sample_dir, s["visible_normal"]) >= 0.0) & ~occluded
+        jac = torch.where(q["sample_position"][..., 3] > 0.5,
+                          compute_jacobian(q, s), 1.0)
+        if emissive_lit:
+            mw = div(luminance(q["radiance"]), jac)
+        else:
+            mw = div(luminance(shade(sample_dir, q["radiance"])), jac)
+        r = rsv.merge_reservoir(r, q, mw, ok & valid)
+
+    r = rsv.clamp_reservoir(r, frame["max_spatial_reuse_count"])
+    out_rad = shade(normalize(r["sample_position"][..., :3] - s_vp),
+                    r["radiance"])
+    r = rsv.finalize_w(r, luminance(r["radiance"]) if emissive_lit
+                       else luminance(out_rad))
+    r["lifetime"] = r["lifetime"] + 1.0
+    variance = torch.where(valid & use_spatial_variance,
+                           rsv.reservoir_variance(r), float("nan"))
+    r = rsv.where_reservoir(valid, r, q0)   # the background keeps q0
+    render = torch.where(valid[..., None], torch.cat(
+        [r["w"][..., None] * out_rad, torch.ones((h, w, 1), device=dev)],
+        -1), 0.0)
+    return {"render": render, "variance": variance, "spatial": r}

@@ -6,8 +6,9 @@ It renders at half size with alternating diagonal jitter; each frame fills
 reprojected history with clip rejection), and the extrapolate pass fills
 the other diagonal by differential blending of N/E/S/W luminance
 gradients. Taps of the current G-buffer at output coords 2c + parity + k
-are static shifts of its four parity quads (kernel 8's planes); the two
-history fetches are kernel 11
+are static shifts of its four parity quads (kernel 8's planes, or the
+full-res G-buffer's strided views, `parity_quads`); the two history
+fetches are kernel 11
 (previous tone, nearest) and kernel 12 (previous depth / instance /
 velocity, nearest, bf16 window).
 
@@ -35,6 +36,17 @@ from hikari_tpu_torch.utils.math import (TAU, clip_towards_aabb_center,
 _BIAS = 2.5
 
 
+def parity_quads(gbuf):
+    """A full-res G-buffer as SMAA's parity quads, strided views: {(a, b):
+    {"depth", "velocity", "instance"}} of pixels (2y+a, 2x+b), the planes
+    kernel 8 traces (hikari_tpu's _parity_ctx on an even-size G-buffer,
+    smaa.py:53-67)."""
+    return {(a, b): {"depth": gbuf["position"][a::2, b::2, 3],
+                     "velocity": gbuf["velocity_uv"][a::2, b::2, :2],
+                     "instance": gbuf["instance_material"][a::2, b::2, 0]}
+            for a in (0, 1) for b in (0, 1)}
+
+
 def parity_sample(quads, key, parity: int, ky: int = 0, kx: int = 0):
     """quads[.][key] at output coords (2c + parity + k) for each render-res
     pixel c: a clamp-to-edge shift of one parity quad (hikari_tpu's
@@ -44,8 +56,9 @@ def parity_sample(quads, key, parity: int, ky: int = 0, kx: int = 0):
 
 
 def smaa_tu4x(quads, prev_gbuf, prev_tone, tone, frame, render_size):
-    """Pass 1 + 2; returns [2rh, 2rw, 4]. quads: kernel 8's parity planes
-    of the current frame ({(a, b): {"depth", "velocity", "instance"}});
+    """Pass 1 + 2; returns [2rh, 2rw, 4]. quads: the parity planes of the
+    current frame ({(a, b): {"depth", "velocity", "instance"}}: kernel 8's
+    or parity_quads of the G-buffer);
     prev_gbuf at output (full) res; tone / prev_tone at render res."""
     rh, rw = render_size
     oh, ow = 2 * rh, 2 * rw

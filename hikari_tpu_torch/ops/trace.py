@@ -1,6 +1,9 @@
-"""The ray tracer of the modular lighting path: the small-scene engine of
-hikari_tpu/ops/trace.py's make_tracer (its Pallas branch, `kind`
-"brute_force_pallas") over kernels 5, 6 and 7 (ops/trace_pallas.py).
+"""The ray tracers of the modular lighting path and the non-fused
+prepass, the port of hikari_tpu/ops/trace.py's make_tracer on the TPU.
+
+Scenes of at most MAX_TRIS triangles take the small-scene engine (its
+Pallas branch, `kind` "brute_force_pallas") over kernels 5, 6 and 7
+(ops/trace_pallas.py):
 
 * `trace`: kernel 5 over the scene table;
 * `with_info`: kernel 5 plus the winner's attributes, `tri_attr[prim]`.
@@ -12,14 +15,20 @@ hikari_tpu/ops/trace.py's make_tracer (its Pallas branch, `kind`
 * `probe_info`: kernel 6 over the emissive-only table (the probe ray is
   include-masked to one emitter, so only its triangles can win).
 
-Scenes above 768 triangles take hikari_tpu's tile-cull engine (kernel 13),
-not ported: make_tracer raises for them.
+Larger scenes take the engine of `kind` "cull" over kernel 13
+(ops/trace_cull.py, a walk of the world BVH): `trace`, `with_info` and
+`shadow` are its modes hit, full and shadow, and `probe_info` is kernel 6
+over an emissive table of at most MAX_TRIS rows, else `with_info` over the
+whole scene with the include mask (hikari_tpu/ops/trace.py:301-311). The
+reference's `shape2d` / `incoherent` hints only reorder its rays, so the
+port has none.
 """
 
 from __future__ import annotations
 
 import torch
 
+from hikari_tpu_torch.ops import trace_cull as _tc
 from hikari_tpu_torch.ops import trace_pallas as _tp
 from hikari_tpu_torch.utils.math import normalize
 
@@ -45,6 +54,17 @@ def hit_info(scene, ro, rd, hit):
         "instance": hit["instance"],
         "material": torch.round(mat).to(torch.int32),
     }
+
+
+def probe_emissive_table(scene, ro, rd, max_t, exclude_instance=None,
+                         include_instance=None):
+    """Kernel 6 over the emissive-only table: the probe ray is
+    include-masked to one emitter, so only its triangles can win."""
+    n, dev = ro.shape[0], ro.device
+    return _tp.brute_force_full(scene["em_tri_pos_flat"],
+                                scene["em_tri_attr"], ro, rd, max_t,
+                                _ids(exclude_instance, n, dev),
+                                _ids(include_instance, n, dev))
 
 
 class BruteForceTracer:
@@ -79,17 +99,56 @@ class BruteForceTracer:
 
     def probe_info(self, scene, ro, rd, max_t, exclude_instance=None,
                    include_instance=None):
+        return probe_emissive_table(scene, ro, rd, max_t, exclude_instance,
+                                    include_instance)
+
+
+class BvhTracer:
+    """The engine of scenes above `MAX_TRIS` triangles: kernel 13. The
+    calls take BruteForceTracer's arguments."""
+
+    kind = "cull"
+
+    def trace(self, scene, ro, rd, max_t, exclude_instance=None,
+              include_instance=None):
         n, dev = ro.shape[0], ro.device
-        return _tp.brute_force_full(scene["em_tri_pos_flat"],
-                                    scene["em_tri_attr"], ro, rd, max_t,
-                                    _ids(exclude_instance, n, dev),
-                                    _ids(include_instance, n, dev))
+        raw = _tc.bvh_closest(scene["bvh_packed"], scene["tri_pos_flat"], ro,
+                              rd, max_t, _ids(exclude_instance, n, dev),
+                              _ids(include_instance, n, dev))
+        return {"t": raw["t"], "u": raw["u"], "v": raw["v"],
+                "prim": raw["prim"], "instance": raw["inst"]}
+
+    def with_info(self, scene, ro, rd, max_t, exclude_instance=None,
+                  include_instance=None):
+        n, dev = ro.shape[0], ro.device
+        raw = _tc.bvh_full(scene["bvh_packed"], scene["tri_pos_flat"],
+                           scene["tri_attr"], ro, rd, max_t,
+                           _ids(exclude_instance, n, dev),
+                           _ids(include_instance, n, dev))
+        return _tp.full_info(raw, ro, rd)
+
+    def shadow(self, scene, ro, rd, max_t, exclude_instance=None,
+               include_instance=None):
+        n, dev = ro.shape[0], ro.device
+        raw = _tc.bvh_shadow(scene["bvh_packed"], scene["tri_pos_flat"], ro,
+                             rd, max_t, _ids(exclude_instance, n, dev),
+                             _ids(include_instance, n, dev))
+        return {"t": raw["t"], "instance": raw["inst"]}
+
+    def probe_info(self, scene, ro, rd, max_t, exclude_instance=None,
+                   include_instance=None):
+        if scene["em_tri_pos_flat"].shape[0] <= _tp.MAX_TRIS:
+            return probe_emissive_table(scene, ro, rd, max_t,
+                                        exclude_instance, include_instance)
+        # the walk cannot prune by instance: the probe visits every node
+        # its ray crosses
+        return self.with_info(scene, ro, rd, max_t, exclude_instance,
+                              include_instance)
 
 
-def make_tracer(num_triangles: int) -> BruteForceTracer:
-    """The engine for a scene of `num_triangles` (built once per scene)."""
+def make_tracer(num_triangles: int):
+    """The engine for a scene of `num_triangles` (built once per compiled
+    scene)."""
     if num_triangles > _tp.MAX_TRIS:
-        raise NotImplementedError(
-            f"{num_triangles} triangles > {_tp.MAX_TRIS}: the tile-cull "
-            "engine (kernel 13) is not ported yet")
+        return BvhTracer()
     return BruteForceTracer()

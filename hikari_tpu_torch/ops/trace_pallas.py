@@ -53,10 +53,13 @@ def _tri_scalars(r):
     return [float(x) for x in (*v0, *ab, *ac)]
 
 
-def _mt(o, d, r):
-    """Moller-Trumbore terms of one numpy f32 triangle row over whole ray
-    planes: (det, u numerator, v numerator, t numerator)."""
-    v0x, v0y, v0z, abx, aby, abz, acx, acy, acz = _tri_scalars(r)
+def mt_terms(o, d, v0, ab, ac):
+    """Moller-Trumbore terms (common.cuh mt_terms): (det, u numerator, v
+    numerator, t numerator). o, d: (x, y, z) ray planes; v0, ab, ac:
+    (x, y, z) of the first vertex and the two edges, floats or planes."""
+    v0x, v0y, v0z = v0
+    abx, aby, abz = ab
+    acx, acy, acz = ac
     ox, oy, oz = o
     dx, dy, dz = d
     ux = dy * acz - dz * acy
@@ -73,13 +76,48 @@ def _mt(o, d, r):
     return det, uu, vv, dist
 
 
-def _accepts(inst_i: float, excl, incl):
-    """The instance masks of one triangle (inst_i >= 0 is checked by the
+def _mt(o, d, r):
+    """mt_terms of one numpy f32 triangle row over whole ray planes."""
+    s = _tri_scalars(r)
+    return mt_terms(o, d, s[0:3], s[3:6], s[6:9])
+
+
+def _accepts(inst_i, excl, incl):
+    """The instance masks of a triangle (inst_i >= 0 is checked by the
     caller): a bool plane, or True when no mask applies."""
     ok = excl != inst_i
     if incl is not None:
         ok = ok & ((incl < 0.0) | (incl == inst_i))
     return ok
+
+
+def closest_accept(terms, maxt, t_best):
+    """The nearest-hit test of one triangle (common.cuh closest_tri):
+    (accepted, u, v, t). A hit is taken only when strictly nearer."""
+    det, uu, vv, dist = terms
+    inv_det = torch.where(torch.abs(det) < F32_EPSILON, 0.0, div(1.0, det))
+    u = uu * inv_det
+    v = vv * inv_det
+    dist = dist * inv_det
+    ok = ((torch.abs(det) >= F32_EPSILON)
+          & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+          & (dist > F32_EPSILON) & (dist < maxt) & (dist < t_best))
+    return ok, u, v, dist
+
+
+def shadow_accept(terms, maxt, td_best, ads_best):
+    """The division-free occluder test of one triangle (common.cuh
+    shadow_tri): (accepted, t numerator * sign, |det|)."""
+    det, uu, vv, dist = terms
+    s = torch.sign(det)
+    ads = det * s
+    ud = uu * s
+    vd = vv * s
+    td = dist * s
+    ok = ((ads >= F32_EPSILON) & (ud >= 0.0) & (vd >= 0.0)
+          & (ud + vd <= ads) & (td > F32_EPSILON * ads)
+          & (td < maxt * ads) & (td * ads_best < td_best * ads))
+    return ok, td, ads
 
 
 def closest_sweep(tris, o, d, maxt, excl, incl=None):
@@ -97,15 +135,8 @@ def closest_sweep(tris, o, d, maxt, excl, incl=None):
         inst_i = float(r[9])
         if not inst_i >= 0.0:
             continue
-        det, uu, vv, dist = _mt(o, d, r)
-        inv_det = torch.where(torch.abs(det) < F32_EPSILON, 0.0, div(1.0, det))
-        u = uu * inv_det
-        v = vv * inv_det
-        dist = dist * inv_det
-        ok = ((torch.abs(det) >= F32_EPSILON)
-              & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-              & (dist > F32_EPSILON) & (dist < maxt) & (dist < t_best)
-              & _accepts(inst_i, excl, incl))
+        ok, u, v, dist = closest_accept(_mt(o, d, r), maxt, t_best)
+        ok = ok & _accepts(inst_i, excl, incl)
         t_best = torch.where(ok, dist, t_best)
         u_best = torch.where(ok, u, u_best)
         v_best = torch.where(ok, v, v_best)
@@ -153,16 +184,8 @@ def shadow_sweep(tris, o, d, maxt, excl, incl=None):
         inst_i = float(r[9])
         if not inst_i >= 0.0:
             continue
-        det, uu, vv, dist = _mt(o, d, r)
-        s = torch.sign(det)
-        ads = det * s
-        ud = uu * s
-        vd = vv * s
-        td = dist * s
-        ok = ((ads >= F32_EPSILON) & (ud >= 0.0) & (vd >= 0.0)
-              & (ud + vd <= ads) & (td > F32_EPSILON * ads)
-              & (td < maxt * ads) & (td * ads_best < td_best * ads)
-              & _accepts(inst_i, excl, incl))
+        ok, td, ads = shadow_accept(_mt(o, d, r), maxt, td_best, ads_best)
+        ok = ok & _accepts(inst_i, excl, incl)
         td_best = torch.where(ok, td, td_best)
         ads_best = torch.where(ok, ads, ads_best)
         inst_best = torch.where(ok, inst_i, inst_best)
@@ -321,11 +344,10 @@ def hit_position(ro, rd, t, miss):
     return torch.cat([pos, torch.where(miss, 0.0, 1.0)[:, None]], -1)
 
 
-def brute_force_full(tris, attrs, ro, rd, max_t, excl, incl):
-    """pallas_brute_force_full: the hit-info contract {t, prim, instance,
-    position [N,4], normal (normalized), uv, material} (zeros and -1 on a
-    miss)."""
-    raw = trace_full(tris, attrs, ro, rd, max_t, excl, incl)
+def full_info(raw, ro, rd):
+    """The hit-info contract of a full-mode trace's raw outputs (kernels 6
+    and 13): {t, prim, instance, position [N,4], normal (normalized), uv,
+    material} (zeros and -1 on a miss)."""
     miss = raw["prim"] < 0
     return {
         "t": raw["t"], "prim": raw["prim"], "instance": raw["inst"],
@@ -334,6 +356,12 @@ def brute_force_full(tris, attrs, ro, rd, max_t, excl, incl):
         "normal": normalize(raw["normal"]), "uv": raw["uv"],
         "material": torch.where(miss, -1, _ids(raw["mat"])),
     }
+
+
+def brute_force_full(tris, attrs, ro, rd, max_t, excl, incl):
+    """pallas_brute_force_full: full_info of kernel 6's hit."""
+    return full_info(trace_full(tris, attrs, ro, rd, max_t, excl, incl),
+                     ro, rd)
 
 
 def shadow(tris, ro, rd, max_t, excl, incl):

@@ -2,8 +2,9 @@
 function for the current settings, and the frame carry (the port of
 hikari_tpu/renderer.py for the ported slices: no reuse, temporal reuse,
 temporal + spatial reuse, the post chain of SMAA TU4X at ratio 2 and TAA
-Jasmine, so HikariSettings() itself, and checkerboard lighting with and
-without temporal reuse)."""
+Jasmine, so HikariSettings() itself, checkerboard lighting with and
+without temporal reuse, and scenes beyond the fused kernels' caps, such as
+the city, with their per-frame on-device refit)."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import torch
 from hikari_tpu_torch.camera import Camera, view_to_device
 from hikari_tpu_torch.config import HikariSettings, make_frame_uniform
 from hikari_tpu_torch.frame import build_render_frame, init_carry
+from hikari_tpu_torch.models.refit_device import DeviceRefitter
 from hikari_tpu_torch.models.scene import GpuScene, Scene
 from hikari_tpu_torch.ops.noise import noise_constant
 from hikari_tpu_torch.ops.post import overlay_compose
@@ -56,17 +58,18 @@ class Renderer:
         self.scene_dev = self.gpu_scene.as_pytree(self.device)
         self.noise = noise_constant(self.device)
         self.full_size = (camera.height, camera.width)
-        # the ray tracer of the modular lighting path, once per scene
+        # the ray tracer of the non-fused passes, once per compiled scene
         self.tracer = make_tracer(self.gpu_scene.num_triangles)
+        self._refitter = None
         self._frame_fn = self._build()
         self.reset()
 
     def _build(self):
         return build_render_frame(
-            self.settings, self.full_size, self.scene_dev,
+            self.settings, self.full_size, self.scene_dev, self.tracer,
             self.gpu_scene.num_textures == 0,
             num_emissives=self.gpu_scene.num_emissives,
-            has_sun=self.gpu_scene.has_sun, tracer=self.tracer)
+            has_sun=self.gpu_scene.has_sun)
 
     def _views(self):
         """The camera's view uniform on the device, cached on the pose."""
@@ -99,6 +102,48 @@ class Renderer:
             self.reset()
         else:
             self.settings = settings
+
+    def update_scene(self, scene: Scene, fast: bool = False,
+                     device: bool = True):
+        """Refresh the device scene. fast=False recompiles the scene and
+        rebuilds its tracer and the frame function (a change of topology,
+        such as the city's waves); fast=True keeps the topology and moves
+        the instances to their new transforms on the device
+        (models/refit_device.py: triangles, normals, BVH boxes, instance
+        boxes, motion and emissive tables). hikari_tpu's host refit
+        (fast=True, device=False) is not ported."""
+        if not fast:
+            gpu = scene.compile()
+            tracer = make_tracer(gpu.num_triangles)
+            old = (self.gpu_scene, self.scene_dev, self.tracer)
+            self.gpu_scene, self.tracer = gpu, tracer
+            self.scene_dev = gpu.as_pytree(self.device)
+            try:
+                self._frame_fn = self._build()
+            except NotImplementedError:
+                self.gpu_scene, self.scene_dev, self.tracer = old
+                raise
+            self._refitter = None
+            return
+        if not device:
+            raise NotImplementedError(
+                "the host refit (GpuScene.update_transforms) is not ported; "
+                "use update_scene(scene, fast=True)")
+        if self._refitter is None:
+            self._refitter = DeviceRefitter(self.gpu_scene, self.device)
+        visible = [i for i in scene.instances if i.visible]
+        if len(visible) != self.gpu_scene.num_instances:
+            raise ValueError("the scene's topology changed: use "
+                             "update_scene(scene, fast=False)")
+        mats = np.stack(
+            [np.asarray(i.transform, np.float32) for i in visible]
+            + [np.asarray(i.transform if i.prev_transform is None
+                          else i.prev_transform, np.float32)
+               for i in visible])
+        mats = torch.from_numpy(mats).to(self.device)
+        n = len(visible)
+        self.scene_dev = {**self.scene_dev,
+                          **self._refitter.update(mats[:n], mats[n:])}
 
     def render_frame(self) -> torch.Tensor:
         """Render one frame; returns the final [H,W,4] image on the device.

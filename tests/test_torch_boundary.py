@@ -24,10 +24,10 @@ PKG = os.path.join(REPO, "hikari_tpu_torch")
 
 def _flagship(**changes):
     return dataclasses.replace(
-        ht.HikariSettings(), temporal_reuse=False, indirect_bounces=1,
-        taa=ht.Taa.NONE, upscale=ht.Upscale.none(),
-        emissive_spatial_reuse=False, indirect_spatial_reuse=False,
-        **changes)
+        ht.HikariSettings(), **{**dict(
+            temporal_reuse=False, indirect_bounces=1, taa=ht.Taa.NONE,
+            upscale=ht.Upscale.none(), emissive_spatial_reuse=False,
+            indirect_spatial_reuse=False), **changes})
 
 
 def _camera():
@@ -58,40 +58,50 @@ def test_sources_do_not_reference_jax_or_the_reference_package():
                 assert not pattern.search(line), f"{path}:{i}: {line}"
 
 
-@pytest.mark.parametrize("changes,size", [
-    # temporal reuse under checkerboard lighting takes the modular path,
-    # which is ported without its spatial reuse
-    pytest.param({"temporal_reuse": True, "checkerboard_lighting": True,
-                  "indirect_spatial_reuse": True},
-                 None, id="temporal_reuse"),
+def _with_sphere(sc):
+    """The box plus a default uv_sphere (1,224 triangles, above 768)."""
+    from hikari_tpu_torch.models import mesh as shapes
+    from hikari_tpu_torch.models.scene import make_transform
+
+    sc.spawn(sc.add_mesh(shapes.uv_sphere()), 0,
+             make_transform((0.0, 0.3, 0.0), scale=(0.2, 0.2, 0.2)))
+    return sc
+
+
+@pytest.mark.parametrize("changes,size,scene", [
+    # a scene beyond the fused lighting kernel takes the modular path,
+    # whose no-reuse specializations are not ported
+    pytest.param({}, None, _with_sphere, id="large_scene_without_reuse"),
     pytest.param({"temporal_reuse": True, "indirect_spatial_reuse": True,
                   "spatial_tap_scramble": True},
-                 None, id="temporal_reuse_tap_scramble"),
+                 None, None, id="temporal_reuse_tap_scramble"),
     # spatial reuse without temporal reuse takes the modular path
-    pytest.param({"emissive_spatial_reuse": True}, None,
+    pytest.param({"emissive_spatial_reuse": True}, None, None,
                  id="emissive_spatial_reuse"),
-    pytest.param({"indirect_spatial_reuse": True}, None,
+    pytest.param({"indirect_spatial_reuse": True}, None, None,
                  id="indirect_spatial_reuse"),
     # checkerboard lighting is ported at upscale ratio 1 only
     pytest.param({"checkerboard_lighting": True,
-                  "upscale": ht.Upscale.smaa_tu4x(2.0)}, None,
+                  "upscale": ht.Upscale.smaa_tu4x(2.0)}, None, None,
                  id="checkerboard_lighting"),
     # SMAA only at ratio 2 (its ratio-1 supersampling and other ratios
     # take hikari_tpu's generic resample), and only at even output sizes
-    pytest.param({"upscale": ht.Upscale.smaa_tu4x(1.5)}, None,
+    pytest.param({"upscale": ht.Upscale.smaa_tu4x(1.5)}, None, None,
                  id="smaa_ratio_1.5"),
-    pytest.param({"upscale": ht.Upscale.smaa_tu4x(1.0)}, None,
+    pytest.param({"upscale": ht.Upscale.smaa_tu4x(1.0)}, None, None,
                  id="smaa_ratio_1"),
-    pytest.param({"upscale": ht.Upscale.smaa_tu4x(2.0)}, (47, 64),
+    pytest.param({"upscale": ht.Upscale.smaa_tu4x(2.0)}, (47, 64), None,
                  id="smaa_ratio_2_odd_size"),
-    pytest.param({"upscale": ht.Upscale.fsr1(1.5)}, None, id="upscale"),
+    pytest.param({"upscale": ht.Upscale.fsr1(1.5)}, None, None,
+                 id="upscale"),
 ])
-def test_settings_outside_the_slice_raise(changes, size):
+def test_settings_outside_the_slice_raise(changes, size, scene):
     settings = dataclasses.replace(_flagship(), **changes)
     cam = _camera() if size is None else ht.Camera.from_look_at(
         EYE, TARGET, width=size[1], height=size[0])
+    sc = build_cornell_box("hikari_tpu_torch")
     with pytest.raises(NotImplementedError):
-        ht.Renderer(build_cornell_box("hikari_tpu_torch"), cam, settings,
+        ht.Renderer(sc if scene is None else scene(sc), cam, settings,
                     device="cpu")
 
 
@@ -122,7 +132,11 @@ def test_reference_default_settings_render():
     assert r.carry["indirect_temporal"].shape == (6, 16, 8)
 
 
-def test_scene_beyond_the_caps_raises():
+def test_scene_beyond_the_caps_renders():
+    """A box of 25 instances (kernel A takes 16) renders at the flagship
+    settings through the non-fused prepass (the brute-force tracer), its
+    lighting still in kernel B."""
+    from hikari_tpu_torch import frame
     from hikari_tpu_torch.models import mesh as shapes
     from hikari_tpu_torch.models.scene import make_transform
 
@@ -130,8 +144,46 @@ def test_scene_beyond_the_caps_raises():
     cube = sc.add_mesh(shapes.cube(0.1))
     for i in range(17):                    # 25 instances > 16
         sc.spawn(cube, 0, make_transform((0.1 * i - 0.8, 0.05, 0.8)))
+    r = ht.Renderer(sc, _camera(), _flagship(), device="cpu")
+    scene, kind = r.scene_dev, r.tracer.kind
+    assert not frame.prepass_fused_eligible(scene, kind)
+    assert frame.fused_eligible(
+        scene, num_emissives=r.gpu_scene.num_emissives,
+        temporal_reuse=False, track_de=False, track_ind=False,
+        tracer_kind=kind, has_sun=r.gpu_scene.has_sun, bounces=1, ckb=False)
+    img = r.render(2)
+    assert img.shape == (12, 16, 4) and np.isfinite(img).all()
+
+
+def test_scene_beyond_the_caps_raises():
+    """More than 8 emissives: the emissive BVH walk is not ported."""
+    from hikari_tpu_torch.models import mesh as shapes
+    from hikari_tpu_torch.models.material import StandardMaterial
+    from hikari_tpu_torch.models.scene import make_transform
+
+    sc = build_cornell_box("hikari_tpu_torch")
+    light = sc.add_material(StandardMaterial(emissive=(1.0, 1.0, 1.0, 1.0)))
+    quad = sc.add_mesh(shapes.quad(0.1, 0.1))
+    for i in range(9):
+        sc.spawn(quad, light, make_transform((0.15 * i - 0.6, 0.5, 0.0)))
     with pytest.raises(NotImplementedError):
-        ht.Renderer(sc, _camera(), _flagship(), device="cpu")
+        ht.Renderer(sc, _camera(), _flagship(temporal_reuse=True),
+                    device="cpu")
+
+
+def test_host_refit_raises():
+    """update_scene(fast=True, device=False), hikari_tpu's host refit, is
+    not ported; the device refit and the recompile are."""
+    from hikari_tpu_torch.examples import city
+
+    sc = city.build_scene(0)
+    r = ht.Renderer(sc, _camera(), ht.HikariSettings(), device="cpu")
+    with pytest.raises(NotImplementedError):
+        r.update_scene(city.rotate_sphere(sc, 0.1), fast=True, device=False)
+    r.update_scene(city.rotate_sphere(sc, 0.2), fast=True)
+    r.update_scene(city.build_scene(1), fast=False)
+    assert r.gpu_scene.num_instances == 42 and r.tracer.kind == "cull"
+    assert np.isfinite(r.render(1)).all()
 
 
 def test_default_device_needs_cuda(monkeypatch):
@@ -288,7 +340,10 @@ def test_cuda_wrappers_marshal_and_count_with_post(monkeypatch, path):
 # of each output that follows it)
 _TRACE_OUTPUTS = {"hk_trace_closest": (7, (1, 1, 1, 1, 1)),
                   "hk_trace_full": (8, (1, 1, 3, 2, 1, 1)),
-                  "hk_trace_shadow": (7, (1, 1))}
+                  "hk_trace_shadow": (7, (1, 1)),
+                  "hk_bvh_closest": (8, (1, 1, 1, 1, 1)),
+                  "hk_bvh_full": (9, (1, 1, 3, 2, 1, 1)),
+                  "hk_bvh_shadow": (8, (1, 1))}
 
 
 class _ZeroingLibrary(_FakeLibrary):
@@ -363,6 +418,66 @@ def test_cuda_wrappers_marshal_and_count_with_checkerboard(monkeypatch,
                 assert a[_TRACE_OUTPUTS[name][0]] == 12 * 16 // 2
     assert [fn.launches for fn in wrappers] == (
         [2, 2, 0, 2, 5, 5, 8] if reuse else [2, 0, 2, 0, 0, 0, 8])
+
+
+def test_cuda_wrappers_marshal_and_count_on_the_city(monkeypatch):
+    """The city's launches per frame at HikariSettings() (SMAA 2.0): the
+    primary rays (kernel 13 full, the non-fused prepass), the gather of 3
+    sources, the sun's shadow ray, the emissive channel's probe (kernel 13
+    full: the 1,224-row emissive table is above kernel 6's 768) and shadow
+    ray, the indirect bounce, its probe and shadow ray; the direct channel
+    traces again on its validation frames (every 3rd), the emissive one on
+    its own (every 5th; frame 0 validates both); a-trous 4 and the post
+    warps. No kernel A, 8, B, 4, 10, 5, 6 or 7."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.examples import city
+    from hikari_tpu_torch.ops import (denoise_fused, light_fused,
+                                      prepass_fused, reproj_gather,
+                                      spatial_fused, trace_cull,
+                                      trace_pallas, warp2, warp_band)
+
+    fake = _ZeroingLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    mods = (prepass_fused, reproj_gather, light_fused, spatial_fused,
+            trace_pallas, trace_cull, denoise_fused, warp_band, warp2)
+    wrappers = (prepass_fused.prepass_kernel,
+                prepass_fused.prepass_quads_kernel,
+                reproj_gather.reproj_gather, light_fused.lighting_kernel,
+                spatial_fused.spatial_kernel, trace_pallas.trace_closest,
+                trace_pallas.trace_full, trace_pallas.trace_shadow,
+                trace_cull.bvh_closest, trace_cull.bvh_full,
+                trace_cull.bvh_shadow, denoise_fused.atrous_level,
+                warp_band.warp_band, warp2.warp_multi)
+    for mod in mods:
+        monkeypatch.setattr(mod, "on_cpu", lambda t: False)
+        monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", 0)
+    cam = ht.Camera.from_look_at((0.0, 2.5, 20.0), (0.0, 0.0, 0.0),
+                                 width=16, height=12, hdr=True)
+    sc = city.build_scene(3)
+    r = ht.Renderer(sc, cam, ht.HikariSettings(), device="cpu")
+    for validation in (True, False):
+        fake.calls.clear()
+        fake.args.clear()
+        if not validation:
+            r.update_scene(city.rotate_sphere(sc, 0.2 / 60.0), fast=True)
+        r.render_frame()
+        v = int(validation)
+        assert fake.calls == (
+            ["hk_bvh_full", "hk_reproj_gather"]
+            + ["hk_bvh_shadow"] * (1 + v)
+            + ["hk_bvh_full", "hk_bvh_shadow"] * (1 + v)
+            + ["hk_bvh_full", "hk_bvh_full", "hk_bvh_shadow"]
+            + ["hk_atrous_level"] * 4
+            + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
+        assert fake.args[0][9] == 12 * 16                 # primary rays
+        assert fake.args[1][12] == 3                      # gather sources
+        for name, a in zip(fake.calls[2:], fake.args[2:]):
+            if name.startswith("hk_bvh"):                 # at 6x8
+                assert a[_TRACE_OUTPUTS[name][0]] == 6 * 8
+    assert [fn.launches for fn in wrappers] == [
+        0, 0, 2, 0, 0, 0, 0, 0, 0, 9, 8, 8, 4, 2]
 
 
 def test_cuda_wrapper_rejects_bad_arguments(monkeypatch):

@@ -63,14 +63,16 @@ def reference_renderer(monkeypatch, s):
     return r
 
 
-def port_renderer():
+def port_renderer(**changes):
     return ht.Renderer(build_cornell_box("hikari_tpu_torch"), camera(ht, 0),
-                       settings(ht), device="cpu")
+                       dataclasses.replace(settings(ht), **changes),
+                       device="cpu")
 
 
-def render_both(monkeypatch, frames=FRAMES):
-    ref_r = reference_renderer(monkeypatch, settings(hj))
-    port_r = port_renderer()
+def render_both(monkeypatch, frames=FRAMES, **changes):
+    ref_r = reference_renderer(monkeypatch,
+                               dataclasses.replace(settings(hj), **changes))
+    port_r = port_renderer(**changes)
     for i in range(frames):
         ref_r.camera = camera(hj, i)
         port_r.camera = camera(ht, i)
@@ -97,6 +99,23 @@ def test_checkerboard_reuse_frame_matches_reference(monkeypatch):
     for k in ("emissive_temporal", "indirect_temporal"):
         assert port_r.carry[k].shape == (SIZE[0], 16, SIZE[1])
         assert_planes_close(port_r.carry[k], np.asarray(ref_r.carry[k]), k)
+
+
+def test_checkerboard_spatial_reuse_frame_matches_reference(monkeypatch):
+    """Checkerboard + temporal + indirect spatial reuse over 6 frames: the
+    modular spatial pass at the full 48x64 on the merged planes. The image,
+    the temporal planes and the indirect spatial carry (hikari_tpu's packed
+    [h,w,16] rows on this path)."""
+    port_r, ref_r, got, ref = render_both(monkeypatch,
+                                          indirect_spatial_reuse=True)
+    assert_frames_close(got, ref)
+    for k in ("emissive_temporal", "indirect_temporal"):
+        assert_planes_close(port_r.carry[k], np.asarray(ref_r.carry[k]), k)
+    ref_sp = np.asarray(ref_r.carry["spatial_indirect"])
+    assert ref_sp.shape == (SIZE[0], SIZE[1], 16)
+    assert port_r.carry["spatial_indirect"].shape == (SIZE[0], 16, SIZE[1])
+    assert_planes_close(port_r.carry["spatial_indirect"],
+                        ref_sp.transpose(0, 2, 1), "spatial_indirect")
 
 
 def test_carry_from_jax_continues_the_reference(monkeypatch):

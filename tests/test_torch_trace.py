@@ -282,5 +282,8 @@ def test_tracer_without_ids_masks_nothing():
 
 
 def test_make_tracer_refuses_large_scenes():
-    with pytest.raises(NotImplementedError):
-        make_tracer(769)
+    """Above 768 triangles the brute-force engine is refused: the scene
+    takes kernel 13's BVH walk (the reference's tile-cull engine, kind
+    "cull")."""
+    assert make_tracer(768).kind == "brute_force_pallas"
+    assert make_tracer(769).kind == "cull"
