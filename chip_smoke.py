@@ -5,7 +5,7 @@ Run from the repository root on a machine with an NVIDIA H100:
     python3 chip_smoke.py [--profile]
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the eight CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
+2. builds the nine CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
    each, started together) and prints their register and spill counts;
 3. holds kernels A, B and C against their plain PyTorch versions on the
    card at the 1080p flagship shapes of the no-reuse frame;
@@ -38,26 +38,35 @@ Run from the repository root on a machine with an NVIDIA H100:
    for bit on the calls it got, kernels 9 (3 sources), C, 11 and 12 on
    the city's calls, kernel 13 on the box against kernels 5 and 7, and the
    CUDA refit against the CPU refit;
-9. checks small CUDA renders of the seven paths against the plain
+9. drives path T (the textured simple scene, BASELINE config 3, with a
+   seeded procedural Earth on both spheres) at 1920x1080 and holds kernel
+   14 (the coherent atlas sampler) against its plain version bit for bit
+   on the calls it got (1920x1080 and the 960x540 lighting domain), on a
+   synthetic 1080p field (four textures, ids -1, negative and
+   seam-crossing uv) and through retrieve_surface's four slots;
+10. checks small CUDA renders of the seven paths against the plain
    versions on the CPU, KR on the box with a sun at 270x480 (the solar
-   branch of the modular path, kernel 7 on sun rays), and the city at
-   48x256 with the sphere turning;
-10. renders the box through Renderer at 1920x1080 on the seven paths
+   branch of the modular path, kernel 7 on sun rays), and the city and
+   path T at 48x256;
+11. renders the box through Renderer at 1920x1080 on the seven paths
    (no reuse; temporal reuse R; temporal + spatial reuse S; P; D;
    checkerboard K; checkerboard + temporal reuse KR): 3 warm-up frames,
    then timed frames with the launch counters set to 0, which must rise
-   by exactly the counts of PATHS below (per frame number: KR's and the
-   city's validation frames trace more); then the city the same way, each
-   frame update_scene(rotate_sphere(...), fast=True) + render_frame();
-11. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
-   frame_ms_smaa2, frame_ms_default, frame_ms_ckb, frame_ms_ckb_reuse
-   and frame_ms_city with city_refit_ms, one JSON line of per-kernel
-   numbers of the kernels the paths run, one of kernel 13's mode `hit`
-   (no path traces without attributes), and last {"ok": true, "device":
-   {...}}.
+   by exactly the counts of PATHS below (per frame number: KR's, the
+   city's and T's validation frames trace more); then the city the same
+   way, each frame update_scene(rotate_sphere(...), fast=True) +
+   render_frame(); then path T, whose 1080p image must differ from the
+   untextured scene's on the spheres; then P and D alternately, frame by
+   frame;
+12. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
+   frame_ms_smaa2, frame_ms_default, frame_ms_ckb, frame_ms_ckb_reuse,
+   frame_ms_city with city_refit_ms, frame_ms_simple (path T), P's and
+   D's alternating medians, one JSON line of per-kernel numbers of the
+   kernels the paths run, one of kernel 13's mode `hit` (no path traces
+   without attributes), and last {"ok": true, "device": {...}}.
 
 Tolerances: kernels A, B, C as stated at their checks; kernels 5, 6, 7,
-9, 8, 12 and 13 bit for bit (8 also against kernel A's planes; 13 against
+9, 8, 12, 13 and 14 bit for bit (8 also against kernel A's planes; 13 against
 5 and 7 on the box: ids equal but at ties, floats equal where they agree);
 kernel 11 bit for bit for nearest sources and within 1e-5 * max(|ref|, 1)
 on >= 99.99% of values for the filtered ones; kernels 4 and 10: >= 99% of
@@ -154,6 +163,26 @@ def event_ms(fn, reps):
     return float(np.median(times))
 
 
+def device_ms(fn, reps, kernel):
+    """Median device time in ms of the CUDA kernel whose name contains
+    `kernel` over `reps` runs of fn(), from torch.profiler's trace: the
+    kernel's own time, without the host's launch gaps that event_ms counts
+    for a kernel shorter than its wrapper's host work. None when the trace
+    holds no device time for it."""
+    from torch.profiler import ProfilerActivity, profile as prof_
+
+    fn()
+    torch.cuda.synchronize()
+    with prof_(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    times = [e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and kernel in e.name]
+    return float(np.median(times)) / 1e3 if times else None
+
+
 def bound_ms(nbytes, flops):
     return max(nbytes / PEAK_BYTES, flops / PEAK_F32) * 1e3, (
         "bytes" if nbytes / PEAK_BYTES >= flops / PEAK_F32 else "operations")
@@ -231,7 +260,7 @@ def kr_launches(settings, number):
     frames, and the indirect bounce (kernel 5) with its probe and shadow
     ray; the box has no sun, so the direct channel traces nothing."""
     v = int(number % settings.emissive_validate_interval == 0)
-    return (1, 0, 1, 0, 0, 4, 0, 0, 1, 2 + v, 2 + v, 0, 0, 0)
+    return (1, 0, 1, 0, 0, 4, 0, 0, 1, 2 + v, 2 + v, 0, 0, 0, 0)
 
 
 def city_launches(settings, number):
@@ -244,31 +273,42 @@ def city_launches(settings, number):
     a-trous 4, SMAA's two warps and TAA's."""
     vd = int(number % settings.direct_validate_interval == 0)
     ve = int(number % settings.emissive_validate_interval == 0)
-    return (0, 0, 1, 0, 0, 4, 2, 1, 0, 0, 0, 0, 4 + ve, 3 + vd + ve)
+    return (0, 0, 1, 0, 0, 4, 2, 1, 0, 0, 0, 0, 4 + ve, 3 + vd + ve, 0)
+
+
+def simple_launches(settings, number):
+    """Path T's launches in frame `number`: the city's (the same settings
+    but emissive spatial reuse, which traces nothing; kernel 13 for every
+    ray: the two spheres' 2,436-row emissive table is above kernel 6's
+    768), and kernel 14 for the two textured slots (base colour and
+    emissive) of the 1080p G-buffer and of the 960x540 lighting domain."""
+    return city_launches(settings, number)[:-1] + (4,)
 
 
 # the seven paths of the box: their settings, and the launches of COUNTERS
 # in a frame
 COUNTERS = ("prepass", "quads", "gather", "lighting", "spatial", "a-trous",
             "warp_band", "warp_multi", "trace_closest", "trace_full",
-            "trace_shadow", "bvh_closest", "bvh_full", "bvh_shadow")
+            "trace_shadow", "bvh_closest", "bvh_full", "bvh_shadow",
+            "sample_atlas")
 PATHS = {
     "no-reuse": (flagship_settings,
-                 fixed(1, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0, 0, 0, 0)),
+                 fixed(1, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     "R": (lambda ht: flagship_settings(ht, temporal_reuse=True),
-          fixed(1, 0, 1, 1, 0, 4, 0, 0, 0, 0, 0, 0, 0, 0)),
+          fixed(1, 0, 1, 1, 0, 4, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     "S": (lambda ht: flagship_settings(
         ht, temporal_reuse=True, emissive_spatial_reuse=True,
         indirect_spatial_reuse=True),
-        fixed(1, 0, 1, 1, 2, 4, 0, 0, 0, 0, 0, 0, 0, 0)),
+        fixed(1, 0, 1, 1, 2, 4, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     # the flagship + TAA + SMAA 2.0 (bench.py:142-144): lighting at 960x540
     "P": (lambda ht: flagship_settings(ht, taa=ht.Taa.JASMINE,
                                        upscale=ht.Upscale.smaa_tu4x(2.0)),
-          fixed(1, 1, 0, 1, 0, 4, 2, 1, 0, 0, 0, 0, 0, 0)),
-    "D": (default_settings, fixed(1, 1, 1, 1, 1, 4, 2, 1, 0, 0, 0, 0, 0, 0)),
+          fixed(1, 1, 0, 1, 0, 4, 2, 1, 0, 0, 0, 0, 0, 0, 0)),
+    "D": (default_settings,
+          fixed(1, 1, 1, 1, 1, 4, 2, 1, 0, 0, 0, 0, 0, 0, 0)),
     # checkerboard lighting (bench.py:140-141): kernel B over 1080x960
     "K": (lambda ht: flagship_settings(ht, checkerboard_lighting=True),
-          fixed(1, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0, 0, 0, 0)),
+          fixed(1, 0, 0, 1, 0, 4, 0, 0, 0, 0, 0, 0, 0, 0, 0)),
     # checkerboard + temporal reuse (bench.py:155-157): the modular path
     "KR": (lambda ht: flagship_settings(ht, temporal_reuse=True,
                                         checkerboard_lighting=True),
@@ -283,6 +323,7 @@ def counter_wrappers():
     from hikari_tpu_torch.ops import prepass_fused as pf
     from hikari_tpu_torch.ops import reproj_gather as rg
     from hikari_tpu_torch.ops import spatial_fused as sf
+    from hikari_tpu_torch.ops import texture_pallas as tx
     from hikari_tpu_torch.ops import trace_cull as tc
     from hikari_tpu_torch.ops import trace_pallas as tp
     from hikari_tpu_torch.ops import warp2 as w2
@@ -291,7 +332,8 @@ def counter_wrappers():
     return (pf.prepass_kernel, pf.prepass_quads_kernel, rg.reproj_gather,
             lf.lighting_kernel, sf.spatial_kernel, dnf.atrous_level,
             wb.warp_band, w2.warp_multi, tp.trace_closest, tp.trace_full,
-            tp.trace_shadow, tc.bvh_closest, tc.bvh_full, tc.bvh_shadow)
+            tp.trace_shadow, tc.bvh_closest, tc.bvh_full, tc.bvh_shadow,
+            tx.sample_atlas_coherent)
 
 
 def real_tris(t):
@@ -1339,7 +1381,7 @@ def check_city(ht, build_box):
     full_calls, shadow_calls, g_calls, c_calls, wb_calls, wm_calls = (
         c.calls for c in caps)
     first = COUNTERS.index("bvh_full")
-    want = [city_launches(settings, n)[first:] for n in (0, 1)]
+    want = [city_launches(settings, n)[first:first + 2] for n in (0, 1)]
     got_calls = [len(full_calls), len(shadow_calls)]
     if got_calls != [sum(col) for col in zip(*want)]:
         fail(f"the city's two captured frames called kernel 13 {got_calls} "
@@ -1424,6 +1466,207 @@ def check_city(ht, build_box):
     return records, hit_record, extra
 
 
+def simple_scene(textured=True):
+    """Path T's scene: the simple scene (BASELINE config 3) with the seeded
+    procedural Earth on both spheres, or untextured."""
+    from hikari_tpu_torch.examples import simple
+
+    return simple.build_scene(simple.procedural_earth(0) if textured
+                              else None)
+
+
+def simple_camera(ht, size):
+    """The simple example's camera (simple.py:81)."""
+    from hikari_tpu_torch.examples import simple
+
+    return ht.Camera.from_look_at(simple.EYE, simple.TARGET, width=size[1],
+                                  height=size[0])
+
+
+# floating-point operations of one bilinear sample: the fractional uv, the
+# footprint, the wrap and the 4-tap blend of 4 channels
+FLOPS_TEXEL_SAMPLE = 30
+
+
+def texture_record(tx, sh, call):
+    """(ms, plain ms, (bound ms, by), library ms, device ms, library
+    device ms) of kernel 14 on one call; the device times from the
+    profiler (device_ms). Bytes: per pixel 12 B in and 16 B out, plus 16 B
+    per texel the textured pixels tap (4 each), at most the texels of the
+    rects they address. Library: one grid_sample (bilinear) over the whole
+    atlas at the same footprints, the rect offsets folded into the grid
+    (the wrapped border makes it the same four taps; it agrees to f32
+    round-off only, so it is a time, not a check)."""
+    import torch.nn.functional as F
+
+    scene, tex_id, uv = call
+    atlas, rects = scene["atlas"], scene["tex_rect"]
+    ms = event_ms(lambda: tx.sample_atlas_coherent(scene, tex_id, uv), REPS)
+    dev_ms = device_ms(lambda: tx.sample_atlas_coherent(scene, tex_id, uv),
+                       REPS, "sample_kernel")
+    plain_ms = event_ms(lambda: sh.sample_atlas(scene, tex_id, uv),
+                        PLAIN_REPS)
+    n = tex_id.numel()
+    textured = tex_id >= 0
+    n_tex = int(textured.sum())
+    ids = torch.unique(tex_id[textured]).long()
+    texels = int((rects[ids, 2].long() * rects[ids, 3].long()).sum())
+    nbytes = n * (12 + 16) + 16 * min(4 * n_tex, texels)
+    bound = bound_ms(nbytes, n_tex * FLOPS_TEXEL_SAMPLE)
+    rect = rects[torch.clamp(tex_id.long(), min=0)].float()
+    u = uv[..., 0] - torch.floor(uv[..., 0])
+    v = uv[..., 1] - torch.floor(uv[..., 1])
+    ah, aw = atlas.shape[:2]
+    grid = torch.stack([2.0 * (rect[..., 0] + u * rect[..., 2]) / aw - 1.0,
+                        2.0 * (rect[..., 1] + v * rect[..., 3]) / ah - 1.0],
+                       -1).reshape(1, -1, 1, 2)
+    inp = atlas.permute(2, 0, 1)[None].contiguous()
+    def library():
+        return F.grid_sample(inp, grid, mode="bilinear", align_corners=False)
+
+    lib_ms = event_ms(library, REPS)
+    lib_dev_ms = device_ms(library, REPS, "grid_sampler")
+    print(f"  kernel 14 {tuple(tex_id.shape)} ({n_tex} textured pixels): "
+          f"{ms:.4f} ms (device {dev_ms} ms), plain {plain_ms:.3f} ms, "
+          f"bound {bound[0]:.4f} ms ({bound[1]}), grid_sample {lib_ms:.4f} "
+          f"ms (device {lib_dev_ms} ms)")
+    return ms, plain_ms, bound, lib_ms, dev_ms, lib_dev_ms
+
+
+def check_texture_call(tx, sh, scene, tex_id, uv, label):
+    """Kernel 14 against its plain version on one field: bit for bit.
+    Returns the max abs error."""
+    got = tx.sample_atlas_coherent(scene, tex_id, uv)
+    ref = sh.sample_atlas(scene, tex_id, uv)
+    torch.cuda.synchronize()
+    eq = words_equal([got], [ref])
+    share = float((tex_id >= 0).float().mean())
+    print(f"kernel 14 {label} {tuple(tex_id.shape)} ({share:.3f} textured): "
+          f"equal to the plain version {eq} (need True)")
+    if not eq:
+        fail(f"kernel 14 disagrees with its plain version ({label})")
+    return max_abs_err([got], [ref])
+
+
+def synthetic_texture_scene(ht, dev):
+    """A compiled scene holding the procedural Earth and three seeded
+    textures (odd sizes, sRGB and linear) in its atlas, with a material
+    table whose four sampled slots are all textured somewhere."""
+    from hikari_tpu_torch.examples import simple
+    from hikari_tpu_torch.models import mesh as shapes
+    from hikari_tpu_torch.models.material import Texture
+
+    rng = np.random.default_rng(14)
+    earth = simple.procedural_earth(0)
+    a = Texture(rng.integers(0, 256, (37, 53, 4), np.uint8))
+    b = Texture(rng.integers(0, 256, (128, 96, 4), np.uint8), is_srgb=False)
+    c = Texture(rng.random((64, 200, 4), np.float32), is_srgb=False)
+    sc = ht.Scene()
+    sc.spawn(sc.add_mesh(shapes.quad(1.0, 1.0)), 0)
+    for m in (ht.StandardMaterial(base_color=(0.5, 0.6, 0.7, 1.0)),
+              ht.StandardMaterial(base_color_texture=earth,
+                                  emissive_texture=a,
+                                  metallic_roughness_texture=b,
+                                  occlusion_texture=c,
+                                  emissive=(1.0, 0.5, 0.2, 0.8)),
+              ht.StandardMaterial(base_color_texture=c,
+                                  occlusion_texture=b)):
+        sc.add_material(m)
+    return sc.compile().as_pytree(dev)
+
+
+def check_textures(ht):
+    """Kernel 14 against its plain version bit for bit: on the calls path
+    T gives it at 1920x1080 (the G-buffer's base colour and emissive
+    slots) and 960x540 (the lighting domain's) over two frames, on a
+    synthetic 1080p field (ids -1 to 3 of four textures, uv over
+    [-2.5, 3.5): negative, on and across the seams) and through
+    retrieve_surface's four slots on it. Returns the record of row 14."""
+    from contextlib import ExitStack
+
+    from hikari_tpu_torch.ops import shading as sh
+    from hikari_tpu_torch.ops import texture_pallas as tx
+
+    dev = torch.device(DEVICE)
+    r = ht.Renderer(simple_scene(), simple_camera(ht, FULL),
+                    simple_settings(ht))
+    if r.gpu_scene.num_textures != 1 or r.gpu_scene.num_triangles != 2510:
+        fail("path T's scene is not the 2,510-triangle textured scene")
+    cap = Capture(tx, "sample_atlas_coherent")
+    with ExitStack() as stack:
+        stack.enter_context(cap)
+        cap.on = True
+        for _ in range(2):
+            r.render_frame()
+        torch.cuda.synchronize()
+    if len(cap.calls) != 8:
+        fail(f"path T's two frames called kernel 14 {len(cap.calls)} times")
+    err = 0.0
+    for a, _ in cap.calls:
+        err = max(err, check_texture_call(tx, sh, *a, "path T"))
+    # the synthetic field, and the four slots through retrieve_surface
+    scene = synthetic_texture_scene(ht, dev)
+    g = torch.Generator().manual_seed(14)
+    h, w = FULL
+    tid = torch.randint(-1, 4, (h, w), generator=g, dtype=torch.int32)
+    uv = torch.rand((h, w, 2), generator=g) * 6.0 - 2.5
+    uv[: h // 8] = torch.round(uv[: h // 8])
+    uv[h // 8: h // 4] = torch.nextafter(torch.round(uv[h // 8: h // 4]),
+                                         torch.tensor(-10.0))
+    tid, uv = tid.to(dev), uv.to(dev)
+    err = max(err, check_texture_call(tx, sh, scene, tid, uv, "synthetic"))
+    mat = torch.randint(-1, 3, (h, w), generator=g,
+                        dtype=torch.int32).to(dev)
+    got = sh.retrieve_surface(scene, mat, uv, False, coherent=True)
+    ref = sh.retrieve_surface(scene, mat, uv, False)
+    torch.cuda.synchronize()
+    eq = words_equal([got[k] for k in sorted(ref)],
+                     [ref[k] for k in sorted(ref)])
+    print(f"kernel 14 through retrieve_surface, 4 slots, {h}x{w}: every "
+          f"field equal to the plain gathers {eq} (need True)")
+    if not eq:
+        fail("retrieve_surface through kernel 14 disagrees with the plain "
+             "gathers")
+    # frame 1's calls: 1080p base colour, emissive; 540p base, emissive
+    f1 = cap.calls[-4:]
+    full = texture_record(tx, sh, f1[0][0])
+    half = texture_record(tx, sh, f1[2][0])
+    return dict(name="texture", route="cuda",
+                source="hikari_tpu_torch/csrc/texture.cu",
+                replaces="hikari_tpu/ops/texture_pallas.py:64", launches=None,
+                max_abs_err=err, ms=full[0], plain_ms=full[1],
+                bound_ms=full[2][0], bound_by=full[2][1], library_ms=full[3],
+                ms_540p=half[0], plain_ms_540p=half[1],
+                bound_ms_540p=half[2][0], library_ms_540p=half[3],
+                device_ms=full[4], device_ms_540p=half[4],
+                library_device_ms=full[5], library_device_ms_540p=half[5])
+
+
+def simple_settings(ht):
+    """The simple example's settings: HikariSettings() with emissive
+    spatial reuse (simple.py:79-80)."""
+    return dataclasses.replace(ht.HikariSettings(),
+                               emissive_spatial_reuse=True)
+
+
+def compare_simple_render(ht, size, frames):
+    """Path T at `size` on CUDA against the plain versions on the CPU:
+    SSIM >= 0.98 and mean abs diff < 1e-3."""
+    images = []
+    for device in (None, "cpu"):
+        r = ht.Renderer(simple_scene(), simple_camera(ht, size),
+                        simple_settings(ht), device=device)
+        images.append(r.render(frames))
+    img_gpu, img_cpu = images
+    s = ssim(np.clip(img_gpu[..., :3], 0, 1), np.clip(img_cpu[..., :3], 0, 1))
+    mad = float(np.abs(img_gpu - img_cpu).mean())
+    print(f"small render T {size[0]}x{size[1]}, {frames} frames, CUDA vs "
+          f"CPU plain: SSIM {s:.5f} (need >= 0.98), mean abs diff {mad:.3g} "
+          f"(need < 1e-3)")
+    if not np.isfinite(img_gpu).all() or s < 0.98 or mad >= 1e-3:
+        fail("the CUDA render of path T disagrees with the CPU plain render")
+
+
 def compare_city_render(ht, size, frames):
     """The city at `size` on CUDA against the plain versions on the CPU,
     the sphere turning between frames: SSIM >= 0.98 and mean abs diff <
@@ -1482,13 +1725,14 @@ def compare_renders(ht, scene_of, size, name, settings, frames):
 def check_small_render(ht, build_box):
     """Small CUDA renders of the seven paths against the plain versions on
     the CPU, KR on the box with a sun at 270x480 (the modular path's solar
-    channel), and the city at 48x256."""
+    channel), and the city and path T at 48x256."""
     for name, (settings_of, _) in PATHS.items():
         compare_renders(ht, build_box, SMALL, name, settings_of(ht),
                         3 if name == "no-reuse" else 4)
     compare_renders(ht, lambda: sun_box(build_box), SUN, "KR with a sun",
                     PATHS["KR"][0](ht), 4)
     compare_city_render(ht, CITY_SMALL, 4)
+    compare_simple_render(ht, CITY_SMALL, 4)
 
 
 def main_path(ht, build_box, name, timed, profile):
@@ -1601,6 +1845,81 @@ def city_path(ht, timed, profile):
     return times, refit, counts
 
 
+SPHERES = (6, 7)    # path T's sphere instances (spawned last)
+
+
+def simple_path(ht, timed, profile):
+    """Path T through Renderer at 1920x1080: the textured simple scene at
+    the example's settings and camera, static. Checks the launch counts
+    and that the spheres' pixels differ from the same frame of the
+    untextured scene (the texture is sampled). Returns (frame times,
+    launch counts per wrapper of COUNTERS over the timed frames)."""
+    settings = simple_settings(ht)
+    r = ht.Renderer(simple_scene(), simple_camera(ht, FULL), settings)
+    for _ in range(WARMUP_FRAMES):
+        r.render_frame()
+    torch.cuda.synchronize()
+    wrappers = counter_wrappers()
+    for fn in wrappers:
+        fn.launches = 0
+    times = []
+    img = None
+    for _ in range(timed):
+        t = time.perf_counter()
+        img = r.render_frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    counts = [fn.launches for fn in wrappers]
+    expected = [sum(col) for col in zip(*(
+        simple_launches(settings, n)
+        for n in range(WARMUP_FRAMES, WARMUP_FRAMES + timed)))]
+    check_run("T", counts, expected, img, timed)
+    inst = torch.floor(r.carry["prev_gbuffer"]["instance_material"][..., 0])
+    spheres = (inst == SPHERES[0]) | (inst == SPHERES[1])
+    plain = ht.Renderer(simple_scene(False), simple_camera(ht, FULL),
+                        settings)
+    for _ in range(WARMUP_FRAMES + timed):
+        untextured = plain.render_frame()
+    diff = (img[..., :3] - untextured[..., :3]).abs().amax(-1)
+    n_sph = int(spheres.sum())
+    on = float(diff[spheres].mean()) if n_sph else 0.0
+    changed = float((diff[spheres] > 0.02).float().mean()) if n_sph else 0.0
+    print(f"  path T vs the untextured scene, same frame: {n_sph} sphere "
+          f"pixels, mean max-channel diff {on:.4f} there, {changed:.3f} of "
+          f"them differ by > 0.02 (need > 0.25); elsewhere "
+          f"{float(diff[~spheres].mean()):.4g}")
+    if n_sph < 1000 or changed <= 0.25:
+        fail("path T's spheres do not show their texture")
+    if profile:
+        profile_frames(r.render_frame)
+    return times, counts
+
+
+def alternate_post_paths(ht, build_box, timed):
+    """Paths P and D timed alternately, frame by frame, in one process
+    (one P frame, then one D frame): the medians of each."""
+    box = load_box_module()
+    h, w = FULL
+    cam = ht.Camera.from_look_at(box.EYE, box.TARGET, width=w, height=h)
+    rs = {name: ht.Renderer(build_box(), cam, PATHS[name][0](ht))
+          for name in ("P", "D")}
+    for r in rs.values():
+        for _ in range(WARMUP_FRAMES):
+            r.render_frame()
+    torch.cuda.synchronize()
+    times = {name: [] for name in rs}
+    for _ in range(timed):
+        for name, r in rs.items():
+            t = time.perf_counter()
+            r.render_frame()
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t) * 1e3)
+    med = {name: float(np.median(v)) for name, v in times.items()}
+    print(f"P and D alternating, {timed} frames each: P median "
+          f"{med['P']:.2f} ms, D median {med['D']:.2f} ms")
+    return med, times
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -1644,6 +1963,7 @@ def main():
     records += ckb_records
     city_records, hit_record, at_city = check_city(ht, build_box)
     records += city_records
+    records.append(check_textures(ht))
     for rec in records + [hit_record]:
         rec.update(at_540p.get(rec["name"], {}))
         rec.update(at_ckb.get(rec["name"], {}))
@@ -1663,12 +1983,17 @@ def main():
     times, refit, counts = city_path(ht, TIMED_FRAMES, args.profile)
     frame_ms["city"] = (float(np.median(times)), times)
     launches["city"] = dict(zip(COUNTERS, counts))
+    times, counts = simple_path(ht, TIMED_FRAMES, args.profile)
+    frame_ms["T"] = (float(np.median(times)), times)
+    launches["T"] = dict(zip(COUNTERS, counts))
+    alt_ms, alt_times = alternate_post_paths(ht, build_box, TIMED_FRAMES)
 
     def total(counter, paths=tuple(launches)):
         return sum(launches[p][counter] for p in paths)
 
     # launches over the timed frames of the paths running each kernel:
     # B runs on no-reuse, P and K, kernel 4 on R, S and D, 13 on the city
+    # and T, 14 on T
     by_name = {
         "prepass_fused": total("prepass"),
         "light_fused": total("lighting", ("no-reuse", "P", "K")),
@@ -1683,7 +2008,8 @@ def main():
         "trace_full": total("trace_full"),
         "trace_shadow": total("trace_shadow"),
         "trace_bvh_full": total("bvh_full"),
-        "trace_bvh_shadow": total("bvh_shadow")}
+        "trace_bvh_shadow": total("bvh_shadow"),
+        "texture": total("sample_atlas")}
     for rec in records:
         rec["launches"] = by_name[rec["name"]]
 
@@ -1703,6 +2029,14 @@ def main():
         "city_refit_ms": float(np.median(refit)), "city_instances": 122,
         "city_triangles": 2618, "reps_ms": frame_ms["city"][1],
         "refit_reps_ms": refit, "card": card}))
+    print(json.dumps({
+        "frame_ms_simple": frame_ms["T"][0], "simple_triangles": 2510,
+        "reps_ms": frame_ms["T"][1], "card": card}))
+    print(json.dumps({
+        "frame_ms_smaa2_alternating": alt_ms["P"],
+        "frame_ms_default_alternating": alt_ms["D"],
+        "reps_ms_smaa2": alt_times["P"], "reps_ms_default": alt_times["D"],
+        "card": card}))
     print(json.dumps({"kernel_off_path": hit_record}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -1,14 +1,14 @@
 """hikari_tpu_torch: the PyTorch + CUDA port of hikari_tpu, a realtime
 deferred hybrid path tracer, for NVIDIA Hopper (H100).
 
-So far the port covers the flagship frame without reuse, with temporal
-ReSTIR reuse and with temporal + fused spatial reuse: the fused G-buffer
-prepass, the lighting channels (temporal reuse in the kernel), the
-reprojection gather, the spatial pass and the a-trous denoiser, each a
+The port renders every TPU kernel's path of hikari_tpu on the card: the
+flagship frame with and without ReSTIR reuse, the post chain (TAA, SMAA
+TU4X at ratio 2), checkerboard lighting, large scenes over a BVH walk
+with their on-device refit, and textured scenes. Each TPU kernel is a
 CUDA kernel written by hand (hikari_tpu_torch/csrc/) beside a plain
-PyTorch version of the same function. Kernels build with nvcc on first use into
-build/hikari_tpu_torch/. A Renderer runs on CUDA unless the caller passes
-device="cpu", where the plain versions run instead.
+PyTorch version of the same function. Kernels build with nvcc on first
+use into build/hikari_tpu_torch/. A Renderer runs on CUDA unless the
+caller passes device="cpu", where the plain versions run instead.
 """
 
 from hikari_tpu_torch.camera import Camera, PerspectiveProjection, look_at

@@ -24,7 +24,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "hikari_tpu_torch")
 
 CUDA_SOURCES = ("prepass_fused", "light_fused", "denoise_fused",
                 "reproj_gather", "spatial_fused", "warp", "trace",
-                "trace_bvh")
+                "trace_bvh", "texture")
 
 _NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

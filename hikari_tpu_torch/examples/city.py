@@ -3,11 +3,10 @@ port: a 100x100 ground plane, the rotating emissive Earth sphere and three
 waves of four procedural multi-instance houses, with a sun.
 
 `build_scene(waves)` builds the scene after `waves` load-timer ticks and
-`rotate_sphere` is the per-frame sphere_rotate_system. hikari_tpu textures
-the sphere with the Earth image when it finds it under $HIKARI_ASSETS; the
-port has no textures, so it raises NotImplementedError when the image is
-there instead of dropping it. The command-line entry point (main) is not
-ported.
+`rotate_sphere` is the per-frame sphere_rotate_system. Like hikari_tpu,
+the sphere is textured with the Earth image when it is found under
+$HIKARI_ASSETS (models/Earth/earth_daymap.jpg, read with PIL), and left
+untextured otherwise. The command-line entry point (main) is not ported.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ import os
 import numpy as np
 
 from hikari_tpu_torch.models import mesh as shapes
-from hikari_tpu_torch.models.material import StandardMaterial
+from hikari_tpu_torch.models.material import StandardMaterial, Texture
 from hikari_tpu_torch.models.scene import (DirectionalLight, Scene,
                                            make_transform)
 
@@ -43,12 +42,19 @@ def rot_y(a):
     return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
 
 
-def _check_no_earth_texture():
+def earth_texture():
+    """The Earth image under $HIKARI_ASSETS as hikari_tpu's examples load
+    it (RGBA, at most 1024 texels on a side, sRGB), or None when it is not
+    there."""
     assets = os.environ.get("HIKARI_ASSETS")
-    if assets and os.path.exists(
-            os.path.join(assets, "models/Earth/earth_daymap.jpg")):
-        raise NotImplementedError(
-            "the Earth texture is present and textures are not ported")
+    path = os.path.join(assets or "", "models/Earth/earth_daymap.jpg")
+    if not assets or not os.path.exists(path):
+        return None
+    from PIL import Image
+
+    img = Image.open(path).convert("RGBA")
+    img.thumbnail((1024, 1024))
+    return Texture(np.asarray(img), is_srgb=True)
 
 
 def _spawn_house(sc, meshes, mats, x, z, seed):
@@ -122,7 +128,6 @@ def rotate_sphere(scene: Scene, angle: float) -> Scene:
 def build_scene(waves: int = len(WAVES), sphere_angle: float = 0.0) -> Scene:
     """Scene after `waves` load-timer ticks (city.rs:144-199), with the
     emissive Earth sphere at `sphere_angle`."""
-    _check_no_earth_texture()
     sc = Scene()
     meshes = {
         "cube": sc.add_mesh(shapes.cube(1.0)),
@@ -148,8 +153,11 @@ def build_scene(waves: int = len(WAVES), sphere_angle: float = 0.0) -> Scene:
     # ground plane (city.rs:62-77)
     sc.spawn(meshes["plane"], mats["ground"],
              make_transform((0, 0, 0), scale=(100, 1, 100)))
-    # rotating emissive Earth sphere (city.rs:81-102), untextured
-    em = sc.add_material(StandardMaterial(emissive=(1.0, 1.0, 1.0, 0.5)))
+    # rotating emissive Earth sphere (city.rs:81-102)
+    tex = earth_texture()
+    em = sc.add_material(StandardMaterial(
+        base_color_texture=tex, emissive=(1.0, 1.0, 1.0, 0.5),
+        emissive_texture=tex))
     sc.spawn(meshes["sphere"], em, sphere_transform(sphere_angle),
              prev_transform=sphere_transform(sphere_angle - 0.2 / 60.0))
     # staggered house waves

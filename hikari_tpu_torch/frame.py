@@ -22,6 +22,13 @@ hikari_tpu's own predicates (`prepass_fused_eligible`, `fused_eligible`,
   the scene's tracer: kernels 5, 6, 7 or kernel 13), with the spatial
   tracking scatters and ops/restir.py spatial_reuse at the render size.
 
+A textured scene takes neither fused kernel (they have no texture
+fetches): the non-fused prepass and the modular lighting path, as
+hikari_tpu does. Its primary surface is retrieved once per G-buffer
+domain (the full-size one for the albedo, the lighting domain for the
+channels), with the textures sampled through kernel 14
+(ops/texture_pallas.py) in the slots some material textures.
+
 Checkerboard lighting (at an even render width) lights half the pixels,
 (x + y + frame) % 2 == 0, on the compressed [h, w/2] domain
 (ops/checkerboard.py), and reconstructs the other half of every channel
@@ -40,8 +47,8 @@ Settings and scenes outside the ported slices raise NotImplementedError
 when the frame function is built: FSR, SMAA at any ratio but 2, other
 ratios than 1 and 2, ratio 2 at an odd output size, checkerboard lighting
 at ratio 2, the spatial tap scramble, spatial reuse without temporal
-reuse, textures, more than 8 emissives, and the modular path without
-temporal reuse (scenes beyond the fused lighting kernel's gate at
+reuse, more than 8 emissives, and the modular path without temporal
+reuse (scenes beyond the fused lighting kernel's gate at
 settings without reuse).
 """
 
@@ -65,6 +72,7 @@ from hikari_tpu_torch.ops.post import post_chain, post_sizes
 from hikari_tpu_torch.ops.prepass import frame_jitter, prepass
 from hikari_tpu_torch.ops.reproj_gather import reproj_gather
 from hikari_tpu_torch.ops.sampling import SMALL_EMISSIVE_MAX
+from hikari_tpu_torch.ops.shading import used_slots
 from hikari_tpu_torch.ops.smaa import parity_quads
 from hikari_tpu_torch.ops.tonemap import tone_mapping
 from hikari_tpu_torch.utils.math import F32_EPSILON
@@ -128,34 +136,34 @@ def unsupported_settings(settings: HikariSettings, full_size):
     return reasons
 
 
-def unsupported_scene(no_texture: bool, num_emissives: int):
+def unsupported_scene(num_emissives: int):
     """The reasons a compiled scene lies outside the ported slices."""
     reasons = []
-    if not no_texture:
-        reasons.append("textures")
     if num_emissives > SMALL_EMISSIVE_MAX:
         reasons.append(f"{num_emissives} emissives > {SMALL_EMISSIVE_MAX} "
                        "(the emissive BVH walk)")
     return reasons
 
 
-def prepass_fused_eligible(scene, tracer_kind: str) -> bool:
-    """Kernel A serves the prepass: the small-scene tracer and a scene
-    within its triangle, material and instance caps
+def prepass_fused_eligible(scene, *, no_texture: bool,
+                           tracer_kind: str) -> bool:
+    """Kernel A serves the prepass: no textures, the small-scene tracer and
+    a scene within its triangle, material and instance caps
     (hikari_tpu/ops/prepass_fused.py:63-75)."""
-    return (tracer_kind == "brute_force_pallas"
+    return (no_texture and tracer_kind == "brute_force_pallas"
             and _pf.prepass_caps_error(scene) is None)
 
 
-def fused_eligible(scene, *, num_emissives: int, temporal_reuse: bool,
-                   track_de: bool, track_ind: bool, tracer_kind: str,
-                   has_sun: bool, bounces: int, ckb: bool) -> bool:
+def fused_eligible(scene, *, no_texture: bool, num_emissives: int,
+                   temporal_reuse: bool, track_de: bool, track_ind: bool,
+                   tracer_kind: str, has_sun: bool, bounces: int,
+                   ckb: bool) -> bool:
     """Kernel B / 4 serves the lighting (hikari_tpu/ops/light_fused.py:
-    87-118): no spatial tracking outside the fused spatial path, not
-    temporal reuse under checkerboard (the carries live at the full render
-    size), a channel to light, the small-scene tracer and a scene within
-    the kernel's caps."""
-    if track_de or track_ind:
+    87-118): no spatial tracking outside the fused spatial path, no
+    textures (the kernel fetches none), not temporal reuse under
+    checkerboard (the carries live at the full render size), a channel to
+    light, the small-scene tracer and a scene within the kernel's caps."""
+    if track_de or track_ind or not no_texture:
         return False
     if temporal_reuse and ckb:
         return False
@@ -167,20 +175,21 @@ def fused_eligible(scene, *, num_emissives: int, temporal_reuse: bool,
 
 
 def spatial_fused_active(scene, settings: HikariSettings, tracer_kind: str,
-                         num_emissives: int, has_sun: bool,
+                         no_texture: bool, num_emissives: int, has_sun: bool,
                          full_size) -> bool:
     """Kernel 10 serves spatial reuse (hikari_tpu/frame.py:44-76): spatial
     and temporal reuse on the fused temporal path (kernel 4), without
-    checkerboard lighting or the tap scramble, in a scene within kernel
-    10's material cap."""
+    checkerboard lighting or the tap scramble, in a scene without textures
+    within kernel 10's material cap."""
     if not (any(_tracks(settings)) and settings.temporal_reuse):
         return False
     if (checkerboard_active(settings, full_size)
             or settings.spatial_tap_scramble):
         return False
-    if not _sf.spatial_fused_eligible(scene):
+    if not no_texture or not _sf.spatial_fused_eligible(scene):
         return False
-    return fused_eligible(scene, num_emissives=num_emissives,
+    return fused_eligible(scene, no_texture=no_texture,
+                          num_emissives=num_emissives,
                           temporal_reuse=True, track_de=False,
                           track_ind=False, tracer_kind=tracer_kind,
                           has_sun=has_sun,
@@ -302,7 +311,7 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
     modular lighting path. Raises NotImplementedError for anything outside
     the ported slices."""
     reasons = (unsupported_settings(settings, full_size)
-               + unsupported_scene(no_texture, num_emissives))
+               + unsupported_scene(num_emissives))
     full_size = tuple(full_size)
     ratio = settings.upscale_ratio
     render_size = scaled_size(full_size, ratio)
@@ -316,11 +325,13 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
     any_active = any(active)
     ckb = checkerboard_active(settings, full_size)
     kind = tracer.kind
-    fused_pre = prepass_fused_eligible(scene, kind)
-    fused_sp = spatial_fused_active(scene, settings, kind, num_emissives,
-                                    has_sun, full_size)
+    fused_pre = prepass_fused_eligible(scene, no_texture=no_texture,
+                                       tracer_kind=kind)
+    fused_sp = spatial_fused_active(scene, settings, kind, no_texture,
+                                    num_emissives, has_sun, full_size)
     use_fused = any_active and fused_eligible(
-        scene, num_emissives=num_emissives, temporal_reuse=reuse,
+        scene, no_texture=no_texture, num_emissives=num_emissives,
+        temporal_reuse=reuse,
         track_de=track_de and not fused_sp,
         track_ind=track_ind and not fused_sp, tracer_kind=kind,
         has_sun=has_sun, bounces=bounces, ckb=ckb)
@@ -332,6 +343,9 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         raise NotImplementedError(
             "outside the ported slices: " + ", ".join(reasons))
     light_size = (render_size[0], render_size[1] // 2) if ckb else render_size
+    # the texture slots some material textures: the primary surfaces
+    # sample only those (kernel 14 launches once per slot and domain)
+    tex_slots = used_slots(scene)
     sp_sources = []
     if fused_sp:
         if track_de and num_emissives > 0:
@@ -359,10 +373,12 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         return prev_p
 
     def modular_lighting(scene, g, g_l, view, frame, rand_l, reproj,
-                         gathered, carry, par):
+                         gathered, carry, par, surf_l, surf_r):
         """direct_lit / indirect_lit_ambient of the active channels on the
         lighting domain, with the spatial tracking scatters and the spatial
-        passes at the render size (hikari_tpu/frame.py:412-532). Returns
+        passes at the render size (hikari_tpu/frame.py:412-532), on the
+        primary surfaces of the lighting domain (surf_l) and of the render
+        size (surf_r). Returns
         ({slot: (render, variance)} on the lighting domain, the new
         reservoir carries, {slot: spatial pass result})."""
         slots = [slot for c, slot in enumerate("dei") if active[c]]
@@ -370,7 +386,6 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                 for slot, p in zip(slots, gathered)}
         reproj_l = (reproj if par is None
                     else restir.reprojection_ckb(g_l, render_size, par))
-        surf_l = restir.primary_surface(scene, g_l, no_texture)
         kw = dict(temporal_reuse=True, no_texture=no_texture,
                   render_size=light_size, surface=surf_l, reproj=reproj_l)
         buf = {"spatial_de": carry.get("spatial_de"),
@@ -404,7 +419,6 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                 carries[TEMPORAL_KEYS[c]] = planes
         spatial = {}
         valid = g["position"][..., 3] >= F32_EPSILON
-        surf_r = surf_l if par is None else None
         for slot, key, on in (("e", "spatial_de", track_de),
                               ("i", "spatial_indirect", track_ind)):
             if not on:
@@ -417,12 +431,10 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
             temporal_r = (out[slot]["temporal"] if par is None else
                           rsv.unpack_reservoir_planes(
                               carries[TEMPORAL_KEYS["dei".index(slot)]]))
-            if surf_r is None:
-                surf_r = restir.primary_surface(scene, g, no_texture)
             res = restir.spatial_reuse(
                 scene, g, view, frame, temporal_r, buf[key], reproj,
-                emissive_lit=slot == "e", render_size=render_size,
-                surface=surf_r)
+                emissive_lit=slot == "e", no_texture=no_texture,
+                render_size=render_size, surface=surf_r)
             carries[key] = _zero_planes_where(
                 ~valid, rsv.pack_reservoir_planes(res["spatial"]))
             spatial[slot] = res
@@ -457,7 +469,10 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                                              full_size)
         else:
             gbuf = prepass(scene, tracer, view, prev_view, jit, full_size)
-            albedo = restir.full_screen_albedo(scene, gbuf, view)
+            albedo = restir.full_screen_albedo(
+                scene, gbuf, view, no_texture,
+                surface=restir.primary_surface(scene, gbuf, no_texture,
+                                               tex_slots))
         if not (fused_pre and half):
             g = restir.resample_gbuffer(gbuf, render_size, number, ratio)
         if _smaa(settings):
@@ -501,10 +516,20 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         # {slot: (render, variance)} of the channels that trace rays, on
         # the lighting domain
         lit, fl, spatial = {}, {}, {}
+        surf_r = None
         if modular:
+            # one primary surface per G-buffer domain, shared by every
+            # channel (hikari_tpu/frame.py:421-429)
+            surf_l = restir.primary_surface(scene, g_l, no_texture,
+                                            tex_slots)
+            if par is None:
+                surf_r = surf_l
+            elif not has_sun or (track_de and active[1]) or track_ind:
+                surf_r = restir.primary_surface(scene, g, no_texture,
+                                                tex_slots)
             lit, carries, spatial = modular_lighting(
                 scene, g, g_l, view, frame, rand_l, reproj, gathered, carry,
-                par)
+                par, surf_l, surf_r)
             new_carry.update(carries)
         elif any_active:
             fl = _lf.fused_lighting(
@@ -534,7 +559,7 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
             # the deterministic surface-emission term (no rays), at the
             # render size
             d = restir.emissive_surface_channel(scene, g, no_texture,
-                                                render_size)
+                                                render_size, surface=surf_r)
             d_render, d_var = d["render"], d["variance"]
         e_render, e_var = lit.get("e", (zero_render, zero_var))
         i_render, i_var = lit.get("i", (zero_render, zero_var))

@@ -20,8 +20,10 @@ port's kernel 13 walks `bvh_packed`, so there are no cluster tables).
    are scale-invariant under rigid motion and kept.
 
 With more than SMALL_EMISSIVE_MAX emissives hikari_tpu refits on the host
-(the emissive BVH's inner boxes are not refit here); the port has no host
-path and Renderer.update_scene raises for such scenes.
+(the emissive BVH's inner boxes are not refit here). The port has no host
+refit and never reaches one: building the frame of such a scene raises
+NotImplementedError (frame.py unsupported_scene), in Renderer() and in
+update_scene(fast=False), before any update_scene(fast=True) can run.
 """
 
 from __future__ import annotations

@@ -1,16 +1,17 @@
-"""Scene assembly and the scene compiler (the no-texture part of
-hikari_tpu/models/scene.py).
+"""Scene assembly and the scene compiler (hikari_tpu/models/scene.py).
 
 Like hikari_tpu, the compiler flattens the scene: every instance's
 triangles are pre-transformed to world space into one triangle table with
 per-triangle instance/material ids, plus a world BVH, the emissive list,
-the emissive light BVH and per-instance alias tables (instance.rs:381-428).
+the emissive light BVH, per-instance alias tables (instance.rs:381-428)
+and the texture atlas with each texture's rect.
 Host code stays numpy; `GpuScene.as_pytree(device)` uploads the arrays as
 torch tensors, and `GpuScene.bvh` keeps the BVH's topology for the
 on-device refit (models/refit_device.py). hikari_tpu's cluster tables
 (models/clusters.py, built above 512 triangles for its tile-cull tracer)
-are replaced by kernel 13's walk of `bvh_packed`; texture atlases are not
-ported yet.
+are replaced by kernel 13's walk of `bvh_packed`, and its bf16 atlas
+layouts (`atlas_panels` for the TPU window DMA, `atlas_quad` for one row
+gather per bilinear sample) by per-pixel gathers from the f32 `atlas`.
 """
 
 from __future__ import annotations
@@ -133,7 +134,8 @@ class Scene:
 def scene_from_arrays(arrays: Dict[str, np.ndarray], device) -> dict:
     """A compiled scene's arrays (this package's, or hikari_tpu's
     `GpuScene.arrays`) as the port's scene tensors on `device`. Arrays of
-    other dtypes (hikari_tpu's bf16 texture panels) are left out."""
+    other dtypes (hikari_tpu's bf16 `atlas_panels` and `atlas_quad`) are
+    left out."""
     out = {}
     for k, v in arrays.items():
         a = np.asarray(v)
@@ -303,7 +305,8 @@ def compile_scene(scene: Scene) -> GpuScene:
         alias_prob = np.zeros(1, np.float32)
         alias_index = np.zeros(1, np.int32)
 
-    mat_table = pack_materials(scene.materials)
+    mat_table, atlas, tex_rects, num_textures = pack_materials(
+        scene.materials)
 
     num_pad = -(-num_tris // TRI_PAD) * TRI_PAD
     arrays = {
@@ -333,6 +336,8 @@ def compile_scene(scene: Scene) -> GpuScene:
         "alias_prob": alias_prob,
         "alias_index": alias_index,
         **{f"mat_{k}": v for k, v in mat_table.items()},
+        "atlas": atlas,
+        "tex_rect": tex_rects,
         "dir_to_light": (
             -np.asarray(scene.directional_light.direction, np.float32)
             / np.linalg.norm(scene.directional_light.direction)
@@ -420,6 +425,6 @@ def compile_scene(scene: Scene) -> GpuScene:
         num_nodes=bvh.count,
         num_instances=len(visible),
         num_emissives=num_emissives,
-        num_textures=0,
+        num_textures=num_textures,
         bvh=bvh,
     )

@@ -1,7 +1,8 @@
 """The parts of hikari_tpu/ops/restir.py the ported frames use: the
 jittered-deferred G-buffer lookup (the identity at upscale ratio 1, the
 parity decimation at ratio 2), the primary surface, the full-screen albedo
-of the non-fused prepass, the sun-less direct channel, the per-frame
+of the non-fused prepass (textures through kernel 14), the sun-less
+direct channel, the per-frame
 reprojection (previous-frame coordinates) of the reuse paths, and the
 modular lighting channels `direct_lit` and `indirect_lit_ambient` in their
 temporal-reuse form with the spatial-reuse tracking, and `spatial_reuse`
@@ -26,7 +27,7 @@ from hikari_tpu_torch.ops import spatial_fused as _sf
 from hikari_tpu_torch.ops._kernel import div, f32
 from hikari_tpu_torch.ops.sampling import (RAY_BIAS, occlude_hit_info,
                                            select_light_candidate)
-from hikari_tpu_torch.ops.shading import (calculate_view,
+from hikari_tpu_torch.ops.shading import (ALL_SLOTS, calculate_view,
                                           compute_emissive_radiance,
                                           env_brdf, input_radiance,
                                           retrieve_surface, shading)
@@ -116,20 +117,23 @@ def resample_gbuffer(gbuf, render_size, frame_number: int, ratio: float):
             for k, v in gbuf.items()}
 
 
-def primary_surface(scene, g, no_texture: bool):
-    """The G-buffer pixel's material surface (light.wgsl:729-781)."""
+def primary_surface(scene, g, no_texture: bool, slots=ALL_SLOTS):
+    """The G-buffer pixel's material and texture surface
+    (light.wgsl:729-781): its uv field is screen-coherent, so textures are
+    sampled through kernel 14. Computed once per frame per G-buffer domain
+    and shared by every consumer. `slots`: as retrieve_surface's."""
     material = g["instance_material"][..., 1].to(torch.int32)
     return retrieve_surface(scene, material, g["velocity_uv"][..., 2:4],
-                            no_texture)
+                            no_texture, coherent=True, slots=slots)
 
 
-def full_screen_albedo(scene, gbuf, view, surface=None):
+def full_screen_albedo(scene, gbuf, view, no_texture: bool, surface=None):
     """The env-BRDF albedo of the full-res G-buffer (light.wgsl:1020-1042):
     [H,W,4], alpha 1 on the valid pixels, zeros elsewhere."""
     depth = gbuf["position"][..., 3]
     valid = depth >= F32_EPSILON
     if surface is None:
-        surface = primary_surface(scene, gbuf, True)
+        surface = primary_surface(scene, gbuf, no_texture)
     v = calculate_view(view, gbuf["position"])
     albedo = env_brdf(surface, v, gbuf["normal"])
     a = torch.cat([albedo, torch.ones_like(depth)[..., None]], -1)
@@ -494,7 +498,8 @@ def _roll2d(x, dy, dx):
 
 
 def spatial_reuse(scene, g, view, frame, temporal_r, prev_spatial, reproj, *,
-                  emissive_lit: bool, render_size, surface=None):
+                  emissive_lit: bool, no_texture: bool, render_size,
+                  surface=None):
     """The modular spatial ReSTIR pass of one channel at the render size:
     the previous spatial reservoir gathered at reproj's coordinates where
     the temporal lifetime is within max_reservoir_lifetime, this pixel's
@@ -509,7 +514,7 @@ def spatial_reuse(scene, g, view, frame, temporal_r, prev_spatial, reproj, *,
     depth = g["position"][..., 3]
     valid = depth >= F32_EPSILON
     if surface is None:
-        surface = primary_surface(scene, g, True)
+        surface = primary_surface(scene, g, no_texture)
     view_dir = calculate_view(view, g["position"])
 
     q0 = temporal_r

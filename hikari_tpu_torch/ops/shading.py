@@ -1,5 +1,11 @@
-"""Surface retrieval and PBR shading (light.wgsl:711-908): the no-texture
-part of hikari_tpu/ops/shading.py.
+"""Surface retrieval and PBR shading (light.wgsl:711-908), the port of
+hikari_tpu/ops/shading.py.
+
+Textures live in one f32 atlas (models/material.py pack_atlas) and are
+sampled bilinearly with repeat addressing: mip-less `textureSampleLevel(...,
+0.0)` is plain bilinear. `sample_atlas` is the exact four-texel gather; the
+screen-coherent primary surfaces go through kernel 14
+(ops/texture_pallas.py), which computes the same function on the card.
 
 Batched over arbitrary leading dims [...]."""
 
@@ -12,36 +18,121 @@ from hikari_tpu_torch.utils.math import (dot3, env_brdf_approx, fd_burley,
                                          perceptual_roughness_to_roughness,
                                          saturate, specular_brdf)
 
+# mat_packed's columns of the texture ids of the sampled slots: base
+# colour, emissive, metallic-roughness, occlusion
+TEX_COLUMNS = slice(11, 15)
+ALL_SLOTS = (True, True, True, True)
 
-def _material_rows(scene, material_idx, no_texture: bool):
-    if not no_texture:
-        raise NotImplementedError("textured surfaces are not ported yet")
+
+def _material_rows(scene, material_idx):
     table = scene["mat_packed"]
     m = torch.clamp(material_idx.long(), 0, table.shape[0] - 1)
     return table[m]
 
 
+def texture_ids(row):
+    """The four slots' texture ids (int32, -1 = none) of material rows."""
+    return torch.round(row[..., TEX_COLUMNS]).to(torch.int32)
+
+
+def sample_atlas(scene, tex_id, uv):
+    """Bilinear atlas sample with repeat addressing: tex_id [...] int32
+    (-1 = none), uv [..., 2]. Returns [..., 4]; tex_id < 0 yields 1.0 (a
+    neutral multiplier). The exact mod-addressed four-texel gather of
+    hikari_tpu's sample_atlas, one operation at a time; kernel 14 computes
+    the same function. Ids beyond the rect table and indices outside the
+    atlas clamp (only a non-finite uv reaches the atlas clamp)."""
+    atlas, rects = scene["atlas"], scene["tex_rect"]
+    ah, aw = atlas.shape[:2]
+    rect = rects[torch.clamp(tex_id.long(), 0, rects.shape[0] - 1)]
+    x0, y0 = rect[..., 0].long(), rect[..., 1].long()
+    twi = torch.clamp(rect[..., 2].long(), min=1)
+    thi = torch.clamp(rect[..., 3].long(), min=1)
+    u = uv[..., 0] - torch.floor(uv[..., 0])
+    v = uv[..., 1] - torch.floor(uv[..., 1])
+    fx = u * twi.to(torch.float32) - 0.5
+    fy = v * thi.to(torch.float32) - 0.5
+    ix = torch.floor(fx)
+    iy = torch.floor(fy)
+    ax = (fx - ix)[..., None]
+    ay = (fy - iy)[..., None]
+    xi, yi = ix.long(), iy.long()
+
+    def fetch(px, py):
+        # repeat within the texture rect (integer-valued, so exact)
+        x = torch.clamp(torch.remainder(px, twi) + x0, 0, aw - 1)
+        y = torch.clamp(torch.remainder(py, thi) + y0, 0, ah - 1)
+        return atlas[y, x]
+
+    c00 = fetch(xi, yi)
+    c10 = fetch(xi + 1, yi)
+    c01 = fetch(xi, yi + 1)
+    c11 = fetch(xi + 1, yi + 1)
+    color = (c00 * (1 - ax) * (1 - ay) + c10 * ax * (1 - ay)
+             + c01 * (1 - ax) * ay + c11 * ax * ay)
+    return torch.where((tex_id >= 0)[..., None], color, 1.0)
+
+
 def retrieve_surface(scene, material_idx: torch.Tensor, uv,
-                     no_texture: bool):
-    """Material table lookup (light.wgsl:729-781) for scenes without
-    textures (`uv` would address them). material_idx < 0 (a miss) reads
-    material 0; callers mask. Returns {base_color, emissive, reflectance,
-    metallic, roughness, occlusion}."""
-    row = _material_rows(scene, material_idx, no_texture)
+                     no_texture: bool, coherent: bool = False,
+                     slots=ALL_SLOTS):
+    """Material table lookup and texture modulation (light.wgsl:729-781),
+    in the reference's channel conventions: metallic *= tex.r, occlusion =
+    tex.r, roughness from perceptual_roughness only. material_idx < 0 (a
+    miss) reads material 0; callers mask. A screen-coherent uv field
+    (`coherent`, the primary surface) samples through kernel 14, any other
+    through sample_atlas. `slots` (base colour, emissive,
+    metallic-roughness, occlusion): the slots to sample; a slot no material
+    of the scene textures multiplies by 1.0 everywhere, so a caller that
+    knows so may leave it out with the same result. Returns {base_color,
+    emissive, reflectance, metallic, roughness, occlusion}."""
+    row = _material_rows(scene, material_idx)
+    base_color = row[..., 0:4]
+    emissive = row[..., 4:8]
     metallic = row[..., 9]
+    occlusion = torch.ones_like(metallic)
+    if not no_texture:
+        sample = sample_atlas
+        if coherent:
+            from hikari_tpu_torch.ops import texture_pallas as _tx
+
+            sample = _tx.sample_atlas_coherent
+        tid = texture_ids(row)
+        if slots[0]:
+            base_color = base_color * sample(scene, tid[..., 0], uv)
+        if slots[1]:
+            emissive = emissive * sample(scene, tid[..., 1], uv)
+        if slots[2]:
+            metallic = metallic * torch.where(
+                tid[..., 2] >= 0, sample(scene, tid[..., 2], uv)[..., 0], 1.0)
+        if slots[3]:
+            occlusion = torch.where(
+                tid[..., 3] >= 0, sample(scene, tid[..., 3], uv)[..., 0], 1.0)
     return {
-        "base_color": row[..., 0:4],
-        "emissive": row[..., 4:8],
+        "base_color": base_color,
+        "emissive": emissive,
         "reflectance": row[..., 10],
         "metallic": metallic,
         "roughness": perceptual_roughness_to_roughness(row[..., 8]),
-        "occlusion": torch.ones_like(metallic),
+        "occlusion": occlusion,
     }
 
 
 def retrieve_emissive(scene, material_idx, uv, no_texture: bool):
-    """The material's emissive rgba."""
-    return _material_rows(scene, material_idx, no_texture)[..., 4:8]
+    """The material's emissive rgba, times its emissive texture."""
+    row = _material_rows(scene, material_idx)
+    emissive = row[..., 4:8]
+    if not no_texture:
+        emissive = emissive * sample_atlas(scene, texture_ids(row)[..., 1],
+                                           uv)
+    return emissive
+
+
+def used_slots(scene) -> tuple:
+    """Which texture slots any material of the scene textures (a host
+    copy of the small material table: call it once per compiled scene)."""
+    ids = scene["mat_packed"][:, TEX_COLUMNS].cpu()
+    return tuple(bool(b) for b in (ids >= 0).any(0))
 
 
 def compute_emissive_radiance(emissive):

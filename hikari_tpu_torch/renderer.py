@@ -3,8 +3,8 @@ function for the current settings, and the frame carry (the port of
 hikari_tpu/renderer.py for the ported slices: no reuse, temporal reuse,
 temporal + spatial reuse, the post chain of SMAA TU4X at ratio 2 and TAA
 Jasmine, so HikariSettings() itself, checkerboard lighting with and
-without temporal reuse, and scenes beyond the fused kernels' caps, such as
-the city, with their per-frame on-device refit)."""
+without temporal reuse, scenes beyond the fused kernels' caps, such as
+the city, with their per-frame on-device refit, and textured scenes)."""
 
 from __future__ import annotations
 
@@ -110,8 +110,9 @@ class Renderer:
         such as the city's waves); fast=True keeps the topology and moves
         the instances to their new transforms on the device
         (models/refit_device.py: triangles, normals, BVH boxes, instance
-        boxes, motion and emissive tables). hikari_tpu's host refit
-        (fast=True, device=False) is not ported."""
+        boxes, motion and emissive tables; the atlas and the materials
+        stay). hikari_tpu's host refit (fast=True, device=False) is not
+        ported."""
         if not fast:
             gpu = scene.compile()
             tracer = make_tracer(gpu.num_triangles)

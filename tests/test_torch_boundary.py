@@ -68,10 +68,24 @@ def _with_sphere(sc):
     return sc
 
 
+def _textured(sc, pkg=None):
+    """The box with a seeded 24x40 texture on its red left wall (material
+    1), as a Scene of `pkg` (the port's by default)."""
+    import importlib
+
+    material = importlib.import_module(
+        f"{pkg or 'hikari_tpu_torch'}.models.material")
+    data = np.random.default_rng(8).integers(0, 256, (24, 40, 4), np.uint8)
+    sc.materials[1].base_color_texture = material.Texture(data)
+    return sc
+
+
 @pytest.mark.parametrize("changes,size,scene", [
     # a scene beyond the fused lighting kernel takes the modular path,
     # whose no-reuse specializations are not ported
     pytest.param({}, None, _with_sphere, id="large_scene_without_reuse"),
+    # so does a textured scene (the fused kernels fetch no textures)
+    pytest.param({}, None, _textured, id="textured_scene_without_reuse"),
     pytest.param({"temporal_reuse": True, "indirect_spatial_reuse": True,
                   "spatial_tap_scramble": True},
                  None, None, id="temporal_reuse_tap_scramble"),
@@ -146,9 +160,10 @@ def test_scene_beyond_the_caps_renders():
         sc.spawn(cube, 0, make_transform((0.1 * i - 0.8, 0.05, 0.8)))
     r = ht.Renderer(sc, _camera(), _flagship(), device="cpu")
     scene, kind = r.scene_dev, r.tracer.kind
-    assert not frame.prepass_fused_eligible(scene, kind)
+    assert not frame.prepass_fused_eligible(scene, no_texture=True,
+                                            tracer_kind=kind)
     assert frame.fused_eligible(
-        scene, num_emissives=r.gpu_scene.num_emissives,
+        scene, no_texture=True, num_emissives=r.gpu_scene.num_emissives,
         temporal_reuse=False, track_de=False, track_ind=False,
         tracer_kind=kind, has_sun=r.gpu_scene.has_sun, bounces=1, ckb=False)
     img = r.render(2)
@@ -490,3 +505,157 @@ def test_cuda_wrapper_rejects_bad_arguments(monkeypatch):
     with pytest.raises(TypeError):
         denoise_fused.atrous_level(irr, geo, f32s, step=1, nch=2,
                                    ffs=(True, True))
+
+
+class _TextureZeroingLibrary(_ZeroingLibrary):
+    """The zeroing fake whose texture sampler writes zeros too."""
+
+    def __getattr__(self, name):
+        fn = super().__getattr__(name)
+        if name != "hk_sample_atlas":
+            return fn
+
+        def zeroing(*args):
+            fn.argtypes = zeroing.argtypes
+            rc = fn(*args)
+            ctypes.memset(args[6], 0, 16 * args[7])
+            return rc
+
+        setattr(self, name, zeroing)
+        return zeroing
+
+
+def test_textured_box_takes_the_modular_path(monkeypatch):
+    """A small textured scene (the 36-triangle box, a texture on one wall)
+    with temporal reuse: hikari_tpu's gates and the port's keep it off
+    kernels A and B / 4; it takes the non-fused prepass over kernel 5 and
+    the modular path over kernels 5, 6 and 7, and kernel 14 samples the one
+    textured slot (base colour) once per G-buffer domain: the full-size one
+    for the albedo, the lighting domain for the channels (ratio 1: one
+    surface serves the direct term too)."""
+    import jax.numpy as jnp
+
+    from hikari_tpu.ops import light_fused as lf_ref
+    from hikari_tpu.ops import prepass_fused as pf_ref
+    from hikari_tpu_torch import build, frame
+    from hikari_tpu_torch.ops import (denoise_fused, light_fused,
+                                      prepass_fused, reproj_gather,
+                                      texture_pallas, trace_pallas)
+
+    settings = _flagship(temporal_reuse=True)
+    ref = _textured(build_cornell_box("hikari_tpu"), "hikari_tpu").compile()
+    sj = {k: jnp.asarray(v) for k, v in ref.arrays.items()}
+    ref_gates = (
+        pf_ref.prepass_fused_eligible(sj, no_texture=False,
+                                      tracer_kind="brute_force_pallas"),
+        lf_ref.fused_eligible(sj, no_texture=False, num_emissives=1,
+                              temporal_reuse=True, track_de=False,
+                              track_ind=False,
+                              tracer_kind="brute_force_pallas",
+                              has_sun=False))
+    gpu = _textured(build_cornell_box("hikari_tpu_torch")).compile()
+    scene = gpu.as_pytree("cpu")
+    assert gpu.num_textures == 1 and gpu.num_triangles < 768
+    port_gates = (
+        frame.prepass_fused_eligible(scene, no_texture=False,
+                                     tracer_kind="brute_force_pallas"),
+        frame.fused_eligible(scene, no_texture=False, num_emissives=1,
+                             temporal_reuse=True, track_de=False,
+                             track_ind=False,
+                             tracer_kind="brute_force_pallas",
+                             has_sun=False, bounces=1, ckb=False))
+    assert port_gates == ref_gates == (False, False)
+    # the same box untextured takes both kernels
+    assert frame.prepass_fused_eligible(scene, no_texture=True,
+                                        tracer_kind="brute_force_pallas")
+
+    fake = _TextureZeroingLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    mods = (prepass_fused, reproj_gather, light_fused, trace_pallas,
+            texture_pallas, denoise_fused)
+    wrappers = (prepass_fused.prepass_kernel, reproj_gather.reproj_gather,
+                light_fused.lighting_kernel, trace_pallas.trace_closest,
+                trace_pallas.trace_full, trace_pallas.trace_shadow,
+                texture_pallas.sample_atlas_coherent,
+                denoise_fused.atrous_level)
+    for mod in mods:
+        monkeypatch.setattr(mod, "on_cpu", lambda t: False)
+        monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", 0)
+    r = ht.Renderer(gpu, _camera(), settings, device="cpu")
+    for validation in (True, False):
+        fake.calls.clear()
+        fake.args.clear()
+        r.render_frame()
+        emissive = ["hk_trace_full", "hk_trace_shadow"] * (1 + validation)
+        assert fake.calls == (
+            ["hk_trace_closest", "hk_sample_atlas", "hk_reproj_gather",
+             "hk_sample_atlas"] + emissive
+            + ["hk_trace_closest", "hk_trace_full", "hk_trace_shadow"]
+            + ["hk_atrous_level"] * 4)
+        for name, a in zip(fake.calls, fake.args):
+            if name == "hk_sample_atlas":
+                assert a[7] == 12 * 16 and a[10] == 1
+    assert [fn.launches for fn in wrappers] == [0, 2, 0, 4, 5, 5, 4, 8]
+
+
+def test_cuda_wrappers_marshal_and_count_on_path_t(monkeypatch):
+    """Path T's launches per frame (the textured simple scene at the
+    example's settings: HikariSettings() with emissive spatial reuse):
+    the city's kernel 13 calls (the two spheres' 2,436-row emissive table
+    is above kernel 6's 768), the gather of 3 sources, and kernel 14 for
+    the two textured slots (base colour, emissive) of the full-size
+    G-buffer's surface (the albedo) and of the lighting domain's (the
+    channels and the spatial passes). No kernel A, 8, B, 4, 10, 5, 6 or
+    7."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.examples import simple
+    from hikari_tpu_torch.ops import (denoise_fused, light_fused,
+                                      prepass_fused, reproj_gather,
+                                      spatial_fused, texture_pallas,
+                                      trace_cull, trace_pallas, warp2,
+                                      warp_band)
+
+    fake = _TextureZeroingLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    mods = (prepass_fused, reproj_gather, light_fused, spatial_fused,
+            trace_pallas, trace_cull, texture_pallas, denoise_fused,
+            warp_band, warp2)
+    wrappers = (prepass_fused.prepass_kernel,
+                prepass_fused.prepass_quads_kernel,
+                reproj_gather.reproj_gather, light_fused.lighting_kernel,
+                spatial_fused.spatial_kernel, trace_pallas.trace_closest,
+                trace_pallas.trace_full, trace_pallas.trace_shadow,
+                trace_cull.bvh_closest, trace_cull.bvh_full,
+                trace_cull.bvh_shadow, denoise_fused.atrous_level,
+                warp_band.warp_band, warp2.warp_multi,
+                texture_pallas.sample_atlas_coherent)
+    for mod in mods:
+        monkeypatch.setattr(mod, "on_cpu", lambda t: False)
+        monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", 0)
+    cam = ht.Camera.from_look_at(simple.EYE, simple.TARGET, width=16,
+                                 height=12)
+    r = ht.Renderer(simple.build_scene(simple.procedural_earth(0)), cam,
+                    simple.settings(), device="cpu")
+    for validation in (True, False):
+        fake.calls.clear()
+        fake.args.clear()
+        r.render_frame()
+        v = int(validation)
+        assert fake.calls == (
+            ["hk_bvh_full"] + ["hk_sample_atlas"] * 2 + ["hk_reproj_gather"]
+            + ["hk_sample_atlas"] * 2
+            + ["hk_bvh_shadow"] * (1 + v)
+            + ["hk_bvh_full", "hk_bvh_shadow"] * (1 + v)
+            + ["hk_bvh_full", "hk_bvh_full", "hk_bvh_shadow"]
+            + ["hk_atrous_level"] * 4
+            + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
+        assert fake.args[3][12] == 3                      # gather sources
+        atlas = [a for n, a in zip(fake.calls, fake.args)
+                 if n == "hk_sample_atlas"]
+        assert [a[7] for a in atlas] == [12 * 16] * 2 + [6 * 8] * 2
+    assert [fn.launches for fn in wrappers] == [
+        0, 0, 2, 0, 0, 0, 0, 0, 0, 9, 8, 8, 4, 2, 8]

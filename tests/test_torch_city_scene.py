@@ -1,7 +1,7 @@
 """The city of BASELINE config 5 in the port: uv_sphere, and the compiled
 city of hikari_tpu_torch/examples/city.py against hikari_tpu's
-(examples/city.py) after 0-3 house waves, bit for bit on every array the
-port keeps."""
+(examples/city.py) after 0-3 house waves, and with the Earth image, bit
+for bit on every array the port keeps."""
 
 from __future__ import annotations
 
@@ -13,11 +13,11 @@ from hikari_tpu.models import mesh as mesh_ref
 from hikari_tpu_torch.examples import city
 from hikari_tpu_torch.models import mesh
 
-# hikari_tpu's arrays the port does not build: the texture atlas (the port
-# has no textures) and the tile-cull cluster tables (kernel 13 walks
-# bvh_packed instead)
-NOT_PORTED = {"atlas", "atlas_panels", "atlas_quad", "tex_rect",
-              "cl_aabb", "cl_tri_packed", "cl_attr_packed"}
+# hikari_tpu's arrays the port does not build: the bf16 layouts of the
+# atlas (the port gathers from the f32 atlas) and the tile-cull cluster
+# tables (kernel 13 walks bvh_packed instead)
+NOT_PORTED = {"atlas_panels", "atlas_quad", "cl_aabb", "cl_tri_packed",
+              "cl_attr_packed"}
 
 
 def _bits_equal(a, b):
@@ -77,12 +77,26 @@ def test_rotate_sphere_moves_only_the_sphere():
         before[city.SPHERE_INSTANCE])
 
 
-def test_earth_texture_raises(tmp_path, monkeypatch):
-    """The port has no textures: with the Earth image present the city
-    raises instead of dropping it."""
+
+def test_compiled_city_with_the_earth_image_matches_reference(
+        tmp_path, monkeypatch):
+    """With the Earth image under $HIKARI_ASSETS both cities texture the
+    sphere's base colour and emissive slots with it (an image written here:
+    the repository has none)."""
+    from PIL import Image
+
+    from hikari_tpu_torch.examples import simple
+
     path = tmp_path / "models" / "Earth" / "earth_daymap.jpg"
     path.parent.mkdir(parents=True)
-    path.write_bytes(b"")
+    Image.fromarray(simple.procedural_earth(3).data).save(path,
+                                                          format="PNG")
     monkeypatch.setenv("HIKARI_ASSETS", str(tmp_path))
-    with pytest.raises(NotImplementedError):
-        city.build_scene(0)
+    monkeypatch.setattr(city_ref, "ASSETS", str(tmp_path))
+    got = city.build_scene(1).compile()
+    ref = city_ref.build_scene(1).compile()
+    assert set(ref.arrays) - set(got.arrays) <= NOT_PORTED
+    for k, v in got.arrays.items():
+        assert _bits_equal(v, ref.arrays[k]), k
+    assert got.num_textures == ref.num_textures == 1
+    assert got.arrays["atlas"].shape == (2048, 2048, 4)

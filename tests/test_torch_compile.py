@@ -58,9 +58,9 @@ def test_compiled_arrays_equal_reference(name):
     build_ref, build_port = SCENES[name]
     ref = build_ref().compile()
     got = build_port().compile()
-    # everything but the texture atlas tables, which the port has not yet
-    assert set(ref.arrays) - set(got.arrays) == {"atlas", "atlas_panels",
-                                                 "tex_rect"}
+    # everything but hikari_tpu's bf16 panel tiling of the atlas (a TPU
+    # window-DMA layout the port replaces by per-pixel gathers)
+    assert set(ref.arrays) - set(got.arrays) == {"atlas_panels"}
     for k, v in got.arrays.items():
         r = ref.arrays[k]
         assert v.dtype == r.dtype, k
@@ -79,9 +79,3 @@ def test_scene_from_arrays_converts_reference_scene():
     for k, v in got.items():
         assert torch.equal(t[k], v), k
 
-
-def test_textured_material_raises():
-    from hikari_tpu_torch.models.material import pack_materials
-
-    with pytest.raises(NotImplementedError):
-        pack_materials([StandardMaterial(base_color_texture=object())])

@@ -103,9 +103,10 @@ def test_city_path_takes_the_large_scene_branches(frames):
 
     scene, kind = port_r.scene_dev, port_r.tracer.kind
     assert kind == "cull"
-    assert not frame.prepass_fused_eligible(scene, kind)
-    assert not frame.spatial_fused_active(scene, port_r.settings, kind, 1,
-                                          True, SIZE)
+    assert not frame.prepass_fused_eligible(scene, no_texture=True,
+                                            tracer_kind=kind)
+    assert not frame.spatial_fused_active(scene, port_r.settings, kind,
+                                          True, 1, True, SIZE)
 
 
 @pytest.mark.parametrize("f", range(FRAMES))

@@ -118,7 +118,8 @@ def test_prepass_matches_reference():
 
 def test_full_screen_albedo_matches_reference():
     scene, scene_j, view, view_r, g, gbuf, _ = inputs()
-    got = restir.full_screen_albedo(scene, gbuf, view_to_device(view, "cpu"))
+    got = restir.full_screen_albedo(scene, gbuf, view_to_device(view, "cpu"),
+                                    True)
     ref = restir_ref.full_screen_albedo(
         scene_j, _jg(g), {k: jnp.asarray(v) for k, v in view_r.items()}, True)
     d = np.abs(got.numpy() - np.asarray(ref))
@@ -237,7 +238,7 @@ def test_spatial_reuse_matches_reference(emissive_lit):
         scene, {k: t(v) for k, v in g.items()}, view_to_device(view, "cpu"),
         f, {k: t(v) for k, v in temporal.items()},
         rsv.pack_reservoir_planes({k: t(v) for k, v in spatial.items()}),
-        reproj, emissive_lit=emissive_lit, render_size=SIZE)
+        reproj, emissive_lit=emissive_lit, no_texture=True, render_size=SIZE)
     rv, gv = np.asarray(ref["variance"]), got["variance"].numpy()
     np.testing.assert_array_equal(np.isnan(gv), np.isnan(rv))
     assert_fields({"render": got["render"],
