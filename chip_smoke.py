@@ -6,7 +6,10 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the nine CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
-   each, started together) and prints their register and spill counts;
+   each, started together) and prints their register and spill counts,
+   then times the frames of step 11 before the checks of steps 3-10
+   (host times read higher later in a process, after the checks'
+   allocations and profiler sessions);
 3. holds kernels A, B and C against their plain PyTorch versions on the
    card at the 1080p flagship shapes of the no-reuse frame;
 4. drives the reuse paths at 1080p with the camera panning 1.5 px per
@@ -21,8 +24,13 @@ Run from the repository root on a machine with an NVIDIA H100:
    HikariSettings(), and P, the flagship + TAA + SMAA 2.0) and holds
    kernel 8 (the SMAA parity quads) against its plain version and against
    kernel A's strided planes, kernels 11 and 12 (the history warps: TAA's
-   at 1920x1080, SMAA's at 960x540) against their plain versions, and
-   kernels B, 9, 4, 10 and C at the 960x540 render size;
+   at 1920x1080, SMAA's at 960x540) against their plain versions on the
+   captured calls (timed by events, on the device and on the host, the
+   nearest ones beside one grid_sample) and on synthetic fields at 1080p,
+   540p and 541x963 (coords past every edge, .5 ties, a region whose
+   blocks' texel boxes exceed the staging budget; every source layout the
+   kernels branch on; the staged and direct block counts, both non-zero),
+   and kernels B, 9, 4, 10 and C at the 960x540 render size;
 7. drives the checkerboard paths at 1080p with the camera panning: KR
    (checkerboard + temporal reuse, the modular lighting path) through an
    emissive validation frame and a frame without one, holding kernels 5,
@@ -77,9 +85,13 @@ against the CPU pyramid of the CUDA triangles; small renders SSIM >= 0.98
 and mean abs diff < 1e-3.
 
 With --profile it also prints a torch.profiler table of device time by
-kernel over two frames of each path. Any failed check raises: the exit
-code is then not 0 and the last line is not printed. Without CUDA it exits
-1 at once.
+kernel over two frames of each path. With --warps it only times the frames
+of the paths that run kernels 11 and 12 (P and D alternately, the city, T)
+before any profiler session, checks and times the two kernels on path D's
+calls, times P and D again, and prints the records and the frame medians
+(no ok line): run it in two trees of the repository in one call to
+compare them. Any failed check raises: the exit code is then not 0 and the
+last line is not printed. Without CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -109,6 +121,7 @@ WARMUP_FRAMES = 3
 TIMED_FRAMES = 10
 REPS = 20             # kernel timing repetitions
 PLAIN_REPS = 3
+HOST_REPS = 100       # host-time repetitions (host_us)
 PAN_PX = 1.5          # camera motion per frame of the reuse checks
 # frames of the reuse checks: frame 4 validates nothing, frame 5 the
 # emissive channel, frame 6 the direct one (intervals 3 and 5)
@@ -167,20 +180,24 @@ def device_ms(fn, reps, kernel):
     """Median device time in ms of the CUDA kernel whose name contains
     `kernel` over `reps` runs of fn(), from torch.profiler's trace: the
     kernel's own time, without the host's launch gaps that event_ms counts
-    for a kernel shorter than its wrapper's host work. None when the trace
-    holds no device time for it."""
+    for a kernel shorter than its wrapper's host work. None when three
+    traces hold no device time for it (a trace now and then comes back
+    without the kernel's events)."""
     from torch.profiler import ProfilerActivity, profile as prof_
 
     fn()
     torch.cuda.synchronize()
-    with prof_(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    times = [e.device_time_total for e in prof.events()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and kernel in e.name]
-    return float(np.median(times)) / 1e3 if times else None
+    for _ in range(3):
+        with prof_(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        times = [e.device_time_total for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and kernel in e.name]
+        if times:
+            return float(np.median(times)) / 1e3
+    return None
 
 
 def bound_ms(nbytes, flops):
@@ -792,6 +809,13 @@ def check_reuse(ht, build_box):
     return [rec9, rec4, rec10]
 
 
+def words_frac(got, ref):
+    """The fraction of the floats of two tensors equal to the bit (an exact
+    count: 1.0 only when all are)."""
+    eq = got.view(torch.int32) == ref.view(torch.int32)
+    return int(eq.sum()) / eq.numel()
+
+
 def words_equal(got, ref):
     """Every float of the tensors equal to the bit."""
     return all(torch.equal(g.view(torch.int32), r.view(torch.int32))
@@ -883,26 +907,70 @@ def warp_work(n_out, n_src, reads):
     return nbytes, flops
 
 
-def warp_band_record(wb, call):
-    """(ms, plain ms, bound, library ms) of one captured kernel 11 call;
-    the library yardstick only for an all-nearest call."""
-    sources, kinds, sy, sx = call[0]
+def host_us(fn, reps=HOST_REPS):
+    """Microseconds of host time per fn() call: `reps` calls enqueued back
+    to back without a synchronize (the wrapper's own cost, which event_ms
+    counts too for a kernel shorter than it)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    us = (time.perf_counter() - t) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def warp_times(calls):
+    """For each (kernel call, grid_sample call or None) of `calls`, a dict
+    of the kernel call's events ms, host us and device ms (profiler,
+    kernels named warp_*) and the same three of the grid_sample call. All
+    events and host times come first: host times read higher later in a
+    process, after a profiler session."""
+    recs = []
+    for fn, lib_fn in calls:
+        rec = dict(ms=event_ms(fn, REPS), host_us=host_us(fn))
+        if lib_fn is not None:
+            rec.update(library_ms=event_ms(lib_fn, REPS),
+                       library_host_us=host_us(lib_fn))
+        recs.append(rec)
+    for rec, (fn, lib_fn) in zip(recs, calls):
+        rec["device_ms"] = device_ms(fn, REPS, "warp_")
+        if lib_fn is not None:
+            rec["library_device_ms"] = device_ms(lib_fn, REPS,
+                                                 "grid_sampler")
+    return recs
+
+
+def warp_band_bound(call):
+    """(bound ms, by) of one captured kernel 11 call."""
+    sources, kinds, sy, _ = call[0]
     h, w = sy.shape
-    hs = sources[0].shape[0]
-    ms = event_ms(lambda: wb.warp_band(*call[0]), REPS)
-    plain_ms = event_ms(lambda: wb.band_plain(*call[0]), PLAIN_REPS)
-    nbytes, flops = warp_work(h * w, hs * w, [
-        (k, s.shape[2]) for k, s in zip(kinds, sources)])
-    lib_ms = None
-    if set(kinds) == {"nearest"}:
-        lib_ms = event_ms(grid_nearest(sources[0], sy, sx), REPS)
-    return ms, plain_ms, bound_ms(nbytes, flops), lib_ms
+    return bound_ms(*warp_work(h * w, sources[0].shape[0] * w, [
+        (k, s.shape[2]) for k, s in zip(kinds, sources)]))
+
+
+def print_warp_times(label, rec):
+    def num(key):
+        v = rec.get(key)
+        return "n/a" if v is None else f"{v:.4f}"
+
+    line = (f"  {label}: {num('ms')} ms by events, device {num('device_ms')}"
+            f" ms, host {num('host_us')} us per call; bound "
+            f"{num('bound_ms')} ms")
+    if rec.get("library_ms") is not None:
+        line += (f"; grid_sample {num('library_ms')} ms, device "
+                 f"{num('library_device_ms')} ms, host "
+                 f"{num('library_host_us')} us")
+    print(line)
 
 
 def check_warps(wb, w2, band_calls, multi_calls):
     """Kernels 11 and 12 against their plain versions on the captured
     calls; returns their records (row 11: the TAA call at the output
-    size, with SMAA's tone call beside it; max_abs_err over every call)."""
+    size, with SMAA's tone call beside it, keys *_smaa_call; max_abs_err
+    over every call). Each call is timed by events, on the device and on
+    the host, and the nearest ones beside one grid_sample."""
     err11 = err12 = 0.0
     for a, _ in band_calls:
         _, kinds, sy, _ = a
@@ -910,15 +978,17 @@ def check_warps(wb, w2, band_calls, multi_calls):
         ref = wb.band_plain(*a)
         torch.cuda.synchronize()
         for kind, g, r in zip(kinds, got, ref):
+            words = words_frac(g, r)
             if kind == "nearest":
-                frac, need = float(words_equal([g], [r])), 1.0
+                frac, need = words, 1.0
             else:
                 frac, need = rel_close(g, r, 1e-5)[0], 0.9999
             err = max_abs_err([g], [r])
             err11 = max(err11, err)
             print(f"kernel 11 warp_band {tuple(sy.shape)} {kind} "
                   f"x{g.shape[2]}: equal / within 1e-5*max(|ref|,1) on "
-                  f"{frac:.6f} (need {need}); max abs err {err:.3g}")
+                  f"{frac:.6f} (need {need}); words equal on {words:.6f}; "
+                  f"max abs err {err:.3g}")
             if frac < need:
                 fail("kernel 11 disagrees with its plain version")
     for a, k in multi_calls:
@@ -934,31 +1004,189 @@ def check_warps(wb, w2, band_calls, multi_calls):
 
     taa = next(c for c in reversed(band_calls) if "catmull" in c[0][1])
     smaa = next(c for c in reversed(band_calls) if c[0][1] == ("nearest",))
-    ms, plain_ms, (b_ms, b_by), _ = warp_band_record(wb, taa)
-    ms_s, plain_s, (b_s, _), lib_s = warp_band_record(wb, smaa)
+    a, k = multi_calls[-1]
+    src, sy, sx, reduces = a[:4]
+    s_src, _, s_sy, s_sx = smaa[0]
+    taa_rec, smaa_rec, multi_rec = warp_times([
+        (lambda: wb.warp_band(*taa[0]), None),
+        (lambda: wb.warp_band(*smaa[0]), grid_nearest(s_src[0], s_sy, s_sx)),
+        (lambda: w2.warp_multi(*a, **k), grid_nearest(src, sy, sx))])
     rec11 = dict(
         name="warp_band", route="cuda", source="hikari_tpu_torch/csrc/warp.cu",
         replaces="hikari_tpu/ops/warp_band.py:95", launches=None,
-        max_abs_err=err11, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None, ms_smaa_call=ms_s,
-        plain_ms_smaa_call=plain_s, bound_ms_smaa_call=b_s,
-        library_ms_smaa_call=lib_s)
-    a, k = multi_calls[-1]
-    src, sy, sx, reduces = a[:4]
+        max_abs_err=err11, library_ms=None, **taa_rec)
+    rec11["plain_ms"] = event_ms(lambda: wb.band_plain(*taa[0]), PLAIN_REPS)
+    rec11["bound_ms"], rec11["bound_by"] = warp_band_bound(taa)
+    smaa_rec["plain_ms"] = event_ms(lambda: wb.band_plain(*smaa[0]),
+                                    PLAIN_REPS)
+    smaa_rec["bound_ms"] = warp_band_bound(smaa)[0]
+    rec11.update({f"{key}_smaa_call": v for key, v in smaa_rec.items()})
     h, w = sy.shape
     b_ms, b_by = bound_ms(*warp_work(
         h * w, src.shape[0] * src.shape[1],
         [(kind, hi - lo) for kind, _, (lo, hi) in reduces]))
     rec12 = dict(
-        name="warp_multi", route="cuda", source="hikari_tpu_torch/csrc/warp.cu",
+        name="warp_multi", route="cuda",
+        source="hikari_tpu_torch/csrc/warp.cu",
         replaces="hikari_tpu/ops/warp2.py:68", launches=None,
-        max_abs_err=err12, ms=event_ms(lambda: w2.warp_multi(*a, **k), REPS),
-        plain_ms=event_ms(
+        max_abs_err=err12, plain_ms=event_ms(
             lambda: w2.multi_plain(*a, k.get("dtype") == torch.bfloat16),
             PLAIN_REPS),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=event_ms(grid_nearest(src, sy, sx), REPS))
+        bound_ms=b_ms, bound_by=b_by, **multi_rec)
+    print_warp_times(f"kernel 11 TAA call {tuple(taa[0][2].shape)}", rec11)
+    print_warp_times(f"kernel 11 SMAA call {tuple(smaa[0][2].shape)}",
+                     smaa_rec)
+    print_warp_times(f"kernel 12 SMAA call {tuple(sy.shape)}", rec12)
     return rec11, rec12
+
+
+# the source layouts the warps branch on: (pixel stride, channels)
+WARP_LAYOUTS = {"3 of stride 4": (4, 3), "6 contiguous": (6, 6),
+                "1 channel": (1, 1), "5 of stride 8": (8, 5)}
+MULTI_LAYOUTS = {"4 contiguous": (4, 4), "16 contiguous": (16, 16),
+                 "3 of stride 4": (4, 3)}
+# synthetic field sizes: (output h, w, source rows of kernel 11)
+FIELD_SIZES = ((1080, 1920, 1080), (540, 960, 540), (541, 963, 546))
+
+
+def warp_field(h, w, hs, ws, seed):
+    """[h, w] float32 coords into an [hs, ws] source: a smooth reprojection
+    (a few pixels) scaled to spill 4.5 px beyond every edge; rows [h/3,
+    h/2) snapped to exact .5 ties; rows [h/2, 2h/3) uniform over the whole
+    source and past its edges, so those blocks' texel boxes exceed the
+    shared-memory budget."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.arange(h, dtype=np.float64),
+                         np.arange(w, dtype=np.float64), indexing="ij")
+    sy = (yy + 0.5) * (hs + 9.0) / h - 5.0 + 1.5 * np.sin(xx / 37.0)
+    sx = (xx + 0.5) * (ws + 9.0) / w - 5.0 + 2.0 * np.cos(yy / 23.0)
+    ties = slice(h // 3, h // 2)
+    sy[ties] = np.floor(sy[ties]) + 0.5
+    sx[ties] = np.floor(sx[ties]) + 0.5
+    far = slice(h // 2, 2 * h // 3)
+    sy[far] = rng.uniform(-3.0, hs + 2.0, sy[far].shape)
+    sx[far] = rng.uniform(-3.0, ws + 2.0, sx[far].shape)
+    return (torch.from_numpy(a.astype(np.float32)).to(DEVICE)
+            for a in (sy, sx))
+
+
+def layout_source(hs, ws, layout, gen):
+    """A float32 [hs, ws, F] source of (pixel stride, F): the first F
+    channels of a contiguous [hs, ws, stride] tensor."""
+    p, f = layout
+    t = torch.rand((hs, ws, p), generator=gen, device=DEVICE) * 4.0 - 1.0
+    return t[..., :f]
+
+
+def check_warp_fields(wb, w2, taa, smaa):
+    """Kernels 11 and 12 on synthetic fields at 1080p, 540p and 541x963
+    (edges, .5 ties, footprints beyond the staging budget) over every
+    layout of WARP_LAYOUTS / MULTI_LAYOUTS: nearest and every kernel 12
+    output word for word, filtered outputs within 1e-5 * max(|ref|, 1) on
+    >= 99.99%; the staged and direct blocks of the tiled (catmull, nearest)
+    instance counted (both must be non-zero), and the staged, direct and
+    all-staged variants equal word for word. Then the device time of the
+    captured TAA and SMAA calls with each staging choice. Returns those
+    times."""
+    gen = torch.Generator(device=DEVICE).manual_seed(7)
+    blocks = torch.zeros(2, dtype=torch.int32, device=DEVICE)
+    n_calls, filtered_words = 0, 1.0
+    for h, w, hs in FIELD_SIZES:
+        sy, sx = warp_field(h, w, hs, w, h + w)
+        n_blocks = -(-h // 8) * -(-w // 32)
+        for name, lay in WARP_LAYOUTS.items():
+            for kinds in (("catmull", "nearest"), ("nearest",),
+                          ("bilinear", "catmull")):
+                srcs = [layout_source(hs, w, lay, gen) for _ in kinds]
+                blocks.zero_()
+                got = wb.warp_band(srcs, kinds, sy, sx, blocks=blocks)
+                ref = wb.band_plain(srcs, kinds, sy, sx)
+                torch.cuda.synchronize()
+                n_calls += 1
+                for kind, g, r in zip(kinds, got, ref):
+                    words = words_frac(g, r)
+                    frac = words if kind == "nearest" else \
+                        rel_close(g, r, 1e-5)[0]
+                    if kind != "nearest":
+                        filtered_words = min(filtered_words, words)
+                    if frac < (1.0 if kind == "nearest" else 0.9999):
+                        fail(f"kernel 11 {kind} on the {h}x{w} field, "
+                             f"{name}: {frac:.6f} equal / within tolerance "
+                             f"(words {words:.6f})")
+                staged, direct = (int(v) for v in blocks.tolist())
+                if kinds[0] != "catmull" or staged + direct == 0:
+                    continue          # the generic instance stages nothing
+                print(f"kernel 11 field {h}x{w} {name} {'+'.join(kinds)}: "
+                      f"blocks staged {staged}, direct {direct} (need both "
+                      f"> 0, of {n_blocks})")
+                if staged == 0 or direct == 0 or staged + direct != n_blocks:
+                    fail("kernel 11 did not take both staging branches")
+                for stage in (-1, 1):
+                    alt = wb.warp_band(srcs, kinds, sy, sx, stage=stage)
+                    if not words_equal(alt, got):
+                        fail(f"kernel 11 with stage={stage} differs from "
+                             "the default staging")
+        for name, lay in MULTI_LAYOUTS.items():
+            f = lay[1]
+            src = layout_source(2 * h, 2 * w, lay, gen)
+            my, mx = warp_field(h, w, 2 * h, 2 * w, h + w + 1)
+            for reduces, dtype in (
+                    ([("nearest", (0.0, 0.0), (0, f))], torch.bfloat16),
+                    ([("nearest", (1.0, -0.5), (0, f)),
+                      ("nearest", (0.5, 0.0), (f // 2, f))], torch.float32),
+                    ([("bilinear", (1.0, -1.0), (0, f)),
+                      ("catmull", (0.0, 0.5), (f - 1, f))], torch.bfloat16)):
+                got = w2.warp_multi(src, my, mx, reduces, dtype=dtype)
+                ref = w2.multi_plain(src, my, mx, reduces,
+                                     dtype == torch.bfloat16)
+                torch.cuda.synchronize()
+                n_calls += 1
+                if not words_equal(got, ref):
+                    fail(f"kernel 12 on the {h}x{w} field, {name}, "
+                         f"{[r[0] for r in reduces]}: words differ")
+    print(f"kernels 11 and 12 on {n_calls} synthetic calls over "
+          f"{len(FIELD_SIZES)} field sizes: all within their bars; kernel "
+          f"11's filtered outputs words equal on >= {filtered_words:.6f}")
+
+    times = {}
+    for label, call in (("", taa), ("_smaa_call", smaa)):
+        srcs, kinds, sy, sx = call[0]
+        for branch, stage in (("staged", 0), ("direct", -1)):
+            times[f"device_ms{label}_{branch}"] = device_ms(
+                lambda: wb.warp_band(srcs, kinds, sy, sx, stage=stage), REPS,
+                "warp_")
+    print("kernel 11 device ms with the first source staged when its box "
+          "fits / read from global memory: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in times.items() if v is not None))
+    return times
+
+
+def warps_only(ht, build_box):
+    """--warps: the frames of the paths that run kernels 11 and 12 (P and
+    D alternately, the city, T) before any profiler session; the two
+    kernels on path D's calls at 1080p (frames 4 and 5 of a panning
+    camera), checked and timed as in the full run; then P and D
+    alternately again. For timing another tree of the repository against
+    this one in one call. Returns (the records of 11 and 12, {frame
+    median name: ms})."""
+    from hikari_tpu_torch.ops import warp2 as w2
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    med, _ = alternate_post_paths(ht, build_box, TIMED_FRAMES)
+    frames = {"P_alternating": med["P"], "D_alternating": med["D"]}
+    times, refit, _ = city_path(ht, TIMED_FRAMES, False)
+    frames.update(city=float(np.median(times)),
+                  city_refit=float(np.median(refit)))
+    frames["T"] = float(np.median(simple_path(ht, TIMED_FRAMES, False)[0]))
+    caps = [Capture(wb, "warp_band"), Capture(w2, "warp_multi")]
+    with caps[0], caps[1]:
+        drive(ht, build_box(), FULL, default_settings(ht), CHECK_FRAMES - 1,
+              caps, (CHECK_FRAMES - 3, CHECK_FRAMES - 2))
+    records = check_warps(wb, w2, caps[0].calls, caps[1].calls)
+    med, _ = alternate_post_paths(ht, build_box, TIMED_FRAMES)
+    frames.update(P_alternating_after_profiler=med["P"],
+                  D_alternating_after_profiler=med["D"])
+    return records, frames
 
 
 def check_post(ht, build_box):
@@ -994,7 +1222,11 @@ def check_post(ht, build_box):
 
     records = [check_quads(pf, q_calls, a_calls,
                            real_tris(gpu.arrays["tri_pos_flat"]))]
-    records += check_warps(wb, w2, wb_calls, wm_calls)
+    rec11, rec12 = check_warps(wb, w2, wb_calls, wm_calls)
+    rec11.update(check_warp_fields(
+        wb, w2, next(c for c in reversed(wb_calls) if "catmull" in c[0][1]),
+        next(c for c in reversed(wb_calls) if c[0][1] == ("nearest",))))
+    records += [rec11, rec12]
 
     # --- kernels 9, 4, 10 and C at 960x540 on path D
     label = "path D 960x540"
@@ -1452,16 +1684,15 @@ def check_city(ht, build_box):
         bound_ms_city=atrous_bound(irr.shape[1] * irr.shape[2],
                                    levels[0][1]["nch"])[0])
     rec11, rec12 = check_warps(wb, w2, wb_calls, wm_calls)
-    extra["warp_band"] = dict(
-        ms_city=rec11["ms"], plain_ms_city=rec11["plain_ms"],
-        bound_ms_city=rec11["bound_ms"],
-        ms_smaa_call_city=rec11["ms_smaa_call"])
-    extra["warp_multi"] = dict(ms_city=rec12["ms"],
-                               plain_ms_city=rec12["plain_ms"],
-                               bound_ms_city=rec12["bound_ms"])
+    keys = ("ms", "device_ms", "host_us", "plain_ms", "bound_ms")
+    extra["warp_band"] = {f"{key}_city": rec11[key] for key in keys}
+    extra["warp_band"].update({f"{key}_smaa_call_city": rec11[
+        f"{key}_smaa_call"] for key in keys})
+    extra["warp_multi"] = {f"{key}_city": rec12[key] for key in keys}
     for n, v in extra.items():
-        print(f"  {n}: " + ", ".join(f"{key} {val:.4f}"
-                                     for key, val in v.items()))
+        print(f"  {n}: " + ", ".join(
+            f"{key} {'n/a' if val is None else f'{val:.4f}'}"
+            for key, val in v.items()))
     check_refit(ht, city)
     return records, hit_record, extra
 
@@ -1925,6 +2156,12 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel over 2 frames "
                     "of each path")
+    ap.add_argument("--warps", action="store_true",
+                    help="only time the frames of P and D (alternately), "
+                    "the city and T, then check and time kernels 11 and 12 "
+                    "on path D's calls (to time two trees of the "
+                    "repository in one call); prints their records and no "
+                    "ok line")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1954,6 +2191,27 @@ def main():
     def build_box():
         return box.build_cornell_box("hikari_tpu_torch")
 
+    if args.warps:
+        records, frames = warps_only(ht, build_box)
+        print(json.dumps({"warps": list(records), "frames_ms": frames,
+                          "card": card}))
+        return 0
+    # the frames first: host times read higher later in a process, after
+    # the checks' allocations and profiler sessions
+    frame_ms, launches = {}, {}
+    for name in PATHS:
+        times, counts = main_path(ht, build_box, name, TIMED_FRAMES,
+                                  args.profile)
+        frame_ms[name] = (float(np.median(times)), times)
+        launches[name] = dict(zip(COUNTERS, counts))
+    times, refit, counts = city_path(ht, TIMED_FRAMES, args.profile)
+    frame_ms["city"] = (float(np.median(times)), times)
+    launches["city"] = dict(zip(COUNTERS, counts))
+    times, counts = simple_path(ht, TIMED_FRAMES, args.profile)
+    frame_ms["T"] = (float(np.median(times)), times)
+    launches["T"] = dict(zip(COUNTERS, counts))
+    alt_ms, alt_times = alternate_post_paths(ht, build_box, TIMED_FRAMES)
+
     t0 = time.perf_counter()
     records = check_kernels(ht, build_box())
     records += check_reuse(ht, build_box)
@@ -1973,20 +2231,6 @@ def main():
               f"({rec['bound_by']}), library {rec['library_ms']}")
     check_small_render(ht, build_box)
     print(f"checks took {time.perf_counter() - t0:.1f} s")
-
-    frame_ms, launches = {}, {}
-    for name in PATHS:
-        times, counts = main_path(ht, build_box, name, TIMED_FRAMES,
-                                  args.profile)
-        frame_ms[name] = (float(np.median(times)), times)
-        launches[name] = dict(zip(COUNTERS, counts))
-    times, refit, counts = city_path(ht, TIMED_FRAMES, args.profile)
-    frame_ms["city"] = (float(np.median(times)), times)
-    launches["city"] = dict(zip(COUNTERS, counts))
-    times, counts = simple_path(ht, TIMED_FRAMES, args.profile)
-    frame_ms["T"] = (float(np.median(times)), times)
-    launches["T"] = dict(zip(COUNTERS, counts))
-    alt_ms, alt_times = alternate_post_paths(ht, build_box, TIMED_FRAMES)
 
     def total(counter, paths=tuple(launches)):
         return sum(launches[p][counter] for p in paths)

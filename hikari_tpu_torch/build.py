@@ -96,7 +96,11 @@ def build_cuda(names=CUDA_SOURCES) -> dict:
 
 
 def load_cuda(name: str) -> ctypes.CDLL:
-    """The ctypes handle of lib<name>.so, building it first when stale."""
+    """The ctypes handle of lib<name>.so, building it first when stale (at
+    the first call; later calls take no lock)."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lib = _libs.get(name)
         if lib is None:

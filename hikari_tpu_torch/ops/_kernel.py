@@ -5,6 +5,7 @@ versions follow so that they round like the kernels."""
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -21,6 +22,10 @@ def on_cpu(t: torch.Tensor) -> bool:
 
 
 def check(name: str, t: torch.Tensor, dtype, shape=None, device=None):
+    if (t.dtype == dtype and (shape is None or t.shape == tuple(shape))
+            and (device is None or t.device == device)
+            and t.is_contiguous()):
+        return          # the common case, in one test (host time counts)
     if t.dtype != dtype:
         raise TypeError(f"{name}: dtype {t.dtype}, expected {dtype}")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -28,8 +33,21 @@ def check(name: str, t: torch.Tensor, dtype, shape=None, device=None):
                          f"{tuple(shape)}")
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: not contiguous")
+    raise ValueError(f"{name}: not contiguous")
+
+
+def outputs(like: torch.Tensor, h: int, w: int, channels):
+    """Contiguous [h, w, c] tensors of like's dtype and device, one per c
+    of `channels`: with several, views of one allocation (on the host an
+    allocation costs more than a view)."""
+    if len(channels) == 1:
+        return [like.new_empty((h, w, channels[0]))]
+    buf = like.new_empty(h * w * sum(channels))
+    outs, off = [], 0
+    for c in channels:
+        outs.append(buf.as_strided((h, w, c), (w * c, c, 1), off))
+        off += h * w * c
+    return outs
 
 
 def ptr(t) -> ctypes.c_void_p:
@@ -37,7 +55,13 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """PyTorch's current stream on the CUDA `device`, as a pointer. The raw
+    accessor: `torch.cuda.current_stream(device).cuda_stream` builds a
+    Stream object and costs tens of microseconds a call on the host."""
+    index = device.index
+    if index is None:
+        index = torch.cuda.current_device()
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(index))
 
 
 def check_launch(rc: int, what: str):
@@ -46,16 +70,28 @@ def check_launch(rc: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "t": ctypes.c_char_p}
+# {library: {name: bound function}}: weak keys, so a library object that is
+# dropped takes its bindings with it and another one at its address (id)
+# binds anew
+_BOUND = weakref.WeakKeyDictionary()
 
 
 def bind(lib, name: str, signature: str):
-    """Declare the ctypes signature of `name`: one letter per argument,
-    'p' for a pointer or stream (c_void_p), 'i' for an int, 'f' for a
-    float."""
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = [_CTYPES[c] for c in signature]
+    """The function `name` of `lib` with its ctypes signature declared: one
+    letter per argument, 'p' for a pointer or stream (c_void_p), 'i' for
+    an int, 'f' for a float, 't' for a packed table (bytes, passed by
+    pointer). Declared once per library object and name."""
+    fns = _BOUND.get(lib)
+    if fns is None:
+        fns = _BOUND.setdefault(lib, {})
+    fn = fns.get(name)
+    if fn is None:
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_CTYPES[c] for c in signature]
+        fns[name] = fn
     return fn
 
 

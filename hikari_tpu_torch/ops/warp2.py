@@ -14,19 +14,35 @@ The TPU kernel (hikari_tpu/ops/warp2.py) fetches a 32-row window per 16x16
 group around the group's mean coords and clamps local coords to that
 window, an approximation its callers reject by their disocclusion tests.
 The port samples every pixel exactly: in window the two agree.
+
+The kernel works on 32x8 tiles of output pixels. When every reduce is
+nearest (SMAA's call) an instance reads each reduce's channel range in
+float4 / float2 loads where the layout allows and writes vector stores; a
+generic instance serves the rest. No shared-memory staging: a nearest
+fetch reads each texel once, and at SMAA's 2x ratio a block's texel box
+holds 4x the texels its pixels read. A call passes one packed table
+(MULTI_TABLE, csrc/warp.cu's MultiCall) and the stream to a binding made
+once.
 """
 
 from __future__ import annotations
 
+import struct
+
 import numpy as np
 import torch
 
+from hikari_tpu_torch import build as _build
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, on_cpu,
-                                          ptr, stream)
+                                          outputs, stream)
 from hikari_tpu_torch.ops.warp_band import KINDS, taps
 
 MAX_REDUCES = 4
 MAX_CHANNELS = 16
+# csrc/warp.cu MultiCall: src, dst[4], sy, sx (pointers); kind[4], lo[4],
+# hi[4] (ints); offy[4], offx[4] (floats); n_red, hs, ws, p, h, w, bf16,
+# unused (ints)
+MULTI_TABLE = struct.Struct("<7Q12i8f8i")
 
 
 def _bf16(t):
@@ -70,42 +86,46 @@ def warp_multi(src, sy, sx, reduces, dtype=torch.float32):
     bfloat16. Returns a list of [h, w, hi - lo] float32. Runs `multi_plain`
     for CPU tensors and launches csrc/warp.cu (every reduce in one launch)
     for CUDA tensors."""
-    if dtype not in (torch.float32, torch.bfloat16):
+    if dtype is not torch.float32 and dtype is not torch.bfloat16:
         raise TypeError(f"window dtype {dtype}: float32 or bfloat16")
-    bf16 = dtype == torch.bfloat16
-    reduces = [(k, (float(oy), float(ox)), (int(lo), int(hi)))
-               for k, (oy, ox), (lo, hi) in reduces]
-    if on_cpu(sy):
-        return multi_plain(src, sy, sx, reduces, bf16)
-    from hikari_tpu_torch.build import load_cuda
-
+    bf16 = dtype is torch.bfloat16
+    if not sy.is_cuda and on_cpu(sy):
+        return multi_plain(src, sy, sx, [
+            (k, (float(oy), float(ox)), (int(lo), int(hi)))
+            for k, (oy, ox), (lo, hi) in reduces], bf16)
     n = len(reduces)
     if not 1 <= n <= MAX_REDUCES:
         raise ValueError(f"{n} reduces; the kernel takes 1..{MAX_REDUCES}")
     dev = sy.device
-    h, w = sy.shape
-    check("sy", sy, torch.float32, (h, w), dev)
-    check("sx", sx, torch.float32, (h, w), dev)
+    h, w = shape = sy.shape
+    check("sy", sy, torch.float32, shape, dev)
+    check("sx", sx, torch.float32, shape, dev)
     if src.dim() != 3 or src.dtype != torch.float32 or src.device != dev:
         raise TypeError(f"src: {src.dtype} {tuple(src.shape)} on "
                         f"{src.device}, expected float32 [H, W, F] on {dev}")
     hs, ws, f = src.shape
-    p = src.stride(1)
-    if f > MAX_CHANNELS or src.stride() != (ws * p, p, 1):
-        raise ValueError(f"src: {f} channels, strides {src.stride()}")
-    for kind, _, (lo, hi) in reduces:
+    stride = src.stride()
+    p = stride[1]
+    if f > MAX_CHANNELS or stride != (ws * p, p, 1):
+        raise ValueError(f"src: {f} channels, strides {stride}")
+    pad = (0,) * (MAX_REDUCES - n)
+    codes, los, his, oys, oxs = [], [], [], [], []
+    for kind, (oy, ox), (lo, hi) in reduces:
+        lo, hi = int(lo), int(hi)
         if kind not in KINDS or not 0 <= lo < hi <= f:
             raise ValueError(f"reduce {kind} ({lo}, {hi}) on {f} channels")
-    outs = [torch.empty((h, w, hi - lo), dtype=torch.float32, device=dev)
-            for _, _, (lo, hi) in reduces]
-    pad = MAX_REDUCES - n
-    table = [(KINDS[k], oy, ox, lo, hi) for k, (oy, ox), (lo, hi) in reduces]
-    kinds, oys, oxs, los, his = zip(*(table + [(0, 0.0, 0.0, 0, 0)] * pad))
-    fn = bind(load_cuda("warp"), "hk_warp_multi",
-              "piiippiiii" + "p" * 4 + "i" * 4 + "f" * 8 + "i" * 8 + "p")
-    rc = fn(ptr(src), hs, ws, p, ptr(sy), ptr(sx), h, w, int(bf16), n,
-            *(ptr(o) for o in outs + [None] * pad), *kinds, *oys, *oxs,
-            *los, *his, stream(dev))
+        codes.append(KINDS[kind])
+        los.append(lo)
+        his.append(hi)
+        oys.append(oy)
+        oxs.append(ox)
+    outs = outputs(sy, h, w, [hi - lo for hi, lo in zip(his, los)])
+    table = MULTI_TABLE.pack(
+        src.data_ptr(), *[o.data_ptr() for o in outs], *pad, sy.data_ptr(),
+        sx.data_ptr(), *codes, *pad, *los, *pad, *his, *pad, *oys, *pad,
+        *oxs, *pad, n, hs, ws, p, h, w, bf16, 0)
+    rc = bind(_build.load_cuda("warp"), "hk_warp_multi", "tp")(
+        table, stream(dev))
     check_launch(rc, "warp_multi")
     warp_multi.launches += 1
     return outs

@@ -16,17 +16,33 @@ nearest rounds the global coord half to even where the TPU rounds the
 band-local one: the two differ only at exact .5 ties with an odd band
 origin. Sources are HWC ([hs, w, F], any pixel stride) where the TPU
 kernel takes [hs, F, w] channel planes.
+
+The kernel works on 32x8 tiles of output pixels, reads a texel's channels
+in float4 / float2 loads where the layout allows and, for the staged
+source (by default the first filtered one), copies the block's texel box
+into shared memory when it fits a fixed budget and reads global memory
+otherwise: both give the same words. Template instances serve
+(catmull, nearest) (TAA) and (nearest,) (SMAA) with up to 4 and 8
+channels; a generic instance the rest. A call passes one packed table
+(BAND_TABLE, csrc/warp.cu's BandCall) and the stream to a binding made
+once.
 """
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
+from hikari_tpu_torch import build as _build
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, on_cpu,
-                                          ptr, stream)
+                                          outputs, stream)
 
 KINDS = {"nearest": 0, "bilinear": 1, "catmull": 2}
 MAX_SOURCES = 4
+# csrc/warp.cu BandCall: src[4], dst[4], sy, sx, blocks (pointers); kind[4],
+# f[4], stride[4], n_src, h, w, hs, stage, unused (ints)
+BAND_TABLE = struct.Struct("<11Q18i")
 
 
 def w1d(d, kind: str):
@@ -74,49 +90,60 @@ def band_plain(sources, kinds, sy, sx):
     return outs
 
 
-def warp_band(sources, kinds, sy, sx):
+def warp_band(sources, kinds, sy, sx, stage=None, blocks=None):
     """Kernel 11. sources: up to 4 float32 [hs, w, F] tensors (channels
     contiguous, any pixel stride, shared hs and w); kinds: a filter name per
     source; sy, sx: [h, w] float32 source coords. Returns a list of
     [h, w, F] float32. Runs `band_plain` for CPU tensors and launches
-    csrc/warp.cu (every source in one launch) for CUDA tensors."""
-    kinds = tuple(kinds)
-    if on_cpu(sy):
-        return band_plain(sources, kinds, sy, sx)
-    from hikari_tpu_torch.build import load_cuda
+    csrc/warp.cu (every source in one launch) for CUDA tensors.
 
+    stage: the index of the source whose texel box a block stages in
+    shared memory when it fits (default: the first filtered source; -1:
+    none); blocks: None, or an int32 [2] CUDA tensor to which each block
+    of the tiled instances adds 1 at [0] if it staged, at [1] if it read
+    global memory (a check that both branches run)."""
+    if not sy.is_cuda and on_cpu(sy):
+        return band_plain(sources, tuple(kinds), sy, sx)
     n = len(sources)
     if not 1 <= n <= MAX_SOURCES or len(kinds) != n:
         raise ValueError(f"{n} sources, {len(kinds)} kinds; the kernel takes "
                          f"1..{MAX_SOURCES} of each")
     dev = sy.device
-    h, w = sy.shape
+    h, w = shape = sy.shape
+    check("sy", sy, torch.float32, shape, dev)
+    check("sx", sx, torch.float32, shape, dev)
     hs = sources[0].shape[0]
-    check("sy", sy, torch.float32, (h, w), dev)
-    check("sx", sx, torch.float32, (h, w), dev)
-    outs, strides = [], []
+    if stage is None:
+        stage = next((i for i, k in enumerate(kinds) if k != "nearest"), -1)
+    if not -1 <= stage < n:
+        raise ValueError(f"stage {stage} for {n} sources")
+    if blocks is not None:
+        check("blocks", blocks, torch.int32, (2,), dev)
+    pad = (0,) * (MAX_SOURCES - n)
+    srcs, codes, fs, strides = [], [], [], []
     for i, s in enumerate(sources):
-        if s.dim() != 3 or tuple(s.shape[:2]) != (hs, w):
+        hs_, w_, f = s.shape if s.dim() == 3 else (None, None, None)
+        if hs_ != hs or w_ != w:
             raise ValueError(f"sources[{i}]: shape {tuple(s.shape)}, expected "
                              f"({hs}, {w}, F)")
         if s.dtype != torch.float32 or s.device != dev:
             raise TypeError(f"sources[{i}]: {s.dtype} on {s.device}")
-        p = s.stride(1)
-        if s.stride() != (w * p, p, 1):
-            raise ValueError(f"sources[{i}]: strides {s.stride()} are not "
+        stride = s.stride()
+        p = stride[1]
+        if stride != (w * p, p, 1):
+            raise ValueError(f"sources[{i}]: strides {stride} are not "
                              "those of a slice of contiguous pixels")
+        srcs.append(s.data_ptr())
+        codes.append(KINDS[kinds[i]])
+        fs.append(f)
         strides.append(p)
-        outs.append(torch.empty((h, w, s.shape[2]), dtype=torch.float32,
-                                device=dev))
-    pad = MAX_SOURCES - n
-    fn = bind(load_cuda("warp"), "hk_warp_band", "ppiiii" + "p" * 8
-              + "i" * 12 + "p")
-    rc = fn(ptr(sy), ptr(sx), h, w, hs, n,
-            *(ptr(s) for s in list(sources) + [None] * pad),
-            *(ptr(o) for o in outs + [None] * pad),
-            *([KINDS[k] for k in kinds] + [0] * pad),
-            *([s.shape[2] for s in sources] + [0] * pad),
-            *(strides + [0] * pad), stream(dev))
+    outs = outputs(sy, h, w, fs)
+    table = BAND_TABLE.pack(
+        *srcs, *pad, *[o.data_ptr() for o in outs], *pad, sy.data_ptr(),
+        sx.data_ptr(), 0 if blocks is None else blocks.data_ptr(), *codes,
+        *pad, *fs, *pad, *strides, *pad, n, h, w, hs, stage, 0)
+    rc = bind(_build.load_cuda("warp"), "hk_warp_band", "tp")(
+        table, stream(dev))
     check_launch(rc, "warp_band")
     warp_band.launches += 1
     return outs

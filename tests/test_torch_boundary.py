@@ -220,8 +220,8 @@ class _FakeLibrary:
         def fn(*args):
             assert len(args) == len(fn.argtypes), name
             for a, t in zip(args, fn.argtypes):
-                want = {ctypes.c_int: int, ctypes.c_float: float}.get(
-                    t, ctypes.c_void_p)
+                want = {ctypes.c_int: int, ctypes.c_float: float,
+                        ctypes.c_char_p: bytes}.get(t, ctypes.c_void_p)
                 assert isinstance(a, want), (name, a)
             self.calls.append(name)
             self.args.append(args)
@@ -341,6 +341,7 @@ def test_cuda_wrappers_marshal_and_count_with_post(monkeypatch, path):
             + ["hk_reproj_gather"] * default + ["hk_light_fused"]
             + ["hk_spatial_fused"] * default + ["hk_atrous_level"] * 4
             + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
+        _assert_warp_tables(fake, (12, 16))
         if default:
             assert fake.args[2][12] == 3                  # gather sources
             variants.append(fake.args[3][-5:-1])
@@ -348,6 +349,38 @@ def test_cuda_wrappers_marshal_and_count_with_post(monkeypatch, path):
         assert variants == [(1, 1, 0, 1), (1, 0, 0, 1)]
     assert [fn.launches for fn in wrappers] == [
         2, 2, 2 * default, 2, 2 * default, 8, 4, 2]
+
+
+def _assert_warp_tables(fake, size):
+    """The tables of one frame's post warps (csrc/warp.cu BandCall /
+    MultiCall) at output `size` (SMAA 2.0: render size half of it): SMAA's
+    tone fetch (nearest on the RGB of the 4-channel previous tone, render
+    size), its G-buffer fetch (kernel 12: one bf16 nearest reduce over the
+    4 channels of the full-size G-buffer, render size) and TAA's (Catmull-
+    Rom on the RGB of the 4-channel history, staged; nearest on 6 aux
+    channels; full size)."""
+    from hikari_tpu_torch.ops import warp2, warp_band
+    from tests.test_torch_warp_launch import BAND_FIELDS, MULTI_FIELDS, decode
+
+    h, w = size
+    rh, rw = h // 2, w // 2
+    tables = [a[0] for n, a in zip(fake.calls, fake.args)
+              if n.startswith("hk_warp")]
+    assert len(tables) == 3
+    tone = decode(tables[0], warp_band.BAND_TABLE, BAND_FIELDS)
+    multi = decode(tables[1], warp2.MULTI_TABLE, MULTI_FIELDS)
+    taa = decode(tables[2], warp_band.BAND_TABLE, BAND_FIELDS)
+    assert (tone["n_src"], tone["kind"][0], tone["f"][0], tone["stride"][0],
+            tone["stage"]) == (1, 0, 3, 4, -1)
+    assert (tone["h"], tone["w"], tone["hs"]) == (rh, rw, rh)
+    assert (multi["n_red"], multi["kind"][0], multi["lo"][0],
+            multi["hi"][0], multi["p"], multi["bf16"]) == (1, 0, 0, 4, 4, 1)
+    assert (multi["h"], multi["w"], multi["hs"], multi["ws"]) == (rh, rw, h,
+                                                                   w)
+    assert (taa["n_src"], taa["kind"][:2], taa["f"][:2], taa["stride"][:2],
+            taa["stage"]) == (2, (2, 0), (3, 6), (4, 6), 0)
+    assert (taa["h"], taa["w"], taa["hs"]) == (h, w, h)
+    assert all(t["blocks"] == 0 for t in (tone, taa))
 
 
 # the tracer kernels' outputs, zeroed by the fake so that the frame indexes
@@ -488,6 +521,7 @@ def test_cuda_wrappers_marshal_and_count_on_the_city(monkeypatch):
             + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
         assert fake.args[0][9] == 12 * 16                 # primary rays
         assert fake.args[1][12] == 3                      # gather sources
+        _assert_warp_tables(fake, (12, 16))
         for name, a in zip(fake.calls[2:], fake.args[2:]):
             if name.startswith("hk_bvh"):                 # at 6x8
                 assert a[_TRACE_OUTPUTS[name][0]] == 6 * 8
@@ -654,6 +688,7 @@ def test_cuda_wrappers_marshal_and_count_on_path_t(monkeypatch):
             + ["hk_atrous_level"] * 4
             + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
         assert fake.args[3][12] == 3                      # gather sources
+        _assert_warp_tables(fake, (12, 16))
         atlas = [a for n, a in zip(fake.calls, fake.args)
                  if n == "hk_sample_atlas"]
         assert [a[7] for a in atlas] == [12 * 16] * 2 + [6 * 8] * 2

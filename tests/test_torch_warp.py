@@ -101,6 +101,23 @@ def _band_both(sources, kinds, sy, sx):
             [np.moveaxis(np.asarray(r), 1, -1) for r in ref])
 
 
+# the source layouts kernel 11 branches on: (pixel stride, channels); a
+# source is the first channels of a contiguous [hs, w, stride] array
+BAND_LAYOUTS = {"3_of_stride_4": (4, 3), "6_contiguous": (6, 6),
+                "1_channel": (1, 1), "5_of_stride_8": (8, 5)}
+# kernel 12's: (pixel stride, channels)
+MULTI_LAYOUTS = {"16_channels": (16, 16), "3_of_stride_4": (4, 3)}
+BAND_KINDS = [("catmull", "nearest"), ("bilinear", "catmull"),
+              ("nearest", "bilinear")]
+
+
+def _layout(rng, shape, layout, lo, hi):
+    """A [*shape, F] float32 view of (pixel stride, F), uniform in [lo, hi)."""
+    p, f = layout
+    return rng.uniform(lo, hi, tuple(shape) + (p,)).astype(np.float32)[
+        ..., :f]
+
+
 def _assert_band_parity(kinds, got, ref, ok):
     for kind, g, r in zip(kinds, got, ref):
         if kind == "nearest":
@@ -110,17 +127,24 @@ def _assert_band_parity(kinds, got, ref, ok):
             assert err <= WEIGHTED_TOL, (kind, err)
 
 
-@pytest.mark.parametrize("kinds", [("catmull", "nearest"),
-                                   ("bilinear", "catmull"),
-                                   ("nearest", "bilinear")],
-                         ids=lambda k: "+".join(k))
-def test_warp_band_matches_reference(kinds):
-    """F = 3 and 6 in one call, on a smooth field that spills < 1.3 px
-    over the borders."""
+@pytest.mark.parametrize(
+    ("kinds", "layout"),
+    [(k, None) for k in BAND_KINDS]
+    + [(k, name) for name in BAND_LAYOUTS for k in BAND_KINDS],
+    ids=["+".join(k) for k in BAND_KINDS]
+    + [f"{'+'.join(k)}-{name}" for name in BAND_LAYOUTS for k in BAND_KINDS])
+def test_warp_band_matches_reference(kinds, layout):
+    """F = 3 and 6 in one call (layout None), or two sources of one layout
+    of BAND_LAYOUTS (strided channel slices), on a smooth field that
+    spills < 1.3 px over the borders."""
     rng = np.random.default_rng(11)
     h, w = BAND
-    sources = [rng.uniform(0, 1, (h, w, 3)).astype(np.float32),
-               rng.uniform(-2, 2, (h, w, 6)).astype(np.float32)]
+    if layout is None:
+        sources = [rng.uniform(0, 1, (h, w, 3)).astype(np.float32),
+                   rng.uniform(-2, 2, (h, w, 6)).astype(np.float32)]
+    else:
+        sources = [_layout(rng, (h, w), BAND_LAYOUTS[layout], 0, 1),
+                   _layout(rng, (h, w), BAND_LAYOUTS[layout], -2, 2)]
     sy, sx = (_quantize(a) for a in _fields(h, w, 1.0, seed=4))
     ok = _in_band(sy, sx, h, w)
     assert ok.mean() >= 0.99, ok.mean()
@@ -146,25 +170,25 @@ def test_warp_band_borders(shift):
     _assert_band_parity(kinds, *_band_both(sources, kinds, sy, sx), ok)
 
 
-def _multi_field(seed):
+def _multi_field(seed, layout=(4, 4)):
     """SMAA's aux fetch: output pixel (y, x) reads source (2y + j, 2x + j)
-    minus a smooth reprojection."""
+    minus a smooth reprojection. The source has `layout` (pixel stride,
+    channels)."""
     rng = np.random.default_rng(seed)
     h, w = MULTI_OUT
     yy, xx = np.meshgrid(np.arange(h, dtype=np.float64) * 2.0,
                          np.arange(w, dtype=np.float64) * 2.0, indexing="ij")
     sy = yy + 1.0 + 1.3 * np.sin(xx / 20.0) + rng.uniform(-0.3, 0.3, (h, w))
     sx = xx - 2.1 * np.cos(yy / 17.0) + rng.uniform(-0.3, 0.3, (h, w))
-    src = rng.uniform(0, 4, (2 * h, 2 * w, 4)).astype(np.float32)
+    src = _layout(rng, (2 * h, 2 * w), layout, 0, 4)
     # SMAA's channel 1: instance ids + 0.5, mod 256
     src[..., 1] = rng.integers(0, 300, (2 * h, 2 * w)) % 256 + 0.5
     return src, _quantize(sy), _quantize(sx)
 
 
-def test_warp_multi_matches_reference_bf16_nearest():
-    """SMAA's call: nearest, bf16 window, 4 channels; equal in window."""
-    src, sy, sx = _multi_field(17)
-    reduces = [("nearest", (0.0, 0.0), (0, 4))]
+def _multi_bf16_nearest(src, sy, sx):
+    f = src.shape[2]
+    reduces = [("nearest", (0.0, 0.0), (0, f))]
     ref, = multi_ref(jnp.asarray(src), jnp.asarray(sy), jnp.asarray(sx),
                      reduces, dtype=jnp.bfloat16)
     got, = warp_multi(torch.from_numpy(src), torch.from_numpy(sy),
@@ -174,12 +198,21 @@ def test_warp_multi_matches_reference_bf16_nearest():
     np.testing.assert_array_equal(got.numpy()[ok], np.asarray(ref)[ok])
 
 
-def test_warp_multi_matches_reference_f32_filters():
-    """Bilinear and Catmull-Rom reduces with offsets, f32 window: within
-    1e-5 * max(|ref|, 1)."""
-    src, sy, sx = _multi_field(19)
+def test_warp_multi_matches_reference_bf16_nearest():
+    """SMAA's call: nearest, bf16 window, 4 channels; equal in window."""
+    _multi_bf16_nearest(*_multi_field(17))
+
+
+@pytest.mark.parametrize("layout", list(MULTI_LAYOUTS))
+def test_warp_multi_layouts_match_reference_bf16_nearest(layout):
+    """SMAA's call on the other source layouts of kernel 12 (16 channels,
+    a 3-channel slice at stride 4): equal in window."""
+    _multi_bf16_nearest(*_multi_field(17, MULTI_LAYOUTS[layout]))
+
+
+def _multi_f32_filters(src, sy, sx):
     reduces = [("bilinear", (1.0, -1.0), (0, 3)),
-               ("catmull", (0.0, 0.5), (1, 4))]
+               ("catmull", (0.0, 0.5), (1, src.shape[2]))]
     ref = multi_ref(jnp.asarray(src), jnp.asarray(sy), jnp.asarray(sx),
                     reduces)
     got = warp_multi(torch.from_numpy(src), torch.from_numpy(sy),
@@ -192,6 +225,18 @@ def test_warp_multi_matches_reference_f32_filters():
         r = np.asarray(r)[ok]
         err = np.abs(g.numpy()[ok] - r) / np.maximum(np.abs(r), 1.0)
         assert err.max() <= WEIGHTED_TOL, (kind, err.max())
+
+
+def test_warp_multi_matches_reference_f32_filters():
+    """Bilinear and Catmull-Rom reduces with offsets, f32 window: within
+    1e-5 * max(|ref|, 1)."""
+    _multi_f32_filters(*_multi_field(19))
+
+
+@pytest.mark.parametrize("layout", list(MULTI_LAYOUTS))
+def test_warp_multi_layouts_match_reference_f32_filters(layout):
+    """The filtered reduces on kernel 12's other source layouts."""
+    _multi_f32_filters(*_multi_field(19, MULTI_LAYOUTS[layout]))
 
 
 def test_nearest_tie_rules():
