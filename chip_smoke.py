@@ -6,10 +6,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the nine CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
-   each, started together) and prints their register and spill counts,
-   then times the frames of step 11 before the checks of steps 3-10
-   (host times read higher later in a process, after the checks'
-   allocations and profiler sessions);
+   each, started together) and prints their register and spill counts;
 3. holds kernels A, B and C against their plain PyTorch versions on the
    card at the 1080p flagship shapes of the no-reuse frame;
 4. drives the reuse paths at 1080p with the camera panning 1.5 px per
@@ -1078,16 +1075,13 @@ def layout_source(hs, ws, layout, gen):
     return t[..., :f]
 
 
-def check_warp_fields(wb, w2, taa, smaa):
+def check_warp_fields(wb, w2):
     """Kernels 11 and 12 on synthetic fields at 1080p, 540p and 541x963
     (edges, .5 ties, footprints beyond the staging budget) over every
     layout of WARP_LAYOUTS / MULTI_LAYOUTS: nearest and every kernel 12
     output word for word, filtered outputs within 1e-5 * max(|ref|, 1) on
     >= 99.99%; the staged and direct blocks of the tiled (catmull, nearest)
-    instance counted (both must be non-zero), and the staged, direct and
-    all-staged variants equal word for word. Then the device time of the
-    captured TAA and SMAA calls with each staging choice. Returns those
-    times."""
+    instance counted (both must be non-zero)."""
     gen = torch.Generator(device=DEVICE).manual_seed(7)
     blocks = torch.zeros(2, dtype=torch.int32, device=DEVICE)
     n_calls, filtered_words = 0, 1.0
@@ -1121,11 +1115,6 @@ def check_warp_fields(wb, w2, taa, smaa):
                       f"> 0, of {n_blocks})")
                 if staged == 0 or direct == 0 or staged + direct != n_blocks:
                     fail("kernel 11 did not take both staging branches")
-                for stage in (-1, 1):
-                    alt = wb.warp_band(srcs, kinds, sy, sx, stage=stage)
-                    if not words_equal(alt, got):
-                        fail(f"kernel 11 with stage={stage} differs from "
-                             "the default staging")
         for name, lay in MULTI_LAYOUTS.items():
             f = lay[1]
             src = layout_source(2 * h, 2 * w, lay, gen)
@@ -1147,18 +1136,6 @@ def check_warp_fields(wb, w2, taa, smaa):
     print(f"kernels 11 and 12 on {n_calls} synthetic calls over "
           f"{len(FIELD_SIZES)} field sizes: all within their bars; kernel "
           f"11's filtered outputs words equal on >= {filtered_words:.6f}")
-
-    times = {}
-    for label, call in (("", taa), ("_smaa_call", smaa)):
-        srcs, kinds, sy, sx = call[0]
-        for branch, stage in (("staged", 0), ("direct", -1)):
-            times[f"device_ms{label}_{branch}"] = device_ms(
-                lambda: wb.warp_band(srcs, kinds, sy, sx, stage=stage), REPS,
-                "warp_")
-    print("kernel 11 device ms with the first source staged when its box "
-          "fits / read from global memory: " + ", ".join(
-              f"{k} {v:.4f}" for k, v in times.items() if v is not None))
-    return times
 
 
 def warps_only(ht, build_box):
@@ -1222,11 +1199,8 @@ def check_post(ht, build_box):
 
     records = [check_quads(pf, q_calls, a_calls,
                            real_tris(gpu.arrays["tri_pos_flat"]))]
-    rec11, rec12 = check_warps(wb, w2, wb_calls, wm_calls)
-    rec11.update(check_warp_fields(
-        wb, w2, next(c for c in reversed(wb_calls) if "catmull" in c[0][1]),
-        next(c for c in reversed(wb_calls) if c[0][1] == ("nearest",))))
-    records += [rec11, rec12]
+    records += check_warps(wb, w2, wb_calls, wm_calls)
+    check_warp_fields(wb, w2)
 
     # --- kernels 9, 4, 10 and C at 960x540 on path D
     label = "path D 960x540"
@@ -2196,22 +2170,6 @@ def main():
         print(json.dumps({"warps": list(records), "frames_ms": frames,
                           "card": card}))
         return 0
-    # the frames first: host times read higher later in a process, after
-    # the checks' allocations and profiler sessions
-    frame_ms, launches = {}, {}
-    for name in PATHS:
-        times, counts = main_path(ht, build_box, name, TIMED_FRAMES,
-                                  args.profile)
-        frame_ms[name] = (float(np.median(times)), times)
-        launches[name] = dict(zip(COUNTERS, counts))
-    times, refit, counts = city_path(ht, TIMED_FRAMES, args.profile)
-    frame_ms["city"] = (float(np.median(times)), times)
-    launches["city"] = dict(zip(COUNTERS, counts))
-    times, counts = simple_path(ht, TIMED_FRAMES, args.profile)
-    frame_ms["T"] = (float(np.median(times)), times)
-    launches["T"] = dict(zip(COUNTERS, counts))
-    alt_ms, alt_times = alternate_post_paths(ht, build_box, TIMED_FRAMES)
-
     t0 = time.perf_counter()
     records = check_kernels(ht, build_box())
     records += check_reuse(ht, build_box)
@@ -2231,6 +2189,20 @@ def main():
               f"({rec['bound_by']}), library {rec['library_ms']}")
     check_small_render(ht, build_box)
     print(f"checks took {time.perf_counter() - t0:.1f} s")
+
+    frame_ms, launches = {}, {}
+    for name in PATHS:
+        times, counts = main_path(ht, build_box, name, TIMED_FRAMES,
+                                  args.profile)
+        frame_ms[name] = (float(np.median(times)), times)
+        launches[name] = dict(zip(COUNTERS, counts))
+    times, refit, counts = city_path(ht, TIMED_FRAMES, args.profile)
+    frame_ms["city"] = (float(np.median(times)), times)
+    launches["city"] = dict(zip(COUNTERS, counts))
+    times, counts = simple_path(ht, TIMED_FRAMES, args.profile)
+    frame_ms["T"] = (float(np.median(times)), times)
+    launches["T"] = dict(zip(COUNTERS, counts))
+    alt_ms, alt_times = alternate_post_paths(ht, build_box, TIMED_FRAMES)
 
     def total(counter, paths=tuple(launches)):
         return sum(launches[p][counter] for p in paths)

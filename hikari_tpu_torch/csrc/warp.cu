@@ -33,13 +33,14 @@
 //   vector load may read past a texel's channels but not past its stride,
 //   and so never past the tensor's storage, except at the last texel of
 //   the source, which is read a float at a time.
-// - The exact counterpart of the TPU's band / window: a block reduces the
-//   texel box its pixels' taps need; when it fits STAGE_FLOATS, the staged
-//   source (the call's `stage`: the first filtered one by default) is
+// - The exact counterpart of the TPU's band / window: in the instance whose
+//   first source is filtered (TAA's Catmull-Rom), a block reduces the texel
+//   box its pixels' taps need; when it fits STAGE_FLOATS, that source is
 //   copied into shared memory with coalesced cp.async and gathered there,
 //   else read from global memory. The same floats meet the same arithmetic
 //   in both branches, so there is no out-of-band approximation; `blocks`
-//   (optional) counts the blocks of each branch.
+//   (optional) counts the blocks of each branch. Nearest sources are read
+//   from global memory: a staged one measured 2x slower.
 // - Template instances for the filter-kind tuples of the paths: 11
 //   (catmull, nearest) (TAA) and (nearest) (SMAA's tone), 12 all-nearest
 //   (SMAA's G-buffer, bf16); a generic instance (runtime kinds, scalar
@@ -76,10 +77,8 @@ struct BandCall {
   int f[HK_MAX_WARP];        // channels
   int stride[HK_MAX_WARP];   // pixel stride, floats
   int n_src, h, w, hs;
-  int stage;                 // the source to stage, or -1
-  int unused;
 };
-static_assert(sizeof(BandCall) == 160, "BandCall: ops/warp_band.py");
+static_assert(sizeof(BandCall) == 152, "BandCall: ops/warp_band.py");
 
 struct MultiCall {
   const float* src;
@@ -291,10 +290,10 @@ __device__ __forceinline__ void block_box(int& ylo, int& yhi, int& xlo,
   }
 }
 
-// Source s at this thread's pixel (when `in`), staged in shared memory
-// when it is the call's staged source and the block's box fits. Every
-// thread of the block calls it (the staging synchronises).
-template <int KIND, int N>
+// Source s at this thread's pixel (when `in`); with STAGE, from shared
+// memory when the block's box fits. Every thread of the block calls it
+// (the staging synchronises).
+template <int KIND, int N, bool STAGE>
 __device__ __forceinline__ void band_source(const BandArgs& a, int s,
                                             bool in, long long pix, float y,
                                             float x, float* smem) {
@@ -302,7 +301,7 @@ __device__ __forceinline__ void band_source(const BandArgs& a, int s,
   const int f = t.f[s], vw = a.vin[s], p = t.stride[s];
   float out[N];
   bool done = false;
-  if (t.stage == s) {
+  if constexpr (STAGE) {
     int ylo = INT_MAX, yhi = INT_MIN, xlo = INT_MAX, xhi = INT_MIN;
     if (in) {
       axis_box<KIND>(y, t.hs, ylo, yhi);
@@ -351,8 +350,8 @@ __device__ __forceinline__ void band_source(const BandArgs& a, int s,
   store_px<N>(t.dst[s] + pix * f, f, a.vout[s], out);
 }
 
-// Sources 0 (kind K0, <= N0 channels) and 1 (K1, <= N1; HK_NONE: absent)
-// at 32x8 tiles of output pixels.
+// Sources 0 (kind K0, <= N0 channels; staged when filtered) and 1 (K1,
+// <= N1; HK_NONE: absent) at 32x8 tiles of output pixels.
 template <int K0, int N0, int K1, int N1>
 __global__ void __launch_bounds__(TILE_W* TILE_H)
     warp_band_tiled(BandArgs a) {
@@ -367,8 +366,9 @@ __global__ void __launch_bounds__(TILE_W* TILE_H)
     y = clampf(__ldg(t.sy + pix), (float)(t.hs - 1));
     x = clampf(__ldg(t.sx + pix), (float)(t.w - 1));
   }
-  band_source<K0, N0>(a, 0, in, pix, y, x, smem);
-  if constexpr (K1 != HK_NONE) band_source<K1, N1>(a, 1, in, pix, y, x, smem);
+  band_source<K0, N0, K0 != HK_NEAREST>(a, 0, in, pix, y, x, smem);
+  if constexpr (K1 != HK_NONE)
+    band_source<K1, N1, false>(a, 1, in, pix, y, x, smem);
 }
 
 // ---- kernel 11, generic instance: any kinds, any channel count, scalar
@@ -525,12 +525,12 @@ extern "C" int hk_warp_band(const BandCall* call, void* stream) {
   }
   dim3 block(TILE_W, TILE_H), grid = tiles(t.h, t.w);
   cudaStream_t st = (cudaStream_t)stream;
-  size_t smem = t.stage >= 0 ? STAGE_FLOATS * sizeof(float) : 0;
   if (t.n_src == 2 && t.kind[0] == HK_CATMULL && t.kind[1] == HK_NEAREST &&
       t.f[0] <= 4 && t.f[1] <= 8)
-    warp_band_tiled<HK_CATMULL, 4, HK_NEAREST, 8><<<grid, block, smem, st>>>(a);
+    warp_band_tiled<HK_CATMULL, 4, HK_NEAREST, 8>
+        <<<grid, block, STAGE_FLOATS * sizeof(float), st>>>(a);
   else if (t.n_src == 1 && t.kind[0] == HK_NEAREST && t.f[0] <= 4)
-    warp_band_tiled<HK_NEAREST, 4, HK_NONE, 4><<<grid, block, smem, st>>>(a);
+    warp_band_tiled<HK_NEAREST, 4, HK_NONE, 4><<<grid, block, 0, st>>>(a);
   else
     warp_band_generic<<<grid, block, 0, st>>>(a);
   return (int)cudaGetLastError();

@@ -5,7 +5,6 @@ versions follow so that they round like the kernels."""
 from __future__ import annotations
 
 import ctypes
-import weakref
 
 import numpy as np
 import torch
@@ -72,10 +71,9 @@ def check_launch(rc: int, what: str):
 
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
            "t": ctypes.c_char_p}
-# {library: {name: bound function}}: weak keys, so a library object that is
-# dropped takes its bindings with it and another one at its address (id)
-# binds anew
-_BOUND = weakref.WeakKeyDictionary()
+# {(library, name): bound function}, for the life of the process: a key
+# holds its library object, so no other library takes its address (id)
+_BOUND = {}
 
 
 def bind(lib, name: str, signature: str):
@@ -83,15 +81,12 @@ def bind(lib, name: str, signature: str):
     letter per argument, 'p' for a pointer or stream (c_void_p), 'i' for
     an int, 'f' for a float, 't' for a packed table (bytes, passed by
     pointer). Declared once per library object and name."""
-    fns = _BOUND.get(lib)
-    if fns is None:
-        fns = _BOUND.setdefault(lib, {})
-    fn = fns.get(name)
+    fn = _BOUND.get((lib, name))
     if fn is None:
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
         fn.argtypes = [_CTYPES[c] for c in signature]
-        fns[name] = fn
+        _BOUND[lib, name] = fn
     return fn
 
 

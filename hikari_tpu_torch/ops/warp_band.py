@@ -18,8 +18,8 @@ origin. Sources are HWC ([hs, w, F], any pixel stride) where the TPU
 kernel takes [hs, F, w] channel planes.
 
 The kernel works on 32x8 tiles of output pixels, reads a texel's channels
-in float4 / float2 loads where the layout allows and, for the staged
-source (by default the first filtered one), copies the block's texel box
+in float4 / float2 loads where the layout allows and, in the (catmull,
+nearest) instance, copies the block's texel box of the Catmull-Rom source
 into shared memory when it fits a fixed budget and reads global memory
 otherwise: both give the same words. Template instances serve
 (catmull, nearest) (TAA) and (nearest,) (SMAA) with up to 4 and 8
@@ -41,8 +41,8 @@ from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, on_cpu,
 KINDS = {"nearest": 0, "bilinear": 1, "catmull": 2}
 MAX_SOURCES = 4
 # csrc/warp.cu BandCall: src[4], dst[4], sy, sx, blocks (pointers); kind[4],
-# f[4], stride[4], n_src, h, w, hs, stage, unused (ints)
-BAND_TABLE = struct.Struct("<11Q18i")
+# f[4], stride[4], n_src, h, w, hs (ints)
+BAND_TABLE = struct.Struct("<11Q16i")
 
 
 def w1d(d, kind: str):
@@ -90,18 +90,16 @@ def band_plain(sources, kinds, sy, sx):
     return outs
 
 
-def warp_band(sources, kinds, sy, sx, stage=None, blocks=None):
+def warp_band(sources, kinds, sy, sx, blocks=None):
     """Kernel 11. sources: up to 4 float32 [hs, w, F] tensors (channels
     contiguous, any pixel stride, shared hs and w); kinds: a filter name per
     source; sy, sx: [h, w] float32 source coords. Returns a list of
     [h, w, F] float32. Runs `band_plain` for CPU tensors and launches
     csrc/warp.cu (every source in one launch) for CUDA tensors.
 
-    stage: the index of the source whose texel box a block stages in
-    shared memory when it fits (default: the first filtered source; -1:
-    none); blocks: None, or an int32 [2] CUDA tensor to which each block
-    of the tiled instances adds 1 at [0] if it staged, at [1] if it read
-    global memory (a check that both branches run)."""
+    blocks: None, or an int32 [2] CUDA tensor to which each block of the
+    staging instance adds 1 at [0] if it staged, at [1] if it read global
+    memory (a check that both branches run)."""
     if not sy.is_cuda and on_cpu(sy):
         return band_plain(sources, tuple(kinds), sy, sx)
     n = len(sources)
@@ -113,10 +111,6 @@ def warp_band(sources, kinds, sy, sx, stage=None, blocks=None):
     check("sy", sy, torch.float32, shape, dev)
     check("sx", sx, torch.float32, shape, dev)
     hs = sources[0].shape[0]
-    if stage is None:
-        stage = next((i for i, k in enumerate(kinds) if k != "nearest"), -1)
-    if not -1 <= stage < n:
-        raise ValueError(f"stage {stage} for {n} sources")
     if blocks is not None:
         check("blocks", blocks, torch.int32, (2,), dev)
     pad = (0,) * (MAX_SOURCES - n)
@@ -141,7 +135,7 @@ def warp_band(sources, kinds, sy, sx, stage=None, blocks=None):
     table = BAND_TABLE.pack(
         *srcs, *pad, *[o.data_ptr() for o in outs], *pad, sy.data_ptr(),
         sx.data_ptr(), 0 if blocks is None else blocks.data_ptr(), *codes,
-        *pad, *fs, *pad, *strides, *pad, n, h, w, hs, stage, 0)
+        *pad, *fs, *pad, *strides, *pad, n, h, w, hs)
     rc = bind(_build.load_cuda("warp"), "hk_warp_band", "tp")(
         table, stream(dev))
     check_launch(rc, "warp_band")

@@ -357,7 +357,7 @@ def _assert_warp_tables(fake, size):
     tone fetch (nearest on the RGB of the 4-channel previous tone, render
     size), its G-buffer fetch (kernel 12: one bf16 nearest reduce over the
     4 channels of the full-size G-buffer, render size) and TAA's (Catmull-
-    Rom on the RGB of the 4-channel history, staged; nearest on 6 aux
+    Rom on the RGB of the 4-channel history; nearest on 6 aux
     channels; full size)."""
     from hikari_tpu_torch.ops import warp2, warp_band
     from tests.test_torch_warp_launch import BAND_FIELDS, MULTI_FIELDS, decode
@@ -370,15 +370,15 @@ def _assert_warp_tables(fake, size):
     tone = decode(tables[0], warp_band.BAND_TABLE, BAND_FIELDS)
     multi = decode(tables[1], warp2.MULTI_TABLE, MULTI_FIELDS)
     taa = decode(tables[2], warp_band.BAND_TABLE, BAND_FIELDS)
-    assert (tone["n_src"], tone["kind"][0], tone["f"][0], tone["stride"][0],
-            tone["stage"]) == (1, 0, 3, 4, -1)
+    assert (tone["n_src"], tone["kind"][0], tone["f"][0],
+            tone["stride"][0]) == (1, 0, 3, 4)
     assert (tone["h"], tone["w"], tone["hs"]) == (rh, rw, rh)
     assert (multi["n_red"], multi["kind"][0], multi["lo"][0],
             multi["hi"][0], multi["p"], multi["bf16"]) == (1, 0, 0, 4, 4, 1)
     assert (multi["h"], multi["w"], multi["hs"], multi["ws"]) == (rh, rw, h,
                                                                    w)
-    assert (taa["n_src"], taa["kind"][:2], taa["f"][:2], taa["stride"][:2],
-            taa["stage"]) == (2, (2, 0), (3, 6), (4, 6), 0)
+    assert (taa["n_src"], taa["kind"][:2], taa["f"][:2],
+            taa["stride"][:2]) == (2, (2, 0), (3, 6), (4, 6))
     assert (taa["h"], taa["w"], taa["hs"]) == (h, w, h)
     assert all(t["blocks"] == 0 for t in (tone, taa))
 

@@ -15,7 +15,7 @@ from hikari_tpu_torch.ops import _kernel, warp2, warp_band
 
 BAND_FIELDS = ("src", 4), ("dst", 4), ("sy", 1), ("sx", 1), ("blocks", 1), \
     ("kind", 4), ("f", 4), ("stride", 4), ("n_src", 1), \
-    ("h", 1), ("w", 1), ("hs", 1), ("stage", 1), ("unused", 1)
+    ("h", 1), ("w", 1), ("hs", 1)
 MULTI_FIELDS = ("src", 1), ("dst", 4), ("sy", 1), ("sx", 1), ("kind", 4), \
     ("lo", 4), ("hi", 4), ("offy", 4), ("offx", 4), ("n_red", 1), \
     ("hs", 1), ("ws", 1), ("p", 1), ("h", 1), ("w", 1), ("bf16", 1), \
@@ -79,8 +79,7 @@ def _multi(lib):
 
 def test_taa_call_table(fake):
     """TAA's call: the RGB of a 4-channel history (stride 4) by
-    Catmull-Rom and 6 contiguous aux channels by nearest; the filtered
-    source is staged."""
+    Catmull-Rom and 6 contiguous aux channels by nearest."""
     h, w = 12, 16
     prev = torch.rand(h, w, 4)
     aux = torch.rand(h, w, 6)
@@ -97,14 +96,13 @@ def test_taa_call_table(fake):
     assert t["kind"] == (2, 0, 0, 0)
     assert t["f"] == (3, 6, 0, 0)
     assert t["stride"] == (4, 6, 0, 0)
-    assert (t["n_src"], t["h"], t["w"], t["hs"], t["stage"]) == (
-        2, h, w, h, 0)
+    assert (t["n_src"], t["h"], t["w"], t["hs"]) == (2, h, w, h)
 
 
 def test_smaa_tone_call_table(fake):
     """SMAA's tone call: one nearest source, the RGB of a 4-channel tone
-    image at a row offset (a slice with a storage offset); nothing is
-    staged, and a block counter and a staging choice pass through."""
+    image at a row offset (a slice with a storage offset); a block
+    counter passes through, and one of another dtype raises."""
     h, w = 6, 8
     tone = torch.rand(h + 1, w, 4)[1:]
     sy, sx = torch.rand(h, w), torch.rand(h, w)
@@ -114,15 +112,14 @@ def test_smaa_tone_call_table(fake):
     assert t["dst"] == (out.data_ptr(), 0, 0, 0)
     assert t["kind"] == (0, 0, 0, 0) and t["f"] == (3, 0, 0, 0)
     assert t["stride"] == (4, 0, 0, 0)
-    assert (t["n_src"], t["h"], t["w"], t["hs"], t["stage"]) == (
-        1, h, w, h, -1)
+    assert (t["n_src"], t["h"], t["w"], t["hs"]) == (1, h, w, h)
     blocks = torch.zeros(2, dtype=torch.int32)
-    warp_band.warp_band([tone[..., :3]], ("nearest",), sy, sx, stage=0,
+    warp_band.warp_band([tone[..., :3]], ("nearest",), sy, sx,
                         blocks=blocks)
-    t = _band(fake)
-    assert (t["stage"], t["blocks"]) == (0, blocks.data_ptr())
-    with pytest.raises(ValueError):
-        warp_band.warp_band([tone[..., :3]], ("nearest",), sy, sx, stage=1)
+    assert _band(fake)["blocks"] == blocks.data_ptr()
+    with pytest.raises(TypeError):
+        warp_band.warp_band([tone[..., :3]], ("nearest",), sy, sx,
+                            blocks=blocks.float())
 
 
 def test_multi_call_table(fake):
@@ -175,7 +172,8 @@ def test_second_call_does_not_bind_again(fake):
 
 def test_new_library_binds_anew():
     """Bindings belong to their library object: another library (a fresh
-    fake, possibly at a dropped one's address) gets its own function."""
+    fake, made after the first was dropped by the test) gets its own
+    function."""
     first = CountingLibrary()
     fn = _kernel.bind(first, "hk_warp_band", "tp")
     assert _kernel.bind(first, "hk_warp_band", "tp") is fn
