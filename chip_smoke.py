@@ -8,7 +8,11 @@ Run from the repository root on a machine with an NVIDIA H100:
 2. builds the nine CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
    each, started together) and prints their register and spill counts;
 3. holds kernels A, B and C against their plain PyTorch versions on the
-   card at the 1080p flagship shapes of the no-reuse frame;
+   card at the 1080p flagship shapes of the no-reuse frame, and kernel C
+   (the a-trous level) on synthetic fields at 1080p, 960x540 and 541x963
+   (an odd width: word-by-word staging), every step, 1-3 channels with
+   every firefly mask, with NaN and +-Inf irradiance, zero-depth pixels
+   and instance edges along the blocks' edges;
 4. drives the reuse paths at 1080p with the camera panning 1.5 px per
    frame and holds each kernel against its plain version on the inputs it
    really got: kernel 9 (the reprojection gather) bit for bit, kernel 4
@@ -19,8 +23,10 @@ Run from the repository root on a machine with an NVIDIA H100:
    at 270x480;
 6. drives the post paths at 1080p with the camera panning (D, the literal
    HikariSettings(), and P, the flagship + TAA + SMAA 2.0) and holds
-   kernel 8 (the SMAA parity quads) against its plain version and against
-   kernel A's strided planes, kernels 11 and 12 (the history warps: TAA's
+   kernel 8 (the SMAA parity quads, moved from kernel A's planes) against
+   its plain version and against kernel A's strided planes, and on
+   synthetic G-buffers of random words (NaN payloads, -0.0), kernels 11
+   and 12 (the history warps: TAA's
    at 1920x1080, SMAA's at 960x540) against their plain versions on the
    captured calls (timed by events, on the device and on the host, the
    nearest ones beside one grid_sample) and on synthetic fields at 1080p,
@@ -70,7 +76,8 @@ Run from the repository root on a machine with an NVIDIA H100:
    kernels the paths run, one of kernel 13's mode `hit` (no path traces
    without attributes), and last {"ok": true, "device": {...}}.
 
-Tolerances: kernels A, B, C as stated at their checks; kernels 5, 6, 7,
+Tolerances: kernels A, B, C as stated at their checks (C: <= 1 bf16 ulp
+on >= 99.9% of values, the words not equal counted); kernels 5, 6, 7,
 9, 8, 12, 13 and 14 bit for bit (8 also against kernel A's planes; 13 against
 5 and 7 on the box: ids equal but at ties, floats equal where they agree);
 kernel 11 bit for bit for nearest sources and within 1e-5 * max(|ref|, 1)
@@ -82,12 +89,14 @@ against the CPU pyramid of the CUDA triangles; small renders SSIM >= 0.98
 and mean abs diff < 1e-3.
 
 With --profile it also prints a torch.profiler table of device time by
-kernel over two frames of each path. With --warps it only times the frames
-of the paths that run kernels 11 and 12 (P and D alternately, the city, T)
-before any profiler session, checks and times the two kernels on path D's
-calls, times P and D again, and prints the records and the frame medians
-(no ok line): run it in two trees of the repository in one call to
-compare them. Any failed check raises: the exit code is then not 0 and the
+kernel over two frames of each path. With --ab it only times the frames of
+the nine paths (P and D alternately) before any check or profiler session,
+then checks and times kernels 8, C, 11 and 12 on path D's calls and C on
+a synthetic 1080p field, and prints the records and the frame medians (no
+ok line): run it in two trees of the repository in one call, in turns, to
+compare them; `--ab-summary FILE...` (one file of --ab lines per tree)
+prints each metric's median and interquartile range over the runs.
+Any failed check raises: the exit code is then not 0 and the
 last line is not printed. Without CUDA it exits 1 at once.
 """
 
@@ -173,13 +182,14 @@ def event_ms(fn, reps):
     return float(np.median(times))
 
 
-def device_ms(fn, reps, kernel):
+def device_ms(fn, reps, kernel, per_call=False):
     """Median device time in ms of the CUDA kernel whose name contains
     `kernel` over `reps` runs of fn(), from torch.profiler's trace: the
     kernel's own time, without the host's launch gaps that event_ms counts
-    for a kernel shorter than its wrapper's host work. None when three
-    traces hold no device time for it (a trace now and then comes back
-    without the kernel's events)."""
+    for a kernel shorter than its wrapper's host work. With per_call, the
+    device time of every matching kernel summed, over `reps` (fn() launches
+    several). None when three traces hold no device time for it (a trace
+    now and then comes back without the kernel's events)."""
     from torch.profiler import ProfilerActivity, profile as prof_
 
     fn()
@@ -193,7 +203,8 @@ def device_ms(fn, reps, kernel):
                  if e.device_type == torch.autograd.DeviceType.CUDA
                  and kernel in e.name]
         if times:
-            return float(np.median(times)) / 1e3
+            return (sum(times) / reps if per_call
+                    else float(np.median(times))) / 1e3
     return None
 
 
@@ -482,45 +493,133 @@ def check_kernels(ht, scene_host):
         kw = dict(step=step, nch=nch, ffs=ffs)
         level_calls.append(((level_in, geo, f32s), kw))
         level_in = dnf.atrous_level(level_in, geo, f32s, **kw)
-    max_err = check_levels(dnf, level_calls, "zero variance")
-
-    def cascade(level):
-        x = irr
-        for step in dn.STEPS:
-            x = level(x, geo, f32s, step=step, nch=nch, ffs=ffs)
-        return x
-
-    ms = event_ms(lambda: cascade(dnf.atrous_level), REPS) / len(dn.STEPS)
-    plain_ms = event_ms(lambda: cascade(dnf.atrous_plain),
-                        PLAIN_REPS) / len(dn.STEPS)
+    max_err = check_levels(dnf, level_calls, "zero variance")[0]
+    max_err = max(max_err, check_atrous_fields(dnf))
     b_ms, b_by = atrous_bound(npix, nch)
+    rec = atrous_times(dnf, level_calls)
+    print_kernel_times("kernel C a-trous 1080p, per level",
+                       dict(rec, bound_ms=b_ms))
     records.append(dict(
         name="denoise_fused", route="cuda",
         source="hikari_tpu_torch/csrc/denoise_fused.cu",
         replaces="hikari_tpu/ops/denoise_fused.py:60", launches=None,
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None))
+        max_abs_err=max_err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        **rec))
     return records
 
 
 def check_levels(dnf, calls, what):
-    """Each captured a-trous level against its plain version on the same
-    input: <= 1 bf16 ulp on >= 99.9% of values. Returns the max abs
-    error."""
-    worst_frac, max_err, max_ulp = 1.0, 0.0, 0
+    """Each a-trous level call against its plain version on the same
+    input: <= 1 bf16 ulp on >= 99.9% of values; also counts the words not
+    equal. Returns (max abs error, words not equal, words)."""
+    worst_frac, max_err, max_ulp, unequal, n = 1.0, 0.0, 0, 0, 0
     for args, kw in calls:
         g_ = dnf.atrous_level(*args, **kw)
         r_ = dnf.atrous_plain(*args, **kw)
         torch.cuda.synchronize()
         ulps = bf16_ulps(g_, r_)
-        worst_frac = min(worst_frac, float((ulps <= 1).float().mean()))
+        worst_frac = min(worst_frac, int((ulps <= 1).sum()) / ulps.numel())
         max_ulp = max(max_ulp, int(ulps.max()))
-        max_err = max(max_err, float((g_.float() - r_.float()).abs().max()))
+        unequal += int((g_.view(torch.int16) != r_.view(torch.int16)).sum())
+        n += ulps.numel()
+        max_err = max(max_err, max_abs_err([g_], [r_]))
     print(f"kernel C a-trous ({what}, {len(calls)} levels): <= 1 bf16 ulp "
           f"on {worst_frac:.6f} of values (need >= 0.999); max {max_ulp} "
-          f"ulp, max abs err {max_err:.3g}")
+          f"ulp, max abs err {max_err:.3g}; {unequal} of {n} words not "
+          f"equal")
     if worst_frac < 0.999:
         fail(f"kernel C disagrees with its plain version ({what})")
+    return max_err, unequal, n
+
+
+def atrous_times(dnf, levels):
+    """The a-trous level calls `levels` (one cascade) timed per level by
+    events, on the host and on the device, and their plain versions by
+    events."""
+    def cascade(level):
+        return [level(*a, **k) for a, k in levels]
+
+    n = len(levels)
+    rec = kernel_times([(lambda: cascade(dnf.atrous_level), None)],
+                       "atrous_kernel", None)[0]
+    rec = {k: v / n if k != "device_ms" else v for k, v in rec.items()}
+    rec["plain_ms"] = event_ms(lambda: cascade(dnf.atrous_plain),
+                               PLAIN_REPS) / n
+    return rec
+
+
+# the synthetic a-trous fields: 1080p and 960x540 (rows 16-byte aligned),
+# and 541x963 (odd width: the word-by-word staging)
+ATROUS_FIELD_SIZES = ((1080, 1920), (540, 960), (541, 963))
+
+
+def atrous_field(h, w, nch, gen):
+    """Synthetic level inputs (irr, geo, f32s) on the card. Irradiance:
+    mostly dim, 0.5% fireflies 1000x brighter, and bad texels (NaN, +Inf,
+    -Inf; bf16 holds no finite value above F32_MAX, so +Inf stands for
+    those) on ~0.3% of the channels' texels; depth a gentle slope with
+    zero-depth pixels (2% scattered, and rows 100-103); instance ids that
+    change across the 64-column tile boundaries and every 8 rows, so the
+    instance edges lie along the blocks' edges at step 1; normals near +z,
+    some flipped."""
+    dev = DEVICE
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    irr = rand(3 * nch, h, w) ** 4 * 4.0
+    irr = torch.where(rand(3 * nch, h, w) < 0.005, irr * 1000.0, irr)
+    bad = rand(1, h, w).expand(3 * nch, h, w)
+    pick = torch.rand((3 * nch, h, w), generator=gen, device=dev)
+    irr = torch.where((bad < 0.003) & (pick < 1 / 3), float("nan"), irr)
+    irr = torch.where((bad < 0.003) & (pick > 2 / 3), float("inf"), irr)
+    irr = torch.where((bad < 0.001) & (pick < 1 / 6), float("-inf"), irr)
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    depth = 0.5 + 0.3 * (yy / h) + 0.1 * (xx / w) + 0.002 * rand(h, w)
+    depth = torch.where(rand(h, w) < 0.02, 0.0, depth)
+    depth[100:103] = 0.0
+    inst = torch.remainder(torch.floor(xx / 64) + torch.floor(yy / 8),
+                           3.0) + 0.5
+    inst = inst.expand(h, w)
+    n = torch.stack([rand(h, w) - 0.5, rand(h, w) - 0.5,
+                     torch.ones(h, w, device=dev)])
+    n = n / n.norm(dim=0, keepdim=True)
+    n = torch.where(rand(h, w) < 0.05, -n, n)
+    grads = (rand(2, h, w) - 0.5) * 0.02
+    denom = 1.0 / (4.0 * torch.sqrt(torch.sqrt(rand(nch, h, w) * 2.0))
+                   + 1e-3)
+    geo = torch.cat([grads, denom]).to(torch.bfloat16)
+    f32s = torch.stack([depth, inst, n[0], n[1], n[2]]).contiguous()
+    return irr.to(torch.bfloat16), geo, f32s
+
+
+def check_atrous_fields(dnf):
+    """Kernel C on the synthetic fields of ATROUS_FIELD_SIZES, every step
+    of the cascade, nch 1, 2 and 3 with every firefly mask, against its
+    plain version: <= 1 bf16 ulp on >= 99.9% of values. Returns the max
+    abs error."""
+    from hikari_tpu_torch.ops import denoise as dn
+
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    max_err, unequal, words, n_calls = 0.0, 0, 0, 0
+    for h, w in ATROUS_FIELD_SIZES:
+        for nch in (1, 2, 3):
+            irr, geo, f32s = atrous_field(h, w, nch, gen)
+            calls = [((irr, geo, f32s), dict(
+                step=step, nch=nch,
+                ffs=tuple(bool(m >> c & 1) for c in range(nch))))
+                for m in range(2 ** nch) for step in dn.STEPS]
+            err, neq, n = check_levels(dnf, calls, f"field {h}x{w}, "
+                                       f"{nch} channels")
+            max_err = max(max_err, err)
+            unequal += neq
+            words += n
+            n_calls += len(calls)
+    print(f"kernel C on {n_calls} synthetic calls ({ATROUS_FIELD_SIZES}, "
+          f"steps {dn.STEPS}, 1-3 channels, every firefly mask): all within "
+          f"1 bf16 ulp on >= 99.9% of values; {unequal} of {words} words "
+          f"not equal to the plain version; max abs err {max_err:.3g}")
     return max_err
 
 
@@ -845,49 +944,109 @@ def grid_nearest(src, sy, sx):
                                  padding_mode="border", align_corners=False)
 
 
-def check_quads(pf, quad_calls, a_calls, n_tri):
-    """Kernel 8 against its plain version and kernel A's strided planes
-    (parity_quads of its G-buffer), bit for bit, on the captured calls;
-    returns its record."""
+def quads_checks(pf, quad_calls, a_calls):
+    """Kernel 8 bit for bit against its plain version and against kernel
+    A's strided planes (parity_quads of the G-buffer kernel A writes again
+    from the captured call of the same frame), on the captured calls.
+    Returns the max abs error against the plain version."""
     from hikari_tpu_torch.ops.smaa import parity_quads
 
     def strided(a_args):
         quads = parity_quads(pf._assemble(*pf.prepass_kernel(*a_args))[0])
-        return [quads[ab][k] for k in ("depth", "velocity", "instance")
-                for ab in pf.QUAD_PARITIES]
+        return [torch.stack([quads[ab][k] for ab in pf.QUAD_PARITIES])
+                for k in ("depth", "velocity", "instance")]
 
     err = 0.0
     for (qa, _), (aa, _) in zip(quad_calls, a_calls):
-        if not torch.equal(qa[0], aa[0]):
-            fail("kernel 8 and kernel A got different parameters")
         got = pf.prepass_quads_kernel(*qa)
         ref = pf.quads_plain(*qa)
-        eq_a = words_equal([p for t in got for p in t], strided(aa))
+        eq_a = words_equal(got, strided(aa))
         torch.cuda.synchronize()
         eq_plain = words_equal(got, ref)
         err = max(err, max_abs_err(got, ref))
-        print(f"kernel 8 quads {tuple(qa[3])} x 4 parities: equal to the "
-              f"plain version {eq_plain}, to kernel A's strided planes "
-              f"{eq_a} (need both)")
+        print(f"kernel 8 quads {tuple(got[0].shape[1:])} x 4 parities: equal "
+              f"to the plain version {eq_plain}, to kernel A's strided "
+              f"planes {eq_a} (need both)")
         if not (eq_plain and eq_a):
             fail("kernel 8 disagrees with its plain version or kernel A")
-    qa, aa = quad_calls[-1][0], a_calls[-1][0]
-    ms = event_ms(lambda: pf.prepass_quads_kernel(*qa), REPS)
-    plain_ms = event_ms(lambda: pf.quads_plain(*qa), PLAIN_REPS)
+    return err
+
+
+def quads_times(pf, qa, aa):
+    """Kernel 8's call `qa` timed by events, on the host and on the device,
+    beside its plain version and the library yardstick: the 12 strided
+    views of kernel A's planes (call `aa`) made contiguous."""
+    from hikari_tpu_torch.ops.smaa import parity_quads
+
     views = parity_quads(pf._assemble(*pf.prepass_kernel(*aa))[0])
-    lib_ms = event_ms(lambda: [t.contiguous() for q in views.values()
-                               for t in q.values()], REPS)
-    h, w = qa[3]
-    npix = 4 * h * w
-    nbytes = 4 * (qa[0].numel() + qa[1].numel() + qa[2].numel()) + npix * 16
-    # ray generation + the depth/velocity tail ~150 flops per pixel
-    b_ms, b_by = bound_ms(nbytes, npix * (n_tri * FLOPS_PER_TRI_TEST + 150))
+
+    def library():
+        return [t.contiguous() for q in views.values() for t in q.values()]
+
+    rec = kernel_times([(lambda: pf.prepass_quads_kernel(*qa), library)],
+                       "quads_kernel", "")[0]
+    rec["plain_ms"] = event_ms(lambda: pf.quads_plain(*qa), PLAIN_REPS)
+    return rec
+
+
+# float32 words a G-buffer may hold that arithmetic would not keep: quiet
+# and signalling NaNs with payloads, -0.0, infinities, a denormal
+SPECIAL_WORDS = (0x7FC00001, 0x7F800001, 0xFFC0BEEF, 0xFFA00000, 0x80000000,
+                 0x7F800000, 0xFF800000, 0x00000001)
+
+
+def special_words(shape, gen):
+    """Random float32 words on the card, 30% of them SPECIAL_WORDS."""
+    bits = torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                         device=DEVICE, dtype=torch.int64).to(torch.int32)
+    table = torch.tensor(np.array(SPECIAL_WORDS, np.uint32).view(np.int32),
+                         device=DEVICE)
+    pick = torch.rand(shape, generator=gen, device=DEVICE) < 0.3
+    idx = torch.randint(0, len(SPECIAL_WORDS), shape, generator=gen,
+                        device=DEVICE)
+    return torch.where(pick, table[idx], bits).view(torch.float32)
+
+
+# kernel 8's synthetic G-buffers: 1080p, and planes of odd height and width
+QUAD_FIELD_SIZES = ((1080, 1920), (1082, 1930))
+
+
+def check_quads_field(pf):
+    """Kernel 8 on synthetic G-buffers of random words (NaN payloads, -0.0,
+    infinities, denormals) at 1080p and at 1082x1930 (planes of odd height
+    and width): bit for bit against its plain version and against the strided
+    words."""
+    gen = torch.Generator(device=DEVICE).manual_seed(8)
+    for h, w in QUAD_FIELD_SIZES:
+        planes = [special_words((h, w, c), gen) for c in (4, 4, 2)]
+        got = pf.prepass_quads_kernel(*planes)
+        ref = pf.quads_plain(*planes)
+        want = [torch.stack([t[a::2, b::2, k] for a, b in pf.QUAD_PARITIES])
+                for t, k in zip(planes, (3, slice(0, 2), 0))]
+        torch.cuda.synchronize()
+        ok = words_equal(got, ref) and words_equal(got, want)
+        print(f"kernel 8 synthetic G-buffer {h}x{w}: words equal to the "
+              f"plain version and the strided words {ok} (need True)")
+        if not ok:
+            fail("kernel 8 changed a word of a synthetic G-buffer")
+
+
+def check_quads(pf, quad_calls, a_calls):
+    """Kernel 8 on the captured calls and on synthetic G-buffers, bit for
+    bit; returns its record. Its bound: 16 B read and 16 B written per
+    image pixel."""
+    err = quads_checks(pf, quad_calls, a_calls)
+    check_quads_field(pf)
+    qa, aa = quad_calls[-1][0], a_calls[-1][0]
+    rec = quads_times(pf, qa, aa)
+    h, w = qa[0].shape[:2]
+    b_ms, b_by = bound_ms(32 * h * w, 0)
+    print_kernel_times(f"kernel 8 quads {h}x{w}", dict(rec, bound_ms=b_ms))
     return dict(
         name="prepass_quads", route="cuda",
         source="hikari_tpu_torch/csrc/prepass_fused.cu",
         replaces="hikari_tpu/ops/prepass_fused.py:276", launches=None,
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms)
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by, **rec)
 
 
 WARP_TAPS = {"nearest": 1, "bilinear": 4, "catmull": 16}
@@ -918,12 +1077,13 @@ def host_us(fn, reps=HOST_REPS):
     return us
 
 
-def warp_times(calls):
-    """For each (kernel call, grid_sample call or None) of `calls`, a dict
-    of the kernel call's events ms, host us and device ms (profiler,
-    kernels named warp_*) and the same three of the grid_sample call. All
-    events and host times come first: host times read higher later in a
-    process, after a profiler session."""
+def kernel_times(calls, kernel, library_kernel):
+    """For each (kernel call, library call or None) of `calls`, a dict of
+    the kernel call's events ms, host us and device ms (profiler, kernels
+    whose name contains `kernel`) and the same three of the library call
+    (its kernels named `library_kernel`, summed per call). All events and
+    host times come first: host times read higher later in a process,
+    after a profiler session."""
     recs = []
     for fn, lib_fn in calls:
         rec = dict(ms=event_ms(fn, REPS), host_us=host_us(fn))
@@ -932,10 +1092,10 @@ def warp_times(calls):
                        library_host_us=host_us(lib_fn))
         recs.append(rec)
     for rec, (fn, lib_fn) in zip(recs, calls):
-        rec["device_ms"] = device_ms(fn, REPS, "warp_")
+        rec["device_ms"] = device_ms(fn, REPS, kernel)
         if lib_fn is not None:
             rec["library_device_ms"] = device_ms(lib_fn, REPS,
-                                                 "grid_sampler")
+                                                 library_kernel, True)
     return recs
 
 
@@ -947,7 +1107,7 @@ def warp_band_bound(call):
         (k, s.shape[2]) for k, s in zip(kinds, sources)]))
 
 
-def print_warp_times(label, rec):
+def print_kernel_times(label, rec):
     def num(key):
         v = rec.get(key)
         return "n/a" if v is None else f"{v:.4f}"
@@ -956,7 +1116,7 @@ def print_warp_times(label, rec):
             f" ms, host {num('host_us')} us per call; bound "
             f"{num('bound_ms')} ms")
     if rec.get("library_ms") is not None:
-        line += (f"; grid_sample {num('library_ms')} ms, device "
+        line += (f"; library {num('library_ms')} ms, device "
                  f"{num('library_device_ms')} ms, host "
                  f"{num('library_host_us')} us")
     print(line)
@@ -1004,10 +1164,11 @@ def check_warps(wb, w2, band_calls, multi_calls):
     a, k = multi_calls[-1]
     src, sy, sx, reduces = a[:4]
     s_src, _, s_sy, s_sx = smaa[0]
-    taa_rec, smaa_rec, multi_rec = warp_times([
+    taa_rec, smaa_rec, multi_rec = kernel_times([
         (lambda: wb.warp_band(*taa[0]), None),
         (lambda: wb.warp_band(*smaa[0]), grid_nearest(s_src[0], s_sy, s_sx)),
-        (lambda: w2.warp_multi(*a, **k), grid_nearest(src, sy, sx))])
+        (lambda: w2.warp_multi(*a, **k), grid_nearest(src, sy, sx))],
+        "warp_", "grid_sampler")
     rec11 = dict(
         name="warp_band", route="cuda", source="hikari_tpu_torch/csrc/warp.cu",
         replaces="hikari_tpu/ops/warp_band.py:95", launches=None,
@@ -1030,10 +1191,10 @@ def check_warps(wb, w2, band_calls, multi_calls):
             lambda: w2.multi_plain(*a, k.get("dtype") == torch.bfloat16),
             PLAIN_REPS),
         bound_ms=b_ms, bound_by=b_by, **multi_rec)
-    print_warp_times(f"kernel 11 TAA call {tuple(taa[0][2].shape)}", rec11)
-    print_warp_times(f"kernel 11 SMAA call {tuple(smaa[0][2].shape)}",
+    print_kernel_times(f"kernel 11 TAA call {tuple(taa[0][2].shape)}", rec11)
+    print_kernel_times(f"kernel 11 SMAA call {tuple(smaa[0][2].shape)}",
                      smaa_rec)
-    print_warp_times(f"kernel 12 SMAA call {tuple(sy.shape)}", rec12)
+    print_kernel_times(f"kernel 12 SMAA call {tuple(sy.shape)}", rec12)
     return rec11, rec12
 
 
@@ -1138,32 +1299,120 @@ def check_warp_fields(wb, w2):
           f"11's filtered outputs words equal on >= {filtered_words:.6f}")
 
 
-def warps_only(ht, build_box):
-    """--warps: the frames of the paths that run kernels 11 and 12 (P and
-    D alternately, the city, T) before any profiler session; the two
-    kernels on path D's calls at 1080p (frames 4 and 5 of a panning
-    camera), checked and timed as in the full run; then P and D
-    alternately again. For timing another tree of the repository against
-    this one in one call. Returns (the records of 11 and 12, {frame
-    median name: ms})."""
+def ab_only(ht, build_box):
+    """--ab: first the frames of the nine paths (P and D alternately, frame
+    by frame; then no-reuse, R, S, K, KR, the city and T, each with its
+    launch counts checked), before any check or profiler session; then
+    kernels 8, C, 11 and 12 checked against their plain versions and timed
+    on path D's calls at 1080p (frames 4 and 5 of a panning camera; C at
+    960x540), and kernel C timed on a synthetic 1080p field (2 channels,
+    the four steps). For timing two trees of the repository against each
+    other in one call: it reaches the kernels only through their wrappers
+    and plain versions, as captured. Returns (records, {frame median
+    name: ms})."""
+    from contextlib import ExitStack
+
+    from hikari_tpu_torch.ops import denoise as dn
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import prepass_fused as pf
     from hikari_tpu_torch.ops import warp2 as w2
     from hikari_tpu_torch.ops import warp_band as wb
 
     med, _ = alternate_post_paths(ht, build_box, TIMED_FRAMES)
     frames = {"P_alternating": med["P"], "D_alternating": med["D"]}
+    for name in PATHS:
+        if name not in ("P", "D"):
+            times, _ = main_path(ht, build_box, name, TIMED_FRAMES, False)
+            frames[name] = float(np.median(times))
     times, refit, _ = city_path(ht, TIMED_FRAMES, False)
     frames.update(city=float(np.median(times)),
                   city_refit=float(np.median(refit)))
     frames["T"] = float(np.median(simple_path(ht, TIMED_FRAMES, False)[0]))
-    caps = [Capture(wb, "warp_band"), Capture(w2, "warp_multi")]
-    with caps[0], caps[1]:
+
+    caps = [Capture(pf, "prepass_kernel"), Capture(pf, "prepass_quads_kernel"),
+            Capture(dnf, "atrous_level"), Capture(wb, "warp_band"),
+            Capture(w2, "warp_multi")]
+    with ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
         drive(ht, build_box(), FULL, default_settings(ht), CHECK_FRAMES - 1,
               caps, (CHECK_FRAMES - 3, CHECK_FRAMES - 2))
-    records = check_warps(wb, w2, caps[0].calls, caps[1].calls)
-    med, _ = alternate_post_paths(ht, build_box, TIMED_FRAMES)
-    frames.update(P_alternating_after_profiler=med["P"],
-                  D_alternating_after_profiler=med["D"])
+    a_calls, q_calls, c_calls, wb_calls, wm_calls = (c.calls for c in caps)
+    quads_checks(pf, q_calls, a_calls)
+    rec8 = dict(name="prepass_quads",
+                **quads_times(pf, q_calls[-1][0], a_calls[-1][0]))
+    levels = c_calls[-4:]
+    check_levels(dnf, levels, "path D 960x540")
+    rec_c = dict(name="denoise_fused_540p", **atrous_times(dnf, levels))
+    irr, geo, f32s = atrous_field(*FULL, 2, torch.Generator(
+        device=DEVICE).manual_seed(12))
+    field = [((irr, geo, f32s), dict(step=step, nch=2, ffs=(True, True)))
+             for step in dn.STEPS]
+    check_levels(dnf, field, "synthetic 1080p field")
+    rec_c1080 = dict(name="denoise_fused_1080p_field",
+                     **atrous_times(dnf, field))
+    records = [rec8, rec_c, rec_c1080]
+    records += check_warps(wb, w2, wb_calls, wm_calls)
+    for rec in records[:3]:
+        print_kernel_times(rec["name"], rec)
     return records, frames
+
+
+def pct(a, b):
+    """100 a / b, NaN when b is 0."""
+    return float(100 * a / b) if b else float("nan")
+
+
+def ab_summary(paths):
+    """--ab-summary: the --ab lines of each file (one file per tree, in
+    order): per frame median and kernel time, the median and interquartile
+    range over the runs, and the change of each tree's median against the
+    first file's."""
+    runs = {}
+    for path in paths:
+        runs[path] = []
+        with open(path) as f:
+            for line in f:
+                line = line.strip()
+                if line.startswith("{") and '"ab"' in line:
+                    runs[path].append(json.loads(line))
+    if not all(runs.values()):
+        fail(f"no --ab lines in {[p for p, r in runs.items() if not r]}")
+
+    def metrics(run):
+        out = {f"frame {k}": v for k, v in run["frames_ms"].items()}
+        for rec in run["ab"]:
+            for key in ("ms", "device_ms", "host_us", "library_ms"):
+                if rec.get(key) is not None:
+                    out[f"{rec['name']} {key}"] = rec[key]
+        return out
+
+    table = {p: [metrics(r) for r in rs] for p, rs in runs.items()}
+    first = next(iter(table))
+    summary = {}
+    for key in table[first][0]:
+        row = {}
+        for p, ms in table.items():
+            vals = [m[key] for m in ms if key in m]
+            if not vals:
+                continue
+            q1, q2, q3 = np.percentile(vals, [25, 50, 75])
+            row[p] = dict(n=len(vals), median=float(q2), iqr=float(q3 - q1),
+                          iqr_pct=pct(q3 - q1, q2))
+        if first in row:
+            for p in row:
+                row[p]["vs_first_pct"] = pct(
+                    row[p]["median"] - row[first]["median"],
+                    row[first]["median"])
+        summary[key] = row
+        print(f"{key}: " + "; ".join(
+            f"{os.path.basename(p)} {r['median']:.4f} (IQR {r['iqr']:.4f}, "
+            f"{r['iqr_pct']:.1f}%, n {r['n']}, "
+            f"{r.get('vs_first_pct', float('nan')):+.1f}%)"
+            for p, r in row.items()))
+    print(json.dumps({"ab_summary": summary,
+                      "cards": sorted({r.get("card", "") for rs in
+                                       runs.values() for r in rs})}))
 
 
 def check_post(ht, build_box):
@@ -1197,8 +1446,7 @@ def check_post(ht, build_box):
     a_calls, q_calls, g_calls, l_calls, s_calls, c_calls, wb_calls, \
         wm_calls = (c.calls for c in caps)
 
-    records = [check_quads(pf, q_calls, a_calls,
-                           real_tris(gpu.arrays["tri_pos_flat"]))]
+    records = [check_quads(pf, q_calls, a_calls)]
     records += check_warps(wb, w2, wb_calls, wm_calls)
     check_warp_fields(wb, w2)
 
@@ -1216,16 +1464,13 @@ def check_post(ht, build_box):
     extra["spatial_fused"] = (ms, plain_ms, b_ms)
     levels = c_calls[-4:]
     check_levels(dnf, levels, label)
-
-    def cascade(level):
-        return [level(*a, **k) for a, k in levels]
-
     irr = levels[0][0][0]
-    extra["denoise_fused"] = (
-        event_ms(lambda: cascade(dnf.atrous_level), REPS) / len(levels),
-        event_ms(lambda: cascade(dnf.atrous_plain), PLAIN_REPS)
-        / len(levels),
-        atrous_bound(irr.shape[1] * irr.shape[2], levels[0][1]["nch"])[0])
+    rec = atrous_times(dnf, levels)
+    b_ms = atrous_bound(irr.shape[1] * irr.shape[2], levels[0][1]["nch"])[0]
+    print_kernel_times("kernel C a-trous 960x540, per level",
+                       dict(rec, bound_ms=b_ms))
+    extra["denoise_fused"] = (rec["ms"], rec["plain_ms"], b_ms,
+                              rec["device_ms"])
 
     # --- kernel B at 960x540 on path P
     cap = Capture(lf, "lighting_kernel")
@@ -1241,7 +1486,8 @@ def check_post(ht, build_box):
         fail("kernel B disagrees with its plain version at 960x540")
     ms, plain_ms, (b_ms, _) = light_record(lf, gpu, a, k)
     extra["light_fused"] = (ms, plain_ms, b_ms)
-    extra = {n: dict(ms_540p=v[0], plain_ms_540p=v[1], bound_ms_540p=v[2])
+    extra = {n: dict(ms_540p=v[0], plain_ms_540p=v[1], bound_ms_540p=v[2],
+                     **({} if len(v) < 4 else {"device_ms_540p": v[3]}))
              for n, v in extra.items()}
     for n, v in extra.items():
         print(f"  {n} at 960x540: {v['ms_540p']:.4f} ms, plain "
@@ -1645,16 +1891,11 @@ def check_city(ht, build_box):
                                   bound_ms_city=b_ms)
     levels = c_calls[-4:]
     check_levels(dnf, levels, "city")
-
-    def cascade(level):
-        return [level(*a, **k) for a, k in levels]
-
     irr = levels[0][0][0]
+    rec = atrous_times(dnf, levels)
     extra["denoise_fused"] = dict(
-        ms_city=event_ms(lambda: cascade(dnf.atrous_level), REPS)
-        / len(levels),
-        plain_ms_city=event_ms(lambda: cascade(dnf.atrous_plain),
-                               PLAIN_REPS) / len(levels),
+        ms_city=rec["ms"], device_ms_city=rec["device_ms"],
+        plain_ms_city=rec["plain_ms"],
         bound_ms_city=atrous_bound(irr.shape[1] * irr.shape[2],
                                    levels[0][1]["nch"])[0])
     rec11, rec12 = check_warps(wb, w2, wb_calls, wm_calls)
@@ -2130,13 +2371,18 @@ def main():
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel over 2 frames "
                     "of each path")
-    ap.add_argument("--warps", action="store_true",
-                    help="only time the frames of P and D (alternately), "
-                    "the city and T, then check and time kernels 11 and 12 "
-                    "on path D's calls (to time two trees of the "
-                    "repository in one call); prints their records and no "
-                    "ok line")
+    ap.add_argument("--ab", action="store_true",
+                    help="only time the frames of the nine paths, then "
+                    "check and time kernels 8, C, 11 and 12 on path D's "
+                    "calls (to time two trees of the repository in one "
+                    "call); prints their records and no ok line")
+    ap.add_argument("--ab-summary", nargs="+", metavar="FILE",
+                    help="summarise the --ab lines of FILEs, one per tree "
+                    "(medians, interquartile ranges; runs on any host)")
     args = ap.parse_args()
+    if args.ab_summary:
+        ab_summary(args.ab_summary)
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2165,9 +2411,9 @@ def main():
     def build_box():
         return box.build_cornell_box("hikari_tpu_torch")
 
-    if args.warps:
-        records, frames = warps_only(ht, build_box)
-        print(json.dumps({"warps": list(records), "frames_ms": frames,
+    if args.ab:
+        records, frames = ab_only(ht, build_box)
+        print(json.dumps({"ab": list(records), "frames_ms": frames,
                           "card": card}))
         return 0
     t0 = time.perf_counter()

@@ -1,5 +1,5 @@
 // Kernel A: the fused G-buffer prepass, one thread per pixel; and kernel 8:
-// the SMAA parity quads, one thread per decimated pixel and parity.
+// the SMAA parity quads, de-interleaved from kernel A's planes.
 //
 // Kernel A replaces hikari_tpu/ops/prepass_fused.py:_build_kernel (the
 // Pallas body, launched by _call_planes). Per pixel: the jittered camera
@@ -8,13 +8,6 @@
 // (+0.5), velocity through the per-instance motion matrix, and the
 // env-BRDF albedo of the no-texture surface.
 //
-// Kernel 8 replaces prepass_fused.py:_build_kernel_slim (launched by
-// prepass_fused_quads, once per parity there): depth, velocity and
-// instance (+0.5) at the pixels (2y+a, 2x+b) of all four parities (a, b)
-// in one launch (grid y = parity). It shares kernel A's ray, hit test and
-// depth/velocity code, so its planes equal kernel A's strided planes
-// [a::2, b::2] bit for bit; it skips the attribute interpolation.
-//
 // Design: the triangle table (<= 768 rows x 26 floats, ~80 KB), the motion
 // matrices and the materials sit in dynamic shared memory; every thread of
 // a warp reads the same triangle at once (a broadcast). Outputs are
@@ -22,10 +15,29 @@
 // normal [h,w,3], ids [h,w,2], velocity+uv [h,w,4], albedo [h,w,4]), so a
 // warp stores contiguous runs.
 //
-// Bound on the H100: operations. Each pixel runs ~60 flops per
-// ray-triangle test against 68 bytes of output (16 for kernel 8); at 1080p
-// with the 36-triangle box that is ~4.5 GFLOP (67 us at 67 TFLOP/s f32)
-// against ~141 MB (42 us at 3.35 TB/s).
+// Bound of kernel A on the H100: operations. Each pixel runs ~60 flops per
+// ray-triangle test against 68 bytes of output; at 1080p with the
+// 36-triangle box that is ~4.5 GFLOP (67 us at 67 TFLOP/s f32) against
+// ~141 MB (42 us at 3.35 TB/s).
+//
+// Kernel 8 replaces prepass_fused.py:_build_kernel_slim (launched by
+// prepass_fused_quads, once per parity there): depth, velocity and
+// instance (+0.5) at the image pixels (2y+a, 2x+b) of the four parities
+// (a, b). The TPU traced those pixels a second time because its lanes
+// cannot read a stride-2 view of kernel A's planes. The same frame's
+// kernel A has already written those words at those pixels with the same
+// parameters, so here kernel 8 traces nothing: it moves kernel A's
+// position .w, velocity_uv .xy and instance_material .x into the parity
+// planes, as 32-bit words with no float arithmetic (NaN payloads and -0.0
+// survive). One thread per image pixel: consecutive threads read
+// consecutive pixels of a row and write to two planes (b = x & 1), so
+// both reads and writes coalesce.
+//
+// Bound of kernel 8 on the H100: bytes. 16 B in (depth 4, velocity 8,
+// instance 4) and 16 B out per image pixel, ~66 MB at 1080p: 20 us at
+// 3.35 TB/s. The inputs are interleaved, so whole 32-byte sectors carry
+// 40 B per pixel (all of position and velocity_uv, all of the ids): with
+// them ~116 MB, 35 us.
 
 #include "common.cuh"
 
@@ -86,7 +98,7 @@ struct SurfacePoint {
 };
 
 // World position, NDC depth and velocity through the hit instance's motion
-// matrix, from the nearest hit (t_best, inst_f).
+// matrix, from the nearest hit (t_best, inst_f) (kernel A's tail).
 __device__ __forceinline__ SurfacePoint surface_point(const float* params,
                                                       const float* motion,
                                                       int n_inst, f3 o, f3 d,
@@ -198,38 +210,24 @@ prepass_kernel(const float* __restrict__ params_g,
 }
 
 // Kernel 8: plane p = 2a + b of depth [4,h,w], velocity [4,h,w,2] and
-// instance [4,h,w] holds image pixel (2y+a, 2x+b) at (y, x).
+// instance [4,h,w] holds image pixel (2y+a, 2x+b) of position [H,W,4] .w,
+// velocity_uv [H,W,4] .xy and instance_material [H,W,2] .x at (y, x);
+// h = H/2, w = W/2. Words are moved as unsigned integers.
 __global__ void __launch_bounds__(256)
-quads_kernel(const float* __restrict__ params_g,
-             const float* __restrict__ tris_g, int n_tris,
-             const float* __restrict__ motion_g, int n_inst, int h, int w,
-             float* __restrict__ depth, float* __restrict__ velocity,
-             float* __restrict__ instance) {
-  extern __shared__ float smem[];
-  float* params = smem;
-  float* tris = params + P_COUNT + 1;
-  float* motion = tris + HK_TRI * n_tris;
-
-  stage_rows(params, params_g, 1, P_COUNT, P_COUNT, 0);
-  stage_rows(tris, tris_g, n_tris, HK_TRI, HK_TRI, 0);
-  stage_rows(motion, motion_g, n_inst, 16, 16, 0);
-  __syncthreads();
-
-  int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= h * w) return;
-  int parity = blockIdx.y;
-  f3 d;
-  f3 o = camera_ray(params, (float)(2 * (pix % w) + (parity & 1)),
-                    (float)(2 * (pix / w) + (parity >> 1)), &d);
-
-  Closest hit = closest_hit(tris, n_tris, o, d, HK_F32_MAX, -1.0f, -1.0f);
-  float t_best = hit.t, inst_f = hit.inst;
-  SurfacePoint sp = surface_point(params, motion, n_inst, o, d, t_best,
-                                  inst_f);
-  long long i = (long long)parity * h * w + pix;
-  depth[i] = sp.depth;
-  reinterpret_cast<float2*>(velocity)[i] = make_float2(sp.velu, sp.velv);
-  instance[i] = inst_f + 0.5f;
+quads_kernel(const unsigned* __restrict__ position,
+             const unsigned* __restrict__ vel_uv,
+             const unsigned* __restrict__ inst_mat, int H, int W,
+             unsigned* __restrict__ depth, uint2* __restrict__ velocity,
+             unsigned* __restrict__ instance) {
+  int X = blockIdx.x * blockDim.x + threadIdx.x;
+  int Y = blockIdx.y;
+  if (X >= W) return;
+  long long pix = (long long)Y * W + X;
+  long long h = H >> 1, w = W >> 1;
+  long long o = ((((Y & 1) << 1) | (X & 1)) * h + (Y >> 1)) * w + (X >> 1);
+  depth[o] = position[4 * pix + 3];
+  velocity[o] = reinterpret_cast<const uint2*>(vel_uv)[2 * pix];
+  instance[o] = inst_mat[2 * pix];
 }
 
 extern "C" int hk_prepass_fused(const float* params, const float* tris,
@@ -253,19 +251,17 @@ extern "C" int hk_prepass_fused(const float* params, const float* tris,
   return (int)cudaGetLastError();
 }
 
-// h, w: the decimated size (half the image's, which params hold)
-extern "C" int hk_prepass_quads(const float* params, const float* tris,
-                                int n_tris, const float* motion, int n_inst,
-                                int h, int w, float* depth, float* velocity,
+// H, W: the image's size (even); the planes are [4, H/2, W/2]
+extern "C" int hk_prepass_quads(const float* position, const float* vel_uv,
+                                const float* inst_mat, int H, int W,
+                                float* depth, float* velocity,
                                 float* instance, void* stream) {
-  size_t smem =
-      sizeof(float) * (P_COUNT + 1 + HK_TRI * n_tris + 16 * n_inst);
-  cudaError_t err = cudaFuncSetAttribute(
-      quads_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  if (H <= 0 || W <= 0 || (H | W) & 1) return (int)cudaErrorInvalidValue;
   int threads = 256;
-  dim3 grid((h * w + threads - 1) / threads, 4);
-  quads_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
-      params, tris, n_tris, motion, n_inst, h, w, depth, velocity, instance);
+  dim3 grid((W + threads - 1) / threads, H);
+  quads_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const unsigned*)position, (const unsigned*)vel_uv,
+      (const unsigned*)inst_mat, H, W, (unsigned*)depth, (uint2*)velocity,
+      (unsigned*)instance);
   return (int)cudaGetLastError();
 }

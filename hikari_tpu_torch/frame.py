@@ -7,10 +7,11 @@ hikari_tpu's own predicates (`prepass_fused_eligible`, `fused_eligible`,
 `spatial_fused_active`), on the tracer's kind and the kernels' caps:
 
 * prepass: kernel A for scenes within its gate (at upscale ratio 2 the
-  render-size G-buffer is its strided planes, and SMAA's parity quads come
-  from kernel 8); otherwise the tracer's primary rays (ops/prepass.py:
-  prepass), the full-screen albedo, the parity decimation at ratio 2 and
-  SMAA's quads as strided views of the G-buffer;
+  render-size G-buffer is its strided planes, and SMAA's parity quads are
+  kernel 8's copies of its planes at the four parities); otherwise the
+  tracer's primary rays (ops/prepass.py: prepass), the full-screen
+  albedo, the parity decimation at ratio 2 and SMAA's quads as strided
+  views of the G-buffer;
 * lighting through the fused kernels where their gate holds: kernel B
   without reuse; with temporal reuse one reprojection gather (kernel 9) of
   every active channel's previous reservoirs, then kernel 4; with spatial
@@ -476,9 +477,8 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         if not (fused_pre and half):
             g = restir.resample_gbuffer(gbuf, render_size, number, ratio)
         if _smaa(settings):
-            smaa_quads = (_pf.prepass_fused_quads(scene, view, prev_view,
-                                                  jit, full_size)
-                          if fused_pre else parity_quads(gbuf))
+            smaa_quads = (_pf.prepass_fused_quads(gbuf) if fused_pre
+                          else parity_quads(gbuf))
         rand = sample_blue_noise(noise, number, render_size)
         par = None
         g_l, rand_l = g, rand

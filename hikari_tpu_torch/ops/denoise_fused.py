@@ -27,6 +27,7 @@ _LUMA = (0.2126, 0.7152, 0.0722)
 _TAPS = tuple((oy, ox) for oy in (-1, 0, 1) for ox in (-1, 0, 1)
               if not (oy == 0 and ox == 0))
 MAX_CHANNELS = 3
+KERNEL_STEPS = (1, 2, 4, 8)   # kernel C's instances: the cascade's steps
 
 
 def _shift(planes, dy, dx):
@@ -120,15 +121,16 @@ def atrous_plain(irr, geo, f32s, *, step: int, nch: int, ffs: tuple):
 
 def atrous_level(irr, geo, f32s, *, step: int, nch: int, ffs: tuple):
     """Kernel C: runs `atrous_plain` for CPU tensors and launches
-    csrc/denoise_fused.cu for CUDA tensors."""
+    csrc/denoise_fused.cu for CUDA tensors (step in KERNEL_STEPS)."""
     if on_cpu(irr):
         return atrous_plain(irr, geo, f32s, step=step, nch=nch, ffs=ffs)
     from hikari_tpu_torch.build import load_cuda
 
     dev = irr.device
     h, w = irr.shape[1:]
-    if not 1 <= nch <= MAX_CHANNELS or len(ffs) != nch:
-        raise ValueError(f"nch={nch}, ffs={ffs}")
+    if (not 1 <= nch <= MAX_CHANNELS or len(ffs) != nch
+            or step not in KERNEL_STEPS):
+        raise ValueError(f"nch={nch}, ffs={ffs}, step={step}")
     check("irr", irr, torch.bfloat16, (3 * nch, h, w), dev)
     check("geo", geo, torch.bfloat16, (2 + nch, h, w), dev)
     check("f32s", f32s, torch.float32, (5, h, w), dev)

@@ -23,24 +23,17 @@ def frame_jitter(frame_number: int, taa: Taa, upscale_mode: UpscaleMode):
     return (0.0, 0.0)
 
 
-def camera_rays(view, size, jitter_pixels, pixels=None):
+def camera_rays(view, size, jitter_pixels):
     """Primary rays for every pixel: (origins [H,W,3], unit directions
     [H,W,3]). Unprojects NDC depths 0.9 and 0.1 through inverse_view_proj,
-    term by term in the order kernel A evaluates them. `pixels`, when
-    given, is a pair of float32 grids (y, x) of the image pixels to trace
-    (default: every pixel of `size`)."""
+    term by term in the order kernel A evaluates them."""
     h, w = size
     dev = view["inverse_view_proj"].device
     m = view["inverse_view_proj"].detach().cpu().numpy().astype(
         np.float32).reshape(16)
     jx, jy = (float(np.float32(j)) for j in jitter_pixels)
-    if pixels is None:
-        y = torch.arange(h, dtype=torch.float32,
-                         device=dev)[:, None].expand(h, w)
-        x = torch.arange(w, dtype=torch.float32,
-                         device=dev)[None, :].expand(h, w)
-    else:
-        y, x = pixels
+    y = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
+    x = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
     u = div(x + 0.5 + jx, float(w))
     v = div(y + 0.5 + jy, float(h))
     ndc_x = u * 2.0 - 1.0

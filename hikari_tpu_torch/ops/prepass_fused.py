@@ -8,8 +8,10 @@ velocity through the per-instance motion matrix, and the env-BRDF albedo.
 `_assemble` adds the depth gradients (forward differences, plain tensor
 ops as on the TPU) and returns ops/prepass.py's G-buffer contract.
 
-Kernel 8 (`prepass_quads_kernel`, same source) traces the four SMAA
-parity quads at half resolution: depth, velocity and instance only.
+Kernel 8 (`prepass_quads_kernel`, same source) writes the four SMAA
+parity quads at half resolution, depth, velocity and instance only, by
+moving the words of kernel A's planes at the parity pixels: it traces
+nothing.
 """
 
 from __future__ import annotations
@@ -72,7 +74,7 @@ def _project(m, px, py, pz):
 
 def _surface_point(p, o, d, t_best, inst_f, motion):
     """World position, NDC depth and velocity of the nearest hit (kernel
-    A's and kernel 8's shared tail). p: the numpy parameter vector.
+    A's tail). p: the numpy parameter vector.
     Returns (mask, (wx, wy, wz), depth, velocity u, velocity v)."""
     z = torch.zeros_like(t_best)
     dx, dy, dz = d
@@ -179,56 +181,47 @@ def prepass_kernel(params, tris, attrs, motion, mats, size):
 prepass_kernel.launches = 0
 
 
-def quads_plain(params, tris, motion, dec_size):
-    """Kernel 8's body: depth, velocity and instance (+0.5) of image pixel
-    (2y+a, 2x+b) at (y, x) of a [h,w] plane for each parity (a, b) of
-    QUAD_PARITIES, with kernel A's ray, hit test and tail (no attribute
-    interpolation). Returns (depth [4,h,w], velocity [4,h,w,2], instance
-    [4,h,w])."""
-    h, w = dec_size
-    dev = params.device
-    p = params.cpu().numpy()
-    full = (int(p[_P_WH + 1]), int(p[_P_WH]))
-    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
-    rows = tris.cpu().numpy()
-    depth, vel, inst = [], [], []
-    for a, b in QUAD_PARITIES:
-        origin, direction = camera_rays(
-            _params_view(params), full, p[_P_JIT:_P_JIT + 2],
-            pixels=(2.0 * yy + a, 2.0 * xx + b))
-        o = origin.unbind(-1)
-        d = direction.unbind(-1)
-        t_best, _, _, _, inst_f = closest_sweep(rows, o, d, F32_MAX, -1.0)
-        _, _, dep, velu, velv = _surface_point(p, o, d, t_best, inst_f,
-                                               motion)
-        depth.append(dep)
-        vel.append(torch.stack([velu, velv], -1))
-        inst.append(inst_f + 0.5)
-    return torch.stack(depth), torch.stack(vel), torch.stack(inst)
+def quads_plain(position, velocity_uv, instance_material):
+    """Kernel 8's body: the words of kernel A's position .w, velocity_uv
+    .xy and instance_material .x ([H,W,*] planes) at image pixel
+    (2y+a, 2x+b), at (y, x) of an [H/2,W/2] plane for each parity (a, b)
+    of QUAD_PARITIES. Returns (depth [4,h,w], velocity [4,h,w,2], instance
+    [4,h,w]), copies of the strided views (no arithmetic on the words)."""
+    return (torch.stack([position[a::2, b::2, 3] for a, b in QUAD_PARITIES]),
+            torch.stack([velocity_uv[a::2, b::2, :2]
+                         for a, b in QUAD_PARITIES]),
+            torch.stack([instance_material[a::2, b::2, 0]
+                         for a, b in QUAD_PARITIES]))
 
 
-def prepass_quads_kernel(params, tris, motion, dec_size):
+def prepass_quads_kernel(position, velocity_uv, instance_material):
     """Kernel 8: runs `quads_plain` for CPU tensors and launches
     csrc/prepass_fused.cu's quads kernel (all four parities in one launch)
-    for CUDA tensors."""
-    if on_cpu(params):
-        return quads_plain(params, tris, motion, dec_size)
+    for CUDA tensors: kernel A's own planes, contiguous, 16-byte aligned,
+    of an even size."""
+    if on_cpu(position):
+        return quads_plain(position, velocity_uv, instance_material)
     from hikari_tpu_torch.build import load_cuda
 
-    dev = params.device
-    h, w = dec_size
+    dev = position.device
+    hh, ww = position.shape[:2]
     f = torch.float32
-    check("params", params, f, (_P_COUNT,), dev)
-    check("tris", tris, f, (tris.shape[0], 10), dev)
-    check("motion", motion, f, (motion.shape[0], 16), dev)
-    depth = torch.empty((4, h, w), dtype=f, device=dev)
-    vel = torch.empty((4, h, w, 2), dtype=f, device=dev)
-    inst = torch.empty((4, h, w), dtype=f, device=dev)
-    fn = bind(load_cuda("prepass_fused"), "hk_prepass_quads", "ppipiiipppp")
-    rc = fn(ptr(params), ptr(tris), tris.shape[0], ptr(motion),
-            motion.shape[0], h, w, ptr(depth), ptr(vel), ptr(inst),
-            stream(dev))
+    check("position", position, f, (hh, ww, 4), dev)
+    check("velocity_uv", velocity_uv, f, (hh, ww, 4), dev)
+    check("instance_material", instance_material, f, (hh, ww, 2), dev)
+    if hh % 2 or ww % 2:
+        raise ValueError(f"kernel 8 needs an even size, got {hh}x{ww}")
+    if (position.data_ptr() | velocity_uv.data_ptr()
+            | instance_material.data_ptr()) % 16:
+        raise ValueError("kernel 8's planes must be 16-byte aligned")
+    h, w = hh // 2, ww // 2
+    # three allocations cost the host less than views of one
+    depth = position.new_empty((4, h, w))
+    vel = position.new_empty((4, h, w, 2))
+    inst = position.new_empty((4, h, w))
+    fn = bind(load_cuda("prepass_fused"), "hk_prepass_quads", "pppiipppp")
+    rc = fn(ptr(position), ptr(velocity_uv), ptr(instance_material), hh, ww,
+            ptr(depth), ptr(vel), ptr(inst), stream(dev))
     check_launch(rc, "prepass_quads")
     prepass_quads_kernel.launches += 1
     return depth, vel, inst
@@ -275,14 +268,14 @@ def prepass_fused(scene, view, prev_view, jitter, size, dec_parity=None):
     return gbuf, albedo, g_dec, albedo_dec
 
 
-def prepass_fused_quads(scene, view, prev_view, jitter, size):
+def prepass_fused_quads(gbuf):
     """The SMAA TU4X decimation context by kernel 8: {(a, b): {"depth"
     [h,w], "velocity" [h,w,2], "instance" [h,w]}} of image pixels
-    (2y+a, 2x+b), h, w half of `size` (equal to the full G-buffer's planes
-    [a::2, b::2])."""
-    params = pack_params(view, prev_view, jitter, size)
-    dec_size = (size[0] // 2, size[1] // 2)
+    (2y+a, 2x+b), h, w half of the size of `gbuf`, the full-size G-buffer
+    `prepass_fused` returned for this frame (kernel A's planes).
+    hikari_tpu traces these pixels again; their words equal kernel A's
+    planes [a::2, b::2]."""
     depth, vel, inst = prepass_quads_kernel(
-        params, scene["tri_pos_flat"], scene["inst_motion"], dec_size)
+        gbuf["position"], gbuf["velocity_uv"], gbuf["instance_material"])
     return {ab: {"depth": depth[i], "velocity": vel[i], "instance": inst[i]}
             for i, ab in enumerate(QUAD_PARITIES)}

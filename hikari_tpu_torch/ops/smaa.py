@@ -39,7 +39,7 @@ _BIAS = 2.5
 def parity_quads(gbuf):
     """A full-res G-buffer as SMAA's parity quads, strided views: {(a, b):
     {"depth", "velocity", "instance"}} of pixels (2y+a, 2x+b), the planes
-    kernel 8 traces (hikari_tpu's _parity_ctx on an even-size G-buffer,
+    kernel 8 copies (hikari_tpu's _parity_ctx on an even-size G-buffer,
     smaa.py:53-67)."""
     return {(a, b): {"depth": gbuf["position"][a::2, b::2, 3],
                      "velocity": gbuf["velocity_uv"][a::2, b::2, :2],

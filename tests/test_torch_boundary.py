@@ -342,6 +342,12 @@ def test_cuda_wrappers_marshal_and_count_with_post(monkeypatch, path):
             + ["hk_spatial_fused"] * default + ["hk_atrous_level"] * 4
             + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
         _assert_warp_tables(fake, (12, 16))
+        # kernel 8 reads kernel A's position, velocity_uv and ids planes of
+        # this frame at the full size
+        pre, quads = fake.args[0], fake.args[1]
+        assert [a.value for a in quads[:3]] == [
+            pre[i].value for i in (10, 13, 12)]
+        assert quads[3:5] == (12, 16)
         if default:
             assert fake.args[2][12] == 3                  # gather sources
             variants.append(fake.args[3][-5:-1])
@@ -529,6 +535,50 @@ def test_cuda_wrappers_marshal_and_count_on_the_city(monkeypatch):
         0, 0, 2, 0, 0, 0, 0, 0, 0, 9, 8, 8, 4, 2]
 
 
+def _gbuf_planes(h, w):
+    return (torch.zeros((h, w, 4)), torch.zeros((h, w, 4)),
+            torch.zeros((h, w, 2)))
+
+
+def _quads_bad_input(case):
+    pos, vel, ids = _gbuf_planes(12, 16)
+    if case == "non-contiguous":
+        pos = torch.zeros((12, 4, 16)).permute(0, 2, 1)
+    elif case == "mis-shaped":
+        vel = torch.zeros((12, 16, 2))
+    elif case == "odd size":
+        pos, vel, ids = _gbuf_planes(11, 16)
+    elif case == "misaligned":
+        ids = torch.zeros(12 * 16 * 2 + 1)[1:].view(12, 16, 2)
+    return pos, vel, ids
+
+
+@pytest.mark.parametrize("case", ["non-contiguous", "mis-shaped",
+                                  "odd size", "misaligned"])
+def test_quads_wrapper_rejects_bad_planes(monkeypatch, case):
+    """Kernel 8's CUDA branch raises on a plane the kernel does not take,
+    before any launch; the same call with good planes launches once."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.ops import prepass_fused
+
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    monkeypatch.setattr(prepass_fused, "on_cpu", lambda t: False)
+    monkeypatch.setattr(prepass_fused, "stream",
+                        lambda dev: ctypes.c_void_p(0))
+    monkeypatch.setattr(prepass_fused.prepass_quads_kernel, "launches", 0)
+    with pytest.raises(ValueError):
+        prepass_fused.prepass_quads_kernel(*_quads_bad_input(case))
+    assert fake.calls == []
+    depth, vel, inst = prepass_fused.prepass_quads_kernel(
+        *_gbuf_planes(12, 16))
+    assert fake.calls == ["hk_prepass_quads"]
+    assert fake.args[0][3:5] == (12, 16)
+    assert (depth.shape, vel.shape, inst.shape) == ((4, 6, 8), (4, 6, 8, 2),
+                                                    (4, 6, 8))
+    assert prepass_fused.prepass_quads_kernel.launches == 1
+
+
 def test_cuda_wrapper_rejects_bad_arguments(monkeypatch):
     from hikari_tpu_torch.ops import denoise_fused
 
@@ -539,6 +589,26 @@ def test_cuda_wrapper_rejects_bad_arguments(monkeypatch):
     with pytest.raises(TypeError):
         denoise_fused.atrous_level(irr, geo, f32s, step=1, nch=2,
                                    ffs=(True, True))
+
+
+@pytest.mark.parametrize("step", [0, 3, 16])
+def test_atrous_wrapper_rejects_a_step_it_cannot_stage(monkeypatch, step):
+    """Kernel C has an instance for each step of the cascade: its CUDA
+    branch takes the steps of KERNEL_STEPS and raises on others before any
+    launch."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.ops import denoise_fused
+
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    monkeypatch.setattr(denoise_fused, "on_cpu", lambda t: False)
+    irr = torch.zeros((6, 4, 4), dtype=torch.bfloat16)
+    geo = torch.zeros((4, 4, 4), dtype=torch.bfloat16)
+    f32s = torch.zeros((5, 4, 4))
+    with pytest.raises(ValueError, match="step"):
+        denoise_fused.atrous_level(irr, geo, f32s, step=step, nch=2,
+                                   ffs=(True, False))
+    assert fake.calls == []
 
 
 class _TextureZeroingLibrary(_ZeroingLibrary):

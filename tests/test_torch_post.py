@@ -66,7 +66,7 @@ def frames():
         view, prev = _views(i), _views(max(i - 1, 0))
         gbuf, albedo, g, albedo_r = pf.prepass_fused(
             scene, view, prev, jit, FULL, dec_parity=i & 1)
-        quads = pf.prepass_fused_quads(scene, view, prev, jit, FULL)
+        quads = pf.prepass_fused_quads(gbuf)
         out.append(dict(gbuf=gbuf, albedo=albedo, g=g, albedo_r=albedo_r,
                         quads=quads))
     return out

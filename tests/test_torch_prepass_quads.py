@@ -3,9 +3,10 @@ decimated G-buffer of hikari_tpu_torch.ops.prepass_fused against
 hikari_tpu's Pallas prepass_fused_quads and prepass_fused(dec_size=,
 dec_parity=) in interpret mode, on the box seen by a moving camera.
 
-Against the port's own full-res planes the quads and the decimated
-G-buffer are bit for bit (the same per-pixel arithmetic at the same
-pixels). Against hikari_tpu they meet kernel A's bar
+The port's quads are the words of its full-res planes at the parity
+pixels (kernel 8 moves them; hikari_tpu traces those pixels again), so
+against the port's own planes they are bit for bit, NaN payloads and
+-0.0 included. Against hikari_tpu they meet kernel A's bar
 (tests/test_torch_prepass.py): XLA on the CPU rounds the prepass's f32
 chain differently from one-op-at-a-time PyTorch (on this box 68-79% of
 position words are equal, the rest differ in the last bits), so a
@@ -77,18 +78,19 @@ def _quads_as_gbuffer(quads):
 
 @pytest.mark.parametrize("number", [2, 5])
 def test_quads_match_reference(box, number):
-    """Kernel 8's plain version: the reference's quads to kernel A's bar,
-    and the port's own full-res planes [a::2, b::2] bit for bit."""
+    """Kernel 8's plain version on the frame's G-buffer: the reference's
+    traced quads to kernel A's bar, and the port's own full-res planes
+    [a::2, b::2] bit for bit."""
     ref_args, port_args = _inputs(box, number)
     ref = quads_ref(*ref_args, SIZE, DEC, interpret=True)
-    got = pf.prepass_fused_quads(*port_args, SIZE)
+    gbuf, _ = pf.prepass_fused(*port_args, SIZE)
+    got = pf.prepass_fused_quads(gbuf)
     assert set(got) == set(ref) == set(pf.QUAD_PARITIES)
     g, r = _quads_as_gbuffer(got), _quads_as_gbuffer(ref)
     for k in r:
         key = "instance_material" if k.startswith("instance") else k
         assert_gbuffer_close({key: g[k]}, {key: r[k]})
 
-    gbuf, _ = pf.prepass_fused(*port_args, SIZE)
     for (a, b), q in got.items():
         assert torch.equal(q["depth"], gbuf["position"][a::2, b::2, 3])
         assert torch.equal(q["velocity"], gbuf["velocity_uv"][a::2, b::2, :2])
@@ -121,3 +123,36 @@ def test_decimated_gbuffer_matches_reference(box, number):
     ddy = torch.cat([d[1:] - d[:-1], d[-1:] - d[-2:-1]], 0)
     assert torch.equal(g["depth_gradient"],
                        torch.stack([ddx * 0.5, ddy * 0.5], -1))
+
+
+# float32 words a G-buffer may hold that arithmetic would not keep:
+# quiet and signalling NaNs with payloads, -0.0, infinities, a denormal
+_SPECIAL_WORDS = np.array([0x7FC00001, 0x7F800001, 0xFFC0BEEF, 0xFFA00000,
+                           0x80000000, 0x7F800000, 0xFF800000, 0x00000001],
+                          dtype=np.uint32)
+
+
+@pytest.mark.parametrize("size", [(6, 10), (48, 64)])
+def test_quads_plain_moves_words(size):
+    """quads_plain on a G-buffer of random words with NaN payloads, -0.0,
+    infinities and denormals: each output word is the input word at its
+    parity pixel, bit for bit (numpy's strided views of the raw words)."""
+    rng = np.random.default_rng(size[0] * size[1])
+    h, w = size
+
+    def words(c):
+        bits = rng.integers(0, 2 ** 32, (h, w, c), dtype=np.uint64).astype(
+            np.uint32)
+        pick = rng.random((h, w, c)) < 0.3
+        bits[pick] = rng.choice(_SPECIAL_WORDS, int(pick.sum()))
+        return bits
+
+    pos, vel, ids = words(4), words(4), words(2)
+    got = pf.quads_plain(*(torch.from_numpy(b.view(np.float32))
+                           for b in (pos, vel, ids)))
+    want = (np.stack([pos[a::2, b::2, 3] for a, b in pf.QUAD_PARITIES]),
+            np.stack([vel[a::2, b::2, :2] for a, b in pf.QUAD_PARITIES]),
+            np.stack([ids[a::2, b::2, 0] for a, b in pf.QUAD_PARITIES]))
+    for g, r in zip(got, want):
+        assert g.dtype == torch.float32 and g.is_contiguous()
+        np.testing.assert_array_equal(g.numpy().view(np.uint32), r)
