@@ -6,7 +6,9 @@ Run from the repository root on a machine with an NVIDIA H100:
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the nine CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
-   each, started together) and prints their register and spill counts;
+   each, started together) and prints their register and spill counts,
+   and those of each lighting instance (kernels B and 4) from its build
+   log;
 3. holds kernels A, B and C against their plain PyTorch versions on the
    card at the 1080p flagship shapes of the no-reuse frame, and kernel C
    (the a-trous level) on synthetic fields at 1080p, 960x540 and 541x963
@@ -17,7 +19,8 @@ Run from the repository root on a machine with an NVIDIA H100:
    frame and holds each kernel against its plain version on the inputs it
    really got: kernel 9 (the reprojection gather) bit for bit, kernel 4
    (temporal lighting) on a validation and a no-validation frame with the
-   tracking outputs on (path S) and off (path R), kernel 10 (the spatial
+   tracking outputs on (path S) and off (path R), printing the share of
+   its output words equal to the plain version's, kernel 10 (the spatial
    pass) on both channels, and kernel C on path R's real variance;
 5. runs the directional branch of kernels 4 and 10 on the box with a sun
    at 270x480;
@@ -51,10 +54,15 @@ Run from the repository root on a machine with an NVIDIA H100:
    CUDA refit against the CPU refit;
 9. drives path T (the textured simple scene, BASELINE config 3, with a
    seeded procedural Earth on both spheres) at 1920x1080 and holds kernel
-   14 (the coherent atlas sampler) against its plain version bit for bit
-   on the calls it got (1920x1080 and the 960x540 lighting domain), on a
-   synthetic 1080p field (four textures, ids -1, negative and
-   seam-crossing uv) and through retrieve_surface's four slots;
+   14 (the coherent atlas sampler, one launch for both textured slots)
+   against its plain version bit for bit on every slot of the launches it
+   got (1920x1080 and the 960x540 lighting domain), on a synthetic 1080p
+   field (four textures, ids -1, negative and seam-crossing uv) in one
+   launch of all four slots, of two, and of each alone, and through
+   retrieve_surface's four slots; its time by events, on the device and
+   on the host beside one grid_sample over the same samples (these
+   checks run first, before any profiler session: the host reads slower
+   after one);
 10. checks small CUDA renders of the seven paths against the plain
    versions on the CPU, KR on the box with a sun at 270x480 (the solar
    branch of the modular path, kernel 7 on sun rays), and the city and
@@ -91,11 +99,15 @@ and mean abs diff < 1e-3.
 With --profile it also prints a torch.profiler table of device time by
 kernel over two frames of each path. With --ab it only times the frames of
 the nine paths (P and D alternately) before any check or profiler session,
-then checks and times kernels 8, C, 11 and 12 on path D's calls and C on
-a synthetic 1080p field, and prints the records and the frame medians (no
-ok line): run it in two trees of the repository in one call, in turns, to
-compare them; `--ab-summary FILE...` (one file of --ab lines per tree)
-prints each metric's median and interquartile range over the runs.
+then checks and times kernels 8, C, 11 and 12 on path D's calls, C on a
+synthetic 1080p field, kernel 4 on R's, S's (1080p) and D's (960x540)
+calls with and without the validation retrace, kernel B on the no-reuse
+frame's call and kernel 14 on T's 1080p and 960x540 launches, and prints
+the records and the frame medians (no ok line): run it in two trees of
+the repository in one call, in turns, to compare them (in a tree from
+before the multi-slot kernel 14, a launch of both slots is its two
+one-slot launches); `--ab-summary FILE...` (one file of --ab lines per
+tree) prints each metric's median and interquartile range over the runs.
 Any failed check raises: the exit code is then not 0 and the
 last line is not printed. Without CUDA it exits 1 at once.
 """
@@ -106,6 +118,7 @@ import argparse
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -152,6 +165,47 @@ FLOPS_SHADE = 110
 
 def fail(msg):
     raise RuntimeError(msg)
+
+
+def kernel_resources(name):
+    """[{kernel, registers, spill_stores, spill_loads, stack}] of every
+    entry function of lib<name>.so, from ptxas's -v lines in its build log
+    (written beside the library at each build)."""
+    from hikari_tpu_torch.build import BUILD_DIR
+
+    out, cur = [], None
+    with open(os.path.join(BUILD_DIR, f"lib{name}.so.log")) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                cur = dict(kernel=m.group(1))
+                out.append(cur)
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and cur is not None:
+                cur.update(stack=int(m.group(1)),
+                           spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur is not None:
+                cur["registers"] = int(m.group(1))
+    return out
+
+
+def light_instances():
+    """The lighting kernel's template instances (kernels B and 4) with
+    their registers and spills, printed; a name's template arguments are
+    ptxas's mangled booleans (temporal, validation, track_de, track_ind)."""
+    recs = kernel_resources("light_fused")
+    for r in recs:
+        flags = re.findall(r"Lb([01])E", r["kernel"])
+        r["instance"] = "".join(flags)
+        print(f"  light_fused instance {r['instance'] or r['kernel']}: "
+              f"{r.get('registers')} registers, {r.get('spill_stores')} B "
+              f"spill stores, {r.get('spill_loads')} B spill loads, "
+              f"{r.get('stack')} B stack")
+    return recs
 
 
 def load_box_module():
@@ -305,9 +359,14 @@ def simple_launches(settings, number):
     """Path T's launches in frame `number`: the city's (the same settings
     but emissive spatial reuse, which traces nothing; kernel 13 for every
     ray: the two spheres' 2,436-row emissive table is above kernel 6's
-    768), and kernel 14 for the two textured slots (base colour and
-    emissive) of the 1080p G-buffer and of the 960x540 lighting domain."""
-    return city_launches(settings, number)[:-1] + (4,)
+    768), and kernel 14 once for the 1080p G-buffer and once for the
+    960x540 lighting domain, each launch sampling both textured slots
+    (base colour and emissive). A tree from before the multi-slot launch
+    (timed by --ab) launches once per slot: 4."""
+    from hikari_tpu_torch.ops import texture_pallas as tx
+
+    per_slot = not hasattr(tx, "sample_atlas_slots")
+    return city_launches(settings, number)[:-1] + (4 if per_slot else 2,)
 
 
 # the seven paths of the box: their settings, and the launches of COUNTERS
@@ -358,7 +417,7 @@ def counter_wrappers():
             lf.lighting_kernel, sf.spatial_kernel, dnf.atrous_level,
             wb.warp_band, w2.warp_multi, tp.trace_closest, tp.trace_full,
             tp.trace_shadow, tc.bvh_closest, tc.bvh_full, tc.bvh_shadow,
-            tx.sample_atlas_coherent)
+            getattr(tx, texture_wrapper_name(tx)))
 
 
 def real_tris(t):
@@ -452,25 +511,15 @@ def check_kernels(ht, scene_host):
     b_kw = dict(has_sun=gpu.has_sun, n_em=n_em,
                 n_alias=scene["alias_packed"].shape[0],
                 bounces=settings.indirect_bounces)
+    max_err, words = check_b_call(lf, b_args, b_kw, "no reuse")
     got = lf.lighting_kernel(*b_args, **b_kw)
-    ref = lf.lighting_plain(*b_args, **b_kw)
-    torch.cuda.synchronize()
-    fracs, max_err = [], 0.0
-    for k in ref:
-        frac, err = rel_close(got[k], ref[k], 1e-3)
-        fracs.append(frac)
-        max_err = max(max_err, err)
-    print(f"kernel B lighting: within 1e-3*max(|ref|,1) on {min(fracs):.6f} "
-          f"of values (need >= 0.99); max abs err {max_err:.3g}")
-    if min(fracs) < 0.99:
-        fail("kernel B disagrees with its plain version")
-    ms, plain_ms, (b_ms, b_by) = light_record(lf, gpu, b_args, b_kw)
+    rec = light_record(lf, gpu, b_args, b_kw)
+    print_kernel_times("kernel B lighting 1080p", rec)
     records.append(dict(
         name="light_fused", route="cuda",
         source="hikari_tpu_torch/csrc/light_fused.cu",
         replaces="hikari_tpu/ops/light_fused.py:592", launches=None,
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None))
+        max_abs_err=max_err, words_equal=words, library_ms=None, **rec))
 
     # --- kernel C: the 4 levels on the frame's demodulated e/i channels
     chans = [got["e_render"], got["i_render"]]
@@ -672,9 +721,22 @@ def drive(ht, scene_host, size, settings, frames, captures, keep):
     return r
 
 
+def outputs_words(got, ref):
+    """The fraction of all the words of a dict of outputs equal to the
+    plain version's, and the count of words."""
+    eq = n = 0
+    for k in ref:
+        e = got[k].view(torch.int32) == ref[k].view(torch.int32)
+        eq += int(e.sum())
+        n += e.numel()
+    return eq / n, n
+
+
 def compare_outputs(what, got, ref):
     """Kernel 4/10 tolerance: planes equal on >= 99% of pixels, renders
-    and variances within 1e-3 * max(|ref|,1) on >= 99% of values."""
+    and variances within 1e-3 * max(|ref|,1) on >= 99% of values. Also
+    prints the share of all output words equal to the plain version's.
+    Returns (max abs error, that share)."""
     worst_planes, worst_vals, max_err = 1.0, 1.0, 0.0
     for k in ref:
         if ref[k].dim() == 3 and ref[k].shape[1] == 16:
@@ -683,17 +745,19 @@ def compare_outputs(what, got, ref):
             frac, err = rel_close(got[k], ref[k], 1e-3)
             worst_vals = min(worst_vals, frac)
             max_err = max(max_err, err)
+    words, n = outputs_words(got, ref)
     print(f"  {what}: packed planes equal on {worst_planes:.6f} of pixels, "
           f"values within tolerance on {worst_vals:.6f}; max abs err "
-          f"{max_err:.3g}")
+          f"{max_err:.3g}; {words:.8f} of {n} words equal")
     if worst_planes < 0.99 or worst_vals < 0.99:
         fail(f"{what} disagrees with its plain version")
-    return max_err
+    return max_err, words
 
 
 def check_lighting_calls(lf, calls, label):
-    """Kernel 4 vs plain on captured calls; returns the max abs error."""
-    max_err = 0.0
+    """Kernel 4 vs plain on captured calls; returns (the max abs error,
+    the least share of equal words of a call)."""
+    max_err, words = 0.0, 1.0
     for a, k in calls:
         got = lf.lighting_kernel(*a, **k)
         ref = lf.lighting_plain(*a, **k)
@@ -702,8 +766,29 @@ def check_lighting_calls(lf, calls, label):
         what = (f"kernel 4 {label} (validation {k['validation']}, flags "
                 f"d/e {p[lf._P_VAL]:.0f}/{p[lf._P_VAL + 1]:.0f}, tracking "
                 f"{k['track_de']}/{k['track_ind']})")
-        max_err = max(max_err, compare_outputs(what, got, ref))
-    return max_err
+        err, eq = compare_outputs(what, got, ref)
+        max_err, words = max(max_err, err), min(words, eq)
+    return max_err, words
+
+
+def check_b_call(lf, a, k, label):
+    """Kernel B against its plain version on one call: within
+    1e-3 * max(|ref|, 1) on >= 99% of values; prints the share of equal
+    words. Returns (max abs error, that share)."""
+    got, ref = lf.lighting_kernel(*a, **k), lf.lighting_plain(*a, **k)
+    torch.cuda.synchronize()
+    fracs, max_err = [], 0.0
+    for n in ref:
+        frac, err = rel_close(got[n], ref[n], 1e-3)
+        fracs.append(frac)
+        max_err = max(max_err, err)
+    words, n = outputs_words(got, ref)
+    print(f"kernel B lighting {label} {tuple(a[6].shape[:2])}: within "
+          f"1e-3*max(|ref|,1) on {min(fracs):.6f} of values (need >= 0.99); "
+          f"max abs err {max_err:.3g}; {words:.8f} of {n} words equal")
+    if min(fracs) < 0.99:
+        fail(f"kernel B disagrees with its plain version ({label})")
+    return max_err, words
 
 
 def check_spatial_calls(sf, calls, label):
@@ -716,7 +801,7 @@ def check_spatial_calls(sf, calls, label):
         torch.cuda.synchronize()
         what = (f"kernel 10 {label} "
                 f"({'emissive' if k['emissive_lit'] else 'indirect'})")
-        max_err = max(max_err, compare_outputs(what, got, ref))
+        max_err = max(max_err, compare_outputs(what, got, ref)[0])
     return max_err
 
 
@@ -761,13 +846,13 @@ def gather_record(rg, call):
     return ms, plain_ms, lib_ms, bound_ms(nbytes, 0)
 
 
-def light_record(lf, gpu, a, k):
-    """(ms, plain ms, (bound ms, bound by)) of one captured call of the
-    lighting kernel, B (no reuse) or 4 (temporal)."""
+def light_work(lf, gpu, a, k):
+    """(bound ms, bound by) of one call of the lighting kernel, B (no
+    reuse) or 4 (temporal): the bytes of its inputs and outputs, the
+    reservoir algebra and shading per active channel, and the triangle
+    tests this frame's variant traces."""
     h, w = a[6].shape[:2]
     npix = h * w
-    ms_ = event_ms(lambda: lf.lighting_kernel(*a, **k), REPS)
-    plain_ = event_ms(lambda: lf.lighting_plain(*a, **k), PLAIN_REPS)
     p = a[0].cpu().numpy()
     temporal = k.get("temporal", False)
     val = ((bool(p[lf._P_VAL]), bool(p[lf._P_VAL + 1])) if temporal
@@ -788,7 +873,42 @@ def light_record(lf, gpu, a, k):
         flops = npix * 400 * n_ch
     tests = tri_tests(gpu, k["has_sun"], k["n_em"], k["bounces"], val)
     flops += npix * tests * FLOPS_PER_TRI_TEST
-    return ms_, plain_, bound_ms(nbytes, flops)
+    return bound_ms(nbytes, flops)
+
+
+def light_records(lf, gpu, calls, plain=True, device=True):
+    """Records of captured calls (a, k) of the lighting kernel: each call's
+    time by events and on the host (host_us) and its bound (light_work)
+    first, for every call, before any profiler session (the host reads
+    slower after one); then, with `device`, each call's device time
+    (profiler) and, when `plain`, the plain version's time
+    (light_device)."""
+    recs = []
+    for a, k in calls:
+        def run(a=a, k=k):
+            return lf.lighting_kernel(*a, **k)
+
+        rec = dict(ms=event_ms(run, REPS), host_us=host_us(run, HOST_REPS // 4))
+        rec["bound_ms"], rec["bound_by"] = light_work(lf, gpu, a, k)
+        recs.append(rec)
+    if device:
+        light_device(lf, calls, recs, plain)
+    return recs
+
+
+def light_device(lf, calls, recs, plain=True):
+    """The device pass of light_records."""
+    for rec, (a, k) in zip(recs, calls):
+        rec["device_ms"] = device_ms(lambda: lf.lighting_kernel(*a, **k), REPS,
+                                     "light_kernel")
+        if plain:
+            rec["plain_ms"] = event_ms(lambda: lf.lighting_plain(*a, **k),
+                                       PLAIN_REPS)
+
+
+def light_record(lf, gpu, a, k):
+    """light_records of one call."""
+    return light_records(lf, gpu, [(a, k)])[0]
 
 
 def spatial_record(sf, a, k):
@@ -856,28 +976,27 @@ def check_reuse(ht, build_box):
 
     # --- kernel 4 with tracking (S) on a no-validation and a validation
     # frame, then without tracking (R)
-    err4 = check_lighting_calls(lf, light_s, "path S")
+    err4, words4 = check_lighting_calls(lf, light_s, "path S")
     caps = [Capture(lf, "lighting_kernel"), Capture(dnf, "atrous_level")]
     with caps[0], caps[1]:
         drive(ht, box_host, FULL, PATHS["R"][0](ht), CHECK_FRAMES - 1, caps,
               keep)
     light_r, levels_r = caps[0].calls, caps[1].calls
-    err4 = max(err4, check_lighting_calls(lf, light_r, "path R"))
+    err_r, words_r = check_lighting_calls(lf, light_r, "path R")
+    err4, words4 = max(err4, err_r), min(words4, words_r)
     check_levels(dnf, levels_r[-4:], "path R's real variance")
 
     (a_nv, k_nv), (a_v, k_v) = light_s
-    ms4, plain4, (b4, by4) = light_record(lf, gpu, a_nv, k_nv)
-    ms4v, plain4v, (b4v, _) = light_record(lf, gpu, a_v, k_v)
-    print(f"  kernel 4 path S: {ms4:.4f} ms (no validation, bound "
-          f"{b4:.4f}), {ms4v:.4f} ms (emissive validation, bound "
-          f"{b4v:.4f}); plain {plain4:.1f} / {plain4v:.1f} ms")
+    rec, rec_v = light_records(lf, gpu, light_s)
+    print_kernel_times("kernel 4 path S 1080p, no validation", rec)
+    print_kernel_times("kernel 4 path S 1080p, emissive validation", rec_v)
     rec4 = dict(
         name="light_fused_temporal", route="cuda",
         source="hikari_tpu_torch/csrc/light_fused.cu",
         replaces="hikari_tpu/ops/light_fused.py:592", launches=None,
-        max_abs_err=err4, ms=ms4, plain_ms=plain4, bound_ms=b4,
-        bound_by=by4, library_ms=None, ms_validation=ms4v,
-        plain_ms_validation=plain4v, bound_ms_validation=b4v)
+        max_abs_err=err4, words_equal=words4, library_ms=None, **rec,
+        **{f"{key}_validation": v for key, v in rec_v.items()
+           if key != "bound_by"})
 
     # --- kernel 10, both channels of the last captured S frame
     err10 = check_spatial_calls(sf, spatial_s, "path S")
@@ -1299,14 +1418,98 @@ def check_warp_fields(wb, w2):
           f"11's filtered outputs words equal on >= {filtered_words:.6f}")
 
 
+def light_ab(ht, build_box, lf, d_calls):
+    """--ab's lighting records: kernel 4 on R's and S's calls at 1080p and
+    D's at 960x540 (frames 4 and 5 of a panning camera: without and with
+    the emissive channel's validation retrace; D's given, as `d_calls`),
+    and kernel B on the no-reuse frame's 1080p call, each checked against
+    its plain version (the share of equal words printed) and timed by
+    events, on the device and on the host."""
+    gpu = build_box().compile()
+    keep = (CHECK_FRAMES - 3, CHECK_FRAMES - 2)
+    calls = {}
+    for path in ("R", "S"):
+        cap = Capture(lf, "lighting_kernel")
+        with cap:
+            drive(ht, build_box(), FULL, PATHS[path][0](ht),
+                  CHECK_FRAMES - 1, [cap], keep)
+        calls[path] = cap.calls
+    calls["D"] = d_calls
+    cap = Capture(lf, "lighting_kernel")
+    with cap:
+        drive(ht, build_box(), FULL, PATHS["no-reuse"][0](ht), 3, [cap],
+              (2,))
+    calls["no-reuse"] = cap.calls[-1:]
+    named = []
+    for path, path_calls in calls.items():
+        for a, k in path_calls:
+            h, w = a[6].shape[:2]
+            name = f"light_{path}_{h}x{w}"
+            if k.get("temporal", False):
+                p = a[0].cpu().numpy()
+                val = bool(p[lf._P_VAL] or p[lf._P_VAL + 1])
+                name = f"{name}{'_validation' if val else ''}"
+                err, words = check_lighting_calls(lf, [(a, k)], path)
+            else:
+                err, words = check_b_call(lf, a, k, path)
+            named.append((dict(name=name, max_abs_err=err, words_equal=words),
+                          (a, k)))
+    calls = [c for _, c in named]
+    times = light_records(lf, gpu, calls, plain=False, device=False)
+
+    def device_pass():
+        light_device(lf, calls, times, plain=False)
+        for (rec, _), t in zip(named, times):
+            rec.update(t)
+            print_kernel_times(rec["name"], rec)
+
+    return [rec for rec, _ in named], device_pass
+
+
+def texture_ab(ht):
+    """--ab's kernel 14 records: path T's two frames, every launch checked
+    bit for bit against sample_atlas per slot, and frame 1's launches
+    (the 1080p G-buffer's, the 960x540 domain's) timed (texture_records)."""
+    from hikari_tpu_torch.ops import shading as sh
+    from hikari_tpu_torch.ops import texture_pallas as tx
+
+    r = ht.Renderer(simple_scene(), simple_camera(ht, FULL),
+                    simple_settings(ht))
+    cap = Capture(tx, texture_wrapper_name(tx))
+    with cap:
+        cap.on = True
+        for _ in range(2):
+            r.render_frame()
+        torch.cuda.synchronize()
+    launches = texture_launches(tx, cap.calls)
+    for run, slots in launches:
+        got = run()
+        ref = [sh.sample_atlas(*a) for a in slots]
+        torch.cuda.synchronize()
+        eq = words_equal(got, ref)
+        print(f"kernel 14 path T {tuple(slots[0][1].shape)}, {len(slots)} "
+              f"slots: equal to the plain version {eq} (need True)")
+        if not eq:
+            fail("kernel 14 disagrees with its plain version (path T)")
+    timed = launches[-2:]
+    recs = texture_records(sh, timed, device=False)
+    for (_, slots), rec in zip(timed, recs):
+        rec.update(name=f"texture_{'x'.join(map(str, slots[0][1].shape))}",
+                   launches_per_frame=len(launches) // 2)
+    return recs, lambda: texture_device(sh, timed, recs)
+
+
 def ab_only(ht, build_box):
     """--ab: first the frames of the nine paths (P and D alternately, frame
     by frame; then no-reuse, R, S, K, KR, the city and T, each with its
     launch counts checked), before any check or profiler session; then
     kernels 8, C, 11 and 12 checked against their plain versions and timed
     on path D's calls at 1080p (frames 4 and 5 of a panning camera; C at
-    960x540), and kernel C timed on a synthetic 1080p field (2 channels,
-    the four steps). For timing two trees of the repository against each
+    960x540), kernel C timed on a synthetic 1080p field (2 channels, the
+    four steps), and before those, so that their host times come before
+    any profiler session, kernels 4 and B checked and timed on R's, S's,
+    D's and the no-reuse frame's calls (light_ab) and kernel 14 on path
+    T's (texture_ab). For timing two trees of the repository against each
     other in one call: it reaches the kernels only through their wrappers
     and plain versions, as captured. Returns (records, {frame median
     name: ms})."""
@@ -1314,6 +1517,7 @@ def ab_only(ht, build_box):
 
     from hikari_tpu_torch.ops import denoise as dn
     from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import light_fused as lf
     from hikari_tpu_torch.ops import prepass_fused as pf
     from hikari_tpu_torch.ops import warp2 as w2
     from hikari_tpu_torch.ops import warp_band as wb
@@ -1331,13 +1535,21 @@ def ab_only(ht, build_box):
 
     caps = [Capture(pf, "prepass_kernel"), Capture(pf, "prepass_quads_kernel"),
             Capture(dnf, "atrous_level"), Capture(wb, "warp_band"),
-            Capture(w2, "warp_multi")]
+            Capture(w2, "warp_multi"), Capture(lf, "lighting_kernel")]
     with ExitStack() as stack:
         for c in caps:
             stack.enter_context(c)
         drive(ht, build_box(), FULL, default_settings(ht), CHECK_FRAMES - 1,
               caps, (CHECK_FRAMES - 3, CHECK_FRAMES - 2))
-    a_calls, q_calls, c_calls, wb_calls, wm_calls = (c.calls for c in caps)
+    a_calls, q_calls, c_calls, wb_calls, wm_calls, l_calls = (
+        c.calls for c in caps)
+    # kernels 4, B and 14 first: their events and host times before any
+    # profiler session of the process, then their device times
+    light_recs, light_dev = light_ab(ht, build_box, lf, l_calls)
+    tex_recs, tex_dev = texture_ab(ht)
+    light_dev()
+    tex_dev()
+    records = light_recs + tex_recs
     quads_checks(pf, q_calls, a_calls)
     rec8 = dict(name="prepass_quads",
                 **quads_times(pf, q_calls[-1][0], a_calls[-1][0]))
@@ -1351,9 +1563,9 @@ def ab_only(ht, build_box):
     check_levels(dnf, field, "synthetic 1080p field")
     rec_c1080 = dict(name="denoise_fused_1080p_field",
                      **atrous_times(dnf, field))
-    records = [rec8, rec_c, rec_c1080]
+    records += [rec8, rec_c, rec_c1080]
     records += check_warps(wb, w2, wb_calls, wm_calls)
-    for rec in records[:3]:
+    for rec in (rec8, rec_c, rec_c1080):
         print_kernel_times(rec["name"], rec)
     return records, frames
 
@@ -1382,7 +1594,9 @@ def ab_summary(paths):
     def metrics(run):
         out = {f"frame {k}": v for k, v in run["frames_ms"].items()}
         for rec in run["ab"]:
-            for key in ("ms", "device_ms", "host_us", "library_ms"):
+            for key in ("ms", "device_ms", "host_us", "library_ms",
+                        "device_ms_per_slot", "library_device_ms",
+                        "library_host_us", "words_equal"):
                 if rec.get(key) is not None:
                     out[f"{rec['name']} {key}"] = rec[key]
         return out
@@ -1457,8 +1671,11 @@ def check_post(ht, build_box):
     ms, plain_ms, _, (b_ms, _) = gather_record(rg, g_calls[-1])
     extra["reproj_gather"] = (ms, plain_ms, b_ms)
     check_lighting_calls(lf, l_calls, label)
-    ms, plain_ms, (b_ms, _) = light_record(lf, gpu, *l_calls[0])
-    extra["light_fused_temporal"] = (ms, plain_ms, b_ms)
+    rec = light_record(lf, gpu, *l_calls[0])
+    print_kernel_times("kernel 4 path D 960x540, track_ind", rec)
+    extra["light_fused_temporal"] = (rec["ms"], rec["plain_ms"],
+                                     rec["bound_ms"], rec["device_ms"],
+                                     rec["host_us"])
     check_spatial_calls(sf, s_calls, label)
     ms, plain_ms, (b_ms, _) = spatial_record(sf, *s_calls[-1])
     extra["spatial_fused"] = (ms, plain_ms, b_ms)
@@ -1477,17 +1694,14 @@ def check_post(ht, build_box):
     with cap:
         drive(ht, build_box(), FULL, PATHS["P"][0](ht), 3, [cap], (2,))
     a, k = cap.calls[-1]
-    got, ref = lf.lighting_kernel(*a, **k), lf.lighting_plain(*a, **k)
-    torch.cuda.synchronize()
-    frac = min(rel_close(got[n], ref[n], 1e-3)[0] for n in ref)
-    print(f"kernel B lighting path P 960x540: within 1e-3*max(|ref|,1) on "
-          f"{frac:.6f} of values (need >= 0.99)")
-    if frac < 0.99:
-        fail("kernel B disagrees with its plain version at 960x540")
-    ms, plain_ms, (b_ms, _) = light_record(lf, gpu, a, k)
-    extra["light_fused"] = (ms, plain_ms, b_ms)
+    check_b_call(lf, a, k, "path P")
+    rec = light_record(lf, gpu, a, k)
+    print_kernel_times("kernel B path P 960x540", rec)
+    extra["light_fused"] = (rec["ms"], rec["plain_ms"], rec["bound_ms"],
+                            rec["device_ms"], rec["host_us"])
     extra = {n: dict(ms_540p=v[0], plain_ms_540p=v[1], bound_ms_540p=v[2],
-                     **({} if len(v) < 4 else {"device_ms_540p": v[3]}))
+                     **({} if len(v) < 4 else {"device_ms_540p": v[3]}),
+                     **({} if len(v) < 5 else {"host_us_540p": v[4]}))
              for n, v in extra.items()}
     for n, v in extra.items():
         print(f"  {n} at 960x540: {v['ms_540p']:.4f} ms, plain "
@@ -1611,16 +1825,10 @@ def check_checkerboard(ht, build_box):
     with cap:
         drive(ht, build_box(), FULL, PATHS["K"][0](ht), 3, [cap], (2,))
     a, k = cap.calls[-1]
-    got, ref = lf.lighting_kernel(*a, **k), lf.lighting_plain(*a, **k)
-    torch.cuda.synchronize()
-    frac = min(rel_close(got[n], ref[n], 1e-3)[0] for n in ref)
-    print(f"kernel B lighting path K {tuple(a[6].shape[:2])}: within "
-          f"1e-3*max(|ref|,1) on {frac:.6f} of values (need >= 0.99)")
-    if frac < 0.99:
-        fail("kernel B disagrees with its plain version on path K")
-    ms, plain_ms, (b_ms, _) = light_record(lf, gpu, a, k)
-    extra["light_fused"] = dict(ms_ckb=ms, plain_ms_ckb=plain_ms,
-                                bound_ms_ckb=b_ms)
+    check_b_call(lf, a, k, "path K")
+    rec = light_record(lf, gpu, a, k)
+    extra["light_fused"] = {f"{key}_ckb": v for key, v in rec.items()
+                            if key != "bound_by"}
     ms, plain_ms, _, (b_ms, _) = gather_record(rg, g_calls[-1])
     extra["reproj_gather"] = dict(ms_ckb_reuse=ms, plain_ms_ckb_reuse=plain_ms,
                                   bound_ms_ckb_reuse=b_ms)
@@ -1934,64 +2142,118 @@ def simple_camera(ht, size):
 FLOPS_TEXEL_SAMPLE = 30
 
 
-def texture_record(tx, sh, call):
-    """(ms, plain ms, (bound ms, by), library ms, device ms, library
-    device ms) of kernel 14 on one call; the device times from the
-    profiler (device_ms). Bytes: per pixel 12 B in and 16 B out, plus 16 B
-    per texel the textured pixels tap (4 each), at most the texels of the
-    rects they address. Library: one grid_sample (bilinear) over the whole
-    atlas at the same footprints, the rect offsets folded into the grid
-    (the wrapped border makes it the same four taps; it agrees to f32
-    round-off only, so it is a time, not a check)."""
+def texture_launches(tx, calls):
+    """Kernel 14's launches among captured calls, each as (a function that
+    repeats it, its slots' (scene, tex_id, uv) in slot order). The calls
+    are sample_atlas_slots's; where the package has no such wrapper (a
+    tree from before the multi-slot launch, timed by --ab) they are
+    sample_atlas_coherent's, one launch per slot, base colour and emissive
+    in turn, and a pair of them counts as one launch of both slots."""
+    if hasattr(tx, "sample_atlas_slots"):
+        return [(lambda a=a: tx.sample_atlas_slots(*a),
+                 [(a[0], a[1][..., s], a[2]) for s in a[3]])
+                for a, _ in calls]
+    pairs = [[a for a, _ in calls[i:i + 2]] for i in range(0, len(calls), 2)]
+    return [(lambda p=p: [tx.sample_atlas_coherent(*a) for a in p], p)
+            for p in pairs]
+
+
+def texture_wrapper_name(tx):
+    """The wrapper path T's frames call kernel 14 through (see
+    texture_launches)."""
+    return ("sample_atlas_slots" if hasattr(tx, "sample_atlas_slots")
+            else "sample_atlas_coherent")
+
+
+def texture_records(sh, launches, device=True):
+    """Records of kernel 14 launches (texture_launches): first, for every
+    launch and before any profiler session (the host reads slower after
+    one), its time by events and on the host, its bound, and the library
+    call's time by events and on the host; then, with `device`, the device
+    times (profiler; per launch and per slot) and the plain version's time
+    (sample_atlas per slot; texture_device). Bytes: per pixel 8 B of uv, per slot 4 B of
+    id and 16 B out, plus 16 B per texel the textured samples tap (4 each
+    per slot), at most the texels of the rects they address; 30 flops per
+    textured pixel and slot. Library: one grid_sample (bilinear) over the
+    whole atlas at every sample of the launch's slots, the rect offsets
+    folded into the grid (the wrapped border makes it the same four taps;
+    it agrees to f32 round-off only, so it is a time, not a check)."""
     import torch.nn.functional as F
 
-    scene, tex_id, uv = call
-    atlas, rects = scene["atlas"], scene["tex_rect"]
-    ms = event_ms(lambda: tx.sample_atlas_coherent(scene, tex_id, uv), REPS)
-    dev_ms = device_ms(lambda: tx.sample_atlas_coherent(scene, tex_id, uv),
-                       REPS, "sample_kernel")
-    plain_ms = event_ms(lambda: sh.sample_atlas(scene, tex_id, uv),
-                        PLAIN_REPS)
-    n = tex_id.numel()
-    textured = tex_id >= 0
-    n_tex = int(textured.sum())
-    ids = torch.unique(tex_id[textured]).long()
-    texels = int((rects[ids, 2].long() * rects[ids, 3].long()).sum())
-    nbytes = n * (12 + 16) + 16 * min(4 * n_tex, texels)
-    bound = bound_ms(nbytes, n_tex * FLOPS_TEXEL_SAMPLE)
-    rect = rects[torch.clamp(tex_id.long(), min=0)].float()
-    u = uv[..., 0] - torch.floor(uv[..., 0])
-    v = uv[..., 1] - torch.floor(uv[..., 1])
-    ah, aw = atlas.shape[:2]
-    grid = torch.stack([2.0 * (rect[..., 0] + u * rect[..., 2]) / aw - 1.0,
-                        2.0 * (rect[..., 1] + v * rect[..., 3]) / ah - 1.0],
-                       -1).reshape(1, -1, 1, 2)
-    inp = atlas.permute(2, 0, 1)[None].contiguous()
-    def library():
-        return F.grid_sample(inp, grid, mode="bilinear", align_corners=False)
+    recs = []
+    for run, slots in launches:
+        scene, tex_id, uv = slots[0]
+        atlas, rects = scene["atlas"], scene["tex_rect"]
+        n = tex_id.numel()
+        n_tex, ids, grids = 0, [], []
+        u = uv[..., 0] - torch.floor(uv[..., 0])
+        v = uv[..., 1] - torch.floor(uv[..., 1])
+        ah, aw = atlas.shape[:2]
+        for _, tid, _ in slots:
+            textured = tid >= 0
+            n_tex += int(textured.sum())
+            ids.append(tid[textured])
+            rect = rects[torch.clamp(tid.long(), min=0)].float()
+            grids.append(torch.stack(
+                [2.0 * (rect[..., 0] + u * rect[..., 2]) / aw - 1.0,
+                 2.0 * (rect[..., 1] + v * rect[..., 3]) / ah - 1.0],
+                -1).reshape(1, -1, 1, 2))
+        ids = torch.unique(torch.cat(ids)).long()
+        texels = int((rects[ids, 2].long() * rects[ids, 3].long()).sum())
+        nbytes = n * (8 + 20 * len(slots)) + 16 * min(4 * n_tex, texels)
+        grid = torch.cat(grids, 1)
+        inp = atlas.permute(2, 0, 1)[None].contiguous()
 
-    lib_ms = event_ms(library, REPS)
-    lib_dev_ms = device_ms(library, REPS, "grid_sampler")
-    print(f"  kernel 14 {tuple(tex_id.shape)} ({n_tex} textured pixels): "
-          f"{ms:.4f} ms (device {dev_ms} ms), plain {plain_ms:.3f} ms, "
-          f"bound {bound[0]:.4f} ms ({bound[1]}), grid_sample {lib_ms:.4f} "
-          f"ms (device {lib_dev_ms} ms)")
-    return ms, plain_ms, bound, lib_ms, dev_ms, lib_dev_ms
+        def library(inp=inp, grid=grid):
+            return F.grid_sample(inp, grid, mode="bilinear",
+                                 align_corners=False)
+
+        rec = dict(ms=event_ms(run, REPS), host_us=host_us(run),
+                   library_ms=event_ms(library, REPS),
+                   library_host_us=host_us(library), textured=n_tex)
+        rec["bound_ms"], rec["bound_by"] = bound_ms(
+            nbytes, n_tex * FLOPS_TEXEL_SAMPLE)
+        rec["library"] = library
+        recs.append(rec)
+    if device:
+        texture_device(sh, launches, recs)
+    return recs
 
 
-def check_texture_call(tx, sh, scene, tex_id, uv, label):
-    """Kernel 14 against its plain version on one field: bit for bit.
-    Returns the max abs error."""
-    got = tx.sample_atlas_coherent(scene, tex_id, uv)
-    ref = sh.sample_atlas(scene, tex_id, uv)
+def texture_device(sh, launches, recs):
+    """The device pass of texture_records."""
+    for rec, (run, slots) in zip(recs, launches):
+        library = rec.pop("library")
+        rec["device_ms"] = device_ms(run, REPS, "sample_kernel", True)
+        rec["device_ms_per_slot"] = (None if rec["device_ms"] is None
+                                     else rec["device_ms"] / len(slots))
+        rec["library_device_ms"] = device_ms(library, REPS, "grid_sampler",
+                                             True)
+        rec["plain_ms"] = event_ms(
+            lambda: [sh.sample_atlas(*a) for a in slots], PLAIN_REPS)
+        print_kernel_times(f"kernel 14 {tuple(slots[0][1].shape)}, "
+                           f"{len(slots)} slots, {rec['textured']} textured "
+                           f"samples", rec)
+        print(f"    per slot on the device {rec['device_ms_per_slot']} ms; "
+              f"plain {rec['plain_ms']:.3f} ms")
+
+
+def check_texture_call(tx, sh, scene, tid, uv, slots, label):
+    """Kernel 14 against its plain version on one launch of `slots` (tid:
+    the [..., 4] texture ids, uv: [..., 2] of a [..., 4] plane): every
+    slot's output bit for bit equal to sample_atlas's. Returns the max abs
+    error."""
+    got = tx.sample_atlas_slots(scene, tid, uv, slots)
+    ref = [sh.sample_atlas(scene, tid[..., s], uv) for s in slots]
     torch.cuda.synchronize()
-    eq = words_equal([got], [ref])
-    share = float((tex_id >= 0).float().mean())
-    print(f"kernel 14 {label} {tuple(tex_id.shape)} ({share:.3f} textured): "
-          f"equal to the plain version {eq} (need True)")
+    eq = words_equal(got, ref)
+    share = float((tid[..., list(slots)] >= 0).float().mean())
+    print(f"kernel 14 {label} {tuple(tid.shape[:-1])}, slots {slots} "
+          f"({share:.3f} textured): every slot equal to the plain version "
+          f"{eq} (need True)")
     if not eq:
         fail(f"kernel 14 disagrees with its plain version ({label})")
-    return max_abs_err([got], [ref])
+    return max_abs_err(got, ref)
 
 
 def synthetic_texture_scene(ht, dev):
@@ -2038,29 +2300,46 @@ def check_textures(ht):
                     simple_settings(ht))
     if r.gpu_scene.num_textures != 1 or r.gpu_scene.num_triangles != 2510:
         fail("path T's scene is not the 2,510-triangle textured scene")
-    cap = Capture(tx, "sample_atlas_coherent")
+    cap = Capture(tx, "sample_atlas_slots")
     with ExitStack() as stack:
         stack.enter_context(cap)
         cap.on = True
         for _ in range(2):
             r.render_frame()
         torch.cuda.synchronize()
-    if len(cap.calls) != 8:
-        fail(f"path T's two frames called kernel 14 {len(cap.calls)} times")
+    if len(cap.calls) != 4:
+        fail(f"path T's two frames launched kernel 14 {len(cap.calls)} "
+             "times")
     err = 0.0
     for a, _ in cap.calls:
+        if tuple(a[3]) != (0, 1):
+            fail(f"path T's launch sampled slots {a[3]}")
         err = max(err, check_texture_call(tx, sh, *a, "path T"))
-    # the synthetic field, and the four slots through retrieve_surface
+    # the synthetic field: every slot in one launch, each slot alone
+    # through the one-slot wrapper, and the four slots through
+    # retrieve_surface
     scene = synthetic_texture_scene(ht, dev)
     g = torch.Generator().manual_seed(14)
     h, w = FULL
-    tid = torch.randint(-1, 4, (h, w), generator=g, dtype=torch.int32)
-    uv = torch.rand((h, w, 2), generator=g) * 6.0 - 2.5
-    uv[: h // 8] = torch.round(uv[: h // 8])
-    uv[h // 8: h // 4] = torch.nextafter(torch.round(uv[h // 8: h // 4]),
-                                         torch.tensor(-10.0))
-    tid, uv = tid.to(dev), uv.to(dev)
-    err = max(err, check_texture_call(tx, sh, scene, tid, uv, "synthetic"))
+    tid = torch.randint(-1, 4, (h, w, 4), generator=g, dtype=torch.int32)
+    vel = torch.rand((h, w, 4), generator=g) * 6.0 - 2.5
+    vel[: h // 8] = torch.round(vel[: h // 8])
+    vel[h // 8: h // 4] = torch.nextafter(torch.round(vel[h // 8: h // 4]),
+                                          torch.tensor(-10.0))
+    tid, vel = tid.to(dev), vel.to(dev)
+    uv = vel[..., 2:4]
+    err = max(err, check_texture_call(tx, sh, scene, tid, uv, (0, 1, 2, 3),
+                                      "synthetic"))
+    err = max(err, check_texture_call(tx, sh, scene, tid, uv, (3, 1),
+                                      "synthetic"))
+    for s in range(4):
+        got = tx.sample_atlas_coherent(scene, tid[..., s], uv)
+        ref = sh.sample_atlas(scene, tid[..., s], uv)
+        torch.cuda.synchronize()
+        if not words_equal([got], [ref]):
+            fail(f"kernel 14's one-slot launch disagrees (slot {s})")
+    print("kernel 14 synthetic, one slot a launch: each of the 4 slots "
+          "equal to the plain version True (need True)")
     mat = torch.randint(-1, 3, (h, w), generator=g,
                         dtype=torch.int32).to(dev)
     got = sh.retrieve_surface(scene, mat, uv, False, coherent=True)
@@ -2073,19 +2352,14 @@ def check_textures(ht):
     if not eq:
         fail("retrieve_surface through kernel 14 disagrees with the plain "
              "gathers")
-    # frame 1's calls: 1080p base colour, emissive; 540p base, emissive
-    f1 = cap.calls[-4:]
-    full = texture_record(tx, sh, f1[0][0])
-    half = texture_record(tx, sh, f1[2][0])
+    # frame 1's launches: the 1080p G-buffer's, then the 960x540 domain's
+    full, half = texture_records(sh, texture_launches(tx, cap.calls[-2:]))
     return dict(name="texture", route="cuda",
                 source="hikari_tpu_torch/csrc/texture.cu",
                 replaces="hikari_tpu/ops/texture_pallas.py:64", launches=None,
-                max_abs_err=err, ms=full[0], plain_ms=full[1],
-                bound_ms=full[2][0], bound_by=full[2][1], library_ms=full[3],
-                ms_540p=half[0], plain_ms_540p=half[1],
-                bound_ms_540p=half[2][0], library_ms_540p=half[3],
-                device_ms=full[4], device_ms_540p=half[4],
-                library_device_ms=full[5], library_device_ms_540p=half[5])
+                max_abs_err=err, **full,
+                **{f"{key}_540p": v for key, v in half.items()
+                   if key != "bound_by"})
 
 
 def simple_settings(ht):
@@ -2374,8 +2648,10 @@ def main():
     ap.add_argument("--ab", action="store_true",
                     help="only time the frames of the nine paths, then "
                     "check and time kernels 8, C, 11 and 12 on path D's "
-                    "calls (to time two trees of the repository in one "
-                    "call); prints their records and no ok line")
+                    "calls, 4 and B on R's, S's, D's and the no-reuse "
+                    "frame's, 14 on T's (to time two trees of the "
+                    "repository in one call); prints their records and no "
+                    "ok line")
     ap.add_argument("--ab-summary", nargs="+", metavar="FILE",
                     help="summarise the --ab lines of FILEs, one per tree "
                     "(medians, interquartile ranges; runs on any host)")
@@ -2411,13 +2687,17 @@ def main():
     def build_box():
         return box.build_cornell_box("hikari_tpu_torch")
 
+    instances = light_instances()
     if args.ab:
         records, frames = ab_only(ht, build_box)
         print(json.dumps({"ab": list(records), "frames_ms": frames,
-                          "card": card}))
+                          "light_instances": instances, "card": card}))
         return 0
     t0 = time.perf_counter()
-    records = check_kernels(ht, build_box())
+    # path T's checks first: kernel 14's host time before any profiler
+    # session of the process (the host reads slower after one)
+    records = [check_textures(ht)]
+    records += check_kernels(ht, build_box())
     records += check_reuse(ht, build_box)
     post_records, at_540p = check_post(ht, build_box)
     records += post_records
@@ -2425,7 +2705,6 @@ def main():
     records += ckb_records
     city_records, hit_record, at_city = check_city(ht, build_box)
     records += city_records
-    records.append(check_textures(ht))
     for rec in records + [hit_record]:
         rec.update(at_540p.get(rec["name"], {}))
         rec.update(at_ckb.get(rec["name"], {}))
@@ -2500,6 +2779,7 @@ def main():
         "reps_ms_smaa2": alt_times["P"], "reps_ms_default": alt_times["D"],
         "card": card}))
     print(json.dumps({"kernel_off_path": hit_record}))
+    print(json.dumps({"light_instances": instances}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -178,8 +178,9 @@ __device__ __forceinline__ f3 shade(const Surface& s, f3 amb, f3 v, f3 n,
 
 // ---- the one Moller-Trumbore routine of the port's ray loops
 // (trace_pallas._mt8 and its division-free twin in _kernel_shadow): the
-// kernels of trace.cu (5, 6, 7), trace_bvh.cu (13) and light_fused.cu
-// (B, 4) all go through mt_terms, mt_accepts, closest_tri and shadow_tri.
+// kernels of trace.cu (5, 6, 7) and trace_bvh.cu (13) go through
+// mt_terms, mt_accepts, closest_tri and shadow_tri; light_fused.cu (B, 4)
+// runs the same expressions on its staged edge rows (edge_terms).
 
 // Per-triangle terms of a row of HK_TRI floats (v0 v1 v2, instance): the
 // determinant and the numerators of u, v and t.
@@ -278,28 +279,6 @@ struct Hit {
   float mat;  // -1 on a miss
   float inst; // -1 on a miss
 };
-
-// Nearest hit with normal + material interpolation from the winner's row:
-// tris rows of HK_TRI floats, attrs rows of HK_TRI floats holding the 9
-// vertex normals at 0 and the material at 9.
-__device__ __forceinline__ Hit trace_full(const float* tris, const float* attrs,
-                                          int n, f3 o, f3 d, float maxt,
-                                          float excl, float incl) {
-  Closest c = closest_hit(tris, n, o, d, maxt, excl, incl);
-  Hit hit;
-  hit.t = c.t;
-  hit.inst = c.inst;
-  hit.n = mk3(0.0f, 0.0f, 0.0f);
-  hit.mat = -1.0f;
-  if (c.prim >= 0) {
-    const float* a = attrs + HK_TRI * c.prim;
-    hit.n = mk3(interp(a[0], a[3], a[6], c.u, c.v),
-                interp(a[1], a[4], a[7], c.u, c.v),
-                interp(a[2], a[5], a[8], c.u, c.v));
-    hit.mat = a[9];
-  }
-  return hit;
-}
 
 struct Shadow {
   bool occluded;

@@ -19,26 +19,57 @@
 // (1 = gate miss, +2 = validation miss) and, for direct and emissive, the
 // reservoir the validation scatter writes into the spatial buffer.
 //
-// Design: every table (scene triangles with normal+material, emissive
-// triangles, materials, the emissive leaves and alias slots in the
-// parameter vector) is staged once per block in dynamic shared memory.
-// The TPU kernel's per-lane select-sweeps over those tables become indexed
-// loads, and its unrolled emissive-leaf walk a loop over n_em. The
-// G-buffer is read from the interleaved [h,w,C] tensors, the reservoirs
-// from and to the [h,16,w] channel planes (threads of a warp on
-// neighbouring x of one plane). The variants are template instances picked
-// on the host from Python integers, never from a device value.
+// Design. Most of the time goes to the triangle sweeps: five or more per
+// pixel over the whole table (the box: 40 rows, 36 triangles), each test
+// ~60 instructions at --fmad=false; kernel 4's reservoir work (two 64 B
+// reservoirs read and up to four written per pixel, with their IEEE
+// divisions) adds a third. So:
+// * each block (one 128-pixel tile) stages the scene's triangles, the
+//   emissive triangles, the materials and the parameter vector (with the
+//   emissive leaves and alias slots) in dynamic shared memory; the sweeps
+//   read triangle rows of three float4s, the first vertex with the
+//   instance id, then the edges v1 - v0 and v2 - v0, subtracted once at
+//   staging (the same words the per-test subtraction gave), so a test
+//   loads three vectors and skips six subtractions; the occluder loop
+//   takes |det| and flips signs by selection, as sgnf(det) * x does for
+//   det != 0 (for det = 0 or NaN no test passes either way). The normal
+//   and material rows stay in global memory: a sweep reads only its
+//   winner's;
+// * a temporal thread starts copying its pixel's previous reservoirs (16
+//   words per channel) into shared memory (cp.async) before it stages and
+//   traces, so their latency passes under the sweeps; it reads them after
+//   this frame's candidate is traced, and the validation retrace follows
+//   the merge (retracing first holds its 12 results across the candidate's
+//   sweep and spills);
+// * the temporal instances sweep one triangle at a time, kernel B two
+//   (unrolled twice the temporal instances spill); __launch_bounds__ holds
+//   every instance to 128 registers for 4 blocks of 128 threads per SM.
+// Tried on the card and dropped: a persistent grid that stages the tables
+// once per resident block (slower: its static tiling leaves a tail), and
+// 5 or 6 blocks per SM (at 96 / 80 registers every instance spills
+// hundreds of bytes and runs slower).
+// The TPU kernel's per-lane select-sweeps become indexed loads, its
+// unrolled emissive-leaf walk a loop over n_em. The G-buffer is read from
+// the interleaved [h,w,C] tensors, the reservoirs from and to the [h,16,w]
+// channel planes (threads of a warp on neighbouring x of one plane). The
+// variants are template instances picked on the host from Python
+// integers, never from a device value. Each expression keeps the plain
+// version's operation order, so with --fmad=false every word equals it.
 //
-// Bound on the H100: operations. With 1 bounce the no-reuse flagship runs
-// five triangle sweeps per pixel (emissive probe and shadow, bounce, NEE
-// probe and shadow) at ~60 flops per ray-triangle test: ~8e3 flops per
-// pixel for the 36-triangle box against 68 bytes of G-buffer and noise in
-// and 32 bytes out, far above the card's ~20 flops per byte. The temporal
-// variant adds 64 B in and out per channel (and 64 B more per tracked
-// channel) and, on validation frames, one probe and one shadow sweep per
-// direct/emissive channel: still bound by operations. Two live reservoirs
-// of ~28 floats each exceed the register budget, so the temporal
-// instances spill (the build log prints ptxas's counts).
+// Bound on the H100 (chip_smoke.light_work): the larger of the bytes (the
+// G-buffer and noise in, per active channel the render out; with TEMPORAL
+// the 64 B reservoir in and the render, variance and 64 B reservoir out per
+// channel, plus the tracked flags and scatter) over 3.35 TB/s and the
+// operations (60 per triangle test, 400 per channel's shading, 300 per
+// channel's reservoir algebra) over 67 TFLOP/s. On the box at 1080p: B
+// 0.2327 ms by operations; kernel 4 without tracking (path R) 0.2513 ms by
+// operations, with tracking (path S) 0.2600 ms by bytes, validating 0.3219
+// ms by operations (38 more tests per pixel); at 960x540 with track_ind
+// (path D) 0.0628 ms by operations, validating 0.0805. Both kernels run
+// several times their bound: the operations count omits the compares,
+// selects and shared-memory loads a test issues.
+
+#include <cuda_pipeline.h>
 
 #include "common.cuh"
 
@@ -57,6 +88,104 @@
 #define P_VAL 224
 #define P_COUNT 228
 
+#define EDGE_ROW 12
+
+// mt_terms (common.cuh) on a staged edge row: the same expressions, with
+// the edges read instead of subtracted.
+__device__ __forceinline__ MT edge_terms(float4 a, float4 b, float4 c, f3 o,
+                                         f3 d) {
+  float ux = d.y * c.z - d.z * c.y;
+  float uy = d.z * c.x - d.x * c.z;
+  float uz = d.x * c.y - d.y * c.x;
+  MT m;
+  m.det = b.x * ux + b.y * uy + b.z * uz;
+  float aox = o.x - a.x, aoy = o.y - a.y, aoz = o.z - a.z;
+  m.uu = aox * ux + aoy * uy + aoz * uz;
+  float vx = aoy * b.z - aoz * b.y;
+  float vy = aoz * b.x - aox * b.z;
+  float vz = aox * b.y - aoy * b.x;
+  m.vv = d.x * vx + d.y * vy + d.z * vz;
+  m.dist = c.x * vx + c.y * vy + c.z * vz;
+  return m;
+}
+
+// shadow_sweep (common.cuh) over staged edge rows, for rays that include
+// every instance. ads = |det| and the signs flipped by selection: for det
+// != 0 the words of sgnf(det) * x; for det = 0 or NaN no row passes
+// (ads >= eps fails) either way. U, here and in the functions that sweep:
+// the loop's unroll (light_kernel picks it per instance).
+template <int U>
+__device__ __forceinline__ Shadow edge_shadow(const float4* rows, int n, f3 o,
+                                              f3 d, float maxt, float excl) {
+  Occluder b = occluder_none();
+#pragma unroll(U)
+  for (int i = 0; i < n; i++) {
+    float4 a = rows[3 * i];
+    float inst = a.w;
+    if (!mt_accepts(inst, excl, -1.0f)) continue;
+    MT m = edge_terms(a, rows[3 * i + 1], rows[3 * i + 2], o, d);
+    bool neg = m.det < 0.0f;
+    float ads = fabsf(m.det);
+    float ud = neg ? -m.uu : m.uu;
+    float vd = neg ? -m.vv : m.vv;
+    float td = neg ? -m.dist : m.dist;
+    bool ok = ads >= HK_F32_EPS && ud >= 0.0f && vd >= 0.0f &&
+              ud + vd <= ads && td > HK_F32_EPS * ads && td < maxt * ads &&
+              td * b.ads < b.td * ads;
+    if (ok) {
+      b.td = td;
+      b.ads = ads;
+      b.inst = inst;
+    }
+  }
+  return shadow_result(b);
+}
+
+// trace_full (common.cuh) over staged edge rows: closest_tri's test on
+// edge_terms, then the winner's normal and material from its attribute row
+// (17 floats in global memory: the 9 vertex normals, the material at 16).
+template <int U>
+__device__ __forceinline__ Hit edge_trace_full(const float4* rows,
+                                               const float* attrs, int n,
+                                               f3 o, f3 d, float maxt,
+                                               float excl, float incl) {
+  Closest c = closest_miss();
+#pragma unroll(U)
+  for (int i = 0; i < n; i++) {
+    float4 a = rows[3 * i];
+    float inst = a.w;
+    if (!mt_accepts(inst, excl, incl)) continue;
+    MT m = edge_terms(a, rows[3 * i + 1], rows[3 * i + 2], o, d);
+    float inv_det = fabsf(m.det) < HK_F32_EPS ? 0.0f : 1.0f / m.det;
+    float u = m.uu * inv_det;
+    float v = m.vv * inv_det;
+    float dist = m.dist * inv_det;
+    bool ok = fabsf(m.det) >= HK_F32_EPS && u >= 0.0f && u <= 1.0f &&
+              v >= 0.0f && u + v <= 1.0f && dist > HK_F32_EPS &&
+              dist < maxt && dist < c.t;
+    if (ok) {
+      c.t = dist;
+      c.u = u;
+      c.v = v;
+      c.prim = i;
+      c.inst = inst;
+    }
+  }
+  Hit hit;
+  hit.t = c.t;
+  hit.inst = c.inst;
+  hit.n = mk3(0.0f, 0.0f, 0.0f);
+  hit.mat = -1.0f;
+  if (c.prim >= 0) {
+    const float* at = attrs + 17 * c.prim;
+    hit.n = mk3(interp(__ldg(at), __ldg(at + 3), __ldg(at + 6), c.u, c.v),
+                interp(__ldg(at + 1), __ldg(at + 4), __ldg(at + 7), c.u, c.v),
+                interp(__ldg(at + 2), __ldg(at + 5), __ldg(at + 8), c.u, c.v));
+    hit.mat = __ldg(at + 16);
+  }
+  return hit;
+}
+
 struct Cand {
   f3 d;
   float p, maxd, em_inst, info_inst, info_mat;
@@ -65,11 +194,18 @@ struct Cand {
   f3 sn;      // the sample point's normal
 };
 
+// The tables of a block. Staged in shared memory: tris / em_edges,
+// EDGE_ROW-float rows of three float4s (v0 + instance id, v1 - v0,
+// v2 - v0); em_tris, the emissive triangles' HK_TRI-float rows as given
+// (the sample point on the picked triangle needs its vertices); params and
+// mats. In global memory (a sweep reads only its winner's row): attrs /
+// em_attrs, 17-float rows (the 9 vertex normals, the material at 16).
 struct Tables {
   const float* params;
-  const float* tris;
+  const float4* tris;
   const float* attrs;
   int n_tris;
+  const float4* em_edges;
   const float* em_tris;
   const float* em_attrs;
   int n_em_tris;
@@ -119,6 +255,7 @@ __device__ Cand solar_candidate(const float* prm, float r2, float r3, f3 pos) {
 }
 
 // select_light_candidate(sample_emissive=True): light.wgsl:624-696
+template <int U>
 __device__ Cand emissive_candidate(const Tables& tb, float r0, float r1,
                                    float r2, float r3, f3 p, f3 n,
                                    float excl) {
@@ -192,8 +329,8 @@ __device__ Cand emissive_candidate(const Tables& tb, float r0, float r1,
   f3 rd = rsqrt_n(sub3(t, p));
 
   // probe ray restricted to the picked emitter (light.wgsl:672-687)
-  Hit ph = trace_full(tb.em_tris, tb.em_attrs, tb.n_em_tris, ro, rd,
-                      HK_F32_MAX, -1.0f, has_pick ? em_inst : -2.0f);
+  Hit ph = edge_trace_full<U>(tb.em_edges, tb.em_attrs, tb.n_em_tris, ro, rd,
+                              HK_F32_MAX, -1.0f, has_pick ? em_inst : -2.0f);
   f3 pn = rsqrt_n(ph.n);
   bool probe_hit = ph.inst >= 0.0f;
   bool probe_ok = has_pick && (dot3(rd, n) > 0.0f) && probe_hit;
@@ -248,14 +385,14 @@ struct Traced {
 };
 
 // candidate -> shadow -> input radiance, occluders overriding the probe
+template <int U>
 __device__ Traced trace_candidate(const Tables& tb, const Cand& c,
                                   bool directional, f3 p, f3 n) {
   bool trace_ok = (dot3(c.d, n) > 0.0f) && (c.p > 0.0f);
   if (!directional) trace_ok = trace_ok && (c.em_inst >= 0.0f);
   f3 ro = mk3(p.x + n.x * HK_RAY_BIAS, p.y + n.y * HK_RAY_BIAS,
               p.z + n.z * HK_RAY_BIAS);
-  Shadow sh = shadow_sweep(tb.tris, tb.n_tris, ro, c.d, c.maxd, c.em_inst,
-                           -1.0f);
+  Shadow sh = edge_shadow<U>(tb.tris, tb.n_tris, ro, c.d, c.maxd, c.em_inst);
   float info_inst = sh.occluded ? sh.inst : c.info_inst;
   float info_mat = sh.occluded ? -1.0f : c.info_mat;
   Traced t;
@@ -275,9 +412,10 @@ __device__ Traced trace_candidate(const Tables& tb, const Cand& c,
 
 // direct_lit's no-reuse path: candidate -> shadow -> input radiance ->
 // shading * w (restir.py:318-370)
+template <int U>
 __device__ f3 shade_channel(const Tables& tb, const Cand& c, bool directional,
                             const Px& px) {
-  Traced t = trace_candidate(tb, c, directional, px.p, px.n);
+  Traced t = trace_candidate<U>(tb, c, directional, px.p, px.n);
   float w_f = t.lum > 0.0f ? t.w_new / fmaxf(t.lum, 1e-30f) : 0.0f;
   float w2d = px.valid ? w_f : 0.0f;
   f3 l = rsqrt_n(sub3(t.sp, px.p));
@@ -294,6 +432,7 @@ struct Ind {
 
 // indirect_lit_ambient's bounces (light.wgsl:1264-1498): the gathered
 // radiance and the first bounce's hit, before shading at the visible point
+template <int U>
 __device__ Ind indirect_bounces(const Tables& tb, int bounces, const Px& px) {
   const float* prm = tb.params;
   f3 dirl = mk3(prm[P_DIRL], prm[P_DIRL + 1], prm[P_DIRL + 2]);
@@ -323,8 +462,8 @@ __device__ Ind indirect_bounces(const Tables& tb, int bounces, const Px& px) {
     f3 rd = onb_apply(b_n, mk3(hx, hy, hz));
     f3 ro = mk3(b_p.x + b_n.x * HK_RAY_BIAS, b_p.y + b_n.y * HK_RAY_BIAS,
                 b_p.z + b_n.z * HK_RAY_BIAS);
-    Hit h = trace_full(tb.tris, tb.attrs, tb.n_tris, ro, rd, HK_F32_MAX,
-                       -1.0f, -1.0f);
+    Hit h = edge_trace_full<U>(tb.tris, tb.attrs, tb.n_tris, ro, rd,
+                               HK_F32_MAX, -1.0f, -1.0f);
     bool hit_ok = h.inst >= 0.0f;
     f3 hn = rsqrt_n(h.n);
     float htt = hit_ok ? h.t : HK_DISTANCE_MAX;
@@ -339,14 +478,13 @@ __device__ Ind indirect_bounces(const Tables& tb, int bounces, const Px& px) {
     Surface hs = surface_of(tb.mats, tb.n_mats, hit_ok ? h.mat : 0.0f);
     hs.rough = 1.0f;  // roughness := 1 at bounces
 
-    Cand c = emissive_candidate(tb, br0, br1, br2, br3, hp, hn, h.inst);
+    Cand c = emissive_candidate<U>(tb, br0, br1, br2, br3, hp, hn, h.inst);
     bool sample_directional = c.em_inst < 0.0f;
     f3 bv = rsqrt_n(sub3(b_p, hp));
     bool nee_ok = (dot3(c.d, hn) > 0.0f) && (c.p > 0.0f);
     f3 ro2 = mk3(hp.x + hn.x * HK_RAY_BIAS, hp.y + hn.y * HK_RAY_BIAS,
                  hp.z + hn.z * HK_RAY_BIAS);
-    Shadow sh = shadow_sweep(tb.tris, tb.n_tris, ro2, c.d, c.maxd, c.em_inst,
-                             -1.0f);
+    Shadow sh = edge_shadow<U>(tb.tris, tb.n_tris, ro2, c.d, c.maxd, c.em_inst);
     float ci_inst = sh.occluded ? sh.inst : c.info_inst;
     float ci_mat = sh.occluded ? -1.0f : c.info_mat;
     // input_radiance with sample_directional=True
@@ -502,26 +640,87 @@ __device__ float finish(Rsv& r, const Px& px, f3 vn) {
   return var;
 }
 
+template <int U>
 __device__ Cand channel_candidate(const Tables& tb, bool directional,
                                   float r0, float r1, float r2, float r3,
                                   f3 pos, f3 nrm, float excl) {
   if (directional) return solar_candidate(tb.params, r2, r3, pos);
-  return emissive_candidate(tb, r0, r1, r2, r3, pos, nrm, excl);
+  return emissive_candidate<U>(tb, r0, r1, r2, r3, pos, nrm, excl);
+}
+
+// The validation retrace's results (light.wgsl:1156-1213): the radiance
+// found towards the remembered sample, the surface point and normal the
+// ray ends on, and the re-selected candidate's pdf.
+struct Retrace {
+  f3 rad;
+  float rad_a;
+  f3 sp;
+  float spw;
+  f3 sn;
+  float p;
+};
+
+#define LIGHT_THREADS 128
+
+// The gated previous reservoir of this pixel (check_previous_reservoir on
+// the gathered planes), from the thread's copy in shared memory (`stash`:
+// its 16 words LIGHT_THREADS apart, see prefetch_prev); sets its miss.
+__device__ __forceinline__ Rsv prev_reservoir(const float* stash,
+                                              const Px& px, bool& miss) {
+  __pipeline_wait_prior(0);
+  Rsv r = rsv_load(stash, 0, LIGHT_THREADS);
+  miss = gates(r, px);
+  return r;
+}
+
+// retrace of the remembered sample: candidate re-select at the stored
+// point, shadow ray from this frame's point towards the stored sample
+template <int U>
+__device__ Retrace retrace(const Tables& tb, bool directional, const Px& px,
+                           const Rsv& r) {
+  Cand cv = channel_candidate<U>(tb, directional, r.rnd0, r.rnd1, r.rnd2,
+                                 r.rnd3, mk3(r.vpx, r.vpy, r.vpz),
+                                 mk3(r.vnx, r.vny, r.vnz), px.inst_f);
+  f3 rv = rsqrt_n(mk3(r.spx - px.p.x, r.spy - px.p.y, r.spz - px.p.z));
+  bool trace_ok =
+      (dot3(cv.d, mk3(r.vnx, r.vny, r.vnz)) > 0.0f) && (cv.p > 0.0f);
+  if (!directional) trace_ok = trace_ok && (cv.em_inst >= 0.0f);
+  f3 ro = mk3(px.p.x + px.n.x * HK_RAY_BIAS, px.p.y + px.n.y * HK_RAY_BIAS,
+              px.p.z + px.n.z * HK_RAY_BIAS);
+  Shadow sh = edge_shadow<U>(tb.tris, tb.n_tris, ro, rv, cv.maxd, cv.em_inst);
+  float vi_inst = sh.occluded ? sh.inst : cv.info_inst;
+  float vi_mat = sh.occluded ? -1.0f : cv.info_mat;
+  Retrace v;
+  v.sp = sh.occluded ? ray_at(ro, rv, sh.t) : cv.sp;
+  v.spw = sh.occluded ? 1.0f : cv.spw;
+  v.sn = sh.occluded ? mk3(0.0f, 0.0f, 0.0f) : cv.sn;
+  input_radiance(tb, directional, rv, vi_inst, vi_mat, cv.em_inst, v.rad,
+                 v.rad_a);
+  if (!trace_ok) {
+    v.rad = mk3(0.0f, 0.0f, 0.0f);
+    v.rad_a = 0.0f;
+  }
+  v.p = cv.p;
+  return v;
 }
 
 // the temporal path of direct_lit (light.wgsl:1045-1261) for the direct
-// or emissive channel; returns the shaded rgb * w
-template <bool VALIDATION, bool TRACK>
+// or emissive channel; returns the shaded rgb * w. The previous reservoir
+// (its prefetched copy) is read after this frame's candidate is traced;
+// on validation frames the retrace of its remembered sample follows the
+// merge.
+template <int U, bool VALIDATION, bool TRACK>
 __device__ f3 reuse_channel(const Tables& tb, bool directional, const Px& px,
-                            const float* prev, float is_val, long long base,
+                            const float* stash, float is_val, long long base,
                             long long pix, int w, float* var_out,
                             float* packed_out, float* flags_out,
                             float* scatter_out) {
-  Rsv r = rsv_load(prev, base, w);
-  bool gate_miss = gates(r, px);
-  Cand c = channel_candidate(tb, directional, px.r0, px.r1, px.r2, px.r3,
-                             px.p, px.n, px.inst_f);
-  Traced t = trace_candidate(tb, c, directional, px.p, px.n);
+  bool validate = VALIDATION && is_val > 0.5f;
+  Cand c = channel_candidate<U>(tb, directional, px.r0, px.r1, px.r2, px.r3,
+                                px.p, px.n, px.inst_f);
+  Traced t = trace_candidate<U>(tb, c, directional, px.p, px.n);
+  bool gate_miss;
+  Rsv r = prev_reservoir(stash, px, gate_miss);
   Rsv s2 = sample_of(t.rad, t.rad_a, px, px.n, t.sp, t.spw, t.sn);
   bool gate = px.valid && ((is_val < 0.5f) || (r.count < 4.0f));
   Rsv cur = r;
@@ -529,57 +728,32 @@ __device__ f3 reuse_channel(const Tables& tb, bool directional, const Px& px,
   rsv_clamp(cur, tb.params[P_MAXCNT]);
   if (TRACK) rsv_store(scatter_out, base, w, cur);
   bool val_miss = false;
-  if (VALIDATION && is_val > 0.5f) {
-    // retrace of the remembered sample: candidate re-select at the stored
-    // point, shadow ray from this frame's point towards the stored sample
-    Cand cv = channel_candidate(tb, directional, r.rnd0, r.rnd1, r.rnd2,
-                                r.rnd3, mk3(r.vpx, r.vpy, r.vpz),
-                                mk3(r.vnx, r.vny, r.vnz), px.inst_f);
-    f3 rv = rsqrt_n(mk3(r.spx - px.p.x, r.spy - px.p.y, r.spz - px.p.z));
-    bool trace_ok =
-        (dot3(cv.d, mk3(r.vnx, r.vny, r.vnz)) > 0.0f) && (cv.p > 0.0f);
-    if (!directional) trace_ok = trace_ok && (cv.em_inst >= 0.0f);
-    f3 ro = mk3(px.p.x + px.n.x * HK_RAY_BIAS, px.p.y + px.n.y * HK_RAY_BIAS,
-                px.p.z + px.n.z * HK_RAY_BIAS);
-    Shadow sh = shadow_sweep(tb.tris, tb.n_tris, ro, rv, cv.maxd, cv.em_inst,
-                             -1.0f);
-    float vi_inst = sh.occluded ? sh.inst : cv.info_inst;
-    float vi_mat = sh.occluded ? -1.0f : cv.info_mat;
-    f3 vsp = sh.occluded ? ray_at(ro, rv, sh.t) : cv.sp;
-    float vspw = sh.occluded ? 1.0f : cv.spw;
-    f3 vsn = sh.occluded ? mk3(0.0f, 0.0f, 0.0f) : cv.sn;
-    f3 vrad;
-    float vrad_a;
-    input_radiance(tb, directional, rv, vi_inst, vi_mat, cv.em_inst, vrad,
-                   vrad_a);
-    if (!trace_ok) {
-      vrad = mk3(0.0f, 0.0f, 0.0f);
-      vrad_a = 0.0f;
-    }
+  if (validate) {
+    Retrace v = retrace<U>(tb, directional, px, r);
     Rsv s2v = s2;
     if (r.count >= 4.0f) {
       s2v.rnd0 = r.rnd0;
       s2v.rnd1 = r.rnd1;
       s2v.rnd2 = r.rnd2;
       s2v.rnd3 = r.rnd3;
-      s2v.spx = vsp.x;
-      s2v.spy = vsp.y;
-      s2v.spz = vsp.z;
-      s2v.spw = vspw;
-      s2v.snx = vsn.x;
-      s2v.sny = vsn.y;
-      s2v.snz = vsn.z;
-      s2v.rad_r = vrad.x;
-      s2v.rad_g = vrad.y;
-      s2v.rad_b = vrad.z;
-      s2v.rad_a = vrad_a;
+      s2v.spx = v.sp.x;
+      s2v.spy = v.sp.y;
+      s2v.spz = v.sp.z;
+      s2v.spw = v.spw;
+      s2v.snx = v.sn.x;
+      s2v.sny = v.sn.y;
+      s2v.snz = v.sn.z;
+      s2v.rad_r = v.rad.x;
+      s2v.rad_g = v.rad.y;
+      s2v.rad_b = v.rad.z;
+      s2v.rad_a = v.rad_a;
     }
-    float lum_ratio = lum3(vrad.x, vrad.y, vrad.z) /
+    float lum_ratio = lum3(v.rad.x, v.rad.y, v.rad.z) /
                       fmaxf(lum3(r.rad_r, r.rad_g, r.rad_b), 1e-4f);
     bool take_v = ((lum_ratio > 1.25f) || (lum_ratio < 0.8f)) && px.valid;
     float w_new_v =
-        cv.p > 0.0f
-            ? lum3(s2v.rad_r, s2v.rad_g, s2v.rad_b) / fmaxf(cv.p, 1e-30f)
+        v.p > 0.0f
+            ? lum3(s2v.rad_r, s2v.rad_g, s2v.rad_b) / fmaxf(v.p, 1e-30f)
             : 0.0f;
     if (take_v) {
       cur = s2v;
@@ -609,14 +783,14 @@ __device__ f3 reuse_channel(const Tables& tb, bool directional, const Px& px,
 // reservoir keeps the raw bounce radiance and shades the merged sample
 template <bool TRACK>
 __device__ f3 indirect_reuse(const Tables& tb, const Px& px, const Ind& ind,
-                             const float* prev, long long base, long long pix,
-                             int w, float* var_out, float* packed_out,
-                             float* flags_out) {
+                             const float* stash, long long base,
+                             long long pix, int w, float* var_out,
+                             float* packed_out, float* flags_out) {
   f3 s;
   float lum_s;
   float w_new = indirect_sample(px, ind, s, lum_s);
-  Rsv r = rsv_load(prev, base, w);
-  bool gate_miss = gates(r, px);
+  bool gate_miss;
+  Rsv r = prev_reservoir(stash, px, gate_miss);
   Rsv smp = sample_of(mk3(ind.tot_r, ind.tot_g, ind.tot_b), ind.tot_a, px,
                       ind.bn, ind.first_p, ind.first_hit ? 1.0f : 0.0f,
                       ind.first_n);
@@ -640,90 +814,142 @@ __device__ __forceinline__ void put_render(float* out, long long pix, f3 o,
                   valid ? 1.0f : 0.0f);
 }
 
-template <bool TEMPORAL, bool VALIDATION, bool TRACK_DE, bool TRACK_IND>
-__global__ void __launch_bounds__(128)
-light_kernel(const float* __restrict__ params_g,
-             const float* __restrict__ tris_g, const float* __restrict__ attr_g,
-             int n_tris, const float* __restrict__ em_tris_g,
-             const float* __restrict__ em_attr_g, int n_em_tris,
-             const float* __restrict__ mats_g, int n_mats,
-             const float* __restrict__ position,
-             const float* __restrict__ normal,
-             const float* __restrict__ inst_mat,
-             const float* __restrict__ rand, int h, int w, int n_em,
-             int n_alias, int bounces, LightIO io) {
-  extern __shared__ float smem[];
-  float* params = smem;
-  float* tris = params + P_COUNT;
-  float* attrs = tris + HK_TRI * n_tris;
-  float* em_tris = attrs + HK_TRI * n_tris;
-  float* em_attrs = em_tris + HK_TRI * n_em_tris;
-  float* mats = em_attrs + HK_TRI * n_em_tris;
+// One launch's arguments, as ops/light_fused.py LIGHT_TABLE packs them.
+// io: per channel d, e, i the render [h,w,4], variance [h,w], packed
+// reservoir [h,16,w], flags [h,w], scatter reservoir [h,16,w] and gathered
+// previous reservoir [h,16,w] (null where the variant or the channel has
+// none).
+struct LightCall {
+  const float* params;
+  const float* tris;      // [n_tris, 10]
+  const float* attrs;     // [n_tris, 17]
+  const float* em_tris;   // [n_em_tris, 10]
+  const float* em_attrs;  // [n_em_tris, 17]
+  const float* mats;      // [n_mats, 15]
+  const float* position;  // [h,w,4]
+  const float* normal;    // [h,w,3]
+  const float* inst_mat;  // [h,w,2]
+  const float* rand;      // [h,w,4]
+  LightIO io;
+  int n_tris, n_em_tris, n_mats, h, w, n_em, n_alias, bounces;
+  int temporal, validation, track_de, track_ind;
+};
+static_assert(sizeof(LightCall) == 272, "LightCall: ops/light_fused.py");
 
-  stage_rows(params, params_g, 1, P_COUNT, P_COUNT, 0);
-  stage_rows(tris, tris_g, n_tris, HK_TRI, HK_TRI, 0);
-  stage_rows(em_tris, em_tris_g, n_em_tris, HK_TRI, HK_TRI, 0);
-  // attribute rows: the 9 vertex normals + the material (column 16)
-  for (int k = threadIdx.x; k < n_tris * HK_TRI; k += blockDim.x) {
-    int r = k / HK_TRI, c = k % HK_TRI;
-    attrs[k] = attr_g[r * 17 + (c < 9 ? c : 16)];
+// blocks of LIGHT_THREADS per SM: __launch_bounds__ then allows each
+// thread 128 registers, which every instance uses without spilling
+#define LIGHT_MIN_BLOCKS 4
+
+// Shared-memory floats of a launch's tables (stage_tables' layout): the
+// edge rows first (16-byte aligned), then params, the raw emissive rows
+// and the materials.
+__host__ __device__ inline int table_floats(int n_tris, int n_em_tris,
+                                            int n_mats) {
+  return EDGE_ROW * (n_tris + n_em_tris) + P_COUNT + HK_TRI * n_em_tris +
+         HK_MAT * n_mats;
+}
+
+// edge rows: (v0, instance id), v1 - v0, v2 - v0
+__device__ __forceinline__ void stage_edges(float4* dst, const float* src,
+                                            int rows) {
+  for (int k = threadIdx.x; k < rows * 3; k += blockDim.x) {
+    int r = k / 3, q = k % 3;
+    const float* t = src + r * HK_TRI;
+    dst[k] = q == 0 ? make_float4(t[0], t[1], t[2], t[9])
+                    : make_float4(t[3 * q] - t[0], t[3 * q + 1] - t[1],
+                                  t[3 * q + 2] - t[2], 0.0f);
   }
-  for (int k = threadIdx.x; k < n_em_tris * HK_TRI; k += blockDim.x) {
-    int r = k / HK_TRI, c = k % HK_TRI;
-    em_attrs[k] = em_attr_g[r * 17 + (c < 9 ? c : 16)];
-  }
-  stage_rows(mats, mats_g, n_mats, HK_MAT, 15, 0);
+}
+
+__device__ Tables stage_tables(const LightCall& c, float* smem) {
+  float4* tris = reinterpret_cast<float4*>(smem);
+  float4* em_edges = tris + 3 * c.n_tris;
+  float* params = reinterpret_cast<float*>(em_edges + 3 * c.n_em_tris);
+  float* em_tris = params + P_COUNT;
+  float* mats = em_tris + HK_TRI * c.n_em_tris;
+  stage_edges(tris, c.tris, c.n_tris);
+  stage_edges(em_edges, c.em_tris, c.n_em_tris);
+  stage_rows(params, c.params, 1, P_COUNT, P_COUNT, 0);
+  stage_rows(em_tris, c.em_tris, c.n_em_tris, HK_TRI, HK_TRI, 0);
+  stage_rows(mats, c.mats, c.n_mats, HK_MAT, 15, 0);
   __syncthreads();
-
-  long long pix = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= (long long)h * w) return;
-  // plane 0 of this pixel's reservoir in an [h,16,w] tensor
-  long long y = pix / w, x = pix % w;
-  long long base = y * 16 * w + x;
-
   Tables tb;
   tb.params = params;
   tb.tris = tris;
-  tb.attrs = attrs;
-  tb.n_tris = n_tris;
+  tb.attrs = c.attrs;
+  tb.n_tris = c.n_tris;
+  tb.em_edges = em_edges;
   tb.em_tris = em_tris;
-  tb.em_attrs = em_attrs;
-  tb.n_em_tris = n_em_tris;
+  tb.em_attrs = c.em_attrs;
+  tb.n_em_tris = c.n_em_tris;
   tb.mats = mats;
-  tb.n_mats = n_mats;
-  tb.n_em = n_em;
-  tb.n_alias = n_alias;
+  tb.n_mats = c.n_mats;
+  tb.n_em = c.n_em;
+  tb.n_alias = c.n_alias;
+  return tb;
+}
+
+// Starts copying the 16 words of this pixel's previous reservoir of each
+// channel that has one into the thread's stash in shared memory (channel
+// k of the present ones at stash[(16 k + plane) * LIGHT_THREADS]); the
+// copies run while the thread traces, and prev_reservoir waits for them.
+__device__ __forceinline__ void prefetch_prev(const LightIO& io, float* stash,
+                                              long long base, int w) {
+  int k = 0;
+  for (int ch = 0; ch < 3; ch++) {
+    if (io.prev[ch] == nullptr) continue;
+    for (int q = 0; q < 16; q++)
+      __pipeline_memcpy_async(stash + (16 * k + q) * LIGHT_THREADS,
+                              io.prev[ch] + base + (long long)q * w, 4);
+    k++;
+  }
+  __pipeline_commit();
+}
+
+template <int U, bool TEMPORAL, bool VALIDATION, bool TRACK_DE,
+          bool TRACK_IND>
+__device__ __forceinline__ void light_pixel(const LightCall& c,
+                                            const Tables& tb, long long pix,
+                                            long long base,
+                                            const float* stash) {
+  const float* params = tb.params;
+  const LightIO& io = c.io;
+  int w = c.w;
+  // the stash of each channel's previous reservoir (see prefetch_prev)
+  const float* stash_d = stash;
+  const float* stash_e = stash_d + (io.prev[0] ? 16 * LIGHT_THREADS : 0);
+  const float* stash_i = stash_e + (io.prev[1] ? 16 * LIGHT_THREADS : 0);
 
   Px px;
-  float4 pos = reinterpret_cast<const float4*>(position)[pix];
+  float4 pos = reinterpret_cast<const float4*>(c.position)[pix];
   px.p = mk3(pos.x, pos.y, pos.z);
   px.depth = pos.w;
-  px.n = mk3(normal[3 * pix], normal[3 * pix + 1], normal[3 * pix + 2]);
+  px.n = mk3(c.normal[3 * pix], c.normal[3 * pix + 1], c.normal[3 * pix + 2]);
   px.nn = rsqrt_n(px.n);
-  float2 im = reinterpret_cast<const float2*>(inst_mat)[pix];
+  float2 im = reinterpret_cast<const float2*>(c.inst_mat)[pix];
   // ids as the TPU wrapper feeds them: truncated to int, material >= 0
   px.inst_f = (float)(int)im.x;
   float mat_f = (float)max((int)im.y, 0);
-  float4 rnd = reinterpret_cast<const float4*>(rand)[pix];
+  float4 rnd = reinterpret_cast<const float4*>(c.rand)[pix];
   px.r0 = rnd.x;
   px.r1 = rnd.y;
   px.r2 = rnd.z;
   px.r3 = rnd.w;
   px.valid = px.depth >= HK_F32_EPS;
   px.amb = mk3(params[P_AMB], params[P_AMB + 1], params[P_AMB + 2]);
-  px.surf = surface_of(mats, n_mats, mat_f);
+  px.surf = surface_of(tb.mats, tb.n_mats, mat_f);
   px.v = rsqrt_n(mk3(params[P_CAM] - px.p.x, params[P_CAM + 1] - px.p.y,
                      params[P_CAM + 2] - px.p.z));
 
   if (io.render[0] != nullptr) {
     f3 o;
     if (TEMPORAL) {
-      o = reuse_channel<VALIDATION, TRACK_DE>(
-          tb, true, px, io.prev[0], params[P_VAL], base, pix, w, io.var[0],
+      o = reuse_channel<U, VALIDATION, TRACK_DE>(
+          tb, true, px, stash_d, params[P_VAL], base, pix, w, io.var[0],
           io.packed[0], io.flags[0], io.scatter[0]);
     } else {
-      Cand c = solar_candidate(params, px.r2, px.r3, px.p);
-      o = shade_channel(tb, c, true, px);
+      Cand cd = solar_candidate(params, px.r2, px.r3, px.p);
+      o = shade_channel<U>(tb, cd, true, px);
     }
     float em_add = 255.0f * px.surf.em_a;
     put_render(io.render[0], pix,
@@ -734,21 +960,21 @@ light_kernel(const float* __restrict__ params_g,
   if (io.render[1] != nullptr) {
     f3 o;
     if (TEMPORAL) {
-      o = reuse_channel<VALIDATION, TRACK_DE>(
-          tb, false, px, io.prev[1], params[P_VAL + 1], base, pix, w,
+      o = reuse_channel<U, VALIDATION, TRACK_DE>(
+          tb, false, px, stash_e, params[P_VAL + 1], base, pix, w,
           io.var[1], io.packed[1], io.flags[1], io.scatter[1]);
     } else {
-      Cand c = emissive_candidate(tb, px.r0, px.r1, px.r2, px.r3, px.p, px.n,
-                                  px.inst_f);
-      o = shade_channel(tb, c, false, px);
+      Cand cd = emissive_candidate<U>(tb, px.r0, px.r1, px.r2, px.r3, px.p,
+                                   px.n, px.inst_f);
+      o = shade_channel<U>(tb, cd, false, px);
     }
     put_render(io.render[1], pix, o, px.valid);
   }
   if (io.render[2] != nullptr) {
-    Ind ind = indirect_bounces(tb, bounces, px);
+    Ind ind = indirect_bounces<U>(tb, c.bounces, px);
     f3 o;
     if (TEMPORAL) {
-      o = indirect_reuse<TRACK_IND>(tb, px, ind, io.prev[2], base, pix, w,
+      o = indirect_reuse<TRACK_IND>(tb, px, ind, stash_i, base, pix, w,
                                     io.var[2], io.packed[2], io.flags[2]);
     } else {
       f3 s;
@@ -762,65 +988,76 @@ light_kernel(const float* __restrict__ params_g,
   }
 }
 
+// One 128-pixel tile per block. The temporal instances sweep one triangle
+// at a time (unrolled twice they hold more registers and spill), kernel B
+// two.
+template <bool TEMPORAL, bool VALIDATION, bool TRACK_DE, bool TRACK_IND>
+__global__ void __launch_bounds__(LIGHT_THREADS, LIGHT_MIN_BLOCKS)
+light_kernel(const __grid_constant__ LightCall c) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  long long pix = (long long)blockIdx.x * LIGHT_THREADS + threadIdx.x;
+  bool in = pix < (long long)c.h * c.w;
+  // plane 0 of this pixel's reservoir in an [h,16,w] tensor
+  long long base = (pix / c.w) * 16 * c.w + pix % c.w;
+  float* stash = smem + table_floats(c.n_tris, c.n_em_tris, c.n_mats) +
+                 threadIdx.x;
+  if (TEMPORAL && in) prefetch_prev(c.io, stash, base, c.w);
+  Tables tb = stage_tables(c, smem);
+  if (!in) return;
+  light_pixel<TEMPORAL ? 1 : 2, TEMPORAL, VALIDATION, TRACK_DE, TRACK_IND>(
+      c, tb, pix, base, stash);
+}
+
+// The shared memory a launch staged: the tables and, with previous
+// reservoirs, 16 words per thread for each.
+static int light_smem(const LightCall& c) {
+  int n_prev = (c.io.prev[0] != nullptr) + (c.io.prev[1] != nullptr) +
+               (c.io.prev[2] != nullptr);
+  return (int)sizeof(float) *
+         (table_floats(c.n_tris, c.n_em_tris, c.n_mats) +
+          16 * LIGHT_THREADS * (c.temporal ? n_prev : 0));
+}
+
+#define HK_MAX_DEVICES 16
+
 template <bool T, bool V, bool D, bool I>
-static int launch(size_t smem, cudaStream_t st, const float* params,
-                  const float* tris, const float* tri_attr, int n_tris,
-                  const float* em_tris, const float* em_attr, int n_em_tris,
-                  const float* mats, int n_mats, const float* position,
-                  const float* normal, const float* inst_mat,
-                  const float* rand, int h, int w, int n_em, int n_alias,
-                  int bounces, const LightIO& io) {
-  cudaError_t err = cudaFuncSetAttribute(
-      light_kernel<T, V, D, I>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int threads = 128;
-  long long blocks = ((long long)h * w + threads - 1) / threads;
-  light_kernel<T, V, D, I><<<(unsigned)blocks, threads, smem, st>>>(
-      params, tris, tri_attr, n_tris, em_tris, em_attr, n_em_tris, mats,
-      n_mats, position, normal, inst_mat, rand, h, w, n_em, n_alias, bounces,
-      io);
+static int launch(const LightCall& c, cudaStream_t st) {
+  // the dynamic shared memory each device allows the instance so far
+  static int allowed[HK_MAX_DEVICES];
+  int smem = light_smem(c);
+  if (smem > 48 * 1024) {
+    int dev;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return (int)err;
+    if (dev >= HK_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+    if (smem > allowed[dev]) {
+      err = cudaFuncSetAttribute(light_kernel<T, V, D, I>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem);
+      if (err != cudaSuccess) return (int)err;
+      allowed[dev] = smem;
+    }
+  }
+  long long tiles = ((long long)c.h * c.w + LIGHT_THREADS - 1) / LIGHT_THREADS;
+  if (tiles < 1) return 0;
+  light_kernel<T, V, D, I><<<(unsigned)tiles, LIGHT_THREADS, smem, st>>>(c);
   return (int)cudaGetLastError();
 }
 
-// io: host array of 18 pointers in LightIO's field order (render, var,
-// packed, flags, scatter, prev; d, e, i each).
-extern "C" int hk_light_fused(const float* params, const float* tris,
-                              const float* tri_attr, int n_tris,
-                              const float* em_tris, const float* em_attr,
-                              int n_em_tris, const float* mats, int n_mats,
-                              const float* position, const float* normal,
-                              const float* inst_mat, const float* rand, int h,
-                              int w, int n_em, int n_alias, int bounces,
-                              const void* const* io_ptrs, int temporal,
-                              int validation, int track_de, int track_ind,
-                              void* stream) {
-  LightIO io;
-  for (int c = 0; c < 3; c++) {
-    io.render[c] = (float*)io_ptrs[c];
-    io.var[c] = (float*)io_ptrs[3 + c];
-    io.packed[c] = (float*)io_ptrs[6 + c];
-    io.flags[c] = (float*)io_ptrs[9 + c];
-    io.scatter[c] = (float*)io_ptrs[12 + c];
-    io.prev[c] = (const float*)io_ptrs[15 + c];
-  }
-  size_t smem = sizeof(float) * (P_COUNT + 2 * HK_TRI * n_tris +
-                                 2 * HK_TRI * n_em_tris + HK_MAT * n_mats);
+extern "C" int hk_light_fused(const LightCall* call, void* stream) {
+  const LightCall& c = *call;
   cudaStream_t st = (cudaStream_t)stream;
-#define HK_ARGS                                                            \
-  smem, st, params, tris, tri_attr, n_tris, em_tris, em_attr, n_em_tris,   \
-      mats, n_mats, position, normal, inst_mat, rand, h, w, n_em, n_alias, \
-      bounces, io
-  if (!temporal) return launch<false, false, false, false>(HK_ARGS);
-  switch ((validation ? 4 : 0) + (track_de ? 2 : 0) + (track_ind ? 1 : 0)) {
-    case 0: return launch<true, false, false, false>(HK_ARGS);
-    case 1: return launch<true, false, false, true>(HK_ARGS);
-    case 2: return launch<true, false, true, false>(HK_ARGS);
-    case 3: return launch<true, false, true, true>(HK_ARGS);
-    case 4: return launch<true, true, false, false>(HK_ARGS);
-    case 5: return launch<true, true, false, true>(HK_ARGS);
-    case 6: return launch<true, true, true, false>(HK_ARGS);
-    default: return launch<true, true, true, true>(HK_ARGS);
+  if (!c.temporal) return launch<false, false, false, false>(c, st);
+  switch ((c.validation ? 4 : 0) + (c.track_de ? 2 : 0) +
+          (c.track_ind ? 1 : 0)) {
+    case 0: return launch<true, false, false, false>(c, st);
+    case 1: return launch<true, false, false, true>(c, st);
+    case 2: return launch<true, false, true, false>(c, st);
+    case 3: return launch<true, false, true, true>(c, st);
+    case 4: return launch<true, true, false, false>(c, st);
+    case 5: return launch<true, true, false, true>(c, st);
+    case 6: return launch<true, true, true, false>(c, st);
+    default: return launch<true, true, true, true>(c, st);
   }
-#undef HK_ARGS
 }

@@ -21,14 +21,17 @@ CUDA tensors.
 
 from __future__ import annotations
 
-import ctypes
+import math
+import struct
+import weakref
 
 import numpy as np
 import torch
 
+from hikari_tpu_torch import build as _build
 from hikari_tpu_torch.ops import reservoir as rsv
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div, f32,
-                                          host_values, on_cpu, ptr, stream)
+                                          host_values, on_cpu, stream)
 from hikari_tpu_torch.ops.trace_pallas import (DISTANCE_MAX, shadow_sweep,
                                                trace_full_sweep)
 from hikari_tpu_torch.utils.math import (F32_EPSILON, F32_MAX, GOLDEN_RATIO,
@@ -857,6 +860,66 @@ def lighting_plain(params, tris, attrs, em_tris, em_attrs, mats, position,
     return out
 
 
+# csrc/light_fused.cu LightCall: params, tris, attrs, em_tris, em_attrs,
+# mats, position, normal, inst_mat, rand, then the io pointers (render,
+# var, packed, flags, scatter, prev; d, e, i each) (pointers); n_tris,
+# n_em_tris, n_mats, h, w, n_em, n_alias, bounces, temporal, validation,
+# track_de, track_ind (ints)
+LIGHT_TABLE = struct.Struct("<28Q12i")
+_IO_KEYS = ("render", "var", "packed", "flags", "scatter", "prev")
+# {(io key, channel): its index among the io pointers}
+_IO_SLOTS = {(k, c): 3 * i + c for i, k in enumerate(_IO_KEYS)
+             for c in range(3)}
+# {(h, w, active channels, temporal, track_de, track_ind): plan}, see _plan
+_plans = {}
+# the last checked scene tables: (weak references to tris, attrs, em_tris,
+# em_attrs, mats)
+_tables = [None]
+
+
+def _check_tables(tables, dev):
+    """Checks the scene's tables (tris, attrs, em_tris, em_attrs, mats) at
+    their first launch; later launches on the same tensors skip it."""
+    last = _tables[0]
+    if last is not None and all(r() is t for r, t in zip(last, tables)):
+        return
+    tris, attrs, em_tris, em_attrs, mats = tables
+    f = torch.float32
+    check("tris", tris, f, (tris.shape[0], 10), dev)
+    check("attrs", attrs, f, (tris.shape[0], 17), dev)
+    check("em_tris", em_tris, f, (em_tris.shape[0], 10), dev)
+    check("em_attrs", em_attrs, f, (em_tris.shape[0], 17), dev)
+    check("mats", mats, f, (mats.shape[0], 15), dev)
+    _tables[0] = tuple(weakref.ref(t) for t in tables)
+
+
+def _plan(h, w, active, temporal, track_de, track_ind):
+    """The outputs of a launch as groups of one shape, each one allocation:
+    [(shape [n, ...], [(output name, io pointer index)] * n)]. The renders,
+    variances and flags, packed reservoirs and scatter reservoirs of the
+    active channels d/e/i; the packed reservoirs (which the frame carries
+    on) in an allocation of their own."""
+    groups = {"render": (h, w, 4), "var": (h, w), "flags": (h, w),
+              "packed": (h, 16, w), "scatter": (h, 16, w)}
+    members = {k: [] for k in groups}
+    for c, slot in enumerate("dei"):
+        if not active[c]:
+            continue
+        keys = ["render"]
+        if temporal:
+            keys += ["var", "packed"]
+            if (slot != "i" and track_de) or (slot == "i" and track_ind):
+                keys.append("flags")
+            if slot != "i" and track_de:
+                keys.append("scatter")
+        for k in keys:
+            group = "var" if k == "flags" else k
+            members[group].append((f"{slot}_{k}", _IO_SLOTS[k, c]))
+    plan = [((len(m),) + groups[k], m) for k, m in members.items() if m]
+    _plans[h, w, active, temporal, track_de, track_ind] = plan
+    return plan
+
+
 def lighting_kernel(params, tris, attrs, em_tris, em_attrs, mats, position,
                     normal, inst_mat, rand, prev=(), *, has_sun: bool,
                     n_em: int, n_alias: int, bounces: int,
@@ -865,24 +928,20 @@ def lighting_kernel(params, tris, attrs, em_tris, em_attrs, mats, position,
     """Kernels B (no reuse) and 4 (temporal reuse): runs `lighting_plain`
     for CPU tensors and launches csrc/light_fused.cu for CUDA tensors. The
     variant (temporal, validation retrace, tracking outputs) is chosen from
-    these Python values, never from a device value."""
-    kw = dict(has_sun=has_sun, n_em=n_em, n_alias=n_alias, bounces=bounces,
-              temporal=temporal, validation=validation, track_de=track_de,
-              track_ind=track_ind)
+    these Python values, never from a device value. The launch passes one
+    packed table (LIGHT_TABLE); its outputs of one shape share an
+    allocation (_plan)."""
     if on_cpu(position):
-        return lighting_plain(params, tris, attrs, em_tris, em_attrs, mats,
-                              position, normal, inst_mat, rand, prev, **kw)
-    from hikari_tpu_torch.build import load_cuda
-
+        return lighting_plain(
+            params, tris, attrs, em_tris, em_attrs, mats, position, normal,
+            inst_mat, rand, prev, has_sun=has_sun, n_em=n_em,
+            n_alias=n_alias, bounces=bounces, temporal=temporal,
+            validation=validation, track_de=track_de, track_ind=track_ind)
     dev = position.device
     h, w = position.shape[:2]
     f = torch.float32
+    _check_tables((tris, attrs, em_tris, em_attrs, mats), dev)
     check("params", params, f, (_P_COUNT,), dev)
-    check("tris", tris, f, (tris.shape[0], 10), dev)
-    check("attrs", attrs, f, (tris.shape[0], 17), dev)
-    check("em_tris", em_tris, f, (em_tris.shape[0], 10), dev)
-    check("em_attrs", em_attrs, f, (em_tris.shape[0], 17), dev)
-    check("mats", mats, f, (mats.shape[0], 15), dev)
     check("position", position, f, (h, w, 4), dev)
     check("normal", normal, f, (h, w, 3), dev)
     check("inst_mat", inst_mat, f, (h, w, 2), dev)
@@ -895,38 +954,35 @@ def lighting_kernel(params, tris, attrs, em_tris, em_attrs, mats, position,
         raise ValueError(f"{len(prev)} previous reservoirs for "
                          f"{sum(active)} active channels")
 
-    def new(*shape):
-        return torch.empty(shape, dtype=f, device=dev)
-
-    # io pointers, per channel d/e/i: render, var, packed, flags, scatter,
-    # prev (null where the variant or the channel has none)
-    io = {k: [None] * 3 for k in ("render", "var", "packed", "flags",
-                                  "scatter", "prev")}
+    plan = _plans.get((h, w, active, temporal, track_de, track_ind))
+    if plan is None:
+        plan = _plan(h, w, active, temporal, track_de, track_ind)
+    io = [0] * len(_IO_SLOTS)
     out = {}
-    for c, slot in enumerate("dei"):
-        if not active[c]:
-            continue
-        io["render"][c] = out[f"{slot}_render"] = new(h, w, 4)
-        if not temporal:
-            continue
-        io["prev"][c] = prev.pop(0)
-        check(f"prev[{slot}]", io["prev"][c], f, (h, 16, w), dev)
-        io["var"][c] = out[f"{slot}_var"] = new(h, w)
-        io["packed"][c] = out[f"{slot}_packed"] = new(h, 16, w)
-        if (slot != "i" and track_de) or (slot == "i" and track_ind):
-            io["flags"][c] = out[f"{slot}_flags"] = new(h, w)
-        if slot != "i" and track_de:
-            io["scatter"][c] = out[f"{slot}_scatter"] = new(h, 16, w)
-    table = (ctypes.c_void_p * 18)(*(ptr(t).value for k in io
-                                     for t in io[k]))
-    fn = bind(load_cuda("light_fused"), "hk_light_fused",
-              "pppippipippppiiiiipiiiip")
-    rc = fn(ptr(params), ptr(tris), ptr(attrs), tris.shape[0], ptr(em_tris),
-            ptr(em_attrs), em_tris.shape[0], ptr(mats), mats.shape[0],
-            ptr(position), ptr(normal), ptr(inst_mat), ptr(rand), h, w, n_em,
-            n_alias, bounces, ctypes.c_void_p(ctypes.addressof(table)),
-            int(temporal), int(validation), int(track_de), int(track_ind),
-            stream(dev))
+    for shape, members in plan:
+        if len(members) == 1:
+            parts = (torch.empty(shape[1:], dtype=f, device=dev),)
+        else:
+            parts = torch.empty(shape, dtype=f, device=dev).unbind(0)
+        for t, (name, at) in zip(parts, members):
+            out[name] = t
+            io[at] = t.data_ptr()
+    if temporal:
+        for c in range(3):
+            if active[c]:
+                t = prev.pop(0)
+                check(f"prev[{'dei'[c]}]", t, f, (h, 16, w), dev)
+                io[_IO_SLOTS["prev", c]] = t.data_ptr()
+    table = LIGHT_TABLE.pack(
+        params.data_ptr(), tris.data_ptr(), attrs.data_ptr(),
+        em_tris.data_ptr(), em_attrs.data_ptr(), mats.data_ptr(),
+        position.data_ptr(), normal.data_ptr(), inst_mat.data_ptr(),
+        rand.data_ptr(), *io,
+        tris.shape[0], em_tris.shape[0], mats.shape[0], h, w, n_em, n_alias,
+        bounces, int(temporal), int(validation), int(track_de),
+        int(track_ind))
+    rc = bind(_build.load_cuda("light_fused"), "hk_light_fused", "tp")(
+        table, stream(dev))
     check_launch(rc, "light_fused")
     lighting_kernel.launches += 1
     return out

@@ -80,34 +80,37 @@ def retrieve_surface(scene, material_idx: torch.Tensor, uv,
     in the reference's channel conventions: metallic *= tex.r, occlusion =
     tex.r, roughness from perceptual_roughness only. material_idx < 0 (a
     miss) reads material 0; callers mask. A screen-coherent uv field
-    (`coherent`, the primary surface) samples through kernel 14, any other
-    through sample_atlas. `slots` (base colour, emissive,
-    metallic-roughness, occlusion): the slots to sample; a slot no material
-    of the scene textures multiplies by 1.0 everywhere, so a caller that
-    knows so may leave it out with the same result. Returns {base_color,
-    emissive, reflectance, metallic, roughness, occlusion}."""
+    (`coherent`, the primary surface) samples through kernel 14, one
+    launch for all the slots sampled, any other through sample_atlas.
+    `slots` (base colour, emissive, metallic-roughness, occlusion): the
+    slots to sample; a slot no material of the scene textures multiplies
+    by 1.0 everywhere, so a caller that knows so may leave it out with the
+    same result. Returns {base_color, emissive, reflectance, metallic,
+    roughness, occlusion}."""
     row = _material_rows(scene, material_idx)
     base_color = row[..., 0:4]
     emissive = row[..., 4:8]
     metallic = row[..., 9]
     occlusion = torch.ones_like(metallic)
-    if not no_texture:
-        sample = sample_atlas
+    wanted = [s for s in range(4) if slots[s]]
+    if not no_texture and wanted:
+        tid = texture_ids(row)
         if coherent:
             from hikari_tpu_torch.ops import texture_pallas as _tx
 
-            sample = _tx.sample_atlas_coherent
-        tid = texture_ids(row)
+            texel = dict(zip(wanted, _tx.sample_atlas_slots(scene, tid, uv,
+                                                            wanted)))
+        else:
+            texel = {s: sample_atlas(scene, tid[..., s], uv) for s in wanted}
         if slots[0]:
-            base_color = base_color * sample(scene, tid[..., 0], uv)
+            base_color = base_color * texel[0]
         if slots[1]:
-            emissive = emissive * sample(scene, tid[..., 1], uv)
+            emissive = emissive * texel[1]
         if slots[2]:
-            metallic = metallic * torch.where(
-                tid[..., 2] >= 0, sample(scene, tid[..., 2], uv)[..., 0], 1.0)
+            metallic = metallic * torch.where(tid[..., 2] >= 0,
+                                              texel[2][..., 0], 1.0)
         if slots[3]:
-            occlusion = torch.where(
-                tid[..., 3] >= 0, sample(scene, tid[..., 3], uv)[..., 0], 1.0)
+            occlusion = torch.where(tid[..., 3] >= 0, texel[3][..., 0], 1.0)
     return {
         "base_color": base_color,
         "emissive": emissive,

@@ -231,6 +231,14 @@ class _FakeLibrary:
         return fn
 
 
+def _light_variant(args):
+    """(temporal, validation, track_de, track_ind) of a lighting launch's
+    packed table (csrc/light_fused.cu LightCall)."""
+    from hikari_tpu_torch.ops import light_fused
+
+    return light_fused.LIGHT_TABLE.unpack(args[0])[-4:]
+
+
 def test_cuda_wrappers_marshal_and_count(monkeypatch):
     """The wrappers' CUDA branch, up to the C call: argument checks,
     ctypes signatures and launch counts of one frame (1, 1, 4)."""
@@ -294,7 +302,7 @@ def test_cuda_wrappers_marshal_and_count_with_reuse(monkeypatch, path):
                               + ["hk_atrous_level"] * 4)
         gather = fake.args[1]
         assert gather[12] == (4 if spatial else 2)        # sources
-        variants.append(fake.args[2][-5:-1])
+        variants.append(_light_variant(fake.args[2]))
     assert variants == [(1, 1, int(spatial), int(spatial)),
                         (1, 0, int(spatial), int(spatial))]
     assert [fn.launches for fn in wrappers] == [2, 2, 2, 4 * spatial, 8]
@@ -350,7 +358,7 @@ def test_cuda_wrappers_marshal_and_count_with_post(monkeypatch, path):
         assert quads[3:5] == (12, 16)
         if default:
             assert fake.args[2][12] == 3                  # gather sources
-            variants.append(fake.args[3][-5:-1])
+            variants.append(_light_variant(fake.args[3]))
     if default:
         assert variants == [(1, 1, 0, 1), (1, 0, 0, 1)]
     assert [fn.launches for fn in wrappers] == [
@@ -611,6 +619,16 @@ def test_atrous_wrapper_rejects_a_step_it_cannot_stage(monkeypatch, step):
     assert fake.calls == []
 
 
+def _sample_call(args):
+    """The fields of a kernel 14 launch's packed table (csrc/texture.cu
+    SampleCall): {out, n, n_slots, n_rect, slots}."""
+    from hikari_tpu_torch.ops import texture_pallas
+
+    v = texture_pallas.SAMPLE_TABLE.unpack(args[0])
+    return dict(out=v[4], n=v[5], n_rect=v[8], n_slots=v[9],
+                slots=v[10:10 + v[9]])
+
+
 class _TextureZeroingLibrary(_ZeroingLibrary):
     """The zeroing fake whose texture sampler writes zeros too."""
 
@@ -622,7 +640,8 @@ class _TextureZeroingLibrary(_ZeroingLibrary):
         def zeroing(*args):
             fn.argtypes = zeroing.argtypes
             rc = fn(*args)
-            ctypes.memset(args[6], 0, 16 * args[7])
+            call = _sample_call(args)
+            ctypes.memset(call["out"], 0, 16 * call["n"] * call["n_slots"])
             return rc
 
         setattr(self, name, zeroing)
@@ -680,7 +699,7 @@ def test_textured_box_takes_the_modular_path(monkeypatch):
     wrappers = (prepass_fused.prepass_kernel, reproj_gather.reproj_gather,
                 light_fused.lighting_kernel, trace_pallas.trace_closest,
                 trace_pallas.trace_full, trace_pallas.trace_shadow,
-                texture_pallas.sample_atlas_coherent,
+                texture_pallas.sample_atlas_slots,
                 denoise_fused.atrous_level)
     for mod in mods:
         monkeypatch.setattr(mod, "on_cpu", lambda t: False)
@@ -700,7 +719,9 @@ def test_textured_box_takes_the_modular_path(monkeypatch):
             + ["hk_atrous_level"] * 4)
         for name, a in zip(fake.calls, fake.args):
             if name == "hk_sample_atlas":
-                assert a[7] == 12 * 16 and a[10] == 1
+                call = _sample_call(a)
+                assert (call["n"], call["n_rect"], call["slots"]) == (
+                    12 * 16, 1, (0,))
     assert [fn.launches for fn in wrappers] == [0, 2, 0, 4, 5, 5, 4, 8]
 
 
@@ -708,11 +729,11 @@ def test_cuda_wrappers_marshal_and_count_on_path_t(monkeypatch):
     """Path T's launches per frame (the textured simple scene at the
     example's settings: HikariSettings() with emissive spatial reuse):
     the city's kernel 13 calls (the two spheres' 2,436-row emissive table
-    is above kernel 6's 768), the gather of 3 sources, and kernel 14 for
-    the two textured slots (base colour, emissive) of the full-size
-    G-buffer's surface (the albedo) and of the lighting domain's (the
-    channels and the spatial passes). No kernel A, 8, B, 4, 10, 5, 6 or
-    7."""
+    is above kernel 6's 768), the gather of 3 sources, and kernel 14 once
+    for the full-size G-buffer's surface (the albedo) and once for the
+    lighting domain's (the channels and the spatial passes), each launch
+    sampling both textured slots (base colour, emissive). No kernel A, 8,
+    B, 4, 10, 5, 6 or 7."""
     from hikari_tpu_torch import build
     from hikari_tpu_torch.examples import simple
     from hikari_tpu_torch.ops import (denoise_fused, light_fused,
@@ -734,7 +755,7 @@ def test_cuda_wrappers_marshal_and_count_on_path_t(monkeypatch):
                 trace_cull.bvh_closest, trace_cull.bvh_full,
                 trace_cull.bvh_shadow, denoise_fused.atrous_level,
                 warp_band.warp_band, warp2.warp_multi,
-                texture_pallas.sample_atlas_coherent)
+                texture_pallas.sample_atlas_slots)
     for mod in mods:
         monkeypatch.setattr(mod, "on_cpu", lambda t: False)
         monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
@@ -750,17 +771,18 @@ def test_cuda_wrappers_marshal_and_count_on_path_t(monkeypatch):
         r.render_frame()
         v = int(validation)
         assert fake.calls == (
-            ["hk_bvh_full"] + ["hk_sample_atlas"] * 2 + ["hk_reproj_gather"]
-            + ["hk_sample_atlas"] * 2
+            ["hk_bvh_full", "hk_sample_atlas", "hk_reproj_gather",
+             "hk_sample_atlas"]
             + ["hk_bvh_shadow"] * (1 + v)
             + ["hk_bvh_full", "hk_bvh_shadow"] * (1 + v)
             + ["hk_bvh_full", "hk_bvh_full", "hk_bvh_shadow"]
             + ["hk_atrous_level"] * 4
             + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
-        assert fake.args[3][12] == 3                      # gather sources
+        assert fake.args[2][12] == 3                      # gather sources
         _assert_warp_tables(fake, (12, 16))
         atlas = [a for n, a in zip(fake.calls, fake.args)
                  if n == "hk_sample_atlas"]
-        assert [a[7] for a in atlas] == [12 * 16] * 2 + [6 * 8] * 2
+        assert [(_sample_call(a)["n"], _sample_call(a)["slots"])
+                for a in atlas] == [(12 * 16, (0, 1)), (6 * 8, (0, 1))]
     assert [fn.launches for fn in wrappers] == [
-        0, 0, 2, 0, 0, 0, 0, 0, 0, 9, 8, 8, 4, 2, 8]
+        0, 0, 2, 0, 0, 0, 0, 0, 0, 9, 8, 8, 4, 2, 4]

@@ -383,6 +383,35 @@ def test_kernel14_in_window_matches_port(kernel_scene, field):
     assert (got[~textured] == 1.0).all() and (ref[~textured] == 1.0).all()
 
 
+# slot sets of one launch: the textured paths' (base colour, emissive),
+# all four, and a reordered pair
+SLOT_SETS = [(0, 1), (0, 1, 2, 3), (3, 1)]
+
+
+@pytest.mark.parametrize("slots", SLOT_SETS)
+def test_kernel14_slots_match_reference_per_slot(slots):
+    """The multi-slot launch's contract on the CPU: one [..., 4] output per
+    requested slot, each bit for bit hikari_tpu's exact sample_atlas of
+    that slot's ids, from a [..., 4] id row and the uv half of a [..., 4]
+    velocity_uv plane."""
+    rng = np.random.default_rng(12)
+    texs = _textures(material_ref, rng, 3)
+    _, _, sj = _atlas_scene(texs, jnp.asarray)
+    _, _, st = _atlas_scene(texs, torch.from_numpy)
+    h, w = 24, 40
+    uv, _ = _sampler_inputs(rng, h * w, 3)
+    vel = np.concatenate([rng.random((h * w, 2), np.float32), uv], -1)
+    tid = rng.integers(-1, 3, (h, w, 4)).astype(np.int32)
+    vel = vel.reshape(h, w, 4)
+    got = tx.sample_atlas_slots(st, torch.from_numpy(tid),
+                                torch.from_numpy(vel)[..., 2:4], slots)
+    assert len(got) == len(slots)
+    for s, g in zip(slots, got):
+        ref = np.asarray(shading_ref.sample_atlas(
+            sj, jnp.asarray(tid[..., s]), jnp.asarray(vel[..., 2:4])))
+        assert _bits_equal(g.numpy(), ref), s
+
+
 class _FakeTextureLibrary:
     """Stands in for the built texture library: checks the call against
     the declared ctypes signature and records it."""
@@ -395,7 +424,8 @@ class _FakeTextureLibrary:
         def fn(*args):
             assert len(args) == len(fn.argtypes)
             for a, t in zip(args, fn.argtypes):
-                want = {ctypes.c_int: int}.get(t, ctypes.c_void_p)
+                want = {ctypes.c_int: int, ctypes.c_char_p: bytes}.get(
+                    t, ctypes.c_void_p)
                 assert isinstance(a, want), a
             self.args.append(args)
             return 0
@@ -404,17 +434,30 @@ class _FakeTextureLibrary:
         return fn
 
 
+TABLE_FIELDS = ("atlas", "rect", "ids", "uv", "out", "n", "ah", "aw",
+                "n_rect", "n_slots", "slot0", "slot1", "slot2", "slot3", "pad")
+
+
+def _table(args):
+    """The fields of one launch's SampleCall (csrc/texture.cu)."""
+    table, _ = args
+    return dict(zip(TABLE_FIELDS, tx.SAMPLE_TABLE.unpack(table)))
+
+
 def test_kernel14_wrapper_marshals_and_counts(monkeypatch):
-    """The CUDA branch up to the C call: slices of wider per-pixel
-    tensors pass with their pixel stride, one launch per call; pixels at
-    no uniform stride raise."""
+    """The CUDA branch up to the C call, one packed table per launch: a
+    slot's column of the id row with the uv half of velocity_uv passes with
+    their pixel stride of 4, one launch per call; pixels at no uniform
+    stride raise. Every requested slot of an id row goes in one launch,
+    into views of one allocation; the scene's tables are checked once and
+    give way to a new atlas."""
     from hikari_tpu_torch import build
 
     fake = _FakeTextureLibrary()
     monkeypatch.setattr(build, "load_cuda", lambda name: fake)
     monkeypatch.setattr(tx, "on_cpu", lambda t: False)
     monkeypatch.setattr(tx, "stream", lambda dev: ctypes.c_void_p(0))
-    monkeypatch.setattr(tx.sample_atlas_coherent, "launches", 0)
+    monkeypatch.setattr(tx.sample_atlas_slots, "launches", 0)
     _, _, st = _atlas_scene(_textures(material_ref,
                                       np.random.default_rng(7), 2),
                             torch.from_numpy)
@@ -424,13 +467,60 @@ def test_kernel14_wrapper_marshals_and_counts(monkeypatch):
     out = tx.sample_atlas_coherent(st, tid4[..., 1], vel[..., 2:4])
     assert out.shape == (h, w, 4)
     (a,) = fake.args
-    assert a[2].value == tid4[..., 1].data_ptr()
-    assert a[3].value == vel[..., 2:4].data_ptr()
-    assert (a[4], a[5], a[7], a[8], a[9], a[10]) == (
-        4, 4, h * w, *st["atlas"].shape[:2], 2)
-    assert tx.sample_atlas_coherent.launches == 1
+    t = _table(a)
+    assert t["ids"] == tid4[..., 1].data_ptr()
+    assert t["uv"] == vel[..., 2:4].data_ptr()
+    assert t["out"] == out.data_ptr()
+    assert (t["n"], t["ah"], t["aw"], t["n_rect"], t["n_slots"],
+            t["slot0"]) == (h * w, *st["atlas"].shape[:2], 2, 1, 0)
+    assert t["atlas"] == st["atlas"].data_ptr()
+    assert t["rect"] == st["tex_rect"].data_ptr()
+    assert tx.sample_atlas_slots.launches == 1
     with pytest.raises(ValueError, match="uniform stride"):
         tx.sample_atlas_coherent(st, tid4[:, :5, 0], vel[:, :5, 2:4])
     with pytest.raises(ValueError, match="contiguous"):
         tx.sample_atlas_coherent(st, tid4[..., 0], vel[..., ::2])
-    assert tx.sample_atlas_coherent.launches == 1
+    assert tx.sample_atlas_slots.launches == 1
+
+    # the textured paths' launch: base colour and emissive of the id row
+    outs = tx.sample_atlas_slots(st, tid4, vel[..., 2:4], (0, 1))
+    t = _table(fake.args[-1])
+    assert len(fake.args) == 2 and tx.sample_atlas_slots.launches == 2
+    assert [o.shape for o in outs] == [(h, w, 4)] * 2
+    assert t["ids"] == tid4.data_ptr()
+    assert (t["n_slots"], t["slot0"], t["slot1"], t["n"]) == (2, 0, 1, h * w)
+    assert t["out"] == outs[0].data_ptr()
+    assert outs[1].data_ptr() == outs[0].data_ptr() + 4 * 4 * h * w
+    assert outs[0].untyped_storage().data_ptr() == \
+        outs[1].untyped_storage().data_ptr()
+    # all four slots, in any order, in one launch
+    tx.sample_atlas_slots(st, tid4, vel[..., 2:4], (3, 0, 2, 1))
+    t = _table(fake.args[-1])
+    assert (t["n_slots"], t["slot0"], t["slot1"], t["slot2"],
+            t["slot3"]) == (4, 3, 0, 2, 1)
+    for bad in ((), (0, 0), (4,), (0, 1, 2, 3, 0)):
+        with pytest.raises(ValueError, match="slots"):
+            tx.sample_atlas_slots(st, tid4, vel[..., 2:4], bad)
+    with pytest.raises(ValueError, match="tid"):
+        tx.sample_atlas_slots(st, tid4[:, ::2], vel[:, ::2, 2:4], (0,))
+    with pytest.raises(ValueError, match="uniform stride"):
+        tx.sample_atlas_slots(st, tid4, torch.zeros((h, w, 2)), (0,))
+    assert len(fake.args) == 3 and tx.sample_atlas_slots.launches == 3
+
+    # a recompiled scene brings a new atlas: its own pointers and shape,
+    # and its tables are checked again
+    _, _, st2 = _atlas_scene(_textures(material_ref,
+                                       np.random.default_rng(8), 3),
+                             torch.from_numpy)
+    assert st2["atlas"].shape != st["atlas"].shape
+    tx.sample_atlas_slots(st2, tid4, vel[..., 2:4], (0, 1))
+    t = _table(fake.args[-1])
+    assert (t["atlas"], t["rect"], t["ah"], t["aw"], t["n_rect"]) == (
+        st2["atlas"].data_ptr(), st2["tex_rect"].data_ptr(),
+        *st2["atlas"].shape[:2], 3)
+    bad = {"atlas": st2["atlas"].double(), "tex_rect": st2["tex_rect"]}
+    with pytest.raises(TypeError, match="atlas"):
+        tx.sample_atlas_slots(bad, tid4, vel[..., 2:4], (0,))
+    tx.sample_atlas_slots(st, tid4, vel[..., 2:4], (0,))
+    assert _table(fake.args[-1])["atlas"] == st["atlas"].data_ptr()
+    assert tx.sample_atlas_slots.launches == 5
