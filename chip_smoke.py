@@ -104,10 +104,9 @@ synthetic 1080p field, kernel 4 on R's, S's (1080p) and D's (960x540)
 calls with and without the validation retrace, kernel B on the no-reuse
 frame's call and kernel 14 on T's 1080p and 960x540 launches, and prints
 the records and the frame medians (no ok line): run it in two trees of
-the repository in one call, in turns, to compare them (in a tree from
-before the multi-slot kernel 14, a launch of both slots is its two
-one-slot launches); `--ab-summary FILE...` (one file of --ab lines per
-tree) prints each metric's median and interquartile range over the runs.
+the repository in one call, in turns, to compare them; `--ab-summary
+FILE...` (one file of --ab lines per tree) prints each metric's median
+and interquartile range over the runs.
 Any failed check raises: the exit code is then not 0 and the
 last line is not printed. Without CUDA it exits 1 at once.
 """
@@ -361,12 +360,8 @@ def simple_launches(settings, number):
     ray: the two spheres' 2,436-row emissive table is above kernel 6's
     768), and kernel 14 once for the 1080p G-buffer and once for the
     960x540 lighting domain, each launch sampling both textured slots
-    (base colour and emissive). A tree from before the multi-slot launch
-    (timed by --ab) launches once per slot: 4."""
-    from hikari_tpu_torch.ops import texture_pallas as tx
-
-    per_slot = not hasattr(tx, "sample_atlas_slots")
-    return city_launches(settings, number)[:-1] + (4 if per_slot else 2,)
+    (base colour and emissive)."""
+    return city_launches(settings, number)[:-1] + (2,)
 
 
 # the seven paths of the box: their settings, and the launches of COUNTERS
@@ -417,7 +412,7 @@ def counter_wrappers():
             lf.lighting_kernel, sf.spatial_kernel, dnf.atrous_level,
             wb.warp_band, w2.warp_multi, tp.trace_closest, tp.trace_full,
             tp.trace_shadow, tc.bvh_closest, tc.bvh_full, tc.bvh_shadow,
-            getattr(tx, texture_wrapper_name(tx)))
+            tx.sample_atlas_slots)
 
 
 def real_tris(t):
@@ -1475,7 +1470,7 @@ def texture_ab(ht):
 
     r = ht.Renderer(simple_scene(), simple_camera(ht, FULL),
                     simple_settings(ht))
-    cap = Capture(tx, texture_wrapper_name(tx))
+    cap = Capture(tx, "sample_atlas_slots")
     with cap:
         cap.on = True
         for _ in range(2):
@@ -2143,26 +2138,12 @@ FLOPS_TEXEL_SAMPLE = 30
 
 
 def texture_launches(tx, calls):
-    """Kernel 14's launches among captured calls, each as (a function that
-    repeats it, its slots' (scene, tex_id, uv) in slot order). The calls
-    are sample_atlas_slots's; where the package has no such wrapper (a
-    tree from before the multi-slot launch, timed by --ab) they are
-    sample_atlas_coherent's, one launch per slot, base colour and emissive
-    in turn, and a pair of them counts as one launch of both slots."""
-    if hasattr(tx, "sample_atlas_slots"):
-        return [(lambda a=a: tx.sample_atlas_slots(*a),
-                 [(a[0], a[1][..., s], a[2]) for s in a[3]])
-                for a, _ in calls]
-    pairs = [[a for a, _ in calls[i:i + 2]] for i in range(0, len(calls), 2)]
-    return [(lambda p=p: [tx.sample_atlas_coherent(*a) for a in p], p)
-            for p in pairs]
-
-
-def texture_wrapper_name(tx):
-    """The wrapper path T's frames call kernel 14 through (see
-    texture_launches)."""
-    return ("sample_atlas_slots" if hasattr(tx, "sample_atlas_slots")
-            else "sample_atlas_coherent")
+    """Kernel 14's launches among captured sample_atlas_slots calls, each
+    as (a function that repeats it, its slots' (scene, tex_id, uv) in slot
+    order)."""
+    return [(lambda a=a: tx.sample_atlas_slots(*a),
+             [(a[0], a[1][..., s], a[2]) for s in a[3]])
+            for a, _ in calls]
 
 
 def texture_records(sh, launches, device=True):
@@ -2330,7 +2311,7 @@ def check_textures(ht):
     uv = vel[..., 2:4]
     err = max(err, check_texture_call(tx, sh, scene, tid, uv, (0, 1, 2, 3),
                                       "synthetic"))
-    err = max(err, check_texture_call(tx, sh, scene, tid, uv, (3, 1),
+    err = max(err, check_texture_call(tx, sh, scene, tid, uv, (1, 3),
                                       "synthetic"))
     for s in range(4):
         got = tx.sample_atlas_coherent(scene, tid[..., s], uv)

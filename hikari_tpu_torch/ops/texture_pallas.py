@@ -43,9 +43,9 @@ from hikari_tpu_torch.ops._kernel import bind, check_launch, on_cpu, stream
 from hikari_tpu_torch.ops.shading import sample_atlas
 
 MAX_SLOTS = 4
-# every slot tuple a launch takes: 1-4 distinct slot indices, in any order
-_SLOT_TUPLES = frozenset(p for k in range(1, MAX_SLOTS + 1)
-                         for p in itertools.permutations(range(MAX_SLOTS), k))
+# every slot tuple a launch takes: 1-4 distinct slot indices, ascending
+_SLOT_TUPLES = frozenset(c for k in range(1, MAX_SLOTS + 1)
+                         for c in itertools.combinations(range(MAX_SLOTS), k))
 # csrc/texture.cu SampleCall: atlas, rect, ids, uv, out (pointers); n, ah,
 # aw, n_rect, n_slots, slot[4], pad (ints)
 SAMPLE_TABLE = struct.Struct("<5Q10i")
@@ -146,17 +146,17 @@ def _launch(scene, ids, uv, lead, slots, row):
 
 def sample_atlas_slots(scene, tid, uv, slots):
     """Kernel 14: `sample_atlas` of each slot of `slots` (1-4 distinct
-    indices of tid's last axis). Runs it per slot for CPU tensors and
-    launches csrc/texture.cu once for all the slots for CUDA tensors: tid
-    contiguous [..., 4] int32, uv [..., 2] float32 the last two values of a
-    contiguous [..., 4] plane (velocity_uv's uv). The outputs are views of
-    one allocation."""
+    indices of tid's last axis, ascending). Runs it per slot for CPU
+    tensors and launches csrc/texture.cu once for all the slots for CUDA
+    tensors: tid contiguous [..., 4] int32, uv [..., 2] float32 the last
+    two values of a contiguous [..., 4] plane (velocity_uv's uv). The
+    outputs are views of one allocation."""
     if on_cpu(tid):
         return [sample_atlas(scene, tid[..., s], uv) for s in slots]
     slots = tuple(slots)
     if slots not in _SLOT_TUPLES:
         raise ValueError(f"slots {slots}: 1-{MAX_SLOTS} distinct indices "
-                         f"of the {ROW} ids expected")
+                         f"of the {ROW} ids, ascending, expected")
     shape = tid.shape
     if shape[-1] != ROW:
         raise ValueError(f"tid: shape {tuple(shape)}, expected a contiguous "

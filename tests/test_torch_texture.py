@@ -198,18 +198,43 @@ def _sampler_inputs(rng, n, n_tex):
     return uv, tid
 
 
-def test_sample_atlas_matches_reference_gather():
+# slot sets of one kernel-14 launch: the textured paths' (base colour,
+# emissive), all four, and a pair that skips slots
+SLOT_SETS = [(0, 1), (0, 1, 2, 3), (1, 3)]
+
+
+@pytest.mark.parametrize("slots", [None] + SLOT_SETS,
+                         ids=lambda s: "one" if s is None
+                         else "slots" + "".join(map(str, s)))
+def test_sample_atlas_matches_reference_gather(slots):
+    """sample_atlas bit for bit hikari_tpu's exact gather; with `slots`,
+    sample_atlas_slots (the multi-slot launch's contract on the CPU) from
+    a [..., 4] id row and the uv half of a [..., 4] velocity_uv plane: one
+    output per requested slot, each equal to the reference of that slot's
+    ids."""
     rng = np.random.default_rng(3)
     texs = _textures(material_ref, rng, 4)
     _, _, sj = _atlas_scene(texs, jnp.asarray)
     _, _, st = _atlas_scene(texs, torch.from_numpy)
     uv, tid = _sampler_inputs(rng, 50000, 4)
-    ref = np.asarray(shading_ref.sample_atlas(sj, jnp.asarray(tid),
-                                              jnp.asarray(uv)))
-    got = shading.sample_atlas(st, torch.from_numpy(tid),
-                               torch.from_numpy(uv)).numpy()
-    assert _bits_equal(got, ref)
-    assert (got[tid < 0] == 1.0).all()
+    if slots is None:
+        ref = np.asarray(shading_ref.sample_atlas(sj, jnp.asarray(tid),
+                                                  jnp.asarray(uv)))
+        got = shading.sample_atlas(st, torch.from_numpy(tid),
+                                   torch.from_numpy(uv)).numpy()
+        assert _bits_equal(got, ref)
+        assert (got[tid < 0] == 1.0).all()
+        return
+    row = rng.integers(-1, 4, (tid.size, 4)).astype(np.int32)
+    row[:, slots[0]] = tid
+    vel = np.concatenate([rng.random(uv.shape, np.float32), uv], -1)
+    got = tx.sample_atlas_slots(st, torch.from_numpy(row),
+                                torch.from_numpy(vel)[..., 2:4], slots)
+    assert len(got) == len(slots)
+    for s, g in zip(slots, got):
+        ref = np.asarray(shading_ref.sample_atlas(
+            sj, jnp.asarray(row[:, s]), jnp.asarray(uv)))
+        assert _bits_equal(g.numpy(), ref), s
 
 
 def test_sample_atlas_within_bf16_of_the_quad_atlas():
@@ -383,35 +408,6 @@ def test_kernel14_in_window_matches_port(kernel_scene, field):
     assert (got[~textured] == 1.0).all() and (ref[~textured] == 1.0).all()
 
 
-# slot sets of one launch: the textured paths' (base colour, emissive),
-# all four, and a reordered pair
-SLOT_SETS = [(0, 1), (0, 1, 2, 3), (3, 1)]
-
-
-@pytest.mark.parametrize("slots", SLOT_SETS)
-def test_kernel14_slots_match_reference_per_slot(slots):
-    """The multi-slot launch's contract on the CPU: one [..., 4] output per
-    requested slot, each bit for bit hikari_tpu's exact sample_atlas of
-    that slot's ids, from a [..., 4] id row and the uv half of a [..., 4]
-    velocity_uv plane."""
-    rng = np.random.default_rng(12)
-    texs = _textures(material_ref, rng, 3)
-    _, _, sj = _atlas_scene(texs, jnp.asarray)
-    _, _, st = _atlas_scene(texs, torch.from_numpy)
-    h, w = 24, 40
-    uv, _ = _sampler_inputs(rng, h * w, 3)
-    vel = np.concatenate([rng.random((h * w, 2), np.float32), uv], -1)
-    tid = rng.integers(-1, 3, (h, w, 4)).astype(np.int32)
-    vel = vel.reshape(h, w, 4)
-    got = tx.sample_atlas_slots(st, torch.from_numpy(tid),
-                                torch.from_numpy(vel)[..., 2:4], slots)
-    assert len(got) == len(slots)
-    for s, g in zip(slots, got):
-        ref = np.asarray(shading_ref.sample_atlas(
-            sj, jnp.asarray(tid[..., s]), jnp.asarray(vel[..., 2:4])))
-        assert _bits_equal(g.numpy(), ref), s
-
-
 class _FakeTextureLibrary:
     """Stands in for the built texture library: checks the call against
     the declared ctypes signature and records it."""
@@ -493,12 +489,12 @@ def test_kernel14_wrapper_marshals_and_counts(monkeypatch):
     assert outs[1].data_ptr() == outs[0].data_ptr() + 4 * 4 * h * w
     assert outs[0].untyped_storage().data_ptr() == \
         outs[1].untyped_storage().data_ptr()
-    # all four slots, in any order, in one launch
-    tx.sample_atlas_slots(st, tid4, vel[..., 2:4], (3, 0, 2, 1))
+    # all four slots in one launch; slots go in ascending order
+    tx.sample_atlas_slots(st, tid4, vel[..., 2:4], (0, 1, 2, 3))
     t = _table(fake.args[-1])
     assert (t["n_slots"], t["slot0"], t["slot1"], t["slot2"],
-            t["slot3"]) == (4, 3, 0, 2, 1)
-    for bad in ((), (0, 0), (4,), (0, 1, 2, 3, 0)):
+            t["slot3"]) == (4, 0, 1, 2, 3)
+    for bad in ((), (0, 0), (4,), (1, 0), (0, 1, 2, 3, 0)):
         with pytest.raises(ValueError, match="slots"):
             tx.sample_atlas_slots(st, tid4, vel[..., 2:4], bad)
     with pytest.raises(ValueError, match="tid"):
