@@ -7,8 +7,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the nine CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
    each, started together) and prints their register and spill counts,
-   and those of each lighting instance (kernels B and 4) from its build
-   log;
+   and those of each lighting instance (kernels B and 4), of kernels A and
+   8 and of kernel 10's two channel instances from their build logs;
 3. holds kernels A, B and C against their plain PyTorch versions on the
    card at the 1080p flagship shapes of the no-reuse frame, and kernel C
    (the a-trous level) on synthetic fields at 1080p, 960x540 and 541x963
@@ -21,13 +21,15 @@ Run from the repository root on a machine with an NVIDIA H100:
    (temporal lighting) on a validation and a no-validation frame with the
    tracking outputs on (path S) and off (path R), printing the share of
    its output words equal to the plain version's, kernel 10 (the spatial
-   pass) on both channels, and kernel C on path R's real variance;
+   pass) on both channels, kernel A on path S's calls, and kernel C on
+   path R's real variance;
 5. runs the directional branch of kernels 4 and 10 on the box with a sun
-   at 270x480;
+   at 270x480 (and kernel A on its calls);
 6. drives the post paths at 1080p with the camera panning (D, the literal
    HikariSettings(), and P, the flagship + TAA + SMAA 2.0) and holds
    kernel 8 (the SMAA parity quads, moved from kernel A's planes) against
-   its plain version and against kernel A's strided planes, and on
+   its plain version and against kernel A's strided planes (kernel A
+   itself against its plain version on D's calls), and on
    synthetic G-buffers of random words (NaN payloads, -0.0), kernels 11
    and 12 (the history warps: TAA's
    at 1920x1080, SMAA's at 960x540) against their plain versions on the
@@ -84,6 +86,9 @@ Run from the repository root on a machine with an NVIDIA H100:
    kernels the paths run, one of kernel 13's mode `hit` (no path traces
    without attributes), and last {"ok": true, "device": {...}}.
 
+Every check of kernels A, 4, 10 and B also prints the share of its output
+words equal to the plain version's.
+
 Tolerances: kernels A, B, C as stated at their checks (C: <= 1 bf16 ulp
 on >= 99.9% of values, the words not equal counted); kernels 5, 6, 7,
 9, 8, 12, 13 and 14 bit for bit (8 also against kernel A's planes; 13 against
@@ -102,9 +107,12 @@ the nine paths (P and D alternately) before any check or profiler session,
 then checks and times kernels 8, C, 11 and 12 on path D's calls, C on a
 synthetic 1080p field, kernel 4 on R's, S's (1080p) and D's (960x540)
 calls with and without the validation retrace, kernel B on the no-reuse
-frame's call and kernel 14 on T's 1080p and 960x540 launches, and prints
-the records and the frame medians (no ok line): run it in two trees of
-the repository in one call, in turns, to compare them; `--ab-summary
+frame's call, kernel 14 on T's 1080p and 960x540 launches, kernel A on the
+no-reuse frame's and D's 1080p calls and kernel 10 on S's two 1080p calls
+and D's 960x540 call (events, device and host times, the host times of
+each wrapper and of its pack_params before any profiler session), and
+prints the records and the frame medians (no ok line): run it in two
+trees of the repository in one call, in turns, to compare them; `--ab-summary
 FILE...` (one file of --ab lines per tree) prints each metric's median
 and interquartile range over the runs.
 Any failed check raises: the exit code is then not 0 and the
@@ -192,19 +200,28 @@ def kernel_resources(name):
     return out
 
 
+def kernel_instances(name, label=lambda r: r["kernel"]):
+    """Every entry function of lib<name>.so (kernel_resources), printed
+    with its registers, spills and stack under `label`: for prepass_fused
+    kernels A and 8, for spatial_fused kernel 10's two channel instances."""
+    recs = kernel_resources(name)
+    for r in recs:
+        print(f"  {name} {label(r)}: {r.get('registers')} registers, "
+              f"{r.get('spill_stores')} B spill stores, "
+              f"{r.get('spill_loads')} B spill loads, {r.get('stack')} B "
+              f"stack")
+    return recs
+
+
 def light_instances():
     """The lighting kernel's template instances (kernels B and 4) with
     their registers and spills, printed; a name's template arguments are
     ptxas's mangled booleans (temporal, validation, track_de, track_ind)."""
-    recs = kernel_resources("light_fused")
-    for r in recs:
-        flags = re.findall(r"Lb([01])E", r["kernel"])
-        r["instance"] = "".join(flags)
-        print(f"  light_fused instance {r['instance'] or r['kernel']}: "
-              f"{r.get('registers')} registers, {r.get('spill_stores')} B "
-              f"spill stores, {r.get('spill_loads')} B spill loads, "
-              f"{r.get('stack')} B stack")
-    return recs
+    def label(r):
+        r["instance"] = "".join(re.findall(r"Lb([01])E", r["kernel"]))
+        return f"instance {r['instance'] or r['kernel']}"
+
+    return kernel_instances("light_fused", label)
 
 
 def load_box_module():
@@ -465,21 +482,8 @@ def check_kernels(ht, scene_host):
     params = pf.pack_params(view, view, (0.0, 0.0), FULL)
     a_args = (params, scene["tri_pos_flat"], scene["tri_attr"],
               scene["inst_motion"], scene["mat_packed"], FULL)
+    max_err, words_a = check_prepass_call(pf, a_args, "no reuse")
     got = pf.prepass_kernel(*a_args)
-    ref = pf.prepass_plain(*a_args)
-    torch.cuda.synchronize()
-    ids_eq = float((got[2] == ref[2]).all(-1).float().mean())
-    fracs, max_err = [], 0.0
-    for i in (0, 1, 3, 4):
-        frac, err = rel_close(got[i], ref[i], 1e-4)
-        fracs.append(frac)
-        max_err = max(max_err, err)
-    print(f"kernel A prepass: ids equal on {ids_eq:.6f} of pixels (need "
-          f">= 0.995); float planes within 1e-4*max(|ref|,1) on "
-          f"{min(fracs):.6f} of values (need >= 0.99); max abs err "
-          f"{max_err:.3g}")
-    if ids_eq < 0.995 or min(fracs) < 0.99:
-        fail("kernel A disagrees with its plain version")
     ms = event_ms(lambda: pf.prepass_kernel(*a_args), REPS)
     plain_ms = event_ms(lambda: pf.prepass_plain(*a_args), PLAIN_REPS)
     nbytes = 4 * (params.numel() + sum(t.numel() for t in a_args[1:5])
@@ -490,8 +494,8 @@ def check_kernels(ht, scene_host):
         name="prepass_fused", route="cuda",
         source="hikari_tpu_torch/csrc/prepass_fused.cu",
         replaces="hikari_tpu/ops/prepass_fused.py:78", launches=None,
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=None))
+        max_abs_err=max_err, words_equal=words_a, ms=ms, plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=None))
     gbuf, albedo = pf._assemble(*got)
 
     # --- kernel B
@@ -550,6 +554,35 @@ def check_kernels(ht, scene_host):
         max_abs_err=max_err, bound_ms=b_ms, bound_by=b_by, library_ms=None,
         **rec))
     return records
+
+
+PREPASS_PLANES = ("position", "normal", "instance_material", "velocity_uv",
+                  "albedo")
+
+
+def check_prepass_call(pf, a, label):
+    """Kernel A against its plain version on one call: ids equal on >=
+    99.5% of pixels, the float planes within 1e-4 * max(|ref|, 1) on >= 99%
+    of values; prints the share of output words equal to the plain
+    version's. Returns (max abs error, that share)."""
+    got = pf.prepass_kernel(*a)
+    ref = pf.prepass_plain(*a)
+    torch.cuda.synchronize()
+    ids_eq = float((got[2] == ref[2]).all(-1).float().mean())
+    fracs, max_err = [], 0.0
+    for i in (0, 1, 3, 4):
+        frac, err = rel_close(got[i], ref[i], 1e-4)
+        fracs.append(frac)
+        max_err = max(max_err, err)
+    words, n = outputs_words(dict(zip(PREPASS_PLANES, got)),
+                             dict(zip(PREPASS_PLANES, ref)))
+    print(f"kernel A prepass {label} {a[5]}: ids equal on {ids_eq:.6f} of "
+          f"pixels (need >= 0.995); float planes within 1e-4*max(|ref|,1) "
+          f"on {min(fracs):.6f} of values (need >= 0.99); max abs err "
+          f"{max_err:.3g}; {words:.8f} of {n} words equal")
+    if ids_eq < 0.995 or min(fracs) < 0.99:
+        fail(f"kernel A disagrees with its plain version ({label})")
+    return max_err, words
 
 
 def check_levels(dnf, calls, what):
@@ -787,17 +820,20 @@ def check_b_call(lf, a, k, label):
 
 
 def check_spatial_calls(sf, calls, label):
-    max_err = 0.0
+    """Kernel 10 vs plain on captured calls (compare_outputs); returns (the
+    max abs error, the least share of equal words of a call)."""
+    max_err, words = 0.0, 1.0
     for a, k in calls:
         got = dict(zip(("render", "variance", "planes"),
                        sf.spatial_kernel(*a, **k)))
         ref = dict(zip(("render", "variance", "planes"),
                        sf.spatial_plain(*a, **k)))
         torch.cuda.synchronize()
-        what = (f"kernel 10 {label} "
+        what = (f"kernel 10 {label} {tuple(a[4].shape[:2])} "
                 f"({'emissive' if k['emissive_lit'] else 'indirect'})")
-        max_err = max(max_err, compare_outputs(what, got, ref)[0])
-    return max_err
+        err, eq = compare_outputs(what, got, ref)
+        max_err, words = max(max_err, err), min(words, eq)
+    return max_err, words
 
 
 def check_gather_calls(rg, calls, label):
@@ -946,18 +982,21 @@ def check_reuse(ht, build_box):
     from hikari_tpu_torch import frame as fr
     from hikari_tpu_torch.ops import denoise_fused as dnf
     from hikari_tpu_torch.ops import light_fused as lf
+    from hikari_tpu_torch.ops import prepass_fused as pf
     from hikari_tpu_torch.ops import reproj_gather as rg
     from hikari_tpu_torch.ops import spatial_fused as sf
 
     box_host = build_box()
     gpu = box_host.compile()
     caps = [Capture(fr, "reproj_gather"), Capture(lf, "lighting_kernel"),
-            Capture(sf, "spatial_kernel")]
+            Capture(sf, "spatial_kernel"), Capture(pf, "prepass_kernel")]
     keep = (CHECK_FRAMES - 3, CHECK_FRAMES - 2)      # frames 4 and 5
-    with caps[0], caps[1], caps[2]:
+    with caps[0], caps[1], caps[2], caps[3]:
         drive(ht, box_host, FULL, PATHS["S"][0](ht), CHECK_FRAMES - 1, caps,
               keep)
-    gather_calls, light_s, spatial_s = (c.calls for c in caps)
+    gather_calls, light_s, spatial_s, prepass_s = (c.calls for c in caps)
+    for a, _ in prepass_s:
+        check_prepass_call(pf, a, "path S")
 
     # --- kernel 9: bit for bit
     err9 = check_gather_calls(rg, gather_calls, "path S")
@@ -994,13 +1033,14 @@ def check_reuse(ht, build_box):
            if key != "bound_by"})
 
     # --- kernel 10, both channels of the last captured S frame
-    err10 = check_spatial_calls(sf, spatial_s, "path S")
+    err10, words10 = check_spatial_calls(sf, spatial_s, "path S")
     per = [spatial_record(sf, a, k) for a, k in spatial_s[-2:]]
     rec10 = dict(
         name="spatial_fused", route="cuda",
         source="hikari_tpu_torch/csrc/spatial_fused.cu",
         replaces="hikari_tpu/ops/spatial_fused.py:150", launches=None,
-        max_abs_err=err10, ms=float(np.mean([p[0] for p in per])),
+        max_abs_err=err10, words_equal=words10,
+        ms=float(np.mean([p[0] for p in per])),
         plain_ms=float(np.mean([p[1] for p in per])),
         bound_ms=float(np.mean([p[2][0] for p in per])),
         bound_by=per[-1][2][1], library_ms=None,
@@ -1008,14 +1048,17 @@ def check_reuse(ht, build_box):
 
     # --- the directional branch: the box with a sun, path S at 270x480
     sun_host = sun_box(build_box)
-    caps = [Capture(lf, "lighting_kernel"), Capture(sf, "spatial_kernel")]
-    with caps[0], caps[1]:
+    caps = [Capture(lf, "lighting_kernel"), Capture(sf, "spatial_kernel"),
+            Capture(pf, "prepass_kernel")]
+    with caps[0], caps[1], caps[2]:
         r = drive(ht, sun_host, SUN, PATHS["S"][0](ht), CHECK_FRAMES, caps,
                   (CHECK_FRAMES - 3, CHECK_FRAMES - 2, CHECK_FRAMES - 1))
     if not r.gpu_scene.has_sun:
         fail("the sun scene has no sun")
     check_lighting_calls(lf, caps[0].calls, "sun 270x480")
-    check_spatial_calls(sf, caps[1].calls, "sun 270x480")
+    check_spatial_calls(sf, caps[1].calls, "sun")
+    for a, _ in caps[2].calls:
+        check_prepass_call(pf, a, "sun")
     return [rec9, rec4, rec10]
 
 
@@ -1461,6 +1504,58 @@ def light_ab(ht, build_box, lf, d_calls):
     return [rec for rec, _ in named], device_pass
 
 
+def prepass_spatial_ab(ht, build_box, d_calls):
+    """--ab's records of kernels A and 10: A on the no-reuse frame's call
+    and path D's (both 1080p), 10 on path S's two 1080p calls (frame 5)
+    and D's 960x540 call (`d_calls`: D's captured (prepass_kernel,
+    prepass_fused.pack_params, spatial_kernel, spatial_fused.pack_params)
+    calls), each checked against its plain version (the share of equal
+    words printed) and timed by events and on the host, the wrapper's call
+    and its pack_params' apart, before any profiler session. Returns the
+    records and the pass that adds their device times."""
+    from hikari_tpu_torch.ops import prepass_fused as pf
+    from hikari_tpu_torch.ops import spatial_fused as sf
+
+    caps = [Capture(pf, "prepass_kernel"), Capture(pf, "pack_params")]
+    with caps[0], caps[1]:
+        drive(ht, build_box(), FULL, PATHS["no-reuse"][0](ht), 3, caps,
+              (2,))
+    a_calls = [("no-reuse", caps[0].calls[-1], caps[1].calls[-1]),
+               ("D", d_calls[0][-1], d_calls[1][-1])]
+    caps = [Capture(sf, "spatial_kernel"), Capture(sf, "pack_params")]
+    with caps[0], caps[1]:
+        drive(ht, build_box(), FULL, PATHS["S"][0](ht), CHECK_FRAMES - 1,
+              caps, (CHECK_FRAMES - 2,))
+    s_calls = [("S", c, pc) for c, pc in zip(caps[0].calls, caps[1].calls)]
+    s_calls.append(("D", d_calls[2][-1], d_calls[3][-1]))
+    named = []
+    for path, (a, k), pack in a_calls:
+        err, words = check_prepass_call(pf, a, path)
+        named.append((dict(name=f"prepass_{path}_{a[5][0]}x{a[5][1]}",
+                           max_abs_err=err, words_equal=words),
+                      lambda a=a: pf.prepass_kernel(*a), pf.pack_params,
+                      pack, "prepass_kernel"))
+    for path, (a, k), pack in s_calls:
+        h, w = a[4].shape[:2]
+        chan = "emissive" if k["emissive_lit"] else "indirect"
+        err, words = check_spatial_calls(sf, [(a, k)], path)
+        named.append((dict(name=f"spatial_{path}_{chan}_{h}x{w}",
+                           max_abs_err=err, words_equal=words),
+                      lambda a=a, k=k: sf.spatial_kernel(*a, **k),
+                      sf.pack_params, pack, "spatial_kernel"))
+    for rec, run, pack_fn, (pa, pk), _ in named:
+        rec.update(ms=event_ms(run, REPS), host_us=host_us(run),
+                   pack_host_us=host_us(lambda: pack_fn(*pa, **pk)))
+
+    def device_pass():
+        for rec, run, _, _, kernel in named:
+            rec["device_ms"] = device_ms(run, REPS, kernel)
+            print_kernel_times(rec["name"], rec)
+            print(f"    pack_params {rec['pack_host_us']:.1f} us on the host")
+
+    return [rec for rec, *_ in named], device_pass
+
+
 def texture_ab(ht):
     """--ab's kernel 14 records: path T's two frames, every launch checked
     bit for bit against sample_atlas per slot, and frame 1's launches
@@ -1503,17 +1598,19 @@ def ab_only(ht, build_box):
     960x540), kernel C timed on a synthetic 1080p field (2 channels, the
     four steps), and before those, so that their host times come before
     any profiler session, kernels 4 and B checked and timed on R's, S's,
-    D's and the no-reuse frame's calls (light_ab) and kernel 14 on path
-    T's (texture_ab). For timing two trees of the repository against each
-    other in one call: it reaches the kernels only through their wrappers
-    and plain versions, as captured. Returns (records, {frame median
-    name: ms})."""
+    D's and the no-reuse frame's calls (light_ab), kernel 14 on path T's
+    (texture_ab), and kernel A on the no-reuse frame's and D's calls and
+    kernel 10 on S's and D's (prepass_spatial_ab). For timing two trees of
+    the repository against each other in one call: it reaches the kernels
+    only through their wrappers and plain versions, as captured. Returns
+    (records, {frame median name: ms})."""
     from contextlib import ExitStack
 
     from hikari_tpu_torch.ops import denoise as dn
     from hikari_tpu_torch.ops import denoise_fused as dnf
     from hikari_tpu_torch.ops import light_fused as lf
     from hikari_tpu_torch.ops import prepass_fused as pf
+    from hikari_tpu_torch.ops import spatial_fused as sf
     from hikari_tpu_torch.ops import warp2 as w2
     from hikari_tpu_torch.ops import warp_band as wb
 
@@ -1530,21 +1627,26 @@ def ab_only(ht, build_box):
 
     caps = [Capture(pf, "prepass_kernel"), Capture(pf, "prepass_quads_kernel"),
             Capture(dnf, "atrous_level"), Capture(wb, "warp_band"),
-            Capture(w2, "warp_multi"), Capture(lf, "lighting_kernel")]
+            Capture(w2, "warp_multi"), Capture(lf, "lighting_kernel"),
+            Capture(pf, "pack_params"), Capture(sf, "spatial_kernel"),
+            Capture(sf, "pack_params")]
     with ExitStack() as stack:
         for c in caps:
             stack.enter_context(c)
         drive(ht, build_box(), FULL, default_settings(ht), CHECK_FRAMES - 1,
               caps, (CHECK_FRAMES - 3, CHECK_FRAMES - 2))
     a_calls, q_calls, c_calls, wb_calls, wm_calls, l_calls = (
-        c.calls for c in caps)
-    # kernels 4, B and 14 first: their events and host times before any
-    # profiler session of the process, then their device times
+        c.calls for c in caps[:6])
+    # kernels 4, B, 14, A and 10 first: their events and host times before
+    # any profiler session of the process, then their device times
     light_recs, light_dev = light_ab(ht, build_box, lf, l_calls)
     tex_recs, tex_dev = texture_ab(ht)
+    as_recs, as_dev = prepass_spatial_ab(ht, build_box, [
+        a_calls, caps[6].calls, caps[7].calls, caps[8].calls])
     light_dev()
     tex_dev()
-    records = light_recs + tex_recs
+    as_dev()
+    records = light_recs + tex_recs + as_recs
     quads_checks(pf, q_calls, a_calls)
     rec8 = dict(name="prepass_quads",
                 **quads_times(pf, q_calls[-1][0], a_calls[-1][0]))
@@ -1591,7 +1693,7 @@ def ab_summary(paths):
         for rec in run["ab"]:
             for key in ("ms", "device_ms", "host_us", "library_ms",
                         "device_ms_per_slot", "library_device_ms",
-                        "library_host_us", "words_equal"):
+                        "library_host_us", "words_equal", "pack_host_us"):
                 if rec.get(key) is not None:
                     out[f"{rec['name']} {key}"] = rec[key]
         return out
@@ -1655,6 +1757,8 @@ def check_post(ht, build_box):
     a_calls, q_calls, g_calls, l_calls, s_calls, c_calls, wb_calls, \
         wm_calls = (c.calls for c in caps)
 
+    for a, _ in a_calls:
+        check_prepass_call(pf, a, "path D")
     records = [check_quads(pf, q_calls, a_calls)]
     records += check_warps(wb, w2, wb_calls, wm_calls)
     check_warp_fields(wb, w2)
@@ -2630,7 +2734,8 @@ def main():
                     help="only time the frames of the nine paths, then "
                     "check and time kernels 8, C, 11 and 12 on path D's "
                     "calls, 4 and B on R's, S's, D's and the no-reuse "
-                    "frame's, 14 on T's (to time two trees of the "
+                    "frame's, 14 on T's, A on the no-reuse frame's and D's, "
+                    "10 on S's and D's (to time two trees of the "
                     "repository in one call); prints their records and no "
                     "ok line")
     ap.add_argument("--ab-summary", nargs="+", metavar="FILE",
@@ -2669,10 +2774,13 @@ def main():
         return box.build_cornell_box("hikari_tpu_torch")
 
     instances = light_instances()
+    instances_a10 = {name: kernel_instances(name)
+                     for name in ("prepass_fused", "spatial_fused")}
     if args.ab:
         records, frames = ab_only(ht, build_box)
         print(json.dumps({"ab": list(records), "frames_ms": frames,
-                          "light_instances": instances, "card": card}))
+                          "light_instances": instances,
+                          "kernel_instances": instances_a10, "card": card}))
         return 0
     t0 = time.perf_counter()
     # path T's checks first: kernel 14's host time before any profiler
@@ -2760,7 +2868,8 @@ def main():
         "reps_ms_smaa2": alt_times["P"], "reps_ms_default": alt_times["D"],
         "card": card}))
     print(json.dumps({"kernel_off_path": hit_record}))
-    print(json.dumps({"light_instances": instances}))
+    print(json.dumps({"light_instances": instances,
+                      "kernel_instances": instances_a10}))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

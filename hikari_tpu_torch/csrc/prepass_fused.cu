@@ -1,5 +1,5 @@
-// Kernel A: the fused G-buffer prepass, one thread per pixel; and kernel 8:
-// the SMAA parity quads, de-interleaved from kernel A's planes.
+// Kernel A: the fused G-buffer prepass, two pixels per thread; and kernel
+// 8: the SMAA parity quads, de-interleaved from kernel A's planes.
 //
 // Kernel A replaces hikari_tpu/ops/prepass_fused.py:_build_kernel (the
 // Pallas body, launched by _call_planes). Per pixel: the jittered camera
@@ -8,17 +8,27 @@
 // (+0.5), velocity through the per-instance motion matrix, and the
 // env-BRDF albedo of the no-texture surface.
 //
-// Design: the triangle table (<= 768 rows x 26 floats, ~80 KB), the motion
-// matrices and the materials sit in dynamic shared memory; every thread of
-// a warp reads the same triangle at once (a broadcast). Outputs are
-// written straight into the interleaved G-buffer tensors (position [h,w,4],
-// normal [h,w,3], ids [h,w,2], velocity+uv [h,w,4], albedo [h,w,4]), so a
-// warp stores contiguous runs.
-//
 // Bound of kernel A on the H100: operations. Each pixel runs ~60 flops per
 // ray-triangle test against 68 bytes of output; at 1080p with the
 // 36-triangle box that is ~4.5 GFLOP (67 us at 67 TFLOP/s f32) against
-// ~141 MB (42 us at 3.35 TB/s).
+// ~141 MB (42 us at 3.35 TB/s). Built with --fmad=false, every multiply
+// and add issues alone, so the kernel is bound by its instruction issue.
+//
+// Design, against that issue count:
+// * Every ray of kernel A starts at the camera, so the terms of
+//   mt_terms (common.cuh) that do not involve the direction are the same
+//   for every pixel of the frame: the edges ab and ac, ao = cam - v0,
+//   v = ao x ab and the distance numerator ac . v. Each block stages them
+//   once per triangle (stage_tris: four float4 rows, one thread per
+//   triangle, no division per element), by the same float operations on
+//   the same operands as mt_terms, so every word is unchanged. The test
+//   per pixel is left with u = d x ac, det = ab . u, uu = ao . u and
+//   vv = d . v.
+// * The reciprocal is skipped where the result is already decided
+//   (tri_test); see the proof there.
+// * Two pixels per thread (HK_PREPASS_PIX), a block's two runs of 256
+//   pixels: each staged row is read from shared memory once for both rays.
+// * The attribute row is read from global memory for the winner only.
 //
 // Kernel 8 replaces prepass_fused.py:_build_kernel_slim (launched by
 // prepass_fused_quads, once per parity there): depth, velocity and
@@ -39,6 +49,8 @@
 // 40 B per pixel (all of position and velocity_uv, all of the ids): with
 // them ~116 MB, 35 us.
 
+#include <atomic>
+
 #include "common.cuh"
 
 // params layout (ops/prepass_fused.py _P_*)
@@ -50,7 +62,11 @@
 #define P_WH 53
 #define P_COUNT 55
 
-#define A_STRIDE 16  // normals (9), uv (6), material
+#define A_THREADS 256
+#ifndef HK_PREPASS_PIX
+#define HK_PREPASS_PIX 2  // pixels per thread
+#endif
+#define TRI_ROWS 4  // float4s per staged triangle
 
 __device__ __forceinline__ f3 project3(const float* m, f3 p, float* w_out) {
   // rows 0..3 of a row-major 4x4 applied to (p, 1)
@@ -132,51 +148,89 @@ __device__ __forceinline__ SurfacePoint surface_point(const float* params,
   return s;
 }
 
-__global__ void __launch_bounds__(256)
-prepass_kernel(const float* __restrict__ params_g,
-               const float* __restrict__ tris_g,
-               const float* __restrict__ attr_g, int n_tris,
-               const float* __restrict__ motion_g, int n_inst,
-               const float* __restrict__ mats_g, int n_mats, int h, int w,
-               float* __restrict__ position, float* __restrict__ normal,
-               float* __restrict__ inst_mat, float* __restrict__ vel_uv,
-               float* __restrict__ albedo) {
-  extern __shared__ float smem[];
-  float* params = smem;
-  float* tris = params + P_COUNT + 1;
-  float* attrs = tris + HK_TRI * n_tris;
-  float* motion = attrs + A_STRIDE * n_tris;
-  float* mats = motion + 16 * n_inst;
-
-  stage_rows(params, params_g, 1, P_COUNT, P_COUNT, 0);
-  stage_rows(tris, tris_g, n_tris, HK_TRI, HK_TRI, 0);
-  // tri_attr rows are [normals 9, uv 6, instance, material]
-  for (int k = threadIdx.x; k < n_tris * A_STRIDE; k += blockDim.x) {
-    int r = k / A_STRIDE, c = k % A_STRIDE;
-    attrs[k] = attr_g[r * 17 + (c < 15 ? c : 16)];
+// The per-frame terms of mt_terms for rays from o, one triangle per
+// thread: rows (ab, instance), (ac, ac . v), (ao, 0), (v, 0) with
+// ab = v1 - v0, ac = v2 - v0, ao = o - v0, v = ao x ab, each expression
+// as mt_terms writes it.
+__device__ __forceinline__ void stage_tris(float4* dst, const float* tris,
+                                           int n, f3 o) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float* r = tris + HK_TRI * i;
+    float abx = r[3] - r[0], aby = r[4] - r[1], abz = r[5] - r[2];
+    float acx = r[6] - r[0], acy = r[7] - r[1], acz = r[8] - r[2];
+    float aox = o.x - r[0], aoy = o.y - r[1], aoz = o.z - r[2];
+    float vx = aoy * abz - aoz * aby;
+    float vy = aoz * abx - aox * abz;
+    float vz = aox * aby - aoy * abx;
+    float4* q = dst + TRI_ROWS * i;
+    q[0] = make_float4(abx, aby, abz, r[9]);
+    q[1] = make_float4(acx, acy, acz, acx * vx + acy * vy + acz * vz);
+    q[2] = make_float4(aox, aoy, aoz, 0.0f);
+    q[3] = make_float4(vx, vy, vz, 0.0f);
   }
-  stage_rows(motion, motion_g, n_inst, 16, 16, 0);
-  stage_rows(mats, mats_g, n_mats, HK_MAT, 15, 0);
-  __syncthreads();
+}
 
-  int pix = blockIdx.x * blockDim.x + threadIdx.x;
-  if (pix >= h * w) return;
-  f3 d;
-  f3 o = camera_ray(params, (float)(pix % w), (float)(pix / w), &d);
+// closest_tri (common.cuh) for kernel A's rays (maxt = F32_MAX, every
+// instance id >= 0 accepted, checked by the caller) on a staged triangle:
+// the same terms and the same accept test, its conditions evaluated in
+// another order, some of them before the division.
+//
+// The sign skip. The test accepts only |det| >= eps and
+// dist = num * inv_det > eps, with inv_det = 1 / det. For finite det with
+// |det| >= eps, 1 / det is finite, carries det's sign and is not zero
+// (|1 / det| >= 1 / F32_MAX > 0, a denormal at the least, and the build
+// does not flush denormals). So dist > eps > 0 needs num and det of one
+// strict sign: where num is 0, -0 or NaN, or num and det have opposite
+// signs, num * inv_det is a zero, negative or NaN and the test fails.
+// det = +-inf gives inv_det = +-0 and dist a zero or NaN: rejected as
+// well. So skipping every triangle whose num and det do not share a
+// strict sign rejects only triangles the full test rejects.
+__device__ __forceinline__ void tri_test(const float4* q, int i, f3 d,
+                                         Closest& c) {
+  float4 ab = q[0], ac = q[1];
+  float ux = d.y * ac.z - d.z * ac.y;
+  float uy = d.z * ac.x - d.x * ac.z;
+  float uz = d.x * ac.y - d.y * ac.x;
+  float det = ab.x * ux + ab.y * uy + ab.z * uz;
+  float num = ac.w;
+  bool same_sign = det > 0.0f ? num > 0.0f : (det < 0.0f && num < 0.0f);
+  if (!(fabsf(det) >= HK_F32_EPS) || !same_sign) return;
+  float inv_det = 1.0f / det;
+  float dist = num * inv_det;
+  if (!(dist > HK_F32_EPS && dist < HK_F32_MAX && dist < c.t)) return;
+  float4 ao = q[2], v = q[3];
+  float uu = ao.x * ux + ao.y * uy + ao.z * uz;
+  float vv = d.x * v.x + d.y * v.y + d.z * v.z;
+  float u = uu * inv_det;
+  float vb = vv * inv_det;
+  if (u >= 0.0f && u <= 1.0f && vb >= 0.0f && u + vb <= 1.0f) {
+    c.t = dist;
+    c.u = u;
+    c.v = vb;
+    c.prim = i;
+    c.inst = ab.w;
+  }
+}
 
-  // --- nearest hit with attribute interpolation from the winner's row
-  Closest hit = closest_hit(tris, n_tris, o, d, HK_F32_MAX, -1.0f, -1.0f);
+// Kernel A's outputs at pixel `pix` from its nearest hit.
+__device__ __forceinline__ void pixel_tail(
+    const float* params, const float* __restrict__ attr_g,
+    const float* motion, int n_inst, const float* mats, int n_mats, int pix,
+    f3 o, f3 d, const Closest& hit, float* __restrict__ position,
+    float* __restrict__ normal, float* __restrict__ inst_mat,
+    float* __restrict__ vel_uv, float* __restrict__ albedo) {
   float t_best = hit.t, inst_f = hit.inst;
   f3 n = mk3(0.0f, 0.0f, 0.0f);
   float uvx = 0.0f, uvy = 0.0f, mat_f = -1.0f;
   if (hit.prim >= 0) {
-    const float* q = attrs + A_STRIDE * hit.prim;
-    n = mk3(interp(q[0], q[3], q[6], hit.u, hit.v),
-            interp(q[1], q[4], q[7], hit.u, hit.v),
-            interp(q[2], q[5], q[8], hit.u, hit.v));
-    uvx = interp(q[9], q[11], q[13], hit.u, hit.v);
-    uvy = interp(q[10], q[12], q[14], hit.u, hit.v);
-    mat_f = q[15];
+    // tri_attr rows are [normals 9, uv 6, instance, material]
+    const float* q = attr_g + 17 * hit.prim;
+    n = mk3(interp(__ldg(q), __ldg(q + 3), __ldg(q + 6), hit.u, hit.v),
+            interp(__ldg(q + 1), __ldg(q + 4), __ldg(q + 7), hit.u, hit.v),
+            interp(__ldg(q + 2), __ldg(q + 5), __ldg(q + 8), hit.u, hit.v));
+    uvx = interp(__ldg(q + 9), __ldg(q + 11), __ldg(q + 13), hit.u, hit.v);
+    uvy = interp(__ldg(q + 10), __ldg(q + 12), __ldg(q + 14), hit.u, hit.v);
+    mat_f = __ldg(q + 16);
   }
   SurfacePoint sp = surface_point(params, motion, n_inst, o, d, t_best,
                                   inst_f);
@@ -209,6 +263,76 @@ prepass_kernel(const float* __restrict__ params_g,
                   valid ? da.z + sa.z : 0.0f, valid ? 1.0f : 0.0f);
 }
 
+// Shared-memory bytes of a launch: the staged triangles (16-byte aligned,
+// first), params, motion matrices and materials.
+__host__ __device__ inline size_t prepass_smem(int n_tris, int n_inst,
+                                               int n_mats) {
+  return sizeof(float) * (4 * TRI_ROWS * n_tris + P_COUNT + 16 * n_inst +
+                          HK_MAT * n_mats);
+}
+
+// Material rows of 15 floats (ops: mat_packed) to HK_MAT-float rows, one
+// thread per row.
+__device__ __forceinline__ void stage_mats(float* dst, const float* src,
+                                           int n) {
+  for (int r = threadIdx.x; r < n; r += blockDim.x)
+    for (int c = 0; c < HK_MAT; c++) dst[HK_MAT * r + c] = src[15 * r + c];
+}
+
+__global__ void __launch_bounds__(A_THREADS)
+prepass_kernel(const float* __restrict__ params_g,
+               const float* __restrict__ tris_g,
+               const float* __restrict__ attr_g, int n_tris,
+               const float* __restrict__ motion_g, int n_inst,
+               const float* __restrict__ mats_g, int n_mats, int h, int w,
+               float* __restrict__ position, float* __restrict__ normal,
+               float* __restrict__ inst_mat, float* __restrict__ vel_uv,
+               float* __restrict__ albedo) {
+  extern __shared__ float4 smem4[];
+  float4* tris = smem4;
+  float* params = reinterpret_cast<float*>(tris + TRI_ROWS * n_tris);
+  float* motion = params + P_COUNT;
+  float* mats = motion + 16 * n_inst;
+
+  f3 cam = mk3(__ldg(params_g + P_CAM), __ldg(params_g + P_CAM + 1),
+               __ldg(params_g + P_CAM + 2));
+  stage_tris(tris, tris_g, n_tris, cam);
+  for (int k = threadIdx.x; k < P_COUNT; k += blockDim.x)
+    params[k] = params_g[k];
+  for (int k = threadIdx.x; k < 16 * n_inst; k += blockDim.x)
+    motion[k] = motion_g[k];
+  stage_mats(mats, mats_g, n_mats);
+  __syncthreads();
+
+  int npix = h * w;
+  int first = blockIdx.x * (A_THREADS * HK_PREPASS_PIX) + threadIdx.x;
+  f3 o, d[HK_PREPASS_PIX];
+  Closest c[HK_PREPASS_PIX];
+#pragma unroll
+  for (int k = 0; k < HK_PREPASS_PIX; k++) {
+    int pix = min(first + k * A_THREADS, npix - 1);
+    o = camera_ray(params, (float)(pix % w), (float)(pix / w), &d[k]);
+    c[k] = closest_miss();
+  }
+  if (first >= npix) return;
+
+  // --- nearest hit, every ray of the thread against each staged row
+  for (int i = 0; i < n_tris; i++) {
+    const float4* q = tris + TRI_ROWS * i;
+    if (!(q[0].w >= 0.0f)) continue;  // padding rows (instance -1)
+#pragma unroll
+    for (int k = 0; k < HK_PREPASS_PIX; k++) tri_test(q, i, d[k], c[k]);
+  }
+
+#pragma unroll
+  for (int k = 0; k < HK_PREPASS_PIX; k++) {
+    int pix = first + k * A_THREADS;
+    if (pix < npix)
+      pixel_tail(params, attr_g, motion, n_inst, mats, n_mats, pix, o, d[k],
+                 c[k], position, normal, inst_mat, vel_uv, albedo);
+  }
+}
+
 // Kernel 8: plane p = 2a + b of depth [4,h,w], velocity [4,h,w,2] and
 // instance [4,h,w] holds image pixel (2y+a, 2x+b) of position [H,W,4] .w,
 // velocity_uv [H,W,4] .xy and instance_material [H,W,2] .x at (y, x);
@@ -230,6 +354,10 @@ quads_kernel(const unsigned* __restrict__ position,
   instance[o] = inst_mat[2 * pix];
 }
 
+// The largest dynamic shared memory granted to prepass_kernel so far (the
+// attribute is set only when a launch needs more than that).
+static std::atomic<int> g_prepass_smem{48 * 1024};
+
 extern "C" int hk_prepass_fused(const float* params, const float* tris,
                                 const float* tri_attr, int n_tris,
                                 const float* motion, int n_inst,
@@ -237,15 +365,17 @@ extern "C" int hk_prepass_fused(const float* params, const float* tris,
                                 float* position, float* normal,
                                 float* inst_mat, float* vel_uv, float* albedo,
                                 void* stream) {
-  size_t smem = sizeof(float) * (P_COUNT + 1 + HK_TRI * n_tris +
-                                 A_STRIDE * n_tris + 16 * n_inst +
-                                 HK_MAT * n_mats);
-  cudaError_t err = cudaFuncSetAttribute(
-      prepass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int threads = 256;
-  int blocks = (h * w + threads - 1) / threads;
-  prepass_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  if (h <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
+  int smem = (int)prepass_smem(n_tris, n_inst, n_mats);
+  if (smem > g_prepass_smem.load()) {
+    cudaError_t err = cudaFuncSetAttribute(
+        prepass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    g_prepass_smem.store(smem);
+  }
+  int per_block = A_THREADS * HK_PREPASS_PIX;
+  int blocks = (h * w + per_block - 1) / per_block;
+  prepass_kernel<<<blocks, A_THREADS, smem, (cudaStream_t)stream>>>(
       params, tris, tri_attr, n_tris, motion, n_inst, mats, n_mats, h, w,
       position, normal, inst_mat, vel_uv, albedo);
   return (int)cudaGetLastError();

@@ -42,16 +42,17 @@ from hikari_tpu_torch.utils.math import (F32_EPSILON, F32_MAX, GOLDEN_RATIO,
 SPATIAL_TAPS = 4
 SPATIAL_VARIANCE_SAMPLE_THRESHOLD = 4.0
 
-# ---- parameter vector layout
+# ---- parameter vector layout: the host's values first (one copy), then
+# the scene's and the view's, which live on the device
 _S_MAXLIFE = 0     # max reservoir lifetime (F32_MAX when disabled)
 _S_MAXCNT = 1      # max_spatial_reuse_count
-_S_AMB = 2         # ambient rgb
-_S_CAM = 5         # camera world position xyz
-_S_TAPS = 8        # per tap: oy, ox, march count, then per march step
+_S_TAPS = 2        # per tap: oy, ox, march count, then per march step
 #                    (toy, tox, frac) for SPATIAL_TAPS + 1 steps
 _TAP_STRIDE = 3 + 3 * (SPATIAL_TAPS + 1)
 MAX_TAPS = 16
-_S_COUNT = _S_TAPS + _TAP_STRIDE * MAX_TAPS
+_S_AMB = _S_TAPS + _TAP_STRIDE * MAX_TAPS   # ambient rgb
+_S_CAM = _S_AMB + 3                          # camera world position xyz
+_S_COUNT = _S_CAM + 3
 
 
 def channel_taps(emissive_lit: bool):
@@ -86,39 +87,75 @@ def _tap_geometry(count_taps: int, reuse_range: float):
     return tuple(taps)
 
 
+@functools.lru_cache(maxsize=None)
+def _tap_arrays(count_taps: int, reuse_range: float):
+    """_tap_geometry as float32 arrays: per tap fi_gr, radius, inv_len and
+    its march count, per tap and march step the distance and the fraction
+    (zeros past the tap's count)."""
+    geo = _tap_geometry(count_taps, reuse_range)
+    steps = SPATIAL_TAPS + 1
+    tdist = np.zeros((count_taps, steps), np.float32)
+    frac = np.zeros((count_taps, steps), np.float32)
+    for i, (_, _, _, march) in enumerate(geo):
+        for j, (td, fr) in enumerate(march):
+            tdist[i, j], frac[i, j] = td, fr
+    return (np.array([g[0] for g in geo], np.float32),
+            np.array([g[1] for g in geo], np.float32),
+            np.array([g[2] for g in geo], np.float32),
+            np.array([len(g[3]) for g in geo], np.float32), tdist, frac)
+
+
+def tap_table(count_taps: int, reuse_range: float, frame_number: int):
+    """This frame's taps, the spiral rotated by random_float(frame_number):
+    [count_taps, _TAP_STRIDE] float32 rows of oy, ox, the march count, then
+    (toy, tox, frac) per march step, zeros past the count. Whole-array
+    float32 operations, per tap in hikari_tpu's order (the offsets rounded
+    half to even)."""
+    fi_gr, radius, inv_len, count, tdist, frac = _tap_arrays(count_taps,
+                                                             reuse_range)
+    f32 = np.float32
+    angle = f32(TAU) * np.mod(fi_gr + random_float(frame_number), f32(1.0))
+    off_x = radius * np.cos(angle)
+    off_y = radius * np.sin(angle)
+    live = np.arange(SPATIAL_TAPS + 1) < count[:, None]
+    rows = np.zeros((count_taps, _TAP_STRIDE), f32)
+    # + 0 turns the -0.0 of a rounded small negative into 0.0
+    rows[:, 0] = np.round(off_y) + f32(0.0)
+    rows[:, 1] = np.round(off_x) + f32(0.0)
+    rows[:, 2] = count
+    for c, off in ((3, off_y), (4, off_x)):
+        rows[:, c::3] = np.where(
+            live, np.round(tdist * off[:, None] * inv_len[:, None]) + f32(0.0),
+            f32(0.0))
+    rows[:, 5::3] = frac
+    return rows
+
+
 def tap_offsets(count_taps: int, reuse_range: float, frame_number: int):
     """This frame's integer tap offsets: [(oy, ox, [(toy, tox, frac)...])]
-    with the spiral rotated by random_float(frame_number)."""
-    f32 = np.float32
-    frand = random_float(frame_number)
+    (tap_table's rows)."""
     out = []
-    for fi_gr, radius, inv_len, march in _tap_geometry(count_taps,
-                                                       reuse_range):
-        angle = f32(TAU) * np.mod(fi_gr + frand, f32(1.0))
-        off_x = radius * np.cos(angle)
-        off_y = radius * np.sin(angle)
-        steps = [(int(np.round(tdist * off_y * inv_len)),
-                  int(np.round(tdist * off_x * inv_len)), frac)
-                 for tdist, frac in march]
-        out.append((int(np.round(off_y)), int(np.round(off_x)), steps))
+    for row in tap_table(count_taps, reuse_range, frame_number):
+        n = int(row[2])
+        out.append((int(row[0]), int(row[1]),
+                    [(int(row[3 + 3 * j]), int(row[4 + 3 * j]),
+                      row[5 + 3 * j]) for j in range(n)]))
     return out
 
 
 def pack_params(scene, view, frame, emissive_lit: bool) -> torch.Tensor:
-    """[_S_COUNT] f32 parameter vector on the scene's device."""
+    """[_S_COUNT] f32 parameter vector on the scene's device: one copy of
+    the host's values, the ambient colour and the camera position."""
     dev = scene["ambient_color"].device
     life = frame["max_reservoir_lifetime"]
-    host = [F32_MAX if life <= 1.0 else life,
-            frame["max_spatial_reuse_count"]]
-    taps = np.zeros((MAX_TAPS, _TAP_STRIDE), np.float32)
-    for t, (oy, ox, steps) in enumerate(tap_offsets(
-            *channel_taps(emissive_lit), int(frame["number"]))):
-        taps[t, :3] = (oy, ox, len(steps))
-        for j, step in enumerate(steps):
-            taps[t, 3 + 3 * j:6 + 3 * j] = step
+    host = np.zeros(_S_AMB, np.float32)
+    host[_S_MAXLIFE] = F32_MAX if life <= 1.0 else life
+    host[_S_MAXCNT] = frame["max_spatial_reuse_count"]
+    count_taps, reuse_range = channel_taps(emissive_lit)
+    host[_S_TAPS:_S_TAPS + _TAP_STRIDE * count_taps] = tap_table(
+        count_taps, reuse_range, int(frame["number"])).reshape(-1)
     return torch.cat([host_values(host, dev), scene["ambient_color"][:3],
-                      view["world_position"][:3],
-                      host_values(taps.reshape(-1).tolist(), dev)])
+                      view["world_position"][:3]])
 
 
 def _shifted(x, oy, ox):
@@ -130,7 +167,15 @@ def _shifted(x, oy, ox):
     return x.index_select(0, yi).index_select(x.dim() - 1, xi)
 
 
-def spatial_plain(params, mats, temporal, prev, position, mat_f, *,
+def material_ids(inst_mat):
+    """The material ids the pass shades with, from the G-buffer's
+    instance_material [h,w,2]: clamp(int(.y), 0) as float32 (the kernel
+    forms the same row from the word)."""
+    return torch.clamp(inst_mat[..., 1].to(torch.int32), min=0).to(
+        torch.float32)
+
+
+def spatial_plain(params, mats, temporal, prev, position, inst_mat, *,
                   emissive_lit: bool):
     """The kernel body over whole planes. Returns (render [h,w,4],
     variance [h,w], spatial planes [h,16,w])."""
@@ -144,7 +189,7 @@ def spatial_plain(params, mats, temporal, prev, position, mat_f, *,
     max_cnt = float(p[_S_MAXCNT])
     v = _rsqrt_n(float(p[_S_CAM]) - px, float(p[_S_CAM + 1]) - py,
                  float(p[_S_CAM + 2]) - pz)
-    surf = _Surface(mats, mat_f)
+    surf = _Surface(mats, material_ids(inst_mat))
 
     q0 = rsv.unpack_fields(temporal)
     s_vp = (q0["vpx"], q0["vpy"], q0["vpz"])
@@ -265,13 +310,13 @@ def spatial_plain(params, mats, temporal, prev, position, mat_f, *,
     return render, variance, planes
 
 
-def spatial_kernel(params, mats, temporal, prev, position, mat_f, *,
+def spatial_kernel(params, mats, temporal, prev, position, inst_mat, *,
                    emissive_lit: bool):
     """Kernel 10: runs `spatial_plain` for CPU tensors and launches
     csrc/spatial_fused.cu for CUDA tensors."""
     if on_cpu(position):
-        return spatial_plain(params, mats, temporal, prev, position, mat_f,
-                             emissive_lit=emissive_lit)
+        return spatial_plain(params, mats, temporal, prev, position,
+                             inst_mat, emissive_lit=emissive_lit)
     from hikari_tpu_torch.build import load_cuda
 
     dev = position.device
@@ -282,7 +327,7 @@ def spatial_kernel(params, mats, temporal, prev, position, mat_f, *,
     check("temporal", temporal, f, (h, 16, w), dev)
     check("prev", prev, f, (h, 16, w), dev)
     check("position", position, f, (h, w, 4), dev)
-    check("mat_f", mat_f, f, (h, w), dev)
+    check("inst_mat", inst_mat, f, (h, w, 2), dev)
     if mats.shape[0] > MAX_MATERIALS:
         raise ValueError(f"{mats.shape[0]} materials > {MAX_MATERIALS}")
     render = torch.empty((h, w, 4), dtype=f, device=dev)
@@ -291,7 +336,7 @@ def spatial_kernel(params, mats, temporal, prev, position, mat_f, *,
     fn = bind(load_cuda("spatial_fused"), "hk_spatial_fused",
               "ppippppiiiipppp")
     rc = fn(ptr(params), ptr(mats), mats.shape[0], ptr(temporal), ptr(prev),
-            ptr(position), ptr(mat_f), h, w,
+            ptr(position), ptr(inst_mat), h, w,
             channel_taps(emissive_lit)[0], int(emissive_lit), ptr(render),
             ptr(variance), ptr(planes), stream(dev))
     check_launch(rc, "spatial_fused")
@@ -311,9 +356,7 @@ def spatial_fused(scene, g, view, frame, temporal_planes, prev_sp_planes, *,
     "variance" [h,w] (NaN where the temporal variance should remain),
     "spatial_planes" [h,16,w]}."""
     params = pack_params(scene, view, frame, emissive_lit)
-    mat_f = torch.clamp(g["instance_material"][..., 1].to(torch.int32),
-                        min=0).to(torch.float32)
     render, variance, planes = spatial_kernel(
         params, scene["mat_packed"], temporal_planes, prev_sp_planes,
-        g["position"], mat_f, emissive_lit=emissive_lit)
+        g["position"], g["instance_material"], emissive_lit=emissive_lit)
     return {"render": render, "variance": variance, "spatial_planes": planes}
