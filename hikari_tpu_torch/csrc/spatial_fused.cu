@@ -35,7 +35,7 @@
 //   tap by tap (three dependent round trips to L2 each), the count,
 //   normal and sample words of a batch of candidates first and the rest
 //   after (re-reading four), the next candidate's words held in
-//   registers (PERF.md, PR 10);
+//   registers (PERF.md);
 // * the winner is carried as a code (the start reservoir's prev or
 //   temporal plane set, or the index of the tap that won: both are
 //   inputs) and its 16 words are read once, after the taps.
@@ -72,7 +72,7 @@
 #ifndef HK_SPATIAL_MINB
 // least resident blocks per SM: 4 caps the instances at 64 registers (32
 // warps per SM); both then spill a little and run faster than at their
-// 80 and 72 registers without spills (PERF.md, PR 10)
+// 80 and 72 registers without spills (PERF.md)
 #define HK_SPATIAL_MINB 4
 #endif
 #define SP_TY HK_SPATIAL_TY
