@@ -114,13 +114,7 @@ each wrapper and of its pack_params before any profiler session), and
 prints the records and the frame medians (no ok line): run it in two
 trees of the repository in one call, in turns, to compare them; `--ab-summary
 FILE...` (one file of --ab lines per tree) prints each metric's median
-and interquartile range over the runs. With --variants it only builds
-the -D variants of kernels A and 10 (VARIANTS: pixels per thread of A,
-tile rows and least resident blocks per SM of 10) into
-build/hikari_tpu_torch/variants/ and runs each on A's 1080p no-reuse call
-and 10's S and D calls in place of the built library, printing its share
-of equal words, events and device times and its registers and spills
-(no ok line).
+and interquartile range over the runs.
 Any failed check raises: the exit code is then not 0 and the
 last line is not printed. Without CUDA it exits 1 at once.
 """
@@ -180,15 +174,14 @@ def fail(msg):
     raise RuntimeError(msg)
 
 
-def kernel_resources(name, log=None):
+def kernel_resources(name):
     """[{kernel, registers, spill_stores, spill_loads, stack}] of every
     entry function of lib<name>.so, from ptxas's -v lines in its build log
-    (written beside the library at each build), or in the log file
-    `log`."""
+    (written beside the library at each build)."""
     from hikari_tpu_torch.build import BUILD_DIR
 
     out, cur = [], None
-    with open(log or os.path.join(BUILD_DIR, f"lib{name}.so.log")) as f:
+    with open(os.path.join(BUILD_DIR, f"lib{name}.so.log")) as f:
         for line in f:
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
@@ -504,6 +497,8 @@ def check_kernels(ht, scene_host):
         max_abs_err=max_err, words_equal=words_a, ms=ms, plain_ms=plain_ms,
         bound_ms=b_ms, bound_by=b_by, library_ms=None))
     gbuf, albedo = pf._assemble(*got)
+    check_prepass_full_table(
+        pf, pf.pack_params(view, view, (0.0, 0.0), (270, 480)), a_args)
 
     # --- kernel B
     noise = noise_constant(dev)
@@ -590,6 +585,27 @@ def check_prepass_call(pf, a, label):
     if ids_eq < 0.995 or min(fracs) < 0.99:
         fail(f"kernel A disagrees with its plain version ({label})")
     return max_err, words
+
+
+def check_prepass_full_table(pf, params, a):
+    """Kernel A on a table at its cap (the box's real rows of call `a`
+    repeated to MAX_TRIS, so the lowest index wins every tie) at 270x480
+    (`params` packed for that size), on every card the process sees, in
+    order: its staged triangles alone take 48 KB, so each card's first
+    launch needs the shared-memory attribute above the default (held per
+    card), which the box's paths never reach."""
+    from hikari_tpu_torch.ops.light_fused import MAX_TRIS
+
+    tris, attrs = a[1], a[2]
+    real = tris[:, 9] >= 0
+    reps = -(-MAX_TRIS // int(real.sum()))
+    full = (params, tris[real].repeat(reps, 1)[:MAX_TRIS].contiguous(),
+            attrs[real].repeat(reps, 1)[:MAX_TRIS].contiguous(), *a[3:5])
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        with torch.cuda.device(dev):
+            check_prepass_call(pf, (*(t.to(dev) for t in full), (270, 480)),
+                               f"{MAX_TRIS}-row table on {dev}")
 
 
 def check_levels(dnf, calls, what):
@@ -1674,114 +1690,6 @@ def ab_only(ht, build_box):
     return records, frames
 
 
-# --variants: (source, tag, -D macros); pix2 and ty8_min4 are the defaults
-VARIANTS = (
-    ("prepass_fused", "pix1", ["-DHK_PREPASS_PIX=1"]),
-    ("prepass_fused", "pix2", ["-DHK_PREPASS_PIX=2"]),
-    ("prepass_fused", "pix4", ["-DHK_PREPASS_PIX=4"]),
-    ("spatial_fused", "ty8_min4", ["-DHK_SPATIAL_TY=8",
-                                   "-DHK_SPATIAL_MINB=4"]),
-    ("spatial_fused", "ty8_min3", ["-DHK_SPATIAL_TY=8",
-                                   "-DHK_SPATIAL_MINB=3"]),
-    ("spatial_fused", "ty4_min8", ["-DHK_SPATIAL_TY=4",
-                                   "-DHK_SPATIAL_MINB=8"]),
-)
-# the kernel names the profiler reports
-VARIANT_KERNELS = {"prepass_fused": "prepass_kernel",
-                   "spatial_fused": "spatial_kernel"}
-
-
-def build_variants():
-    """nvcc of every VARIANTS entry (the port's flags and its -D macros)
-    into build/hikari_tpu_torch/variants/, all started together, each
-    build log beside its library. Returns {tag: library path}."""
-    from hikari_tpu_torch import build
-
-    out_dir = os.path.join(build.BUILD_DIR, "variants")
-    os.makedirs(out_dir, exist_ok=True)
-    procs = {}
-    for name, tag, defines in VARIANTS:
-        out = os.path.join(out_dir, f"lib{name}_{tag}.so")
-        cmd = [build.nvcc_path(), *build._NVCC_FLAGS, *defines,
-               os.path.join(build.CSRC, f"{name}.cu"), "-o", out]
-        procs[tag] = (out, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    built = {}
-    for tag, (out, proc) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            fail(f"variant {tag} failed to build:\n{log}")
-        with open(out + ".log", "w") as f:
-            f.write(log)
-        built[tag] = out
-    return built
-
-
-def variants_only(ht, build_box):
-    """--variants: kernel A on the no-reuse frame's 1080p call, kernel 10
-    on path S's two 1080p calls and D's 960x540 call (frame 5), each run
-    with every VARIANTS library of its source in place of the built one:
-    the share of output words equal to the plain version's, the time by
-    events and on the device, and the variant's registers, spills and
-    stack. Returns the records."""
-    import ctypes
-
-    from hikari_tpu_torch import build
-    from hikari_tpu_torch.ops import prepass_fused as pf
-    from hikari_tpu_torch.ops import spatial_fused as sf
-
-    built = build_variants()
-    cap = Capture(pf, "prepass_kernel")
-    with cap:
-        drive(ht, build_box(), FULL, PATHS["no-reuse"][0](ht), 3, [cap],
-              (2,))
-    calls = {"prepass_fused": [("A no-reuse", pf.prepass_kernel,
-                                pf.prepass_plain, *cap.calls[-1])],
-             "spatial_fused": []}
-    for path in ("S", "D"):
-        cap = Capture(sf, "spatial_kernel")
-        with cap:
-            drive(ht, build_box(), FULL, PATHS[path][0](ht),
-                  CHECK_FRAMES - 1, [cap], (CHECK_FRAMES - 2,))
-        for a, k in cap.calls:
-            chan = "emissive" if k["emissive_lit"] else "indirect"
-            calls["spatial_fused"].append(
-                (f"10 {path} {chan} {'x'.join(map(str, a[4].shape[:2]))}",
-                 sf.spatial_kernel, sf.spatial_plain, a, k))
-    refs = {src: [plain(*a, **k) for _, _, plain, a, k in cl]
-            for src, cl in calls.items()}
-    real_load = build.load_cuda
-    records = []
-    try:
-        for name, tag, defines in VARIANTS:
-            lib = ctypes.CDLL(built[tag])
-            build.load_cuda = (lambda n, lib=lib, name=name:
-                               lib if n == name else real_load(n))
-            res = [(r["kernel"], r.get("registers"), r.get("spill_stores"),
-                    r.get("spill_loads"), r.get("stack"))
-                   for r in kernel_resources(name, built[tag] + ".log")]
-            for (label, fn, _, a, k), ref in zip(calls[name], refs[name]):
-                got = fn(*a, **k)
-                torch.cuda.synchronize()
-                words = outputs_words(dict(enumerate(got)),
-                                      dict(enumerate(ref)))[0]
-                rec = dict(source=name, variant=tag, defines=defines,
-                           call=label, words_equal=words,
-                           ms=event_ms(lambda: fn(*a, **k), REPS),
-                           device_ms=device_ms(lambda: fn(*a, **k), REPS,
-                                               VARIANT_KERNELS[name]),
-                           resources=res)
-                records.append(rec)
-                print(f"  variant {tag} {label}: words equal {words:.8f}, "
-                      f"{rec['ms']:.4f} ms by events, device "
-                      f"{rec['device_ms']}; {res}")
-                if words != 1.0:
-                    fail(f"variant {tag} disagrees with the plain version")
-    finally:
-        build.load_cuda = real_load
-    return records
-
-
 def pct(a, b):
     """100 a / b, NaN when b is 0."""
     return float(100 * a / b) if b else float("nan")
@@ -2853,11 +2761,6 @@ def main():
                     "10 on S's and D's (to time two trees of the "
                     "repository in one call); prints their records and no "
                     "ok line")
-    ap.add_argument("--variants", action="store_true",
-                    help="only build the -D variants of kernels A and 10 "
-                    "(VARIANTS) and time each on A's no-reuse call and "
-                    "10's S and D calls; prints their records and no ok "
-                    "line")
     ap.add_argument("--ab-summary", nargs="+", metavar="FILE",
                     help="summarise the --ab lines of FILEs, one per tree "
                     "(medians, interquartile ranges; runs on any host)")
@@ -2896,10 +2799,6 @@ def main():
     instances = light_instances()
     instances_a10 = {name: kernel_instances(name)
                      for name in ("prepass_fused", "spatial_fused")}
-    if args.variants:
-        print(json.dumps({"variants": variants_only(ht, build_box),
-                          "card": card}))
-        return 0
     if args.ab:
         records, frames = ab_only(ht, build_box)
         print(json.dumps({"ab": list(records), "frames_ms": frames,

@@ -113,6 +113,12 @@ struct Surface {
   f3 diff;
 };
 
+// The material id a pass shades with, from a G-buffer instance_material
+// .y: truncated to int, at least 0 (ops/light_fused.py material_ids).
+__device__ __forceinline__ float material_id(float y) {
+  return (float)max((int)y, 0);
+}
+
 // Row index of a float material id: hikari_tpu's select-sweep keeps row 0
 // unless the id equals a row number exactly.
 __device__ __forceinline__ int row_of(float f, int n) {
@@ -515,4 +521,24 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
     int r = k / cols, c = k % cols;
     dst[k] = src[r * stride + col0 + c];
   }
+}
+
+#define HK_MAX_DEVICES 16
+
+// Lets `kernel` take `smem` bytes of dynamic shared memory on the current
+// device. The attribute is held per device, so `allowed[dev]` records what
+// the kernel may take on device dev so far; it is set only above the
+// 48 KB default and only when a launch needs more than that record.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int smem, int* allowed) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int dev;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= HK_MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (smem <= allowed[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) allowed[dev] = smem;
+  return err;
 }

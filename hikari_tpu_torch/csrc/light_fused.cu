@@ -929,7 +929,7 @@ __device__ __forceinline__ void light_pixel(const LightCall& c,
   float2 im = reinterpret_cast<const float2*>(c.inst_mat)[pix];
   // ids as the TPU wrapper feeds them: truncated to int, material >= 0
   px.inst_f = (float)(int)im.x;
-  float mat_f = (float)max((int)im.y, 0);
+  float mat_f = material_id(im.y);
   float4 rnd = reinterpret_cast<const float4*>(c.rand)[pix];
   px.r0 = rnd.x;
   px.r1 = rnd.y;
@@ -1019,26 +1019,13 @@ static int light_smem(const LightCall& c) {
           16 * LIGHT_THREADS * (c.temporal ? n_prev : 0));
 }
 
-#define HK_MAX_DEVICES 16
-
 template <bool T, bool V, bool D, bool I>
 static int launch(const LightCall& c, cudaStream_t st) {
   // the dynamic shared memory each device allows the instance so far
   static int allowed[HK_MAX_DEVICES];
   int smem = light_smem(c);
-  if (smem > 48 * 1024) {
-    int dev;
-    cudaError_t err = cudaGetDevice(&dev);
-    if (err != cudaSuccess) return (int)err;
-    if (dev >= HK_MAX_DEVICES) return (int)cudaErrorInvalidDevice;
-    if (smem > allowed[dev]) {
-      err = cudaFuncSetAttribute(light_kernel<T, V, D, I>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem);
-      if (err != cudaSuccess) return (int)err;
-      allowed[dev] = smem;
-    }
-  }
+  cudaError_t err = allow_smem(light_kernel<T, V, D, I>, smem, allowed);
+  if (err != cudaSuccess) return (int)err;
   long long tiles = ((long long)c.h * c.w + LIGHT_THREADS - 1) / LIGHT_THREADS;
   if (tiles < 1) return 0;
   light_kernel<T, V, D, I><<<(unsigned)tiles, LIGHT_THREADS, smem, st>>>(c);

@@ -26,7 +26,7 @@
 //   vv = d . v.
 // * The reciprocal is skipped where the result is already decided
 //   (tri_test); see the proof there.
-// * Two pixels per thread (HK_PREPASS_PIX), a block's two runs of 256
+// * Two pixels per thread (A_PIX), a block's two runs of 256
 //   pixels: each staged row is read from shared memory once for both rays.
 // * The attribute row is read from global memory for the winner only.
 //
@@ -49,8 +49,6 @@
 // 40 B per pixel (all of position and velocity_uv, all of the ids): with
 // them ~116 MB, 35 us.
 
-#include <atomic>
-
 #include "common.cuh"
 
 // params layout (ops/prepass_fused.py _P_*)
@@ -63,9 +61,7 @@
 #define P_COUNT 55
 
 #define A_THREADS 256
-#ifndef HK_PREPASS_PIX
-#define HK_PREPASS_PIX 2  // pixels per thread
-#endif
+#define A_PIX 2  // pixels per thread
 #define TRI_ROWS 4  // float4s per staged triangle
 
 __device__ __forceinline__ f3 project3(const float* m, f3 p, float* w_out) {
@@ -305,11 +301,11 @@ prepass_kernel(const float* __restrict__ params_g,
   __syncthreads();
 
   int npix = h * w;
-  int first = blockIdx.x * (A_THREADS * HK_PREPASS_PIX) + threadIdx.x;
-  f3 o, d[HK_PREPASS_PIX];
-  Closest c[HK_PREPASS_PIX];
+  int first = blockIdx.x * (A_THREADS * A_PIX) + threadIdx.x;
+  f3 o, d[A_PIX];
+  Closest c[A_PIX];
 #pragma unroll
-  for (int k = 0; k < HK_PREPASS_PIX; k++) {
+  for (int k = 0; k < A_PIX; k++) {
     int pix = min(first + k * A_THREADS, npix - 1);
     o = camera_ray(params, (float)(pix % w), (float)(pix / w), &d[k]);
     c[k] = closest_miss();
@@ -321,11 +317,11 @@ prepass_kernel(const float* __restrict__ params_g,
     const float4* q = tris + TRI_ROWS * i;
     if (!(q[0].w >= 0.0f)) continue;  // padding rows (instance -1)
 #pragma unroll
-    for (int k = 0; k < HK_PREPASS_PIX; k++) tri_test(q, i, d[k], c[k]);
+    for (int k = 0; k < A_PIX; k++) tri_test(q, i, d[k], c[k]);
   }
 
 #pragma unroll
-  for (int k = 0; k < HK_PREPASS_PIX; k++) {
+  for (int k = 0; k < A_PIX; k++) {
     int pix = first + k * A_THREADS;
     if (pix < npix)
       pixel_tail(params, attr_g, motion, n_inst, mats, n_mats, pix, o, d[k],
@@ -354,10 +350,6 @@ quads_kernel(const unsigned* __restrict__ position,
   instance[o] = inst_mat[2 * pix];
 }
 
-// The largest dynamic shared memory granted to prepass_kernel so far (the
-// attribute is set only when a launch needs more than that).
-static std::atomic<int> g_prepass_smem{48 * 1024};
-
 extern "C" int hk_prepass_fused(const float* params, const float* tris,
                                 const float* tri_attr, int n_tris,
                                 const float* motion, int n_inst,
@@ -366,14 +358,12 @@ extern "C" int hk_prepass_fused(const float* params, const float* tris,
                                 float* inst_mat, float* vel_uv, float* albedo,
                                 void* stream) {
   if (h <= 0 || w <= 0) return (int)cudaErrorInvalidValue;
+  // the dynamic shared memory each device allows the kernel so far
+  static int allowed[HK_MAX_DEVICES];
   int smem = (int)prepass_smem(n_tris, n_inst, n_mats);
-  if (smem > g_prepass_smem.load()) {
-    cudaError_t err = cudaFuncSetAttribute(
-        prepass_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    g_prepass_smem.store(smem);
-  }
-  int per_block = A_THREADS * HK_PREPASS_PIX;
+  cudaError_t err = allow_smem(prepass_kernel, smem, allowed);
+  if (err != cudaSuccess) return (int)err;
+  int per_block = A_THREADS * A_PIX;
   int blocks = (h * w + per_block - 1) / per_block;
   prepass_kernel<<<blocks, A_THREADS, smem, (cudaStream_t)stream>>>(
       params, tris, tri_attr, n_tris, motion, n_inst, mats, n_mats, h, w,

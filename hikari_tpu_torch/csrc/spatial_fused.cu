@@ -64,18 +64,13 @@
 #define S_COUNT (S_CAM + 3)
 
 #define SP_TX 32
-#ifndef HK_SPATIAL_TY
 // tile rows; the stash takes 104 B a thread, so with the depth tile 8 rows
 // at most fit the 48 KB of static shared memory
-#define HK_SPATIAL_TY 8
-#endif
-#ifndef HK_SPATIAL_MINB
+#define SP_TY 8
 // least resident blocks per SM: 4 caps the instances at 64 registers (32
 // warps per SM); both then spill a little and run faster than at their
 // 80 and 72 registers without spills (PERF.md)
-#define HK_SPATIAL_MINB 4
-#endif
-#define SP_TY HK_SPATIAL_TY
+#define SP_MIN_BLOCKS 4
 
 struct SpCtx {
   Surface surf;
@@ -283,7 +278,7 @@ __device__ __forceinline__ void tap_step(Running& st, const SpCtx& cx,
 // EMISSIVE: the channel (8 taps within 10 pixels, else 16 within 20);
 // HALO: its reach plus one.
 template <bool EMISSIVE, int HALO>
-__global__ void __launch_bounds__(SP_TX * SP_TY, HK_SPATIAL_MINB)
+__global__ void __launch_bounds__(SP_TX * SP_TY, SP_MIN_BLOCKS)
 spatial_kernel(const float* __restrict__ params_g,
                const float* __restrict__ mats_g, int n_mats,
                const float* __restrict__ temporal,
@@ -332,8 +327,7 @@ spatial_kernel(const float* __restrict__ params_g,
   cx.v = rsqrt_n(mk3(params[S_CAM] - pos.x, params[S_CAM + 1] - pos.y,
                      params[S_CAM + 2] - pos.z));
   // the material id as the plain version forms it: clamp(int(id), 0)
-  int mat_i = (int)inst_mat[2 * pix + 1];
-  cx.surf = surface_of(mats, n_mats, (float)max(mat_i, 0));
+  cx.surf = surface_of(mats, n_mats, material_id(inst_mat[2 * pix + 1]));
 
   Rsv q0 = rsv_load(temporal, base, w);
   cx.s_vp = mk3(q0.vpx, q0.vpy, q0.vpz);

@@ -186,6 +186,14 @@ def _row_index(f, n: int):
     return torch.where(ok, i, torch.zeros_like(i))
 
 
+def material_ids(inst_mat):
+    """The material ids a pass shades with, from the G-buffer's
+    instance_material [..., 2]: clamp(int(.y), 0) as float32 (the kernels
+    form the same id from the word: common.cuh material_id)."""
+    return torch.clamp(inst_mat[..., 1].to(torch.int32), min=0).to(
+        torch.float32)
+
+
 class _Surface:
     """Per-pixel surface fields + derived f0/diffuse from material rows."""
 
@@ -608,8 +616,7 @@ class _Pixel:
         self.n = normal.unbind(-1)
         self.nrm_n = _rsqrt_n(*self.n)
         self.inst_f = inst_mat[..., 0].to(torch.int32).to(torch.float32)
-        self.mat_f = torch.clamp(inst_mat[..., 1].to(torch.int32),
-                                 min=0).to(torch.float32)
+        self.mat_f = material_ids(inst_mat)
         self.rnd = rand.unbind(-1)
         self.valid = self.depth >= F32_EPSILON
         self.amb = [tb.s(_P_AMB + i) for i in range(3)]

@@ -34,7 +34,8 @@ from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
                                           host_values, on_cpu, ptr, stream)
 from hikari_tpu_torch.ops.light_fused import (MAX_MATERIALS, _Surface, _dot,
                                               _lum, _rsqrt_n, _shade,
-                                              rsv_clamp, rsv_variance)
+                                              material_ids, rsv_clamp,
+                                              rsv_variance)
 from hikari_tpu_torch.utils.math import (F32_EPSILON, F32_MAX, GOLDEN_RATIO,
                                          TAU, random_float)
 
@@ -165,14 +166,6 @@ def _shifted(x, oy, ox):
     yi = torch.clamp(torch.arange(h, device=x.device) + oy, 0, h - 1)
     xi = torch.clamp(torch.arange(w, device=x.device) + ox, 0, w - 1)
     return x.index_select(0, yi).index_select(x.dim() - 1, xi)
-
-
-def material_ids(inst_mat):
-    """The material ids the pass shades with, from the G-buffer's
-    instance_material [h,w,2]: clamp(int(.y), 0) as float32 (the kernel
-    forms the same row from the word)."""
-    return torch.clamp(inst_mat[..., 1].to(torch.int32), min=0).to(
-        torch.float32)
 
 
 def spatial_plain(params, mats, temporal, prev, position, inst_mat, *,

@@ -23,7 +23,7 @@ import torch
 
 from hikari_tpu_torch import build
 from hikari_tpu_torch.ops import spatial_fused
-from hikari_tpu_torch.ops.light_fused import _row_index
+from hikari_tpu_torch.ops.light_fused import _row_index, material_ids
 from hikari_tpu_torch.utils.math import TAU, random_float
 from tests.test_torch_boundary import _FakeLibrary
 
@@ -230,15 +230,16 @@ def test_fmod_of_the_random_sum():
 
 
 def test_material_row_from_the_gbuffer():
-    """The kernel's material row from instance_material .y (C's truncating
-    cast, NaN to 0 and saturating as CUDA converts, then max with 0 and
-    row_of) is the plain version's row (material_ids, then _row_index),
-    for ids in and out of range, negative, NaN and infinite."""
+    """The kernel's material row from instance_material .y (common.cuh
+    material_id: C's truncating cast, NaN to 0 and saturating as CUDA
+    converts, then max with 0; then row_of) is the plain version's row
+    (material_ids, then _row_index), for ids in and out of range,
+    negative, NaN and infinite."""
     ys = np.array([0.5, 1.5, 3.5, 3.99, 4.5, 17.5, -0.5, -1.5, -0.0, 0.0,
                    np.nan, np.inf, -np.inf, 1e10, -1e10, 2.0 ** 31, 2.25],
                   F32)
     inst_mat = torch.from_numpy(np.stack([np.zeros_like(ys), ys], -1))
-    plain = _row_index(spatial_fused.material_ids(inst_mat), 4).numpy()
+    plain = _row_index(material_ids(inst_mat), 4).numpy()
 
     def cuda_int(v):
         if np.isnan(v):
