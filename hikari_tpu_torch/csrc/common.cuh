@@ -184,9 +184,9 @@ __device__ __forceinline__ f3 shade(const Surface& s, f3 amb, f3 v, f3 n,
 
 // ---- the one Moller-Trumbore routine of the port's ray loops
 // (trace_pallas._mt8 and its division-free twin in _kernel_shadow): the
-// kernels of trace.cu (5, 6, 7) and trace_bvh.cu (13) go through
-// mt_terms, mt_accepts, closest_tri and shadow_tri; light_fused.cu (B, 4)
-// runs the same expressions on its staged edge rows (edge_terms).
+// kernels of trace.cu (5, 6, 7) go through mt_terms, mt_accepts,
+// closest_tri and shadow_tri; light_fused.cu (B, 4) and trace_bvh.cu (13)
+// run the same expressions on edge rows (edge_terms).
 
 // Per-triangle terms of a row of HK_TRI floats (v0 v1 v2, instance): the
 // determinant and the numerators of u, v and t.
@@ -209,6 +209,26 @@ __device__ __forceinline__ MT mt_terms(const float* r, f3 o, f3 d) {
   float vz = aox * aby - aoy * abx;
   m.vv = d.x * vx + d.y * vy + d.z * vz;
   m.dist = acx * vx + acy * vy + acz * vz;
+  return m;
+}
+
+// mt_terms on an edge row of three float4s (v0 + instance, v1 - v0, v2 -
+// v0; kernels B, 4 and 13): the same expressions, with the edges read
+// instead of subtracted (the same IEEE subtractions, done once).
+__device__ __forceinline__ MT edge_terms(float4 a, float4 b, float4 c, f3 o,
+                                         f3 d) {
+  float ux = d.y * c.z - d.z * c.y;
+  float uy = d.z * c.x - d.x * c.z;
+  float uz = d.x * c.y - d.y * c.x;
+  MT m;
+  m.det = b.x * ux + b.y * uy + b.z * uz;
+  float aox = o.x - a.x, aoy = o.y - a.y, aoz = o.z - a.z;
+  m.uu = aox * ux + aoy * uy + aoz * uz;
+  float vx = aoy * b.z - aoz * b.y;
+  float vy = aoz * b.x - aox * b.z;
+  float vz = aox * b.y - aoy * b.x;
+  m.vv = d.x * vx + d.y * vy + d.z * vz;
+  m.dist = c.x * vx + c.y * vy + c.z * vz;
   return m;
 }
 

@@ -90,25 +90,6 @@
 
 #define EDGE_ROW 12
 
-// mt_terms (common.cuh) on a staged edge row: the same expressions, with
-// the edges read instead of subtracted.
-__device__ __forceinline__ MT edge_terms(float4 a, float4 b, float4 c, f3 o,
-                                         f3 d) {
-  float ux = d.y * c.z - d.z * c.y;
-  float uy = d.z * c.x - d.x * c.z;
-  float uz = d.x * c.y - d.y * c.x;
-  MT m;
-  m.det = b.x * ux + b.y * uy + b.z * uz;
-  float aox = o.x - a.x, aoy = o.y - a.y, aoz = o.z - a.z;
-  m.uu = aox * ux + aoy * uy + aoz * uz;
-  float vx = aoy * b.z - aoz * b.y;
-  float vy = aoz * b.x - aox * b.z;
-  float vz = aox * b.y - aoy * b.x;
-  m.vv = d.x * vx + d.y * vy + d.z * vz;
-  m.dist = c.x * vx + c.y * vy + c.z * vz;
-  return m;
-}
-
 // shadow_sweep (common.cuh) over staged edge rows, for rays that include
 // every instance. ads = |det| and the signs flipped by selection: for det
 // != 0 the words of sgnf(det) * x; for det = 0 or NaN no row passes

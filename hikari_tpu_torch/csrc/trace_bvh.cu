@@ -1,5 +1,5 @@
-// Kernel 13: the tracer of scenes above 768 triangles, a per-thread
-// stackless walk of the world BVH, in three modes.
+// Kernel 13: the tracer of scenes above 768 triangles, a per-thread walk
+// of a 3-wide BVH, in three modes.
 //
 // It replaces hikari_tpu/ops/trace_cull.py: _make_kernel (launched by
 // _run_tiles' pallas_call, engine cull_trace) in its modes
@@ -12,37 +12,99 @@
 //
 // The TPU engine culls 64-triangle clusters per 1024-ray tile and sweeps
 // the survivors with DMA double buffers, because the TPU has no per-lane
-// gather. On Hopper each thread gathers freely, so this is the reference's
-// own walk (light.wgsl:400-486, hikari_tpu/ops/trace.py:traverse_bvh): ray i
-// is thread i and walks the rows of bvh_packed [min3, max3, is_leaf,
-// payload, exit] from node 0. A node is visited when its slab entry t (with
-// make_ray's safe inverse, +-1e-20) is below the current bound; a leaf tests
-// its one triangle `payload`; the next node is the first child `payload`
-// after an inner node's hit, else `exit`. The bound is min(max_t, nearest
-// t) in the hit modes (t_best starts at F32_MAX and every test also needs t
-// < max_t), and in shadow mode aabb_t < max_t and aabb_t * |det|_best <
-// t_d,best, so the walk divides nowhere. Ties go to the first triangle in
-// walk order.
+// gather. On Hopper each thread gathers freely, so ray i is thread i and
+// walks a BVH. The contract is the reference's stackless walk of the world
+// BVH (light.wgsl:400-486, ops/trace_cull.py walk_plain over bvh_packed):
+// a node is visited when its slab entry t (make_ray's safe inverse) is
+// below the bound; a leaf tests its one triangle; the bound is te < max_t
+// and te < t_best in the hit modes (t_best falls with every accept), and
+// te < max_t and te * |det|_best < t_d,best in shadow mode, so the walk
+// divides nowhere. Ties go to the first triangle in walk order.
 //
-// Triangles are tested by common.cuh's closest_tri / shadow_tri, the
-// Moller-Trumbore routine of kernels A, 8, B, 4, 5, 6 and 7; the full mode
-// interpolates the winner's attribute row once after the walk with kernel
-// 6's expressions.
+// Why another tree gives the same words. The walk's state (t_best, or the
+// pair t_d, |det|) changes only when a leaf's triangle is accepted. Under
+// one state the visit rule is monotone in te: x -> fl(x * |det|) is
+// monotone for |det| > 0 (rounding is monotone), and te < max_t does not
+// depend on the state. A box B' that contains B as floats (min <=, max >=)
+// has te(B') <= te(B), and a hit on B implies one on B': every slab bound
+// (b - o) * inv moves outwards, rounded monotonically. Take a leaf L whose
+// own test passes under the state s(L) just before it, and an ancestor A,
+// tested earlier. If some triangle was accepted between A's test and L,
+// it lies in A's subtree (the walk is depth-first), so A was entered: it
+// passed. Otherwise A was tested under s(L), and te(A) <= te(L) passes
+// too. By induction from the root, L is reached and tested. So a walk
+// tests exactly the leaves, in DFS order, whose own slab test passes under
+// the state of that moment, and its outputs depend only on (1) the leaves'
+// order, (2) their boxes, (3) inner boxes containing their leaves' boxes.
+// A tree may also drop leaves whose triangle the ray's masks can never
+// accept: their tests never change the state. This holds for shadow mode's
+// rule as it stands (no monotonicity across states is needed), so that
+// rule is unchanged.
 //
-// Bound on the H100: the work depends on the data (node visits and
-// triangle tests of each ray), ~30 flops per slab test and 60 per
-// triangle test; on the city (5,235 nodes) a 1080p primary call of
-// 2,073,600 rays is bound by its operations. This first version reads the
-// tables (bvh 188 KB, triangles 105 KB, attributes 178 KB on the city)
-// through the read-only cache, one node row per step; shared-memory
-// staging, a float4 node layout and ray sorting are later work.
+// The tables (models/walk_tables.py) keep those three properties:
+// * bvh_wide: the binary world BVH collapsed into nodes of 3 slots (each
+//   a binary node: its two children, then the slot with the most leaves
+//   replaced by its two children, in DFS order), a slot two float4s: min
+//   xyz + ref, max xyz + 0 (ref: a wide node > 0, a leaf's -(triangle +
+//   1), 0 empty). The world slots' boxes are bvh_packed's rows;
+// * one subtree per emissive instance: the world nodes that hold one of
+//   its triangles, single-child chains collapsed, each box the union of
+//   its kept leaves. A ray included to that instance (incl >= 0, the
+//   light probes) starts at its root (bvh_sub_root), and walks the
+//   emitter's own tree, as the reference's probe walks the emitter's BLAS
+//   (hikari_tpu/ops/trace.py:22-24); every other ray, the probe's -2 "no
+//   pick" included, walks the world from node 0;
+// * tri_edges: v0 + instance, v1 - v0, v2 - v0 in three float4s
+//   (edge_terms: mt_terms' subtractions done once, the same words);
+//   tri_attr_pad: tri_attr padded to 5 float4s for the full epilogue.
+//
+// The walk: expanding a node loads its 3 slots (6 independent float4
+// loads, 96 B) and slab-tests them together; the passing slots
+// (hit modes: below the bound of that moment; shadow mode: below max_t,
+// the part of the rule no state changes) are taken in slot order: the
+// first at once, the others pushed on a per-thread stack with their entry
+// t, the last slot deepest. A popped slot is tested again against the
+// bound of that moment (its te does not change), which is the binary
+// walk's test of that node when it reaches it; a leaf then tests its
+// triangle, an inner slot is expanded. The hit modes' push filter is
+// exact because their bound only falls. HK_STACK bounds the stack; the
+// tables raise when a tree could need more (walk_tables.plan).
+//
+// Bound on the H100: the work depends on the data (slab tests and
+// triangle tests of each ray), ~30 flops per slab test and 60 per triangle
+// test; chip_smoke.walk_record counts both for the world walk and for this
+// one on the same rays.
 
 #include "common.cuh"
 
-#define HK_NODE 9   // bvh_packed row: min3 max3 is_leaf payload exit
-#define HK_ATTR 17  // tri_attr row: normals 9, uvs 6, instance, material
+#ifndef HK_WIDTH
+#define HK_WIDTH 3    // slots per node (walk_tables.WIDTH)
+#endif
+#ifndef HK_STACK
+#define HK_STACK 64   // per-thread stack entries (walk_tables.WALK_STACK)
+#endif
+#ifndef HK_SMEM_STACK
+#define HK_SMEM_STACK 0
+#endif
+#ifndef HK_WHILE
+#define HK_WHILE 0
+#endif
+#ifndef HK_SKIP
+#define HK_SKIP 0
+#endif
+#ifndef HK_THREADS
+#define HK_THREADS 128
+#endif
 
 enum { MODE_HIT = 0, MODE_FULL = 1, MODE_SHADOW = 2 };
+
+struct WalkTables {
+  const float4* nodes;    // [3 W][2]: min xyz + ref, max xyz + 0
+  const int* sub_root;    // [n_inst]: each instance's subtree, 0 for none
+  int n_inst;
+  const float4* tris;     // [P][3]: v0 + instance, v1 - v0, v2 - v0
+  const float4* attrs;    // [P][5]: tri_attr's 17 floats + 3 zeros
+};
 
 // make_ray's safe inverse direction (trace.py:44-48)
 __device__ __forceinline__ float safe_inv(float d) {
@@ -51,13 +113,14 @@ __device__ __forceinline__ float safe_inv(float d) {
 }
 
 // intersects_aabb (light.wgsl:344-362): the entry t, F32_MAX on a miss
-__device__ __forceinline__ float slab_entry(const float* nd, f3 o, f3 inv) {
-  float t1x = (__ldg(nd + 0) - o.x) * inv.x;
-  float t1y = (__ldg(nd + 1) - o.y) * inv.y;
-  float t1z = (__ldg(nd + 2) - o.z) * inv.z;
-  float t2x = (__ldg(nd + 3) - o.x) * inv.x;
-  float t2y = (__ldg(nd + 4) - o.y) * inv.y;
-  float t2z = (__ldg(nd + 5) - o.z) * inv.z;
+__device__ __forceinline__ float slab_entry(float4 lo, float4 hi, f3 o,
+                                            f3 inv) {
+  float t1x = (lo.x - o.x) * inv.x;
+  float t1y = (lo.y - o.y) * inv.y;
+  float t1z = (lo.z - o.z) * inv.z;
+  float t2x = (hi.x - o.x) * inv.x;
+  float t2y = (hi.y - o.y) * inv.y;
+  float t2z = (hi.z - o.z) * inv.z;
   float t_min = fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)),
                       fminf(t1z, t2z));
   float t_max = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)),
@@ -66,14 +129,59 @@ __device__ __forceinline__ float slab_entry(const float* nd, f3 o, f3 inv) {
   return hit ? t_min : HK_F32_MAX;
 }
 
+// closest_tri (common.cuh) on an edge row
+__device__ __forceinline__ void closest_edge(float4 a, float4 b, float4 e,
+                                             int i, f3 o, f3 d, float maxt,
+                                             float excl, float incl,
+                                             Closest& c) {
+  float inst = a.w;
+  if (!mt_accepts(inst, excl, incl)) return;
+  MT m = edge_terms(a, b, e, o, d);
+  float inv_det = fabsf(m.det) < HK_F32_EPS ? 0.0f : 1.0f / m.det;
+  float u = m.uu * inv_det;
+  float v = m.vv * inv_det;
+  float dist = m.dist * inv_det;
+  bool ok = fabsf(m.det) >= HK_F32_EPS && u >= 0.0f && u <= 1.0f &&
+            v >= 0.0f && u + v <= 1.0f && dist > HK_F32_EPS &&
+            dist < maxt && dist < c.t;
+  if (ok) {
+    c.t = dist;
+    c.u = u;
+    c.v = v;
+    c.prim = i;
+    c.inst = inst;
+  }
+}
+
+// shadow_tri (common.cuh) on an edge row
+__device__ __forceinline__ void shadow_edge(float4 a, float4 b, float4 e,
+                                            f3 o, f3 d, float maxt,
+                                            float excl, float incl,
+                                            Occluder& oc) {
+  float inst = a.w;
+  if (!mt_accepts(inst, excl, incl)) return;
+  MT m = edge_terms(a, b, e, o, d);
+  float s = sgnf(m.det);
+  float ads = m.det * s;
+  float ud = m.uu * s;
+  float vd = m.vv * s;
+  float td = m.dist * s;
+  bool ok = ads >= HK_F32_EPS && ud >= 0.0f && vd >= 0.0f &&
+            ud + vd <= ads && td > HK_F32_EPS * ads && td < maxt * ads &&
+            td * oc.ads < oc.td * ads;
+  if (ok) {
+    oc.td = td;
+    oc.ads = ads;
+    oc.inst = inst;
+  }
+}
+
 template <int MODE>
-__global__ void __launch_bounds__(128)
-bvh_kernel(const float* __restrict__ bvh, int n_nodes,
-           const float* __restrict__ tris, const float* __restrict__ attrs,
-           const float* __restrict__ ro, const float* __restrict__ rd,
-           const float* __restrict__ maxt_in, const int* __restrict__ excl_in,
-           const int* __restrict__ incl_in, long long n,
-           float* __restrict__ t_out, float* __restrict__ u_out,
+__global__ void __launch_bounds__(HK_THREADS)
+bvh_kernel(WalkTables tb, const float* __restrict__ ro,
+           const float* __restrict__ rd, const float* __restrict__ maxt_in,
+           const int* __restrict__ excl_in, const int* __restrict__ incl_in,
+           long long n, float* __restrict__ t_out, float* __restrict__ u_out,
            float* __restrict__ v_out, int* __restrict__ prim_out,
            int* __restrict__ inst_out, float* __restrict__ nrm_out,
            float* __restrict__ uv_out, float* __restrict__ mat_out) {
@@ -83,35 +191,85 @@ bvh_kernel(const float* __restrict__ bvh, int n_nodes,
   f3 d = mk3(rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]);
   f3 inv = mk3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
   float maxt = maxt_in[i];
+  int incl_i = incl_in[i];
   float excl = (float)excl_in[i];
-  float incl = (float)incl_in[i];
+  float incl = (float)incl_i;
   Closest c = closest_miss();
   Occluder b = occluder_none();
-  float r[HK_TRI];
-  int idx = 0;
-  while (idx < n_nodes) {
-    const float* nd = bvh + (long long)HK_NODE * idx;
-    float te = slab_entry(nd, o, inv);
-    bool visit = MODE == MODE_SHADOW
-                     ? (te < maxt && te * b.ads < b.td)
-                     : (te < maxt && te < c.t);
-    bool leaf = __ldg(nd + 6) > 0.5f;
-    int payload = (int)rintf(__ldg(nd + 7));
-    int exit_ = (int)rintf(__ldg(nd + 8));
-    if (leaf) {
-      if (visit) {
-        const float* row = tris + (long long)HK_TRI * payload;
+#if HK_SMEM_STACK
+  __shared__ int2 sstack[HK_STACK * HK_THREADS];
+#define STK(k) sstack[(k) * HK_THREADS + threadIdx.x]
+#else
+  int2 stack[HK_STACK];
+#define STK(k) stack[k]
+#endif
+  int sp = 0;
+  int node = incl_i >= 0 && incl_i < tb.n_inst ? __ldg(tb.sub_root + incl_i)
+                                               : 0;
+  for (;;) {
+    int cur = 0;
+    float cur_te = 0.0f;
+    bool held = false;
+    if (node >= 0) {
+#if HK_WHILE
+     do {
+#endif
+      const float4* nd = tb.nodes + 2 * HK_WIDTH * node;
+      float4 lo[HK_WIDTH], hi[HK_WIDTH];
 #pragma unroll
-        for (int k = 0; k < HK_TRI; k++) r[k] = __ldg(row + k);
-        if (MODE == MODE_SHADOW)
-          shadow_tri(r, o, d, maxt, excl, incl, b);
-        else
-          closest_tri(r, payload, o, d, maxt, excl, incl, c);
+      for (int k = 0; k < HK_WIDTH; k++) {
+        lo[k] = __ldg(nd + 2 * k);
+        hi[k] = __ldg(nd + 2 * k + 1);
       }
-      idx = exit_;
-    } else {
-      idx = visit ? payload : exit_;
+#pragma unroll
+      for (int k = HK_WIDTH - 1; k >= 0; k--) {
+        int ref = __float2int_rn(lo[k].w);
+#if HK_SKIP
+        float te = HK_F32_MAX;
+        if (ref != 0) te = slab_entry(lo[k], hi[k], o, inv);
+#else
+        float te = slab_entry(lo[k], hi[k], o, inv);
+#endif
+        bool pass = ref != 0 && te < maxt &&
+                    (MODE == MODE_SHADOW || te < c.t);
+        if (pass) {
+          if (held) STK(sp++) = make_int2(cur, __float_as_int(cur_te));
+          cur = ref;
+          cur_te = te;
+          held = true;
+        }
+      }
+      node = -1;
+#if HK_WHILE
+      if (held && cur > 0 &&
+          (MODE != MODE_SHADOW || cur_te * b.ads < b.td)) {
+        node = cur;
+        held = false;
+      }
+     } while (node >= 0);
+#endif
     }
+    if (!held) {
+      if (sp == 0) break;
+      sp--;
+      cur = STK(sp).x;
+      cur_te = __int_as_float(STK(sp).y);
+    }
+    bool visit = MODE == MODE_SHADOW
+                     ? (cur_te < maxt && cur_te * b.ads < b.td)
+                     : (cur_te < maxt && cur_te < c.t);
+    if (!visit) continue;
+    if (cur > 0) {
+      node = cur;
+      continue;
+    }
+    int prim = -cur - 1;
+    const float4* row = tb.tris + 3 * (long long)prim;
+    float4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
+    if (MODE == MODE_SHADOW)
+      shadow_edge(r0, r1, r2, o, d, maxt, excl, incl, b);
+    else
+      closest_edge(r0, r1, r2, prim, o, d, maxt, excl, incl, c);
   }
   if (MODE == MODE_SHADOW) {
     Shadow sh = shadow_result(b);
@@ -130,13 +288,16 @@ bvh_kernel(const float* __restrict__ bvh, int n_nodes,
   f3 nrm = mk3(0.0f, 0.0f, 0.0f);
   float uvx = 0.0f, uvy = 0.0f, mat = -1.0f;
   if (c.prim >= 0) {
-    const float* a = attrs + (long long)HK_ATTR * c.prim;
-    nrm = mk3(interp(__ldg(a + 0), __ldg(a + 3), __ldg(a + 6), c.u, c.v),
-              interp(__ldg(a + 1), __ldg(a + 4), __ldg(a + 7), c.u, c.v),
-              interp(__ldg(a + 2), __ldg(a + 5), __ldg(a + 8), c.u, c.v));
-    uvx = interp(__ldg(a + 9), __ldg(a + 11), __ldg(a + 13), c.u, c.v);
-    uvy = interp(__ldg(a + 10), __ldg(a + 12), __ldg(a + 14), c.u, c.v);
-    mat = __ldg(a + 16);
+    // floats 0-8 normals, 9-14 uvs, 15 instance, 16 material
+    const float4* a = tb.attrs + 5 * (long long)c.prim;
+    float4 a0 = __ldg(a), a1 = __ldg(a + 1), a2 = __ldg(a + 2),
+           a3 = __ldg(a + 3), a4 = __ldg(a + 4);
+    nrm = mk3(interp(a0.x, a0.w, a1.z, c.u, c.v),
+              interp(a0.y, a1.x, a1.w, c.u, c.v),
+              interp(a0.z, a1.y, a2.x, c.u, c.v));
+    uvx = interp(a2.y, a2.w, a3.y, c.u, c.v);
+    uvy = interp(a2.z, a3.x, a3.z, c.u, c.v);
+    mat = a4.x;
   }
   nrm_out[3 * i] = nrm.x;
   nrm_out[3 * i + 1] = nrm.y;
@@ -146,50 +307,60 @@ bvh_kernel(const float* __restrict__ bvh, int n_nodes,
   mat_out[i] = mat;
 }
 
-static const int kThreads = 128;
+static const int kThreads = HK_THREADS;
 
 template <int MODE>
-static int launch(const float* bvh, int n_nodes, const float* tris,
-                  const float* attrs, const float* ro, const float* rd,
+static int launch(WalkTables tb, const float* ro, const float* rd,
                   const float* maxt, const int* excl, const int* incl, int n,
                   float* t, float* u, float* v, int* prim, int* inst,
                   float* nrm, float* uv, float* mat, void* stream) {
   if (n == 0) return 0;
   unsigned blocks = (unsigned)((n + kThreads - 1) / kThreads);
   bvh_kernel<MODE><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      bvh, n_nodes, tris, attrs, ro, rd, maxt, excl, incl, n, t, u, v, prim,
-      inst, nrm, uv, mat);
+      tb, ro, rd, maxt, excl, incl, n, t, u, v, prim, inst, nrm, uv, mat);
   return (int)cudaGetLastError();
 }
 
-extern "C" int hk_bvh_closest(const float* bvh, int n_nodes,
-                              const float* tris, const float* ro,
+static WalkTables tables(const float* nodes, const int* sub_root, int n_inst,
+                         const float* tris, const float* attrs) {
+  WalkTables tb;
+  tb.nodes = reinterpret_cast<const float4*>(nodes);
+  tb.sub_root = sub_root;
+  tb.n_inst = n_inst;
+  tb.tris = reinterpret_cast<const float4*>(tris);
+  tb.attrs = reinterpret_cast<const float4*>(attrs);
+  return tb;
+}
+
+extern "C" int hk_bvh_closest(const float* nodes, const int* sub_root,
+                              int n_inst, const float* tris, const float* ro,
                               const float* rd, const float* maxt,
                               const int* excl, const int* incl, int n,
                               float* t, float* u, float* v, int* prim,
                               int* inst, void* stream) {
-  return launch<MODE_HIT>(bvh, n_nodes, tris, nullptr, ro, rd, maxt, excl,
-                          incl, n, t, u, v, prim, inst, nullptr, nullptr,
-                          nullptr, stream);
+  return launch<MODE_HIT>(tables(nodes, sub_root, n_inst, tris, nullptr), ro,
+                          rd, maxt, excl, incl, n, t, u, v, prim, inst,
+                          nullptr, nullptr, nullptr, stream);
 }
 
-extern "C" int hk_bvh_full(const float* bvh, int n_nodes, const float* tris,
-                           const float* attrs, const float* ro,
-                           const float* rd, const float* maxt,
-                           const int* excl, const int* incl, int n, float* t,
-                           int* prim, float* nrm, float* uv, float* mat,
-                           int* inst, void* stream) {
-  return launch<MODE_FULL>(bvh, n_nodes, tris, attrs, ro, rd, maxt, excl,
-                           incl, n, t, nullptr, nullptr, prim, inst, nrm, uv,
-                           mat, stream);
+extern "C" int hk_bvh_full(const float* nodes, const int* sub_root,
+                           int n_inst, const float* tris, const float* attrs,
+                           const float* ro, const float* rd,
+                           const float* maxt, const int* excl,
+                           const int* incl, int n, float* t, int* prim,
+                           float* nrm, float* uv, float* mat, int* inst,
+                           void* stream) {
+  return launch<MODE_FULL>(tables(nodes, sub_root, n_inst, tris, attrs), ro,
+                           rd, maxt, excl, incl, n, t, nullptr, nullptr, prim,
+                           inst, nrm, uv, mat, stream);
 }
 
-extern "C" int hk_bvh_shadow(const float* bvh, int n_nodes,
-                             const float* tris, const float* ro,
+extern "C" int hk_bvh_shadow(const float* nodes, const int* sub_root,
+                             int n_inst, const float* tris, const float* ro,
                              const float* rd, const float* maxt,
                              const int* excl, const int* incl, int n,
                              float* t, int* inst, void* stream) {
-  return launch<MODE_SHADOW>(bvh, n_nodes, tris, nullptr, ro, rd, maxt,
-                             excl, incl, n, t, nullptr, nullptr, nullptr,
-                             inst, nullptr, nullptr, nullptr, stream);
+  return launch<MODE_SHADOW>(tables(nodes, sub_root, n_inst, tris, nullptr),
+                             ro, rd, maxt, excl, incl, n, t, nullptr, nullptr,
+                             nullptr, inst, nullptr, nullptr, nullptr, stream);
 }

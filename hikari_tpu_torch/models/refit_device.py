@@ -1,6 +1,7 @@
 """On-device transform update and BVH refit for animated scenes: the port
 of hikari_tpu/models/refit_device.py without its cluster-table part (the
-port's kernel 13 walks `bvh_packed`, so there are no cluster tables).
+port's kernel 13 walks its own tables, models/walk_tables.py, so there are
+no cluster tables).
 
 1. Local-space triangle and normal tables are built once on the host in
    float64 from the compiled scene.
@@ -12,7 +13,10 @@ port's kernel 13 walks `bvh_packed`, so there are no cluster tables).
    matmul), so the refit rounds alike on the CPU and the card.
 3. BVH node AABBs are refit with a sparse-table pyramid: a node's box is
    the union of two power-of-2 windows over its leaf range
-   (models/bvh.refit_bvh's math), min/max only, so it is exact.
+   (models/bvh.refit_bvh's math), min/max only, so it is exact. The same
+   pyramid, over the world's leaves followed by each emissive subtree's,
+   gives kernel 13's wide-node slots (`bvh_wide`), and its triangle and
+   attribute rows (`tri_edges`, `tri_attr_pad`) follow the triangles.
 4. Instance AABBs come from the 8 transformed corners of the instance's
    local box (instance.rs:286-305).
 5. `inst_motion`, the emissive positions and radii (`em_packed`) and the
@@ -31,6 +35,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hikari_tpu_torch.models import walk_tables
 from hikari_tpu_torch.ops._kernel import div
 
 
@@ -120,6 +125,7 @@ class DeviceRefitter:
         self.tri_valid = dev(valid, torch.bool)
         self.tri_pos_tail = dev(a["tri_pos_flat"][:, 9:])
         self.tri_attr_tail = dev(a["tri_attr"][:, 9:])
+        self.attr_pad = torch.zeros((len(a["tri_attr"]), 3), device=device)
 
         # tight local instance boxes, for the 8-corner world boxes
         offs, cnts = a["inst_prim_offset"], a["inst_prim_count"]
@@ -147,23 +153,33 @@ class DeviceRefitter:
             self.em_pad_pos = dev(a["em_tri_pos_flat"][len(self.em_rows):])
             self.em_pad_attr = dev(a["em_tri_attr"][len(self.em_rows):])
 
-        # the BVH refit plan (sparse-table windows, models/bvh.refit_bvh)
-        bvh = gpu.bvh
-        lengths = bvh.last - bvh.first + 1
-        klev = np.floor(np.log2(lengths)).astype(np.int64)
+        # the BVH refit plan (sparse-table windows, models/bvh.refit_bvh):
+        # one pyramid over kernel 13's leaf positions (the world's leaves,
+        # then each emissive subtree's) serves bvh_packed's rows and the
+        # wide nodes' slots (models/walk_tables.py)
+        p = walk_tables.plan_of(a)
+        self.walk_plan = p
+        m = len(p.leaf_tri)
+        self.num_nodes = len(p.node_first)
+        first = np.concatenate([p.node_first, p.slot_first])
+        last = np.concatenate([p.node_last, p.slot_last])
+        klev = np.floor(np.log2(last - first + 1)).astype(np.int64)
         self.num_levels = int(klev.max()) + 1
         level_off = np.zeros(self.num_levels + 1, np.int64)
         for k in range(self.num_levels):
-            level_off[k + 1] = level_off[k] + (n - (1 << k) + 1)
-        self.leaf_perm = dev(bvh.prim_order, torch.int64)
-        self.fidx = dev(level_off[klev] + bvh.first, torch.int64)
-        self.eidx = dev(level_off[klev] + bvh.last - (1 << klev) + 1,
+            level_off[k + 1] = level_off[k] + (m - (1 << k) + 1)
+        self.leaf_perm = dev(p.leaf_tri, torch.int64)
+        self.fidx = dev(level_off[klev] + first, torch.int64)
+        self.eidx = dev(level_off[klev] + last - (1 << klev) + 1,
                         torch.int64)
         self.bvh_tail = dev(a["bvh_packed"][:, 6:])
+        self.slot_used = dev(p.slot_ref != 0, torch.bool)[:, None]
+        self.slot_ref = dev(p.slot_ref[:, None].astype(np.float32))
 
-    def bvh_rows(self, world):
-        """bvh_packed [nodes,9] for the triangles world [P,3,3]: each node's
-        box the union of two power-of-2 windows over its leaf range."""
+    def boxes(self, world):
+        """(bvh_packed [nodes,9], bvh_wide [3W,8]) for the triangles world
+        [P,3,3]: each box the union of two power-of-2 windows over its leaf
+        positions."""
         v = world[:self.num_triangles]
         leaf = torch.cat([v.amin(1), v.amax(1)], 1)[self.leaf_perm]
         levels = [leaf]
@@ -176,9 +192,19 @@ class DeviceRefitter:
             levels.append(cur)
         pyramid = torch.cat(levels, 0)
         fa, ea = pyramid[self.fidx], pyramid[self.eidx]
-        return torch.cat([torch.minimum(fa[:, :3], ea[:, :3]),
-                          torch.maximum(fa[:, 3:], ea[:, 3:]),
-                          self.bvh_tail], 1)
+        lo = torch.minimum(fa[:, :3], ea[:, :3])
+        hi = torch.maximum(fa[:, 3:], ea[:, 3:])
+        n = self.num_nodes
+        packed = torch.cat([lo[:n], hi[:n], self.bvh_tail], 1)
+        slot_lo = torch.where(self.slot_used, lo[n:], 0.0)
+        slot_hi = torch.where(self.slot_used, hi[n:], 0.0)
+        wide = torch.cat([slot_lo, self.slot_ref, slot_hi,
+                          torch.zeros_like(self.slot_ref)], 1)
+        return packed, wide
+
+    def bvh_rows(self, world):
+        """bvh_packed [nodes,9] for the triangles world [P,3,3]."""
+        return self.boxes(world)[0]
 
     def update(self, models, prev_models) -> dict:
         """models, prev_models: [I,4,4] float32 tensors on the device (this
@@ -200,8 +226,15 @@ class DeviceRefitter:
         out["tri_pos_flat"] = torch.cat([world9, self.tri_pos_tail], 1)
         out["tri_attr"] = torch.cat([nrm.reshape(-1, 9), self.tri_attr_tail],
                                     1)
+        # kernel 13's rows (walk_tables.edge_rows / attr_rows)
+        v0 = world[:, 0]
+        zero = torch.zeros_like(self.tri_pos_tail)
+        out["tri_edges"] = torch.cat([v0, self.tri_pos_tail, world[:, 1] - v0,
+                                      zero, world[:, 2] - v0, zero], 1)
+        out["tri_attr_pad"] = torch.cat([out["tri_attr"],
+                                         self.attr_pad], 1)
 
-        out["bvh_packed"] = self.bvh_rows(world)
+        out["bvh_packed"], out["bvh_wide"] = self.boxes(world)
 
         # instance tables
         out["inst_model"] = models

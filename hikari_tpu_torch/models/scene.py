@@ -24,6 +24,7 @@ import torch
 
 from hikari_tpu_torch.models.alias_table import (build_alias_table,
                                                  triangle_areas)
+from hikari_tpu_torch.models import walk_tables
 from hikari_tpu_torch.models.bvh import build_bvh
 from hikari_tpu_torch.models.material import StandardMaterial, pack_materials
 from hikari_tpu_torch.models.mesh import Mesh
@@ -136,6 +137,8 @@ def scene_from_arrays(arrays: Dict[str, np.ndarray], device) -> dict:
     `GpuScene.arrays`) as the port's scene tensors on `device`. Arrays of
     other dtypes (hikari_tpu's bf16 `atlas_panels` and `atlas_quad`) are
     left out."""
+    if "bvh_packed" in arrays:
+        arrays = {**arrays, **walk_tables.scene_tables(arrays)}
     out = {}
     for k, v in arrays.items():
         a = np.asarray(v)

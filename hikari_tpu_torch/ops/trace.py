@@ -18,8 +18,10 @@ Pallas branch, `kind` "brute_force_pallas") over kernels 5, 6 and 7
 Larger scenes take the engine of `kind` "cull" over kernel 13
 (ops/trace_cull.py, a walk of the world BVH): `trace`, `with_info` and
 `shadow` are its modes hit, full and shadow, and `probe_info` is kernel 6
-over an emissive table of at most MAX_TRIS rows, else `with_info` over the
-whole scene with the include mask (hikari_tpu/ops/trace.py:301-311). The
+over an emissive table of at most MAX_TRIS rows, else `with_info` with the
+include mask (hikari_tpu/ops/trace.py:301-311), whose rays kernel 13 walks
+through the emitter's own subtree (the reference's "emitter's own BLAS").
+The
 reference's `shape2d` / `incoherent` hints only reorder its rays, so the
 port has none.
 """
@@ -112,8 +114,8 @@ class BvhTracer:
     def trace(self, scene, ro, rd, max_t, exclude_instance=None,
               include_instance=None):
         n, dev = ro.shape[0], ro.device
-        raw = _tc.bvh_closest(scene["bvh_packed"], scene["tri_pos_flat"], ro,
-                              rd, max_t, _ids(exclude_instance, n, dev),
+        raw = _tc.bvh_closest(scene, ro, rd, max_t,
+                              _ids(exclude_instance, n, dev),
                               _ids(include_instance, n, dev))
         return {"t": raw["t"], "u": raw["u"], "v": raw["v"],
                 "prim": raw["prim"], "instance": raw["inst"]}
@@ -121,8 +123,7 @@ class BvhTracer:
     def with_info(self, scene, ro, rd, max_t, exclude_instance=None,
                   include_instance=None):
         n, dev = ro.shape[0], ro.device
-        raw = _tc.bvh_full(scene["bvh_packed"], scene["tri_pos_flat"],
-                           scene["tri_attr"], ro, rd, max_t,
+        raw = _tc.bvh_full(scene, ro, rd, max_t,
                            _ids(exclude_instance, n, dev),
                            _ids(include_instance, n, dev))
         return _tp.full_info(raw, ro, rd)
@@ -130,8 +131,8 @@ class BvhTracer:
     def shadow(self, scene, ro, rd, max_t, exclude_instance=None,
                include_instance=None):
         n, dev = ro.shape[0], ro.device
-        raw = _tc.bvh_shadow(scene["bvh_packed"], scene["tri_pos_flat"], ro,
-                             rd, max_t, _ids(exclude_instance, n, dev),
+        raw = _tc.bvh_shadow(scene, ro, rd, max_t,
+                             _ids(exclude_instance, n, dev),
                              _ids(include_instance, n, dev))
         return {"t": raw["t"], "instance": raw["inst"]}
 
@@ -140,8 +141,8 @@ class BvhTracer:
         if scene["em_tri_pos_flat"].shape[0] <= _tp.MAX_TRIS:
             return probe_emissive_table(scene, ro, rd, max_t,
                                         exclude_instance, include_instance)
-        # the walk cannot prune by instance: the probe visits every node
-        # its ray crosses
+        # kernel 13 walks the included emitter's own subtree
+        # (models/walk_tables.py); the -2 "no pick" rays walk the world
         return self.with_info(scene, ro, rd, max_t, exclude_instance,
                               include_instance)
 

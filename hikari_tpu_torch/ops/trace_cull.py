@@ -2,11 +2,10 @@
 triangles, and its plain version.
 
 The port of hikari_tpu/ops/trace_cull.py (the tile-cull engine,
-`cull_trace`) in its three modes, over the world BVH the scene compiler
-already builds (`bvh_packed`): the TPU engine's cluster lists, packed rows
-and octant sort exist because the TPU has no per-lane gather, and the
-card's form of the same function is the reference's per-ray stackless walk
-(hikari_tpu/ops/trace.py:traverse_bvh):
+`cull_trace`) in its three modes. The TPU engine's cluster lists, packed
+rows and octant sort exist because the TPU has no per-lane gather; the
+card's form of the same function is the reference's per-ray walk of the
+world BVH (hikari_tpu/ops/trace.py:traverse_bvh):
 
 * `bvh_closest` (mode hit): the nearest accepted hit (t, u, v, triangle
   index, instance);
@@ -15,30 +14,40 @@ card's form of the same function is the reference's per-ray stackless walk
 * `bvh_shadow` (mode shadow): the nearest occluder (t, instance) below
   max_t, division-free (every test times |det|, as kernel 7).
 
-The contract: each ray walks the nodes from 0; a node is visited when its
-slab entry t (make_ray's safe inverse) is below the bound: max_t and the
-nearest hit so far (in shadow mode aabb_t < max_t and aabb_t * |det|_best <
-t_d,best, so the walk has no division); a leaf tests its triangle with the
-masks of kernels 5-7; the next node is the first child after a visited
-inner node, else the exit link. A triangle wins only when strictly nearer,
-so on an exact tie the first in walk order wins (kernels 5-7 take the
-lowest index, the TPU the first cluster). cull_trace's clamp of max_t at
-the scene box's exit changes no hit (the root's slab test bounds the walk
-the same way) and is not ported; its early_distance is ignored there too.
+The contract, `walk_plain`: each ray walks the stackless world BVH
+`bvh_packed` from node 0; a node is visited when its slab entry t
+(make_ray's safe inverse) is below the bound: max_t and the nearest hit so
+far (in shadow mode aabb_t < max_t and aabb_t * |det|_best < t_d,best, so
+the walk has no division); a leaf tests its triangle with the masks of
+kernels 5-7; the next node is the first child after a visited inner node,
+else the exit link. A triangle wins only when strictly nearer, so on an
+exact tie the first in walk order wins (kernels 5-7 take the lowest index,
+the TPU the first cluster). cull_trace's clamp of max_t at the scene box's
+exit changes no hit (the root's slab test bounds the walk the same way)
+and is not ported; its early_distance is ignored there too.
 
-The plain version is traverse_bvh's lockstep loop: every ray still walking
-steps one node per iteration (the finished ones drop out), through
-trace_pallas's Moller-Trumbore terms, so it repeats the kernel's arithmetic
-operation by operation. It can also count the node visits and the
-triangle tests of a call (the work the kernel's bound is made of). A
-wrapper runs the plain version for CPU tensors and launches its kernel for
-CUDA tensors.
+The kernel walks other tables with the same words (models/walk_tables.py,
+the argument in csrc/trace_bvh.cu): 3-wide nodes whose slots keep the
+binary DFS order, a subtree per emissive instance that a ray included to
+that instance walks instead of the world, and triangle rows with their
+edges subtracted. `walk_tables_plain` is that walk in lockstep, with the
+kernel's pushes, pops and re-tests; it counts its own work, and the CPU
+tests hold it to `walk_plain` word for word.
+
+walk_plain is traverse_bvh's lockstep loop: every ray still walking steps
+one node per iteration (the finished ones drop out), through trace_pallas's
+Moller-Trumbore terms, so it repeats the kernel's arithmetic operation by
+operation. Both walks can count the slab tests and the triangle tests of a
+call (the work the kernel's bound is made of). A wrapper takes the scene
+dict, runs walk_plain for CPU tensors and launches its kernel for CUDA
+tensors.
 """
 
 from __future__ import annotations
 
 import torch
 
+from hikari_tpu_torch.models import walk_tables as _wt
 from hikari_tpu_torch.ops import trace_pallas as _tp
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
                                           on_cpu, ptr, stream)
@@ -67,98 +76,214 @@ def safe_inverse(rd):
     return div(1.0, torch.where(torch.abs(rd) < 1e-20, tiny, rd))
 
 
+def _new_state(shadow, n, dev):
+    """A walk's running result: t_best (shadow: t_d,best and |det|_best),
+    u, v, prim and instance."""
+    st = {"td": torch.full((n,), F32_MAX, device=dev),
+          "inst": torch.full((n,), -1.0, device=dev)}
+    if shadow:
+        st["ads"] = torch.ones((n,), device=dev)
+    else:
+        st["u"] = torch.zeros((n,), device=dev)
+        st["v"] = torch.zeros((n,), device=dev)
+        st["prim"] = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    return st
+
+
+def _test_leaves(st, k, prim, row, rays):
+    """The triangle tests of rays k at triangles prim, rows [v0, ab, ac,
+    instance] ([M,10]), into the state st; returns the number of tests
+    (those the masks let through)."""
+    ro, rd, max_t, ex, inc = rays
+    inst_i = row[:, 9]
+    accept = (inst_i >= 0.0) & _tp._accepts(inst_i, ex[k], inc[k])
+    if not bool(accept.any()):
+        return 0
+    k, row, inst_i, prim = k[accept], row[accept], inst_i[accept], prim[accept]
+    terms = _tp.mt_terms(ro[k].unbind(-1), rd[k].unbind(-1),
+                         row[:, 0:3].unbind(-1), row[:, 3:6].unbind(-1),
+                         row[:, 6:9].unbind(-1))
+    if "ads" in st:
+        ok, tdk, adk = _tp.shadow_accept(terms, max_t[k], st["td"][k],
+                                         st["ads"][k])
+        st["ads"][k] = torch.where(ok, adk, st["ads"][k])
+    else:
+        ok, uk, vk, tdk = _tp.closest_accept(terms, max_t[k], st["td"][k])
+        st["u"][k] = torch.where(ok, uk, st["u"][k])
+        st["v"][k] = torch.where(ok, vk, st["v"][k])
+        st["prim"][k] = torch.where(ok, prim, st["prim"][k])
+    st["td"][k] = torch.where(ok, tdk, st["td"][k])
+    st["inst"][k] = torch.where(ok, inst_i, st["inst"][k])
+    return k.numel()
+
+
+def _visit(st, te, mt, k):
+    """The walk's node test of rays k with slab entries te: below max_t mt
+    and the nearest hit (shadow: te * |det|_best < t_d,best)."""
+    if "ads" in st:
+        return (te < mt) & (te * st["ads"][k] < st["td"][k])
+    return (te < mt) & (te < st["td"][k])
+
+
+def _result(mode, st, attrs):
+    """The mode's outputs as the kernel writes them."""
+    inst = st["inst"]
+    ids = torch.round(inst).to(torch.int32)
+    if mode == "shadow":
+        return {"t": torch.where(inst >= 0.0, div(st["td"], st["ads"]),
+                                 F32_MAX), "inst": ids}
+    prim = st["prim"].to(torch.int32)
+    u, v = st["u"], st["v"]
+    if mode == "hit":
+        return {"t": st["td"], "u": u, "v": v, "prim": prim, "inst": ids}
+    normal, uv, mat = _tp.interpolate(attrs, prim, u, v)
+    return {"t": st["td"], "prim": prim, "normal": torch.stack(normal, -1),
+            "uv": torch.stack(uv, -1), "mat": mat, "inst": ids}
+
+
+def _count(stats, nodes, tests):
+    if stats is not None:
+        stats["nodes"] = stats.get("nodes", 0) + nodes
+        stats["tests"] = stats.get("tests", 0) + tests
+
+
 def walk_plain(mode, bvh, tris, attrs, ro, rd, max_t, excl, incl,
                stats=None):
     """The walk of every ray in lockstep. Returns the mode's outputs as the
     kernel writes them: hit {t, u, v, prim, inst}; full {t, prim, normal
     [N,3] unnormalized, uv [N,2], mat (float id, -1 on a miss), inst};
     shadow {t, inst} (ids int32; a miss has t F32_MAX and ids -1). With a
-    dict `stats`, adds its node visits ("nodes") and triangle tests
-    ("tests")."""
+    dict `stats`, adds its node visits ("nodes", one slab test each) and
+    triangle tests ("tests")."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}")
     n, dev = ro.shape[0], ro.device
     n_nodes = bvh.shape[0]
     inv = safe_inverse(rd)
-    ex, inc = excl.to(torch.float32), incl.to(torch.float32)
-    shadow = mode == "shadow"
-    if shadow:
-        td = torch.full((n,), F32_MAX, device=dev)
-        ads = torch.ones((n,), device=dev)
-    else:
-        td = torch.full((n,), F32_MAX, device=dev)          # t_best
-        u = torch.zeros((n,), device=dev)
-        v = torch.zeros((n,), device=dev)
-        prim = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    inst = torch.full((n,), -1.0, device=dev)
+    rays = (ro, rd, max_t, excl.to(torch.float32), incl.to(torch.float32))
+    st = _new_state(mode == "shadow", n, dev)
     idx = torch.zeros((n,), dtype=torch.int64, device=dev)
     sel = torch.arange(n, device=dev)
     nodes = tests = 0
     while sel.numel():
         node = bvh[idx[sel]]
-        mt = max_t[sel]
         te = _slab_entry(ro[sel], inv[sel], node)
-        if shadow:
-            visit = (te < mt) & (te * ads[sel] < td[sel])
-        else:
-            visit = (te < mt) & (te < td[sel])
+        visit = _visit(st, te, max_t[sel], sel)
         leaf = node[:, 6] > 0.5
         payload = torch.round(node[:, 7]).to(torch.int64)
         exit_ = torch.round(node[:, 8]).to(torch.int64)
         nodes += sel.numel()
-        # the leaves visited whose triangle the masks accept
+        # the leaves visited
         lv = leaf & visit
-        k = sel[lv]
         row = tris[payload[lv]]
-        inst_i = row[:, 9]
-        accept = (inst_i >= 0.0) & _tp._accepts(inst_i, ex[k], inc[k])
-        if bool(accept.any()):
-            k, row, inst_i = k[accept], row[accept], inst_i[accept]
-            tests += k.numel()
-            v0 = row[:, 0:3]
-            terms = _tp.mt_terms(ro[k].unbind(-1), rd[k].unbind(-1),
-                                 v0.unbind(-1), (row[:, 3:6] - v0).unbind(-1),
-                                 (row[:, 6:9] - v0).unbind(-1))
-            if shadow:
-                ok, tdk, adk = _tp.shadow_accept(terms, max_t[k], td[k],
-                                                 ads[k])
-                ads[k] = torch.where(ok, adk, ads[k])
-            else:
-                ok, uk, vk, tdk = _tp.closest_accept(terms, max_t[k], td[k])
-                u[k] = torch.where(ok, uk, u[k])
-                v[k] = torch.where(ok, vk, v[k])
-                prim[k] = torch.where(ok, payload[lv][accept], prim[k])
-            td[k] = torch.where(ok, tdk, td[k])
-            inst[k] = torch.where(ok, inst_i, inst[k])
+        v0 = row[:, 0:3]
+        tests += _test_leaves(
+            st, sel[lv], payload[lv],
+            torch.cat([v0, row[:, 3:6] - v0, row[:, 6:9] - v0, row[:, 9:]],
+                      1), rays)
         nxt = torch.where(leaf | ~visit, exit_, payload)
         idx[sel] = nxt
         sel = sel[nxt < n_nodes]
-    if stats is not None:
-        stats["nodes"] = stats.get("nodes", 0) + nodes
-        stats["tests"] = stats.get("tests", 0) + tests
-    ids = torch.round(inst).to(torch.int32)
-    if shadow:
-        return {"t": torch.where(inst >= 0.0, div(td, ads), F32_MAX),
-                "inst": ids}
-    prim = prim.to(torch.int32)
-    if mode == "hit":
-        return {"t": td, "u": u, "v": v, "prim": prim, "inst": ids}
-    normal, uv, mat = _tp.interpolate(attrs, prim, u, v)
-    return {"t": td, "prim": prim, "normal": torch.stack(normal, -1),
-            "uv": torch.stack(uv, -1), "mat": mat, "inst": ids}
+    _count(stats, nodes, tests)
+    return _result(mode, st, attrs)
 
 
-def _check_rays(bvh, tris, ro, rd, max_t, excl, incl):
+def walk_tables_plain(mode, scene, ro, rd, max_t, excl, incl, stats=None):
+    """The kernel's walk of its tables (models/walk_tables.py) for every
+    ray in lockstep; returns walk_plain's outputs. A ray included to an
+    instance with a subtree (`bvh_sub_root` > 0) starts there, every other
+    ray at the world's root. Expanding a node slab-tests its slots and
+    pushes those below the bound (shadow mode: below max_t only), the last
+    slot first; a popped slot is tested again against the bound of that
+    moment, then tests its triangle (a leaf) or is expanded. With a dict
+    `stats`, adds its slab tests ("nodes") and triangle tests ("tests")."""
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r}")
+    wide, sub_root = scene["bvh_wide"], scene["bvh_sub_root"]
+    edges = scene["tri_edges"]
+    n, dev = ro.shape[0], ro.device
+    shadow = mode == "shadow"
+    inv = safe_inverse(rd)
+    rays = (ro, rd, max_t, excl.to(torch.float32), incl.to(torch.float32))
+    st = _new_state(shadow, n, dev)
+    has_sub = (incl >= 0) & (incl < sub_root.shape[0])
+    node = torch.where(has_sub, sub_root[incl.clamp(0, sub_root.shape[0] - 1)
+                                         .long()], 0).long()
+    depth = _wt.WALK_STACK + _wt.WIDTH
+    stack_ref = torch.zeros((n, depth), dtype=torch.int64, device=dev)
+    stack_te = torch.zeros((n, depth), device=dev)
+    sp = torch.zeros((n,), dtype=torch.int64, device=dev)
+    slots = torch.arange(_wt.WIDTH, device=dev)
+    sel = torch.arange(n, device=dev)
+    nodes = tests = 0
+    while sel.numel():
+        e = sel[node[sel] >= 0]                 # expand
+        if e.numel():
+            rows = wide[node[e][:, None] * _wt.WIDTH + slots]   # [E,3,8]
+            ref = torch.round(rows[..., 3]).to(torch.int64)
+            te = _slab_entry(ro[e].repeat_interleave(_wt.WIDTH, 0),
+                             inv[e].repeat_interleave(_wt.WIDTH, 0),
+                             rows.reshape(-1, 8)[:, [0, 1, 2, 4, 5, 6]]
+                             ).reshape(-1, _wt.WIDTH)
+            mt = max_t[e][:, None]
+            below = te < mt
+            if not shadow:
+                below &= te < st["td"][e][:, None]
+            push = (ref != 0) & below
+            nodes += int((ref != 0).sum())
+            for k in reversed(range(_wt.WIDTH)):
+                r = e[push[:, k]]
+                stack_ref[r, sp[r]] = ref[push[:, k], k]
+                stack_te[r, sp[r]] = te[push[:, k], k]
+                sp[r] += 1
+            node[e] = -1
+        p = sel[sp[sel] > 0]                    # pop
+        sp[p] -= 1
+        ref = stack_ref[p, sp[p]]
+        visit = _visit(st, stack_te[p, sp[p]], max_t[p], p)
+        lv = visit & (ref < 0)
+        prim = -ref[lv] - 1
+        row = edges[prim]
+        tests += _test_leaves(st, p[lv], prim,
+                              torch.cat([row[:, 0:3], row[:, 4:7],
+                                         row[:, 8:11], row[:, 3:4]], 1),
+                              rays)
+        inner = visit & (ref > 0)
+        node[p[inner]] = ref[inner]
+        sel = sel[(node[sel] >= 0) | (sp[sel] > 0)]
+    _count(stats, nodes, tests)
+    return _result(mode, st, scene["tri_attr_pad"][:, :17]
+                   if mode == "full" else None)
+
+
+def _launch_args(scene, ro, rd, max_t, excl, incl, attrs=False):
+    """The kernel's tables and rays, checked: (device, ray count, the
+    leading arguments of hk_bvh_* up to the ray count)."""
     dev = ro.device
     n = ro.shape[0]
-    check("bvh", bvh, torch.float32, (bvh.shape[0], 9), dev)
-    check("tris", tris, torch.float32, (tris.shape[0], 10), dev)
+    keys = _wt.TABLE_KEYS if attrs else _wt.TABLE_KEYS[:3]
+    missing = [k for k in keys if k not in scene]
+    if missing:
+        raise ValueError(f"kernel 13 needs the scene's {', '.join(missing)} "
+                         "(models/walk_tables.py)")
+    wide, sub_root, edges = (scene[k] for k in _wt.TABLE_KEYS[:3])
+    check("bvh_wide", wide, torch.float32, (wide.shape[0], 8), dev)
+    if wide.shape[0] % _wt.WIDTH or not wide.shape[0]:
+        raise ValueError(f"bvh_wide: {wide.shape[0]} rows, not whole nodes")
+    check("bvh_sub_root", sub_root, torch.int32, (sub_root.shape[0],), dev)
+    check("tri_edges", edges, torch.float32, (edges.shape[0], 12), dev)
+    args = [ptr(wide), ptr(sub_root), sub_root.shape[0], ptr(edges)]
+    if attrs:
+        pad = scene["tri_attr_pad"]
+        check("tri_attr_pad", pad, torch.float32, (edges.shape[0], 20), dev)
+        args.append(ptr(pad))
     check("ro", ro, torch.float32, (n, 3), dev)
     check("rd", rd, torch.float32, (n, 3), dev)
     check("max_t", max_t, torch.float32, (n,), dev)
     check("excl", excl, torch.int32, (n,), dev)
     check("incl", incl, torch.int32, (n,), dev)
-    return dev, n
+    args += [ptr(ro), ptr(rd), ptr(max_t), ptr(excl), ptr(incl), n]
+    return dev, n, args
 
 
 def _load():
@@ -167,22 +292,23 @@ def _load():
     return load_cuda("trace_bvh")
 
 
-def bvh_closest(bvh, tris, ro, rd, max_t, excl, incl):
-    """Kernel 13, mode hit: bvh [nodes,9] f32, tris [P,10] f32, ro/rd [N,3]
-    f32, max_t [N] f32, excl/incl [N] int32. Returns walk_plain's hit
-    dict; runs it for CPU tensors and launches hk_bvh_closest for CUDA
-    tensors."""
+def bvh_closest(scene, ro, rd, max_t, excl, incl):
+    """Kernel 13, mode hit: the scene dict (bvh_packed, tri_pos_flat for
+    the plain version; bvh_wide, bvh_sub_root, tri_edges for the kernel),
+    ro/rd [N,3] f32, max_t [N] f32, excl/incl [N] int32. Returns
+    walk_plain's hit dict; runs it for CPU tensors and launches
+    hk_bvh_closest for CUDA tensors."""
     if on_cpu(ro):
-        return walk_plain("hit", bvh, tris, None, ro, rd, max_t, excl, incl)
-    dev, n = _check_rays(bvh, tris, ro, rd, max_t, excl, incl)
+        return walk_plain("hit", scene["bvh_packed"], scene["tri_pos_flat"],
+                          None, ro, rd, max_t, excl, incl)
+    dev, n, args = _launch_args(scene, ro, rd, max_t, excl, incl)
     out = {k: torch.empty(n, dtype=torch.float32, device=dev)
            for k in ("t", "u", "v")}
     out["prim"] = torch.empty(n, dtype=torch.int32, device=dev)
     out["inst"] = torch.empty(n, dtype=torch.int32, device=dev)
-    fn = bind(_load(), "hk_bvh_closest", "pi" + "p" * 6 + "i" + "p" * 6)
-    rc = fn(ptr(bvh), bvh.shape[0], ptr(tris), ptr(ro), ptr(rd), ptr(max_t),
-            ptr(excl), ptr(incl), n, ptr(out["t"]), ptr(out["u"]),
-            ptr(out["v"]), ptr(out["prim"]), ptr(out["inst"]), stream(dev))
+    fn = bind(_load(), "hk_bvh_closest", "ppip" + "p" * 5 + "i" + "p" * 6)
+    rc = fn(*args, ptr(out["t"]), ptr(out["u"]), ptr(out["v"]),
+            ptr(out["prim"]), ptr(out["inst"]), stream(dev))
     check_launch(rc, "bvh_closest")
     bvh_closest.launches += 1
     return out
@@ -191,15 +317,15 @@ def bvh_closest(bvh, tris, ro, rd, max_t, excl, incl):
 bvh_closest.launches = 0
 
 
-def bvh_full(bvh, tris, attrs, ro, rd, max_t, excl, incl):
-    """Kernel 13, mode full: as bvh_closest with attrs [P,17] f32. Returns
-    walk_plain's full dict; runs it for CPU tensors and launches
-    hk_bvh_full for CUDA tensors."""
+def bvh_full(scene, ro, rd, max_t, excl, incl):
+    """Kernel 13, mode full: as bvh_closest, with tri_attr for the plain
+    version and tri_attr_pad for the kernel. Returns walk_plain's full
+    dict; runs it for CPU tensors and launches hk_bvh_full for CUDA
+    tensors."""
     if on_cpu(ro):
-        return walk_plain("full", bvh, tris, attrs, ro, rd, max_t, excl,
-                          incl)
-    dev, n = _check_rays(bvh, tris, ro, rd, max_t, excl, incl)
-    check("attrs", attrs, torch.float32, (tris.shape[0], 17), dev)
+        return walk_plain("full", scene["bvh_packed"], scene["tri_pos_flat"],
+                          scene["tri_attr"], ro, rd, max_t, excl, incl)
+    dev, n, args = _launch_args(scene, ro, rd, max_t, excl, incl, True)
 
     def new(*shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
@@ -207,11 +333,9 @@ def bvh_full(bvh, tris, attrs, ro, rd, max_t, excl, incl):
     out = {"t": new(n), "prim": new(n, dtype=torch.int32),
            "normal": new(n, 3), "uv": new(n, 2), "mat": new(n),
            "inst": new(n, dtype=torch.int32)}
-    fn = bind(_load(), "hk_bvh_full", "pi" + "p" * 7 + "i" + "p" * 7)
-    rc = fn(ptr(bvh), bvh.shape[0], ptr(tris), ptr(attrs), ptr(ro), ptr(rd),
-            ptr(max_t), ptr(excl), ptr(incl), n, ptr(out["t"]),
-            ptr(out["prim"]), ptr(out["normal"]), ptr(out["uv"]),
-            ptr(out["mat"]), ptr(out["inst"]), stream(dev))
+    fn = bind(_load(), "hk_bvh_full", "ppipp" + "p" * 5 + "i" + "p" * 7)
+    rc = fn(*args, ptr(out["t"]), ptr(out["prim"]), ptr(out["normal"]),
+            ptr(out["uv"]), ptr(out["mat"]), ptr(out["inst"]), stream(dev))
     check_launch(rc, "bvh_full")
     bvh_full.launches += 1
     return out
@@ -220,20 +344,19 @@ def bvh_full(bvh, tris, attrs, ro, rd, max_t, excl, incl):
 bvh_full.launches = 0
 
 
-def bvh_shadow(bvh, tris, ro, rd, max_t, excl, incl):
+def bvh_shadow(scene, ro, rd, max_t, excl, incl):
     """Kernel 13, mode shadow: the arguments of bvh_closest. Returns
     walk_plain's shadow dict; runs it for CPU tensors and launches
     hk_bvh_shadow for CUDA tensors."""
     if on_cpu(ro):
-        return walk_plain("shadow", bvh, tris, None, ro, rd, max_t, excl,
+        return walk_plain("shadow", scene["bvh_packed"],
+                          scene["tri_pos_flat"], None, ro, rd, max_t, excl,
                           incl)
-    dev, n = _check_rays(bvh, tris, ro, rd, max_t, excl, incl)
+    dev, n, args = _launch_args(scene, ro, rd, max_t, excl, incl)
     out = {"t": torch.empty(n, dtype=torch.float32, device=dev),
            "inst": torch.empty(n, dtype=torch.int32, device=dev)}
-    fn = bind(_load(), "hk_bvh_shadow", "pi" + "p" * 6 + "i" + "p" * 3)
-    rc = fn(ptr(bvh), bvh.shape[0], ptr(tris), ptr(ro), ptr(rd), ptr(max_t),
-            ptr(excl), ptr(incl), n, ptr(out["t"]), ptr(out["inst"]),
-            stream(dev))
+    fn = bind(_load(), "hk_bvh_shadow", "ppip" + "p" * 5 + "i" + "p" * 3)
+    rc = fn(*args, ptr(out["t"]), ptr(out["inst"]), stream(dev))
     check_launch(rc, "bvh_shadow")
     bvh_shadow.launches += 1
     return out
