@@ -8,7 +8,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 2. builds the nine CUDA libraries from hikari_tpu_torch/csrc/ (one nvcc
    each, started together) and prints their register and spill counts,
    and those of each lighting instance (kernels B and 4), of kernels A and
-   8 and of kernel 10's two channel instances from their build logs;
+   8, of kernel 10's two channel instances and of kernel 13's three modes
+   from their build logs;
 3. holds kernels A, B and C against their plain PyTorch versions on the
    card at the 1080p flagship shapes of the no-reuse frame, and kernel C
    (the a-trous level) on synthetic fields at 1080p, 960x540 and 541x963
@@ -50,10 +51,13 @@ Run from the repository root on a machine with an NVIDIA H100:
    at 1920x1080 output, HikariSettings() with SMAA 2.0 and an HDR camera,
    the sphere turning each frame through the on-device refit, and holds
    kernel 13 (the BVH walk: the 1080p primary rays, the include-masked
-   probes, the shadow rays and the bounce) against its plain version bit
-   for bit on the calls it got, kernels 9 (3 sources), C, 11 and 12 on
-   the city's calls, kernel 13 on the box against kernels 5 and 7, and the
-   CUDA refit against the CPU refit;
+   probes, the shadow rays and the bounce) against its plain version (the
+   world walk over bvh_packed) bit for bit on the calls it got, with the
+   work per ray of the world walk and of the kernel's own walk of its
+   tables, kernels 9 (3 sources), C, 11 and 12 on the city's calls, kernel
+   13 on the box against kernels 5 and 7, and the CUDA refit (kernel 13's
+   tables included) against the CPU refit; then kernel 13 on one frame of
+   path T's calls (two emissive subtrees);
 9. drives path T (the textured simple scene, BASELINE config 3, with a
    seeded procedural Earth on both spheres) at 1920x1080 and holds kernel
    14 (the coherent atlas sampler, one launch for both textured slots)
@@ -108,8 +112,9 @@ then checks and times kernels 8, C, 11 and 12 on path D's calls, C on a
 synthetic 1080p field, kernel 4 on R's, S's (1080p) and D's (960x540)
 calls with and without the validation retrace, kernel B on the no-reuse
 frame's call, kernel 14 on T's 1080p and 960x540 launches, kernel A on the
-no-reuse frame's and D's 1080p calls and kernel 10 on S's two 1080p calls
-and D's 960x540 call (events, device and host times, the host times of
+no-reuse frame's and D's 1080p calls, kernel 10 on S's two 1080p calls
+and D's 960x540 call and kernel 13 on the city's frame-1 calls, reached
+through BvhTracer (events, device and host times, the host times of
 each wrapper and of its pack_params before any profiler session), and
 prints the records and the frame medians (no ok line): run it in two
 trees of the repository in one call, in turns, to compare them; `--ab-summary
@@ -1622,8 +1627,9 @@ def ab_only(ht, build_box):
     four steps), and before those, so that their host times come before
     any profiler session, kernels 4 and B checked and timed on R's, S's,
     D's and the no-reuse frame's calls (light_ab), kernel 14 on path T's
-    (texture_ab), and kernel A on the no-reuse frame's and D's calls and
-    kernel 10 on S's and D's (prepass_spatial_ab). For timing two trees of
+    (texture_ab), kernel A on the no-reuse frame's and D's calls and
+    kernel 10 on S's and D's (prepass_spatial_ab), and kernel 13 on the
+    city's frame-1 calls (walk_ab). For timing two trees of
     the repository against each other in one call: it reaches the kernels
     only through their wrappers and plain versions, as captured. Returns
     (records, {frame median name: ms})."""
@@ -1666,10 +1672,12 @@ def ab_only(ht, build_box):
     tex_recs, tex_dev = texture_ab(ht)
     as_recs, as_dev = prepass_spatial_ab(ht, build_box, [
         a_calls, caps[6].calls, caps[7].calls, caps[8].calls])
+    walk_recs, walk_dev = walk_ab(ht)
     light_dev()
     tex_dev()
     as_dev()
-    records = light_recs + tex_recs + as_recs
+    walk_dev()
+    records = light_recs + tex_recs + as_recs + walk_recs
     quads_checks(pf, q_calls, a_calls)
     rec8 = dict(name="prepass_quads",
                 **quads_times(pf, q_calls[-1][0], a_calls[-1][0]))
@@ -1991,34 +1999,71 @@ WALK_MODES = {"hit": ("bvh_closest", 4 * 5),
 
 
 def walk_plain_of(tc, mode, a, stats=None):
-    """Kernel 13's plain version on a captured call's arguments."""
-    if mode == "full":
-        return tc.walk_plain(mode, *a, stats=stats)
-    return tc.walk_plain(mode, a[0], a[1], None, *a[2:], stats=stats)
+    """Kernel 13's plain version (the world walk over bvh_packed) on a
+    captured call's arguments (scene, ro, rd, max_t, excl, incl)."""
+    s = a[0]
+    return tc.walk_plain(mode, s["bvh_packed"], s["tri_pos_flat"],
+                         s["tri_attr"] if mode == "full" else None, *a[1:],
+                         stats=stats)
 
 
-def walk_record(tc, mode, a):
-    """(ms, plain ms, (bound ms, by), stats) of kernel 13 on one call: the
-    work is the node visits and triangle tests its plain version counts on
-    these rays (~30 flops per slab test, 60 per triangle test, 25 per
-    full-mode hit's interpolation); the bytes each ray's inputs (36 B) and
-    outputs once, and the tables once."""
+def walk_work(tc, mode, a, out):
+    """The work of one kernel 13 call: {walk: (slab tests, triangle tests,
+    bound ms, by)} for the world walk (walk_plain over bvh_packed, the
+    contract) and for the kernel's own walk of its tables
+    (walk_tables_plain): ~30 flops per slab test, 60 per triangle
+    test, 25 per full-mode hit's interpolation; the bytes each ray's inputs
+    (36 B) and outputs once, and the tables each walk reads once."""
+    s, n = a[0], a[1].shape[0]
+    hits = int((out["prim"] >= 0).sum()) if mode == "full" else 0
+    tables = {"world": ("bvh_packed", "tri_pos_flat", "tri_attr"),
+              "tables": ("bvh_wide", "bvh_sub_root", "tri_edges",
+                         "tri_attr_pad")}
+    work = {}
+    for walk, keys in tables.items():
+        stats = {}
+        if walk == "world":
+            walk_plain_of(tc, mode, a, stats)
+        else:
+            tc.walk_tables_plain(mode, *a, stats=stats)
+        if mode != "full":
+            keys = keys[:-1]
+        nbytes = (sum(s[k].numel() for k in keys) * 4
+                  + n * (36 + WALK_MODES[mode][1]))
+        flops = (stats["nodes"] * FLOPS_PER_NODE
+                 + stats["tests"] * FLOPS_PER_TRI_TEST + hits * FLOPS_INTERP)
+        work[walk] = (stats["nodes"], stats["tests"],
+                      *bound_ms(nbytes, flops))
+    return work
+
+
+def walk_record(tc, mode, a, label):
+    """Kernel 13 on one call: events and device ms, the plain version's ms,
+    and the work per ray and the bound of both walks (walk_work); bound_ms
+    is the lesser."""
     fn = getattr(tc, WALK_MODES[mode][0])
-    n = a[-5].shape[0]
+    n = a[1].shape[0]
     ms = event_ms(lambda: fn(*a), REPS)
+    dev_ms = device_ms(lambda: fn(*a), REPS, "bvh_kernel")
     plain_ms = event_ms(lambda: walk_plain_of(tc, mode, a), 1)
-    stats = {}
-    out = walk_plain_of(tc, mode, a, stats)
-    flops = (stats["nodes"] * FLOPS_PER_NODE
-             + stats["tests"] * FLOPS_PER_TRI_TEST)
-    if mode == "full":
-        flops += int((out["prim"] >= 0).sum()) * FLOPS_INTERP
-    table = sum(t.numel() for t in a[:len(a) - 5]) * 4
-    bound = bound_ms(table + n * (36 + WALK_MODES[mode][1]), flops)
-    print(f"  kernel 13 {mode} {n} rays: {ms:.4f} ms, plain {plain_ms:.1f} "
-          f"ms, bound {bound[0]:.4f} ms ({bound[1]}); {stats['nodes']} node "
-          f"visits, {stats['tests']} triangle tests")
-    return ms, plain_ms, bound, stats
+    work = walk_work(tc, mode, a, fn(*a))
+    rec = dict(ms=ms, device_ms=dev_ms, plain_ms=plain_ms)
+    for walk, (nodes, tests, b, by) in work.items():
+        rec.update({f"slab_tests_per_ray_{walk}": nodes / n,
+                    f"tri_tests_per_ray_{walk}": tests / n,
+                    f"bound_ms_{walk}": b, f"bound_by_{walk}": by})
+    best = min(work.values(), key=lambda w: w[2])
+    rec.update(bound_ms=best[2], bound_by=best[3])
+    print(f"  kernel 13 {mode} {label} {n} rays: {ms:.4f} ms by events, "
+          f"device {dev_ms if dev_ms is None else round(dev_ms, 4)} ms, "
+          f"plain {plain_ms:.1f} ms; per ray: world walk "
+          f"{rec['slab_tests_per_ray_world']:.2f} slab tests, "
+          f"{rec['tri_tests_per_ray_world']:.3f} triangle tests (bound "
+          f"{rec['bound_ms_world']:.4f} ms, {rec['bound_by_world']}); "
+          f"tables {rec['slab_tests_per_ray_tables']:.2f}, "
+          f"{rec['tri_tests_per_ray_tables']:.3f} (bound "
+          f"{rec['bound_ms_tables']:.4f} ms, {rec['bound_by_tables']})")
+    return rec
 
 
 def check_walk_calls(tc, mode, calls, label):
@@ -2036,7 +2081,7 @@ def check_walk_calls(tc, mode, calls, label):
                                    [ref[k] for k in keys]))
         hits = float((got["inst"] >= 0).float().mean())
         masked = float((a[-1] >= 0).float().mean())
-        print(f"kernel 13 {mode} {label} {a[-5].shape[0]} rays ({hits:.3f} "
+        print(f"kernel 13 {mode} {label} {a[1].shape[0]} rays ({hits:.3f} "
               f"hit, {masked:.3f} include-masked): {', '.join(keys)} equal "
               f"to the plain version {eq} (need True)")
         if not eq:
@@ -2062,10 +2107,9 @@ def check_walk_on_box(ht, tc, tp, build_box):
     incl = torch.where(torch.rand(n, generator=g) < 0.2, 1, -1).to(
         torch.int32).to(dev)
     rays = (ro, rd, max_t, excl, incl)
-    bvh, tris, attrs = (scene["bvh_packed"], scene["tri_pos_flat"],
-                        scene["tri_attr"])
+    tris, attrs = scene["tri_pos_flat"], scene["tri_attr"]
     hit5 = tp.trace_closest(tris, *rays)
-    hit13 = tc.bvh_closest(bvh, tris, *rays)
+    hit13 = tc.bvh_closest(scene, *rays)
 
     def edge(h):
         u, v = h["u"], h["v"]
@@ -2073,9 +2117,9 @@ def check_walk_on_box(ht, tc, tp, build_box):
 
     for mode, got, ref, ids in (
             ("hit", hit13, hit5, ("prim", "inst")),
-            ("full", tc.bvh_full(bvh, tris, attrs, *rays),
+            ("full", tc.bvh_full(scene, *rays),
              tp.trace_full(tris, attrs, *rays), ("prim", "inst")),
-            ("shadow", tc.bvh_shadow(bvh, tris, *rays),
+            ("shadow", tc.bvh_shadow(scene, *rays),
              tp.trace_shadow(tris, *rays), ("inst",))):
         torch.cuda.synchronize()
         differ = torch.zeros(n, dtype=torch.bool, device=dev)
@@ -2096,8 +2140,11 @@ def check_walk_on_box(ht, tc, tp, build_box):
 
 def check_refit(ht, city):
     """The refit on CUDA against the refit on the CPU: every table within
-    1e-6 * max(|ref|, 1), the BVH boxes bit for bit against the CPU pyramid
-    of the CUDA triangles."""
+    1e-6 * max(|ref|, 1), the BVH boxes (bvh_packed and kernel 13's
+    bvh_wide) bit for bit against the CPU pyramid of the CUDA triangles,
+    and kernel 13's tables bit for bit against those walk_tables derives
+    from the CUDA refit's own bvh_packed, tri_pos_flat and tri_attr."""
+    from hikari_tpu_torch.models import walk_tables as wt
     from hikari_tpu_torch.models.refit_device import DeviceRefitter
 
     gpu = city.build_scene(3).compile()
@@ -2119,12 +2166,22 @@ def check_refit(ht, city):
     for k in ref:
         frac, err = rel_close(got[k].cpu(), ref[k], 1e-6)
         worst, max_err = min(worst, frac), max(max_err, err)
-    boxes = torch.equal(got["bvh_packed"].cpu(),
-                        cpu_r.bvh_rows(got["tri_pos"].cpu()))
+    packed, wide = cpu_r.boxes(got["tri_pos"].cpu())
+    boxes = (torch.equal(got["bvh_packed"].cpu(), packed)
+             and torch.equal(got["bvh_wide"].cpu(), wide))
+    host = {k: got[k].cpu().numpy() for k in ("bvh_packed", "tri_pos_flat",
+                                              "tri_attr")}
+    derived = wt.tables(cpu_r.walk_plan, host["bvh_packed"],
+                        host["tri_pos_flat"], host["tri_attr"])
+    tables = all(np.array_equal(got[k].cpu().numpy().view(np.int32),
+                                derived[k].view(np.int32))
+                 for k in ("bvh_wide", "tri_edges", "tri_attr_pad"))
     print(f"refit CUDA vs CPU: {len(ref)} tables within 1e-6*max(|ref|,1) "
           f"on {worst:.6f} of values (need 1), max abs err {max_err:.3g}; "
-          f"BVH boxes equal to the pyramid of the CUDA triangles {boxes}")
-    if worst < 1.0 or not boxes:
+          f"BVH boxes (bvh_packed, bvh_wide) equal to the pyramid of the "
+          f"CUDA triangles {boxes}; kernel 13's tables equal to those "
+          f"derived from its bvh_packed {tables} (need both)")
+    if worst < 1.0 or not boxes or not tables:
         fail("the CUDA refit disagrees with the CPU refit")
 
 
@@ -2181,34 +2238,32 @@ def check_city(ht, build_box):
              err_full),
             ("shadow", f1_shadow, ("sun", "emissive", "bounce_nee"),
              err_shadow)):
-        per = [walk_record(tc, mode, a) for a, _ in calls]
+        per = [walk_record(tc, mode, a, nm) for (a, _), nm in zip(calls,
+                                                                  names)]
         rec = dict(name=f"trace_bvh_{mode}", route="cuda",
                    source="hikari_tpu_torch/csrc/trace_bvh.cu",
                    replaces="hikari_tpu/ops/trace_cull.py:239",
-                   launches=None, max_abs_err=err, ms=per[0][0],
-                   plain_ms=per[0][1], bound_ms=per[0][2][0],
-                   bound_by=per[0][2][1], library_ms=None)
-        for nm, (ms, plain_ms, (b, _), st) in zip(names[1:], per[1:]):
-            rec.update({f"ms_{nm}": ms, f"plain_ms_{nm}": plain_ms,
-                        f"bound_ms_{nm}": b})
+                   launches=None, max_abs_err=err, library_ms=None,
+                   **per[0])
+        for nm, r in zip(names[1:], per[1:]):
+            rec.update({f"{key}_{nm}": v for key, v in r.items()})
         records.append(rec)
     # the hit mode, which no path calls, on the primary call's rays
-    a_hit = (f1_full[0][0][0], f1_full[0][0][1]) + tuple(f1_full[0][0][3:])
+    a_hit = f1_full[0][0]
     ref = walk_plain_of(tc, "hit", a_hit)
     got = tc.bvh_closest(*a_hit)
     torch.cuda.synchronize()
     if not words_equal([got[k] for k in sorted(ref)],
                        [ref[k] for k in sorted(ref)]):
         fail("kernel 13 (hit) disagrees with its plain version")
-    ms, plain_ms, (b, by), _ = walk_record(tc, "hit", a_hit)
     hit_record = dict(name="trace_bvh_hit", route="cuda",
                       source="hikari_tpu_torch/csrc/trace_bvh.cu",
                       replaces="hikari_tpu/ops/trace_cull.py:239",
                       launches=0, max_abs_err=max_abs_err(
                           [got[k] for k in sorted(ref)],
                           [ref[k] for k in sorted(ref)]),
-                      ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
-                      library_ms=None)
+                      library_ms=None,
+                      **walk_record(tc, "hit", a_hit, "primary"))
     check_walk_on_box(ht, tc, tp, build_box)
 
     # kernels 9 (3 sources), C, 11 and 12 on the city's calls
@@ -2240,6 +2295,104 @@ def check_city(ht, build_box):
             for key, val in v.items()))
     check_refit(ht, city)
     return records, hit_record, extra
+
+
+def check_simple_walk(ht):
+    """Kernel 13 against its plain version word for word on the calls of
+    path T's first frame at 1920x1080 (both direct channels validate):
+    the scene with two emissive subtrees, whose probes are included to
+    either sphere."""
+    from hikari_tpu_torch.ops import trace_cull as tc
+
+    settings = simple_settings(ht)
+    r = ht.Renderer(simple_scene(), simple_camera(ht, FULL), settings)
+    emitters = sorted(int(i) for i in torch.nonzero(
+        r.scene_dev["bvh_sub_root"] > 0).flatten())
+    caps = [Capture(tc, "bvh_full"), Capture(tc, "bvh_shadow")]
+    with caps[0], caps[1]:
+        for c in caps:
+            c.on = True
+        r.render_frame()
+        torch.cuda.synchronize()
+    first = COUNTERS.index("bvh_full")
+    want = list(simple_launches(settings, 0)[first:first + 2])
+    got = [len(c.calls) for c in caps]
+    included = sorted({int(i) for a, _ in caps[0].calls
+                       for i in torch.unique(a[-1]) if i >= 0})
+    print(f"path T: emissive subtrees of instances {emitters}, probes "
+          f"included to {included}; kernel 13 calls {got} (need {want})")
+    if got != want or len(emitters) != 2 or included != emitters:
+        fail("path T's frame does not probe its two emitters' subtrees")
+    check_walk_calls(tc, "full", caps[0].calls, "T")
+    check_walk_calls(tc, "shadow", caps[1].calls, "T")
+
+
+def walk_ab(ht):
+    """--ab's kernel 13 records: the city's frame-1 calls at 1920x1080
+    (full: primary, emissive probe, bounce, its probe; shadow: sun,
+    emissive, bounce NEE), reached through BvhTracer's methods, whose
+    arguments every tree of the repository shares: each call's wrapper is
+    captured as that tree's BvhTracer calls it, its outputs held word for
+    word against walk_plain over bvh_packed, and timed by events and on
+    the host. Returns the records and the pass that adds their device
+    times."""
+    import inspect
+
+    from hikari_tpu_torch.examples import city
+    from hikari_tpu_torch.ops import trace as tr
+    from hikari_tpu_torch.ops import trace_cull as tc
+
+    sc = city.build_scene(3)
+    r = ht.Renderer(sc, city_camera(ht, FULL), ht.HikariSettings())
+    caps = [Capture(tr.BvhTracer, "with_info"),
+            Capture(tr.BvhTracer, "shadow")]
+    with caps[0], caps[1]:
+        for f in range(2):
+            r.update_scene(city.rotate_sphere(sc, city_angle(f)), fast=True)
+            for c in caps:
+                c.on = f == 1
+            r.render_frame()
+        torch.cuda.synchronize()
+    named = []
+    for cap, mode, names in (
+            (caps[0], "full", ("primary", "probe", "bounce", "bounce_probe")),
+            (caps[1], "shadow", ("sun", "emissive", "bounce_nee"))):
+        wrapper = WALK_MODES[mode][0]
+        for name, (a, k) in zip(names, cap.calls):
+            inner = Capture(tc, wrapper)
+            with inner:
+                inner.on = True
+                cap.fn(*a, **k)
+            wa, wk = inner.calls[0]
+            run = (lambda fn=getattr(tc, wrapper), wa=wa, wk=wk:
+                   fn(*wa, **wk))
+            arg = inspect.signature(cap.fn).bind(*a, **k)
+            arg.apply_defaults()
+            v = arg.arguments
+            n, dev = v["ro"].shape[0], v["ro"].device
+            ref = tc.walk_plain(
+                mode, v["scene"]["bvh_packed"], v["scene"]["tri_pos_flat"],
+                v["scene"]["tri_attr"] if mode == "full" else None, v["ro"],
+                v["rd"], v["max_t"], tr._ids(v["exclude_instance"], n, dev),
+                tr._ids(v["include_instance"], n, dev))
+            got = run()
+            torch.cuda.synchronize()
+            keys = sorted(ref)
+            if not words_equal([got[q] for q in keys],
+                               [ref[q] for q in keys]):
+                fail(f"kernel 13 ({mode}, the city's {name} call) disagrees "
+                     "with its plain version")
+            named.append((dict(name=f"bvh_{mode}_{name}", rays=n,
+                               words_equal=1.0), run))
+    for rec, run in named:
+        rec.update(ms=event_ms(run, REPS), host_us=host_us(run))
+
+    def device_pass():
+        for rec, run in named:
+            rec["device_ms"] = device_ms(run, REPS, "bvh_kernel")
+            print_kernel_times(rec["name"], rec)
+
+    return [rec for rec, _ in named], device_pass
 
 
 def simple_scene(textured=True):
@@ -2758,9 +2911,9 @@ def main():
                     "check and time kernels 8, C, 11 and 12 on path D's "
                     "calls, 4 and B on R's, S's, D's and the no-reuse "
                     "frame's, 14 on T's, A on the no-reuse frame's and D's, "
-                    "10 on S's and D's (to time two trees of the "
-                    "repository in one call); prints their records and no "
-                    "ok line")
+                    "10 on S's and D's, 13 on the city's (to time two trees "
+                    "of the repository in one call); prints their records "
+                    "and no ok line")
     ap.add_argument("--ab-summary", nargs="+", metavar="FILE",
                     help="summarise the --ab lines of FILEs, one per tree "
                     "(medians, interquartile ranges; runs on any host)")
@@ -2798,7 +2951,8 @@ def main():
 
     instances = light_instances()
     instances_a10 = {name: kernel_instances(name)
-                     for name in ("prepass_fused", "spatial_fused")}
+                     for name in ("prepass_fused", "spatial_fused",
+                                  "trace_bvh")}
     if args.ab:
         records, frames = ab_only(ht, build_box)
         print(json.dumps({"ab": list(records), "frames_ms": frames,
@@ -2817,6 +2971,7 @@ def main():
     records += ckb_records
     city_records, hit_record, at_city = check_city(ht, build_box)
     records += city_records
+    check_simple_walk(ht)
     for rec in records + [hit_record]:
         rec.update(at_540p.get(rec["name"], {}))
         rec.update(at_ckb.get(rec["name"], {}))

@@ -2,25 +2,23 @@
 
     python3 chip_variants.py
 
-Builds csrc/trace_bvh.cu once per variant (-D macros: HK_WIDTH, the slots
-per node; HK_SMEM_STACK, the stack in shared memory; HK_WHILE, inner
-nodes expanded in a loop of their own; HK_THREADS, threads per block;
-HK_SKIP, no slab test of an empty slot),
-holds each against
-walk_plain word for word on the city's frame-1 kernel-13 calls at
-1920x1080 and times it by CUDA events. Prints one JSON line per call and
-variant, and writes the default build's SASS to chiprun_out/trace_bvh.sass.
-"*_no_subtrees" runs a build with every ray walking the world tree.
+Builds csrc/trace_bvh.cu once per variant of HK_WALK_CHOICE, the rays'
+choice of walk: "warp" (0: a warp walks the 3-slot nodes when one of its
+rays has an emitter's subtree, else the world's binary rows), "wide" (1:
+every ray walks the 3-slot nodes), "lane" (2: each ray by itself). Holds
+each against walk_plain word for word on the city's frame-1 kernel-13
+calls at 1920x1080 and times it by CUDA events (in turns) and on the
+device (torch.profiler). Prints one JSON line per call and variant.
 """
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import subprocess
 import sys
 
-import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -28,55 +26,32 @@ sys.path.insert(0, HERE)
 
 import chip_smoke as cs  # noqa: E402
 
-VARIANTS = {"w3": ([], 3),
-            "w3_skip": (["-DHK_SKIP=1"], 3),
-            "w2": (["-DHK_WIDTH=2"], 2),
-            "w2_while": (["-DHK_WIDTH=2", "-DHK_WHILE=1"], 2),
-            "w4": (["-DHK_WIDTH=4"], 4),
-            "w4_skip": (["-DHK_WIDTH=4", "-DHK_SKIP=1"], 4),
-            "w4_smem": (["-DHK_WIDTH=4", "-DHK_SMEM_STACK=1",
-                         "-DHK_STACK=32"], 4),
-            "w4_while": (["-DHK_WIDTH=4", "-DHK_WHILE=1"], 4),
-            "w4_t64": (["-DHK_WIDTH=4", "-DHK_THREADS=64"], 4),
-            "w4_t256": (["-DHK_WIDTH=4", "-DHK_THREADS=256"], 4)}
-
-
-def build(name, flags):
-    from hikari_tpu_torch import build as b
-
-    out = os.path.join(b.BUILD_DIR, "variants", f"libtrace_bvh_{name}.so")
-    os.makedirs(os.path.dirname(out), exist_ok=True)
-    proc, tmp = b._start([b.nvcc_path(), *b._NVCC_FLAGS, *flags,
-                          os.path.join(b.CSRC, "trace_bvh.cu")], out)
-    return proc, tmp, out
+VARIANTS = {"warp": [], "wide": ["-DHK_WALK_CHOICE=1"],
+            "lane": ["-DHK_WALK_CHOICE=2"]}
 
 
 def main():
-    import ctypes
-
     import hikari_tpu_torch as ht
     from hikari_tpu_torch import build as b
     from hikari_tpu_torch.examples import city
-    from hikari_tpu_torch.models import walk_tables as wt
     from hikari_tpu_torch.ops import trace_cull as tc
-    from hikari_tpu_torch.ops._kernel import bind, check_launch, ptr, stream
 
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    running = {n: build(n, f) for n, (f, _) in VARIANTS.items()}
+    running = {}
+    for name, flags in VARIANTS.items():
+        out = os.path.join(b.BUILD_DIR, "variants", f"libtrace_bvh_{name}.so")
+        os.makedirs(os.path.dirname(out), exist_ok=True)
+        running[name] = (*b._start([b.nvcc_path(), *b._NVCC_FLAGS, *flags,
+                                    os.path.join(b.CSRC, "trace_bvh.cu")],
+                                   out), out)
     libs = {}
-    for n, (proc, tmp, out) in running.items():
-        log = b._finish(proc, tmp, out, n)
-        for line in log.splitlines():
+    for name, (proc, tmp, out) in running.items():
+        for line in b._finish(proc, tmp, out, name).splitlines():
             if "registers" in line or "spill" in line:
-                print(f"  {n}: {line.strip()}")
-        libs[n] = ctypes.CDLL(out)
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", "trace_bvh.sass"), "w") as f:
-        f.write(subprocess.run(
-            ["/usr/local/cuda/bin/cuobjdump", "-sass", running["w3"][2]],
-            capture_output=True, text=True).stdout)
+                print(f"  {name}: {line.strip()}")
+        libs[name] = ctypes.CDLL(out)
 
     sc = city.build_scene(3)
     r = ht.Renderer(sc, cs.city_camera(ht, cs.FULL), ht.HikariSettings())
@@ -89,72 +64,34 @@ def main():
                 c.on = f == 1
             r.render_frame()
     torch.cuda.synchronize()
-    scene = caps[0].calls[0][0][0]
-    arrays = {k: scene[k].cpu().numpy()
-              for k in ("bvh_packed", "tri_pos_flat", "tri_attr",
-                        "em_instance", "inst_prim_offset")}
-    tables = {}
-    for width in sorted({w for _, w in VARIANTS.values()}):
-        p = wt.plan(arrays["bvh_packed"],
-                    np.rint(arrays["tri_pos_flat"][:, 9]).astype(np.int64),
-                    arrays["em_instance"], len(arrays["inst_prim_offset"]),
-                    width)
-        t = wt.tables(p, arrays["bvh_packed"], arrays["tri_pos_flat"],
-                      arrays["tri_attr"])
-        tables[width] = {k: torch.from_numpy(v).cuda() for k, v in t.items()}
-    runs = [(n, libs[n], tables[w]) for n, (_, w) in VARIANTS.items()]
-    for n in ("w3", "w4"):
-        nosub = dict(tables[VARIANTS[n][1]])
-        nosub["bvh_sub_root"] = torch.zeros_like(nosub["bvh_sub_root"])
-        runs.append((f"{n}_no_subtrees", libs[n], nosub))
-
-    def launcher(mode, lib, tb, rays):
-        ro, rd, max_t, excl, incl = rays
-        n, dev = ro.shape[0], ro.device
-        lead = [ptr(tb["bvh_wide"]), ptr(tb["bvh_sub_root"]),
-                tb["bvh_sub_root"].shape[0], ptr(tb["tri_edges"])]
-        new = (lambda *s, dtype=torch.float32:
-               torch.empty(s, dtype=dtype, device=dev))
-        if mode == "full":
-            out = {"t": new(n), "prim": new(n, dtype=torch.int32),
-                   "normal": new(n, 3), "uv": new(n, 2), "mat": new(n),
-                   "inst": new(n, dtype=torch.int32)}
-            fn = bind(lib, "hk_bvh_full", "ppipp" + "p" * 5 + "i" + "p" * 7)
-            args = lead + [ptr(tb["tri_attr_pad"])]
-            keys = ("t", "prim", "normal", "uv", "mat", "inst")
-        else:
-            out = {"t": new(n), "inst": new(n, dtype=torch.int32)}
-            fn = bind(lib, "hk_bvh_shadow", "ppip" + "p" * 5 + "i" + "p" * 3)
-            args = lead
-            keys = ("t", "inst")
-        args += [ptr(x) for x in rays] + [n] + [ptr(out[k]) for k in keys]
-        args.append(stream(dev))
-
-        def run():
-            check_launch(fn(*args), mode)
-            return out
-        return run
 
     ok = True
     for mode, cap, names in (("full", caps[0], ("primary", "probe", "bounce",
                                                  "bounce_probe")),
                              ("shadow", caps[1], ("sun", "emissive",
                                                   "bounce_nee"))):
+        wrapper = getattr(tc, cs.WALK_MODES[mode][0])
         for name, (a, _) in zip(names, cap.calls):
-            s, rays = a[0], a[1:]
-            ref = tc.walk_plain(mode, s["bvh_packed"], s["tri_pos_flat"],
-                                s["tri_attr"] if mode == "full" else None,
-                                *rays)
-            for vname, lib, tb in runs:
-                run = launcher(mode, lib, tb, rays)
-                got = run()
+            ref = cs.walk_plain_of(tc, mode, a)
+            runs = {}
+            for v, lib in libs.items():
+                # the wrapper, with this variant's library
+                tc._load = lambda lib=lib: lib
+                got = wrapper(*a)
                 torch.cuda.synchronize()
                 eq = all(torch.equal(got[k].view(torch.int32),
                                      ref[k].view(torch.int32)) for k in ref)
                 ok &= eq
-                print(json.dumps(dict(call=f"{mode}_{name}", variant=vname,
-                                      equal=eq,
-                                      ms=cs.event_ms(run, cs.REPS))))
+                runs[v] = (lambda lib=lib: (setattr(tc, "_load",
+                                                    lambda: lib),
+                                            wrapper(*a)))
+            rec = {v: [] for v in libs}
+            for v in list(libs) + list(libs)[::-1]:
+                rec[v].append(cs.event_ms(runs[v], cs.REPS))
+            for v in libs:
+                print(json.dumps(dict(
+                    call=f"{mode}_{name}", variant=v, ms=min(rec[v]),
+                    device_ms=cs.device_ms(runs[v], cs.REPS, "bvh_kernel"))))
     print("all equal", ok)
     return 0 if ok else 1
 

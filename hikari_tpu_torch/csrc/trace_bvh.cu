@@ -1,5 +1,5 @@
-// Kernel 13: the tracer of scenes above 768 triangles, a per-thread walk
-// of a 3-wide BVH, in three modes.
+// Kernel 13: the tracer of scenes above 768 triangles, a per-thread BVH
+// walk in three modes.
 //
 // It replaces hikari_tpu/ops/trace_cull.py: _make_kernel (launched by
 // _run_tiles' pallas_call, engine cull_trace) in its modes
@@ -42,63 +42,61 @@
 // rule is unchanged.
 //
 // The tables (models/walk_tables.py) keep those three properties:
+// * bvh_nodes: bvh_packed's rows as two float4s (min xyz + ref, max xyz +
+//   exit; ref: the first child, or a leaf's -(triangle + 1)), one vector
+//   load each instead of nine scalar loads;
 // * bvh_wide: the binary world BVH collapsed into nodes of 3 slots (each
 //   a binary node: its two children, then the slot with the most leaves
 //   replaced by its two children, in DFS order), a slot two float4s: min
 //   xyz + ref, max xyz + 0 (ref: a wide node > 0, a leaf's -(triangle +
 //   1), 0 empty). The world slots' boxes are bvh_packed's rows;
-// * one subtree per emissive instance: the world nodes that hold one of
-//   its triangles, single-child chains collapsed, each box the union of
-//   its kept leaves. A ray included to that instance (incl >= 0, the
-//   light probes) starts at its root (bvh_sub_root), and walks the
+// * one subtree per emissive instance in bvh_wide: the world nodes that
+//   hold one of its triangles, single-child chains collapsed, each box the
+//   union of its kept leaves. A ray included to that instance (incl >= 0,
+//   the light probes) starts at its root (bvh_sub_root), and walks the
 //   emitter's own tree, as the reference's probe walks the emitter's BLAS
-//   (hikari_tpu/ops/trace.py:22-24); every other ray, the probe's -2 "no
-//   pick" included, walks the world from node 0;
+//   (hikari_tpu/ops/trace.py:22-24);
 // * tri_edges: v0 + instance, v1 - v0, v2 - v0 in three float4s
 //   (edge_terms: mt_terms' subtractions done once, the same words);
 //   tri_attr_pad: tri_attr padded to 5 float4s for the full epilogue.
 //
-// The walk: expanding a node loads its 3 slots (6 independent float4
-// loads, 96 B) and slab-tests them together; the passing slots
-// (hit modes: below the bound of that moment; shadow mode: below max_t,
-// the part of the rule no state changes) are taken in slot order: the
-// first at once, the others pushed on a per-thread stack with their entry
-// t, the last slot deepest. A popped slot is tested again against the
-// bound of that moment (its te does not change), which is the binary
-// walk's test of that node when it reaches it; a leaf then tests its
-// triangle, an inner slot is expanded. The hit modes' push filter is
-// exact because their bound only falls. HK_STACK bounds the stack; the
-// tables raise when a tree could need more (walk_tables.plan).
+// The walks. A warp in which some ray has an emitter's subtree walks
+// bvh_wide: that ray from its subtree's root, the others (the probe's -2
+// "no pick" rays among them) from the world's root. Expanding a node
+// loads its 3 slots (6 independent float4 loads) and slab-tests them
+// together; the passing slots (hit modes: below the bound of that moment;
+// shadow mode: below max_t, the part of the rule no state changes) are
+// taken in slot order: the first at once, the others pushed on a
+// per-thread stack with their entry t, the last slot deepest. A popped
+// slot is tested again against the bound of that moment (its te does not
+// change), which is the binary walk's test of that node when it reaches
+// it; a leaf then tests its triangle, an inner slot is expanded. The hit
+// modes' push filter is exact because their bound only falls. HK_STACK
+// bounds the stack; the tables raise when a tree could need more
+// (walk_tables.plan). Every other warp walks bvh_nodes stackless, in
+// walk_plain's own order. One walk per warp keeps a warp's lanes in one
+// loop; per call, on the city's calls, it beat every ray on bvh_wide and
+// each ray choosing by itself (PERF.md, PR 11).
 //
 // Bound on the H100: the work depends on the data (slab tests and
 // triangle tests of each ray), ~30 flops per slab test and 60 per triangle
 // test; chip_smoke.walk_record counts both for the world walk and for this
-// one on the same rays.
+// one on the same rays. Coherent rays (the 1080p primary) are issue-bound,
+// incoherent ones (bounces, probes) wait on divergence and L1/L2 latency.
 
 #include "common.cuh"
 
-#ifndef HK_WIDTH
 #define HK_WIDTH 3    // slots per node (walk_tables.WIDTH)
-#endif
-#ifndef HK_STACK
 #define HK_STACK 64   // per-thread stack entries (walk_tables.WALK_STACK)
-#endif
-#ifndef HK_SMEM_STACK
-#define HK_SMEM_STACK 0
-#endif
-#ifndef HK_WHILE
-#define HK_WHILE 0
-#endif
-#ifndef HK_SKIP
-#define HK_SKIP 0
-#endif
-#ifndef HK_THREADS
-#define HK_THREADS 128
+#ifndef HK_WALK_CHOICE
+#define HK_WALK_CHOICE 0
 #endif
 
 enum { MODE_HIT = 0, MODE_FULL = 1, MODE_SHADOW = 2 };
 
 struct WalkTables {
+  const float4* bin;      // [N][2]: bvh_packed as min xyz + ref, max xyz + exit
+  int n_bin;
   const float4* nodes;    // [3 W][2]: min xyz + ref, max xyz + 0
   const int* sub_root;    // [n_inst]: each instance's subtree, 0 for none
   int n_inst;
@@ -176,44 +174,66 @@ __device__ __forceinline__ void shadow_edge(float4 a, float4 b, float4 e,
   }
 }
 
+// One ray and its running result.
+struct Ray {
+  f3 o, d, inv;
+  float maxt, excl, incl;
+  Closest c;   // hit modes
+  Occluder b;  // shadow mode
+};
+
+// The walk's visit rule for a node with slab entry te, under the current
+// state (the bound of that moment).
 template <int MODE>
-__global__ void __launch_bounds__(HK_THREADS)
-bvh_kernel(WalkTables tb, const float* __restrict__ ro,
-           const float* __restrict__ rd, const float* __restrict__ maxt_in,
-           const int* __restrict__ excl_in, const int* __restrict__ incl_in,
-           long long n, float* __restrict__ t_out, float* __restrict__ u_out,
-           float* __restrict__ v_out, int* __restrict__ prim_out,
-           int* __restrict__ inst_out, float* __restrict__ nrm_out,
-           float* __restrict__ uv_out, float* __restrict__ mat_out) {
-  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  f3 o = mk3(ro[3 * i], ro[3 * i + 1], ro[3 * i + 2]);
-  f3 d = mk3(rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]);
-  f3 inv = mk3(safe_inv(d.x), safe_inv(d.y), safe_inv(d.z));
-  float maxt = maxt_in[i];
-  int incl_i = incl_in[i];
-  float excl = (float)excl_in[i];
-  float incl = (float)incl_i;
-  Closest c = closest_miss();
-  Occluder b = occluder_none();
-#if HK_SMEM_STACK
-  __shared__ int2 sstack[HK_STACK * HK_THREADS];
-#define STK(k) sstack[(k) * HK_THREADS + threadIdx.x]
-#else
+__device__ __forceinline__ bool visit(float te, const Ray& r) {
+  return MODE == MODE_SHADOW ? (te < r.maxt && te * r.b.ads < r.b.td)
+                             : (te < r.maxt && te < r.c.t);
+}
+
+// A visited leaf: its triangle's test.
+template <int MODE>
+__device__ __forceinline__ void test_leaf(const WalkTables& tb, int prim,
+                                          Ray& r) {
+  const float4* row = tb.tris + 3 * (long long)prim;
+  float4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
+  if (MODE == MODE_SHADOW)
+    shadow_edge(r0, r1, r2, r.o, r.d, r.maxt, r.excl, r.incl, r.b);
+  else
+    closest_edge(r0, r1, r2, prim, r.o, r.d, r.maxt, r.excl, r.incl, r.c);
+}
+
+// The stackless walk of the world's binary rows (bvh_nodes: bvh_packed
+// with its nodes in two float4s), walk_plain's own order and tests.
+template <int MODE>
+__device__ __forceinline__ void walk_binary(const WalkTables& tb, Ray& r) {
+  int idx = 0;
+  while (idx < tb.n_bin) {
+    float4 lo = __ldg(tb.bin + 2 * idx), hi = __ldg(tb.bin + 2 * idx + 1);
+    bool v = visit<MODE>(slab_entry(lo, hi, r.o, r.inv), r);
+    int ref = __float2int_rn(lo.w);
+    int exit_ = __float2int_rn(hi.w);
+    if (ref >= 0) {
+      idx = v ? ref : exit_;
+      continue;
+    }
+    idx = exit_;
+    if (v) test_leaf<MODE>(tb, -ref - 1, r);
+  }
+}
+
+// The walk of the 3-slot nodes (bvh_wide) from `node`: a node's passing
+// slots are taken in slot order, the first at once and the others from
+// the stack, each tested again against the bound when it is taken.
+template <int MODE>
+__device__ __forceinline__ void walk_wide(const WalkTables& tb, int node,
+                                          Ray& r) {
   int2 stack[HK_STACK];
-#define STK(k) stack[k]
-#endif
   int sp = 0;
-  int node = incl_i >= 0 && incl_i < tb.n_inst ? __ldg(tb.sub_root + incl_i)
-                                               : 0;
   for (;;) {
     int cur = 0;
     float cur_te = 0.0f;
     bool held = false;
     if (node >= 0) {
-#if HK_WHILE
-     do {
-#endif
       const float4* nd = tb.nodes + 2 * HK_WIDTH * node;
       float4 lo[HK_WIDTH], hi[HK_WIDTH];
 #pragma unroll
@@ -224,53 +244,71 @@ bvh_kernel(WalkTables tb, const float* __restrict__ ro,
 #pragma unroll
       for (int k = HK_WIDTH - 1; k >= 0; k--) {
         int ref = __float2int_rn(lo[k].w);
-#if HK_SKIP
-        float te = HK_F32_MAX;
-        if (ref != 0) te = slab_entry(lo[k], hi[k], o, inv);
-#else
-        float te = slab_entry(lo[k], hi[k], o, inv);
-#endif
-        bool pass = ref != 0 && te < maxt &&
-                    (MODE == MODE_SHADOW || te < c.t);
+        float te = slab_entry(lo[k], hi[k], r.o, r.inv);
+        bool pass = ref != 0 && te < r.maxt &&
+                    (MODE == MODE_SHADOW || te < r.c.t);
         if (pass) {
-          if (held) STK(sp++) = make_int2(cur, __float_as_int(cur_te));
+          if (held) stack[sp++] = make_int2(cur, __float_as_int(cur_te));
           cur = ref;
           cur_te = te;
           held = true;
         }
       }
       node = -1;
-#if HK_WHILE
-      if (held && cur > 0 &&
-          (MODE != MODE_SHADOW || cur_te * b.ads < b.td)) {
-        node = cur;
-        held = false;
-      }
-     } while (node >= 0);
-#endif
     }
     if (!held) {
-      if (sp == 0) break;
+      if (sp == 0) return;
       sp--;
-      cur = STK(sp).x;
-      cur_te = __int_as_float(STK(sp).y);
+      cur = stack[sp].x;
+      cur_te = __int_as_float(stack[sp].y);
     }
-    bool visit = MODE == MODE_SHADOW
-                     ? (cur_te < maxt && cur_te * b.ads < b.td)
-                     : (cur_te < maxt && cur_te < c.t);
-    if (!visit) continue;
-    if (cur > 0) {
+    if (!visit<MODE>(cur_te, r)) continue;
+    if (cur > 0)
       node = cur;
-      continue;
-    }
-    int prim = -cur - 1;
-    const float4* row = tb.tris + 3 * (long long)prim;
-    float4 r0 = __ldg(row), r1 = __ldg(row + 1), r2 = __ldg(row + 2);
-    if (MODE == MODE_SHADOW)
-      shadow_edge(r0, r1, r2, o, d, maxt, excl, incl, b);
     else
-      closest_edge(r0, r1, r2, prim, o, d, maxt, excl, incl, c);
+      test_leaf<MODE>(tb, -cur - 1, r);
   }
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(128)
+bvh_kernel(WalkTables tb, const float* __restrict__ ro,
+           const float* __restrict__ rd, const float* __restrict__ maxt_in,
+           const int* __restrict__ excl_in, const int* __restrict__ incl_in,
+           long long n, float* __restrict__ t_out, float* __restrict__ u_out,
+           float* __restrict__ v_out, int* __restrict__ prim_out,
+           int* __restrict__ inst_out, float* __restrict__ nrm_out,
+           float* __restrict__ uv_out, float* __restrict__ mat_out) {
+  long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  Ray r;
+  r.o = mk3(ro[3 * i], ro[3 * i + 1], ro[3 * i + 2]);
+  r.d = mk3(rd[3 * i], rd[3 * i + 1], rd[3 * i + 2]);
+  r.inv = mk3(safe_inv(r.d.x), safe_inv(r.d.y), safe_inv(r.d.z));
+  r.maxt = maxt_in[i];
+  int incl_i = incl_in[i];
+  r.excl = (float)excl_in[i];
+  r.incl = (float)incl_i;
+  r.c = closest_miss();
+  r.b = occluder_none();
+  int root = incl_i >= 0 && incl_i < tb.n_inst ? __ldg(tb.sub_root + incl_i)
+                                               : 0;
+  // one walk per warp: the 3-slot nodes when a ray of the warp has an
+  // emitter's subtree (its other rays walk the world's 3-slot nodes from
+  // node 0), else the binary rows
+#if HK_WALK_CHOICE == 1
+  bool wide = true;
+#elif HK_WALK_CHOICE == 2
+  bool wide = root > 0;
+#else
+  bool wide = __any_sync(__activemask(), root > 0);
+#endif
+  if (wide)
+    walk_wide<MODE>(tb, root, r);
+  else
+    walk_binary<MODE>(tb, r);
+  const Closest& c = r.c;
+  const Occluder& b = r.b;
   if (MODE == MODE_SHADOW) {
     Shadow sh = shadow_result(b);
     t_out[i] = sh.t;
@@ -307,7 +345,7 @@ bvh_kernel(WalkTables tb, const float* __restrict__ ro,
   mat_out[i] = mat;
 }
 
-static const int kThreads = HK_THREADS;
+static const int kThreads = 128;
 
 template <int MODE>
 static int launch(WalkTables tb, const float* ro, const float* rd,
@@ -321,9 +359,12 @@ static int launch(WalkTables tb, const float* ro, const float* rd,
   return (int)cudaGetLastError();
 }
 
-static WalkTables tables(const float* nodes, const int* sub_root, int n_inst,
-                         const float* tris, const float* attrs) {
+static WalkTables tables(const float* bin, int n_bin, const float* nodes,
+                         const int* sub_root, int n_inst, const float* tris,
+                         const float* attrs) {
   WalkTables tb;
+  tb.bin = reinterpret_cast<const float4*>(bin);
+  tb.n_bin = n_bin;
   tb.nodes = reinterpret_cast<const float4*>(nodes);
   tb.sub_root = sub_root;
   tb.n_inst = n_inst;
@@ -332,35 +373,39 @@ static WalkTables tables(const float* nodes, const int* sub_root, int n_inst,
   return tb;
 }
 
-extern "C" int hk_bvh_closest(const float* nodes, const int* sub_root,
+extern "C" int hk_bvh_closest(const float* bin, int n_bin,
+                              const float* nodes, const int* sub_root,
                               int n_inst, const float* tris, const float* ro,
                               const float* rd, const float* maxt,
                               const int* excl, const int* incl, int n,
                               float* t, float* u, float* v, int* prim,
                               int* inst, void* stream) {
-  return launch<MODE_HIT>(tables(nodes, sub_root, n_inst, tris, nullptr), ro,
-                          rd, maxt, excl, incl, n, t, u, v, prim, inst,
-                          nullptr, nullptr, nullptr, stream);
+  return launch<MODE_HIT>(
+      tables(bin, n_bin, nodes, sub_root, n_inst, tris, nullptr), ro, rd,
+      maxt, excl, incl, n, t, u, v, prim, inst, nullptr, nullptr, nullptr,
+      stream);
 }
 
-extern "C" int hk_bvh_full(const float* nodes, const int* sub_root,
-                           int n_inst, const float* tris, const float* attrs,
-                           const float* ro, const float* rd,
-                           const float* maxt, const int* excl,
-                           const int* incl, int n, float* t, int* prim,
-                           float* nrm, float* uv, float* mat, int* inst,
-                           void* stream) {
-  return launch<MODE_FULL>(tables(nodes, sub_root, n_inst, tris, attrs), ro,
-                           rd, maxt, excl, incl, n, t, nullptr, nullptr, prim,
-                           inst, nrm, uv, mat, stream);
+extern "C" int hk_bvh_full(const float* bin, int n_bin, const float* nodes,
+                           const int* sub_root, int n_inst, const float* tris,
+                           const float* attrs, const float* ro,
+                           const float* rd, const float* maxt,
+                           const int* excl, const int* incl, int n, float* t,
+                           int* prim, float* nrm, float* uv, float* mat,
+                           int* inst, void* stream) {
+  return launch<MODE_FULL>(
+      tables(bin, n_bin, nodes, sub_root, n_inst, tris, attrs), ro, rd, maxt,
+      excl, incl, n, t, nullptr, nullptr, prim, inst, nrm, uv, mat, stream);
 }
 
-extern "C" int hk_bvh_shadow(const float* nodes, const int* sub_root,
-                             int n_inst, const float* tris, const float* ro,
+extern "C" int hk_bvh_shadow(const float* bin, int n_bin, const float* nodes,
+                             const int* sub_root, int n_inst,
+                             const float* tris, const float* ro,
                              const float* rd, const float* maxt,
                              const int* excl, const int* incl, int n,
                              float* t, int* inst, void* stream) {
-  return launch<MODE_SHADOW>(tables(nodes, sub_root, n_inst, tris, nullptr),
-                             ro, rd, maxt, excl, incl, n, t, nullptr, nullptr,
-                             nullptr, inst, nullptr, nullptr, nullptr, stream);
+  return launch<MODE_SHADOW>(
+      tables(bin, n_bin, nodes, sub_root, n_inst, tris, nullptr), ro, rd,
+      maxt, excl, incl, n, t, nullptr, nullptr, nullptr, inst, nullptr,
+      nullptr, nullptr, stream);
 }

@@ -126,6 +126,7 @@ class DeviceRefitter:
         self.tri_pos_tail = dev(a["tri_pos_flat"][:, 9:])
         self.tri_attr_tail = dev(a["tri_attr"][:, 9:])
         self.attr_pad = torch.zeros((len(a["tri_attr"]), 3), device=device)
+        self.tri_zero = torch.zeros((len(a["tri_attr"]), 1), device=device)
 
         # tight local instance boxes, for the 8-corner world boxes
         offs, cnts = a["inst_prim_offset"], a["inst_prim_count"]
@@ -173,11 +174,16 @@ class DeviceRefitter:
         self.eidx = dev(level_off[klev] + last - (1 << klev) + 1,
                         torch.int64)
         self.bvh_tail = dev(a["bvh_packed"][:, 6:])
+        rows = walk_tables.node_rows(a["bvh_packed"])
+        self.node_ref = dev(rows[:, 3:4])
+        self.node_exit = dev(rows[:, 7:8])
         self.slot_used = dev(p.slot_ref != 0, torch.bool)[:, None]
         self.slot_ref = dev(p.slot_ref[:, None].astype(np.float32))
+        self.slot_zero = torch.zeros_like(self.slot_ref)
 
     def boxes(self, world):
-        """(bvh_packed [nodes,9], bvh_wide [3W,8]) for the triangles world
+        """(bvh_packed [nodes,9], bvh_nodes [nodes,8], bvh_wide [3W,8]) for
+        the triangles world
         [P,3,3]: each box the union of two power-of-2 windows over its leaf
         positions."""
         v = world[:self.num_triangles]
@@ -196,15 +202,12 @@ class DeviceRefitter:
         hi = torch.maximum(fa[:, 3:], ea[:, 3:])
         n = self.num_nodes
         packed = torch.cat([lo[:n], hi[:n], self.bvh_tail], 1)
+        nodes = torch.cat([lo[:n], self.node_ref, hi[:n], self.node_exit], 1)
         slot_lo = torch.where(self.slot_used, lo[n:], 0.0)
         slot_hi = torch.where(self.slot_used, hi[n:], 0.0)
-        wide = torch.cat([slot_lo, self.slot_ref, slot_hi,
-                          torch.zeros_like(self.slot_ref)], 1)
-        return packed, wide
-
-    def bvh_rows(self, world):
-        """bvh_packed [nodes,9] for the triangles world [P,3,3]."""
-        return self.boxes(world)[0]
+        wide = torch.cat([slot_lo, self.slot_ref, slot_hi, self.slot_zero],
+                         1)
+        return packed, nodes, wide
 
     def update(self, models, prev_models) -> dict:
         """models, prev_models: [I,4,4] float32 tensors on the device (this
@@ -228,13 +231,14 @@ class DeviceRefitter:
                                     1)
         # kernel 13's rows (walk_tables.edge_rows / attr_rows)
         v0 = world[:, 0]
-        zero = torch.zeros_like(self.tri_pos_tail)
         out["tri_edges"] = torch.cat([v0, self.tri_pos_tail, world[:, 1] - v0,
-                                      zero, world[:, 2] - v0, zero], 1)
+                                      self.tri_zero, world[:, 2] - v0,
+                                      self.tri_zero], 1)
         out["tri_attr_pad"] = torch.cat([out["tri_attr"],
                                          self.attr_pad], 1)
 
-        out["bvh_packed"], out["bvh_wide"] = self.boxes(world)
+        out["bvh_packed"], out["bvh_nodes"], out["bvh_wide"] = self.boxes(
+            world)
 
         # instance tables
         out["inst_model"] = models

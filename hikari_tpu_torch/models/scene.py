@@ -9,7 +9,8 @@ Host code stays numpy; `GpuScene.as_pytree(device)` uploads the arrays as
 torch tensors, and `GpuScene.bvh` keeps the BVH's topology for the
 on-device refit (models/refit_device.py). hikari_tpu's cluster tables
 (models/clusters.py, built above 512 triangles for its tile-cull tracer)
-are replaced by kernel 13's walk of `bvh_packed`, and its bf16 atlas
+are replaced by kernel 13's tables, which `scene_from_arrays` derives from
+`bvh_packed` (models/walk_tables.py), and its bf16 atlas
 layouts (`atlas_panels` for the TPU window DMA, `atlas_quad` for one row
 gather per bilinear sample) by per-pixel gathers from the f32 `atlas`.
 """
@@ -22,9 +23,9 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hikari_tpu_torch.models import walk_tables
 from hikari_tpu_torch.models.alias_table import (build_alias_table,
                                                  triangle_areas)
-from hikari_tpu_torch.models import walk_tables
 from hikari_tpu_torch.models.bvh import build_bvh
 from hikari_tpu_torch.models.material import StandardMaterial, pack_materials
 from hikari_tpu_torch.models.mesh import Mesh
@@ -134,9 +135,10 @@ class Scene:
 
 def scene_from_arrays(arrays: Dict[str, np.ndarray], device) -> dict:
     """A compiled scene's arrays (this package's, or hikari_tpu's
-    `GpuScene.arrays`) as the port's scene tensors on `device`. Arrays of
-    other dtypes (hikari_tpu's bf16 `atlas_panels` and `atlas_quad`) are
-    left out."""
+    `GpuScene.arrays`) as the port's scene tensors on `device`, with
+    kernel 13's tables derived from them (models/walk_tables.py). Arrays
+    of other dtypes (hikari_tpu's bf16 `atlas_panels` and `atlas_quad`)
+    are left out."""
     if "bvh_packed" in arrays:
         arrays = {**arrays, **walk_tables.scene_tables(arrays)}
     out = {}

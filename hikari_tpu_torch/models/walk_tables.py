@@ -43,7 +43,8 @@ WALK_STACK = 64
 # refs are stored as floats: exact integers up to 2^24
 _MAX_REF = 1 << 24
 
-TABLE_KEYS = ("bvh_wide", "bvh_sub_root", "tri_edges", "tri_attr_pad")
+TABLE_KEYS = ("bvh_nodes", "bvh_wide", "bvh_sub_root", "tri_edges",
+              "tri_attr_pad")
 
 
 @dataclasses.dataclass
@@ -70,17 +71,13 @@ class WalkPlan:
     sub_root: np.ndarray
     stack: int
 
-    @property
-    def num_wide(self) -> int:
-        return len(self.slot_ref) // WIDTH
 
-
-def _children(b, left, right, leaf, count, width):
+def _children(b, left, right, leaf, count):
     """Binary node b's descendants that become one wide node's slots: its
     two children, then the inner slot with the most leaves (the first on a
     tie) replaced by its two children, up to WIDTH, in DFS order."""
     kids = [left[b], right[b]]
-    while len(kids) < width:
+    while len(kids) < WIDTH:
         inner = [j for j, c in enumerate(kids) if not leaf[c]]
         if not inner:
             break
@@ -90,8 +87,7 @@ def _children(b, left, right, leaf, count, width):
     return kids
 
 
-def _collapse(root, left, right, leaf, count, first, last, tri, base,
-              width):
+def _collapse(root, left, right, leaf, count, first, last, tri, base):
     """A binary tree (child arrays, leaf flags, leaf counts, leaf ranges,
     each leaf's triangle) as wide nodes numbered from `base` in DFS order:
     a list of [(ref, first, last, binary node)] per wide node, and the
@@ -103,8 +99,7 @@ def _collapse(root, left, right, leaf, count, first, last, tri, base,
         nonlocal need
         idx = len(nodes)
         nodes.append(None)
-        kids = ([b] if leaf[b]
-                else _children(b, left, right, leaf, count, width))
+        kids = [b] if leaf[b] else _children(b, left, right, leaf, count)
         need = max(need, depth + len(kids) - 1)
         slots = []
         for k, c in enumerate(kids):
@@ -119,8 +114,7 @@ def _collapse(root, left, right, leaf, count, first, last, tri, base,
     return nodes, need
 
 
-def plan(bvh_packed, tri_instance, em_instance, num_instances,
-         width=WIDTH) -> WalkPlan:
+def plan(bvh_packed, tri_instance, em_instance, num_instances) -> WalkPlan:
     """The plan of a compiled scene: `bvh_packed` [N, 9] (DFS pre-order,
     first child at i + 1, exit links), each triangle's instance id, the
     emissive instance ids (-1 padding allowed) and the instance count.
@@ -145,7 +139,7 @@ def plan(bvh_packed, tri_instance, em_instance, num_instances,
         raise ValueError("kernel 13's tables hold refs below 2^24")
 
     world, need = _collapse(0, left, right, leaf, count, first, last,
-                            tri_of, 0, width)
+                            tri_of, 0)
     wide = list(world)
     leaf_parts = [leaf_tri]
     sub_root = np.zeros(num_instances, np.int64)
@@ -172,7 +166,7 @@ def plan(bvh_packed, tri_instance, em_instance, num_instances,
         offset = sum(len(p) for p in leaf_parts)
         nodes, sneed = _collapse(
             down(0), s_left, s_right, leaf, sub_last - sub_first + 1,
-            sub_first + offset, sub_last + offset, tri_of, len(wide), width)
+            sub_first + offset, sub_last + offset, tri_of, len(wide))
         sub_root[k] = len(wide)
         wide.extend([(ref, f, l, -1) for ref, f, l, _ in slots]
                     for slots in nodes)
@@ -183,7 +177,7 @@ def plan(bvh_packed, tri_instance, em_instance, num_instances,
                          f"entries, more than its {WALK_STACK}")
     if len(wide) >= _MAX_REF:
         raise ValueError("kernel 13's tables hold refs below 2^24")
-    slots = np.zeros((len(wide), width, 4), np.int64)
+    slots = np.zeros((len(wide), WIDTH, 4), np.int64)
     slots[:, :, 3] = -1
     for w, s in enumerate(wide):
         slots[w, :len(s)] = s
@@ -216,6 +210,16 @@ def attr_rows(tri_attr) -> np.ndarray:
     return np.concatenate([a, np.zeros((len(a), 3), np.float32)], 1)
 
 
+def node_rows(bvh_packed) -> np.ndarray:
+    """[N, 8]: bvh_packed's rows as two float4s: min xyz and the ref (an
+    inner node's first child, a leaf's -(triangle + 1)), max xyz and the
+    exit link."""
+    b = np.asarray(bvh_packed, np.float32)
+    ref = np.where(b[:, 6] > 0.5, -(b[:, 7] + 1.0), b[:, 7])
+    return np.concatenate([b[:, 0:3], ref[:, None], b[:, 3:6], b[:, 8:9]],
+                          1).astype(np.float32)
+
+
 def tables(p: WalkPlan, bvh_packed, tri_pos_flat, tri_attr) -> dict:
     """The tables of plan p from the scene's current arrays: a world slot's
     box is its `bvh_packed` row, a subtree slot's the union of its leaves'
@@ -241,7 +245,7 @@ def tables(p: WalkPlan, bvh_packed, tri_pos_flat, tri_attr) -> dict:
             lo[s], hi[s] = box[:, 0:3].min(0), box[:, 3:6].max(0)
     ref = p.slot_ref.astype(np.float32)[:, None]
     wide = np.concatenate([lo, ref, hi, np.zeros_like(ref)], 1)
-    return {"bvh_wide": wide,
+    return {"bvh_nodes": node_rows(bvh_packed), "bvh_wide": wide,
             "bvh_sub_root": p.sub_root.astype(np.int32),
             "tri_edges": edge_rows(tri_pos_flat),
             "tri_attr_pad": attr_rows(tri_attr)}

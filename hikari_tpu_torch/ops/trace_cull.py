@@ -147,6 +147,39 @@ def _count(stats, nodes, tests):
         stats["tests"] = stats.get("tests", 0) + tests
 
 
+def _stackless(st, rays, inv, sel, n_nodes, node_of, tri_of):
+    """The stackless walk of rays `sel` from node 0, one node per step in
+    lockstep: node_of(indices) gives (boxes [M,6], leaf flags, the leaf's
+    triangle or the inner node's first child, exit links), tri_of(triangles)
+    the rows [v0, ab, ac, instance]. Returns (node visits, triangle
+    tests)."""
+    ro, _, max_t, _, _ = rays
+    idx = torch.zeros_like(sel)
+    nodes = tests = 0
+    while sel.numel():
+        box, leaf, payload, exit_ = node_of(idx)
+        te = _slab_entry(ro[sel], inv[sel], box)
+        visit = _visit(st, te, max_t[sel], sel)
+        nodes += sel.numel()
+        lv = leaf & visit
+        tests += _test_leaves(st, sel[lv], payload[lv], tri_of(payload[lv]),
+                              rays)
+        nxt = torch.where(leaf | ~visit, exit_, payload)
+        keep = nxt < n_nodes
+        sel, idx = sel[keep], nxt[keep]
+    return nodes, tests
+
+
+def _packed_node(bvh):
+    """node_of for bvh_packed rows [min3, max3, is_leaf, payload, exit]."""
+    def node_of(idx):
+        node = bvh[idx]
+        return (node[:, 0:6], node[:, 6] > 0.5,
+                torch.round(node[:, 7]).to(torch.int64),
+                torch.round(node[:, 8]).to(torch.int64))
+    return node_of
+
+
 def walk_plain(mode, bvh, tris, attrs, ro, rd, max_t, excl, incl,
                stats=None):
     """The walk of every ray in lockstep. Returns the mode's outputs as the
@@ -158,100 +191,115 @@ def walk_plain(mode, bvh, tris, attrs, ro, rd, max_t, excl, incl,
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}")
     n, dev = ro.shape[0], ro.device
-    n_nodes = bvh.shape[0]
-    inv = safe_inverse(rd)
     rays = (ro, rd, max_t, excl.to(torch.float32), incl.to(torch.float32))
     st = _new_state(mode == "shadow", n, dev)
-    idx = torch.zeros((n,), dtype=torch.int64, device=dev)
-    sel = torch.arange(n, device=dev)
-    nodes = tests = 0
-    while sel.numel():
-        node = bvh[idx[sel]]
-        te = _slab_entry(ro[sel], inv[sel], node)
-        visit = _visit(st, te, max_t[sel], sel)
-        leaf = node[:, 6] > 0.5
-        payload = torch.round(node[:, 7]).to(torch.int64)
-        exit_ = torch.round(node[:, 8]).to(torch.int64)
-        nodes += sel.numel()
-        # the leaves visited
-        lv = leaf & visit
-        row = tris[payload[lv]]
+
+    def tri_of(prim):
+        row = tris[prim]
         v0 = row[:, 0:3]
-        tests += _test_leaves(
-            st, sel[lv], payload[lv],
-            torch.cat([v0, row[:, 3:6] - v0, row[:, 6:9] - v0, row[:, 9:]],
-                      1), rays)
-        nxt = torch.where(leaf | ~visit, exit_, payload)
-        idx[sel] = nxt
-        sel = sel[nxt < n_nodes]
-    _count(stats, nodes, tests)
+        return torch.cat([v0, row[:, 3:6] - v0, row[:, 6:9] - v0,
+                          row[:, 9:]], 1)
+
+    _count(stats, *_stackless(st, rays, safe_inverse(rd),
+                              torch.arange(n, device=dev), bvh.shape[0],
+                              _packed_node(bvh), tri_of))
     return _result(mode, st, attrs)
+
+
+def _walk_wide(st, wide, tri_of, rays, inv, sel, node):
+    """The kernel's walk of the 3-slot nodes for rays `sel` from their
+    nodes `node` in lockstep: expanding a node slab-tests its slots and
+    pushes those below the bound (shadow mode: below max_t only), the last
+    slot first; a popped slot is tested again against the bound of that
+    moment, then tests its triangle (a leaf) or is expanded. Returns (slab
+    tests, triangle tests)."""
+    ro, _, max_t, _, _ = rays
+    shadow = "ads" in st
+    m, dev = sel.numel(), sel.device
+    depth = _wt.WALK_STACK + _wt.WIDTH
+    stack_ref = torch.zeros((m, depth), dtype=torch.int64, device=dev)
+    stack_te = torch.zeros((m, depth), device=dev)
+    sp = torch.zeros((m,), dtype=torch.int64, device=dev)
+    slots = torch.arange(_wt.WIDTH, device=dev)
+    live = torch.arange(m, device=dev)          # positions in sel
+    nodes = tests = 0
+    while live.numel():
+        e = live[node[live] >= 0]               # expand
+        if e.numel():
+            rows = wide[node[e][:, None] * _wt.WIDTH + slots]   # [E,3,8]
+            ref = torch.round(rows[..., 3]).to(torch.int64)
+            ray = sel[e].repeat_interleave(_wt.WIDTH)
+            te = _slab_entry(ro[ray], inv[ray],
+                             rows.reshape(-1, 8)[:, [0, 1, 2, 4, 5, 6]]
+                             ).reshape(-1, _wt.WIDTH)
+            below = te < max_t[sel[e]][:, None]
+            if not shadow:
+                below &= te < st["td"][sel[e]][:, None]
+            push = (ref != 0) & below
+            nodes += int((ref != 0).sum())
+            for k in reversed(range(_wt.WIDTH)):
+                q = e[push[:, k]]
+                stack_ref[q, sp[q]] = ref[push[:, k], k]
+                stack_te[q, sp[q]] = te[push[:, k], k]
+                sp[q] += 1
+            node[e] = -1
+        p = live[sp[live] > 0]                  # pop
+        sp[p] -= 1
+        ref = stack_ref[p, sp[p]]
+        visit = _visit(st, stack_te[p, sp[p]], max_t[sel[p]], sel[p])
+        lv = visit & (ref < 0)
+        prim = -ref[lv] - 1
+        tests += _test_leaves(st, sel[p[lv]], prim, tri_of(prim), rays)
+        inner = visit & (ref > 0)
+        node[p[inner]] = ref[inner]
+        live = live[(node[live] >= 0) | (sp[live] > 0)]
+    return nodes, tests
 
 
 def walk_tables_plain(mode, scene, ro, rd, max_t, excl, incl, stats=None):
     """The kernel's walk of its tables (models/walk_tables.py) for every
-    ray in lockstep; returns walk_plain's outputs. A ray included to an
-    instance with a subtree (`bvh_sub_root` > 0) starts there, every other
-    ray at the world's root. Expanding a node slab-tests its slots and
-    pushes those below the bound (shadow mode: below max_t only), the last
-    slot first; a popped slot is tested again against the bound of that
-    moment, then tests its triangle (a leaf) or is expanded. With a dict
+    ray in lockstep; returns walk_plain's outputs. Rays go in warps of 32
+    (the kernel's threads): a warp in which some ray is included to an
+    instance with a subtree (`bvh_sub_root` > 0) walks the 3-slot nodes,
+    that ray from its subtree's root and the others from the world's
+    (_walk_wide); every other warp walks the world's binary rows
+    `bvh_nodes` stackless, as walk_plain walks bvh_packed. With a dict
     `stats`, adds its slab tests ("nodes") and triangle tests ("tests")."""
     if mode not in MODES:
         raise ValueError(f"mode {mode!r}")
-    wide, sub_root = scene["bvh_wide"], scene["bvh_sub_root"]
+    bin_rows, sub_root = scene["bvh_nodes"], scene["bvh_sub_root"]
     edges = scene["tri_edges"]
     n, dev = ro.shape[0], ro.device
-    shadow = mode == "shadow"
     inv = safe_inverse(rd)
     rays = (ro, rd, max_t, excl.to(torch.float32), incl.to(torch.float32))
-    st = _new_state(shadow, n, dev)
+    st = _new_state(mode == "shadow", n, dev)
     has_sub = (incl >= 0) & (incl < sub_root.shape[0])
-    node = torch.where(has_sub, sub_root[incl.clamp(0, sub_root.shape[0] - 1)
+    root = torch.where(has_sub, sub_root[incl.clamp(0, sub_root.shape[0] - 1)
                                          .long()], 0).long()
-    depth = _wt.WALK_STACK + _wt.WIDTH
-    stack_ref = torch.zeros((n, depth), dtype=torch.int64, device=dev)
-    stack_te = torch.zeros((n, depth), device=dev)
-    sp = torch.zeros((n,), dtype=torch.int64, device=dev)
-    slots = torch.arange(_wt.WIDTH, device=dev)
-    sel = torch.arange(n, device=dev)
-    nodes = tests = 0
-    while sel.numel():
-        e = sel[node[sel] >= 0]                 # expand
-        if e.numel():
-            rows = wide[node[e][:, None] * _wt.WIDTH + slots]   # [E,3,8]
-            ref = torch.round(rows[..., 3]).to(torch.int64)
-            te = _slab_entry(ro[e].repeat_interleave(_wt.WIDTH, 0),
-                             inv[e].repeat_interleave(_wt.WIDTH, 0),
-                             rows.reshape(-1, 8)[:, [0, 1, 2, 4, 5, 6]]
-                             ).reshape(-1, _wt.WIDTH)
-            mt = max_t[e][:, None]
-            below = te < mt
-            if not shadow:
-                below &= te < st["td"][e][:, None]
-            push = (ref != 0) & below
-            nodes += int((ref != 0).sum())
-            for k in reversed(range(_wt.WIDTH)):
-                r = e[push[:, k]]
-                stack_ref[r, sp[r]] = ref[push[:, k], k]
-                stack_te[r, sp[r]] = te[push[:, k], k]
-                sp[r] += 1
-            node[e] = -1
-        p = sel[sp[sel] > 0]                    # pop
-        sp[p] -= 1
-        ref = stack_ref[p, sp[p]]
-        visit = _visit(st, stack_te[p, sp[p]], max_t[p], p)
-        lv = visit & (ref < 0)
-        prim = -ref[lv] - 1
+    warp = torch.arange(n, device=dev) // 32
+    subtrees = torch.zeros((n + 31) // 32, dtype=torch.int64,
+                           device=dev).index_add_(0, warp, (root > 0).long())
+    wide = subtrees[warp] > 0
+
+    def tri_of(prim):
         row = edges[prim]
-        tests += _test_leaves(st, p[lv], prim,
-                              torch.cat([row[:, 0:3], row[:, 4:7],
-                                         row[:, 8:11], row[:, 3:4]], 1),
-                              rays)
-        inner = visit & (ref > 0)
-        node[p[inner]] = ref[inner]
-        sel = sel[(node[sel] >= 0) | (sp[sel] > 0)]
-    _count(stats, nodes, tests)
+        return torch.cat([row[:, 0:3], row[:, 4:7], row[:, 8:11],
+                          row[:, 3:4]], 1)
+
+    def node_of(idx):
+        node = bin_rows[idx]
+        ref = torch.round(node[:, 3]).to(torch.int64)
+        leaf = ref < 0
+        return (node[:, [0, 1, 2, 4, 5, 6]], leaf,
+                torch.where(leaf, -ref - 1, ref),
+                torch.round(node[:, 7]).to(torch.int64))
+
+    sel = torch.nonzero(wide).flatten()
+    work_w = _walk_wide(st, scene["bvh_wide"], tri_of, rays, inv, sel,
+                        root[sel].clone())
+    work_b = _stackless(st, rays, inv, torch.nonzero(~wide).flatten(),
+                        bin_rows.shape[0], node_of, tri_of)
+    _count(stats, work_w[0] + work_b[0], work_w[1] + work_b[1])
     return _result(mode, st, scene["tri_attr_pad"][:, :17]
                    if mode == "full" else None)
 
@@ -261,18 +309,20 @@ def _launch_args(scene, ro, rd, max_t, excl, incl, attrs=False):
     leading arguments of hk_bvh_* up to the ray count)."""
     dev = ro.device
     n = ro.shape[0]
-    keys = _wt.TABLE_KEYS if attrs else _wt.TABLE_KEYS[:3]
+    keys = _wt.TABLE_KEYS if attrs else _wt.TABLE_KEYS[:4]
     missing = [k for k in keys if k not in scene]
     if missing:
         raise ValueError(f"kernel 13 needs the scene's {', '.join(missing)} "
                          "(models/walk_tables.py)")
-    wide, sub_root, edges = (scene[k] for k in _wt.TABLE_KEYS[:3])
+    nodes, wide, sub_root, edges = (scene[k] for k in _wt.TABLE_KEYS[:4])
+    check("bvh_nodes", nodes, torch.float32, (nodes.shape[0], 8), dev)
     check("bvh_wide", wide, torch.float32, (wide.shape[0], 8), dev)
     if wide.shape[0] % _wt.WIDTH or not wide.shape[0]:
         raise ValueError(f"bvh_wide: {wide.shape[0]} rows, not whole nodes")
     check("bvh_sub_root", sub_root, torch.int32, (sub_root.shape[0],), dev)
     check("tri_edges", edges, torch.float32, (edges.shape[0], 12), dev)
-    args = [ptr(wide), ptr(sub_root), sub_root.shape[0], ptr(edges)]
+    args = [ptr(nodes), nodes.shape[0], ptr(wide), ptr(sub_root),
+            sub_root.shape[0], ptr(edges)]
     if attrs:
         pad = scene["tri_attr_pad"]
         check("tri_attr_pad", pad, torch.float32, (edges.shape[0], 20), dev)
@@ -306,7 +356,7 @@ def bvh_closest(scene, ro, rd, max_t, excl, incl):
            for k in ("t", "u", "v")}
     out["prim"] = torch.empty(n, dtype=torch.int32, device=dev)
     out["inst"] = torch.empty(n, dtype=torch.int32, device=dev)
-    fn = bind(_load(), "hk_bvh_closest", "ppip" + "p" * 5 + "i" + "p" * 6)
+    fn = bind(_load(), "hk_bvh_closest", "pippip" + "p" * 5 + "i" + "p" * 6)
     rc = fn(*args, ptr(out["t"]), ptr(out["u"]), ptr(out["v"]),
             ptr(out["prim"]), ptr(out["inst"]), stream(dev))
     check_launch(rc, "bvh_closest")
@@ -333,7 +383,7 @@ def bvh_full(scene, ro, rd, max_t, excl, incl):
     out = {"t": new(n), "prim": new(n, dtype=torch.int32),
            "normal": new(n, 3), "uv": new(n, 2), "mat": new(n),
            "inst": new(n, dtype=torch.int32)}
-    fn = bind(_load(), "hk_bvh_full", "ppipp" + "p" * 5 + "i" + "p" * 7)
+    fn = bind(_load(), "hk_bvh_full", "pippipp" + "p" * 5 + "i" + "p" * 7)
     rc = fn(*args, ptr(out["t"]), ptr(out["prim"]), ptr(out["normal"]),
             ptr(out["uv"]), ptr(out["mat"]), ptr(out["inst"]), stream(dev))
     check_launch(rc, "bvh_full")
@@ -355,7 +405,7 @@ def bvh_shadow(scene, ro, rd, max_t, excl, incl):
     dev, n, args = _launch_args(scene, ro, rd, max_t, excl, incl)
     out = {"t": torch.empty(n, dtype=torch.float32, device=dev),
            "inst": torch.empty(n, dtype=torch.int32, device=dev)}
-    fn = bind(_load(), "hk_bvh_shadow", "ppip" + "p" * 5 + "i" + "p" * 3)
+    fn = bind(_load(), "hk_bvh_shadow", "pippip" + "p" * 5 + "i" + "p" * 3)
     rc = fn(*args, ptr(out["t"]), ptr(out["inst"]), stream(dev))
     check_launch(rc, "bvh_shadow")
     bvh_shadow.launches += 1

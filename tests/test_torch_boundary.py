@@ -403,9 +403,9 @@ def _assert_warp_tables(fake, size):
 _TRACE_OUTPUTS = {"hk_trace_closest": (7, (1, 1, 1, 1, 1)),
                   "hk_trace_full": (8, (1, 1, 3, 2, 1, 1)),
                   "hk_trace_shadow": (7, (1, 1)),
-                  "hk_bvh_closest": (9, (1, 1, 1, 1, 1)),
-                  "hk_bvh_full": (10, (1, 1, 3, 2, 1, 1)),
-                  "hk_bvh_shadow": (9, (1, 1))}
+                  "hk_bvh_closest": (11, (1, 1, 1, 1, 1)),
+                  "hk_bvh_full": (12, (1, 1, 3, 2, 1, 1)),
+                  "hk_bvh_shadow": (11, (1, 1))}
 
 
 class _ZeroingLibrary(_FakeLibrary):
@@ -533,7 +533,7 @@ def test_cuda_wrappers_marshal_and_count_on_the_city(monkeypatch):
             + ["hk_bvh_full", "hk_bvh_full", "hk_bvh_shadow"]
             + ["hk_atrous_level"] * 4
             + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
-        assert fake.args[0][10] == 12 * 16                # primary rays
+        assert fake.args[0][12] == 12 * 16                # primary rays
         assert fake.args[1][12] == 3                      # gather sources
         _assert_warp_tables(fake, (12, 16))
         for name, a in zip(fake.calls[2:], fake.args[2:]):
