@@ -2017,8 +2017,8 @@ def walk_work(tc, mode, a, out):
     s, n = a[0], a[1].shape[0]
     hits = int((out["prim"] >= 0).sum()) if mode == "full" else 0
     tables = {"world": ("bvh_packed", "tri_pos_flat", "tri_attr"),
-              "tables": ("bvh_wide", "bvh_sub_root", "tri_edges",
-                         "tri_attr_pad")}
+              "tables": ("bvh_nodes", "bvh_wide", "bvh_sub_root",
+                         "tri_edges", "tri_attr_pad")}
     work = {}
     for walk, keys in tables.items():
         stats = {}
@@ -2141,7 +2141,8 @@ def check_walk_on_box(ht, tc, tp, build_box):
 def check_refit(ht, city):
     """The refit on CUDA against the refit on the CPU: every table within
     1e-6 * max(|ref|, 1), the BVH boxes (bvh_packed and kernel 13's
-    bvh_wide) bit for bit against the CPU pyramid of the CUDA triangles,
+    bvh_nodes and bvh_wide) bit for bit against the CPU pyramid of the CUDA
+    triangles,
     and kernel 13's tables bit for bit against those walk_tables derives
     from the CUDA refit's own bvh_packed, tri_pos_flat and tri_attr."""
     from hikari_tpu_torch.models import walk_tables as wt
@@ -2166,8 +2167,9 @@ def check_refit(ht, city):
     for k in ref:
         frac, err = rel_close(got[k].cpu(), ref[k], 1e-6)
         worst, max_err = min(worst, frac), max(max_err, err)
-    packed, wide = cpu_r.boxes(got["tri_pos"].cpu())
+    packed, nodes, wide = cpu_r.boxes(got["tri_pos"].cpu())
     boxes = (torch.equal(got["bvh_packed"].cpu(), packed)
+             and torch.equal(got["bvh_nodes"].cpu(), nodes)
              and torch.equal(got["bvh_wide"].cpu(), wide))
     host = {k: got[k].cpu().numpy() for k in ("bvh_packed", "tri_pos_flat",
                                               "tri_attr")}
@@ -2175,10 +2177,12 @@ def check_refit(ht, city):
                         host["tri_pos_flat"], host["tri_attr"])
     tables = all(np.array_equal(got[k].cpu().numpy().view(np.int32),
                                 derived[k].view(np.int32))
-                 for k in ("bvh_wide", "tri_edges", "tri_attr_pad"))
+                 for k in ("bvh_nodes", "bvh_wide", "tri_edges",
+                           "tri_attr_pad"))
     print(f"refit CUDA vs CPU: {len(ref)} tables within 1e-6*max(|ref|,1) "
           f"on {worst:.6f} of values (need 1), max abs err {max_err:.3g}; "
-          f"BVH boxes (bvh_packed, bvh_wide) equal to the pyramid of the "
+          f"BVH boxes (bvh_packed, bvh_nodes, bvh_wide) equal to the "
+          f"pyramid of the "
           f"CUDA triangles {boxes}; kernel 13's tables equal to those "
           f"derived from its bvh_packed {tables} (need both)")
     if worst < 1.0 or not boxes or not tables:

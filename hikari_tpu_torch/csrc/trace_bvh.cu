@@ -76,7 +76,7 @@
 // (walk_tables.plan). Every other warp walks bvh_nodes stackless, in
 // walk_plain's own order. One walk per warp keeps a warp's lanes in one
 // loop; per call, on the city's calls, it beat every ray on bvh_wide and
-// each ray choosing by itself (PERF.md, PR 11).
+// each ray choosing by itself (PERF.md).
 //
 // Bound on the H100: the work depends on the data (slab tests and
 // triangle tests of each ray), ~30 flops per slab test and 60 per triangle
@@ -88,9 +88,6 @@
 
 #define HK_WIDTH 3    // slots per node (walk_tables.WIDTH)
 #define HK_STACK 64   // per-thread stack entries (walk_tables.WALK_STACK)
-#ifndef HK_WALK_CHOICE
-#define HK_WALK_CHOICE 0
-#endif
 
 enum { MODE_HIT = 0, MODE_FULL = 1, MODE_SHADOW = 2 };
 
@@ -296,14 +293,7 @@ bvh_kernel(WalkTables tb, const float* __restrict__ ro,
   // one walk per warp: the 3-slot nodes when a ray of the warp has an
   // emitter's subtree (its other rays walk the world's 3-slot nodes from
   // node 0), else the binary rows
-#if HK_WALK_CHOICE == 1
-  bool wide = true;
-#elif HK_WALK_CHOICE == 2
-  bool wide = root > 0;
-#else
-  bool wide = __any_sync(__activemask(), root > 0);
-#endif
-  if (wide)
+  if (__any_sync(__activemask(), root > 0))
     walk_wide<MODE>(tb, root, r);
   else
     walk_binary<MODE>(tb, r);

@@ -1,6 +1,7 @@
-"""Kernel 13's tables: the world BVH collapsed into 3-wide nodes, one
-subtree per emissive instance for the include-masked probe rays, and the
-triangle and attribute rows in whole float4s.
+"""Kernel 13's tables: the world BVH's rows in float4s, the world BVH
+collapsed into 3-wide nodes, one subtree per emissive instance for the
+include-masked probe rays, and the triangle and attribute rows in whole
+float4s.
 
 Everything is derived from the arrays the scene compiler already emits
 (`bvh_packed`'s topology and boxes, `tri_pos_flat`, `tri_attr`,
@@ -19,6 +20,9 @@ its rays' include mask can never accept.
 
 Tables (`tables(plan, bvh_packed, tri_pos_flat, tri_attr)`):
 
+* `bvh_nodes` [N, 8] f32: `bvh_packed` row i as min xyz, ref, max xyz,
+  exit, where ref is an inner node's first child or a leaf's -(triangle +
+  1) (`node_rows`): the stackless walk's rows;
 * `bvh_wide` [3 W, 8] f32: wide node w's child slot k at row 3 w + k:
   min xyz, ref, max xyz, 0, where ref is the child's wide node (> 0), a
   leaf's -(triangle + 1), or 0 for an empty slot. Node 0 is the world's
@@ -36,7 +40,7 @@ import dataclasses
 
 import numpy as np
 
-# slots per node: 3 beat 2 and 4 on the city's calls (PERF.md, PR 11)
+# slots per node: 3 beat 2 and 4 on the city's calls (PERF.md)
 WIDTH = 3
 # the kernel's per-thread stack (HK_STACK in csrc/trace_bvh.cu)
 WALK_STACK = 64

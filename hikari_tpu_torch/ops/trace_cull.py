@@ -27,12 +27,13 @@ exit changes no hit (the root's slab test bounds the walk the same way)
 and is not ported; its early_distance is ignored there too.
 
 The kernel walks other tables with the same words (models/walk_tables.py,
-the argument in csrc/trace_bvh.cu): 3-wide nodes whose slots keep the
-binary DFS order, a subtree per emissive instance that a ray included to
-that instance walks instead of the world, and triangle rows with their
-edges subtracted. `walk_tables_plain` is that walk in lockstep, with the
-kernel's pushes, pops and re-tests; it counts its own work, and the CPU
-tests hold it to `walk_plain` word for word.
+the argument in csrc/trace_bvh.cu): a warp with a ray included to an
+instance that has a subtree walks 3-wide nodes whose slots keep the binary
+DFS order, that ray through its emitter's subtree, and every other warp
+walks the world's rows as float4s, stackless; triangle rows come with
+their edges subtracted. `walk_tables_plain` is that walk in lockstep, with
+the kernel's warps, pushes, pops and re-tests; it counts its own work, and
+the CPU tests hold it to `walk_plain` word for word.
 
 walk_plain is traverse_bvh's lockstep loop: every ray still walking steps
 one node per iteration (the finished ones drop out), through trace_pallas's
@@ -170,16 +171,6 @@ def _stackless(st, rays, inv, sel, n_nodes, node_of, tri_of):
     return nodes, tests
 
 
-def _packed_node(bvh):
-    """node_of for bvh_packed rows [min3, max3, is_leaf, payload, exit]."""
-    def node_of(idx):
-        node = bvh[idx]
-        return (node[:, 0:6], node[:, 6] > 0.5,
-                torch.round(node[:, 7]).to(torch.int64),
-                torch.round(node[:, 8]).to(torch.int64))
-    return node_of
-
-
 def walk_plain(mode, bvh, tris, attrs, ro, rd, max_t, excl, incl,
                stats=None):
     """The walk of every ray in lockstep. Returns the mode's outputs as the
@@ -194,6 +185,12 @@ def walk_plain(mode, bvh, tris, attrs, ro, rd, max_t, excl, incl,
     rays = (ro, rd, max_t, excl.to(torch.float32), incl.to(torch.float32))
     st = _new_state(mode == "shadow", n, dev)
 
+    def node_of(idx):       # rows [min3, max3, is_leaf, payload, exit]
+        node = bvh[idx]
+        return (node[:, 0:6], node[:, 6] > 0.5,
+                torch.round(node[:, 7]).to(torch.int64),
+                torch.round(node[:, 8]).to(torch.int64))
+
     def tri_of(prim):
         row = tris[prim]
         v0 = row[:, 0:3]
@@ -202,7 +199,7 @@ def walk_plain(mode, bvh, tris, attrs, ro, rd, max_t, excl, incl,
 
     _count(stats, *_stackless(st, rays, safe_inverse(rd),
                               torch.arange(n, device=dev), bvh.shape[0],
-                              _packed_node(bvh), tri_of))
+                              node_of, tri_of))
     return _result(mode, st, attrs)
 
 
@@ -344,7 +341,8 @@ def _load():
 
 def bvh_closest(scene, ro, rd, max_t, excl, incl):
     """Kernel 13, mode hit: the scene dict (bvh_packed, tri_pos_flat for
-    the plain version; bvh_wide, bvh_sub_root, tri_edges for the kernel),
+    the plain version; bvh_nodes, bvh_wide, bvh_sub_root, tri_edges for
+    the kernel),
     ro/rd [N,3] f32, max_t [N] f32, excl/incl [N] int32. Returns
     walk_plain's hit dict; runs it for CPU tensors and launches
     hk_bvh_closest for CUDA tensors."""

@@ -75,10 +75,11 @@ def test_inner_boxes_contain_their_leaves(city_case, which):
     node it points to, as floats, and every leaf slot's box is its
     triangle's bvh_packed leaf box; the world tree holds every leaf once
     in bvh_packed's DFS order, and the sphere's subtree the sphere's
-    leaves in the same order."""
+    leaves in the same order; bvh_nodes are bvh_packed's rows."""
     scene = city_case[which]
     wide = scene["bvh_wide"].numpy()
     packed = scene["bvh_packed"].numpy()
+    assert np.array_equal(scene["bvh_nodes"].numpy(), wt.node_rows(packed))
     leaf_box = _leaf_boxes(packed)
     ref = np.rint(wide[:, 3]).astype(np.int64)
     for s in np.nonzero(ref > 0)[0]:
@@ -103,7 +104,8 @@ def test_inner_boxes_contain_their_leaves(city_case, which):
 @pytest.mark.parametrize("which", ["compiled", "refit"])
 @pytest.mark.parametrize("mode", tc.MODES)
 def test_table_walk_equals_the_world_walk(city_case, which, mode):
-    """(b) The kernel's walk of the tables (pushes, pops and re-tests, the
+    """(b) The kernel's walk of the tables (warps of 32 rays on the
+    3-slot nodes or the binary rows; pushes, pops and re-tests; the
     included sphere's rays from its subtree) equals walk_plain over
     bvh_packed on every output word, and tests the same triangles."""
     scene, rays = city_case[which], city_case["rays"]
@@ -121,7 +123,7 @@ def test_table_walk_equals_the_world_walk(city_case, which, mode):
 
 
 def test_refit_tables_equal_the_derived_ones(city_case):
-    """(c) The refit's bvh_wide, tri_edges and tri_attr_pad equal the
+    """(c) The refit's bvh_nodes, bvh_wide, tri_edges and tri_attr_pad equal the
     tables walk_tables derives from the refit's own bvh_packed,
     tri_pos_flat and tri_attr, and its plan is the one the refit's
     bvh_packed gives."""
@@ -134,7 +136,7 @@ def test_refit_tables_equal_the_derived_ones(city_case):
                               getattr(refitter.walk_plan, field)), field
     derived = wt.tables(plan, arrays["bvh_packed"], arrays["tri_pos_flat"],
                         arrays["tri_attr"])
-    for k in ("bvh_wide", "tri_edges", "tri_attr_pad"):
+    for k in ("bvh_nodes", "bvh_wide", "tri_edges", "tri_attr_pad"):
         assert np.array_equal(arrays[k].view(np.int32),
                               derived[k].view(np.int32)), k
     # the sphere moved: its subtree's boxes did too
