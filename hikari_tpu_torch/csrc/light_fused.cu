@@ -90,6 +90,13 @@
 
 #define EDGE_ROW 12
 
+#ifndef LF_DEAD
+#define LF_DEAD 1  // skip work no output word depends on
+#endif
+#ifndef LF_SKIP
+#define LF_SKIP 0  // the sign skip in the closest-hit sweeps
+#endif
+
 // shadow_sweep (common.cuh) over staged edge rows, for rays that include
 // every instance. ads = |det| and the signs flipped by selection: for det
 // != 0 the words of sgnf(det) * x; for det = 0 or NaN no row passes
@@ -122,9 +129,71 @@ __device__ __forceinline__ Shadow edge_shadow(const float4* rows, int n, f3 o,
   return shadow_result(b);
 }
 
-// trace_full (common.cuh) over staged edge rows: closest_tri's test on
-// edge_terms, then the winner's normal and material from its attribute row
-// (17 floats in global memory: the 9 vertex normals, the material at 16).
+// closest_tri's test (common.cuh) on an edge row (edge_terms' operations),
+// its conditions in another order, some of them before the division:
+// det and the distance numerator first; then the sign skip; then the
+// division and the distance tests; u and v last.
+//
+// The sign skip. The full test accepts only |det| >= eps and
+// dist = num * inv_det > eps, with inv_det = 1 / det (inv_det is 0 where
+// |det| < eps, and those rows fail |det| >= eps). For finite det with
+// |det| >= eps, 1 / det is finite, carries det's sign and is not zero
+// (|1 / det| >= 1 / F32_MAX, a denormal at the least, and the build does
+// not flush denormals). So dist > eps > 0 needs num and det of one strict
+// sign: where num is 0, -0 or NaN, or num and det have opposite signs,
+// num * inv_det is a zero, a negative or a NaN and the full test fails.
+// det = +-inf gives inv_det = +-0 and dist a zero or a NaN: rejected by
+// both forms. det NaN fails |det| >= eps in both. A denormal num of det's
+// sign passes the skip, and the division and the distance test decide as
+// before. So skipping every row whose num and det do not share a strict
+// sign rejects only rows the full test rejects. Where the test accepts,
+// inv_det, u = uu * inv_det, v = vv * inv_det and dist are the same
+// operations on the same words as the full test's (the divided compares
+// stay divided: a cross-multiplied form rounds otherwise at the edges).
+__device__ __forceinline__ void edge_closest(float4 a, float4 b, float4 e,
+                                             int i, f3 o, f3 d, float maxt,
+                                             Closest& c) {
+  float ux = d.y * e.z - d.z * e.y;
+  float uy = d.z * e.x - d.x * e.z;
+  float uz = d.x * e.y - d.y * e.x;
+  float det = b.x * ux + b.y * uy + b.z * uz;
+  float aox = o.x - a.x, aoy = o.y - a.y, aoz = o.z - a.z;
+  float vx = aoy * b.z - aoz * b.y;
+  float vy = aoz * b.x - aox * b.z;
+  float vz = aox * b.y - aoy * b.x;
+  float num = e.x * vx + e.y * vy + e.z * vz;
+  bool same_sign = det > 0.0f ? num > 0.0f : (det < 0.0f && num < 0.0f);
+  if (!(fabsf(det) >= HK_F32_EPS) || !same_sign) return;
+  float inv_det = 1.0f / det;
+  float dist = num * inv_det;
+  if (!(dist > HK_F32_EPS && dist < maxt && dist < c.t)) return;
+  float uu = aox * ux + aoy * uy + aoz * uz;
+  float vv = d.x * vx + d.y * vy + d.z * vz;
+  float u = uu * inv_det;
+  float v = vv * inv_det;
+  if (u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f) {
+    c.t = dist;
+    c.u = u;
+    c.v = v;
+    c.prim = i;
+    c.inst = a.w;
+  }
+}
+
+// A sweep's miss: what edge_trace_full returns when no row is accepted.
+__device__ __forceinline__ Hit hit_none() {
+  Hit hit;
+  hit.t = HK_F32_MAX;
+  hit.inst = -1.0f;
+  hit.n = mk3(0.0f, 0.0f, 0.0f);
+  hit.mat = -1.0f;
+  return hit;
+}
+
+// trace_full (common.cuh) over staged edge rows: edge_closest on each row
+// the masks accept, then the winner's normal and material from its
+// attribute row (17 floats in global memory: the 9 vertex normals, the
+// material at 16).
 template <int U>
 __device__ __forceinline__ Hit edge_trace_full(const float4* rows,
                                                const float* attrs, int n,
@@ -134,8 +203,10 @@ __device__ __forceinline__ Hit edge_trace_full(const float4* rows,
 #pragma unroll(U)
   for (int i = 0; i < n; i++) {
     float4 a = rows[3 * i];
-    float inst = a.w;
-    if (!mt_accepts(inst, excl, incl)) continue;
+    if (!mt_accepts(a.w, excl, incl)) continue;
+#if LF_SKIP
+    edge_closest(a, rows[3 * i + 1], rows[3 * i + 2], i, o, d, maxt, c);
+#else
     MT m = edge_terms(a, rows[3 * i + 1], rows[3 * i + 2], o, d);
     float inv_det = fabsf(m.det) < HK_F32_EPS ? 0.0f : 1.0f / m.det;
     float u = m.uu * inv_det;
@@ -149,14 +220,13 @@ __device__ __forceinline__ Hit edge_trace_full(const float4* rows,
       c.u = u;
       c.v = v;
       c.prim = i;
-      c.inst = inst;
+      c.inst = a.w;
     }
+#endif
   }
-  Hit hit;
+  Hit hit = hit_none();
   hit.t = c.t;
   hit.inst = c.inst;
-  hit.n = mk3(0.0f, 0.0f, 0.0f);
-  hit.mat = -1.0f;
   if (c.prim >= 0) {
     const float* at = attrs + 17 * c.prim;
     hit.n = mk3(interp(__ldg(at), __ldg(at + 3), __ldg(at + 6), c.u, c.v),
@@ -309,12 +379,18 @@ __device__ Cand emissive_candidate(const Tables& tb, float r0, float r1,
               p.z + n.z * HK_RAY_BIAS);
   f3 rd = rsqrt_n(sub3(t, p));
 
-  // probe ray restricted to the picked emitter (light.wgsl:672-687)
-  Hit ph = edge_trace_full<U>(tb.em_edges, tb.em_attrs, tb.n_em_tris, ro, rd,
-                              HK_F32_MAX, -1.0f, has_pick ? em_inst : -2.0f);
+  // probe ray restricted to the picked emitter (light.wgsl:672-687). Its
+  // hit reaches the candidate only through probe_ok's selects below, so
+  // a ray without a pick or pointing below the surface skips the sweep
+  // (its miss stands in) and every word of the candidate is the same.
+  bool probe_live = has_pick && (dot3(rd, n) > 0.0f);
+  Hit ph = hit_none();
+  if (!LF_DEAD || probe_live)
+    ph = edge_trace_full<U>(tb.em_edges, tb.em_attrs, tb.n_em_tris, ro, rd,
+                            HK_F32_MAX, -1.0f, has_pick ? em_inst : -2.0f);
   f3 pn = rsqrt_n(ph.n);
   bool probe_hit = ph.inst >= 0.0f;
-  bool probe_ok = has_pick && (dot3(rd, n) > 0.0f) && probe_hit;
+  bool probe_ok = probe_live && probe_hit;
   float ptt = probe_hit ? ph.t : HK_DISTANCE_MAX;
   f3 hp = ray_at(ro, rd, ptt);
   float dx = hp.x - p.x, dy = hp.y - p.y, dz = hp.z - p.z;
@@ -365,15 +441,23 @@ struct Traced {
   f3 sn;
 };
 
-// candidate -> shadow -> input radiance, occluders overriding the probe
+// candidate -> shadow -> input radiance, occluders overriding the probe.
+// With `skip_dead` (kernel B's shade_channel, where shade_ignores_l
+// holds) a candidate whose trace_ok is false skips its shadow sweep: its
+// radiance is zeroed below whatever the sweep finds, and what the sweep
+// also moves (the sample point, so the shading's light direction) reaches
+// no output word there (shade_ignores_l).
 template <int U>
 __device__ Traced trace_candidate(const Tables& tb, const Cand& c,
-                                  bool directional, f3 p, f3 n) {
+                                  bool directional, f3 p, f3 n,
+                                  bool skip_dead = false) {
   bool trace_ok = (dot3(c.d, n) > 0.0f) && (c.p > 0.0f);
   if (!directional) trace_ok = trace_ok && (c.em_inst >= 0.0f);
   f3 ro = mk3(p.x + n.x * HK_RAY_BIAS, p.y + n.y * HK_RAY_BIAS,
               p.z + n.z * HK_RAY_BIAS);
-  Shadow sh = edge_shadow<U>(tb.tris, tb.n_tris, ro, c.d, c.maxd, c.em_inst);
+  Shadow sh = shadow_result(occluder_none());
+  if (trace_ok || !skip_dead)
+    sh = edge_shadow<U>(tb.tris, tb.n_tris, ro, c.d, c.maxd, c.em_inst);
   float info_inst = sh.occluded ? sh.inst : c.info_inst;
   float info_mat = sh.occluded ? -1.0f : c.info_mat;
   Traced t;
@@ -391,12 +475,50 @@ __device__ Traced trace_candidate(const Tables& tb, const Cand& c,
   return t;
 }
 
+// True where the words shade_channel returns for a candidate whose
+// trace_ok is false cannot depend on the light direction l, so on the
+// shadow sweep that moves it. There rad = 0, rad_a = 0, lum = +0, w_f = +0
+// and w2d = +0, and shade() gives o.c = lit_c * 0 + am_c * 1 with
+// lit_c = Y_c * 0 * nol, Y_c = dv * f_c + diff.c * fd, and am_c =
+// (da.c + sa.c) * amb.c, which does not depend on l. l enters only
+// through nol, noh and loh, and clip01 holds those in [0, 1] for every
+// input, NaN and infinities included. So, for every l:
+// * rough = clamped^2 with clamped in [0.089, 1] (NaN gives 0.089), the
+//   GGX term k = rough / (1 - noh^2 + (noh rough)^2) <= ~1 / rough and
+//   d = k^2 / pi are finite; vis = 0.5 / fmaxf(lam, 1e-7) lies in
+//   [0, 5e6] for any lam (NaN gives 1e-7); so dv = d * vis is finite;
+// * with |f0.c| <= 2^60, f_c = f0.c + (fr90 - f0.c) * sch (fr90 and sch
+//   in [0, 1]) is finite and dv * f_c too;
+// * with nov <= 2 (nov >= 1e-4 by its fmaxf), both factors of fd lie in
+//   [-0.5, 2.5] (f90 in [0.5, 2.5], the pow5 terms in [-1, 1]), so with
+//   |diff.c| <= 2^60, diff.c * fd is finite;
+// so Y_c is finite, lit_c * 0 is a zero, and zero + am_c is am_c's word
+// unless am_c is -0 (then the zero's sign, which depends on Y_c, decides).
+// With those bounds and no am_c equal to -0, o and o * w2d are the same
+// words whatever the sweep returns.
+__device__ __forceinline__ bool shade_ignores_l(const Px& px) {
+  const Surface& s = px.surf;
+  const float big = 0x1p60f;
+  bool bounded = fabsf(s.f0.x) <= big && fabsf(s.f0.y) <= big &&
+                 fabsf(s.f0.z) <= big && fabsf(s.diff.x) <= big &&
+                 fabsf(s.diff.y) <= big && fabsf(s.diff.z) <= big;
+  float nov = fmaxf(dot3(px.n, px.v), 0.0001f);
+  f3 da = env_brdf_approx(s.diff, 1.0f, nov);
+  f3 sa = env_brdf_approx(s.f0, s.rough, nov);
+  const uint32_t neg0 = 0x80000000u;
+  bool no_neg0 = __float_as_uint((da.x + sa.x) * px.amb.x) != neg0 &&
+                 __float_as_uint((da.y + sa.y) * px.amb.y) != neg0 &&
+                 __float_as_uint((da.z + sa.z) * px.amb.z) != neg0;
+  return bounded && nov <= 2.0f && no_neg0;
+}
+
 // direct_lit's no-reuse path: candidate -> shadow -> input radiance ->
 // shading * w (restir.py:318-370)
 template <int U>
 __device__ f3 shade_channel(const Tables& tb, const Cand& c, bool directional,
                             const Px& px) {
-  Traced t = trace_candidate<U>(tb, c, directional, px.p, px.n);
+  Traced t = trace_candidate<U>(tb, c, directional, px.p, px.n,
+                                LF_DEAD && shade_ignores_l(px));
   float w_f = t.lum > 0.0f ? t.w_new / fmaxf(t.lum, 1e-30f) : 0.0f;
   float w2d = px.valid ? w_f : 0.0f;
   f3 l = rsqrt_n(sub3(t.sp, px.p));
@@ -459,47 +581,56 @@ __device__ Ind indirect_bounces(const Tables& tb, int bounces, const Px& px) {
     Surface hs = surface_of(tb.mats, tb.n_mats, hit_ok ? h.mat : 0.0f);
     hs.rough = 1.0f;  // roughness := 1 at bounces
 
-    Cand c = emissive_candidate<U>(tb, br0, br1, br2, br3, hp, hn, h.inst);
-    bool sample_directional = c.em_inst < 0.0f;
     f3 bv = rsqrt_n(sub3(b_p, hp));
-    bool nee_ok = (dot3(c.d, hn) > 0.0f) && (c.p > 0.0f);
-    f3 ro2 = mk3(hp.x + hn.x * HK_RAY_BIAS, hp.y + hn.y * HK_RAY_BIAS,
-                 hp.z + hn.z * HK_RAY_BIAS);
-    Shadow sh = edge_shadow<U>(tb.tris, tb.n_tris, ro2, c.d, c.maxd, c.em_inst);
-    float ci_inst = sh.occluded ? sh.inst : c.info_inst;
-    float ci_mat = sh.occluded ? -1.0f : c.info_mat;
-    // input_radiance with sample_directional=True
-    bool miss2 = ci_inst < 0.0f;
-    float cosdl = dot3(c.d, dirl);
-    bool take_dir = miss2 && (cosdl >= prm[P_COS_SOLAR]);
-    Surface ns = surface_of(tb.mats, tb.n_mats, fmaxf(ci_mat, 0.0f));
-    bool take_em = !miss2 && (ci_inst == c.em_inst);
-    float s255 = 255.0f * ns.em_a;
-    f3 ir = take_dir ? mk3(prm[P_DIRC], prm[P_DIRC + 1], prm[P_DIRC + 2])
-                     : (take_em ? mk3(s255 * ns.em.x, s255 * ns.em.y,
-                                      s255 * ns.em.z)
-                                : mk3(0.0f, 0.0f, 0.0f));
-    float ir_a = 1.0f - ((miss2 && !take_dir) ? 1.0f : 0.0f);
-    // keep rgb only for directional picks or hits on the emitter
-    bool keep = sample_directional || (ci_inst == c.em_inst);
-    if (!keep) ir = mk3(0.0f, 0.0f, 0.0f);
-    f3 o = shade(hs, amb, bv, hn, c.d, ir, ir_a);
-    float inv_p = 1.0f / fmaxf(c.p, 1e-30f);
-    o = mk3(o.x * inv_p, o.y * inv_p, o.z * inv_p);
-    if (nb > 0) {
-      bool kill = bpdf < 0.01f;
-      float inv_b = 1.0f / fmaxf(bpdf, 1e-30f);
-      o = kill ? mk3(0.0f, 0.0f, 0.0f)
-               : mk3(o.x * inv_b, o.y * inv_b, o.z * inv_b);
-    }
-    float lum_b = lum3(o.x, o.y, o.z);
-    float scale = lum_b > max_ind ? max_ind / fmaxf(lum_b, 1e-30f) : 1.0f;
-    o = mk3(o.x * scale, o.y * scale, o.z * scale);
-    if (alive && hit_ok && nee_ok) {
-      tot_r = tot_r + transport.x * o.x;
-      tot_g = tot_g + transport.y * o.y;
-      tot_b = tot_b + transport.z * o.z;
-      tot_a = tot_a + 1.0f;
+    // NEE at the hit: its candidate, shadow and shaded sample o reach the
+    // output only through the sum below, taken when the bounce is alive,
+    // hit and nee_ok holds; elsewhere they are skipped (the words of tot
+    // are the same).
+    if (!LF_DEAD || (alive && hit_ok)) {
+      Cand c = emissive_candidate<U>(tb, br0, br1, br2, br3, hp, hn, h.inst);
+      bool nee_ok = (dot3(c.d, hn) > 0.0f) && (c.p > 0.0f);
+      if (!LF_DEAD || nee_ok) {
+        bool sample_directional = c.em_inst < 0.0f;
+        f3 ro2 = mk3(hp.x + hn.x * HK_RAY_BIAS, hp.y + hn.y * HK_RAY_BIAS,
+                     hp.z + hn.z * HK_RAY_BIAS);
+        Shadow sh = edge_shadow<U>(tb.tris, tb.n_tris, ro2, c.d, c.maxd,
+                                   c.em_inst);
+        float ci_inst = sh.occluded ? sh.inst : c.info_inst;
+        float ci_mat = sh.occluded ? -1.0f : c.info_mat;
+        // input_radiance with sample_directional=True
+        bool miss2 = ci_inst < 0.0f;
+        float cosdl = dot3(c.d, dirl);
+        bool take_dir = miss2 && (cosdl >= prm[P_COS_SOLAR]);
+        Surface ns = surface_of(tb.mats, tb.n_mats, fmaxf(ci_mat, 0.0f));
+        bool take_em = !miss2 && (ci_inst == c.em_inst);
+        float s255 = 255.0f * ns.em_a;
+        f3 ir = take_dir ? mk3(prm[P_DIRC], prm[P_DIRC + 1], prm[P_DIRC + 2])
+                         : (take_em ? mk3(s255 * ns.em.x, s255 * ns.em.y,
+                                          s255 * ns.em.z)
+                                    : mk3(0.0f, 0.0f, 0.0f));
+        float ir_a = 1.0f - ((miss2 && !take_dir) ? 1.0f : 0.0f);
+        // keep rgb only for directional picks or hits on the emitter
+        bool keep = sample_directional || (ci_inst == c.em_inst);
+        if (!keep) ir = mk3(0.0f, 0.0f, 0.0f);
+        f3 o = shade(hs, amb, bv, hn, c.d, ir, ir_a);
+        float inv_p = 1.0f / fmaxf(c.p, 1e-30f);
+        o = mk3(o.x * inv_p, o.y * inv_p, o.z * inv_p);
+        if (nb > 0) {
+          bool kill = bpdf < 0.01f;
+          float inv_b = 1.0f / fmaxf(bpdf, 1e-30f);
+          o = kill ? mk3(0.0f, 0.0f, 0.0f)
+                   : mk3(o.x * inv_b, o.y * inv_b, o.z * inv_b);
+        }
+        float lum_b = lum3(o.x, o.y, o.z);
+        float scale = lum_b > max_ind ? max_ind / fmaxf(lum_b, 1e-30f) : 1.0f;
+        o = mk3(o.x * scale, o.y * scale, o.z * scale);
+        if (alive && hit_ok && nee_ok) {
+          tot_r = tot_r + transport.x * o.x;
+          tot_g = tot_g + transport.y * o.y;
+          tot_b = tot_b + transport.z * o.z;
+          tot_a = tot_a + 1.0f;
+        }
+      }
     }
     if (alive && !hit_ok) {
       tot_r = tot_r + transport.x * amb.x;
@@ -830,16 +961,22 @@ __host__ __device__ inline int table_floats(int n_tris, int n_em_tris,
          HK_MAT * n_mats;
 }
 
-// edge rows: (v0, instance id), v1 - v0, v2 - v0
+// edge rows: (v0, instance id), v1 - v0, v2 - v0; a thread per row
 __device__ __forceinline__ void stage_edges(float4* dst, const float* src,
                                             int rows) {
-  for (int k = threadIdx.x; k < rows * 3; k += blockDim.x) {
-    int r = k / 3, q = k % 3;
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
     const float* t = src + r * HK_TRI;
-    dst[k] = q == 0 ? make_float4(t[0], t[1], t[2], t[9])
-                    : make_float4(t[3 * q] - t[0], t[3 * q + 1] - t[1],
-                                  t[3 * q + 2] - t[2], 0.0f);
+    float4* q = dst + 3 * r;
+    q[0] = make_float4(t[0], t[1], t[2], t[9]);
+    q[1] = make_float4(t[3] - t[0], t[4] - t[1], t[5] - t[2], 0.0f);
+    q[2] = make_float4(t[6] - t[0], t[7] - t[1], t[8] - t[2], 0.0f);
   }
+}
+
+// n contiguous floats
+__device__ __forceinline__ void stage_flat(float* dst, const float* src,
+                                           int n) {
+  for (int k = threadIdx.x; k < n; k += blockDim.x) dst[k] = src[k];
 }
 
 __device__ Tables stage_tables(const LightCall& c, float* smem) {
@@ -850,9 +987,11 @@ __device__ Tables stage_tables(const LightCall& c, float* smem) {
   float* mats = em_tris + HK_TRI * c.n_em_tris;
   stage_edges(tris, c.tris, c.n_tris);
   stage_edges(em_edges, c.em_tris, c.n_em_tris);
-  stage_rows(params, c.params, 1, P_COUNT, P_COUNT, 0);
-  stage_rows(em_tris, c.em_tris, c.n_em_tris, HK_TRI, HK_TRI, 0);
-  stage_rows(mats, c.mats, c.n_mats, HK_MAT, 15, 0);
+  stage_flat(params, c.params, P_COUNT);
+  stage_flat(em_tris, c.em_tris, HK_TRI * c.n_em_tris);
+  // the first HK_MAT of each material's 15 floats, a thread per row
+  for (int r = threadIdx.x; r < c.n_mats; r += blockDim.x)
+    for (int k = 0; k < HK_MAT; k++) mats[HK_MAT * r + k] = c.mats[15 * r + k];
   __syncthreads();
   Tables tb;
   tb.params = params;
@@ -905,6 +1044,15 @@ __device__ __forceinline__ void light_pixel(const LightCall& c,
   float4 pos = reinterpret_cast<const float4*>(c.position)[pix];
   px.p = mk3(pos.x, pos.y, pos.z);
   px.depth = pos.w;
+  px.valid = px.depth >= HK_F32_EPS;
+  if (!TEMPORAL && LF_DEAD && !px.valid) {
+    // kernel B writes only renders, and put_render zeroes every word of an
+    // invalid pixel's: nothing else of the pixel reaches an output
+    for (int ch = 0; ch < 3; ch++)
+      if (io.render[ch] != nullptr)
+        put_render(io.render[ch], pix, mk3(0.0f, 0.0f, 0.0f), false);
+    return;
+  }
   px.n = mk3(c.normal[3 * pix], c.normal[3 * pix + 1], c.normal[3 * pix + 2]);
   px.nn = rsqrt_n(px.n);
   float2 im = reinterpret_cast<const float2*>(c.inst_mat)[pix];
@@ -916,7 +1064,6 @@ __device__ __forceinline__ void light_pixel(const LightCall& c,
   px.r1 = rnd.y;
   px.r2 = rnd.z;
   px.r3 = rnd.w;
-  px.valid = px.depth >= HK_F32_EPS;
   px.amb = mk3(params[P_AMB], params[P_AMB + 1], params[P_AMB + 2]);
   px.surf = surface_of(tb.mats, tb.n_mats, mat_f);
   px.v = rsqrt_n(mk3(params[P_CAM] - px.p.x, params[P_CAM + 1] - px.p.y,
@@ -969,9 +1116,9 @@ __device__ __forceinline__ void light_pixel(const LightCall& c,
   }
 }
 
-// One 128-pixel tile per block. The temporal instances sweep one triangle
-// at a time (unrolled twice they hold more registers and spill), kernel B
-// two.
+// Kernel 4: one LIGHT_THREADS-pixel tile per block, one triangle per loop
+// iteration (unrolled twice the temporal instances hold more registers and
+// spill).
 template <bool TEMPORAL, bool VALIDATION, bool TRACK_DE, bool TRACK_IND>
 __global__ void __launch_bounds__(LIGHT_THREADS, LIGHT_MIN_BLOCKS)
 light_kernel(const __grid_constant__ LightCall c) {
@@ -986,8 +1133,30 @@ light_kernel(const __grid_constant__ LightCall c) {
   if (TEMPORAL && in) prefetch_prev(c.io, stash, base, c.w);
   Tables tb = stage_tables(c, smem);
   if (!in) return;
-  light_pixel<TEMPORAL ? 1 : 2, TEMPORAL, VALIDATION, TRACK_DE, TRACK_IND>(
-      c, tb, pix, base, stash);
+  light_pixel<1, TEMPORAL, VALIDATION, TRACK_DE, TRACK_IND>(c, tb, pix, base,
+                                                           stash);
+}
+
+// Kernel B's launch shape (it keeps no reservoir stash): one B_THREADS
+// pixel tile a block, B_MIN_BLOCKS blocks per SM for __launch_bounds__,
+// the sweeps unrolled B_UNROLL times.
+#ifndef B_THREADS
+#define B_THREADS 128
+#endif
+#ifndef B_MIN_BLOCKS
+#define B_MIN_BLOCKS 8
+#endif
+#ifndef B_UNROLL
+#define B_UNROLL 1
+#endif
+
+__global__ void __launch_bounds__(B_THREADS, B_MIN_BLOCKS)
+light_kernel_b(const __grid_constant__ LightCall c) {
+  extern __shared__ float4 smem4[];
+  Tables tb = stage_tables(c, reinterpret_cast<float*>(smem4));
+  long long pix = (long long)blockIdx.x * B_THREADS + threadIdx.x;
+  if (pix >= (long long)c.h * c.w) return;
+  light_pixel<B_UNROLL, false, false, false, false>(c, tb, pix, 0, nullptr);
 }
 
 // The shared memory a launch staged: the tables and, with previous
@@ -1013,10 +1182,21 @@ static int launch(const LightCall& c, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+static int launch_b(const LightCall& c, cudaStream_t st) {
+  static int allowed[HK_MAX_DEVICES];
+  int smem = light_smem(c);
+  cudaError_t err = allow_smem(light_kernel_b, smem, allowed);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = ((long long)c.h * c.w + B_THREADS - 1) / B_THREADS;
+  if (blocks < 1) return 0;
+  light_kernel_b<<<(unsigned)blocks, B_THREADS, smem, st>>>(c);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int hk_light_fused(const LightCall* call, void* stream) {
   const LightCall& c = *call;
   cudaStream_t st = (cudaStream_t)stream;
-  if (!c.temporal) return launch<false, false, false, false>(c, st);
+  if (!c.temporal) return launch_b(c, st);
   switch ((c.validation ? 4 : 0) + (c.track_de ? 2 : 0) +
           (c.track_ind ? 1 : 0)) {
     case 0: return launch<true, false, false, false>(c, st);

@@ -39,8 +39,9 @@ def gather_plain(sources, piy, pix):
 def reproj_gather(sources, piy, pix):
     """Kernel 9: sources, a list of up to 5 [hs,F,w] float32 channel-plane
     tensors; piy/pix [h,w] int32 source coordinates. Returns a list of
-    [h,F,w]. Runs `gather_plain` for CPU tensors and launches
-    csrc/reproj_gather.cu (all sources in one launch) for CUDA tensors."""
+    [h,F,w], views of one allocation. Runs `gather_plain` for CPU tensors
+    and launches csrc/reproj_gather.cu (all sources in one launch) for
+    CUDA tensors."""
     if on_cpu(piy):
         return gather_plain(sources, piy, pix)
     from hikari_tpu_torch.build import load_cuda
@@ -48,15 +49,23 @@ def reproj_gather(sources, piy, pix):
     n = len(sources)
     if not 1 <= n <= MAX_SOURCES:
         raise ValueError(f"{n} sources; the kernel takes 1..{MAX_SOURCES}")
+    if sources[0].dim() != 3:
+        raise ValueError(f"sources[0]: shape {tuple(sources[0].shape)}, "
+                         "expected [hs, F, w]")
     dev = piy.device
     hs, f, w = sources[0].shape
     h = piy.shape[0]
+    if max(h, hs) * f * w >= 2 ** 31:
+        raise ValueError(f"planes of {max(h, hs) * f * w} words: the kernel "
+                         "indexes them in 32 bits")
     for i, s in enumerate(sources):
         check(f"sources[{i}]", s, torch.float32, (hs, f, w), dev)
     check("piy", piy, torch.int32, (h, w), dev)
     check("pix", pix, torch.int32, (h, w), dev)
-    outs = [torch.empty((h, f, w), dtype=torch.float32, device=dev)
-            for _ in range(n)]
+    # one allocation, one view per source (an allocation costs the host
+    # more than a view)
+    outs = list(torch.empty((n, h, f, w), dtype=torch.float32,
+                            device=dev).unbind(0))
     srcs = sources + [None] * (MAX_SOURCES - n)
     dsts = outs + [None] * (MAX_SOURCES - n)
     fn = bind(load_cuda("reproj_gather"), "hk_reproj_gather",
