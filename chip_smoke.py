@@ -224,7 +224,7 @@ def light_instances():
     """The lighting kernel's template instances (kernels B and 4) with
     their registers and spills, printed; kernel B's own kernel is
     instance B, and a kernel-4 instance's name is ptxas's mangled booleans
-    (temporal, validation, track_de, track_ind)."""
+    (validation, track_de, track_ind)."""
     def label(r):
         if "light_kernel_b" in r["kernel"]:
             r["instance"] = "B"
@@ -918,7 +918,7 @@ def light_work(lf, gpu, a, k):
     """(bound ms, bound by) of one call of the lighting kernel, B (no
     reuse) or 4 (temporal): the bytes of its inputs and outputs, the
     reservoir algebra and shading per active channel, and the triangle
-    tests this frame's variant traces."""
+    tests this frame's variant traces, for B at its valid pixels only."""
     h, w = a[6].shape[:2]
     npix = h * w
     p = a[0].cpu().numpy()
@@ -935,12 +935,16 @@ def light_work(lf, gpu, a, k):
                  + 4 * int(k["bounces"] > 0) * k["track_ind"])
         nbytes = npix * (4 * (4 + 3 + 2 + 4) + 64 * n_ch + out_b)
         flops = npix * (FLOPS_RESERVOIR + 400) * n_ch
+        traced = npix
     else:
-        # G-buffer + noise in, one render per active channel out
-        nbytes = npix * (4 * (4 + 3 + 2 + 4) + 16 * n_ch)
-        flops = npix * 400 * n_ch
+        # position in and one render per active channel out for every
+        # pixel; normal, ids and noise in, shading and tests for the valid
+        # ones (kernel B writes an invalid pixel's zeros and returns)
+        traced = int((a[6][..., 3] >= 1.1920929e-7).sum())
+        nbytes = npix * (4 * 4 + 16 * n_ch) + traced * 4 * (3 + 2 + 4)
+        flops = traced * 400 * n_ch
     tests = tri_tests(gpu, k["has_sun"], k["n_em"], k["bounces"], val)
-    flops += npix * tests * FLOPS_PER_TRI_TEST
+    flops += traced * tests * FLOPS_PER_TRI_TEST
     return bound_ms(nbytes, flops)
 
 

@@ -24,30 +24,45 @@
 // ~60 instructions at --fmad=false; kernel 4's reservoir work (two 64 B
 // reservoirs read and up to four written per pixel, with their IEEE
 // divisions) adds a third. So:
-// * each block (one 128-pixel tile) stages the scene's triangles, the
+// * each block (one tile of pixels) stages the scene's triangles, the
 //   emissive triangles, the materials and the parameter vector (with the
-//   emissive leaves and alias slots) in dynamic shared memory; the sweeps
-//   read triangle rows of three float4s, the first vertex with the
-//   instance id, then the edges v1 - v0 and v2 - v0, subtracted once at
-//   staging (the same words the per-test subtraction gave), so a test
-//   loads three vectors and skips six subtractions; the occluder loop
-//   takes |det| and flips signs by selection, as sgnf(det) * x does for
-//   det != 0 (for det = 0 or NaN no test passes either way). The normal
-//   and material rows stay in global memory: a sweep reads only its
-//   winner's;
+//   emissive leaves and alias slots) in dynamic shared memory, a thread
+//   per row; the sweeps read triangle rows of three float4s, the first
+//   vertex with the instance id, then the edges v1 - v0 and v2 - v0,
+//   subtracted once at staging (the same words the per-test subtraction
+//   gave), so a test loads three vectors and skips six subtractions; the
+//   occluder loop takes |det| and flips signs by selection, as
+//   sgnf(det) * x does for det != 0 (for det = 0 or NaN no test passes
+//   either way). The normal and material rows stay in global memory: a
+//   sweep reads only its winner's;
+// * work no output word depends on is skipped, each case with its proof
+//   beside the code: kernel B returns at an invalid pixel after writing
+//   its zeros (on the box at 1080p a third of the warps hold no valid
+//   pixel); the emissive probe runs only with a pick above the surface,
+//   the bounce's NEE only for a live bounce that hit and a candidate with
+//   nee_ok (kernels B and 4); and kernel B skips the shadow sweep of a
+//   candidate whose trace_ok is false where shade_ignores_l holds;
 // * a temporal thread starts copying its pixel's previous reservoirs (16
 //   words per channel) into shared memory (cp.async) before it stages and
 //   traces, so their latency passes under the sweeps; it reads them after
 //   this frame's candidate is traced, and the validation retrace follows
 //   the merge (retracing first holds its 12 results across the candidate's
 //   sweep and spills);
-// * the temporal instances sweep one triangle at a time, kernel B two
-//   (unrolled twice the temporal instances spill); __launch_bounds__ holds
-//   every instance to 128 registers for 4 blocks of 128 threads per SM.
+// * the sweeps are not unrolled. Kernel 4's instances (light_kernel) run
+//   4 blocks of 128 threads per SM within 128 registers. Kernel B has a
+//   kernel of its own (light_kernel_b, no reservoir stash): 4 blocks of
+//   256 threads per SM, so 64 registers and ~260 B of spills, which beats
+//   119 registers and half the warps (the extra warps hide more latency
+//   than the spills add; PERF.md).
 // Tried on the card and dropped: a persistent grid that stages the tables
-// once per resident block (slower: its static tiling leaves a tail), and
-// 5 or 6 blocks per SM (at 96 / 80 registers every instance spills
-// hundreds of bytes and runs slower).
+// once per resident block (its static tiling leaves a tail); for kernel 4
+// 5 or 6 blocks per SM (every instance spills hundreds of bytes and runs
+// slower); for kernel B several tiles a block after one staging (a block
+// holds its registers until its last warp ends, so the invalid warps'
+// slots stay taken), its sweeps unrolled twice, and kernel A's sign skip
+// in the closest-hit test, the division skipped where num and det do not
+// share a strict sign (1.5-4% slower: the warp still divides unless all
+// 32 lanes skip, and the per-lane branch costs more than it saves).
 // The TPU kernel's per-lane select-sweeps become indexed loads, its
 // unrolled emissive-leaf walk a loop over n_em. The G-buffer is read from
 // the interleaved [h,w,C] tensors, the reservoirs from and to the [h,16,w]
@@ -61,13 +76,9 @@
 // the 64 B reservoir in and the render, variance and 64 B reservoir out per
 // channel, plus the tracked flags and scatter) over 3.35 TB/s and the
 // operations (60 per triangle test, 400 per channel's shading, 300 per
-// channel's reservoir algebra) over 67 TFLOP/s. On the box at 1080p: B
-// 0.2327 ms by operations; kernel 4 without tracking (path R) 0.2513 ms by
-// operations, with tracking (path S) 0.2600 ms by bytes, validating 0.3219
-// ms by operations (38 more tests per pixel); at 960x540 with track_ind
-// (path D) 0.0628 ms by operations, validating 0.0805. Both kernels run
-// several times their bound: the operations count omits the compares,
-// selects and shared-memory loads a test issues.
+// channel's reservoir algebra) over 67 TFLOP/s, kernel B's over its valid
+// pixels only. Both kernels run several times their bound: the operations
+// count omits the compares, selects and shared-memory loads a test issues.
 
 #include <cuda_pipeline.h>
 
@@ -90,23 +101,15 @@
 
 #define EDGE_ROW 12
 
-#ifndef LF_DEAD
-#define LF_DEAD 1  // skip work no output word depends on
-#endif
-#ifndef LF_SKIP
-#define LF_SKIP 0  // the sign skip in the closest-hit sweeps
-#endif
-
 // shadow_sweep (common.cuh) over staged edge rows, for rays that include
 // every instance. ads = |det| and the signs flipped by selection: for det
 // != 0 the words of sgnf(det) * x; for det = 0 or NaN no row passes
-// (ads >= eps fails) either way. U, here and in the functions that sweep:
-// the loop's unroll (light_kernel picks it per instance).
-template <int U>
+// (ads >= eps fails) either way. The sweeps are not unrolled: unrolled,
+// kernel 4's instances spill and kernel B spills more (PERF.md).
 __device__ __forceinline__ Shadow edge_shadow(const float4* rows, int n, f3 o,
                                               f3 d, float maxt, float excl) {
   Occluder b = occluder_none();
-#pragma unroll(U)
+#pragma unroll 1
   for (int i = 0; i < n; i++) {
     float4 a = rows[3 * i];
     float inst = a.w;
@@ -129,57 +132,6 @@ __device__ __forceinline__ Shadow edge_shadow(const float4* rows, int n, f3 o,
   return shadow_result(b);
 }
 
-// closest_tri's test (common.cuh) on an edge row (edge_terms' operations),
-// its conditions in another order, some of them before the division:
-// det and the distance numerator first; then the sign skip; then the
-// division and the distance tests; u and v last.
-//
-// The sign skip. The full test accepts only |det| >= eps and
-// dist = num * inv_det > eps, with inv_det = 1 / det (inv_det is 0 where
-// |det| < eps, and those rows fail |det| >= eps). For finite det with
-// |det| >= eps, 1 / det is finite, carries det's sign and is not zero
-// (|1 / det| >= 1 / F32_MAX, a denormal at the least, and the build does
-// not flush denormals). So dist > eps > 0 needs num and det of one strict
-// sign: where num is 0, -0 or NaN, or num and det have opposite signs,
-// num * inv_det is a zero, a negative or a NaN and the full test fails.
-// det = +-inf gives inv_det = +-0 and dist a zero or a NaN: rejected by
-// both forms. det NaN fails |det| >= eps in both. A denormal num of det's
-// sign passes the skip, and the division and the distance test decide as
-// before. So skipping every row whose num and det do not share a strict
-// sign rejects only rows the full test rejects. Where the test accepts,
-// inv_det, u = uu * inv_det, v = vv * inv_det and dist are the same
-// operations on the same words as the full test's (the divided compares
-// stay divided: a cross-multiplied form rounds otherwise at the edges).
-__device__ __forceinline__ void edge_closest(float4 a, float4 b, float4 e,
-                                             int i, f3 o, f3 d, float maxt,
-                                             Closest& c) {
-  float ux = d.y * e.z - d.z * e.y;
-  float uy = d.z * e.x - d.x * e.z;
-  float uz = d.x * e.y - d.y * e.x;
-  float det = b.x * ux + b.y * uy + b.z * uz;
-  float aox = o.x - a.x, aoy = o.y - a.y, aoz = o.z - a.z;
-  float vx = aoy * b.z - aoz * b.y;
-  float vy = aoz * b.x - aox * b.z;
-  float vz = aox * b.y - aoy * b.x;
-  float num = e.x * vx + e.y * vy + e.z * vz;
-  bool same_sign = det > 0.0f ? num > 0.0f : (det < 0.0f && num < 0.0f);
-  if (!(fabsf(det) >= HK_F32_EPS) || !same_sign) return;
-  float inv_det = 1.0f / det;
-  float dist = num * inv_det;
-  if (!(dist > HK_F32_EPS && dist < maxt && dist < c.t)) return;
-  float uu = aox * ux + aoy * uy + aoz * uz;
-  float vv = d.x * vx + d.y * vy + d.z * vz;
-  float u = uu * inv_det;
-  float v = vv * inv_det;
-  if (u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f) {
-    c.t = dist;
-    c.u = u;
-    c.v = v;
-    c.prim = i;
-    c.inst = a.w;
-  }
-}
-
 // A sweep's miss: what edge_trace_full returns when no row is accepted.
 __device__ __forceinline__ Hit hit_none() {
   Hit hit;
@@ -190,23 +142,19 @@ __device__ __forceinline__ Hit hit_none() {
   return hit;
 }
 
-// trace_full (common.cuh) over staged edge rows: edge_closest on each row
-// the masks accept, then the winner's normal and material from its
-// attribute row (17 floats in global memory: the 9 vertex normals, the
-// material at 16).
-template <int U>
+// trace_full (common.cuh) over staged edge rows: closest_tri's test on
+// edge_terms, then the winner's normal and material from its attribute row
+// (17 floats in global memory: the 9 vertex normals, the material at 16).
 __device__ __forceinline__ Hit edge_trace_full(const float4* rows,
                                                const float* attrs, int n,
                                                f3 o, f3 d, float maxt,
                                                float excl, float incl) {
   Closest c = closest_miss();
-#pragma unroll(U)
+#pragma unroll 1
   for (int i = 0; i < n; i++) {
     float4 a = rows[3 * i];
-    if (!mt_accepts(a.w, excl, incl)) continue;
-#if LF_SKIP
-    edge_closest(a, rows[3 * i + 1], rows[3 * i + 2], i, o, d, maxt, c);
-#else
+    float inst = a.w;
+    if (!mt_accepts(inst, excl, incl)) continue;
     MT m = edge_terms(a, rows[3 * i + 1], rows[3 * i + 2], o, d);
     float inv_det = fabsf(m.det) < HK_F32_EPS ? 0.0f : 1.0f / m.det;
     float u = m.uu * inv_det;
@@ -220,9 +168,8 @@ __device__ __forceinline__ Hit edge_trace_full(const float4* rows,
       c.u = u;
       c.v = v;
       c.prim = i;
-      c.inst = a.w;
+      c.inst = inst;
     }
-#endif
   }
   Hit hit = hit_none();
   hit.t = c.t;
@@ -306,7 +253,6 @@ __device__ Cand solar_candidate(const float* prm, float r2, float r3, f3 pos) {
 }
 
 // select_light_candidate(sample_emissive=True): light.wgsl:624-696
-template <int U>
 __device__ Cand emissive_candidate(const Tables& tb, float r0, float r1,
                                    float r2, float r3, f3 p, f3 n,
                                    float excl) {
@@ -385,9 +331,9 @@ __device__ Cand emissive_candidate(const Tables& tb, float r0, float r1,
   // (its miss stands in) and every word of the candidate is the same.
   bool probe_live = has_pick && (dot3(rd, n) > 0.0f);
   Hit ph = hit_none();
-  if (!LF_DEAD || probe_live)
-    ph = edge_trace_full<U>(tb.em_edges, tb.em_attrs, tb.n_em_tris, ro, rd,
-                            HK_F32_MAX, -1.0f, has_pick ? em_inst : -2.0f);
+  if (probe_live)
+    ph = edge_trace_full(tb.em_edges, tb.em_attrs, tb.n_em_tris, ro, rd,
+                         HK_F32_MAX, -1.0f, em_inst);
   f3 pn = rsqrt_n(ph.n);
   bool probe_hit = ph.inst >= 0.0f;
   bool probe_ok = probe_live && probe_hit;
@@ -447,7 +393,6 @@ struct Traced {
 // radiance is zeroed below whatever the sweep finds, and what the sweep
 // also moves (the sample point, so the shading's light direction) reaches
 // no output word there (shade_ignores_l).
-template <int U>
 __device__ Traced trace_candidate(const Tables& tb, const Cand& c,
                                   bool directional, f3 p, f3 n,
                                   bool skip_dead = false) {
@@ -457,7 +402,7 @@ __device__ Traced trace_candidate(const Tables& tb, const Cand& c,
               p.z + n.z * HK_RAY_BIAS);
   Shadow sh = shadow_result(occluder_none());
   if (trace_ok || !skip_dead)
-    sh = edge_shadow<U>(tb.tris, tb.n_tris, ro, c.d, c.maxd, c.em_inst);
+    sh = edge_shadow(tb.tris, tb.n_tris, ro, c.d, c.maxd, c.em_inst);
   float info_inst = sh.occluded ? sh.inst : c.info_inst;
   float info_mat = sh.occluded ? -1.0f : c.info_mat;
   Traced t;
@@ -514,11 +459,10 @@ __device__ __forceinline__ bool shade_ignores_l(const Px& px) {
 
 // direct_lit's no-reuse path: candidate -> shadow -> input radiance ->
 // shading * w (restir.py:318-370)
-template <int U>
 __device__ f3 shade_channel(const Tables& tb, const Cand& c, bool directional,
                             const Px& px) {
-  Traced t = trace_candidate<U>(tb, c, directional, px.p, px.n,
-                                LF_DEAD && shade_ignores_l(px));
+  Traced t = trace_candidate(tb, c, directional, px.p, px.n,
+                                shade_ignores_l(px));
   float w_f = t.lum > 0.0f ? t.w_new / fmaxf(t.lum, 1e-30f) : 0.0f;
   float w2d = px.valid ? w_f : 0.0f;
   f3 l = rsqrt_n(sub3(t.sp, px.p));
@@ -535,7 +479,6 @@ struct Ind {
 
 // indirect_lit_ambient's bounces (light.wgsl:1264-1498): the gathered
 // radiance and the first bounce's hit, before shading at the visible point
-template <int U>
 __device__ Ind indirect_bounces(const Tables& tb, int bounces, const Px& px) {
   const float* prm = tb.params;
   f3 dirl = mk3(prm[P_DIRL], prm[P_DIRL + 1], prm[P_DIRL + 2]);
@@ -565,7 +508,7 @@ __device__ Ind indirect_bounces(const Tables& tb, int bounces, const Px& px) {
     f3 rd = onb_apply(b_n, mk3(hx, hy, hz));
     f3 ro = mk3(b_p.x + b_n.x * HK_RAY_BIAS, b_p.y + b_n.y * HK_RAY_BIAS,
                 b_p.z + b_n.z * HK_RAY_BIAS);
-    Hit h = edge_trace_full<U>(tb.tris, tb.attrs, tb.n_tris, ro, rd,
+    Hit h = edge_trace_full(tb.tris, tb.attrs, tb.n_tris, ro, rd,
                                HK_F32_MAX, -1.0f, -1.0f);
     bool hit_ok = h.inst >= 0.0f;
     f3 hn = rsqrt_n(h.n);
@@ -586,14 +529,14 @@ __device__ Ind indirect_bounces(const Tables& tb, int bounces, const Px& px) {
     // output only through the sum below, taken when the bounce is alive,
     // hit and nee_ok holds; elsewhere they are skipped (the words of tot
     // are the same).
-    if (!LF_DEAD || (alive && hit_ok)) {
-      Cand c = emissive_candidate<U>(tb, br0, br1, br2, br3, hp, hn, h.inst);
+    if (alive && hit_ok) {
+      Cand c = emissive_candidate(tb, br0, br1, br2, br3, hp, hn, h.inst);
       bool nee_ok = (dot3(c.d, hn) > 0.0f) && (c.p > 0.0f);
-      if (!LF_DEAD || nee_ok) {
+      if (nee_ok) {
         bool sample_directional = c.em_inst < 0.0f;
         f3 ro2 = mk3(hp.x + hn.x * HK_RAY_BIAS, hp.y + hn.y * HK_RAY_BIAS,
                      hp.z + hn.z * HK_RAY_BIAS);
-        Shadow sh = edge_shadow<U>(tb.tris, tb.n_tris, ro2, c.d, c.maxd,
+        Shadow sh = edge_shadow(tb.tris, tb.n_tris, ro2, c.d, c.maxd,
                                    c.em_inst);
         float ci_inst = sh.occluded ? sh.inst : c.info_inst;
         float ci_mat = sh.occluded ? -1.0f : c.info_mat;
@@ -752,12 +695,11 @@ __device__ float finish(Rsv& r, const Px& px, f3 vn) {
   return var;
 }
 
-template <int U>
 __device__ Cand channel_candidate(const Tables& tb, bool directional,
                                   float r0, float r1, float r2, float r3,
                                   f3 pos, f3 nrm, float excl) {
   if (directional) return solar_candidate(tb.params, r2, r3, pos);
-  return emissive_candidate<U>(tb, r0, r1, r2, r3, pos, nrm, excl);
+  return emissive_candidate(tb, r0, r1, r2, r3, pos, nrm, excl);
 }
 
 // The validation retrace's results (light.wgsl:1156-1213): the radiance
@@ -787,10 +729,9 @@ __device__ __forceinline__ Rsv prev_reservoir(const float* stash,
 
 // retrace of the remembered sample: candidate re-select at the stored
 // point, shadow ray from this frame's point towards the stored sample
-template <int U>
 __device__ Retrace retrace(const Tables& tb, bool directional, const Px& px,
                            const Rsv& r) {
-  Cand cv = channel_candidate<U>(tb, directional, r.rnd0, r.rnd1, r.rnd2,
+  Cand cv = channel_candidate(tb, directional, r.rnd0, r.rnd1, r.rnd2,
                                  r.rnd3, mk3(r.vpx, r.vpy, r.vpz),
                                  mk3(r.vnx, r.vny, r.vnz), px.inst_f);
   f3 rv = rsqrt_n(mk3(r.spx - px.p.x, r.spy - px.p.y, r.spz - px.p.z));
@@ -799,7 +740,7 @@ __device__ Retrace retrace(const Tables& tb, bool directional, const Px& px,
   if (!directional) trace_ok = trace_ok && (cv.em_inst >= 0.0f);
   f3 ro = mk3(px.p.x + px.n.x * HK_RAY_BIAS, px.p.y + px.n.y * HK_RAY_BIAS,
               px.p.z + px.n.z * HK_RAY_BIAS);
-  Shadow sh = edge_shadow<U>(tb.tris, tb.n_tris, ro, rv, cv.maxd, cv.em_inst);
+  Shadow sh = edge_shadow(tb.tris, tb.n_tris, ro, rv, cv.maxd, cv.em_inst);
   float vi_inst = sh.occluded ? sh.inst : cv.info_inst;
   float vi_mat = sh.occluded ? -1.0f : cv.info_mat;
   Retrace v;
@@ -821,16 +762,16 @@ __device__ Retrace retrace(const Tables& tb, bool directional, const Px& px,
 // (its prefetched copy) is read after this frame's candidate is traced;
 // on validation frames the retrace of its remembered sample follows the
 // merge.
-template <int U, bool VALIDATION, bool TRACK>
+template <bool VALIDATION, bool TRACK>
 __device__ f3 reuse_channel(const Tables& tb, bool directional, const Px& px,
                             const float* stash, float is_val, long long base,
                             long long pix, int w, float* var_out,
                             float* packed_out, float* flags_out,
                             float* scatter_out) {
   bool validate = VALIDATION && is_val > 0.5f;
-  Cand c = channel_candidate<U>(tb, directional, px.r0, px.r1, px.r2, px.r3,
+  Cand c = channel_candidate(tb, directional, px.r0, px.r1, px.r2, px.r3,
                                 px.p, px.n, px.inst_f);
-  Traced t = trace_candidate<U>(tb, c, directional, px.p, px.n);
+  Traced t = trace_candidate(tb, c, directional, px.p, px.n);
   bool gate_miss;
   Rsv r = prev_reservoir(stash, px, gate_miss);
   Rsv s2 = sample_of(t.rad, t.rad_a, px, px.n, t.sp, t.spw, t.sn);
@@ -841,7 +782,7 @@ __device__ f3 reuse_channel(const Tables& tb, bool directional, const Px& px,
   if (TRACK) rsv_store(scatter_out, base, w, cur);
   bool val_miss = false;
   if (validate) {
-    Retrace v = retrace<U>(tb, directional, px, r);
+    Retrace v = retrace(tb, directional, px, r);
     Rsv s2v = s2;
     if (r.count >= 4.0f) {
       s2v.rnd0 = r.rnd0;
@@ -1026,7 +967,7 @@ __device__ __forceinline__ void prefetch_prev(const LightIO& io, float* stash,
   __pipeline_commit();
 }
 
-template <int U, bool TEMPORAL, bool VALIDATION, bool TRACK_DE,
+template <bool TEMPORAL, bool VALIDATION, bool TRACK_DE,
           bool TRACK_IND>
 __device__ __forceinline__ void light_pixel(const LightCall& c,
                                             const Tables& tb, long long pix,
@@ -1045,7 +986,7 @@ __device__ __forceinline__ void light_pixel(const LightCall& c,
   px.p = mk3(pos.x, pos.y, pos.z);
   px.depth = pos.w;
   px.valid = px.depth >= HK_F32_EPS;
-  if (!TEMPORAL && LF_DEAD && !px.valid) {
+  if (!TEMPORAL && !px.valid) {
     // kernel B writes only renders, and put_render zeroes every word of an
     // invalid pixel's: nothing else of the pixel reaches an output
     for (int ch = 0; ch < 3; ch++)
@@ -1072,12 +1013,12 @@ __device__ __forceinline__ void light_pixel(const LightCall& c,
   if (io.render[0] != nullptr) {
     f3 o;
     if (TEMPORAL) {
-      o = reuse_channel<U, VALIDATION, TRACK_DE>(
+      o = reuse_channel<VALIDATION, TRACK_DE>(
           tb, true, px, stash_d, params[P_VAL], base, pix, w, io.var[0],
           io.packed[0], io.flags[0], io.scatter[0]);
     } else {
       Cand cd = solar_candidate(params, px.r2, px.r3, px.p);
-      o = shade_channel<U>(tb, cd, true, px);
+      o = shade_channel(tb, cd, true, px);
     }
     float em_add = 255.0f * px.surf.em_a;
     put_render(io.render[0], pix,
@@ -1088,18 +1029,18 @@ __device__ __forceinline__ void light_pixel(const LightCall& c,
   if (io.render[1] != nullptr) {
     f3 o;
     if (TEMPORAL) {
-      o = reuse_channel<U, VALIDATION, TRACK_DE>(
+      o = reuse_channel<VALIDATION, TRACK_DE>(
           tb, false, px, stash_e, params[P_VAL + 1], base, pix, w,
           io.var[1], io.packed[1], io.flags[1], io.scatter[1]);
     } else {
-      Cand cd = emissive_candidate<U>(tb, px.r0, px.r1, px.r2, px.r3, px.p,
+      Cand cd = emissive_candidate(tb, px.r0, px.r1, px.r2, px.r3, px.p,
                                    px.n, px.inst_f);
-      o = shade_channel<U>(tb, cd, false, px);
+      o = shade_channel(tb, cd, false, px);
     }
     put_render(io.render[1], pix, o, px.valid);
   }
   if (io.render[2] != nullptr) {
-    Ind ind = indirect_bounces<U>(tb, c.bounces, px);
+    Ind ind = indirect_bounces(tb, c.bounces, px);
     f3 o;
     if (TEMPORAL) {
       o = indirect_reuse<TRACK_IND>(tb, px, ind, stash_i, base, pix, w,
@@ -1116,10 +1057,8 @@ __device__ __forceinline__ void light_pixel(const LightCall& c,
   }
 }
 
-// Kernel 4: one LIGHT_THREADS-pixel tile per block, one triangle per loop
-// iteration (unrolled twice the temporal instances hold more registers and
-// spill).
-template <bool TEMPORAL, bool VALIDATION, bool TRACK_DE, bool TRACK_IND>
+// Kernel 4: one LIGHT_THREADS-pixel tile per block.
+template <bool VALIDATION, bool TRACK_DE, bool TRACK_IND>
 __global__ void __launch_bounds__(LIGHT_THREADS, LIGHT_MIN_BLOCKS)
 light_kernel(const __grid_constant__ LightCall c) {
   extern __shared__ float4 smem4[];
@@ -1130,25 +1069,18 @@ light_kernel(const __grid_constant__ LightCall c) {
   long long base = (pix / c.w) * 16 * c.w + pix % c.w;
   float* stash = smem + table_floats(c.n_tris, c.n_em_tris, c.n_mats) +
                  threadIdx.x;
-  if (TEMPORAL && in) prefetch_prev(c.io, stash, base, c.w);
+  if (in) prefetch_prev(c.io, stash, base, c.w);
   Tables tb = stage_tables(c, smem);
   if (!in) return;
-  light_pixel<1, TEMPORAL, VALIDATION, TRACK_DE, TRACK_IND>(c, tb, pix, base,
-                                                           stash);
+  light_pixel<true, VALIDATION, TRACK_DE, TRACK_IND>(c, tb, pix, base,
+                                                     stash);
 }
 
-// Kernel B's launch shape (it keeps no reservoir stash): one B_THREADS
-// pixel tile a block, B_MIN_BLOCKS blocks per SM for __launch_bounds__,
-// the sweeps unrolled B_UNROLL times.
-#ifndef B_THREADS
-#define B_THREADS 128
-#endif
-#ifndef B_MIN_BLOCKS
-#define B_MIN_BLOCKS 8
-#endif
-#ifndef B_UNROLL
-#define B_UNROLL 1
-#endif
+// Kernel B's launch shape (it keeps no reservoir stash): 256-pixel tiles,
+// 4 blocks per SM, so __launch_bounds__ caps it at 64 registers: it spills
+// (~260 B) and runs faster so than at 119 registers and half the warps.
+#define B_THREADS 256
+#define B_MIN_BLOCKS 4
 
 __global__ void __launch_bounds__(B_THREADS, B_MIN_BLOCKS)
 light_kernel_b(const __grid_constant__ LightCall c) {
@@ -1156,7 +1088,7 @@ light_kernel_b(const __grid_constant__ LightCall c) {
   Tables tb = stage_tables(c, reinterpret_cast<float*>(smem4));
   long long pix = (long long)blockIdx.x * B_THREADS + threadIdx.x;
   if (pix >= (long long)c.h * c.w) return;
-  light_pixel<B_UNROLL, false, false, false, false>(c, tb, pix, 0, nullptr);
+  light_pixel<false, false, false, false>(c, tb, pix, 0, nullptr);
 }
 
 // The shared memory a launch staged: the tables and, with previous
@@ -1169,16 +1101,16 @@ static int light_smem(const LightCall& c) {
           16 * LIGHT_THREADS * (c.temporal ? n_prev : 0));
 }
 
-template <bool T, bool V, bool D, bool I>
+template <bool V, bool D, bool I>
 static int launch(const LightCall& c, cudaStream_t st) {
   // the dynamic shared memory each device allows the instance so far
   static int allowed[HK_MAX_DEVICES];
   int smem = light_smem(c);
-  cudaError_t err = allow_smem(light_kernel<T, V, D, I>, smem, allowed);
+  cudaError_t err = allow_smem(light_kernel<V, D, I>, smem, allowed);
   if (err != cudaSuccess) return (int)err;
   long long tiles = ((long long)c.h * c.w + LIGHT_THREADS - 1) / LIGHT_THREADS;
   if (tiles < 1) return 0;
-  light_kernel<T, V, D, I><<<(unsigned)tiles, LIGHT_THREADS, smem, st>>>(c);
+  light_kernel<V, D, I><<<(unsigned)tiles, LIGHT_THREADS, smem, st>>>(c);
   return (int)cudaGetLastError();
 }
 
@@ -1199,13 +1131,13 @@ extern "C" int hk_light_fused(const LightCall* call, void* stream) {
   if (!c.temporal) return launch_b(c, st);
   switch ((c.validation ? 4 : 0) + (c.track_de ? 2 : 0) +
           (c.track_ind ? 1 : 0)) {
-    case 0: return launch<true, false, false, false>(c, st);
-    case 1: return launch<true, false, false, true>(c, st);
-    case 2: return launch<true, false, true, false>(c, st);
-    case 3: return launch<true, false, true, true>(c, st);
-    case 4: return launch<true, true, false, false>(c, st);
-    case 5: return launch<true, true, false, true>(c, st);
-    case 6: return launch<true, true, true, false>(c, st);
-    default: return launch<true, true, true, true>(c, st);
+    case 0: return launch<false, false, false>(c, st);
+    case 1: return launch<false, false, true>(c, st);
+    case 2: return launch<false, true, false>(c, st);
+    case 3: return launch<false, true, true>(c, st);
+    case 4: return launch<true, false, false>(c, st);
+    case 5: return launch<true, false, true>(c, st);
+    case 6: return launch<true, true, false>(c, st);
+    default: return launch<true, true, true>(c, st);
   }
 }

@@ -1,5 +1,5 @@
-// Kernel 9: the reprojection gather, one thread per GP neighbouring pixels
-// of one row, every plane of every source.
+// Kernel 9: the reprojection gather, one thread per output pixel, every
+// plane of every source.
 //
 // Replaces hikari_tpu/ops/reproj_gather.py:_make_kernel (launched by
 // _gather_impl). out[s][y, c, x] = src[s][piy, c, pix] where
@@ -11,36 +11,27 @@
 // thread loads its source words directly. Bound on the H100: bytes. Per
 // pixel and source it reads 16 planes * 4 B and writes 16 * 4 B, plus 8 B
 // of coordinates, and does no arithmetic on the values (pure selection,
-// bit-exact). So the kernel is built to move only those bytes:
-// * a 2-D grid (x tiles of GATHER_TX * GP pixels, GATHER_TY rows a block)
-//   with 32-bit index math (the launcher refuses planes of 2^31 words);
-// * each thread reads its GP pixels' two coordinates once, then loops over
-//   the planes (unrolled for the frame's 16) and the sources;
-// * a lane's GP pixels are neighbours along x and the lanes of a warp take
-//   neighbouring groups of one plane row, so each store is one vector per
-//   lane and a warp's stores are contiguous;
-// * a group whose source columns are consecutive, start at a multiple of
-//   GP and lie in one source row (the identity field of a static camera,
-//   or a shift by a multiple of GP) reads one vector per plane; any other
-//   group reads its live pixels' words one at a time; a rejected pixel
-//   stores zeros without loading. The words are equal either way;
-// * the vector instance runs where w % GP == 0 and every pointer is
-//   16-byte aligned (the frame's carries are whole allocations), else a
-//   scalar instance of the same loop;
-// * sources and outputs stream through L2 (__ldcs / __stcs): at 1080p a
-//   source is 133 MB, more than the 50 MB L2, and each word is read and
-//   written once.
+// bit-exact). So the kernel moves those bytes and little else:
+// * a 2-D grid (GATHER_TX columns x GATHER_TY rows a block) with 32-bit
+//   index math (the launcher refuses planes of 2^31 words or more);
+// * each thread reads its pixel's two coordinates once, then loops over
+//   the sources and the planes (unrolled for the frame's 16), loading
+//   GATHER_BATCH planes before it stores them (the compiler may not move
+//   a load above a store through another pointer that could alias it);
+// * the lanes of a warp take neighbouring x of one plane row, so every
+//   store instruction of a warp writes 128 contiguous bytes;
+// * a rejected pixel stores zeros without loading.
+// Tried on the card and dropped (PERF.md): 2 or 4 neighbouring pixels a
+// thread, with one vector store per plane and one vector read where the
+// group's source columns are consecutive and aligned (equal within 2%:
+// the kernel runs at ~84% of the bytes bound either way), and
+// streaming-cache loads and stores (__ldcs / __stcs: equal or up to 9%
+// slower).
 
 #include <cuda_runtime.h>
 
 #define HK_MAX_SRC 5
 
-#ifndef GATHER_GP
-#define GATHER_GP 1      // pixels per thread
-#endif
-#ifndef GATHER_CS
-#define GATHER_CS 0      // streaming-cache loads and stores
-#endif
 #define GATHER_TX 32     // threads of a block along x (one warp)
 #define GATHER_TY 4      // rows of a block
 #define GATHER_BATCH 8   // planes loaded before they are stored
@@ -50,160 +41,54 @@ struct GatherPtrs {
   float* dst[HK_MAX_SRC];
 };
 
-// GP consecutive words as one vector (GP 4 or 2) or a word (GP 1)
-template <int GP> struct Vec;
-template <> struct Vec<4> { typedef float4 T; };
-template <> struct Vec<2> { typedef float2 T; };
-template <> struct Vec<1> { typedef float T; };
-
-template <int GP>
-__device__ __forceinline__ typename Vec<GP>::T load_vec(const float* p) {
-  typedef typename Vec<GP>::T V;
-#if GATHER_CS
-  return __ldcs(reinterpret_cast<const V*>(p));
-#else
-  return __ldg(reinterpret_cast<const V*>(p));
-#endif
-}
-
-template <int GP>
-__device__ __forceinline__ void store_vec(float* p, const float* v) {
-  typedef typename Vec<GP>::T V;
-  V x;
-  float* xs = reinterpret_cast<float*>(&x);
-#pragma unroll
-  for (int k = 0; k < GP; k++) xs[k] = v[k];
-#if GATHER_CS
-  __stcs(reinterpret_cast<V*>(p), x);
-#else
-  *reinterpret_cast<V*>(p) = x;
-#endif
-}
-
-__device__ __forceinline__ float load_word(const float* p) {
-#if GATHER_CS
-  return __ldcs(p);
-#else
-  return __ldg(p);
-#endif
-}
-
-__device__ __forceinline__ void store_word(float* p, float v) {
-#if GATHER_CS
-  __stcs(p, v);
-#else
-  *p = v;
-#endif
-}
-
 // F: the planes per pixel (16, the frame's; 0 = the runtime f, with
-// f % GATHER_BATCH planes in the last batch). VEC: the
-// vector instance (w % GP == 0, 16-byte aligned pointers).
-template <int F, bool VEC>
+// f % GATHER_BATCH planes in the last batch).
+template <int F>
 __global__ void __launch_bounds__(GATHER_TX * GATHER_TY)
 gather_kernel(GatherPtrs p, const int* __restrict__ piy,
               const int* __restrict__ pix, int n_src, int hs, int h, int w,
               int f_rt) {
-  const int GP = GATHER_GP;
   const int f = F > 0 ? F : f_rt;
+  int x = blockIdx.x * GATHER_TX + threadIdx.x;
   int y = blockIdx.y * GATHER_TY + threadIdx.y;
-  int x0 = (blockIdx.x * GATHER_TX + threadIdx.x) * GP;
-  if (y >= h || x0 >= w) return;
-  // the pixels of the group inside the row (all GP unless at its end)
-  int n = min(GP, w - x0);
-  int sy[GP], sx[GP];
-  bool ok[GP];
-  int at = y * w + x0;
-  if (VEC) {
-    typedef typename Vec<GP>::T IV;
-    // the coordinates as GP-int vectors: reinterpret the float vector type
-    IV vy = __ldg(reinterpret_cast<const IV*>(piy + at));
-    IV vx = __ldg(reinterpret_cast<const IV*>(pix + at));
-    const float* fy = reinterpret_cast<const float*>(&vy);
-    const float* fx = reinterpret_cast<const float*>(&vx);
-#pragma unroll
-    for (int k = 0; k < GP; k++) {
-      sy[k] = __float_as_int(fy[k]);
-      sx[k] = __float_as_int(fx[k]);
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < GP; k++) {
-      sy[k] = k < n ? __ldg(piy + at + k) : -1;
-      sx[k] = k < n ? __ldg(pix + at + k) : -1;
-    }
-  }
-  bool all_ok = true, run = true;
-#pragma unroll
-  for (int k = 0; k < GP; k++) {
-    ok[k] = sy[k] >= 0 && sy[k] < hs && sx[k] >= 0 && sx[k] < w;
-    all_ok = all_ok && ok[k];
-    run = run && sy[k] == sy[0] && sx[k] == sx[0] + k;
-  }
-  // one vector read per plane: GP live pixels on consecutive, aligned
-  // source columns of one row (then sx[0] + GP <= w)
-  bool vec_read = VEC && all_ok && run && (sx[0] % GP) == 0;
-  int src_at[GP];
-#pragma unroll
-  for (int k = 0; k < GP; k++) src_at[k] = (ok[k] ? sy[k] : 0) * f * w + sx[k];
-  int dst_at = y * f * w + x0;
+  if (x >= w || y >= h) return;
+  int sy = __ldg(piy + y * w + x);
+  int sx = __ldg(pix + y * w + x);
+  bool ok = sy >= 0 && sy < hs && sx >= 0 && sx < w;
+  int src_at = ok ? sy * f * w + sx : 0;
+  int dst_at = y * f * w + x;
 
   // unrolled over the pointer slots, so they stay in the parameter bank
 #pragma unroll
   for (int s = 0; s < HK_MAX_SRC; s++) {
     if (s >= n_src) break;
-    const float* src = p.src[s];
-    float* dst = p.dst[s];
-    // GATHER_BATCH planes loaded, then stored: the compiler may not move a
-    // load above a store to another pointer that could alias it
+    const float* src = p.src[s] + src_at;
+    float* dst = p.dst[s] + dst_at;
     for (int c0 = 0; c0 < f; c0 += GATHER_BATCH) {
-      float v[GATHER_BATCH][GP];
+      float v[GATHER_BATCH];
 #pragma unroll
       for (int b = 0; b < GATHER_BATCH; b++) {
         int c = c0 + b;
         if (F == 0 && c >= f) break;
-        const float* q = src + c * w;
-        if (vec_read) {
-          typename Vec<GP>::T t = load_vec<GP>(q + src_at[0]);
-          const float* ts = reinterpret_cast<const float*>(&t);
-#pragma unroll
-          for (int k = 0; k < GP; k++) v[b][k] = ts[k];
-        } else {
-#pragma unroll
-          for (int k = 0; k < GP; k++)
-            v[b][k] = ok[k] ? load_word(q + src_at[k]) : 0.0f;
-        }
+        v[b] = ok ? __ldg(src + c * w) : 0.0f;
       }
 #pragma unroll
       for (int b = 0; b < GATHER_BATCH; b++) {
         int c = c0 + b;
         if (F == 0 && c >= f) break;
-        float* d = dst + dst_at + c * w;
-        if (VEC) {
-          store_vec<GP>(d, v[b]);
-        } else {
-#pragma unroll
-          for (int k = 0; k < GP; k++)
-            if (k < n) store_word(d + k, v[b][k]);
-        }
+        dst[c * w] = v[b];
       }
     }
   }
 }
 
-template <int F, bool VEC>
+template <int F>
 static int launch(const GatherPtrs& p, const int* piy, const int* pix,
                   int n_src, int hs, int h, int w, int f, cudaStream_t st) {
   dim3 block(GATHER_TX, GATHER_TY);
-  int per_block = GATHER_TX * GATHER_GP;
-  dim3 grid((w + per_block - 1) / per_block, (h + GATHER_TY - 1) / GATHER_TY);
-  gather_kernel<F, VEC><<<grid, block, 0, st>>>(p, piy, pix, n_src, hs, h, w,
-                                                f);
+  dim3 grid((w + GATHER_TX - 1) / GATHER_TX, (h + GATHER_TY - 1) / GATHER_TY);
+  gather_kernel<F><<<grid, block, 0, st>>>(p, piy, pix, n_src, hs, h, w, f);
   return (int)cudaGetLastError();
-}
-
-static bool aligned16(const void* q) {
-  return q == nullptr || ((unsigned long long)q & 15ull) == 0;
 }
 
 extern "C" int hk_reproj_gather(const float* s0, const float* s1,
@@ -229,13 +114,7 @@ extern "C" int hk_reproj_gather(const float* s0, const float* s1,
   if ((long long)(h > hs ? h : hs) * f * w >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   if (h == 0 || w == 0) return 0;
-  bool vec = w % GATHER_GP == 0 && aligned16(piy) && aligned16(pix);
-  for (int s = 0; s < HK_MAX_SRC; s++)
-    vec = vec && aligned16(p.src[s]) && aligned16(p.dst[s]);
   cudaStream_t st = (cudaStream_t)stream;
-  if (f == 16)
-    return vec ? launch<16, true>(p, piy, pix, n_src, hs, h, w, f, st)
-               : launch<16, false>(p, piy, pix, n_src, hs, h, w, f, st);
-  return vec ? launch<0, true>(p, piy, pix, n_src, hs, h, w, f, st)
-             : launch<0, false>(p, piy, pix, n_src, hs, h, w, f, st);
+  if (f == 16) return launch<16>(p, piy, pix, n_src, hs, h, w, f, st);
+  return launch<0>(p, piy, pix, n_src, hs, h, w, f, st);
 }

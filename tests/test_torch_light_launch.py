@@ -1,7 +1,10 @@
 """Kernels B and 4's launch path on the CPU: the packed argument table each
 call hands csrc/light_fused.cu (LightCall), the outputs it allocates, and
 the checks of the scene's tables, made once per set of tables. A fake
-library stands in for the built one."""
+library stands in for the built one. Also two of kernel B's dead-work
+skips, stated on the plain version: an invalid pixel's render words, and
+the shading words of a candidate whose trace_ok is false under
+shade_ignores_l's guard."""
 
 from __future__ import annotations
 
@@ -185,156 +188,9 @@ def test_bad_calls_raise_before_launch(fake):
     assert fake.calls == [] and light_fused.lighting_kernel.launches == 0
 
 
-# ---- kernel B's redesign in numpy float32 and on the plain version
+# ---- kernel B's dead-work skips, on the plain version
 
 F32 = np.float32
-EPS = F32(1.1920929e-7)
-F32_MAX = F32(3.402823466e38)
-
-
-def edge_rows(tris):
-    """stage_edges: v0, v1 - v0, v2 - v0 of [T, 10] rows (f32)."""
-    v0 = tris[:, 0:3]
-    return v0, tris[:, 3:6] - v0, tris[:, 6:9] - v0
-
-
-def edge_terms(rows, o, d):
-    """common.cuh edge_terms for rays o, d [N, 3] against [T] edge rows:
-    [N, T] planes det, uu, vv, num in the kernel's operation order."""
-    a, b, e = (x[None] for x in rows)
-    o, d = o[:, None], d[:, None]
-    ux = d[..., 1] * e[..., 2] - d[..., 2] * e[..., 1]
-    uy = d[..., 2] * e[..., 0] - d[..., 0] * e[..., 2]
-    uz = d[..., 0] * e[..., 1] - d[..., 1] * e[..., 0]
-    det = b[..., 0] * ux + b[..., 1] * uy + b[..., 2] * uz
-    ao = o - a
-    uu = ao[..., 0] * ux + ao[..., 1] * uy + ao[..., 2] * uz
-    vx = ao[..., 1] * b[..., 2] - ao[..., 2] * b[..., 1]
-    vy = ao[..., 2] * b[..., 0] - ao[..., 0] * b[..., 2]
-    vz = ao[..., 0] * b[..., 1] - ao[..., 1] * b[..., 0]
-    vv = d[..., 0] * vx + d[..., 1] * vy + d[..., 2] * vz
-    num = e[..., 0] * vx + e[..., 1] * vy + e[..., 2] * vz
-    return det, uu, vv, num
-
-
-def full_order(det, uu, vv, num, maxt, t_best):
-    """edge_trace_full's test before the redesign: every quotient, then
-    every condition."""
-    inv = np.where(np.abs(det) < EPS, F32(0.0), F32(1.0) / det)
-    u, v, t = uu * inv, vv * inv, num * inv
-    ok = ((np.abs(det) >= EPS) & (u >= 0) & (u <= 1) & (v >= 0)
-          & (u + v <= 1) & (t > EPS) & (t < maxt) & (t < t_best))
-    return ok, u, v, t
-
-
-def skip_order(det, uu, vv, num, maxt, t_best):
-    """edge_closest: the sign skip, then the division and the distance,
-    then u and v."""
-    same = np.where(det > 0, num > 0, (det < 0) & (num < 0))
-    skip = ~(np.abs(det) >= EPS) | ~same
-    inv = F32(1.0) / np.where(skip, F32(1.0), det)
-    t = num * inv
-    near = ~skip & (t > EPS) & (t < maxt) & (t < t_best)
-    u, v = uu * inv, vv * inv
-    return near & (u >= 0) & (u <= 1) & (v >= 0) & (u + v <= 1), u, v, t
-
-
-def sweep(test, det, uu, vv, num, maxt):
-    """The nearest hit over the rows of [N, T] term planes in index order:
-    (t, u, v, prim) as the kernel carries them."""
-    n = det.shape[0]
-    t_best = np.full(n, F32_MAX, F32)
-    u_best = np.zeros(n, F32)
-    v_best = np.zeros(n, F32)
-    prim = np.full(n, -1)
-    for i in range(det.shape[1]):
-        ok, u, v, t = test(det[:, i], uu[:, i], vv[:, i], num[:, i], maxt,
-                           t_best)
-        t_best = np.where(ok, t, t_best)
-        u_best = np.where(ok, u, u_best)
-        v_best = np.where(ok, v, v_best)
-        prim = np.where(ok, i, prim)
-    return t_best, u_best, v_best, prim
-
-
-def assert_same_sweep(det, uu, vv, num, maxt):
-    with np.errstate(all="ignore"):
-        got = sweep(skip_order, det, uu, vv, num, maxt)
-        want = sweep(full_order, det, uu, vv, num, maxt)
-    for g_, w_ in zip(got, want):
-        assert np.array_equal(g_.view(np.int32) if g_.dtype == F32 else g_,
-                              w_.view(np.int32) if w_.dtype == F32 else w_)
-    return want
-
-
-@pytest.mark.parametrize("seed", [0, 1])
-def test_edge_sign_skip_keeps_every_hit(seed):
-    """Seeded rays (half from a common origin, half scattered, lengths
-    not 1) against edge rows of random and degenerate triangles: the
-    reordered test gives the nearest hit's t, u, v and row of the full
-    test, word for word, at maxt = F32_MAX (every sweep of kernels B and
-    4) and at finite maxt."""
-    rng = np.random.default_rng(seed)
-    tris = rng.uniform(-3, 3, (48, 10)).astype(F32)
-    tris[:, 3:9] = tris[:, 0:6] + rng.normal(0, 0.8, (48, 6)).astype(F32)
-    tris[0, 3:6] = tris[0, 0:3]                       # a repeated vertex
-    tris[1, 6:9] = tris[1, 0:3] + F32(2) * (tris[1, 3:6] - tris[1, 0:3])
-    tris[2, 3:9] = np.tile(tris[2, 0:3], 2)            # a point
-    tris[3] = tris[4]                                  # a duplicate row
-    n = 4096
-    o = rng.uniform(-4, 4, (n, 3)).astype(F32)
-    o[: n // 2] = o[0]
-    d = rng.normal(size=(n, 3)).astype(F32) * rng.uniform(
-        0.2, 3, (n, 1)).astype(F32)
-    terms = edge_terms(edge_rows(tris), o, d)
-    for maxt in (F32_MAX, F32(2.5)):
-        t, _, _, prim = assert_same_sweep(*terms, maxt)
-        assert (prim >= 0).mean() > 0.1 and (prim < 0).any()
-
-
-def _edge_words():
-    tiny = np.nextafter(F32(0), F32(1))
-    return np.array(
-        [0.0, -0.0, np.nan, np.inf, -np.inf, EPS, -EPS,
-         np.nextafter(EPS, F32(0)), -np.nextafter(EPS, F32(0)),
-         np.nextafter(EPS, F32(1)), F32_MAX, -F32_MAX, tiny, -tiny,
-         F32(1e-38), F32(-1e-38), F32(1.0), F32(-1.0), F32(0.5),
-         F32(-0.25), F32(2e-7), F32(4.0)], F32)
-
-
-def test_edge_sign_skip_on_edge_words():
-    """Every pair of edge words of det and the distance numerator (det
-    at +-eps and its neighbours, +-0, +-inf, NaN, denormals, the largest
-    floats), u and v numerators that are edge words too or give
-    u + v = 1 exactly, in sweeps of eight rows: the same winners, word
-    for word."""
-    rng = np.random.default_rng(3)
-    e = _edge_words()
-    det, num = (g.reshape(-1) for g in np.meshgrid(e, e, indexing="ij"))
-    n = det.size
-    rows = 8
-    # each ray sweeps eight rows: one pair per row, shuffled
-    pick = np.stack([rng.permutation(n) for _ in range(rows)], 1)
-    det, num = det[pick], num[pick]
-    with np.errstate(all="ignore"):
-        scale = np.abs(np.where(np.isfinite(det), det, F32(1.0)))
-        uu = (rng.uniform(-0.2, 1.2, det.shape).astype(F32) * scale)
-        vv = (rng.uniform(-0.2, 1.2, det.shape).astype(F32) * scale)
-        # u + v = 1 exactly: quarters of det
-        q = rng.uniform(size=det.shape) < 0.25
-        uu = np.where(q, F32(0.25) * det, uu)
-        vv = np.where(q, F32(0.75) * det, vv)
-        # edge words as numerators
-        w = rng.uniform(size=det.shape) < 0.15
-        uu = np.where(w, e[rng.integers(0, e.size, det.shape)], uu)
-        vv = np.where(rng.uniform(size=det.shape) < 0.15,
-                      e[rng.integers(0, e.size, det.shape)], vv)
-    for maxt in (F32_MAX, F32(1.0)):
-        t, u, v, prim = assert_same_sweep(det, uu, vv, num, maxt)
-        assert (prim >= 0).any()
-    with np.errstate(all="ignore"):
-        ok, u, v, _ = full_order(det, uu, vv, num, F32_MAX, F32_MAX)
-    assert (ok & (u + v == 1)).any()
 
 
 def test_invalid_pixels_render_zero_words():
