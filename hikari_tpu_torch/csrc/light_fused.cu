@@ -101,6 +101,10 @@
 
 #define EDGE_ROW 12
 
+#ifndef LF_SHARED_SKIPS
+#define LF_SHARED_SKIPS 1  // the probe and NEE skips (kernels B and 4)
+#endif
+
 // shadow_sweep (common.cuh) over staged edge rows, for rays that include
 // every instance. ads = |det| and the signs flipped by selection: for det
 // != 0 the words of sgnf(det) * x; for det = 0 or NaN no row passes
@@ -331,7 +335,7 @@ __device__ Cand emissive_candidate(const Tables& tb, float r0, float r1,
   // (its miss stands in) and every word of the candidate is the same.
   bool probe_live = has_pick && (dot3(rd, n) > 0.0f);
   Hit ph = hit_none();
-  if (probe_live)
+  if (probe_live || !LF_SHARED_SKIPS)
     ph = edge_trace_full(tb.em_edges, tb.em_attrs, tb.n_em_tris, ro, rd,
                          HK_F32_MAX, -1.0f, em_inst);
   f3 pn = rsqrt_n(ph.n);
@@ -529,10 +533,10 @@ __device__ Ind indirect_bounces(const Tables& tb, int bounces, const Px& px) {
     // output only through the sum below, taken when the bounce is alive,
     // hit and nee_ok holds; elsewhere they are skipped (the words of tot
     // are the same).
-    if (alive && hit_ok) {
+    if ((alive && hit_ok) || !LF_SHARED_SKIPS) {
       Cand c = emissive_candidate(tb, br0, br1, br2, br3, hp, hn, h.inst);
       bool nee_ok = (dot3(c.d, hn) > 0.0f) && (c.p > 0.0f);
-      if (nee_ok) {
+      if (nee_ok || !LF_SHARED_SKIPS) {
         bool sample_directional = c.em_inst < 0.0f;
         f3 ro2 = mk3(hp.x + hn.x * HK_RAY_BIAS, hp.y + hn.y * HK_RAY_BIAS,
                      hp.z + hn.z * HK_RAY_BIAS);

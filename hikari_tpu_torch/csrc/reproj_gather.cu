@@ -91,23 +91,26 @@ static int launch(const GatherPtrs& p, const int* piy, const int* pix,
   return (int)cudaGetLastError();
 }
 
-extern "C" int hk_reproj_gather(const float* s0, const float* s1,
-                                const float* s2, const float* s3,
-                                const float* s4, float* d0, float* d1,
-                                float* d2, float* d3, float* d4,
-                                const int* piy, const int* pix, int n_src,
-                                int hs, int h, int w, int f, void* stream) {
+// One launch's arguments, as ops/reproj_gather.py GATHER_TABLE packs them:
+// the sources' and the outputs' pointers (null past n_src), the
+// coordinate planes, then n_src, hs, h, w and f.
+struct GatherCall {
+  const float* src[HK_MAX_SRC];
+  float* dst[HK_MAX_SRC];
+  const int* piy;
+  const int* pix;
+  int n_src, hs, h, w, f;
+};
+static_assert(sizeof(GatherCall) == 120, "GatherCall: ops/reproj_gather.py");
+
+extern "C" int hk_reproj_gather(const GatherCall* call, void* stream) {
+  const GatherCall& c = *call;
   GatherPtrs p;
-  p.src[0] = s0;
-  p.src[1] = s1;
-  p.src[2] = s2;
-  p.src[3] = s3;
-  p.src[4] = s4;
-  p.dst[0] = d0;
-  p.dst[1] = d1;
-  p.dst[2] = d2;
-  p.dst[3] = d3;
-  p.dst[4] = d4;
+  for (int s = 0; s < HK_MAX_SRC; s++) {
+    p.src[s] = c.src[s];
+    p.dst[s] = c.dst[s];
+  }
+  int n_src = c.n_src, hs = c.hs, h = c.h, w = c.w, f = c.f;
   if (n_src < 1 || n_src > HK_MAX_SRC || h < 0 || hs < 0 || w < 0 || f < 1)
     return (int)cudaErrorInvalidValue;
   // 32-bit indices: every plane word of a source and an output
@@ -115,6 +118,6 @@ extern "C" int hk_reproj_gather(const float* s0, const float* s1,
     return (int)cudaErrorInvalidValue;
   if (h == 0 || w == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  if (f == 16) return launch<16>(p, piy, pix, n_src, hs, h, w, f, st);
-  return launch<0>(p, piy, pix, n_src, hs, h, w, f, st);
+  if (f == 16) return launch<16>(p, c.piy, c.pix, n_src, hs, h, w, f, st);
+  return launch<0>(p, c.piy, c.pix, n_src, hs, h, w, f, st);
 }

@@ -17,13 +17,19 @@ here. The port has no group mean, so it also has no way to let rejected
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, on_cpu,
-                                          ptr, stream)
+                                          stream)
 
 # the temporal reservoirs of the three channels + the two spatial ones
 MAX_SOURCES = 5
+# csrc/reproj_gather.cu GatherCall: the sources' and the outputs' pointers
+# (MAX_SOURCES slots each, 0 past the last), piy, pix (pointers); n_src,
+# hs, h, w, f (ints), padded to 8 bytes
+GATHER_TABLE = struct.Struct("<12Q5i4x")
 
 
 def gather_plain(sources, piy, pix):
@@ -40,8 +46,8 @@ def reproj_gather(sources, piy, pix):
     """Kernel 9: sources, a list of up to 5 [hs,F,w] float32 channel-plane
     tensors; piy/pix [h,w] int32 source coordinates. Returns a list of
     [h,F,w], views of one allocation. Runs `gather_plain` for CPU tensors
-    and launches csrc/reproj_gather.cu (all sources in one launch) for
-    CUDA tensors."""
+    and launches csrc/reproj_gather.cu (all sources in one launch, its
+    arguments in one packed table, GATHER_TABLE) for CUDA tensors."""
     if on_cpu(piy):
         return gather_plain(sources, piy, pix)
     from hikari_tpu_torch.build import load_cuda
@@ -66,12 +72,13 @@ def reproj_gather(sources, piy, pix):
     # more than a view)
     outs = list(torch.empty((n, h, f, w), dtype=torch.float32,
                             device=dev).unbind(0))
-    srcs = sources + [None] * (MAX_SOURCES - n)
-    dsts = outs + [None] * (MAX_SOURCES - n)
-    fn = bind(load_cuda("reproj_gather"), "hk_reproj_gather",
-              "ppppppppppppiiiiip")
-    rc = fn(*(ptr(s) for s in srcs), *(ptr(d) for d in dsts), ptr(piy),
-            ptr(pix), n, hs, h, w, f, stream(dev))
+    empty = [0] * (MAX_SOURCES - n)
+    table = GATHER_TABLE.pack(
+        *(t.data_ptr() for t in sources), *empty,
+        *(t.data_ptr() for t in outs), *empty, piy.data_ptr(),
+        pix.data_ptr(), n, hs, h, w, f)
+    fn = bind(load_cuda("reproj_gather"), "hk_reproj_gather", "tp")
+    rc = fn(table, stream(dev))
     check_launch(rc, "reproj_gather")
     reproj_gather.launches += 1
     return outs

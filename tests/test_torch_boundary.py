@@ -231,6 +231,14 @@ class _FakeLibrary:
         return fn
 
 
+def _gather_sources(args):
+    """n_src of a gather launch's packed table (csrc/reproj_gather.cu
+    GatherCall)."""
+    from hikari_tpu_torch.ops import reproj_gather
+
+    return reproj_gather.GATHER_TABLE.unpack(args[0])[12]
+
+
 def _light_variant(args):
     """(temporal, validation, track_de, track_ind) of a lighting launch's
     packed table (csrc/light_fused.cu LightCall)."""
@@ -300,8 +308,7 @@ def test_cuda_wrappers_marshal_and_count_with_reuse(monkeypatch, path):
                                "hk_light_fused"]
                               + ["hk_spatial_fused"] * (2 * spatial)
                               + ["hk_atrous_level"] * 4)
-        gather = fake.args[1]
-        assert gather[12] == (4 if spatial else 2)        # sources
+        assert _gather_sources(fake.args[1]) == (4 if spatial else 2)
         variants.append(_light_variant(fake.args[2]))
     assert variants == [(1, 1, int(spatial), int(spatial)),
                         (1, 0, int(spatial), int(spatial))]
@@ -357,7 +364,7 @@ def test_cuda_wrappers_marshal_and_count_with_post(monkeypatch, path):
             pre[i].value for i in (10, 13, 12)]
         assert quads[3:5] == (12, 16)
         if default:
-            assert fake.args[2][12] == 3                  # gather sources
+            assert _gather_sources(fake.args[2]) == 3
             variants.append(_light_variant(fake.args[3]))
     if default:
         assert variants == [(1, 1, 0, 1), (1, 0, 0, 1)]
@@ -474,7 +481,7 @@ def test_cuda_wrappers_marshal_and_count_with_checkerboard(monkeypatch,
         assert fake.calls == (["hk_prepass_fused"] + middle
                               + ["hk_atrous_level"] * 4)
         if reuse:
-            assert fake.args[1][12] == 2                  # gather sources
+            assert _gather_sources(fake.args[1]) == 2
         for name, a in zip(fake.calls, fake.args):
             if name in _TRACE_OUTPUTS:                    # the lit half
                 assert a[_TRACE_OUTPUTS[name][0]] == 12 * 16 // 2
@@ -534,7 +541,7 @@ def test_cuda_wrappers_marshal_and_count_on_the_city(monkeypatch):
             + ["hk_atrous_level"] * 4
             + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
         assert fake.args[0][12] == 12 * 16                # primary rays
-        assert fake.args[1][12] == 3                      # gather sources
+        assert _gather_sources(fake.args[1]) == 3
         _assert_warp_tables(fake, (12, 16))
         for name, a in zip(fake.calls[2:], fake.args[2:]):
             if name.startswith("hk_bvh"):                 # at 6x8
@@ -778,7 +785,7 @@ def test_cuda_wrappers_marshal_and_count_on_path_t(monkeypatch):
             + ["hk_bvh_full", "hk_bvh_full", "hk_bvh_shadow"]
             + ["hk_atrous_level"] * 4
             + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
-        assert fake.args[2][12] == 3                      # gather sources
+        assert _gather_sources(fake.args[2]) == 3
         _assert_warp_tables(fake, (12, 16))
         atlas = [a for n, a in zip(fake.calls, fake.args)
                  if n == "hk_sample_atlas"]

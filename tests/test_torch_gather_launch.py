@@ -1,7 +1,7 @@
 """Kernel 9's launch path on the CPU (csrc/reproj_gather.cu
 hk_reproj_gather) with a fake library standing in for the built one: the
-arguments the wrapper marshals, the outputs it allocates, and bad calls
-raising before a launch."""
+packed table the wrapper marshals (GatherCall), the outputs it allocates,
+and bad calls raising before a launch."""
 
 from __future__ import annotations
 
@@ -14,8 +14,8 @@ from hikari_tpu_torch import build
 from hikari_tpu_torch.ops import reproj_gather
 from tests.test_torch_boundary import _FakeLibrary
 
-SIG = ("s0", "s1", "s2", "s3", "s4", "d0", "d1", "d2", "d3", "d4", "piy",
-       "pix", "n_src", "hs", "h", "w", "f", "stream")
+FIELDS = ("s0", "s1", "s2", "s3", "s4", "d0", "d1", "d2", "d3", "d4",
+          "piy", "pix", "n_src", "hs", "h", "w", "f")
 
 
 @pytest.fixture
@@ -29,10 +29,6 @@ def fake(monkeypatch):
     return lib
 
 
-def _value(a):
-    return a.value if isinstance(a, ctypes.c_void_p) else a
-
-
 def _inputs(n, hs, h, w, f=16):
     srcs = [torch.zeros((hs, f, w)) for _ in range(n)]
     piy = torch.zeros((h, w), dtype=torch.int32)
@@ -44,18 +40,20 @@ def _inputs(n, hs, h, w, f=16):
 @pytest.mark.parametrize("n,hs,h,w", [(1, 3, 3, 5), (3, 7, 7, 33),
                                       (5, 9, 7, 33), (2, 4, 3, 5)])
 def test_call_arguments_and_outputs(fake, n, hs, h, w):
-    """Source pointers in source order then nulls, the outputs' pointers in
-    the same order, the coordinates, n_src, hs, h, w and f; one [h,16,w]
-    contiguous float32 output per source; one launch counted."""
+    """One packed table (GatherCall): the source pointers in source order
+    then nulls, the outputs' pointers in the same order, the coordinates,
+    n_src, hs, h, w and f; one [h,16,w] contiguous float32 output per
+    source; one launch counted."""
     srcs, piy, pix = _inputs(n, hs, h, w)
     outs = reproj_gather.reproj_gather(srcs, piy, pix)
     assert fake.calls == ["hk_reproj_gather"]
-    args = dict(zip(SIG, (_value(a) for a in fake.args[0])))
+    table, _ = fake.args[0]
+    args = dict(zip(FIELDS, reproj_gather.GATHER_TABLE.unpack(table)))
     empty = reproj_gather.MAX_SOURCES - n
     assert [args[f"s{i}"] for i in range(5)] == (
-        [s.data_ptr() for s in srcs] + [None] * empty)
+        [s.data_ptr() for s in srcs] + [0] * empty)
     assert [args[f"d{i}"] for i in range(5)] == (
-        [o.data_ptr() for o in outs] + [None] * empty)
+        [o.data_ptr() for o in outs] + [0] * empty)
     assert (args["piy"], args["pix"]) == (piy.data_ptr(), pix.data_ptr())
     assert (args["n_src"], args["hs"], args["h"], args["w"], args["f"]) == (
         n, hs, h, w, 16)
