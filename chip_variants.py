@@ -139,6 +139,8 @@ def capture_light(ht, build_box):
 
 
 def words(got, ref):
+    if isinstance(ref, dict):
+        got, ref = [got[k] for k in ref], list(ref.values())
     eq = n = 0
     for g_, r_ in zip(got, ref):
         eq += int((g_.view(torch.int32) == r_.view(torch.int32)).sum())
@@ -152,8 +154,7 @@ def run_variants(name, libs, tags, calls, wrapper, plain, kernel, rounds):
 
     refs = {}
     for c, (a, k) in calls.items():
-        out = plain(*a, **k)
-        refs[c] = list(out.values()) if isinstance(out, dict) else out
+        refs[c] = plain(*a, **k)
     torch.cuda.synchronize()
     recs = {t: {c: dict(ms=[], device_ms=[]) for c in calls} for t in tags}
     for rnd in range(rounds):
@@ -163,7 +164,6 @@ def run_variants(name, libs, tags, calls, wrapper, plain, kernel, rounds):
                 rec = recs[t][c]
                 if rnd == 0:
                     out = wrapper(*a, **k)
-                    out = list(out.values()) if isinstance(out, dict) else out
                     torch.cuda.synchronize()
                     rec["words_equal"] = words(out, refs[c])
                 run = (lambda a=a, k=k: wrapper(*a, **k))
