@@ -12,9 +12,9 @@ parent tree unpacked under build/parent:
 Kernel 9 (csrc/reproj_gather.cu) against the parent's on the gather
 calls of R, S, D, KR (frame 5 of a panning camera), S with a static
 camera and the city's frame 1. Kernels B and 4 (csrc/light_fused.cu) with
-and without LF_SHARED_SKIPS (the emissive probe's and the bounce NEE's
-skips) on B's no-reuse 1080p, P 960x540 and K 1080x960 calls and kernel
-4's R and S calls (with and without the validation retrace). Prints one
+and without LF_SHADOW_SKIP (kernel B's skip of the primary shadow sweep)
+on B's no-reuse 1080p, P 960x540 and K 1080x960 calls and kernel 4's R
+and S calls (with and without the validation retrace). Prints one
 line per (variant, call) and a JSON summary to chiprun_out/variants.json.
 """
 
@@ -41,12 +41,12 @@ PARENT = os.path.join(HERE, "build", "parent", "hikari_tpu_torch", "csrc")
 GATHER = {
     "gp1": ("", []),
 }
-# LF_SHARED_SKIPS: the emissive probe's and the bounce NEE's skips, which
-# kernels B and 4 share
+# LF_SHADOW_SKIP: kernel B's skip of the primary shadow sweep where
+# trace_ok is false (shade_ignores_l)
 LIGHT = {
     "parent": ("parent", []),
     "final": ("", []),
-    "no_shared_skips": ("", ["-DLF_SHARED_SKIPS=0"]),
+    "no_shadow_skip": ("", ["-DLF_SHADOW_SKIP=0"]),
 }
 
 

@@ -101,8 +101,8 @@
 
 #define EDGE_ROW 12
 
-#ifndef LF_SHARED_SKIPS
-#define LF_SHARED_SKIPS 1  // the probe and NEE skips (kernels B and 4)
+#ifndef LF_SHADOW_SKIP
+#define LF_SHADOW_SKIP 1  // kernel B's primary shadow skip
 #endif
 
 // shadow_sweep (common.cuh) over staged edge rows, for rays that include
@@ -136,16 +136,6 @@ __device__ __forceinline__ Shadow edge_shadow(const float4* rows, int n, f3 o,
   return shadow_result(b);
 }
 
-// A sweep's miss: what edge_trace_full returns when no row is accepted.
-__device__ __forceinline__ Hit hit_none() {
-  Hit hit;
-  hit.t = HK_F32_MAX;
-  hit.inst = -1.0f;
-  hit.n = mk3(0.0f, 0.0f, 0.0f);
-  hit.mat = -1.0f;
-  return hit;
-}
-
 // trace_full (common.cuh) over staged edge rows: closest_tri's test on
 // edge_terms, then the winner's normal and material from its attribute row
 // (17 floats in global memory: the 9 vertex normals, the material at 16).
@@ -175,9 +165,11 @@ __device__ __forceinline__ Hit edge_trace_full(const float4* rows,
       c.inst = inst;
     }
   }
-  Hit hit = hit_none();
+  Hit hit;
   hit.t = c.t;
   hit.inst = c.inst;
+  hit.n = mk3(0.0f, 0.0f, 0.0f);
+  hit.mat = -1.0f;
   if (c.prim >= 0) {
     const float* at = attrs + 17 * c.prim;
     hit.n = mk3(interp(__ldg(at), __ldg(at + 3), __ldg(at + 6), c.u, c.v),
@@ -329,18 +321,12 @@ __device__ Cand emissive_candidate(const Tables& tb, float r0, float r1,
               p.z + n.z * HK_RAY_BIAS);
   f3 rd = rsqrt_n(sub3(t, p));
 
-  // probe ray restricted to the picked emitter (light.wgsl:672-687). Its
-  // hit reaches the candidate only through probe_ok's selects below, so
-  // a ray without a pick or pointing below the surface skips the sweep
-  // (its miss stands in) and every word of the candidate is the same.
-  bool probe_live = has_pick && (dot3(rd, n) > 0.0f);
-  Hit ph = hit_none();
-  if (probe_live || !LF_SHARED_SKIPS)
-    ph = edge_trace_full(tb.em_edges, tb.em_attrs, tb.n_em_tris, ro, rd,
-                         HK_F32_MAX, -1.0f, em_inst);
+  // probe ray restricted to the picked emitter (light.wgsl:672-687)
+  Hit ph = edge_trace_full(tb.em_edges, tb.em_attrs, tb.n_em_tris, ro, rd,
+                           HK_F32_MAX, -1.0f, has_pick ? em_inst : -2.0f);
   f3 pn = rsqrt_n(ph.n);
   bool probe_hit = ph.inst >= 0.0f;
-  bool probe_ok = probe_live && probe_hit;
+  bool probe_ok = has_pick && (dot3(rd, n) > 0.0f) && probe_hit;
   float ptt = probe_hit ? ph.t : HK_DISTANCE_MAX;
   f3 hp = ray_at(ro, rd, ptt);
   float dx = hp.x - p.x, dy = hp.y - p.y, dz = hp.z - p.z;
@@ -466,7 +452,7 @@ __device__ __forceinline__ bool shade_ignores_l(const Px& px) {
 __device__ f3 shade_channel(const Tables& tb, const Cand& c, bool directional,
                             const Px& px) {
   Traced t = trace_candidate(tb, c, directional, px.p, px.n,
-                                shade_ignores_l(px));
+                             LF_SHADOW_SKIP && shade_ignores_l(px));
   float w_f = t.lum > 0.0f ? t.w_new / fmaxf(t.lum, 1e-30f) : 0.0f;
   float w2d = px.valid ? w_f : 0.0f;
   f3 l = rsqrt_n(sub3(t.sp, px.p));
@@ -528,56 +514,47 @@ __device__ Ind indirect_bounces(const Tables& tb, int bounces, const Px& px) {
     Surface hs = surface_of(tb.mats, tb.n_mats, hit_ok ? h.mat : 0.0f);
     hs.rough = 1.0f;  // roughness := 1 at bounces
 
+    Cand c = emissive_candidate(tb, br0, br1, br2, br3, hp, hn, h.inst);
+    bool sample_directional = c.em_inst < 0.0f;
     f3 bv = rsqrt_n(sub3(b_p, hp));
-    // NEE at the hit: its candidate, shadow and shaded sample o reach the
-    // output only through the sum below, taken when the bounce is alive,
-    // hit and nee_ok holds; elsewhere they are skipped (the words of tot
-    // are the same).
-    if ((alive && hit_ok) || !LF_SHARED_SKIPS) {
-      Cand c = emissive_candidate(tb, br0, br1, br2, br3, hp, hn, h.inst);
-      bool nee_ok = (dot3(c.d, hn) > 0.0f) && (c.p > 0.0f);
-      if (nee_ok || !LF_SHARED_SKIPS) {
-        bool sample_directional = c.em_inst < 0.0f;
-        f3 ro2 = mk3(hp.x + hn.x * HK_RAY_BIAS, hp.y + hn.y * HK_RAY_BIAS,
-                     hp.z + hn.z * HK_RAY_BIAS);
-        Shadow sh = edge_shadow(tb.tris, tb.n_tris, ro2, c.d, c.maxd,
-                                   c.em_inst);
-        float ci_inst = sh.occluded ? sh.inst : c.info_inst;
-        float ci_mat = sh.occluded ? -1.0f : c.info_mat;
-        // input_radiance with sample_directional=True
-        bool miss2 = ci_inst < 0.0f;
-        float cosdl = dot3(c.d, dirl);
-        bool take_dir = miss2 && (cosdl >= prm[P_COS_SOLAR]);
-        Surface ns = surface_of(tb.mats, tb.n_mats, fmaxf(ci_mat, 0.0f));
-        bool take_em = !miss2 && (ci_inst == c.em_inst);
-        float s255 = 255.0f * ns.em_a;
-        f3 ir = take_dir ? mk3(prm[P_DIRC], prm[P_DIRC + 1], prm[P_DIRC + 2])
-                         : (take_em ? mk3(s255 * ns.em.x, s255 * ns.em.y,
-                                          s255 * ns.em.z)
-                                    : mk3(0.0f, 0.0f, 0.0f));
-        float ir_a = 1.0f - ((miss2 && !take_dir) ? 1.0f : 0.0f);
-        // keep rgb only for directional picks or hits on the emitter
-        bool keep = sample_directional || (ci_inst == c.em_inst);
-        if (!keep) ir = mk3(0.0f, 0.0f, 0.0f);
-        f3 o = shade(hs, amb, bv, hn, c.d, ir, ir_a);
-        float inv_p = 1.0f / fmaxf(c.p, 1e-30f);
-        o = mk3(o.x * inv_p, o.y * inv_p, o.z * inv_p);
-        if (nb > 0) {
-          bool kill = bpdf < 0.01f;
-          float inv_b = 1.0f / fmaxf(bpdf, 1e-30f);
-          o = kill ? mk3(0.0f, 0.0f, 0.0f)
-                   : mk3(o.x * inv_b, o.y * inv_b, o.z * inv_b);
-        }
-        float lum_b = lum3(o.x, o.y, o.z);
-        float scale = lum_b > max_ind ? max_ind / fmaxf(lum_b, 1e-30f) : 1.0f;
-        o = mk3(o.x * scale, o.y * scale, o.z * scale);
-        if (alive && hit_ok && nee_ok) {
-          tot_r = tot_r + transport.x * o.x;
-          tot_g = tot_g + transport.y * o.y;
-          tot_b = tot_b + transport.z * o.z;
-          tot_a = tot_a + 1.0f;
-        }
-      }
+    bool nee_ok = (dot3(c.d, hn) > 0.0f) && (c.p > 0.0f);
+    f3 ro2 = mk3(hp.x + hn.x * HK_RAY_BIAS, hp.y + hn.y * HK_RAY_BIAS,
+                 hp.z + hn.z * HK_RAY_BIAS);
+    Shadow sh = edge_shadow(tb.tris, tb.n_tris, ro2, c.d, c.maxd, c.em_inst);
+    float ci_inst = sh.occluded ? sh.inst : c.info_inst;
+    float ci_mat = sh.occluded ? -1.0f : c.info_mat;
+    // input_radiance with sample_directional=True
+    bool miss2 = ci_inst < 0.0f;
+    float cosdl = dot3(c.d, dirl);
+    bool take_dir = miss2 && (cosdl >= prm[P_COS_SOLAR]);
+    Surface ns = surface_of(tb.mats, tb.n_mats, fmaxf(ci_mat, 0.0f));
+    bool take_em = !miss2 && (ci_inst == c.em_inst);
+    float s255 = 255.0f * ns.em_a;
+    f3 ir = take_dir ? mk3(prm[P_DIRC], prm[P_DIRC + 1], prm[P_DIRC + 2])
+                     : (take_em ? mk3(s255 * ns.em.x, s255 * ns.em.y,
+                                      s255 * ns.em.z)
+                                : mk3(0.0f, 0.0f, 0.0f));
+    float ir_a = 1.0f - ((miss2 && !take_dir) ? 1.0f : 0.0f);
+    // keep rgb only for directional picks or hits on the emitter
+    bool keep = sample_directional || (ci_inst == c.em_inst);
+    if (!keep) ir = mk3(0.0f, 0.0f, 0.0f);
+    f3 o = shade(hs, amb, bv, hn, c.d, ir, ir_a);
+    float inv_p = 1.0f / fmaxf(c.p, 1e-30f);
+    o = mk3(o.x * inv_p, o.y * inv_p, o.z * inv_p);
+    if (nb > 0) {
+      bool kill = bpdf < 0.01f;
+      float inv_b = 1.0f / fmaxf(bpdf, 1e-30f);
+      o = kill ? mk3(0.0f, 0.0f, 0.0f)
+               : mk3(o.x * inv_b, o.y * inv_b, o.z * inv_b);
+    }
+    float lum_b = lum3(o.x, o.y, o.z);
+    float scale = lum_b > max_ind ? max_ind / fmaxf(lum_b, 1e-30f) : 1.0f;
+    o = mk3(o.x * scale, o.y * scale, o.z * scale);
+    if (alive && hit_ok && nee_ok) {
+      tot_r = tot_r + transport.x * o.x;
+      tot_g = tot_g + transport.y * o.y;
+      tot_b = tot_b + transport.z * o.z;
+      tot_a = tot_a + 1.0f;
     }
     if (alive && !hit_ok) {
       tot_r = tot_r + transport.x * amb.x;
