@@ -18,7 +18,8 @@ Run from the repository root on a machine with an NVIDIA H100:
    and instance edges along the blocks' edges;
 4. drives the reuse paths at 1080p with the camera panning 1.5 px per
    frame and holds each kernel against its plain version on the inputs it
-   really got: kernel 9 (the reprojection gather) bit for bit, kernel 4
+   really got: kernel 9 (the reprojection gather) bit for bit on S's and
+   R's calls, kernel 4
    (temporal lighting) on a validation and a no-validation frame with the
    tracking outputs on (path S) and off (path R), printing the share of
    its output words equal to the plain version's, kernel 10 (the spatial
@@ -56,8 +57,8 @@ Run from the repository root on a machine with an NVIDIA H100:
    work per ray of the world walk and of the kernel's own walk of its
    tables, kernels 9 (3 sources), C, 11 and 12 on the city's calls, kernel
    13 on the box against kernels 5 and 7, and the CUDA refit (kernel 13's
-   tables included) against the CPU refit; then kernel 13 on one frame of
-   path T's calls (two emissive subtrees);
+   tables included) against the CPU refit; then kernels 13 and 9 on one
+   frame of path T's calls (two emissive subtrees);
 9. drives path T (the textured simple scene, BASELINE config 3, with a
    seeded procedural Earth on both spheres) at 1920x1080 and holds kernel
    14 (the coherent atlas sampler, one launch for both textured slots)
@@ -1052,11 +1053,14 @@ def check_reuse(ht, build_box):
     # --- kernel 4 with tracking (S) on a no-validation and a validation
     # frame, then without tracking (R)
     err4, words4 = check_lighting_calls(lf, light_s, "path S")
-    caps = [Capture(lf, "lighting_kernel"), Capture(dnf, "atrous_level")]
-    with caps[0], caps[1]:
+    caps = [Capture(lf, "lighting_kernel"), Capture(dnf, "atrous_level"),
+            Capture(fr, "reproj_gather")]
+    with caps[0], caps[1], caps[2]:
         drive(ht, box_host, FULL, PATHS["R"][0](ht), CHECK_FRAMES - 1, caps,
               keep)
     light_r, levels_r = caps[0].calls, caps[1].calls
+    rec9["max_abs_err"] = max(err9, check_gather_calls(rg, caps[2].calls,
+                                                       "path R"))
     err_r, words_r = check_lighting_calls(lf, light_r, "path R")
     err4, words4 = max(err4, err_r), min(words4, words_r)
     check_levels(dnf, levels_r[-4:], "path R's real variance")
@@ -2383,22 +2387,25 @@ def check_simple_walk(ht):
     """Kernel 13 against its plain version word for word on the calls of
     path T's first frame at 1920x1080 (both direct channels validate):
     the scene with two emissive subtrees, whose probes are included to
-    either sphere."""
+    either sphere; and kernel 9 on the frame's gather call."""
+    from hikari_tpu_torch import frame as fr
+    from hikari_tpu_torch.ops import reproj_gather as rg
     from hikari_tpu_torch.ops import trace_cull as tc
 
     settings = simple_settings(ht)
     r = ht.Renderer(simple_scene(), simple_camera(ht, FULL), settings)
     emitters = sorted(int(i) for i in torch.nonzero(
         r.scene_dev["bvh_sub_root"] > 0).flatten())
-    caps = [Capture(tc, "bvh_full"), Capture(tc, "bvh_shadow")]
-    with caps[0], caps[1]:
+    caps = [Capture(tc, "bvh_full"), Capture(tc, "bvh_shadow"),
+            Capture(fr, "reproj_gather")]
+    with caps[0], caps[1], caps[2]:
         for c in caps:
             c.on = True
         r.render_frame()
         torch.cuda.synchronize()
     first = COUNTERS.index("bvh_full")
     want = list(simple_launches(settings, 0)[first:first + 2])
-    got = [len(c.calls) for c in caps]
+    got = [len(c.calls) for c in caps[:2]]
     included = sorted({int(i) for a, _ in caps[0].calls
                        for i in torch.unique(a[-1]) if i >= 0})
     print(f"path T: emissive subtrees of instances {emitters}, probes "
@@ -2407,6 +2414,7 @@ def check_simple_walk(ht):
         fail("path T's frame does not probe its two emitters' subtrees")
     check_walk_calls(tc, "full", caps[0].calls, "T")
     check_walk_calls(tc, "shadow", caps[1].calls, "T")
+    check_gather_calls(rg, caps[2].calls, "path T")
 
 
 def walk_ab(ht):

@@ -35,13 +35,11 @@
 //   sgnf(det) * x does for det != 0 (for det = 0 or NaN no test passes
 //   either way). The normal and material rows stay in global memory: a
 //   sweep reads only its winner's;
-// * work no output word depends on is skipped, each case with its proof
-//   beside the code: kernel B returns at an invalid pixel after writing
+// * kernel B skips work no output word depends on, each case with its
+//   proof beside the code: it returns at an invalid pixel after writing
 //   its zeros (on the box at 1080p a third of the warps hold no valid
-//   pixel); the emissive probe runs only with a pick above the surface,
-//   the bounce's NEE only for a live bounce that hit and a candidate with
-//   nee_ok (kernels B and 4); and kernel B skips the shadow sweep of a
-//   candidate whose trace_ok is false where shade_ignores_l holds;
+//   pixel), and skips the shadow sweep of a candidate whose trace_ok is
+//   false where shade_ignores_l holds;
 // * a temporal thread starts copying its pixel's previous reservoirs (16
 //   words per channel) into shared memory (cp.async) before it stages and
 //   traces, so their latency passes under the sweeps; it reads them after
@@ -59,10 +57,13 @@
 // 5 or 6 blocks per SM (every instance spills hundreds of bytes and runs
 // slower); for kernel B several tiles a block after one staging (a block
 // holds its registers until its last warp ends, so the invalid warps'
-// slots stay taken), its sweeps unrolled twice, and kernel A's sign skip
-// in the closest-hit test, the division skipped where num and det do not
+// slots stay taken), its sweeps unrolled twice, kernel A's sign skip in
+// the closest-hit test, the division skipped where num and det do not
 // share a strict sign (1.5-4% slower: the warp still divides unless all
-// 32 lanes skip, and the per-lane branch costs more than it saves).
+// 32 lanes skip, and the per-lane branch costs more than it saves), and
+// skipping the emissive probe without a pick above the surface and the
+// bounce's NEE where it cannot reach the sum (exact, but on the box no
+// warp skips them whole: B 1.5% and kernel 4 3-4% slower with them).
 // The TPU kernel's per-lane select-sweeps become indexed loads, its
 // unrolled emissive-leaf walk a loop over n_em. The G-buffer is read from
 // the interleaved [h,w,C] tensors, the reservoirs from and to the [h,16,w]
@@ -100,10 +101,6 @@
 #define P_COUNT 228
 
 #define EDGE_ROW 12
-
-#ifndef LF_SHADOW_SKIP
-#define LF_SHADOW_SKIP 1  // kernel B's primary shadow skip
-#endif
 
 // shadow_sweep (common.cuh) over staged edge rows, for rays that include
 // every instance. ads = |det| and the signs flipped by selection: for det
@@ -452,7 +449,7 @@ __device__ __forceinline__ bool shade_ignores_l(const Px& px) {
 __device__ f3 shade_channel(const Tables& tb, const Cand& c, bool directional,
                             const Px& px) {
   Traced t = trace_candidate(tb, c, directional, px.p, px.n,
-                             LF_SHADOW_SKIP && shade_ignores_l(px));
+                             shade_ignores_l(px));
   float w_f = t.lum > 0.0f ? t.w_new / fmaxf(t.lum, 1e-30f) : 0.0f;
   float w2d = px.valid ? w_f : 0.0f;
   f3 l = rsqrt_n(sub3(t.sp, px.p));
