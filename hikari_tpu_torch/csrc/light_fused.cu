@@ -495,8 +495,8 @@ __device__ Ind indirect_bounces(const Tables& tb, int bounces, const Px& px) {
     f3 rd = onb_apply(b_n, mk3(hx, hy, hz));
     f3 ro = mk3(b_p.x + b_n.x * HK_RAY_BIAS, b_p.y + b_n.y * HK_RAY_BIAS,
                 b_p.z + b_n.z * HK_RAY_BIAS);
-    Hit h = edge_trace_full(tb.tris, tb.attrs, tb.n_tris, ro, rd,
-                               HK_F32_MAX, -1.0f, -1.0f);
+    Hit h = edge_trace_full(tb.tris, tb.attrs, tb.n_tris, ro, rd, HK_F32_MAX,
+                            -1.0f, -1.0f);
     bool hit_ok = h.inst >= 0.0f;
     f3 hn = rsqrt_n(h.n);
     float htt = hit_ok ? h.t : HK_DISTANCE_MAX;
@@ -710,8 +710,8 @@ __device__ __forceinline__ Rsv prev_reservoir(const float* stash,
 __device__ Retrace retrace(const Tables& tb, bool directional, const Px& px,
                            const Rsv& r) {
   Cand cv = channel_candidate(tb, directional, r.rnd0, r.rnd1, r.rnd2,
-                                 r.rnd3, mk3(r.vpx, r.vpy, r.vpz),
-                                 mk3(r.vnx, r.vny, r.vnz), px.inst_f);
+                              r.rnd3, mk3(r.vpx, r.vpy, r.vpz),
+                              mk3(r.vnx, r.vny, r.vnz), px.inst_f);
   f3 rv = rsqrt_n(mk3(r.spx - px.p.x, r.spy - px.p.y, r.spz - px.p.z));
   bool trace_ok =
       (dot3(cv.d, mk3(r.vnx, r.vny, r.vnz)) > 0.0f) && (cv.p > 0.0f);
@@ -748,7 +748,7 @@ __device__ f3 reuse_channel(const Tables& tb, bool directional, const Px& px,
                             float* scatter_out) {
   bool validate = VALIDATION && is_val > 0.5f;
   Cand c = channel_candidate(tb, directional, px.r0, px.r1, px.r2, px.r3,
-                                px.p, px.n, px.inst_f);
+                             px.p, px.n, px.inst_f);
   Traced t = trace_candidate(tb, c, directional, px.p, px.n);
   bool gate_miss;
   Rsv r = prev_reservoir(stash, px, gate_miss);

@@ -15,7 +15,7 @@
 // * a 2-D grid (GATHER_TX columns x GATHER_TY rows a block) with 32-bit
 //   index math (the launcher refuses planes of 2^31 words or more);
 // * each thread reads its pixel's two coordinates once, then loops over
-//   the sources and the planes (unrolled for the frame's 16), loading
+//   the sources and the 16 planes (unrolled), loading
 //   GATHER_BATCH planes before it stores them (the compiler may not move
 //   a load above a store through another pointer that could alias it);
 // * the lanes of a warp take neighbouring x of one plane row, so every
@@ -35,20 +35,17 @@
 #define GATHER_TX 32     // threads of a block along x (one warp)
 #define GATHER_TY 4      // rows of a block
 #define GATHER_BATCH 8   // planes loaded before they are stored
+#define GATHER_F 16      // planes per pixel: the packed reservoir's
 
 struct GatherPtrs {
   const float* src[HK_MAX_SRC];
   float* dst[HK_MAX_SRC];
 };
 
-// F: the planes per pixel (16, the frame's; 0 = the runtime f, with
-// f % GATHER_BATCH planes in the last batch).
-template <int F>
 __global__ void __launch_bounds__(GATHER_TX * GATHER_TY)
 gather_kernel(GatherPtrs p, const int* __restrict__ piy,
-              const int* __restrict__ pix, int n_src, int hs, int h, int w,
-              int f_rt) {
-  const int f = F > 0 ? F : f_rt;
+              const int* __restrict__ pix, int n_src, int hs, int h, int w) {
+  const int f = GATHER_F;
   int x = blockIdx.x * GATHER_TX + threadIdx.x;
   int y = blockIdx.y * GATHER_TY + threadIdx.y;
   if (x >= w || y >= h) return;
@@ -64,31 +61,16 @@ gather_kernel(GatherPtrs p, const int* __restrict__ piy,
     if (s >= n_src) break;
     const float* src = p.src[s] + src_at;
     float* dst = p.dst[s] + dst_at;
+#pragma unroll
     for (int c0 = 0; c0 < f; c0 += GATHER_BATCH) {
       float v[GATHER_BATCH];
 #pragma unroll
-      for (int b = 0; b < GATHER_BATCH; b++) {
-        int c = c0 + b;
-        if (F == 0 && c >= f) break;
-        v[b] = ok ? __ldg(src + c * w) : 0.0f;
-      }
+      for (int b = 0; b < GATHER_BATCH; b++)
+        v[b] = ok ? __ldg(src + (c0 + b) * w) : 0.0f;
 #pragma unroll
-      for (int b = 0; b < GATHER_BATCH; b++) {
-        int c = c0 + b;
-        if (F == 0 && c >= f) break;
-        dst[c * w] = v[b];
-      }
+      for (int b = 0; b < GATHER_BATCH; b++) dst[(c0 + b) * w] = v[b];
     }
   }
-}
-
-template <int F>
-static int launch(const GatherPtrs& p, const int* piy, const int* pix,
-                  int n_src, int hs, int h, int w, int f, cudaStream_t st) {
-  dim3 block(GATHER_TX, GATHER_TY);
-  dim3 grid((w + GATHER_TX - 1) / GATHER_TX, (h + GATHER_TY - 1) / GATHER_TY);
-  gather_kernel<F><<<grid, block, 0, st>>>(p, piy, pix, n_src, hs, h, w, f);
-  return (int)cudaGetLastError();
 }
 
 // One launch's arguments, as ops/reproj_gather.py GATHER_TABLE packs them:
@@ -110,14 +92,17 @@ extern "C" int hk_reproj_gather(const GatherCall* call, void* stream) {
     p.src[s] = c.src[s];
     p.dst[s] = c.dst[s];
   }
-  int n_src = c.n_src, hs = c.hs, h = c.h, w = c.w, f = c.f;
-  if (n_src < 1 || n_src > HK_MAX_SRC || h < 0 || hs < 0 || w < 0 || f < 1)
+  int n_src = c.n_src, hs = c.hs, h = c.h, w = c.w;
+  if (n_src < 1 || n_src > HK_MAX_SRC || h < 0 || hs < 0 || w < 0 ||
+      c.f != GATHER_F)
     return (int)cudaErrorInvalidValue;
   // 32-bit indices: every plane word of a source and an output
-  if ((long long)(h > hs ? h : hs) * f * w >= (1ll << 31))
+  if ((long long)(h > hs ? h : hs) * GATHER_F * w >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   if (h == 0 || w == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (f == 16) return launch<16>(p, c.piy, c.pix, n_src, hs, h, w, f, st);
-  return launch<0>(p, c.piy, c.pix, n_src, hs, h, w, f, st);
+  dim3 block(GATHER_TX, GATHER_TY);
+  dim3 grid((w + GATHER_TX - 1) / GATHER_TX, (h + GATHER_TY - 1) / GATHER_TY);
+  gather_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(p, c.piy, c.pix,
+                                                          n_src, hs, h, w);
+  return (int)cudaGetLastError();
 }

@@ -26,6 +26,8 @@ from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, on_cpu,
 
 # the temporal reservoirs of the three channels + the two spatial ones
 MAX_SOURCES = 5
+# planes per pixel the kernel gathers: the 64 B packed reservoir's
+PLANES = 16
 # csrc/reproj_gather.cu GatherCall: the sources' and the outputs' pointers
 # (MAX_SOURCES slots each, 0 past the last), piy, pix (pointers); n_src,
 # hs, h, w, f (ints), padded to 8 bytes
@@ -44,7 +46,8 @@ def gather_plain(sources, piy, pix):
 
 def reproj_gather(sources, piy, pix):
     """Kernel 9: sources, a list of up to 5 [hs,F,w] float32 channel-plane
-    tensors; piy/pix [h,w] int32 source coordinates. Returns a list of
+    tensors (F = PLANES for CUDA tensors); piy/pix [h,w] int32 source
+    coordinates. Returns a list of
     [h,F,w], views of one allocation. Runs `gather_plain` for CPU tensors
     and launches csrc/reproj_gather.cu (all sources in one launch, its
     arguments in one packed table, GATHER_TABLE) for CUDA tensors."""
@@ -61,6 +64,8 @@ def reproj_gather(sources, piy, pix):
     dev = piy.device
     hs, f, w = sources[0].shape
     h = piy.shape[0]
+    if f != PLANES:
+        raise ValueError(f"sources[0]: {f} planes, the kernel takes {PLANES}")
     if max(h, hs) * f * w >= 2 ** 31:
         raise ValueError(f"planes of {max(h, hs) * f * w} words: the kernel "
                          "indexes them in 32 bits")

@@ -87,6 +87,8 @@ def _bad_calls():
          "sources"),
         ("a strided source", ([torch.zeros((3, 16, 10))[..., ::2]], piy,
                               pix), ValueError, "contiguous"),
+        ("8 planes", ([torch.zeros((3, 8, 5))], piy, pix), ValueError,
+         "8 planes"),
     ]
 
 
