@@ -44,7 +44,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 7. drives the checkerboard paths at 1080p with the camera panning: KR
    (checkerboard + temporal reuse, the modular lighting path) through an
    emissive validation frame and a frame without one, holding kernels 5,
-   6 and 7 (the brute-force tracer) and kernel 9 against their plain
+   6 and 7 (the brute-force tracer; timed by events, on the device and
+   on the host) and kernel 9 against their plain
    versions bit for bit and kernel C on KR's reconstructed variance; and
    K (checkerboard, no reuse), holding kernel B on its compressed
    1080x960 domain;
@@ -116,9 +117,11 @@ frame's, P's (960x540) and K's (1080x960) calls, kernel 9 on R's, S's,
 D's, KR's and the city's calls (beside the rows[:, idx] yardstick), kernel
 14 on T's 1080p and 960x540 launches, kernel A on the
 no-reuse frame's and D's 1080p calls, kernel 10 on S's two 1080p calls
-and D's 960x540 call and kernel 13 on the city's frame-1 calls, reached
-through BvhTracer (events, device and host times, the host times of
-each wrapper and of its pack_params before any profiler session), and
+and D's 960x540 call, kernel 13 on the city's frame-1 calls, reached
+through BvhTracer, and kernels 5, 6 and 7 on every call of KR's frames 4
+and 5, reached through BruteForceTracer (events, device and host times,
+the host times of each wrapper and of its pack_params before any
+profiler session), and
 prints the records and the frame medians (no ok line): run it in two
 trees of the repository in one call, in turns, to compare them; `--ab-summary
 FILE...` (one file of --ab lines per tree) prints each metric's median
@@ -1706,8 +1709,9 @@ def ab_only(ht, build_box):
     D's, the no-reuse frame's, P's and K's calls (light_ab), kernel 9 on
     R's, S's, D's, KR's and the city's (gather_ab), kernel 14 on path T's
     (texture_ab), kernel A on the no-reuse frame's and D's calls and
-    kernel 10 on S's and D's (prepass_spatial_ab), and kernel 13 on the
-    city's frame-1 calls (walk_ab). For timing two trees of
+    kernel 10 on S's and D's (prepass_spatial_ab), kernel 13 on the
+    city's frame-1 calls (walk_ab) and kernels 5, 6 and 7 on KR's frames 4
+    and 5 (trace_ab). For timing two trees of
     the repository against each other in one call: it reaches the kernels
     only through their wrappers and plain versions, as captured. Returns
     (records, {frame median name: ms})."""
@@ -1745,7 +1749,8 @@ def ab_only(ht, build_box):
               caps, (CHECK_FRAMES - 3, CHECK_FRAMES - 2))
     a_calls, q_calls, c_calls, wb_calls, wm_calls, l_calls = (
         c.calls for c in caps[:6])
-    # kernels 4, B, 9, 14, A, 10 and 13 first: their events and host times
+    # kernels 4, B, 9, 14, A, 10, 13 and 5-7 first: their events and host
+    # times
     # before any profiler session of the process, then their device times
     light_recs, light_dev = light_ab(ht, build_box, lf, l_calls)
     gather_recs, gather_dev = gather_ab(ht, build_box, caps[9].calls)
@@ -1753,12 +1758,15 @@ def ab_only(ht, build_box):
     as_recs, as_dev = prepass_spatial_ab(ht, build_box, [
         a_calls, caps[6].calls, caps[7].calls, caps[8].calls])
     walk_recs, walk_dev = walk_ab(ht)
+    trace_recs, trace_dev = trace_ab(ht, build_box)
     light_dev()
     gather_dev()
     tex_dev()
     as_dev()
     walk_dev()
-    records = light_recs + gather_recs + tex_recs + as_recs + walk_recs
+    trace_dev()
+    records = (light_recs + gather_recs + tex_recs + as_recs + walk_recs
+               + trace_recs)
     quads_checks(pf, q_calls, a_calls)
     rec8 = dict(name="prepass_quads",
                 **quads_times(pf, q_calls[-1][0], a_calls[-1][0]))
@@ -1945,28 +1953,120 @@ def trace_tests(tris, excl, incl):
     return int(accepted.sum())
 
 
-def trace_record(tp, name, plain, replaces, out_bytes, call):
-    """The record of a tracer kernel from one captured call: its time, its
-    plain version's, and its bound from the tests this call's masks let
-    through."""
-    a = call[0]
+def trace_bound(tp, name, a):
+    """(bound ms, by) of one tracer kernel call with the wrapper's
+    arguments `a`: its tables read once, per ray 36 B in and its outputs
+    out, and 60 flops per test the call's masks let through (+ kernel 6's
+    interpolation per hit)."""
+    out_bytes = next(b for n, _, _, b in TRACE_KERNELS if n == name)
     tris, (ro, _, _, excl, incl) = a[0], a[-5:]
-    n = ro.shape[0]
-    fn, ref = getattr(tp, name), getattr(tp, plain)
-    ms = event_ms(lambda: fn(*a), REPS)
-    plain_ms = event_ms(lambda: ref(*a), PLAIN_REPS)
     flops = trace_tests(tris, excl, incl) * FLOPS_PER_TRI_TEST
     table = sum(t.numel() for t in a[:len(a) - 5]) * 4
     if name == "trace_full":
-        flops += int((fn(*a)["prim"] >= 0).sum()) * FLOPS_INTERP
-    b_ms, b_by = bound_ms(table + n * (4 * (3 + 3 + 1 + 1 + 1) + out_bytes),
-                          flops)
-    print(f"  kernel {name} {n} rays x {tris.shape[0]} triangles: {ms:.4f} "
-          f"ms, plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
+        flops += int((getattr(tp, name)(*a)["prim"] >= 0).sum()) \
+            * FLOPS_INTERP
+    return bound_ms(table + ro.shape[0] * (4 * (3 + 3 + 1 + 1 + 1)
+                                           + out_bytes), flops)
+
+
+def trace_record(tp, name, plain, replaces, call):
+    """The record of a tracer kernel from one captured call: its time by
+    events, on the device and on the host (after earlier profiler
+    sessions of the process), its plain version's time, and its bound."""
+    a = call[0]
+    n, n_tris = a[-5].shape[0], a[0].shape[0]
+    fn, ref = getattr(tp, name), getattr(tp, plain)
+    run = (lambda: fn(*a))
+    ms = event_ms(run, REPS)
+    us = host_us(run)
+    dev_ms = device_ms(run, REPS, TRACE_DEVICE_NAMES[name])
+    plain_ms = event_ms(lambda: ref(*a), PLAIN_REPS)
+    b_ms, b_by = trace_bound(tp, name, a)
+    print(f"  kernel {name} {n} rays x {n_tris} triangles: {ms:.4f} ms by "
+          f"events, device {dev_ms} ms, host {us:.1f} us; plain "
+          f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms ({b_by})")
     return dict(name=name, route="cuda",
                 source="hikari_tpu_torch/csrc/trace.cu", replaces=replaces,
-                launches=None, max_abs_err=None, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                launches=None, max_abs_err=None, ms=ms, device_ms=dev_ms,
+                host_us=us, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None)
+
+
+# the CUDA kernel behind each tracer wrapper (the profiler's name filter)
+TRACE_DEVICE_NAMES = {"trace_closest": "closest_kernel",
+                      "trace_full": "full_kernel",
+                      "trace_shadow": "shadow_kernel"}
+# path KR's tracer calls in a frame, in order, per BruteForceTracer method
+# and its kernel wrapper; a frame that validates the emissive channel
+# (every 5th) traces its probe and shadow ray again
+KR_TRACE_CALLS = (
+    ("trace", "trace_closest", ("bounce",)),
+    ("probe_info", "trace_full", ("emissive", "validation", "bounce_nee")),
+    ("shadow", "trace_shadow", ("emissive", "validation", "bounce_nee")),
+)
+
+
+def trace_ab(ht, build_box):
+    """--ab's records of kernels 5, 6 and 7: every call of path KR's frames
+    4 and 5 (a panning camera; frame 5 validates), reached through
+    BruteForceTracer's trace, probe_info and shadow, whose arguments every
+    tree of the repository shares: each call's kernel wrapper is captured
+    as that tree's tracer calls it, its outputs held word for word against
+    its plain version, and timed by events and on the host (before any
+    profiler session). Returns the records and the pass that adds their
+    device times."""
+    from hikari_tpu_torch.ops import trace as tr
+    from hikari_tpu_torch.ops import trace_pallas as tp
+
+    caps = [Capture(tr.BruteForceTracer, m) for m, *_ in KR_TRACE_CALLS]
+    keep = (CHECK_FRAMES - 3, CHECK_FRAMES - 2)
+    settings = PATHS["KR"][0](ht)
+    with caps[0], caps[1], caps[2]:
+        drive(ht, build_box(), FULL, settings, CHECK_FRAMES - 1, caps, keep)
+    named = []
+    for cap, (method, wrapper, calls) in zip(caps, KR_TRACE_CALLS):
+        per_frame = [(f, calls if f % settings.emissive_validate_interval
+                      == 0 or len(calls) == 1 else
+                      tuple(c for c in calls if c != "validation"))
+                     for f in keep]
+        if len(cap.calls) != sum(len(c) for _, c in per_frame):
+            fail(f"KR's frames {keep} called BruteForceTracer.{method} "
+                 f"{len(cap.calls)} times")
+        plain = getattr(tp, next(p for n, p, *_ in TRACE_KERNELS
+                                 if n == wrapper))
+        todo = iter(cap.calls)
+        for f, names in per_frame:
+            for call in names:
+                a, k = next(todo)
+                inner = Capture(tp, wrapper)
+                with inner:
+                    inner.on = True
+                    cap.fn(*a, **k)
+                wa = inner.calls[0][0]
+                got = getattr(tp, wrapper)(*wa)
+                ref = plain(*wa)
+                torch.cuda.synchronize()
+                keys = sorted(ref)
+                if not words_equal([got[q] for q in keys],
+                                   [ref[q] for q in keys]):
+                    fail(f"{wrapper} (KR frame {f}, the {call} call) "
+                         "disagrees with its plain version")
+                b_ms, b_by = trace_bound(tp, wrapper, wa)
+                run = (lambda fn=getattr(tp, wrapper), wa=wa: fn(*wa))
+                named.append((dict(name=f"{wrapper}_{call}_f{f}",
+                                   rays=wa[-5].shape[0],
+                                   tris=wa[0].shape[0], words_equal=1.0,
+                                   bound_ms=b_ms, bound_by=b_by),
+                              run, TRACE_DEVICE_NAMES[wrapper]))
+    for rec, run, _ in named:
+        rec.update(ms=event_ms(run, REPS), host_us=host_us(run))
+
+    def device_pass():
+        for rec, run, kernel in named:
+            rec["device_ms"] = device_ms(run, REPS, kernel)
+            print_kernel_times(rec["name"], rec)
+
+    return [rec for rec, *_ in named], device_pass
 
 
 def check_checkerboard(ht, build_box):
@@ -1997,8 +2097,8 @@ def check_checkerboard(ht, build_box):
     *trace_calls, g_calls, c_calls = (c.calls for c in caps)
 
     records = []
-    for (name, plain, replaces, out_bytes), calls in zip(TRACE_KERNELS,
-                                                         trace_calls):
+    for (name, plain, replaces, _), calls in zip(TRACE_KERNELS,
+                                                 trace_calls):
         err = 0.0
         for a, _ in calls:
             got = getattr(tp, name)(*a)
@@ -2016,7 +2116,7 @@ def check_checkerboard(ht, build_box):
             if not eq:
                 fail(f"{name} disagrees with its plain version")
         # the record from the frame without validation: its first call
-        rec = trace_record(tp, name, plain, replaces, out_bytes, calls[0])
+        rec = trace_record(tp, name, plain, replaces, calls[0])
         rec["max_abs_err"] = err
         records.append(rec)
     first = COUNTERS.index("trace_closest")
@@ -3003,7 +3103,8 @@ def main():
                     "frame's, P's and K's, 9 on R's, S's, D's, KR's and "
                     "the city's, 14 on T's, A on the no-reuse frame's and "
                     "D's, "
-                    "10 on S's and D's, 13 on the city's (to time two trees "
+                    "10 on S's and D's, 13 on the city's, 5, 6 and 7 on "
+                    "KR's (to time two trees "
                     "of the repository in one call); prints their records "
                     "and no ok line")
     ap.add_argument("--ab-summary", nargs="+", metavar="FILE",
@@ -3044,7 +3145,7 @@ def main():
     instances = light_instances()
     instances_a10 = {name: kernel_instances(name)
                      for name in ("prepass_fused", "spatial_fused",
-                                  "trace_bvh")}
+                                  "trace_bvh", "trace")}
     if args.ab:
         records, frames = ab_only(ht, build_box)
         print(json.dumps({"ab": list(records), "frames_ms": frames,

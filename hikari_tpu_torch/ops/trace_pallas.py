@@ -33,6 +33,8 @@ for CPU tensors and launches its kernel for CUDA tensors.
 
 from __future__ import annotations
 
+import struct
+
 import torch
 
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
@@ -43,6 +45,14 @@ DISTANCE_MAX = 65535.0
 # the small-scene engine's cap (hikari_tpu's brute_force_max); make_tracer
 # raises above it
 MAX_TRIS = 768
+# csrc/trace.cu TraceCall, kernels 6 and 7's argument table: tris, attrs
+# (0 for kernel 7), ro, rd, max_t, excl, incl, the output allocation
+# (pointers); n_tris, n (ints)
+TRACE_TABLE = struct.Struct("<8Q2i")
+# the output words a ray of kernels 6 and 7 (t, prim, normal 3, uv 2, mat,
+# inst; t, inst): the planes of one allocation
+FULL_WORDS = 9
+SHADOW_WORDS = 2
 
 
 def _tri_scalars(r):
@@ -276,28 +286,51 @@ def trace_closest(tris, ro, rd, max_t, excl, incl):
 trace_closest.launches = 0
 
 
+def full_views(buf, n):
+    """Kernel 6's outputs as views of its allocation buf [9 n] f32 (the
+    kernel's planes, in order): {t, prim (int32), normal [n,3], uv [n,2],
+    mat, inst (int32)}."""
+    t, prim, normal, uv, mat, inst = buf.split([n, n, 3 * n, 2 * n, n, n])
+    return {"t": t, "prim": prim.view(torch.int32),
+            "normal": normal.view(n, 3), "uv": uv.view(n, 2), "mat": mat,
+            "inst": inst.view(torch.int32)}
+
+
+def shadow_views(buf, n):
+    """Kernel 7's outputs as views of its allocation buf [2 n] f32: {t,
+    inst (int32)}."""
+    return {"t": buf[:n], "inst": buf[n:].view(torch.int32)}
+
+
+def _launch(name, tris, attrs, ro, rd, max_t, excl, incl, words, views):
+    """Kernels 6 and 7's CUDA branch: one output allocation of `words` a
+    ray, one packed table (TRACE_TABLE); n = 0 launches nothing. Returns
+    views(allocation, n)."""
+    dev, n = _check_rays(tris, ro, rd, max_t, excl, incl)
+    if attrs is not None:
+        check("attrs", attrs, torch.float32, (tris.shape[0], 17), dev)
+    if n * FULL_WORDS >= 2 ** 31:
+        raise ValueError(f"{n} rays: the kernels index them in 32 bits")
+    buf = torch.empty(words * n, dtype=torch.float32, device=dev)
+    if n:
+        table = TRACE_TABLE.pack(
+            tris.data_ptr(), 0 if attrs is None else attrs.data_ptr(),
+            ro.data_ptr(), rd.data_ptr(), max_t.data_ptr(), excl.data_ptr(),
+            incl.data_ptr(), buf.data_ptr(), tris.shape[0], n)
+        check_launch(bind(_load(), name, "tp")(table, stream(dev)), name)
+    return views(buf, n)
+
+
 def trace_full(tris, attrs, ro, rd, max_t, excl, incl):
     """Kernel 6: as kernel 5 with attrs [P,17] f32. Returns full_plain's
     dict; runs it for CPU tensors and launches hk_trace_full for CUDA
-    tensors."""
+    tensors (its outputs views of one allocation, full_views)."""
     if on_cpu(ro):
         return full_plain(tris, attrs, ro, rd, max_t, excl, incl)
-    dev, n = _check_rays(tris, ro, rd, max_t, excl, incl)
-    check("attrs", attrs, torch.float32, (tris.shape[0], 17), dev)
-
-    def new(*shape, dtype=torch.float32):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    out = {"t": new(n), "prim": new(n, dtype=torch.int32),
-           "normal": new(n, 3), "uv": new(n, 2), "mat": new(n),
-           "inst": new(n, dtype=torch.int32)}
-    fn = bind(_load(), "hk_trace_full", "ppipppppippppppp")
-    rc = fn(ptr(tris), ptr(attrs), tris.shape[0], ptr(ro), ptr(rd),
-            ptr(max_t), ptr(excl), ptr(incl), n, ptr(out["t"]),
-            ptr(out["prim"]), ptr(out["normal"]), ptr(out["uv"]),
-            ptr(out["mat"]), ptr(out["inst"]), stream(dev))
-    check_launch(rc, "trace_full")
-    trace_full.launches += 1
+    out = _launch("hk_trace_full", tris, attrs, ro, rd, max_t, excl, incl,
+                  FULL_WORDS, full_views)
+    if ro.shape[0]:
+        trace_full.launches += 1
     return out
 
 
@@ -306,19 +339,14 @@ trace_full.launches = 0
 
 def trace_shadow(tris, ro, rd, max_t, excl, incl):
     """Kernel 7: the arguments of kernel 5. Returns shadow_plain's dict;
-    runs it for CPU tensors and launches hk_trace_shadow for CUDA
-    tensors."""
+    runs it for CPU tensors and launches hk_trace_shadow for CUDA tensors
+    (its outputs views of one allocation, shadow_views)."""
     if on_cpu(ro):
         return shadow_plain(tris, ro, rd, max_t, excl, incl)
-    dev, n = _check_rays(tris, ro, rd, max_t, excl, incl)
-    out = {"t": torch.empty(n, dtype=torch.float32, device=dev),
-           "inst": torch.empty(n, dtype=torch.int32, device=dev)}
-    fn = bind(_load(), "hk_trace_shadow", "pipppppippp")
-    rc = fn(ptr(tris), tris.shape[0], ptr(ro), ptr(rd), ptr(max_t),
-            ptr(excl), ptr(incl), n, ptr(out["t"]), ptr(out["inst"]),
-            stream(dev))
-    check_launch(rc, "trace_shadow")
-    trace_shadow.launches += 1
+    out = _launch("hk_trace_shadow", tris, None, ro, rd, max_t, excl, incl,
+                  SHADOW_WORDS, shadow_views)
+    if ro.shape[0]:
+        trace_shadow.launches += 1
     return out
 
 

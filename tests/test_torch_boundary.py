@@ -408,11 +408,21 @@ def _assert_warp_tables(fake, size):
 # the attribute table in range: (index of the ray count n, floats per ray
 # of each output that follows it)
 _TRACE_OUTPUTS = {"hk_trace_closest": (7, (1, 1, 1, 1, 1)),
-                  "hk_trace_full": (8, (1, 1, 3, 2, 1, 1)),
-                  "hk_trace_shadow": (7, (1, 1)),
                   "hk_bvh_closest": (11, (1, 1, 1, 1, 1)),
                   "hk_bvh_full": (12, (1, 1, 3, 2, 1, 1)),
                   "hk_bvh_shadow": (11, (1, 1))}
+# kernels 6 and 7 take one packed table (csrc/trace.cu TraceCall) and
+# write one allocation: floats per ray
+_TRACE_TABLE_WORDS = {"hk_trace_full": 9, "hk_trace_shadow": 2}
+
+
+def _trace_rays(name, args):
+    """The ray count of a tracer kernel's launch."""
+    if name in _TRACE_TABLE_WORDS:
+        from hikari_tpu_torch.ops import trace_pallas
+
+        return trace_pallas.TRACE_TABLE.unpack(args[0])[-1]
+    return args[_TRACE_OUTPUTS[name][0]]
 
 
 class _ZeroingLibrary(_FakeLibrary):
@@ -420,16 +430,26 @@ class _ZeroingLibrary(_FakeLibrary):
 
     def __getattr__(self, name):
         fn = super().__getattr__(name)
-        if name not in _TRACE_OUTPUTS:
-            return fn
-        at, widths = _TRACE_OUTPUTS[name]
+        if name in _TRACE_TABLE_WORDS:
+            from hikari_tpu_torch.ops import trace_pallas
 
-        def zeroing(*args):
-            fn.argtypes = zeroing.argtypes
-            rc = fn(*args)
-            for k, width in enumerate(widths):
-                ctypes.memset(args[at + 1 + k], 0, 4 * width * args[at])
-            return rc
+            def zeroing(*args):
+                fn.argtypes = zeroing.argtypes
+                rc = fn(*args)
+                out, n = trace_pallas.TRACE_TABLE.unpack(args[0])[-3::2]
+                ctypes.memset(out, 0, 4 * _TRACE_TABLE_WORDS[name] * n)
+                return rc
+        elif name in _TRACE_OUTPUTS:
+            at, widths = _TRACE_OUTPUTS[name]
+
+            def zeroing(*args):
+                fn.argtypes = zeroing.argtypes
+                rc = fn(*args)
+                for k, width in enumerate(widths):
+                    ctypes.memset(args[at + 1 + k], 0, 4 * width * args[at])
+                return rc
+        else:
+            return fn
 
         setattr(self, name, zeroing)
         return zeroing
@@ -483,8 +503,8 @@ def test_cuda_wrappers_marshal_and_count_with_checkerboard(monkeypatch,
         if reuse:
             assert _gather_sources(fake.args[1]) == 2
         for name, a in zip(fake.calls, fake.args):
-            if name in _TRACE_OUTPUTS:                    # the lit half
-                assert a[_TRACE_OUTPUTS[name][0]] == 12 * 16 // 2
+            if name in _TRACE_OUTPUTS or name in _TRACE_TABLE_WORDS:
+                assert _trace_rays(name, a) == 12 * 16 // 2  # the lit half
     assert [fn.launches for fn in wrappers] == (
         [2, 2, 0, 2, 5, 5, 8] if reuse else [2, 0, 2, 0, 0, 0, 8])
 
