@@ -8,6 +8,7 @@ parent tree unpacked under build/parent:
 
     python3 chip_variants.py [--rounds N] [--only full|shadow]
     python3 chip_variants.py --stats
+    python3 chip_variants.py --host
 
 The calls: every kernel 6 and 7 call of KR's frames 4 and 5 (a panning
 camera; frame 5 validates the emissive channel). The parent's kernels take
@@ -17,8 +18,10 @@ this tree's (chip_smoke.py --ab compares the two trees' wrappers).
 --stats prints, per kernel 7 call, the share of (warp, triangle) pairs
 in which no ray of the warp passes ads >= eps and ud >= 0 (the
 warp-uniform early reject's cover), for warps of 32, 64 and 128
-consecutive rays. Prints one line per (variant, call) and a JSON summary
-to chiprun_out/variants.json.
+consecutive rays. --host prints the host time of each part of the
+wrappers' CUDA branch. Prints one line per (variant, call), each build's
+SASS instruction count (cuobjdump; the listings under chiprun_out/) and a
+JSON summary to chiprun_out/variants*.json.
 """
 
 from __future__ import annotations
@@ -40,21 +43,26 @@ PARENT = os.path.join(HERE, "build", "parent", "hikari_tpu_torch", "csrc")
 
 SHADOW = {
     "parent": ("parent", []),
-    "r1_t256": ("", ["-DSHADOW_RAYS=1", "-DSHADOW_THREADS=256"]),
+    "r1_t128": ("", ["-DSHADOW_RAYS=1"]),
     "r2_t128": ("", ["-DSHADOW_RAYS=2"]),
-    "r2_t128_mb8": ("", ["-DSHADOW_RAYS=2", "-DSHADOW_MIN_BLOCKS=8"]),
+    "r2_t64": ("", ["-DSHADOW_RAYS=2", "-DSHADOW_THREADS=64",
+                    "-DSHADOW_MIN_BLOCKS=8"]),
+    "r2_t256": ("", ["-DSHADOW_RAYS=2", "-DSHADOW_THREADS=256",
+                     "-DSHADOW_MIN_BLOCKS=2"]),
+    "r2_t128_u2": ("", ["-DSHADOW_RAYS=2", "-DSHADOW_UNROLL=2"]),
+    "r2_t128_mb6": ("", ["-DSHADOW_RAYS=2", "-DSHADOW_MIN_BLOCKS=6"]),
+    "r3_t128": ("", ["-DSHADOW_RAYS=3"]),
     "r4_t128": ("", []),
-    "r4_t128_mb8": ("", ["-DSHADOW_MIN_BLOCKS=8"]),
-    "r4_t256_mb2": ("", ["-DSHADOW_THREADS=256", "-DSHADOW_MIN_BLOCKS=2"]),
-    "r2_early": ("", ["-DSHADOW_RAYS=2", "-DSHADOW_EARLY=1"]),
-    "r4_early": ("", ["-DSHADOW_EARLY=1"]),
 }
 FULL = {
     "parent": ("parent", []),
     "r1_t256": ("", []),
-    "r1_t128": ("", ["-DFULL_THREADS=128"]),
-    "r2_t256": ("", ["-DFULL_RAYS=2"]),
     "staged": ("", ["-DFULL_DIRECT_ROWS=0"]),
+    "no_xin": ("", ["-DXPOSE_IN=0"]),
+    "no_xout": ("", ["-DXPOSE_OUT=0"]),
+    "no_xpose": ("", ["-DXPOSE_IN=0", "-DXPOSE_OUT=0"]),
+    "staged_no_xpose": ("", ["-DFULL_DIRECT_ROWS=0", "-DXPOSE_IN=0",
+                             "-DXPOSE_OUT=0"]),
 }
 
 
@@ -239,11 +247,68 @@ def early_cover(calls):
     return out
 
 
+def host_parts(calls):
+    """--host: microseconds of host time of each part of the wrappers'
+    CUDA branch on the first kernel 6 and 7 call (chip_smoke.host_us)."""
+    from hikari_tpu_torch.ops import trace_pallas as tp
+
+    out = {}
+    for wrapper, words_ in (("trace_full", tp.FULL_WORDS),
+                            ("trace_shadow", tp.SHADOW_WORDS)):
+        a = calls[wrapper][0][1]
+        tris, rays = a[0], a[-5:]
+        attrs = a[1] if wrapper == "trace_full" else None
+        ro = rays[0]
+        n, dev = ro.shape[0], ro.device
+        buf = torch.empty(words_ * n, device=dev)
+        views = tp.full_views if attrs is not None else tp.shadow_views
+        table = tp.TRACE_TABLE.pack(*([buf.data_ptr()] * 8), 2, n)
+        fn = tp.bind(tp._load(), f"hk_{wrapper}", "tp")
+        parts = {
+            "wrapper": lambda: getattr(tp, wrapper)(*a),
+            "check_rays": lambda: tp._check_rays(tris, *rays),
+            "empty": lambda: torch.empty(words_ * n, dtype=torch.float32,
+                                         device=dev),
+            "views": lambda: views(buf, n),
+            "pack": lambda: tp.TRACE_TABLE.pack(
+                tris.data_ptr(), 0, ro.data_ptr(), rays[1].data_ptr(),
+                rays[2].data_ptr(), rays[3].data_ptr(), rays[4].data_ptr(),
+                buf.data_ptr(), tris.shape[0], n),
+            "stream": lambda: tp.stream(dev),
+            "load_bind": lambda: tp.bind(tp._load(), f"hk_{wrapper}", "tp"),
+            "launch": lambda: fn(table, tp.stream(dev)),
+        }
+        rec = {k: cs.host_us(f, 200) for k, f in parts.items()}
+        out[wrapper] = rec
+        print(f"{wrapper} host us: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in rec.items()))
+    return out
+
+
+def sass(libs):
+    """cuobjdump -sass of each variant's library into chiprun_out/sass_*;
+    prints the instruction count of each kernel."""
+    import re
+    import subprocess
+
+    for t, lib in libs.items():
+        text = subprocess.run(["cuobjdump", "-sass", lib._name],
+                              capture_output=True, text=True).stdout
+        with open(os.path.join(HERE, "chiprun_out", f"sass_{t}.txt"),
+                  "w") as f:
+            f.write(text)
+        for fn, body in re.findall(r"Function : (\S+)\n(.*?)(?=Function :|\Z)",
+                                   text, re.S):
+            n = len(re.findall(r"/\*[0-9a-f]{4}\*/", body))
+            print(f"  sass {t} {fn}: {n} instructions")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--only", choices=("full", "shadow"))
     ap.add_argument("--stats", action="store_true")
+    ap.add_argument("--host", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device", file=sys.stderr)
@@ -262,17 +327,21 @@ def main():
 
     calls = capture(ht, build_box)
     summary = {}
+    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     if args.stats:
         summary["early_cover"] = early_cover(calls["trace_shadow"])
+    elif args.host:
+        summary["host_us"] = host_parts(calls)
     else:
         for kind, specs in (("full", FULL), ("shadow", SHADOW)):
             if args.only in (None, kind):
                 libs = build_all(specs)
+                sass(libs)
                 summary[kind] = run_variants(f"trace_{kind}", libs,
                                              calls[f"trace_{kind}"],
                                              args.rounds)
-    os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    name = "variants_stats.json" if args.stats else "variants.json"
+    name = ("variants_stats.json" if args.stats else "variants_host.json"
+            if args.host else "variants.json")
     with open(os.path.join(HERE, "chiprun_out", name), "w") as f:
         json.dump(summary, f, indent=1)
     return 0
