@@ -43,26 +43,23 @@ PARENT = os.path.join(HERE, "build", "parent", "hikari_tpu_torch", "csrc")
 
 SHADOW = {
     "parent": ("parent", []),
-    "r1_t128": ("", ["-DSHADOW_RAYS=1"]),
-    "r2_t128": ("", ["-DSHADOW_RAYS=2"]),
-    "r2_t64": ("", ["-DSHADOW_RAYS=2", "-DSHADOW_THREADS=64",
-                    "-DSHADOW_MIN_BLOCKS=8"]),
-    "r2_t256": ("", ["-DSHADOW_RAYS=2", "-DSHADOW_THREADS=256",
-                     "-DSHADOW_MIN_BLOCKS=2"]),
-    "r2_t128_u2": ("", ["-DSHADOW_RAYS=2", "-DSHADOW_UNROLL=2"]),
-    "r2_t128_mb6": ("", ["-DSHADOW_RAYS=2", "-DSHADOW_MIN_BLOCKS=6"]),
-    "r3_t128": ("", ["-DSHADOW_RAYS=3"]),
-    "r4_t128": ("", []),
+    "r2": ("", []),
+    "r2_mskip": ("", ["-DSHADOW_MASK_SKIP=1"]),
+    "r3_mskip": ("", ["-DSHADOW_RAYS=3", "-DSHADOW_MASK_SKIP=1"]),
+    "r4_mskip": ("", ["-DSHADOW_RAYS=4", "-DSHADOW_MASK_SKIP=1"]),
+    "r2_t64_mskip": ("", ["-DSHADOW_THREADS=64", "-DSHADOW_MIN_BLOCKS=8",
+                          "-DSHADOW_MASK_SKIP=1"]),
 }
 FULL = {
     "parent": ("parent", []),
-    "r1_t256": ("", []),
-    "staged": ("", ["-DFULL_DIRECT_ROWS=0"]),
-    "no_xin": ("", ["-DXPOSE_IN=0"]),
-    "no_xout": ("", ["-DXPOSE_OUT=0"]),
+    "staged": ("", []),
     "no_xpose": ("", ["-DXPOSE_IN=0", "-DXPOSE_OUT=0"]),
-    "staged_no_xpose": ("", ["-DFULL_DIRECT_ROWS=0", "-DXPOSE_IN=0",
-                             "-DXPOSE_OUT=0"]),
+    "mb8": ("", ["-DFULL_MIN_BLOCKS=8"]),
+    "mb8_no_xpose": ("", ["-DFULL_MIN_BLOCKS=8", "-DXPOSE_IN=0",
+                          "-DXPOSE_OUT=0"]),
+    "r2": ("", ["-DFULL_RAYS=2"]),
+    "t128": ("", ["-DFULL_THREADS=128"]),
+    "t512": ("", ["-DFULL_THREADS=512"]),
 }
 
 

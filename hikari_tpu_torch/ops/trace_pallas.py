@@ -244,8 +244,23 @@ def shadow_plain(tris, ro, rd, max_t, excl, incl):
 
 
 def _check_rays(tris, ro, rd, max_t, excl, incl):
+    """(device, n) of a tracer call, or raises naming the first bad
+    argument. The common case is one expression (host time counts)."""
     dev = ro.device
     n = ro.shape[0]
+    f32 = torch.float32
+    if (ro.dtype == rd.dtype == max_t.dtype == tris.dtype == f32
+            and excl.dtype == incl.dtype == torch.int32
+            and ro.shape == rd.shape == (n, 3)
+            and max_t.shape == excl.shape == incl.shape == (n,)
+            and tris.dim() == 2 and tris.shape[1] == 10
+            and tris.shape[0] <= MAX_TRIS
+            and tris.device == rd.device == max_t.device == excl.device
+            == incl.device == dev
+            and tris.is_contiguous() and ro.is_contiguous()
+            and rd.is_contiguous() and max_t.is_contiguous()
+            and excl.is_contiguous() and incl.is_contiguous()):
+        return dev, n
     check("tris", tris, torch.float32, (tris.shape[0], 10), dev)
     if tris.shape[0] > MAX_TRIS:
         raise ValueError(f"{tris.shape[0]} triangles > {MAX_TRIS}")

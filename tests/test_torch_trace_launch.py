@@ -213,3 +213,17 @@ def test_abs_det_selection_matches_shadow_accept(maxt, best):
     assert int(edge.sum()) == 2
     want = bool(0.25 * best[1] < best[0]) and 0.25 < maxt
     assert bool(ok[edge].all()) == want and torch.equal(ok[edge], ok_s[edge])
+
+
+def test_one_compare_mask_equals_the_instance_masks():
+    """csrc/trace.cu ray_mask / mask_accepts, in numpy float32: for every
+    real instance id (>= 0), every exclude and every include (-2, the
+    probe's "no pick", -1 and the instances), (inst == key) != ne accepts
+    exactly where inst != excl and (incl < 0 or inst == incl)."""
+    ids = np.arange(-2, 5, dtype=np.float32)
+    inst, excl, incl = np.meshgrid(ids[2:], ids, ids, indexing="ij")
+    ne = incl < 0
+    key = np.where(ne, excl, np.where(incl == excl, np.float32(-1), incl))
+    got = (inst == key) != ne
+    want = (inst != excl) & ((incl < 0) | (inst == incl))
+    assert np.array_equal(got, want) and got.any() and not got.all()
