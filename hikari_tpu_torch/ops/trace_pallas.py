@@ -243,13 +243,18 @@ def shadow_plain(tris, ro, rd, max_t, excl, incl):
     return {"t": t, "inst": _ids(inst)}
 
 
-def _check_rays(tris, ro, rd, max_t, excl, incl):
-    """(device, n) of a tracer call, or raises naming the first bad
-    argument. The common case is one expression (host time counts)."""
+def _check_rays(tris, ro, rd, max_t, excl, incl, attrs=None):
+    """(device, n) of a tracer call (attrs: kernel 6's table, or None), or
+    raises naming the first bad argument. The common case is one
+    expression (host time counts)."""
     dev = ro.device
     n = ro.shape[0]
     f32 = torch.float32
-    if (ro.dtype == rd.dtype == max_t.dtype == tris.dtype == f32
+    if ((attrs is None or (attrs.dtype == f32
+                           and attrs.shape == (tris.shape[0], 17)
+                           and attrs.device == dev
+                           and attrs.is_contiguous()))
+            and ro.dtype == rd.dtype == max_t.dtype == tris.dtype == f32
             and excl.dtype == incl.dtype == torch.int32
             and ro.shape == rd.shape == (n, 3)
             and max_t.shape == excl.shape == incl.shape == (n,)
@@ -269,6 +274,8 @@ def _check_rays(tris, ro, rd, max_t, excl, incl):
     check("max_t", max_t, torch.float32, (n,), dev)
     check("excl", excl, torch.int32, (n,), dev)
     check("incl", incl, torch.int32, (n,), dev)
+    if attrs is not None:
+        check("attrs", attrs, torch.float32, (tris.shape[0], 17), dev)
     return dev, n
 
 
@@ -323,9 +330,7 @@ def _launch(name, tris, attrs, ro, rd, max_t, excl, incl, words, views):
     """Kernels 6 and 7's CUDA branch: one output allocation of `words` a
     ray, one packed table (TRACE_TABLE); n = 0 launches nothing. Returns
     views(allocation, n)."""
-    dev, n = _check_rays(tris, ro, rd, max_t, excl, incl)
-    if attrs is not None:
-        check("attrs", attrs, torch.float32, (tris.shape[0], 17), dev)
+    dev, n = _check_rays(tris, ro, rd, max_t, excl, incl, attrs)
     if n * FULL_WORDS >= 2 ** 31:
         raise ValueError(f"{n} rays: the kernels index them in 32 bits")
     buf = torch.empty(words * n, dtype=torch.float32, device=dev)
