@@ -183,9 +183,9 @@ __device__ __forceinline__ f3 shade(const Surface& s, f3 amb, f3 v, f3 n,
 }
 
 // ---- the one Moller-Trumbore routine of the port's ray loops
-// (trace_pallas._mt8 and its division-free twin in _kernel_shadow): the
-// kernels of trace.cu (5, 6, 7) go through mt_terms, mt_accepts,
-// closest_tri and shadow_tri; light_fused.cu (B, 4) and trace_bvh.cu (13)
+// (trace_pallas._mt8 and its division-free twin in _kernel_shadow):
+// kernel 5 (trace.cu) goes through mt_terms, mt_accepts and closest_tri;
+// trace.cu's kernels 6 and 7, light_fused.cu (B, 4) and trace_bvh.cu (13)
 // run the same expressions on edge rows (edge_terms).
 
 // Per-triangle terms of a row of HK_TRI floats (v0 v1 v2, instance): the
