@@ -2069,6 +2069,106 @@ def trace_ab(ht, build_box):
     return [rec for rec, *_ in named], device_pass
 
 
+def adversarial_rays(tris, seed=14, origins=48):
+    """Rays over the table tris [P,10] (numpy float32) that reach the cases
+    a reordered or skipped nearest-hit test could get wrong, as CPU tensors
+    (ro, rd, max_t, excl, incl) for the tracer wrappers:
+    * aimed from seeded origins at every real triangle's vertices, at
+      points on its edges (each shared with a neighbour: ties that the
+      lowest index must win) and at its centroid, half of the directions
+      normalized;
+    * grazing each face: from points in its plane (rounded to float32, so
+      det lands around 0 and eps), along its edges and with out-of-plane
+      components from 1e-9 to 1e-3 of the direction;
+    * from the centre of every face towards every other face's points, as
+      bounce rays leave a surface.
+    Masks: seeded excludes (-1 and the instances), includes (-2, -1 and
+    the instances); max_t mostly F32_MAX, else +inf or a seeded distance.
+    at_hit_distance() adds rays whose max_t equals the hit distance."""
+    g = np.random.default_rng(seed)
+    real = tris[tris[:, 9] >= 0].astype(np.float64)
+    v = real[:, :9].reshape(-1, 3, 3)                      # [T, 3, 3]
+    lo, hi = v.reshape(-1, 3).min(0), v.reshape(-1, 3).max(0)
+    centre = v.mean(1)
+    w = np.array([[1, 0, 0], [0, 1, 0], [0, 0, 1], [.5, .5, 0], [0, .5, .5],
+                  [.5, 0, .5], [2 / 3, 1 / 3, 0], [0, .9, .1], [.1, 0, .9],
+                  [1 / 3, 1 / 3, 1 / 3]])
+    targets = np.einsum("kj,tjc->tkc", w, v).reshape(-1, 3)
+    o = g.uniform(lo - 0.2, hi + 0.2, (origins, 3))
+    ro = [np.repeat(o, len(targets), 0)]
+    rd = [np.tile(targets, (origins, 1)) - ro[0]]
+    # grazing: in each face's plane, along its edges and nearly so
+    e1, e2 = v[:, 1] - v[:, 0], v[:, 2] - v[:, 0]
+    nrm = np.cross(e1, e2)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    for start in (centre, v[:, 0] - 0.5 * e1, centre + 0.25 * (e1 - e2)):
+        for d in (e1, e2, e2 - e1, -e1):
+            for s in (0.0, 1e-9, 1e-8, 1e-7, 1e-6, 1e-4, 1e-3, -1e-7):
+                ro.append(start - d)
+                rd.append(d + s * np.linalg.norm(d, axis=1,
+                                                 keepdims=True) * nrm)
+    # from each face's centre (nudged off it) to every other face's points
+    for k in range(len(v)):
+        src = centre[k] + 1e-4 * nrm[k] * g.choice((-1.0, 1.0))
+        ro.append(np.repeat(src[None], len(targets), 0))
+        rd.append(targets - src)
+    ro, rd = np.concatenate(ro), np.concatenate(rd)
+    unit = g.random(len(rd)) < 0.5
+    rd[unit] /= np.linalg.norm(rd[unit], axis=1, keepdims=True)
+    n = len(ro)
+    inst = np.unique(real[:, 9]).astype(np.int32)
+    excl = np.where(g.random(n) < 0.5, -1, g.choice(inst, n))
+    incl = np.where(g.random(n) < 0.8, g.choice((-2, -1), n),
+                    g.choice(inst, n))
+    max_t = np.where(g.random(n) < 0.8, np.float32(3.4028235e38),
+                     np.where(g.random(n) < 0.5, np.inf,
+                              g.uniform(0.0, 4.0, n)))
+    return (torch.from_numpy(ro.astype(np.float32)),
+            torch.from_numpy(rd.astype(np.float32)),
+            torch.from_numpy(max_t.astype(np.float32)),
+            torch.from_numpy(excl.astype(np.int32)),
+            torch.from_numpy(incl.astype(np.int32)))
+
+
+def at_hit_distance(rays, t, hit):
+    """The rays that hit (bool plane `hit`, t their nearest distance) three
+    times over, with max_t = t (that hit fails dist < max_t, so an
+    equally near later triangle must fail too) and one float32 ulp either
+    side of it."""
+    ro, rd, _, excl, incl = (r[hit] for r in rays)
+    t = t[hit]
+    max_t = torch.cat([t, torch.nextafter(t, torch.full_like(t, np.inf)),
+                       torch.nextafter(t, torch.zeros_like(t))])
+    return (ro.repeat(3, 1), rd.repeat(3, 1), max_t, excl.repeat(3),
+            incl.repeat(3))
+
+
+def check_closest_adversarial(tp, tris):
+    """Kernel 5 word for word against closest_plain on adversarial_rays
+    over the table tris (on the card), and on the same rays with max_t at
+    their hit distance."""
+    dev = tris.device
+    rays = tuple(r.to(dev) for r in adversarial_rays(tris.cpu().numpy()))
+    ref = tp.closest_plain(tris, *rays)
+    sets = [("aimed and grazing", rays, ref)]
+    hit = ref["prim"] >= 0
+    near = at_hit_distance(rays, ref["t"], hit)
+    sets.append(("max_t at the hit distance", near,
+                 tp.closest_plain(tris, *near)))
+    for what, r, want in sets:
+        got = tp.trace_closest(tris, *r)
+        torch.cuda.synchronize()
+        keys = sorted(want)
+        eq = words_equal([got[k] for k in keys], [want[k] for k in keys])
+        print(f"kernel trace_closest on {r[0].shape[0]} {what} rays over "
+              f"the box ({float((want['prim'] >= 0).float().mean()):.3f} "
+              f"hit): {', '.join(keys)} equal to the plain version {eq} "
+              "(need True)")
+        if not eq:
+            fail(f"trace_closest disagrees with its plain version on the "
+                 f"{what} rays")
+
+
 def check_checkerboard(ht, build_box):
     """Kernels 5, 6, 7 and 9 bit for bit and kernel C on the inputs path KR
     gives them at 1080p with the camera panning (an emissive validation
@@ -2119,6 +2219,7 @@ def check_checkerboard(ht, build_box):
         rec = trace_record(tp, name, plain, replaces, calls[0])
         rec["max_abs_err"] = err
         records.append(rec)
+    check_closest_adversarial(tp, trace_calls[0][0][0][0])
     first = COUNTERS.index("trace_closest")
     want = [kr_launches(settings, n)[first:first + 3] for n in keep]
     got_calls = [len(c) for c in trace_calls]

@@ -45,12 +45,13 @@ DISTANCE_MAX = 65535.0
 # the small-scene engine's cap (hikari_tpu's brute_force_max); make_tracer
 # raises above it
 MAX_TRIS = 768
-# csrc/trace.cu TraceCall, kernels 6 and 7's argument table: tris, attrs
-# (0 for kernel 7), ro, rd, max_t, excl, incl, the output allocation
-# (pointers); n_tris, n (ints)
+# csrc/trace.cu TraceCall, kernels 5, 6 and 7's argument table: tris,
+# attrs (0 for kernels 5 and 7), ro, rd, max_t, excl, incl, the output
+# allocation (pointers); n_tris, n (ints)
 TRACE_TABLE = struct.Struct("<8Q2i")
-# the output words a ray of kernels 6 and 7 (t, prim, normal 3, uv 2, mat,
-# inst; t, inst): the planes of one allocation
+# the output words a ray of kernels 5, 6 and 7 (t, u, v, prim, inst; t,
+# prim, normal 3, uv 2, mat, inst; t, inst): the planes of one allocation
+CLOSEST_WORDS = 5
 FULL_WORDS = 9
 SHADOW_WORDS = 2
 
@@ -285,27 +286,13 @@ def _load():
     return load_cuda("trace")
 
 
-def trace_closest(tris, ro, rd, max_t, excl, incl):
-    """Kernel 5: tris [P,10] f32, ro/rd [N,3] f32, max_t [N] f32,
-    excl/incl [N] int32. Returns closest_plain's dict; runs it for CPU
-    tensors and launches hk_trace_closest for CUDA tensors."""
-    if on_cpu(ro):
-        return closest_plain(tris, ro, rd, max_t, excl, incl)
-    dev, n = _check_rays(tris, ro, rd, max_t, excl, incl)
-    out = {k: torch.empty(n, dtype=torch.float32, device=dev)
-           for k in ("t", "u", "v")}
-    out["prim"] = torch.empty(n, dtype=torch.int32, device=dev)
-    out["inst"] = torch.empty(n, dtype=torch.int32, device=dev)
-    fn = bind(_load(), "hk_trace_closest", "pipppppipppppp")
-    rc = fn(ptr(tris), tris.shape[0], ptr(ro), ptr(rd), ptr(max_t),
-            ptr(excl), ptr(incl), n, ptr(out["t"]), ptr(out["u"]),
-            ptr(out["v"]), ptr(out["prim"]), ptr(out["inst"]), stream(dev))
-    check_launch(rc, "trace_closest")
-    trace_closest.launches += 1
-    return out
-
-
-trace_closest.launches = 0
+def closest_views(buf, n):
+    """Kernel 5's outputs as views of its allocation buf [5 n] f32 (the
+    kernel's planes, in order): {t, u, v, prim (int32), inst (int32)}."""
+    f, i = buf.as_strided, buf.view(torch.int32).as_strided
+    return {"t": f((n,), (1,), 0), "u": f((n,), (1,), n),
+            "v": f((n,), (1,), 2 * n), "prim": i((n,), (1,), 3 * n),
+            "inst": i((n,), (1,), 4 * n)}
 
 
 def full_views(buf, n):
@@ -327,7 +314,7 @@ def shadow_views(buf, n):
 
 
 def _launch(name, tris, attrs, ro, rd, max_t, excl, incl, words, views):
-    """Kernels 6 and 7's CUDA branch: one output allocation of `words` a
+    """Kernels 5, 6 and 7's CUDA branch: one output allocation of `words` a
     ray, one packed table (TRACE_TABLE); n = 0 launches nothing. Returns
     views(allocation, n)."""
     dev, n = _check_rays(tris, ro, rd, max_t, excl, incl, attrs)
@@ -341,6 +328,23 @@ def _launch(name, tris, attrs, ro, rd, max_t, excl, incl, words, views):
             incl.data_ptr(), buf.data_ptr(), tris.shape[0], n)
         check_launch(bind(_load(), name, "tp")(table, stream(dev)), name)
     return views(buf, n)
+
+
+def trace_closest(tris, ro, rd, max_t, excl, incl):
+    """Kernel 5: tris [P,10] f32, ro/rd [N,3] f32, max_t [N] f32,
+    excl/incl [N] int32. Returns closest_plain's dict; runs it for CPU
+    tensors and launches hk_trace_closest for CUDA tensors (its outputs
+    views of one allocation, closest_views)."""
+    if on_cpu(ro):
+        return closest_plain(tris, ro, rd, max_t, excl, incl)
+    out = _launch("hk_trace_closest", tris, None, ro, rd, max_t, excl, incl,
+                  CLOSEST_WORDS, closest_views)
+    if ro.shape[0]:
+        trace_closest.launches += 1
+    return out
+
+
+trace_closest.launches = 0
 
 
 def trace_full(tris, attrs, ro, rd, max_t, excl, incl):

@@ -407,13 +407,13 @@ def _assert_warp_tables(fake, size):
 # the tracer kernels' outputs, zeroed by the fake so that the frame indexes
 # the attribute table in range: (index of the ray count n, floats per ray
 # of each output that follows it)
-_TRACE_OUTPUTS = {"hk_trace_closest": (7, (1, 1, 1, 1, 1)),
-                  "hk_bvh_closest": (11, (1, 1, 1, 1, 1)),
+_TRACE_OUTPUTS = {"hk_bvh_closest": (11, (1, 1, 1, 1, 1)),
                   "hk_bvh_full": (12, (1, 1, 3, 2, 1, 1)),
                   "hk_bvh_shadow": (11, (1, 1))}
-# kernels 6 and 7 take one packed table (csrc/trace.cu TraceCall) and
+# kernels 5, 6 and 7 take one packed table (csrc/trace.cu TraceCall) and
 # write one allocation: floats per ray
-_TRACE_TABLE_WORDS = {"hk_trace_full": 9, "hk_trace_shadow": 2}
+_TRACE_TABLE_WORDS = {"hk_trace_closest": 5, "hk_trace_full": 9,
+                      "hk_trace_shadow": 2}
 
 
 def _trace_rays(name, args):
