@@ -2143,24 +2143,43 @@ def at_hit_distance(rays, t, hit):
             incl.repeat(3))
 
 
-def check_closest_adversarial(tp, tris):
-    """Kernel 5 word for word against closest_plain on adversarial_rays
-    over the table tris (on the card), and on the same rays with max_t at
-    their hit distance."""
+# a power of two that takes kernel 5 off near_rcp's fast form: directions
+# (and edges) of 2^42, and with both, determinants past 2^126
+HUGE = 2.0 ** 42
+
+
+def closest_sets(tp, tris):
+    """Kernel 5's adversarial calls over the table tris: [(what, tris, ro,
+    rd, max_t, excl, incl)] on tris' device. adversarial_rays; the rays
+    that hit again with max_t at their hit distance (at_hit_distance);
+    the rays with every other warp's directions (64 rays) scaled by HUGE
+    (those warps take the exact division); the table and the rays scaled
+    by HUGE (determinants of 2^126 and more, and overflows)."""
     dev = tris.device
     rays = tuple(r.to(dev) for r in adversarial_rays(tris.cpu().numpy()))
     ref = tp.closest_plain(tris, *rays)
-    sets = [("aimed and grazing", rays, ref)]
-    hit = ref["prim"] >= 0
-    near = at_hit_distance(rays, ref["t"], hit)
-    sets.append(("max_t at the hit distance", near,
-                 tp.closest_plain(tris, *near)))
-    for what, r, want in sets:
-        got = tp.trace_closest(tris, *r)
+    near = at_hit_distance(rays, ref["t"], ref["prim"] >= 0)
+    ro, rd, *rest = rays
+    warp = (torch.arange(rd.shape[0], device=dev) // 64) % 2 == 1
+    big = tris.clone()
+    big[:, :9] *= HUGE
+    return [("aimed and grazing", tris, *rays),
+            ("max_t at the hit distance", tris, *near),
+            ("every other warp's directions x 2^42", tris, ro,
+             torch.where(warp[:, None], rd * HUGE, rd), *rest),
+            ("table and rays x 2^42", big, ro * HUGE, rd * HUGE, *rest)]
+
+
+def check_closest_adversarial(tp, tris):
+    """Kernel 5 word for word against closest_plain on closest_sets over
+    the table tris (on the card)."""
+    for what, *a in closest_sets(tp, tris):
+        want = tp.closest_plain(*a)
+        got = tp.trace_closest(*a)
         torch.cuda.synchronize()
         keys = sorted(want)
         eq = words_equal([got[k] for k in keys], [want[k] for k in keys])
-        print(f"kernel trace_closest on {r[0].shape[0]} {what} rays over "
+        print(f"kernel trace_closest on {a[1].shape[0]} {what} rays over "
               f"the box ({float((want['prim'] >= 0).float().mean()):.3f} "
               f"hit): {', '.join(keys)} equal to the plain version {eq} "
               "(need True)")

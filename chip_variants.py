@@ -10,6 +10,7 @@ parent tree unpacked under build/parent:
     python3 chip_variants.py [--rounds N] [--only TAG,TAG]
     python3 chip_variants.py --stats
     python3 chip_variants.py --host
+    python3 chip_variants.py --rcp
 
 The calls: kernel 5's bounce call of KR's frames 4 and 5 (a panning
 camera; frame 5 validates the emissive channel). The parent's kernel takes
@@ -21,7 +22,8 @@ the warp passes the sign skip's test (the masks, |det| >= eps and the t
 numerator of det's strict sign), for warps of 32, 64 and 128 consecutive
 rays, and the share of (ray, triangle) pairs the full test accepts.
 --host prints the host time of each part of the wrapper's CUDA branch and
-of the ways to cut its outputs. Prints one line per (variant, call), each
+of the ways to cut its outputs. --rcp checks near_rcp's fast form against
+`1.0f / x` on every float of its range, and __frcp_rn on every float. Prints one line per (variant, call), each
 build's SASS instruction count and the instructions of its triangle loop
 (cuobjdump; the listings under chiprun_out/) and a JSON summary to
 chiprun_out/variants*.json.
@@ -50,17 +52,48 @@ OUT = os.path.join(HERE, "chiprun_out")
 VARIANTS = {
     "parent": ("parent", []),
     "base": ("", []),
-    "frcp": ("", ["-DCLOSEST_FRCP=1"]),
-    "carry": ("", ["-DCLOSEST_CARRY=1"]),
-    "skip": ("", ["-DCLOSEST_SKIP=1"]),
-    "r1_t128": ("", ["-DCLOSEST_RAYS=1"]),
-    "r1_t256": ("", ["-DCLOSEST_RAYS=1", "-DCLOSEST_THREADS=256"]),
-    "r3": ("", ["-DCLOSEST_RAYS=3"]),
-    "r4": ("", ["-DCLOSEST_RAYS=4"]),
+    "exact": ("", ["-DCLOSEST_FAST=0"]),
+    "mb8": ("", ["-DCLOSEST_MIN_BLOCKS=8"]),
     "t256": ("", ["-DCLOSEST_THREADS=256"]),
     "t64_mb8": ("", ["-DCLOSEST_THREADS=64", "-DCLOSEST_MIN_BLOCKS=8"]),
-    "mb8": ("", ["-DCLOSEST_MIN_BLOCKS=8"]),
+    "r1_t128": ("", ["-DCLOSEST_RAYS=1"]),
+    "r3": ("", ["-DCLOSEST_RAYS=3"]),
 }
+
+# near_rcp's fast form against `1.0f / x` for every float whose exponent
+# field is 1..252, and __frcp_rn against `1.0f / x` for every float (NaNs
+# equal when both are NaN)
+RCP_CHECK = r"""
+__device__ __forceinline__ float fast_rcp(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return __fmaf_rn(r, __fmaf_rn(-x, r, 1.0f), r);
+}
+__global__ void rcp_kernel(unsigned long long* bad, unsigned* first) {
+  unsigned long long step = (unsigned long long)gridDim.x * blockDim.x;
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x +
+                              threadIdx.x; i < (1ull << 32); i += step) {
+    unsigned bits = (unsigned)i;
+    float x = __uint_as_float(bits);
+    float ref = 1.0f / x;
+    float f = __frcp_rn(x);
+    if (__float_as_uint(f) != __float_as_uint(ref) && !(f != f && ref != ref))
+      atomicAdd(bad + 1, 1ull);
+    unsigned e = (bits >> 23) & 0xffu;
+    if (e >= 1u && e <= 252u) {
+      atomicAdd(bad + 2, 1ull);
+      if (__float_as_uint(fast_rcp(x)) != __float_as_uint(ref)) {
+        atomicAdd(bad, 1ull);
+        atomicMin(first, bits);
+      }
+    }
+  }
+}
+extern "C" int rcp_check(unsigned long long* bad, unsigned* first) {
+  rcp_kernel<<<132 * 16, 256>>>(bad, first);
+  return (int)cudaDeviceSynchronize();
+}
+"""
 
 
 def start(tag, where, flags):
@@ -86,7 +119,8 @@ def build_all(specs):
         for line in log.splitlines():
             if "Compiling entry" in line:
                 entry = line
-            if entry and "closest_kernel" in entry and (
+            if entry and ("closest_kernel" in entry or
+                          "shadow_kernel" in entry) and (
                     "registers" in line or "spill" in line):
                 print(f"  trace {t}: {line.strip()}")
         libs[t] = ctypes.CDLL(out)
@@ -108,14 +142,11 @@ def capture(ht, build_box):
 
 
 def adversarial(tris):
-    """The adversarial ray sets of chip_smoke over the box table."""
+    """chip_smoke's adversarial calls of kernel 5 over the box table."""
     from hikari_tpu_torch.ops import trace_pallas as tp
 
-    dev = tris.device
-    rays = tuple(r.to(dev) for r in cs.adversarial_rays(tris.cpu().numpy()))
-    ref = tp.closest_plain(tris, *rays)
-    near = cs.at_hit_distance(rays, ref["t"], ref["prim"] >= 0)
-    return [("adversarial", (tris, *rays)), ("at_hit", (tris, *near))]
+    return [(what.split()[0] + what.split()[-1], tuple(a))
+            for what, *a in cs.closest_sets(tp, tris)]
 
 
 def parent_call(lib, a):
@@ -312,10 +343,45 @@ def host_parts(calls):
     return {"median": rec, "all": out}
 
 
+def rcp_check():
+    """Builds and runs RCP_CHECK; returns and prints the mismatch counts."""
+    from hikari_tpu_torch import build as b
+
+    src = os.path.join(b.BUILD_DIR, "variants", "rcp_check.cu")
+    os.makedirs(os.path.dirname(src), exist_ok=True)
+    with open(src, "w") as f:
+        f.write(RCP_CHECK)
+    out = src[:-3] + ".so"
+    proc, tmp = b._start([b.nvcc_path(), *b._NVCC_FLAGS, src], out)
+    b._finish(proc, tmp, out, "rcp_check.cu")
+    fn = ctypes.CDLL(out).rcp_check
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p]
+    bad = torch.zeros(3, dtype=torch.int64, device="cuda")
+    first = torch.full((1,), -1, dtype=torch.int32, device="cuda")
+    rc = fn(bad.data_ptr(), first.data_ptr())
+    rec = {"rc": rc, "fast_mismatches": int(bad[0]),
+           "frcp_mismatches": int(bad[1]), "fast_checked": int(bad[2]),
+           "first_fast_mismatch": f"{int(first[0]) & 0xffffffff:#010x}"}
+    print(f"rcp check: {rec}")
+    return rec
+
+
+def loops(ins):
+    """The spans (start, end address) of the backward branches of a
+    function's instructions [(address, text)], outermost first."""
+    spans = []
+    for addr, s in ins:
+        m = re.search(r"BRA\s+0x([0-9a-f]+)", s)
+        if m and int(m.group(1), 16) < addr:
+            spans.append((int(m.group(1), 16), addr))
+    return sorted(spans, key=lambda sp: sp[0] - sp[1])
+
+
 def sass(libs):
     """cuobjdump -sass of each variant's library into chiprun_out/; prints
-    kernel 5's instruction count and its triangle loop's (the span of its
-    longest backward branch) by opcode."""
+    kernels 5's and 7's instruction counts and each of their loops' (the
+    span of a backward branch) by opcode."""
     out = {}
     for t, lib in libs.items():
         text = subprocess.run(["cuobjdump", "-sass", lib._name],
@@ -324,29 +390,26 @@ def sass(libs):
             f.write(text)
         for fn, body in re.findall(
                 r"Function : (\S+)\n(.*?)(?=Function :|\Z)", text, re.S):
-            if "closest" not in fn:
+            if "closest" not in fn and "shadow" not in fn:
                 continue
             ins = re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", body)
             ins = [(int(a, 16), s.strip()) for a, s in ins]
-            loop = (0, 0)
-            for addr, s in ins:
-                m = re.search(r"BRA\s+(?:`?\(?\.?L_x_\d+\)?|0x([0-9a-f]+))",
-                              s)
-                if m and m.group(1) and int(m.group(1), 16) < addr:
-                    start = int(m.group(1), 16)
-                    if addr - start > loop[1] - loop[0]:
-                        loop = (start, addr)
-            body_ins = [s for a, s in ins if loop[0] <= a <= loop[1]]
-            ops = {}
-            for s in body_ins:
-                op = re.sub(r"^@!?U?P\w+\s+", "", s).split()[0].split(".")[0]
-                ops[op] = ops.get(op, 0) + 1
-            out[t] = {"function": fn, "instructions": len(ins),
-                      "loop": len(body_ins), "loop_ops": ops}
-            print(f"  sass {t} {fn}: {len(ins)} instructions, loop "
-                  f"{len(body_ins)}: " + ", ".join(
-                      f"{k} {v}" for k, v in sorted(
-                          ops.items(), key=lambda kv: -kv[1])))
+            rec = {"instructions": len(ins), "loops": []}
+            for lo, hi in loops(ins):
+                body_ins = [s for a, s in ins if lo <= a <= hi]
+                ops = {}
+                for s in body_ins:
+                    op = re.sub(r"^@!?U?P\w+\s+", "", s).split()[0]
+                    op = op.split(".")[0]
+                    ops[op] = ops.get(op, 0) + 1
+                rec["loops"].append({"span": [lo, hi], "n": len(body_ins),
+                                     "ops": ops})
+                print(f"  sass {t} {fn}: loop {lo:#x}-{hi:#x} "
+                      f"{len(body_ins)}: " + ", ".join(
+                          f"{k} {v}" for k, v in sorted(
+                              ops.items(), key=lambda kv: -kv[1])))
+            print(f"  sass {t} {fn}: {len(ins)} instructions")
+            out[f"{t} {fn}"] = rec
     return out
 
 
@@ -356,6 +419,7 @@ def main():
     ap.add_argument("--only", help="comma-separated variant tags")
     ap.add_argument("--stats", action="store_true")
     ap.add_argument("--host", action="store_true")
+    ap.add_argument("--rcp", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device", file=sys.stderr)
@@ -371,6 +435,10 @@ def main():
         return box.build_cornell_box("hikari_tpu_torch")
 
     os.makedirs(OUT, exist_ok=True)
+    if args.rcp:
+        with open(os.path.join(OUT, "variants_rcp.json"), "w") as f:
+            json.dump(rcp_check(), f, indent=1)
+        return 0
     calls = capture(ht, build_box)
     summary = {}
     if args.stats:
