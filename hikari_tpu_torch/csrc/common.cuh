@@ -183,38 +183,20 @@ __device__ __forceinline__ f3 shade(const Surface& s, f3 amb, f3 v, f3 n,
 }
 
 // ---- the one Moller-Trumbore routine of the port's ray loops
-// (trace_pallas._mt8 and its division-free twin in _kernel_shadow):
-// kernel 5 (trace.cu) goes through mt_terms, mt_accepts and closest_tri;
-// trace.cu's kernels 6 and 7, light_fused.cu (B, 4) and trace_bvh.cu (13)
-// run the same expressions on edge rows (edge_terms).
+// (trace_pallas._mt8 and its division-free twin in _kernel_shadow, whose
+// expressions ops/trace_pallas.py mt_terms writes out): trace.cu's kernels
+// 5, 6 and 7, light_fused.cu (B, 4) and trace_bvh.cu (13) run them on
+// staged edge rows (edge_terms), kernel A (prepass_fused.cu) on its staged
+// per-frame terms.
 
-// Per-triangle terms of a row of HK_TRI floats (v0 v1 v2, instance): the
-// determinant and the numerators of u, v and t.
+// The determinant and the numerators of u, v and t of a triangle.
 struct MT {
   float det, uu, vv, dist;
 };
 
-__device__ __forceinline__ MT mt_terms(const float* r, f3 o, f3 d) {
-  float abx = r[3] - r[0], aby = r[4] - r[1], abz = r[5] - r[2];
-  float acx = r[6] - r[0], acy = r[7] - r[1], acz = r[8] - r[2];
-  float ux = d.y * acz - d.z * acy;
-  float uy = d.z * acx - d.x * acz;
-  float uz = d.x * acy - d.y * acx;
-  MT m;
-  m.det = abx * ux + aby * uy + abz * uz;
-  float aox = o.x - r[0], aoy = o.y - r[1], aoz = o.z - r[2];
-  m.uu = aox * ux + aoy * uy + aoz * uz;
-  float vx = aoy * abz - aoz * aby;
-  float vy = aoz * abx - aox * abz;
-  float vz = aox * aby - aoy * abx;
-  m.vv = d.x * vx + d.y * vy + d.z * vz;
-  m.dist = acx * vx + acy * vy + acz * vz;
-  return m;
-}
-
-// mt_terms on an edge row of three float4s (v0 + instance, v1 - v0, v2 -
-// v0; kernels B, 4 and 13): the same expressions, with the edges read
-// instead of subtracted (the same IEEE subtractions, done once).
+// The terms of an edge row of three float4s (v0 + instance, v1 - v0, v2 -
+// v0): trace_pallas.mt_terms' expressions, with the edges read instead of
+// subtracted (the same IEEE subtractions, done once).
 __device__ __forceinline__ MT edge_terms(float4 a, float4 b, float4 c, f3 o,
                                          f3 d) {
   float ux = d.y * c.z - d.z * c.y;
@@ -246,31 +228,6 @@ struct Closest {
   float inst;     // -1 on a miss
 };
 
-// One triangle row of a nearest-hit loop (trace_pallas.closest_accept):
-// takes the hit into c when the masks accept the triangle and it is
-// strictly nearer than c.t and below maxt.
-__device__ __forceinline__ void closest_tri(const float* r, int i, f3 o,
-                                            f3 d, float maxt, float excl,
-                                            float incl, Closest& c) {
-  float inst = r[9];
-  if (!mt_accepts(inst, excl, incl)) return;
-  MT m = mt_terms(r, o, d);
-  float inv_det = fabsf(m.det) < HK_F32_EPS ? 0.0f : 1.0f / m.det;
-  float u = m.uu * inv_det;
-  float v = m.vv * inv_det;
-  float dist = m.dist * inv_det;
-  bool ok = fabsf(m.det) >= HK_F32_EPS && u >= 0.0f && u <= 1.0f &&
-            v >= 0.0f && u + v <= 1.0f && dist > HK_F32_EPS &&
-            dist < maxt && dist < c.t;
-  if (ok) {
-    c.t = dist;
-    c.u = u;
-    c.v = v;
-    c.prim = i;
-    c.inst = inst;
-  }
-}
-
 __device__ __forceinline__ Closest closest_miss() {
   Closest c;
   c.t = HK_F32_MAX;
@@ -278,17 +235,6 @@ __device__ __forceinline__ Closest closest_miss() {
   c.v = 0.0f;
   c.prim = -1;
   c.inst = -1.0f;
-  return c;
-}
-
-// Nearest accepted hit over tris rows in index order (trace_pallas._kernel):
-// a triangle wins only when strictly nearer, so the lowest index wins ties.
-__device__ __forceinline__ Closest closest_hit(const float* tris, int n, f3 o,
-                                               f3 d, float maxt, float excl,
-                                               float incl) {
-  Closest c = closest_miss();
-  for (int i = 0; i < n; i++)
-    closest_tri(tris + HK_TRI * i, i, o, d, maxt, excl, incl, c);
   return c;
 }
 
@@ -325,30 +271,6 @@ __device__ __forceinline__ Occluder occluder_none() {
   return b;
 }
 
-// One triangle row of a division-free occluder loop
-// (trace_pallas.shadow_accept): every test multiplied by |det|, the
-// nearest compare by cross-multiplication.
-__device__ __forceinline__ void shadow_tri(const float* r, f3 o, f3 d,
-                                           float maxt, float excl,
-                                           float incl, Occluder& b) {
-  float inst = r[9];
-  if (!mt_accepts(inst, excl, incl)) return;
-  MT m = mt_terms(r, o, d);
-  float s = sgnf(m.det);
-  float ads = m.det * s;
-  float ud = m.uu * s;
-  float vd = m.vv * s;
-  float td = m.dist * s;
-  bool ok = ads >= HK_F32_EPS && ud >= 0.0f && vd >= 0.0f &&
-            ud + vd <= ads && td > HK_F32_EPS * ads && td < maxt * ads &&
-            td * b.ads < b.td * ads;
-  if (ok) {
-    b.td = td;
-    b.ads = ads;
-    b.inst = inst;
-  }
-}
-
 // One division per ray, at the end.
 __device__ __forceinline__ Shadow shadow_result(const Occluder& b) {
   Shadow sh;
@@ -356,17 +278,6 @@ __device__ __forceinline__ Shadow shadow_result(const Occluder& b) {
   sh.t = sh.occluded ? b.td / b.ads : HK_F32_MAX;
   sh.inst = b.inst;
   return sh;
-}
-
-// Division-free nearest-occluder loop (trace_pallas._kernel_shadow) over
-// tris rows in index order.
-__device__ __forceinline__ Shadow shadow_sweep(const float* tris, int n, f3 o,
-                                               f3 d, float maxt, float excl,
-                                               float incl) {
-  Occluder b = occluder_none();
-  for (int i = 0; i < n; i++)
-    shadow_tri(tris + HK_TRI * i, o, d, maxt, excl, incl, b);
-  return shadow_result(b);
 }
 
 // ---- the 64 B packed reservoir (ops/reservoir.py): 16 float planes of an

@@ -102,7 +102,7 @@
 
 #define EDGE_ROW 12
 
-// shadow_sweep (common.cuh) over staged edge rows, for rays that include
+// trace_pallas.shadow_sweep over staged edge rows, for rays that include
 // every instance. ads = |det| and the signs flipped by selection: for det
 // != 0 the words of sgnf(det) * x; for det = 0 or NaN no row passes
 // (ads >= eps fails) either way. The sweeps are not unrolled: unrolled,
@@ -133,7 +133,7 @@ __device__ __forceinline__ Shadow edge_shadow(const float4* rows, int n, f3 o,
   return shadow_result(b);
 }
 
-// trace_full (common.cuh) over staged edge rows: closest_tri's test on
+// trace_pallas.trace_full_sweep over staged edge rows: closest_accept on
 // edge_terms, then the winner's normal and material from its attribute row
 // (17 floats in global memory: the 9 vertex normals, the material at 16).
 __device__ __forceinline__ Hit edge_trace_full(const float4* rows,

@@ -16,7 +16,7 @@
 //
 // Design, against that issue count:
 // * Every ray of kernel A starts at the camera, so the terms of
-//   mt_terms (common.cuh) that do not involve the direction are the same
+//   trace_pallas.mt_terms that do not involve the direction are the same
 //   for every pixel of the frame: the edges ab and ac, ao = cam - v0,
 //   v = ao x ab and the distance numerator ac . v. Each block stages them
 //   once per triangle (stage_tris: four float4 rows, one thread per
@@ -166,7 +166,7 @@ __device__ __forceinline__ void stage_tris(float4* dst, const float* tris,
   }
 }
 
-// closest_tri (common.cuh) for kernel A's rays (maxt = F32_MAX, every
+// trace_pallas.closest_accept for kernel A's rays (maxt = F32_MAX, every
 // instance id >= 0 accepted, checked by the caller) on a staged triangle:
 // the same terms and the same accept test, its conditions evaluated in
 // another order, some of them before the division.

@@ -124,7 +124,7 @@ __device__ __forceinline__ float slab_entry(float4 lo, float4 hi, f3 o,
   return hit ? t_min : HK_F32_MAX;
 }
 
-// closest_tri (common.cuh) on an edge row
+// trace_pallas.closest_accept on an edge row
 __device__ __forceinline__ void closest_edge(float4 a, float4 b, float4 e,
                                              int i, f3 o, f3 d, float maxt,
                                              float excl, float incl,
@@ -148,7 +148,7 @@ __device__ __forceinline__ void closest_edge(float4 a, float4 b, float4 e,
   }
 }
 
-// shadow_tri (common.cuh) on an edge row
+// trace_pallas.shadow_accept on an edge row
 __device__ __forceinline__ void shadow_edge(float4 a, float4 b, float4 e,
                                             f3 o, f3 d, float maxt,
                                             float excl, float incl,

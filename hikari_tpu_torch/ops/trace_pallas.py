@@ -65,7 +65,7 @@ def _tri_scalars(r):
 
 
 def mt_terms(o, d, v0, ab, ac):
-    """Moller-Trumbore terms (common.cuh mt_terms): (det, u numerator, v
+    """Moller-Trumbore terms (common.cuh edge_terms): (det, u numerator, v
     numerator, t numerator). o, d: (x, y, z) ray planes; v0, ab, ac:
     (x, y, z) of the first vertex and the two edges, floats or planes."""
     v0x, v0y, v0z = v0
@@ -103,8 +103,9 @@ def _accepts(inst_i, excl, incl):
 
 
 def closest_accept(terms, maxt, t_best):
-    """The nearest-hit test of one triangle (common.cuh closest_tri):
-    (accepted, u, v, t). A hit is taken only when strictly nearer."""
+    """The nearest-hit test of one triangle (csrc/trace.cu near_test, in
+    the form proved there): (accepted, u, v, t). A hit is taken only when
+    strictly nearer."""
     det, uu, vv, dist = terms
     inv_det = torch.where(torch.abs(det) < F32_EPSILON, 0.0, div(1.0, det))
     u = uu * inv_det
@@ -117,8 +118,8 @@ def closest_accept(terms, maxt, t_best):
 
 
 def shadow_accept(terms, maxt, td_best, ads_best):
-    """The division-free occluder test of one triangle (common.cuh
-    shadow_tri): (accepted, t numerator * sign, |det|)."""
+    """The division-free occluder test of one triangle (csrc/trace.cu
+    occluder_test): (accepted, t numerator * sign, |det|)."""
     det, uu, vv, dist = terms
     s = torch.sign(det)
     ads = det * s
