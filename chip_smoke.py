@@ -46,9 +46,10 @@ Run from the repository root on a machine with an NVIDIA H100:
    emissive validation frame and a frame without one, holding kernels 5,
    6 and 7 (the brute-force tracer; timed by events, on the device and
    on the host) and kernel 9 against their plain
-   versions bit for bit and kernel C on KR's reconstructed variance; and
-   K (checkerboard, no reuse), holding kernel B on its compressed
-   1080x960 domain;
+   versions bit for bit and kernel C on KR's reconstructed variance,
+   kernel 5 also on adversarial rays over the box (closest_sets); and K
+   (checkerboard, no reuse), holding kernel B on its compressed 1080x960
+   domain;
 8. drives the city (BASELINE config 5: 122 instances, 2,618 triangles)
    at 1920x1080 output, HikariSettings() with SMAA 2.0 and an HDR camera,
    the sphere turning each frame through the on-device refit, and holds

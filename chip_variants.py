@@ -11,6 +11,7 @@ parent tree unpacked under build/parent:
     python3 chip_variants.py --stats
     python3 chip_variants.py --host
     python3 chip_variants.py --rcp
+    python3 chip_variants.py --walk-align
 
 The calls: kernel 5's bounce call of KR's frames 4 and 5 (a panning
 camera; frame 5 validates the emissive channel). The parent's kernel takes
@@ -23,7 +24,9 @@ numerator of det's strict sign), for warps of 32, 64 and 128 consecutive
 rays, and the share of (ray, triangle) pairs the full test accepts.
 --host prints the host time of each part of the wrapper's CUDA branch and
 of the ways to cut its outputs. --rcp checks near_rcp's fast form against
-`1.0f / x` on every float of its range, and __frcp_rn on every float. Prints one line per (variant, call), each
+`1.0f / x` on every float of its range, and __frcp_rn on every float.
+--walk-align times kernel 13's city sun-shadow call with its rays moved
+to other alignments. Prints one line per (variant, call), each
 build's SASS instruction count and the instructions of its triangle loop
 (cuobjdump; the listings under chiprun_out/) and a JSON summary to
 chiprun_out/variants*.json.
@@ -413,6 +416,94 @@ def sass(libs):
     return out
 
 
+def walk_align():
+    """--walk-align: kernel 13's city sun-shadow call (frame 1, as
+    chip_smoke.walk_ab captures it): each tensor argument's address modulo
+    512 B, and the device time of the call as captured, with every tensor
+    argument cloned, and with the rays (ro, rd, max_t) moved to 4, 16, 64
+    and 128 B past a 512 B boundary."""
+    from hikari_tpu_torch.examples import city
+    from hikari_tpu_torch.ops import trace as tr
+    from hikari_tpu_torch.ops import trace_cull as tc
+
+    import hikari_tpu_torch as ht
+
+    sc = city.build_scene(3)
+    r = ht.Renderer(sc, cs.city_camera(ht, cs.FULL), ht.HikariSettings())
+    cap = cs.Capture(tr.BvhTracer, "shadow")
+    with cap:
+        for f in range(2):
+            r.update_scene(city.rotate_sphere(sc, cs.city_angle(f)),
+                           fast=True)
+            cap.on = f == 1
+            r.render_frame()
+        torch.cuda.synchronize()
+    a, k = cap.calls[0]
+    wrapper = cs.WALK_MODES["shadow"][0]
+    inner = cs.Capture(tc, wrapper)
+    with inner:
+        inner.on = True
+        cap.fn(*a, **k)
+    wa, wk = inner.calls[0]
+    fn = getattr(tc, wrapper)
+    names = [f"arg{i}" for i in range(len(wa))] + list(wk)
+    vals = list(wa) + list(wk.values())
+    addr = {}
+    for nm, v in zip(names, vals):
+        if torch.is_tensor(v):
+            addr[nm] = (v.data_ptr() % 512, list(v.shape))
+        elif isinstance(v, dict):
+            for kk, t in v.items():
+                if torch.is_tensor(t):
+                    addr[f"{nm}.{kk}"] = (t.data_ptr() % 512, list(t.shape))
+    walk = ("bvh_nodes", "bvh_wide", "bvh_sub_root", "tri_edges",
+            "tri_attr_pad")
+    print("sun call addresses mod 512: " + str(
+        {k: v for k, v in addr.items()
+         if "." not in k or k.split(".")[1] in walk}))
+
+    def moved(t, off):
+        buf = torch.empty(t.numel() + 1024, dtype=t.dtype, device=t.device)
+        base = (-buf.data_ptr() % 512) // t.element_size()
+        out = buf[base + off // t.element_size():][:t.numel()]
+        out = out.view(t.shape)
+        out.copy_(t)
+        return out
+
+    def clone(v):
+        if torch.is_tensor(v):
+            return v.clone()
+        if isinstance(v, dict):
+            return {kk: clone(t) for kk, t in v.items()}
+        return v
+
+    ref = fn(*wa, **wk)
+    recs = {}
+    cases = {"captured": (wa, wk),
+             "cloned": (tuple(clone(v) for v in wa),
+                        {kk: clone(v) for kk, v in wk.items()})}
+    for off in (0, 4, 16, 64, 128):
+        rays = list(wa)
+        for i, v in enumerate(rays):
+            if torch.is_tensor(v) and v.dim() >= 1 and v.shape[0] > 1000:
+                rays[i] = moved(v, off)
+        cases[f"rays at {off} B"] = (tuple(rays), wk)
+    for rnd in range(3):
+        for nm, (ca, ck) in cases.items():
+            out = fn(*ca, **ck)
+            torch.cuda.synchronize()
+            eq = all(torch.equal(out[q].view(torch.int32),
+                                 ref[q].view(torch.int32)) for q in ref)
+            ms = cs.device_ms(lambda ca=ca, ck=ck: fn(*ca, **ck), cs.REPS,
+                              "bvh_kernel")
+            recs.setdefault(nm, {"equal": eq, "device_ms": []})
+            recs[nm]["device_ms"].append(ms)
+    for nm, rec in recs.items():
+        print(f"kernel 13 sun shadow, {nm}: words equal {rec['equal']}, "
+              f"device ms {rec['device_ms']}")
+    return {"addresses": addr, "cases": recs}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=3)
@@ -420,6 +511,7 @@ def main():
     ap.add_argument("--stats", action="store_true")
     ap.add_argument("--host", action="store_true")
     ap.add_argument("--rcp", action="store_true")
+    ap.add_argument("--walk-align", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_variants: no CUDA device", file=sys.stderr)
@@ -435,6 +527,10 @@ def main():
         return box.build_cornell_box("hikari_tpu_torch")
 
     os.makedirs(OUT, exist_ok=True)
+    if args.walk_align:
+        with open(os.path.join(OUT, "variants_walk.json"), "w") as f:
+            json.dump(walk_align(), f, indent=1)
+        return 0
     if args.rcp:
         with open(os.path.join(OUT, "variants_rcp.json"), "w") as f:
             json.dump(rcp_check(), f, indent=1)
