@@ -38,7 +38,7 @@ import struct
 import torch
 
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
-                                          on_cpu, ptr, stream)
+                                          on_cpu, stream)
 from hikari_tpu_torch.utils.math import F32_EPSILON, F32_MAX, normalize
 
 DISTANCE_MAX = 65535.0
