@@ -72,11 +72,25 @@ Run from the repository root on a machine with an NVIDIA H100:
    on the host beside one grid_sample over the same samples (these
    checks run first, before any profiler session: the host reads slower
    after one);
-10. checks small CUDA renders of the seven paths against the plain
+10. drives path F (the scene of examples/scene.py, BASELINE config 4,
+   without its absent glTF model: 1,226 triangles, 4 bounces, FSR 1.0 at
+   ratio 2) at 1920x1080 and holds kernel 13 (the 1080p primary rays and
+   4 bounces of rays at 960x540), 9 (3 sources), C and 11 (TAA at the
+   960x540 render size, a partial group of 128 columns) against their
+   plain versions on the calls of two frames; then the box at 1080p on
+   the upscale settings beyond SMAA 2.0, three frames each, every kernel
+   call of the last two against its plain version and a small render
+   against the CPU: the flagship with FSR 1.0 at ratio 1.5 (kernel A's
+   full-only call, B and C at 1280x720), HikariSettings() with SMAA at
+   ratios 1 and 1.5 (11 and 12 at 2160x3840 / 1080x1920 and 1440x2560 /
+   720x1280), HikariSettings() at 1081x1919 (ratio 2 at an odd size: no
+   kernel 8) and checkerboard lighting with SMAA 2.0 (B over 540x480,
+   8);
+11. checks small CUDA renders of the seven paths against the plain
    versions on the CPU, KR on the box with a sun at 270x480 (the solar
    branch of the modular path, kernel 7 on sun rays), and the city and
-   path T at 48x256;
-11. renders the box through Renderer at 1920x1080 on the seven paths
+   paths T and F at 48x256;
+12. renders the box through Renderer at 1920x1080 on the seven paths
    (no reuse; temporal reuse R; temporal + spatial reuse S; P; D;
    checkerboard K; checkerboard + temporal reuse KR): 3 warm-up frames,
    then timed frames with the launch counters set to 0, which must rise
@@ -84,11 +98,13 @@ Run from the repository root on a machine with an NVIDIA H100:
    city's and T's validation frames trace more); then the city the same
    way, each frame update_scene(rotate_sphere(...), fast=True) +
    render_frame(); then path T, whose 1080p image must differ from the
-   untextured scene's on the spheres; then P and D alternately, frame by
+   untextured scene's on the spheres; then path F (with --profile also
+   FSR's share of its device time); then P and D alternately, frame by
    frame;
-12. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
+13. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
    frame_ms_smaa2, frame_ms_default, frame_ms_ckb, frame_ms_ckb_reuse,
-   frame_ms_city with city_refit_ms, frame_ms_simple (path T), P's and
+   frame_ms_city with city_refit_ms, frame_ms_simple (path T),
+   frame_ms_scene (path F), P's and
    D's alternating medians, one JSON line of per-kernel numbers of the
    kernels the paths run, one of kernel 13's mode `hit` (no path traces
    without attributes), and last {"ok": true, "device": {...}}.
@@ -151,6 +167,7 @@ FULL = (1080, 1920)   # (height, width) of the flagship frame
 SUN = (270, 480)      # the directional-branch check
 SMALL = (48, 64)
 CITY_SMALL = (48, 256)  # the city's CUDA-vs-CPU render (128-wide groups)
+ODD = (1081, 1919)    # ratio 2 at an odd output size (render 541x960)
 CITY_EYE, CITY_TARGET = (0.0, 2.5, 20.0), (0.0, 0.0, 0.0)
 # where check_city makes its own tensors (a CPU rehearsal of this script
 # sets "cpu")
@@ -395,6 +412,18 @@ def simple_launches(settings, number):
     960x540 lighting domain, each launch sampling both textured slots
     (base colour and emissive)."""
     return city_launches(settings, number)[:-1] + (2,)
+
+
+def scene_launches(settings, number):
+    """Path F's launches in frame `number` (the scene of examples/scene.py,
+    1,226 triangles: kernel 13 for every ray): the city's, with the
+    bounce, its probe (full) and its shadow ray once per bounce (4), and
+    TAA's warp alone (no SMAA; FSR launches no kernel of the port's)."""
+    vd = int(number % settings.direct_validate_interval == 0)
+    ve = int(number % settings.emissive_validate_interval == 0)
+    b = settings.indirect_bounces
+    return (0, 0, 1, 0, 0, 4, 1, 0, 0, 0, 0, 0, 2 + ve + 2 * b,
+            2 + vd + ve + b, 0)
 
 
 # the seven paths of the box: their settings, and the launches of COUNTERS
@@ -1335,13 +1364,11 @@ def print_kernel_times(label, rec):
     print(line)
 
 
-def check_warps(wb, w2, band_calls, multi_calls):
-    """Kernels 11 and 12 against their plain versions on the captured
-    calls; returns their records (row 11: the TAA call at the output
-    size, with SMAA's tone call beside it, keys *_smaa_call; max_abs_err
-    over every call). Each call is timed by events, on the device and on
-    the host, and the nearest ones beside one grid_sample."""
-    err11 = err12 = 0.0
+def check_band_calls(wb, band_calls):
+    """Kernel 11 against its plain version on captured calls: nearest
+    sources bit for bit, filtered ones within 1e-5 * max(|ref|, 1) on
+    >= 99.99% of values. Returns the max abs error."""
+    err11 = 0.0
     for a, _ in band_calls:
         _, kinds, sy, _ = a
         got = wb.warp_band(*a)
@@ -1361,6 +1388,13 @@ def check_warps(wb, w2, band_calls, multi_calls):
                   f"max abs err {err:.3g}")
             if frac < need:
                 fail("kernel 11 disagrees with its plain version")
+    return err11
+
+
+def check_multi_calls(w2, multi_calls):
+    """Kernel 12 against its plain version on captured calls, bit for
+    bit. Returns the max abs error."""
+    err12 = 0.0
     for a, k in multi_calls:
         got = w2.warp_multi(*a, **k)
         ref = w2.multi_plain(*a, k.get("dtype") == torch.bfloat16)
@@ -1371,6 +1405,17 @@ def check_warps(wb, w2, band_calls, multi_calls):
               f"{tuple(a[0].shape)}: words equal {ok} (need True)")
         if not ok:
             fail("kernel 12 disagrees with its plain version")
+    return err12
+
+
+def check_warps(wb, w2, band_calls, multi_calls):
+    """Kernels 11 and 12 against their plain versions on the captured
+    calls; returns their records (row 11: the TAA call at the output
+    size, with SMAA's tone call beside it, keys *_smaa_call; max_abs_err
+    over every call). Each call is timed by events, on the device and on
+    the host, and the nearest ones beside one grid_sample."""
+    err11 = check_band_calls(wb, band_calls)
+    err12 = check_multi_calls(w2, multi_calls)
 
     taa = next(c for c in reversed(band_calls) if "catmull" in c[0][1])
     smaa = next(c for c in reversed(band_calls) if c[0][1] == ("nearest",))
@@ -3017,7 +3062,7 @@ def compare_renders(ht, scene_of, size, name, settings, frames):
 def check_small_render(ht, build_box):
     """Small CUDA renders of the seven paths against the plain versions on
     the CPU, KR on the box with a sun at 270x480 (the modular path's solar
-    channel), and the city and path T at 48x256."""
+    channel), and the city and paths T and F at 48x256."""
     for name, (settings_of, _) in PATHS.items():
         compare_renders(ht, build_box, SMALL, name, settings_of(ht),
                         3 if name == "no-reuse" else 4)
@@ -3025,6 +3070,7 @@ def check_small_render(ht, build_box):
                     PATHS["KR"][0](ht), 4)
     compare_city_render(ht, CITY_SMALL, 4)
     compare_simple_render(ht, CITY_SMALL, 4)
+    compare_scene_render(ht, CITY_SMALL, 4)
 
 
 def main_path(ht, build_box, name, timed, profile):
@@ -3212,6 +3258,254 @@ def alternate_post_paths(ht, build_box, timed):
     return med, times
 
 
+def scene_camera(ht, size):
+    """examples/scene.py's camera at `size` (height, width)."""
+    from hikari_tpu_torch.examples import scene
+
+    return ht.Camera.from_look_at(scene.EYE, scene.TARGET, width=size[1],
+                                  height=size[0])
+
+
+def scene_renderer(ht, size, device=None):
+    """Path F: the scene of examples/scene.py (BASELINE config 4, without
+    its absent FlightHelmet model) at its settings and camera."""
+    from hikari_tpu_torch.examples import scene
+
+    r = ht.Renderer(scene.build_scene(), scene_camera(ht, size),
+                    scene.settings(), device=device)
+    if r.gpu_scene.num_triangles != 1226:
+        fail("path F's scene is not the 1,226-triangle scene")
+    return r
+
+
+def compare_scene_render(ht, size, frames):
+    """Path F at `size` on CUDA against the plain versions on the CPU:
+    SSIM >= 0.98 and mean abs diff < 1e-3."""
+    img_gpu, img_cpu = (scene_renderer(ht, size, device).render(frames)
+                        for device in (None, "cpu"))
+    s = ssim(np.clip(img_gpu[..., :3], 0, 1), np.clip(img_cpu[..., :3], 0, 1))
+    mad = float(np.abs(img_gpu - img_cpu).mean())
+    print(f"small render F {size[0]}x{size[1]}, {frames} frames, CUDA vs "
+          f"CPU plain: SSIM {s:.5f} (need >= 0.98), mean abs diff {mad:.3g} "
+          f"(need < 1e-3)")
+    if not np.isfinite(img_gpu).all() or s < 0.98 or mad >= 1e-3:
+        fail("the CUDA render of path F disagrees with the CPU plain render")
+
+
+def check_scene(ht):
+    """Kernels 13 (full, shadow), 9, C and 11 on the calls path F gives
+    them at 1920x1080 (frame 0 validates both direct channels, frame 1
+    neither): kernel 13 on the 1080p primary rays and on 4 bounces of rays
+    at 960x540, 9 with 3 sources at 960x540, C at 960x540, 11 TAA's fetch
+    at the 960x540 render size (7.5 groups of 128 columns). Returns {record
+    name: its path F numbers}."""
+    from contextlib import ExitStack
+
+    from hikari_tpu_torch import frame as fr
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import reproj_gather as rg
+    from hikari_tpu_torch.ops import trace_cull as tc
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    r = scene_renderer(ht, FULL)
+    caps = [Capture(tc, "bvh_full"), Capture(tc, "bvh_shadow"),
+            Capture(fr, "reproj_gather"), Capture(dnf, "atrous_level"),
+            Capture(wb, "warp_band")]
+    with ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+            c.on = True
+        for _ in range(2):
+            r.render_frame()
+        torch.cuda.synchronize()
+    full_calls, shadow_calls, g_calls, c_calls, wb_calls = (
+        c.calls for c in caps)
+    first = COUNTERS.index("bvh_full")
+    want = [sum(col) for col in zip(*(
+        scene_launches(r.settings, n)[first:first + 2] for n in (0, 1)))]
+    if [len(full_calls), len(shadow_calls)] != want:
+        fail(f"path F's two frames called kernel 13 {len(full_calls)} / "
+             f"{len(shadow_calls)} times (need {want})")
+    check_walk_calls(tc, "full", full_calls, "path F")
+    check_walk_calls(tc, "shadow", shadow_calls, "path F")
+    if any(len(a[0]) != 3 for a, _ in g_calls):
+        fail("path F's gather does not read 3 sources")
+    check_gather_calls(rg, g_calls, "path F")
+    check_levels(dnf, c_calls[-4:], "path F 960x540")
+    check_band_calls(wb, wb_calls)
+    if any(tuple(a[2].shape) != (FULL[0] // 2, FULL[1] // 2)
+           for a, _ in wb_calls):
+        fail("path F's TAA does not run at the render size")
+    taa = wb_calls[-1][0]
+    extra = {"warp_band": dict(
+        ms_scene=event_ms(lambda: wb.warp_band(*taa), REPS),
+        plain_ms_scene=event_ms(lambda: wb.band_plain(*taa), PLAIN_REPS),
+        bound_ms_scene=warp_band_bound(wb_calls[-1])[0])}
+    # frame 1's last bounce (no validation): the full-mode bounce rays
+    a = full_calls[-2][0]
+    extra["trace_bvh_full"] = {
+        f"{k}_scene_bounce4": v for k, v in walk_record(
+            tc, "full", a, "path F bounce 4").items()
+        if k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    return extra
+
+
+def check_box_upscale(ht, build_box):
+    """The box at 1080p on the upscale settings beyond SMAA 2.0, three
+    frames each with the camera panning, every kernel call of the last two
+    frames against its plain version, and a small CUDA render of each
+    against the CPU: the flagship with FSR 1.0 at ratio 1.5 (kernel A's
+    full-only call, B and C at 1280x720); HikariSettings() with SMAA at
+    ratios 1 and 1.5 (11 and 12 at their new shapes); HikariSettings() at
+    1081x1919 (ratio 2 at an odd size: A's full-only call at that size, no
+    kernel 8); checkerboard lighting with SMAA at ratio 2 (B over the
+    540x480 compressed domain, 8 and A)."""
+    from contextlib import ExitStack
+
+    from hikari_tpu_torch import frame as fr
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import light_fused as lf
+    from hikari_tpu_torch.ops import prepass_fused as pf
+    from hikari_tpu_torch.ops import reproj_gather as rg
+    from hikari_tpu_torch.ops import spatial_fused as sf
+    from hikari_tpu_torch.ops import warp2 as w2
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    cases = {
+        "fsr1_1.5": (flagship_settings(ht, upscale=ht.Upscale.fsr1(1.5)),
+                     FULL, SMALL),
+        "smaa_1.0": (dataclasses.replace(
+            ht.HikariSettings(), upscale=ht.Upscale.smaa_tu4x(1.0)), FULL,
+            SMALL),
+        "smaa_1.5": (dataclasses.replace(
+            ht.HikariSettings(), upscale=ht.Upscale.smaa_tu4x(1.5)), FULL,
+            SMALL),
+        "odd_2.0": (ht.HikariSettings(), ODD, (47, 63)),
+        "ckb_smaa_2.0": (flagship_settings(
+            ht, taa=ht.Taa.JASMINE, upscale=ht.Upscale.smaa_tu4x(2.0),
+            checkerboard_lighting=True), FULL, SMALL),
+    }
+    for name, (settings, size, small) in cases.items():
+        caps = [Capture(pf, "prepass_kernel"),
+                Capture(pf, "prepass_quads_kernel"),
+                Capture(fr, "reproj_gather"), Capture(lf, "lighting_kernel"),
+                Capture(sf, "spatial_kernel"), Capture(dnf, "atrous_level"),
+                Capture(wb, "warp_band"), Capture(w2, "warp_multi")]
+        with ExitStack() as stack:
+            for c in caps:
+                stack.enter_context(c)
+            drive(ht, build_box(), size, settings, 3, caps, (1, 2))
+        a_calls, q_calls, g_calls, l_calls, s_calls, c_calls, wb_calls, \
+            wm_calls = (c.calls for c in caps)
+        render = fr.scaled_size(size, settings.upscale_ratio)
+        exact_half = tuple(size) == (2 * render[0], 2 * render[1])
+        print(f"box {name} at {size[0]}x{size[1]} (render {render[0]}x"
+              f"{render[1]}): {len(a_calls)} kernel A, {len(q_calls)} "
+              f"kernel 8, {len(l_calls)} B/4, {len(g_calls)} 9, "
+              f"{len(s_calls)} 10, {len(c_calls)} C, {len(wb_calls)} 11, "
+              f"{len(wm_calls)} 12 calls in 2 frames")
+        if len(a_calls) != 2 or any(a[5] != tuple(size) for a, _ in a_calls):
+            fail(f"box {name}: kernel A did not run once a frame at the "
+                 "output size")
+        smaa = settings.upscale.mode == ht.UpscaleMode.SMAA_TU4X
+        if len(q_calls) != (2 if smaa and exact_half else 0):
+            fail(f"box {name}: kernel 8 ran {len(q_calls)} times")
+        check_prepass_call(pf, a_calls[-1][0], f"box {name}")
+        if q_calls:
+            quads_checks(pf, q_calls, a_calls)
+        for a, k in l_calls:
+            if k.get("temporal"):
+                check_lighting_calls(lf, [(a, k)], f"box {name}")
+            else:
+                check_b_call(lf, a, k, f"box {name}")
+        if g_calls:
+            check_gather_calls(rg, g_calls, f"box {name}")
+        if s_calls:
+            check_spatial_calls(sf, s_calls, f"box {name}")
+        check_levels(dnf, c_calls[-4:], f"box {name}")
+        check_band_calls(wb, wb_calls)
+        check_multi_calls(w2, wm_calls)
+        compare_renders(ht, build_box, small, f"box {name}", settings, 4)
+
+
+def device_total_ms(fn, reps=2):
+    """The device time in ms of everything fn() launches (kernels, copies
+    and fills), per run over `reps` runs, and the number of device
+    kernels per run, from torch.profiler's trace."""
+    from torch.profiler import ProfilerActivity, profile as prof_
+
+    fn()
+    torch.cuda.synchronize()
+    with prof_(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.device_time_total for e in ev) / reps / 1e3,
+            len(ev) / reps)
+
+
+def fsr_share(r):
+    """FSR's share of path F's device time (--profile): EASU + RCAS on
+    the input the frame hands them, against the whole frame, each by
+    device_total_ms."""
+    from hikari_tpu_torch.ops import fsr, post
+
+    cap = Capture(post, "easu")
+    with cap:
+        cap.on = True
+        r.render_frame()
+    (cur, size), _ = cap.calls[-1]
+    ones = torch.ones(tuple(size) + (1,), device=cur.device)
+    sharp = r.settings.upscale.sharpness
+
+    def step():
+        return fsr.rcas(torch.cat([fsr.easu(cur, size), ones], -1), sharp)
+
+    f_ms, f_n = device_total_ms(step)
+    frame_ms, frame_n = device_total_ms(r.render_frame)
+    print(f"  path F FSR (EASU + RCAS, {cur.shape[0]}x{cur.shape[1]} -> "
+          f"{size[0]}x{size[1]}): {f_ms:.4f} ms of device time, {f_n:.0f} "
+          f"device kernels; the frame {frame_ms:.4f} ms, {frame_n:.0f} "
+          f"kernels: FSR's share {f_ms / frame_ms:.4f}")
+    return dict(fsr_device_ms=f_ms, fsr_kernels=f_n,
+                frame_device_ms=frame_ms, frame_kernels=frame_n,
+                fsr_share=f_ms / frame_ms)
+
+
+def scene_path(ht, timed, profile):
+    """Path F through Renderer at 1920x1080: the scene of
+    examples/scene.py at its settings (4 bounces, FSR 1.0 at ratio 2) and
+    camera, static. Returns (frame times, launch counts per wrapper of
+    COUNTERS over the timed frames, FSR's device share with --profile or
+    None)."""
+    r = scene_renderer(ht, FULL)
+    for _ in range(WARMUP_FRAMES):
+        r.render_frame()
+    torch.cuda.synchronize()
+    wrappers = counter_wrappers()
+    for fn in wrappers:
+        fn.launches = 0
+    times = []
+    img = None
+    for _ in range(timed):
+        t = time.perf_counter()
+        img = r.render_frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    counts = [fn.launches for fn in wrappers]
+    expected = [sum(col) for col in zip(*(
+        scene_launches(r.settings, n)
+        for n in range(WARMUP_FRAMES, WARMUP_FRAMES + timed)))]
+    check_run("F", counts, expected, img, timed)
+    share = None
+    if profile:
+        profile_frames(r.render_frame)
+        share = fsr_share(r)
+    return times, counts, share
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -3286,10 +3580,13 @@ def main():
     city_records, hit_record, at_city = check_city(ht, build_box)
     records += city_records
     check_simple_walk(ht)
+    at_scene = check_scene(ht)
+    check_box_upscale(ht, build_box)
     for rec in records + [hit_record]:
         rec.update(at_540p.get(rec["name"], {}))
         rec.update(at_ckb.get(rec["name"], {}))
         rec.update(at_city.get(rec["name"], {}))
+        rec.update(at_scene.get(rec["name"], {}))
         print(f"  {rec['name']}: {rec['ms']:.4f} ms per launch, plain "
               f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}), library {rec['library_ms']}")
@@ -3308,14 +3605,17 @@ def main():
     times, counts = simple_path(ht, TIMED_FRAMES, args.profile)
     frame_ms["T"] = (float(np.median(times)), times)
     launches["T"] = dict(zip(COUNTERS, counts))
+    times, counts, fsr = scene_path(ht, TIMED_FRAMES, args.profile)
+    frame_ms["F"] = (float(np.median(times)), times)
+    launches["F"] = dict(zip(COUNTERS, counts))
     alt_ms, alt_times = alternate_post_paths(ht, build_box, TIMED_FRAMES)
 
     def total(counter, paths=tuple(launches)):
         return sum(launches[p][counter] for p in paths)
 
     # launches over the timed frames of the paths running each kernel:
-    # B runs on no-reuse, P and K, kernel 4 on R, S and D, 13 on the city
-    # and T, 14 on T
+    # B runs on no-reuse, P and K, kernel 4 on R, S and D, 13 on the city,
+    # T and F, 14 on T
     by_name = {
         "prepass_fused": total("prepass"),
         "light_fused": total("lighting", ("no-reuse", "P", "K")),
@@ -3354,6 +3654,9 @@ def main():
     print(json.dumps({
         "frame_ms_simple": frame_ms["T"][0], "simple_triangles": 2510,
         "reps_ms": frame_ms["T"][1], "card": card}))
+    print(json.dumps({
+        "frame_ms_scene": frame_ms["F"][0], "scene_triangles": 1226,
+        "reps_ms": frame_ms["F"][1], "fsr": fsr, "card": card}))
     print(json.dumps({
         "frame_ms_smaa2_alternating": alt_ms["P"],
         "frame_ms_default_alternating": alt_ms["D"],

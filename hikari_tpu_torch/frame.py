@@ -6,12 +6,14 @@ post chain (SMAA TU4X, TAA Jasmine; kernels 11 and 12). The gates are
 hikari_tpu's own predicates (`prepass_fused_eligible`, `fused_eligible`,
 `spatial_fused_active`), on the tracer's kind and the kernels' caps:
 
-* prepass: kernel A for scenes within its gate (at upscale ratio 2 the
-  render-size G-buffer is its strided planes, and SMAA's parity quads are
-  kernel 8's copies of its planes at the four parities); otherwise the
-  tracer's primary rays (ops/prepass.py: prepass), the full-screen
-  albedo, the parity decimation at ratio 2 and SMAA's quads as strided
-  views of the G-buffer;
+* prepass: kernel A for scenes within its gate (where the output is
+  exactly twice the render size, upscale ratio 2 at an even size, the
+  render-size G-buffer is its strided planes and SMAA's parity quads are
+  kernel 8's copies of its planes at the four parities; at any other
+  ratio or size its full-size planes go through the generic resample, as
+  in hikari_tpu/frame.py:160-191); otherwise the tracer's primary rays
+  (ops/prepass.py: prepass), the full-screen albedo and the resample at
+  the ratio; SMAA reads the G-buffer through smaa.parity_context;
 * lighting through the fused kernels where their gate holds: kernel B
   without reuse; with temporal reuse one reprojection gather (kernel 9) of
   every active channel's previous reservoirs, then kernel 4; with spatial
@@ -42,15 +44,17 @@ and spatial reuse runs at the full render size on the merged planes.
 The carry holds the previous view matrices (velocity); with reuse the
 [h,16,w] temporal and spatial reservoir planes at the render size; with
 SMAA or TAA the previous full-res G-buffer; with SMAA the previous tone
-image (render size); with TAA the previous TAA output (post size).
+image (render size); with TAA the previous TAA output (post size: twice
+the render size with SMAA, else the render size, FSR included).
 
-Settings and scenes outside the ported slices raise NotImplementedError
-when the frame function is built: FSR, SMAA at any ratio but 2, other
-ratios than 1 and 2, ratio 2 at an odd output size, checkerboard lighting
-at ratio 2, the spatial tap scramble, spatial reuse without temporal
-reuse, more than 8 emissives, and the modular path without temporal
-reuse (scenes beyond the fused lighting kernel's gate at
-settings without reuse).
+Every upscale hikari_tpu accepts renders: none, SMAA TU4X and FSR 1.0
+(ops/post.py) at any ratio in [1, 2] and any output size, and
+checkerboard lighting at any ratio. Settings and scenes outside the
+ported slices raise NotImplementedError when the frame function is
+built: the spatial tap scramble, spatial reuse without temporal reuse,
+more than 8 emissives, and the modular path without temporal reuse
+(scenes beyond the fused lighting kernel's gate at settings without
+reuse).
 """
 
 from __future__ import annotations
@@ -74,7 +78,7 @@ from hikari_tpu_torch.ops.prepass import frame_jitter, prepass
 from hikari_tpu_torch.ops.reproj_gather import reproj_gather
 from hikari_tpu_torch.ops.sampling import SMALL_EMISSIVE_MAX
 from hikari_tpu_torch.ops.shading import used_slots
-from hikari_tpu_torch.ops.smaa import parity_quads
+from hikari_tpu_torch.ops.smaa import parity_context
 from hikari_tpu_torch.ops.tonemap import tone_mapping
 from hikari_tpu_torch.utils.math import F32_EPSILON
 
@@ -115,23 +119,11 @@ def checkerboard_active(settings: HikariSettings, full_size) -> bool:
     return settings.checkerboard_lighting and render_size[1] % 2 == 0
 
 
-def unsupported_settings(settings: HikariSettings, full_size):
-    """The reasons these settings, at output size `full_size`, lie outside
-    the ported slices."""
+def unsupported_settings(settings: HikariSettings):
+    """The reasons these settings lie outside the ported slices."""
     reasons = []
-    ratio = settings.upscale_ratio
-    if settings.upscale.mode == UpscaleMode.FSR1:
-        reasons.append("upscale=fsr1")
-    elif _smaa(settings) and ratio != 2.0:
-        reasons.append(f"smaa_tu4x at ratio {ratio}")
-    elif ratio not in (1.0, 2.0):
-        reasons.append(f"upscale ratio {ratio}")
-    elif ratio == 2.0 and (full_size[0] % 2 or full_size[1] % 2):
-        reasons.append(f"ratio 2 at the odd output size {tuple(full_size)}")
     if any(_tracks(settings)) and not settings.temporal_reuse:
         reasons.append("spatial reuse without temporal_reuse")
-    if settings.checkerboard_lighting and ratio != 1.0:
-        reasons.append(f"checkerboard_lighting at upscale ratio {ratio}")
     if settings.spatial_tap_scramble:
         reasons.append("spatial_tap_scramble")
     return reasons
@@ -208,7 +200,9 @@ def post_carry_shapes(full_size, settings: HikariSettings) -> dict:
     """The post chain's carries the frame of these settings reads, with
     their shapes (hikari_tpu/frame.py:103-116): the previous G-buffer at
     full size for SMAA or TAA, the previous tone image (render size) for
-    SMAA, the previous TAA output (post size) for TAA."""
+    SMAA, the previous TAA output (post size) for TAA. hikari_tpu's
+    prev_upscale, which its post chain writes and nothing reads
+    (hikari_tpu/ops/post.py:110), has no counterpart."""
     h, w = full_size
     render_size = scaled_size(full_size, settings.upscale_ratio)
     shapes = {}
@@ -311,12 +305,15 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
     tracer (ops/trace.py), which serves the non-fused prepass and the
     modular lighting path. Raises NotImplementedError for anything outside
     the ported slices."""
-    reasons = (unsupported_settings(settings, full_size)
+    reasons = (unsupported_settings(settings)
                + unsupported_scene(num_emissives))
     full_size = tuple(full_size)
     ratio = settings.upscale_ratio
     render_size = scaled_size(full_size, ratio)
-    half = ratio == 2.0     # an exact half within the checks above
+    # kernel A's decimated planes and kernel 8's quads serve an exact half
+    # only (hikari_tpu/frame.py:162-164)
+    exact_half = (ratio == 2.0 and full_size == (2 * render_size[0],
+                                                 2 * render_size[1]))
     post_history = _smaa(settings) or _taa(settings)
     bounces = settings.indirect_bounces
     reuse = settings.temporal_reuse
@@ -460,7 +457,7 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         number = frame["number"]
         jit = frame_jitter(number, settings.taa, settings.upscale.mode)
         albedo_r = smaa_quads = None
-        if fused_pre and half:
+        if fused_pre and exact_half:
             # the render-size G-buffer: kernel A's strided planes
             gbuf, albedo, g, albedo_r = _pf.prepass_fused(
                 scene, view, prev_view, jit, full_size,
@@ -474,11 +471,12 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                 scene, gbuf, view, no_texture,
                 surface=restir.primary_surface(scene, gbuf, no_texture,
                                                tex_slots))
-        if not (fused_pre and half):
+        if not (fused_pre and exact_half):
             g = restir.resample_gbuffer(gbuf, render_size, number, ratio)
         if _smaa(settings):
-            smaa_quads = (_pf.prepass_fused_quads(gbuf) if fused_pre
-                          else parity_quads(gbuf))
+            smaa_quads = (_pf.prepass_fused_quads(gbuf)
+                          if fused_pre and exact_half
+                          else parity_context(gbuf, render_size))
         rand = sample_blue_noise(noise, number, render_size)
         par = None
         g_l, rand_l = g, rand

@@ -41,9 +41,10 @@ def denoise_channels(g, albedo, chans, frame, render_size, ratio: float,
     """Denoise several lighting channels in one cascade (the edge-stopping
     geometry weights are shared). chans: list of (render [h,w,4], variance
     [h,w], firefly bool). albedo_r: the albedo at render size, which the
-    ratio-2 frame takes from the decimated prepass; without it (ratio 1)
-    the full-res `albedo` is the render-size one. Returns the denoised
-    [h,w,4] renders."""
+    frame at an exact half takes from the decimated prepass; without it
+    the full-res `albedo` goes through resample_deferred at the ratio
+    (the identity at ratio 1), as in hikari_tpu/frame.py:566-569. Returns
+    the denoised [h,w,4] renders."""
     if albedo_r is None:
         albedo_r = resample_deferred(albedo, render_size, frame["number"],
                                      ratio)

@@ -1,12 +1,13 @@
 """Post-process routing (the port of hikari_tpu/ops/post.py): SMAA -> TAA
--> resample to the output, then the overlay.
+-> FSR per the settings, then the overlay.
 
 Replicates PostProcessNode::run's texture routing
 (post_process.rs:1140-1312, 930-1060): SMAA reads the tone-mapping history
 and doubles the working size; TAA reads the SMAA output (or the tone
-output) and its own history. The overlay resamples to the camera target
-and NaN pixels fall back to albedo (overlay.wgsl:36-47). FSR is not
-ported: its settings raise when the frame is built.
+output) and its own history; FSR (EASU, then RCAS over an alpha of ones)
+reads the TAA output (or the tone output) and emits the output size. The
+overlay resamples anything else to the camera target and NaN pixels fall
+back to albedo (overlay.wgsl:36-47).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import torch
 
 from hikari_tpu_torch.config import HikariSettings, Taa, UpscaleMode
 from hikari_tpu_torch.ops.filters import resize_bilinear
+from hikari_tpu_torch.ops.fsr import easu, rcas
 from hikari_tpu_torch.ops.smaa import smaa_tu4x
 from hikari_tpu_torch.ops.taa import taa_jasmine
 from hikari_tpu_torch.utils.math import inverse_reinhard_luminance
@@ -31,9 +33,10 @@ def post_chain(gbuf, carry, tone, frame, settings: HikariSettings,
                full_size, render_size, smaa_quads):
     """Returns (final [H,W,4] at full_size, post carry {"prev_tone",
     "prev_taa"} for the stages that ran). smaa_quads: this frame's parity
-    quads with SMAA (kernel 8's or smaa.parity_quads'), else None.
-    hikari_tpu also carries prev_upscale (the chain's output), which
-    nothing reads at these settings; the port leaves it out."""
+    context with SMAA (kernel 8's quads or smaa.parity_context's), else
+    None. hikari_tpu also carries prev_upscale (the chain's output), which
+    it writes and never reads (hikari_tpu/ops/post.py:110); the port
+    leaves it out."""
     full_size = tuple(full_size)
     cur = tone
     post_carry = {}
@@ -46,6 +49,10 @@ def post_chain(gbuf, carry, tone, frame, settings: HikariSettings,
                           frame, frame["clear_color"],
                           post_sizes(settings, render_size))
         post_carry["prev_taa"] = cur
+    if settings.upscale.mode == UpscaleMode.FSR1:
+        up = easu(cur, full_size)
+        ones = torch.ones(full_size + (1,), device=up.device)
+        cur = rcas(torch.cat([up, ones], -1), settings.upscale.sharpness)
     if tuple(cur.shape[:2]) != full_size:
         cur = resize_bilinear(cur, full_size)
     return cur, post_carry

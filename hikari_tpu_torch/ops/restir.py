@@ -1,6 +1,7 @@
 """The parts of hikari_tpu/ops/restir.py the ported frames use: the
 jittered-deferred G-buffer lookup (the identity at upscale ratio 1, the
-parity decimation at ratio 2), the primary surface, the full-screen albedo
+parity decimation at an exact ratio 2, a separable nearest take at any
+other ratio), the primary surface, the full-screen albedo
 of the non-fused prepass (textures through kernel 14), the sun-less
 direct channel, the per-frame
 reprojection (previous-frame coordinates) of the reuse paths, and the
@@ -98,17 +99,33 @@ def parity_decimate(planes, parity: int):
     return [t[parity::2, parity::2].contiguous() for t in planes]
 
 
+def deferred_index(n: int, n_full: int, frame_number: int, ratio: float,
+                   device=None):
+    """The generic branch's index map along one axis (hikari_tpu's
+    restir.py:117-119): clip(int((i + 0.5) * ratio + sign), 0, n_full - 1)
+    for i < n, sign -0.25 on even frames and +0.25 on odd ones, in float32
+    (the ratio rounded to float32, as JAX's weak typing does) and
+    truncated toward zero, not floored."""
+    sign = -0.25 if frame_number & 1 == 0 else 0.25
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    x = (i + 0.5) * float(np.float32(ratio)) + sign
+    return torch.clamp(x.to(torch.int32).to(torch.int64), 0, n_full - 1)
+
+
 def resample_deferred(img, render_size, frame_number: int, ratio: float):
     """Jittered-deferred lookup of a full-res [H,W,...] buffer at render
-    resolution: the identity at ratio 1, the parity decimation at ratio 2
-    (the only ratios the port serves)."""
-    if ratio == 1.0 and tuple(img.shape[:2]) == tuple(render_size):
+    resolution (hikari_tpu's restir.py:93-120): the identity at ratio 1,
+    the parity decimation at ratio 2 when the full size holds twice the
+    render size, else the separable nearest take of `deferred_index`."""
+    h, w = render_size
+    H, W = img.shape[:2]
+    if ratio == 1.0 and (H, W) == (h, w):
         return img
-    if ratio == 2.0 and tuple(img.shape[:2]) == (2 * render_size[0],
-                                                 2 * render_size[1]):
-        return parity_decimate([img], frame_number & 1)[0]
-    raise NotImplementedError(
-        f"upscale ratio {ratio} (render size {render_size}) is not ported")
+    if ratio == 2.0 and H >= 2 * h and W >= 2 * w:
+        return parity_decimate([img[:2 * h, :2 * w]], frame_number & 1)[0]
+    ys = deferred_index(h, H, frame_number, ratio, img.device)
+    xs = deferred_index(w, W, frame_number, ratio, img.device)
+    return img.index_select(0, ys).index_select(1, xs)
 
 
 def resample_gbuffer(gbuf, render_size, frame_number: int, ratio: float):

@@ -1,24 +1,27 @@
 """Filmic SMAA TU4X checkerboard temporal upscaler (smaa.wgsl:81-271), the
-port of hikari_tpu/ops/smaa.py at ratio 2.
+port of hikari_tpu/ops/smaa.py at every ratio in [1, 2].
 
-It renders at half size with alternating diagonal jitter; each frame fills
-2 of the 4 pixels of every output quad (the current sample and the
-reprojected history with clip rejection), and the extrapolate pass fills
-the other diagonal by differential blending of N/E/S/W luminance
-gradients. Taps of the current G-buffer at output coords 2c + parity + k
-are static shifts of its four parity quads (kernel 8's planes, or the
-full-res G-buffer's strided views, `parity_quads`); the two history
-fetches are kernel 11
-(previous tone, nearest) and kernel 12 (previous depth / instance /
-velocity, nearest, bf16 window).
-
-hikari_tpu's `_parity_sample` and `_parity_sample_generic`, which serve
-the ratio-1 and odd-size cases, are not ported: those settings raise when
-the frame is built.
+It renders at the render size with alternating diagonal jitter into an
+output grid of twice the render size; each frame fills 2 of the 4 pixels
+of every output quad (the current sample and the reprojected history
+with clip rejection), and the extrapolate pass fills the other diagonal by
+differential blending of N/E/S/W luminance gradients. The current
+G-buffer is read at output coords 2c + parity + k through a parity
+context (hikari_tpu's _parity_ctx): where the G-buffer holds exactly
+twice the render size (ratio 2 at an even output size), its four parity
+quads (kernel 8's planes, or the G-buffer's strided views,
+`parity_quads`), whose taps are static shifts; otherwise (ratio-1
+supersampling, other ratios, odd sizes) the G-buffer's own planes
+(`Direct`), sampled by hikari_tpu's _parity_sample: static strided
+offsets where the G-buffer is the render size or twice it, else the
+generic nearest take of `generic_index`. The two history fetches are
+kernel 11 (previous tone, nearest) and kernel 12 (previous depth /
+instance / velocity, nearest, bf16 window).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import numpy as np
@@ -47,18 +50,84 @@ def parity_quads(gbuf):
             for a in (0, 1) for b in (0, 1)}
 
 
-def parity_sample(quads, key, parity: int, ky: int = 0, kx: int = 0):
-    """quads[.][key] at output coords (2c + parity + k) for each render-res
-    pixel c: a clamp-to-edge shift of one parity quad (hikari_tpu's
-    _parity_sample_ctx; the clamp acts on the decimated plane)."""
+@dataclasses.dataclass(frozen=True)
+class Direct:
+    """hikari_tpu's "direct" parity context: SMAA's three planes
+    ({"depth", "velocity", "instance"}) at the G-buffer's own size, read
+    through `sample_full` at the render size."""
+
+    planes: dict
+    render_size: tuple
+
+
+def parity_context(gbuf, render_size):
+    """SMAA's reads of the full-res G-buffer `gbuf` (hikari_tpu's
+    _parity_ctx, smaa.py:53-65): its parity quads where it holds twice
+    the render size, else `Direct` over its planes."""
+    h, w = render_size
+    H, W = gbuf["position"].shape[:2]
+    if H < 2 * h or W < 2 * w:
+        return Direct({"depth": gbuf["position"][..., 3],
+                       "velocity": gbuf["velocity_uv"][..., :2],
+                       "instance": gbuf["instance_material"][..., 0]},
+                      tuple(render_size))
+    return parity_quads({k: gbuf[k][:2 * h, :2 * w]
+                         for k in ("position", "velocity_uv",
+                                   "instance_material")})
+
+
+def generic_index(n: int, n_full: int, j: int, k: int, device=None):
+    """hikari_tpu's _parity_sample_generic index map along one axis
+    (smaa.py:90-97): clip(floor((2i + j + k + 0.5) * (n_full / (2n))),
+    0, n_full - 1) for i < n, in float32 with the quotient rounded to
+    float32 first."""
+    i = torch.arange(n, dtype=torch.float32, device=device)
+    x = (2.0 * i + float(j + k) + 0.5) * float(np.float32(n_full / (2 * n)))
+    return torch.clamp(torch.floor(x).to(torch.int64), 0, n_full - 1)
+
+
+def _static_index(n: int, n_full: int, j: int, k: int, device=None):
+    """_parity_sample's static strided map along one axis (smaa.py:115-
+    131, Python doubles): stride 2 where n_full = 2n, else 1, from
+    offset floor((j + k + 0.5) * (n_full / 2n) - 0.5 + 0.5), clamped to
+    the edge."""
+    stride = 2 if n_full == 2 * n else 1
+    o = math.floor((j + k + 0.5) * (n_full / (2.0 * n)) - 0.5 + 0.5)
+    i = torch.arange(n, dtype=torch.int64, device=device)
+    return torch.clamp(o + stride * i, 0, n_full - 1)
+
+
+def sample_full(full, parity: int, render_size, ky: int = 0, kx: int = 0):
+    """`full` [H,W,...] sampled (nearest) at output coords (2c + parity +
+    k) of each render-size pixel c, the output grid twice the render size
+    (hikari_tpu's _parity_sample): the static strided offsets where H and
+    W are each the render size or twice it, else the generic take."""
+    rh, rw = render_size
+    H, W = full.shape[:2]
+    if H in (rh, 2 * rh) and W in (rw, 2 * rw):
+        index = _static_index
+    else:
+        index = generic_index
+    ys = index(rh, H, parity, ky, full.device)
+    xs = index(rw, W, parity, kx, full.device)
+    return full.index_select(0, ys).index_select(1, xs)
+
+
+def parity_sample(ctx, key, parity: int, ky: int = 0, kx: int = 0):
+    """ctx[key] at output coords (2c + parity + k) for each render-res
+    pixel c. Parity quads: a clamp-to-edge shift of one quad (hikari_tpu's
+    _parity_sample_ctx; the clamp acts on the decimated plane); `Direct`:
+    sample_full."""
+    if isinstance(ctx, Direct):
+        return sample_full(ctx.planes[key], parity, ctx.render_size, ky, kx)
     jy, jx = ky + parity, kx + parity
-    return shift_edge(quads[(jy % 2, jx % 2)][key], jy // 2, jx // 2)
+    return shift_edge(ctx[(jy % 2, jx % 2)][key], jy // 2, jx // 2)
 
 
 def smaa_tu4x(quads, prev_gbuf, prev_tone, tone, frame, render_size):
-    """Pass 1 + 2; returns [2rh, 2rw, 4]. quads: the parity planes of the
-    current frame ({(a, b): {"depth", "velocity", "instance"}}: kernel 8's
-    or parity_quads of the G-buffer);
+    """Pass 1 + 2; returns [2rh, 2rw, 4]. quads: the parity context of the
+    current frame's G-buffer (`parity_context`, or kernel 8's planes
+    {(a, b): {"depth", "velocity", "instance"}});
     prev_gbuf at output (full) res; tone / prev_tone at render res."""
     rh, rw = render_size
     oh, ow = 2 * rh, 2 * rw

@@ -1,10 +1,11 @@
 """Top-level Renderer: owns the device scene, its tracer, the frame
 function for the current settings, and the frame carry (the port of
 hikari_tpu/renderer.py for the ported slices: no reuse, temporal reuse,
-temporal + spatial reuse, the post chain of SMAA TU4X at ratio 2 and TAA
-Jasmine, so HikariSettings() itself, checkerboard lighting with and
-without temporal reuse, scenes beyond the fused kernels' caps, such as
-the city, with their per-frame on-device refit, and textured scenes)."""
+temporal + spatial reuse, the post chain of TAA Jasmine, SMAA TU4X and
+FSR 1.0 at every upscale ratio in [1, 2], so HikariSettings() itself,
+checkerboard lighting with and without temporal reuse, scenes beyond the
+fused kernels' caps, such as the city, with their per-frame on-device
+refit, and textured scenes)."""
 
 from __future__ import annotations
 
@@ -87,8 +88,9 @@ class Renderer:
         self._prev_view_initialized = False
 
     def update_settings(self, **changes):
-        """Change settings; a change of a static-key field rebuilds the
-        frame function and resets the carry."""
+        """Change settings; a change of a static-key field (the upscale
+        mode and ratio among them) rebuilds the frame function and resets
+        the carry at the new sizes."""
         old_key = self.settings.static_key()
         settings = dataclasses.replace(self.settings, **changes)
         if settings.static_key() != old_key:

@@ -80,43 +80,75 @@ def _textured(sc, pkg=None):
     return sc
 
 
-@pytest.mark.parametrize("changes,size,scene", [
+@pytest.mark.parametrize("changes,scene", [
     # a scene beyond the fused lighting kernel takes the modular path,
     # whose no-reuse specializations are not ported
-    pytest.param({}, None, _with_sphere, id="large_scene_without_reuse"),
+    pytest.param({}, _with_sphere, id="large_scene_without_reuse"),
     # so does a textured scene (the fused kernels fetch no textures)
-    pytest.param({}, None, _textured, id="textured_scene_without_reuse"),
+    pytest.param({}, _textured, id="textured_scene_without_reuse"),
     pytest.param({"temporal_reuse": True, "indirect_spatial_reuse": True,
                   "spatial_tap_scramble": True},
-                 None, None, id="temporal_reuse_tap_scramble"),
+                 None, id="temporal_reuse_tap_scramble"),
     # spatial reuse without temporal reuse takes the modular path
-    pytest.param({"emissive_spatial_reuse": True}, None, None,
+    pytest.param({"emissive_spatial_reuse": True}, None,
                  id="emissive_spatial_reuse"),
-    pytest.param({"indirect_spatial_reuse": True}, None, None,
+    pytest.param({"indirect_spatial_reuse": True}, None,
                  id="indirect_spatial_reuse"),
-    # checkerboard lighting is ported at upscale ratio 1 only
-    pytest.param({"checkerboard_lighting": True,
-                  "upscale": ht.Upscale.smaa_tu4x(2.0)}, None, None,
-                 id="checkerboard_lighting"),
-    # SMAA only at ratio 2 (its ratio-1 supersampling and other ratios
-    # take hikari_tpu's generic resample), and only at even output sizes
-    pytest.param({"upscale": ht.Upscale.smaa_tu4x(1.5)}, None, None,
-                 id="smaa_ratio_1.5"),
-    pytest.param({"upscale": ht.Upscale.smaa_tu4x(1.0)}, None, None,
-                 id="smaa_ratio_1"),
-    pytest.param({"upscale": ht.Upscale.smaa_tu4x(2.0)}, (47, 64), None,
-                 id="smaa_ratio_2_odd_size"),
-    pytest.param({"upscale": ht.Upscale.fsr1(1.5)}, None, None,
-                 id="upscale"),
 ])
-def test_settings_outside_the_slice_raise(changes, size, scene):
+def test_settings_outside_the_slice_raise(changes, scene):
     settings = dataclasses.replace(_flagship(), **changes)
-    cam = _camera() if size is None else ht.Camera.from_look_at(
-        EYE, TARGET, width=size[1], height=size[0])
+    cam = _camera()
     sc = build_cornell_box("hikari_tpu_torch")
     with pytest.raises(NotImplementedError):
         ht.Renderer(sc if scene is None else scene(sc), cam, settings,
                     device="cpu")
+
+
+@pytest.mark.parametrize("changes,size", [
+    # checkerboard lighting at upscale ratio 2, with SMAA
+    pytest.param({"checkerboard_lighting": True,
+                  "upscale": ht.Upscale.smaa_tu4x(2.0)}, None,
+                 id="checkerboard_lighting"),
+    # SMAA at ratios 1.5 and 1 (its supersampling) and at an odd output
+    # size: hikari_tpu's generic resample and parity samplers
+    pytest.param({"upscale": ht.Upscale.smaa_tu4x(1.5)}, None,
+                 id="smaa_ratio_1.5"),
+    pytest.param({"upscale": ht.Upscale.smaa_tu4x(1.0)}, None,
+                 id="smaa_ratio_1"),
+    pytest.param({"upscale": ht.Upscale.smaa_tu4x(2.0)}, (47, 64),
+                 id="smaa_ratio_2_odd_size"),
+    pytest.param({"upscale": ht.Upscale.fsr1(1.5)}, None, id="upscale"),
+])
+def test_upscale_settings_render(changes, size):
+    """Settings the earlier slices refused render on the CPU: a finite
+    image at the output size, after two frames, with the render size and
+    the post chain's carries at the shapes of hikari_tpu's frame
+    (scaled_size, init_carry). Their whole frames are held against
+    hikari_tpu's in tests/test_torch_frame_{upscale,smaa1,odd,ckb_half}.py
+    and tests/test_torch_frame_scene.py."""
+    import hikari_tpu as hj
+    from hikari_tpu import frame as frame_ref
+
+    settings = dataclasses.replace(_flagship(taa=ht.Taa.JASMINE), **changes)
+    h, w = (12, 16) if size is None else size
+    cam = ht.Camera.from_look_at(EYE, TARGET, width=w, height=h)
+    r = ht.Renderer(build_cornell_box("hikari_tpu_torch"), cam, settings,
+                    device="cpu")
+    img = r.render(2)
+    assert img.shape == (h, w, 4) and np.isfinite(img).all()
+    up = changes["upscale"]
+    ref_settings = dataclasses.replace(
+        hj.HikariSettings(), taa=hj.Taa.JASMINE,
+        checkerboard_lighting=settings.checkerboard_lighting,
+        upscale=hj.Upscale(hj.UpscaleMode(up.mode.value), up.ratio))
+    assert (ht.frame.scaled_size((h, w), settings.upscale_ratio)
+            == frame_ref.scaled_size((h, w), ref_settings.upscale_ratio))
+    ref = frame_ref.init_carry((h, w), ref_settings)
+    for k, v in r.carry.items():
+        if k.startswith("prev_") and k != "prev_gbuffer" and "view" not in k:
+            assert tuple(v.shape) == ref[k].shape, k
+    for k, v in r.carry["prev_gbuffer"].items():
+        assert tuple(v.shape) == ref["prev_gbuffer"][k].shape, k
 
 
 @pytest.mark.parametrize("reuse", [False, True], ids=["K", "KR"])
@@ -568,6 +600,53 @@ def test_cuda_wrappers_marshal_and_count_on_the_city(monkeypatch):
                 assert a[_TRACE_OUTPUTS[name][0]] == 6 * 8
     assert [fn.launches for fn in wrappers] == [
         0, 0, 2, 0, 0, 0, 0, 0, 0, 9, 8, 8, 4, 2]
+
+
+def test_cuda_wrappers_marshal_and_count_on_path_f(monkeypatch):
+    """Path F's launches per frame (the scene of examples/scene.py at its
+    settings: 4 bounces, FSR 1.0 at ratio 2): the city's sequence with the
+    bounce, its probe and its shadow ray 4 times, then a-trous 4 and TAA's
+    warp at the render size; FSR itself launches no kernel of the port's.
+    No kernel A, 8, B, 4, 10, 5, 6, 7 or 12."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.examples import scene
+    from hikari_tpu_torch.ops import (denoise_fused, light_fused,
+                                      prepass_fused, reproj_gather,
+                                      spatial_fused, trace_cull,
+                                      trace_pallas, warp2, warp_band)
+    from tests.test_torch_warp_launch import BAND_FIELDS, decode
+
+    fake = _ZeroingLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    mods = (prepass_fused, reproj_gather, light_fused, spatial_fused,
+            trace_pallas, trace_cull, denoise_fused, warp_band, warp2)
+    for mod in mods:
+        monkeypatch.setattr(mod, "on_cpu", lambda t: False)
+        monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
+    cam = ht.Camera.from_look_at(scene.EYE, scene.TARGET, width=16,
+                                 height=12)
+    r = ht.Renderer(scene.build_scene(), cam, scene.settings(),
+                    device="cpu")
+    for number in range(2):       # frame 0 validates both direct channels
+        fake.calls.clear()
+        fake.args.clear()
+        r.render_frame()
+        v = int(number == 0)
+        assert fake.calls == (
+            ["hk_bvh_full", "hk_reproj_gather"]
+            + ["hk_bvh_shadow"] * (1 + v)
+            + ["hk_bvh_full", "hk_bvh_shadow"] * (1 + v)
+            + ["hk_bvh_full", "hk_bvh_full", "hk_bvh_shadow"] * 4
+            + ["hk_atrous_level"] * 4 + ["hk_warp_band"])
+        assert fake.args[0][12] == 12 * 16                # primary rays
+        assert _gather_sources(fake.args[1]) == 3
+        for name, a in zip(fake.calls[2:], fake.args[2:]):
+            if name.startswith("hk_bvh"):                 # at 6x8
+                assert a[_TRACE_OUTPUTS[name][0]] == 6 * 8
+        # TAA's fetch at the 6x8 render size (the history's size)
+        taa = decode(fake.args[-1][0], warp_band.BAND_TABLE, BAND_FIELDS)
+        assert (taa["h"], taa["w"], taa["hs"]) == (6, 8, 6)
+        assert r.carry["prev_taa"].shape == (6, 8, 4)
 
 
 def _gbuf_planes(h, w):

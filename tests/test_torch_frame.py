@@ -200,6 +200,14 @@ def test_update_settings():
     assert r._frame_index == 0
     assert not np.array_equal(r.render(1), raw)
     with pytest.raises(NotImplementedError):
-        r.update_settings(upscale=ht.Upscale.fsr1(2.0))
+        r.update_settings(temporal_reuse=True, spatial_tap_scramble=True)
     assert r.settings.upscale == ht.Upscale.none()
+    assert not r.settings.spatial_tap_scramble
     assert isinstance(r.render_frame(), torch.Tensor)
+    # into FSR at ratio 2: a new frame and carry (TAA off: no history)
+    r.render_frame()
+    r.update_settings(upscale=ht.Upscale.fsr1(2.0))
+    assert r._frame_index == 0 and set(r.carry) == {
+        "prev_view_proj", "prev_inverse_view_proj"}
+    img = r.render(2)
+    assert img.shape == SIZE + (4,) and np.isfinite(img).all()
