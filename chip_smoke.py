@@ -3359,7 +3359,8 @@ def check_box_upscale(ht, build_box):
     ratios 1 and 1.5 (11 and 12 at their new shapes); HikariSettings() at
     1081x1919 (ratio 2 at an odd size: A's full-only call at that size, no
     kernel 8); checkerboard lighting with SMAA at ratio 2 (B over the
-    540x480 compressed domain, 8 and A)."""
+    540x480 compressed domain, 8 and A) and with FSR 1.0 at ratio 1.5 (B
+    over the 720x640 compressed domain of A's full-only call, no 8)."""
     from contextlib import ExitStack
 
     from hikari_tpu_torch import frame as fr
@@ -3384,6 +3385,10 @@ def check_box_upscale(ht, build_box):
         "ckb_smaa_2.0": (flagship_settings(
             ht, taa=ht.Taa.JASMINE, upscale=ht.Upscale.smaa_tu4x(2.0),
             checkerboard_lighting=True), FULL, SMALL),
+        # the small render's width 66 keeps its render width (44) even
+        "ckb_fsr1_1.5": (flagship_settings(
+            ht, taa=ht.Taa.JASMINE, upscale=ht.Upscale.fsr1(1.5),
+            checkerboard_lighting=True), FULL, (48, 66)),
     }
     for name, (settings, size, small) in cases.items():
         caps = [Capture(pf, "prepass_kernel"),
@@ -3410,6 +3415,11 @@ def check_box_upscale(ht, build_box):
         smaa = settings.upscale.mode == ht.UpscaleMode.SMAA_TU4X
         if len(q_calls) != (2 if smaa and exact_half else 0):
             fail(f"box {name}: kernel 8 ran {len(q_calls)} times")
+        if settings.checkerboard_lighting and not any(
+                tuple(a[6].shape[:2]) == (render[0], render[1] // 2)
+                for a, _ in l_calls):
+            fail(f"box {name}: kernel B did not light the compressed "
+                 "domain")
         check_prepass_call(pf, a_calls[-1][0], f"box {name}")
         if q_calls:
             quads_checks(pf, q_calls, a_calls)

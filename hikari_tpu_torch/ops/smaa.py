@@ -12,9 +12,9 @@ twice the render size (ratio 2 at an even output size), its four parity
 quads (kernel 8's planes, or the G-buffer's strided views,
 `parity_quads`), whose taps are static shifts; otherwise (ratio-1
 supersampling, other ratios, odd sizes) the G-buffer's own planes
-(`Direct`), sampled by hikari_tpu's _parity_sample: static strided
-offsets where the G-buffer is the render size or twice it, else the
-generic nearest take of `generic_index`. The two history fetches are
+(`Direct`), sampled by hikari_tpu's _parity_sample through the nearest
+take of `generic_index` (its static strided offsets at the render size
+or twice it are the same integers). The two history fetches are
 kernel 11 (previous tone, nearest) and kernel 12 (previous depth /
 instance / velocity, nearest, bf16 window).
 """
@@ -86,30 +86,17 @@ def generic_index(n: int, n_full: int, j: int, k: int, device=None):
     return torch.clamp(torch.floor(x).to(torch.int64), 0, n_full - 1)
 
 
-def _static_index(n: int, n_full: int, j: int, k: int, device=None):
-    """_parity_sample's static strided map along one axis (smaa.py:115-
-    131, Python doubles): stride 2 where n_full = 2n, else 1, from
-    offset floor((j + k + 0.5) * (n_full / 2n) - 0.5 + 0.5), clamped to
-    the edge."""
-    stride = 2 if n_full == 2 * n else 1
-    o = math.floor((j + k + 0.5) * (n_full / (2.0 * n)) - 0.5 + 0.5)
-    i = torch.arange(n, dtype=torch.int64, device=device)
-    return torch.clamp(o + stride * i, 0, n_full - 1)
-
-
 def sample_full(full, parity: int, render_size, ky: int = 0, kx: int = 0):
     """`full` [H,W,...] sampled (nearest) at output coords (2c + parity +
     k) of each render-size pixel c, the output grid twice the render size
-    (hikari_tpu's _parity_sample): the static strided offsets where H and
-    W are each the render size or twice it, else the generic take."""
+    (hikari_tpu's _parity_sample). Its static strided offsets, taken
+    where H and W are each the render size or twice it, are the integers
+    `generic_index` gives there (quotient 0.5 or 1.0, exact in float32),
+    so one take serves every size."""
     rh, rw = render_size
     H, W = full.shape[:2]
-    if H in (rh, 2 * rh) and W in (rw, 2 * rw):
-        index = _static_index
-    else:
-        index = generic_index
-    ys = index(rh, H, parity, ky, full.device)
-    xs = index(rw, W, parity, kx, full.device)
+    ys = generic_index(rh, H, parity, ky, full.device)
+    xs = generic_index(rw, W, parity, kx, full.device)
     return full.index_select(0, ys).index_select(1, xs)
 
 

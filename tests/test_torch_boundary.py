@@ -17,6 +17,7 @@ import torch
 
 import hikari_tpu_torch as ht
 from tests.cornell_box import EYE, TARGET, build_cornell_box
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "hikari_tpu_torch")
@@ -118,14 +119,18 @@ def test_settings_outside_the_slice_raise(changes, scene):
     pytest.param({"upscale": ht.Upscale.smaa_tu4x(2.0)}, (47, 64),
                  id="smaa_ratio_2_odd_size"),
     pytest.param({"upscale": ht.Upscale.fsr1(1.5)}, None, id="upscale"),
+    # checkerboard lighting with FSR at ratio 1.5 (render width 12)
+    pytest.param({"checkerboard_lighting": True,
+                  "upscale": ht.Upscale.fsr1(1.5)}, (12, 18),
+                 id="checkerboard_fsr_ratio_1.5"),
 ])
 def test_upscale_settings_render(changes, size):
     """Settings the earlier slices refused render on the CPU: a finite
     image at the output size, after two frames, with the render size and
     the post chain's carries at the shapes of hikari_tpu's frame
     (scaled_size, init_carry). Their whole frames are held against
-    hikari_tpu's in tests/test_torch_frame_{upscale,smaa1,odd,ckb_half}.py
-    and tests/test_torch_frame_scene.py."""
+    hikari_tpu's in tests/test_torch_frame_{upscale,smaa1,odd,ckb_half,
+    ckb_fsr}.py and tests/test_torch_frame_scene.py."""
     import hikari_tpu as hj
     from hikari_tpu import frame as frame_ref
 
@@ -136,6 +141,8 @@ def test_upscale_settings_render(changes, size):
                     device="cpu")
     img = r.render(2)
     assert img.shape == (h, w, 4) and np.isfinite(img).all()
+    assert (ht.frame.checkerboard_active(settings, (h, w))
+            == settings.checkerboard_lighting)
     up = changes["upscale"]
     ref_settings = dataclasses.replace(
         hj.HikariSettings(), taa=hj.Taa.JASMINE,

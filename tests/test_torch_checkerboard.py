@@ -12,6 +12,7 @@ import torch
 
 from hikari_tpu.ops import checkerboard as ref_ops
 from hikari_tpu_torch.ops import checkerboard as ckb
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def words(x):

@@ -12,6 +12,7 @@ from examples import city as city_ref
 from hikari_tpu.models import mesh as mesh_ref
 from hikari_tpu_torch.examples import city
 from hikari_tpu_torch.models import mesh
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # hikari_tpu's arrays the port does not build: the bf16 layouts of the
 # atlas (the port gathers from the f32 atlas) and the tile-cull cluster

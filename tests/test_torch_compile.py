@@ -14,6 +14,7 @@ from hikari_tpu_torch.models.scene import (DirectionalLight, Scene,
                                            make_transform)
 from tests.cornell_box import build_cornell_box
 from tests.test_trace import emissive_scene as emissive_reference
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def emissive_scene():

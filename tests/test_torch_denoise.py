@@ -15,6 +15,7 @@ from hikari_tpu.ops.denoise import denoise_channels as denoise_ref
 from hikari_tpu.ops.denoise_fused import atrous_level as atrous_ref
 from hikari_tpu_torch.ops.denoise import denoise_channels
 from hikari_tpu_torch.ops.denoise_fused import atrous_level
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 H, W = 32, 128   # the Pallas level takes rows in blocks of 16
 

@@ -18,6 +18,7 @@ import hikari_tpu.ops.reproj_gather as reproj_ref
 import hikari_tpu_torch as ht
 from hikari_tpu.utils.image import ssim
 from tests.cornell_box import EYE, TARGET, build_cornell_box
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (48, 64)
 FRAMES = 3

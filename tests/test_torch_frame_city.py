@@ -34,6 +34,7 @@ from examples import city as city_ref
 from hikari_tpu_torch.examples import city
 from tests.test_torch_frame import assert_frames_close, exact_gather
 from tests.test_torch_frame_ckb_reuse import assert_planes_close
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (48, 256)
 FRAMES = 4

@@ -16,6 +16,7 @@ import hikari_tpu_torch as ht
 from tests.cornell_box import build_cornell_box
 from tests.test_torch_frame import SIZE, assert_frames_close, flagship
 from tests.test_torch_frame_ckb_reuse import camera, reference_renderer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FRAMES = 4
 

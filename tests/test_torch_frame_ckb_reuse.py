@@ -24,6 +24,7 @@ from tests.cornell_box import EYE, TARGET, build_cornell_box
 from tests.test_torch_frame import (PAN_PX, SIZE, assert_frames_close,
                                     exact_gather, flagship)
 from tests.test_torch_modular import PallasTracer
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # frames 0-5: frame 0 and frame 5 validate the emissive channel
 # (emissive_validate_interval 5)

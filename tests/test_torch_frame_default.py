@@ -9,6 +9,7 @@ from __future__ import annotations
 from tests.test_torch_frame_post import (SIZE, assert_frames_close,
                                          assert_history_close, render_both)
 from tests.test_torch_light_temporal import _assert_planes_close
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 # the box has no sun: the direct channel traces nothing and keeps its carry
 RESERVOIRS = ("emissive_temporal", "indirect_temporal", "spatial_indirect")

@@ -4,6 +4,7 @@ against hikari_tpu's: see tests/test_torch_frame_upscale.py."""
 from __future__ import annotations
 
 from tests.test_torch_frame_upscale import check_case
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_ratio_2_at_an_odd_size_matches_reference(monkeypatch):

@@ -23,6 +23,7 @@ import hikari_tpu.ops.reproj_gather as reproj_ref
 import hikari_tpu_torch as ht
 from tests.cornell_box import EYE, TARGET, build_cornell_box
 from tests.test_torch_frame import assert_frames_close, exact_gather, flagship
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (48, 256)
 FRAMES = 4

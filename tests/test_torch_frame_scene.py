@@ -17,7 +17,9 @@ reservoir carries (each unpacked field within rtol 1e-2 / atol 1e-3 on
 from the reference's carry through carry_from_jax, bit for bit.
 
 The reference Renderer is built once per module: its frame program takes
-most of this file's time to compile."""
+most of this file's time to compile. The resumed port renders the last
+frame again from the reference's carry before it, so the reference renders
+no frame beyond the four."""
 
 from __future__ import annotations
 
@@ -36,6 +38,7 @@ from hikari_tpu_torch.examples import scene
 from tests.test_torch_frame import assert_frames_close, exact_gather
 from tests.test_torch_frame_ckb_reuse import assert_planes_close
 from tests.test_torch_frame_city import nearest_walk
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (64, 256)
 RENDER = (32, 128)
@@ -56,7 +59,8 @@ def ref_settings():
 @pytest.fixture(scope="module")
 def frames(tmp_path_factory):
     """FRAMES frames through both renderers. Returns (port renderer,
-    reference renderer, [(port image, reference image)])."""
+    reference renderer, [(port image, reference image)], the reference's
+    carry before its last frame, on the host)."""
     mp = pytest.MonkeyPatch()
     mp.setattr(scene_ref, "ASSETS", str(tmp_path_factory.mktemp("assets")))
     mp.setattr(reproj_ref, "reproj_gather", exact_gather)
@@ -66,17 +70,19 @@ def frames(tmp_path_factory):
                          device="cpu")
     images = []
     for _ in range(FRAMES):
+        # a copy: the frame program donates the carry's buffers
+        before_last = jax.tree.map(np.array, ref_r.carry)
         ref = np.asarray(ref_r.render_frame())
         got = port_r.render_frame().numpy()
         images.append((got, ref))
-    yield port_r, ref_r, images
+    yield port_r, ref_r, images, before_last
     mp.undo()
 
 
 def test_scene_is_the_example_without_its_model(frames):
     """The same 1,226 triangles, the tracers and branches of a scene above
     the fused kernels' caps."""
-    port_r, ref_r, _ = frames
+    port_r, ref_r = frames[:2]
     from hikari_tpu_torch import frame
 
     assert port_r.gpu_scene.num_triangles == ref_r.gpu_scene.num_triangles
@@ -100,7 +106,7 @@ def test_scene_carries_match_reference(frames):
     """The temporal reservoir planes, the indirect spatial carry
     (hikari_tpu's packed [h,w,16] rows on its modular path) and the TAA
     history at the render size, after the last frame."""
-    port_r, ref_r, _ = frames
+    port_r, ref_r = frames[:2]
     for k in ht.frame.TEMPORAL_KEYS:
         assert port_r.carry[k].shape == (RENDER[0], 16, RENDER[1])
         assert_planes_close(port_r.carry[k], np.asarray(ref_r.carry[k]), k)
@@ -115,16 +121,16 @@ def test_scene_carries_match_reference(frames):
 
 
 def test_carry_from_jax_continues_the_reference(frames):
-    """The port resumes hikari_tpu's path F from its carry (the spatial
-    rows transposed, the TAA history at the render size, prev_upscale
-    left out) bit for bit, and the next frame agrees with the frame bar."""
-    _, ref_r, _ = frames
-    carry = jax.tree.map(np.asarray, ref_r.carry)
+    """The port resumes hikari_tpu's path F from its carry before the last
+    frame (the spatial rows transposed, the TAA history at the render
+    size, prev_upscale left out) bit for bit, and renders that frame in
+    agreement with the reference's (the frame bar)."""
+    carry = frames[3]
     resumed = ht.Renderer(scene.build_scene(), camera(ht), scene.settings(),
                           device="cpu")
     resumed.carry = ht.frame.carry_from_jax(carry, resumed.settings, "cpu",
                                             full_size=SIZE)
-    resumed._frame_index = FRAMES
+    resumed._frame_index = FRAMES - 1
     resumed._prev_view_initialized = True
     assert "prev_upscale" not in resumed.carry
     for k in ht.frame.SPATIAL_KEYS:
@@ -139,5 +145,5 @@ def test_carry_from_jax_continues_the_reference(frames):
         np.testing.assert_array_equal(
             v.numpy().view(np.uint32),
             carry["prev_gbuffer"][k].view(np.uint32), err_msg=k)
-    ref = np.asarray(ref_r.render_frame())
-    assert_frames_close(resumed.render_frame().numpy(), ref, SIZE)
+    assert_frames_close(resumed.render_frame().numpy(), frames[2][-1][1],
+                        SIZE)

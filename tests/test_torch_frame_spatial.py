@@ -7,6 +7,7 @@ from __future__ import annotations
 import pytest
 
 from tests.test_torch_frame import PATHS, assert_frames_close, render_both
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("pan", [False, True], ids=["static", "pan"])

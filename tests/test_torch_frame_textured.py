@@ -32,6 +32,7 @@ from tests.test_torch_frame import assert_frames_close, exact_gather
 from tests.test_torch_frame_city import nearest_walk
 from tests.test_torch_frame_ckb_reuse import assert_planes_close
 from tests.test_torch_texture import reference_arrays, textured_simple_scenes
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (48, 256)
 FRAMES = 4

@@ -17,6 +17,7 @@ import torch
 from hikari_tpu.ops import fsr as fsr_ref
 from hikari_tpu_torch.frame import scaled_size
 from hikari_tpu_torch.ops import fsr
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FULL = (30, 52)
 RTOL, ATOL = 1e-5, 1e-6

@@ -13,6 +13,7 @@ import torch
 from hikari_tpu_torch import build
 from hikari_tpu_torch.ops import reproj_gather
 from tests.test_torch_boundary import _FakeLibrary
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FIELDS = ("s0", "s1", "s2", "s3", "s4", "d0", "d1", "d2", "d3", "d4",
           "piy", "pix", "n_src", "hs", "h", "w", "f")

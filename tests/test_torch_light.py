@@ -25,6 +25,7 @@ from hikari_tpu_torch.ops.light_fused import fused_lighting
 from tests.cornell_box import EYE, TARGET, build_cornell_box
 from tests.test_light_fused import _assert_close
 from tests.test_trace import emissive_scene
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (48, 64)
 

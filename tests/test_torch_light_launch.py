@@ -17,6 +17,7 @@ import torch
 
 from hikari_tpu_torch import build
 from hikari_tpu_torch.ops import light_fused
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 IO_KEYS = ("render", "var", "packed", "flags", "scatter", "prev")
 FIELDS = ("params", "tris", "attrs", "em_tris", "em_attrs", "mats",

@@ -37,6 +37,7 @@ from hikari_tpu_torch.ops.light_fused import fused_lighting
 from hikari_tpu_torch.ops.reservoir import unpack_fields
 from tests.test_light_fused import _assert_close
 from tests.test_torch_light import CASES, SIZE
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 TEST_FRAMES = (5, 6, 7)
 

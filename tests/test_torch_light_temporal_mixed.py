@@ -7,6 +7,7 @@ from __future__ import annotations
 import pytest
 
 from tests.test_torch_light_temporal import TEST_FRAMES, check_case
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.mark.parametrize("track", [False, True])

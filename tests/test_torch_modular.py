@@ -32,6 +32,7 @@ import hikari_tpu_torch as ht
 from hikari_tpu_torch.ops import restir, sampling
 from hikari_tpu_torch.ops.trace import make_tracer
 from tests.cornell_box import EYE, TARGET, build_cornell_box
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (16, 24)
 

@@ -41,6 +41,7 @@ from hikari_tpu_torch.ops import reservoir as rsv
 from hikari_tpu_torch.ops.trace import make_tracer
 from tests.test_torch_modular import assert_fields, carried, t
 from tests.test_torch_prepass import assert_gbuffer_close
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (32, 64)
 EYE, TARGET = (0.0, 2.5, 20.0), (0.0, 0.0, 0.0)

@@ -38,6 +38,7 @@ from tests.test_torch_modular_spatial import (SIZE, NearestWalk, _frames,
                                               _single_targets,
                                               _assert_spatial_close)
 from tests.test_torch_texture import reference_arrays, textured_simple_scenes
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 EYE, TARGET = (0.0, 1.4, 3.6), (0.0, 1.0, 0.0)
 SPHERES = (6, 7)           # the spheres' instance ids (spawned last)

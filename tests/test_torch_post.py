@@ -38,6 +38,7 @@ from hikari_tpu_torch.ops.prepass import frame_jitter
 from hikari_tpu_torch.ops.smaa import smaa_tu4x
 from hikari_tpu_torch.ops.taa import taa_jasmine
 from tests.cornell_box import EYE, TARGET, build_cornell_box
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FULL = (48, 256)
 RENDER = (24, 128)

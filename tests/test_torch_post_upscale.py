@@ -27,6 +27,7 @@ from hikari_tpu_torch.ops import prepass_fused as pf
 from hikari_tpu_torch.ops.prepass import frame_jitter
 from tests.cornell_box import EYE, TARGET, build_cornell_box
 from tests.test_torch_post import _assert_close, _frames, _np, _tone
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _views(full, i):

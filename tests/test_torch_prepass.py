@@ -21,6 +21,7 @@ from hikari_tpu_torch.ops import prepass as port_prepass
 from hikari_tpu_torch.ops.prepass_fused import prepass_fused
 from tests.cornell_box import EYE, TARGET, build_cornell_box
 from tests.test_trace import emissive_scene
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (48, 64)
 

@@ -24,6 +24,7 @@ from hikari_tpu_torch import build
 from hikari_tpu_torch.ops import prepass_fused
 from hikari_tpu_torch.ops.trace_pallas import mt_terms
 from tests.test_torch_boundary import _FakeLibrary
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 F32 = np.float32
 EPS = F32(1.1920929e-7)

@@ -33,6 +33,7 @@ from hikari_tpu_torch.config import Taa as PortTaa
 from hikari_tpu_torch.config import UpscaleMode as PortUpscaleMode
 from tests.cornell_box import EYE, TARGET, build_cornell_box
 from tests.test_torch_prepass import assert_gbuffer_close
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (48, 64)
 DEC = (24, 32)

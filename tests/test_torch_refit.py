@@ -24,6 +24,7 @@ from hikari_tpu_torch.ops import trace_cull as tc
 from tests.test_torch_trace_cull import (assert_bary_close, assert_close,
                                          assert_ids_agree, city_rays,
                                          near_edge)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 ANGLES = (0.3, 1.7, -2.2)
 

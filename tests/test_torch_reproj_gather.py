@@ -17,6 +17,7 @@ import torch
 from hikari_tpu.ops.reproj_gather import reproj_gather as gather_ref
 from hikari_tpu_torch.ops.reproj_gather import reproj_gather
 from tests.test_reproj_gather import _field
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _motion(kind, mag, h, w):

@@ -13,6 +13,7 @@ import torch
 from hikari_tpu.ops import reservoir as ref
 from hikari_tpu.ops.light_fused import _unpack_take
 from hikari_tpu_torch.ops import reservoir as rsv
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SIZE = (12, 40)
 

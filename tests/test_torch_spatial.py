@@ -29,6 +29,7 @@ from hikari_tpu_torch.utils.math import random_float
 from tests.test_light_fused import _assert_close
 from tests.test_spatial_fused import (SIZE, _ctx, _prev_spatial,
                                       _temporal_reservoir)
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _inputs(emissive_lit, prev_kind, gate):

@@ -26,6 +26,7 @@ from hikari_tpu_torch.ops import spatial_fused
 from hikari_tpu_torch.ops.light_fused import _row_index, material_ids
 from hikari_tpu_torch.utils.math import TAU, random_float
 from tests.test_torch_boundary import _FakeLibrary
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 F32 = np.float32
 SIG = ("params", "mats", "n_mats", "temporal", "prev", "position",

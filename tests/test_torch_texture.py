@@ -38,6 +38,7 @@ from hikari_tpu_torch.examples import simple
 from hikari_tpu_torch.models import material
 from hikari_tpu_torch.ops import shading
 from hikari_tpu_torch.ops import texture_pallas as tx
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 
 def _bits_equal(a, b):

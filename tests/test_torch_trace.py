@@ -34,6 +34,7 @@ from hikari_tpu_torch.ops import trace_pallas as tp
 from hikari_tpu_torch.ops.trace import hit_info, make_tracer
 from tests.cornell_box import build_cornell_box
 from tests.test_trace import simple_scene
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 N_RAYS = 4096
 EDGE_EPS = 1e-5

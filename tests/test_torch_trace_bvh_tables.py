@@ -22,6 +22,7 @@ from hikari_tpu_torch.models import walk_tables as wt
 from hikari_tpu_torch.models.refit_device import DeviceRefitter
 from hikari_tpu_torch.ops import trace_cull as tc
 from tests.test_torch_trace_cull import city_rays
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 CSRC = Path(__file__).resolve().parents[1] / "hikari_tpu_torch" / "csrc"
 

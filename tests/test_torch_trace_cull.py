@@ -43,6 +43,7 @@ from hikari_tpu_torch.ops import trace_cull as tc
 from hikari_tpu_torch.ops import trace_pallas as tp
 from hikari_tpu_torch.ops.prepass import camera_rays
 from tests.cornell_box import build_cornell_box
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 F32_MAX = 3.4028234663852886e38
 EYE, TARGET = (0.0, 2.5, 20.0), (0.0, 0.0, 0.0)

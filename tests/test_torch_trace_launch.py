@@ -27,6 +27,7 @@ from hikari_tpu_torch.ops._kernel import div
 from hikari_tpu_torch.utils.math import F32_EPSILON, F32_MAX
 from tests.cornell_box import build_cornell_box
 from tests.test_torch_boundary import _FakeLibrary
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 FIELDS = ("tris", "attrs", "ro", "rd", "max_t", "excl", "incl", "out",
           "n_tris", "n")

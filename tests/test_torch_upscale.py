@@ -23,6 +23,7 @@ from hikari_tpu.ops import restir as restir_ref
 from hikari_tpu.ops import smaa as smaa_ref
 from hikari_tpu_torch.frame import scaled_size
 from hikari_tpu_torch.ops import fsr, restir, smaa
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 RATIOS = [1.0, 1.3, 1.5, 1.7, 2.0]
 # an even size, an odd one, and one whose halves are not whole

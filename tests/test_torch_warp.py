@@ -27,6 +27,7 @@ from hikari_tpu.ops.warp2 import warp_multi as multi_ref
 from hikari_tpu_torch.ops.warp2 import warp_multi
 from hikari_tpu_torch.ops.warp_band import warp_band
 from tests.test_warp_band import _fields
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BAND = (16, 256)          # two 8-row groups x two 128-wide groups
 MULTI_OUT = (32, 64)      # SMAA's shapes: a source at twice the output

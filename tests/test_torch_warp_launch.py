@@ -12,6 +12,7 @@ import torch
 
 from hikari_tpu_torch import build
 from hikari_tpu_torch.ops import _kernel, warp2, warp_band
+from tests.torch_threads import one_torch_thread  # noqa: F401
 
 BAND_FIELDS = ("src", 4), ("dst", 4), ("sy", 1), ("sx", 1), ("blocks", 1), \
     ("kind", 4), ("f", 4), ("stride", 4), ("n_src", 1), \
