@@ -85,11 +85,18 @@ Run from the repository root on a machine with an NVIDIA H100:
    ratios 1 and 1.5 (11 and 12 at 2160x3840 / 1080x1920 and 1440x2560 /
    720x1280), HikariSettings() at 1081x1919 (ratio 2 at an odd size: no
    kernel 8) and checkerboard lighting with SMAA 2.0 (B over 540x480,
-   8);
+   8); path TN (path T's scene at the flagship settings: the modular path
+   without reuse) over two 1080p frames, every call of kernel 13 (full,
+   shadow), 14 and C against its plain version; the city at
+   HikariSettings() without temporal reuse (indirect spatial reuse alone,
+   the modular spatial pass at 960x540) and the box at HikariSettings()
+   with the spatial tap scramble (the modular path over kernels 5, 6 and
+   7), three frames each, every kernel call of the last two against its
+   plain version and a small render against the CPU;
 11. checks small CUDA renders of the seven paths against the plain
    versions on the CPU, KR on the box with a sun at 270x480 (the solar
    branch of the modular path, kernel 7 on sun rays), and the city and
-   paths T and F at 48x256;
+   paths T, TN and F at 48x256;
 12. renders the box through Renderer at 1920x1080 on the seven paths
    (no reuse; temporal reuse R; temporal + spatial reuse S; P; D;
    checkerboard K; checkerboard + temporal reuse KR): 3 warm-up frames,
@@ -98,13 +105,13 @@ Run from the repository root on a machine with an NVIDIA H100:
    city's and T's validation frames trace more); then the city the same
    way, each frame update_scene(rotate_sphere(...), fast=True) +
    render_frame(); then path T, whose 1080p image must differ from the
-   untextured scene's on the spheres; then path F (with --profile also
-   FSR's share of its device time); then P and D alternately, frame by
-   frame;
+   untextured scene's on the spheres; then path TN; then path F (with
+   --profile also FSR's share of its device time); then P and D
+   alternately, frame by frame;
 13. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
    frame_ms_smaa2, frame_ms_default, frame_ms_ckb, frame_ms_ckb_reuse,
    frame_ms_city with city_refit_ms, frame_ms_simple (path T),
-   frame_ms_scene (path F), P's and
+   frame_ms_simple_noreuse (path TN), frame_ms_scene (path F), P's and
    D's alternating medians, one JSON line of per-kernel numbers of the
    kernels the paths run, one of kernel 13's mode `hit` (no path traces
    without attributes), and last {"ok": true, "device": {...}}.
@@ -424,6 +431,18 @@ def scene_launches(settings, number):
     b = settings.indirect_bounces
     return (0, 0, 1, 0, 0, 4, 1, 0, 0, 0, 0, 0, 2 + ve + 2 * b,
             2 + vd + ve + b, 0)
+
+
+def simple_noreuse_launches(settings, number):
+    """Path TN's launches in frame `number` (path T's scene at the flagship
+    settings; without reuse no frame validates): kernel 13 full for the
+    1080p primary rays, the emissive channel's probe, the bounce and its
+    probe, 13 shadow for the sun's, the emissive channel's and the
+    bounce's NEE shadow rays, a-trous 4, and kernel 14 once (at ratio 1
+    the G-buffer is the lighting domain: one surface serves the albedo
+    and the channels). The same calls as hikari_tpu's tracer gets in its
+    no-reuse frame of this scene (with_info 2, probe_info 2, shadow 3)."""
+    return (0, 0, 0, 0, 0, 4, 0, 0, 0, 0, 0, 0, 4, 3, 1)
 
 
 # the seven paths of the box: their settings, and the launches of COUNTERS
@@ -2262,24 +2281,9 @@ def check_checkerboard(ht, build_box):
     *trace_calls, g_calls, c_calls = (c.calls for c in caps)
 
     records = []
-    for (name, plain, replaces, _), calls in zip(TRACE_KERNELS,
-                                                 trace_calls):
-        err = 0.0
-        for a, _ in calls:
-            got = getattr(tp, name)(*a)
-            ref = getattr(tp, plain)(*a)
-            torch.cuda.synchronize()
-            keys = sorted(ref)
-            eq = words_equal([got[k] for k in keys], [ref[k] for k in keys])
-            err = max(err, max_abs_err([got[k] for k in keys],
-                                       [ref[k] for k in keys]))
-            hits = float((got["inst"] >= 0).float().mean())
-            print(f"kernel {name} KR {a[-5].shape[0]} rays x "
-                  f"{a[0].shape[0]} triangles ({hits:.3f} hit): "
-                  f"{', '.join(keys)} equal to the plain version {eq} "
-                  f"(need True)")
-            if not eq:
-                fail(f"{name} disagrees with its plain version")
+    errs = check_trace_calls(tp, trace_calls, "KR")
+    for (name, plain, replaces, _), calls, err in zip(
+            TRACE_KERNELS, trace_calls, errs):
         # the record from the frame without validation: its first call
         rec = trace_record(tp, name, plain, replaces, calls[0])
         rec["max_abs_err"] = err
@@ -2986,35 +2990,37 @@ def simple_settings(ht):
                                emissive_spatial_reuse=True)
 
 
-def compare_simple_render(ht, size, frames):
-    """Path T at `size` on CUDA against the plain versions on the CPU:
-    SSIM >= 0.98 and mean abs diff < 1e-3."""
+def compare_simple_render(ht, size, frames, settings=None, name="T"):
+    """Path T (or T's scene at other settings) at `size` on CUDA against
+    the plain versions on the CPU: SSIM >= 0.98 and mean abs diff <
+    1e-3."""
     images = []
     for device in (None, "cpu"):
         r = ht.Renderer(simple_scene(), simple_camera(ht, size),
-                        simple_settings(ht), device=device)
+                        settings or simple_settings(ht), device=device)
         images.append(r.render(frames))
     img_gpu, img_cpu = images
     s = ssim(np.clip(img_gpu[..., :3], 0, 1), np.clip(img_cpu[..., :3], 0, 1))
     mad = float(np.abs(img_gpu - img_cpu).mean())
-    print(f"small render T {size[0]}x{size[1]}, {frames} frames, CUDA vs "
-          f"CPU plain: SSIM {s:.5f} (need >= 0.98), mean abs diff {mad:.3g} "
-          f"(need < 1e-3)")
+    print(f"small render {name} {size[0]}x{size[1]}, {frames} frames, CUDA "
+          f"vs CPU plain: SSIM {s:.5f} (need >= 0.98), mean abs diff "
+          f"{mad:.3g} (need < 1e-3)")
     if not np.isfinite(img_gpu).all() or s < 0.98 or mad >= 1e-3:
-        fail("the CUDA render of path T disagrees with the CPU plain render")
+        fail(f"the CUDA render of path {name} disagrees with the CPU plain "
+             "render")
 
 
-def compare_city_render(ht, size, frames):
-    """The city at `size` on CUDA against the plain versions on the CPU,
-    the sphere turning between frames: SSIM >= 0.98 and mean abs diff <
-    1e-3."""
+def compare_city_render(ht, size, frames, settings=None, name="city"):
+    """The city (at HikariSettings() unless `settings` says otherwise) at
+    `size` on CUDA against the plain versions on the CPU, the sphere
+    turning between frames: SSIM >= 0.98 and mean abs diff < 1e-3."""
     from hikari_tpu_torch.examples import city
 
     images = []
     for device in (None, "cpu"):
         sc = city.build_scene(3)
-        r = ht.Renderer(sc, city_camera(ht, size), ht.HikariSettings(),
-                        device=device)
+        r = ht.Renderer(sc, city_camera(ht, size),
+                        settings or ht.HikariSettings(), device=device)
         for f in range(frames):
             if f:
                 r.update_scene(city.rotate_sphere(sc, city_angle(f)),
@@ -3024,11 +3030,11 @@ def compare_city_render(ht, size, frames):
     img_gpu, img_cpu = images
     s = ssim(np.clip(img_gpu[..., :3], 0, 1), np.clip(img_cpu[..., :3], 0, 1))
     mad = float(np.abs(img_gpu - img_cpu).mean())
-    print(f"small render city {size[0]}x{size[1]}, {frames} frames, CUDA vs "
-          f"CPU plain: SSIM {s:.5f} (need >= 0.98), mean abs diff {mad:.3g} "
-          f"(need < 1e-3)")
+    print(f"small render {name} {size[0]}x{size[1]}, {frames} frames, CUDA "
+          f"vs CPU plain: SSIM {s:.5f} (need >= 0.98), mean abs diff "
+          f"{mad:.3g} (need < 1e-3)")
     if not np.isfinite(img_gpu).all() or s < 0.98 or mad >= 1e-3:
-        fail("the CUDA render of the city disagrees with the CPU plain "
+        fail(f"the CUDA render of the {name} disagrees with the CPU plain "
              "render")
 
 
@@ -3062,7 +3068,7 @@ def compare_renders(ht, scene_of, size, name, settings, frames):
 def check_small_render(ht, build_box):
     """Small CUDA renders of the seven paths against the plain versions on
     the CPU, KR on the box with a sun at 270x480 (the modular path's solar
-    channel), and the city and paths T and F at 48x256."""
+    channel), and the city and paths T, TN and F at 48x256."""
     for name, (settings_of, _) in PATHS.items():
         compare_renders(ht, build_box, SMALL, name, settings_of(ht),
                         3 if name == "no-reuse" else 4)
@@ -3070,6 +3076,7 @@ def check_small_render(ht, build_box):
                     PATHS["KR"][0](ht), 4)
     compare_city_render(ht, CITY_SMALL, 4)
     compare_simple_render(ht, CITY_SMALL, 4)
+    compare_simple_render(ht, CITY_SMALL, 3, flagship_settings(ht), "TN")
     compare_scene_render(ht, CITY_SMALL, 4)
 
 
@@ -3186,13 +3193,15 @@ def city_path(ht, timed, profile):
 SPHERES = (6, 7)    # path T's sphere instances (spawned last)
 
 
-def simple_path(ht, timed, profile):
+def simple_path(ht, timed, profile, noreuse=False):
     """Path T through Renderer at 1920x1080: the textured simple scene at
-    the example's settings and camera, static. Checks the launch counts
-    and that the spheres' pixels differ from the same frame of the
-    untextured scene (the texture is sampled). Returns (frame times,
-    launch counts per wrapper of COUNTERS over the timed frames)."""
-    settings = simple_settings(ht)
+    the example's settings and camera, static; or with `noreuse` path TN,
+    the same scene and camera at the flagship settings. Checks the launch
+    counts and, on path T, that the spheres' pixels differ from the same
+    frame of the untextured scene (the texture is sampled). Returns (frame
+    times, launch counts per wrapper of COUNTERS over the timed frames)."""
+    settings = flagship_settings(ht) if noreuse else simple_settings(ht)
+    launches_of = simple_noreuse_launches if noreuse else simple_launches
     r = ht.Renderer(simple_scene(), simple_camera(ht, FULL), settings)
     for _ in range(WARMUP_FRAMES):
         r.render_frame()
@@ -3209,9 +3218,13 @@ def simple_path(ht, timed, profile):
         times.append((time.perf_counter() - t) * 1e3)
     counts = [fn.launches for fn in wrappers]
     expected = [sum(col) for col in zip(*(
-        simple_launches(settings, n)
+        launches_of(settings, n)
         for n in range(WARMUP_FRAMES, WARMUP_FRAMES + timed)))]
-    check_run("T", counts, expected, img, timed)
+    check_run("TN" if noreuse else "T", counts, expected, img, timed)
+    if noreuse:
+        if profile:
+            profile_frames(r.render_frame)
+        return times, counts
     inst = torch.floor(r.carry["prev_gbuffer"]["instance_material"][..., 0])
     spheres = (inst == SPHERES[0]) | (inst == SPHERES[1])
     plain = ht.Renderer(simple_scene(False), simple_camera(ht, FULL),
@@ -3438,6 +3451,191 @@ def check_box_upscale(ht, build_box):
         compare_renders(ht, build_box, small, f"box {name}", settings, 4)
 
 
+def check_trace_calls(tp, calls_by_kernel, label):
+    """Kernels 5, 6 and 7 against their plain versions on captured calls
+    (one list per row of TRACE_KERNELS), every output word. Returns the
+    max abs error of each."""
+    errs = []
+    for (name, plain, _, _), calls in zip(TRACE_KERNELS, calls_by_kernel):
+        err = 0.0
+        for a, _ in calls:
+            got = getattr(tp, name)(*a)
+            ref = getattr(tp, plain)(*a)
+            torch.cuda.synchronize()
+            keys = sorted(ref)
+            eq = words_equal([got[k] for k in keys], [ref[k] for k in keys])
+            err = max(err, max_abs_err([got[k] for k in keys],
+                                       [ref[k] for k in keys]))
+            hits = float((got["inst"] >= 0).float().mean())
+            print(f"kernel {name} {label} {a[-5].shape[0]} rays x "
+                  f"{a[0].shape[0]} triangles ({hits:.3f} hit): "
+                  f"{', '.join(keys)} equal to the plain version {eq} "
+                  f"(need True)")
+            if not eq:
+                fail(f"{name} disagrees with its plain version ({label})")
+        errs.append(err)
+    return errs
+
+
+def check_simple_noreuse(ht):
+    """Every kernel call of path TN (path T's textured scene at the
+    flagship settings: the modular path without reuse, hikari_tpu's
+    no-reuse specializations) over two 1920x1080 frames against its plain
+    version: kernel 13 full (the primary rays, the emissive probe, the
+    bounce and its probe) and shadow (sun, emissive, bounce NEE) bit for
+    bit, kernel 14 on its one 1080p launch a frame bit for bit, C on the
+    second frame's levels. Returns {record name: its path TN numbers}."""
+    from contextlib import ExitStack
+
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import shading as sh
+    from hikari_tpu_torch.ops import texture_pallas as tx
+    from hikari_tpu_torch.ops import trace_cull as tc
+
+    settings = flagship_settings(ht)
+    r = ht.Renderer(simple_scene(), simple_camera(ht, FULL), settings)
+    caps = [Capture(tc, "bvh_full"), Capture(tc, "bvh_shadow"),
+            Capture(tx, "sample_atlas_slots"), Capture(dnf, "atrous_level")]
+    with ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+            c.on = True
+        for _ in range(2):
+            r.render_frame()
+        torch.cuda.synchronize()
+    full_calls, shadow_calls, t_calls, c_calls = (c.calls for c in caps)
+    first = COUNTERS.index("bvh_full")
+    want = [sum(col) for col in zip(*(
+        simple_noreuse_launches(settings, n)[first:] for n in (0, 1)))]
+    got = [len(full_calls), len(shadow_calls), len(t_calls)]
+    print(f"path TN's two frames: {got[0]} kernel 13 full, {got[1]} shadow, "
+          f"{got[2]} kernel 14, {len(c_calls)} C calls (need {want}, 8)")
+    if got != want or len(c_calls) != 8:
+        fail("path TN's two frames did not call its kernels as expected")
+    check_walk_calls(tc, "full", full_calls, "path TN")
+    check_walk_calls(tc, "shadow", shadow_calls, "path TN")
+    for a, _ in t_calls:
+        if tuple(a[1].shape[:2]) != FULL:
+            fail("path TN's kernel 14 does not sample the 1080p G-buffer")
+        check_texture_call(tx, sh, *a, "path TN")
+    check_levels(dnf, c_calls[-4:], "path TN")
+    # frame 1's bounce (full) and its NEE shadow rays at 1080p
+    extra = {}
+    for key, mode, a in (("trace_bvh_full", "full", full_calls[-2][0]),
+                         ("trace_bvh_shadow", "shadow",
+                          shadow_calls[-1][0])):
+        extra[key] = {f"{k}_tn_bounce": v for k, v in walk_record(
+            tc, mode, a, "path TN bounce").items()
+            if k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    return extra
+
+
+def check_city_spatial_noreuse(ht):
+    """The city at HikariSettings() without temporal reuse (indirect
+    spatial reuse alone, the modular spatial pass at 960x540), 1920x1080,
+    three frames, static camera: every kernel call of the last two
+    against its plain version (kernel 13 full and shadow bit for bit, C,
+    11 and 12; no gather, no kernel 10), and a small CUDA render against
+    the CPU."""
+    from contextlib import ExitStack
+
+    from hikari_tpu_torch import frame as fr
+    from hikari_tpu_torch.examples import city
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import spatial_fused as sf
+    from hikari_tpu_torch.ops import trace_cull as tc
+    from hikari_tpu_torch.ops import warp2 as w2
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    settings = dataclasses.replace(ht.HikariSettings(), temporal_reuse=False)
+    r = ht.Renderer(city.build_scene(3), city_camera(ht, FULL), settings)
+    caps = [Capture(tc, "bvh_full"), Capture(tc, "bvh_shadow"),
+            Capture(fr, "reproj_gather"), Capture(sf, "spatial_kernel"),
+            Capture(dnf, "atrous_level"), Capture(wb, "warp_band"),
+            Capture(w2, "warp_multi")]
+    with ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        for i in range(3):
+            for c in caps:
+                c.on = i > 0
+            r.render_frame()
+        torch.cuda.synchronize()
+    full_calls, shadow_calls, g_calls, s_calls, c_calls, wb_calls, \
+        wm_calls = (c.calls for c in caps)
+    counts = [len(c.calls) for c in caps]
+    print(f"city without temporal reuse, 2 frames: kernel 13 full, shadow, "
+          f"9, 10, C, 11, 12 calls {counts} (need [8, 6, 0, 0, 8, 4, 2])")
+    if counts != [8, 6, 0, 0, 8, 4, 2]:
+        fail("the city without temporal reuse did not call its kernels as "
+             "expected")
+    if "spatial_indirect" not in r.carry or "indirect_temporal" in r.carry:
+        fail("the city without temporal reuse does not carry the spatial "
+             "reservoirs alone")
+    check_walk_calls(tc, "full", full_calls, "city no temporal reuse")
+    check_walk_calls(tc, "shadow", shadow_calls, "city no temporal reuse")
+    check_levels(dnf, c_calls[-4:], "city no temporal reuse 960x540")
+    check_band_calls(wb, wb_calls)
+    check_multi_calls(w2, wm_calls)
+    compare_city_render(ht, CITY_SMALL, 3, settings,
+                        "city without temporal reuse")
+
+
+def check_box_scramble(ht, build_box):
+    """The box at HikariSettings() with the spatial tap scramble, 1080p
+    (lighting at 960x540), three frames with the camera panning: the
+    modular path with temporal and indirect spatial reuse (no kernel 4 or
+    10), every kernel call of the last two frames against its plain
+    version (A, 8, 9, 5, 6, 7, C, 11, 12), and a small CUDA render
+    against the CPU."""
+    from contextlib import ExitStack
+
+    from hikari_tpu_torch import frame as fr
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import light_fused as lf
+    from hikari_tpu_torch.ops import prepass_fused as pf
+    from hikari_tpu_torch.ops import reproj_gather as rg
+    from hikari_tpu_torch.ops import spatial_fused as sf
+    from hikari_tpu_torch.ops import trace_pallas as tp
+    from hikari_tpu_torch.ops import warp2 as w2
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    settings = dataclasses.replace(ht.HikariSettings(),
+                                   spatial_tap_scramble=True)
+    caps = [Capture(tp, name) for name, *_ in TRACE_KERNELS]
+    caps += [Capture(pf, "prepass_kernel"),
+             Capture(pf, "prepass_quads_kernel"),
+             Capture(fr, "reproj_gather"), Capture(lf, "lighting_kernel"),
+             Capture(sf, "spatial_kernel"), Capture(dnf, "atrous_level"),
+             Capture(wb, "warp_band"), Capture(w2, "warp_multi")]
+    with ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+        r = drive(ht, build_box(), FULL, settings, 3, caps, (1, 2))
+    *trace_calls, a_calls, q_calls, g_calls, l_calls, s_calls, c_calls, \
+        wb_calls, wm_calls = (c.calls for c in caps)
+    counts = [len(c.calls) for c in caps]
+    # per frame: kernel 5 the bounce, 6 and 7 the emissive probe and
+    # shadow ray and the bounce's (frame 0 alone validates in 0-2)
+    print(f"box with the tap scramble, 2 frames: kernels 5, 6, 7, A, 8, 9, "
+          f"B/4, 10, C, 11, 12 calls {counts} (need [2, 4, 4, 2, 2, 2, 0, "
+          f"0, 8, 4, 2])")
+    if counts != [2, 4, 4, 2, 2, 2, 0, 0, 8, 4, 2]:
+        fail("the box with the tap scramble did not call its kernels as "
+             "expected")
+    if "spatial_indirect" not in r.carry:
+        fail("the box with the tap scramble carries no spatial reservoirs")
+    check_trace_calls(tp, trace_calls, "box scramble")
+    check_prepass_call(pf, a_calls[-1][0], "box scramble")
+    quads_checks(pf, q_calls, a_calls)
+    check_gather_calls(rg, g_calls, "box scramble")
+    check_levels(dnf, c_calls[-4:], "box scramble 960x540")
+    check_band_calls(wb, wb_calls)
+    check_multi_calls(w2, wm_calls)
+    compare_renders(ht, build_box, SMALL, "box with the tap scramble",
+                    settings, 4)
+
+
 def device_total_ms(fn, reps=2):
     """The device time in ms of everything fn() launches (kernels, copies
     and fills), per run over `reps` runs, and the number of device
@@ -3591,12 +3789,13 @@ def main():
     records += city_records
     check_simple_walk(ht)
     at_scene = check_scene(ht)
+    at_tn = check_simple_noreuse(ht)
     check_box_upscale(ht, build_box)
+    check_city_spatial_noreuse(ht)
+    check_box_scramble(ht, build_box)
     for rec in records + [hit_record]:
-        rec.update(at_540p.get(rec["name"], {}))
-        rec.update(at_ckb.get(rec["name"], {}))
-        rec.update(at_city.get(rec["name"], {}))
-        rec.update(at_scene.get(rec["name"], {}))
+        for extra in (at_540p, at_ckb, at_city, at_scene, at_tn):
+            rec.update(extra.get(rec["name"], {}))
         print(f"  {rec['name']}: {rec['ms']:.4f} ms per launch, plain "
               f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
               f"({rec['bound_by']}), library {rec['library_ms']}")
@@ -3615,6 +3814,9 @@ def main():
     times, counts = simple_path(ht, TIMED_FRAMES, args.profile)
     frame_ms["T"] = (float(np.median(times)), times)
     launches["T"] = dict(zip(COUNTERS, counts))
+    times, counts = simple_path(ht, TIMED_FRAMES, args.profile, noreuse=True)
+    frame_ms["TN"] = (float(np.median(times)), times)
+    launches["TN"] = dict(zip(COUNTERS, counts))
     times, counts, fsr = scene_path(ht, TIMED_FRAMES, args.profile)
     frame_ms["F"] = (float(np.median(times)), times)
     launches["F"] = dict(zip(COUNTERS, counts))
@@ -3625,7 +3827,7 @@ def main():
 
     # launches over the timed frames of the paths running each kernel:
     # B runs on no-reuse, P and K, kernel 4 on R, S and D, 13 on the city,
-    # T and F, 14 on T
+    # T, TN and F, 14 on T and TN
     by_name = {
         "prepass_fused": total("prepass"),
         "light_fused": total("lighting", ("no-reuse", "P", "K")),
@@ -3664,6 +3866,10 @@ def main():
     print(json.dumps({
         "frame_ms_simple": frame_ms["T"][0], "simple_triangles": 2510,
         "reps_ms": frame_ms["T"][1], "card": card}))
+    print(json.dumps({
+        "frame_ms_simple_noreuse": frame_ms["TN"][0],
+        "simple_triangles": 2510, "reps_ms": frame_ms["TN"][1],
+        "card": card}))
     print(json.dumps({
         "frame_ms_scene": frame_ms["F"][0], "scene_triangles": 1226,
         "reps_ms": frame_ms["F"][1], "fsr": fsr, "card": card}))

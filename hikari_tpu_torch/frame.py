@@ -20,10 +20,14 @@ hikari_tpu's own predicates (`prepass_fused_eligible`, `fused_eligible`,
   reuse the same gather fetches the previous spatial reservoirs, kernel 4
   emits the flags and scatter reservoirs, and kernel 10 runs once per
   spatial channel after the scatter-replace;
-* otherwise, with temporal reuse, the modular lighting path
-  (ops/restir.py direct_lit / indirect_lit_ambient, whose rays go through
-  the scene's tracer: kernels 5, 6, 7 or kernel 13), with the spatial
-  tracking scatters and ops/restir.py spatial_reuse at the render size.
+* otherwise the modular lighting path (ops/restir.py direct_lit /
+  indirect_lit_ambient, whose rays go through the scene's tracer: kernels
+  5, 6, 7 or kernel 13): with temporal reuse on the gathered reservoirs,
+  without it on the empty reservoir (hikari_tpu's no-reuse
+  specializations where no channel tracks spatial reuse), with the spatial
+  tracking scatters and ops/restir.py spatial_reuse at the render size
+  (its per-pixel tap scramble under HikariSettings.spatial_tap_scramble,
+  which keeps kernel 10 out).
 
 A textured scene takes neither fused kernel (they have no texture
 fetches): the non-fused prepass and the modular lighting path, as
@@ -41,20 +45,17 @@ path, the gather runs at the full render size, its fields are compressed,
 the new reservoirs of the lit pixels are merged into the full-size carry,
 and spatial reuse runs at the full render size on the merged planes.
 
-The carry holds the previous view matrices (velocity); with reuse the
-[h,16,w] temporal and spatial reservoir planes at the render size; with
+The carry holds the previous view matrices (velocity); with temporal
+reuse the [h,16,w] temporal reservoir planes at the render size; with
+spatial reuse (with or without temporal reuse) the spatial ones; with
 SMAA or TAA the previous full-res G-buffer; with SMAA the previous tone
 image (render size); with TAA the previous TAA output (post size: twice
 the render size with SMAA, else the render size, FSR included).
 
 Every upscale hikari_tpu accepts renders: none, SMAA TU4X and FSR 1.0
 (ops/post.py) at any ratio in [1, 2] and any output size, and
-checkerboard lighting at any ratio. Settings and scenes outside the
-ported slices raise NotImplementedError when the frame function is
-built: the spatial tap scramble, spatial reuse without temporal reuse,
-more than 8 emissives, and the modular path without temporal reuse
-(scenes beyond the fused lighting kernel's gate at settings without
-reuse).
+checkerboard lighting at any ratio. A scene with more than 8 emissives
+raises NotImplementedError when the frame function is built.
 """
 
 from __future__ import annotations
@@ -119,16 +120,6 @@ def checkerboard_active(settings: HikariSettings, full_size) -> bool:
     return settings.checkerboard_lighting and render_size[1] % 2 == 0
 
 
-def unsupported_settings(settings: HikariSettings):
-    """The reasons these settings lie outside the ported slices."""
-    reasons = []
-    if any(_tracks(settings)) and not settings.temporal_reuse:
-        reasons.append("spatial reuse without temporal_reuse")
-    if settings.spatial_tap_scramble:
-        reasons.append("spatial_tap_scramble")
-    return reasons
-
-
 def unsupported_scene(num_emissives: int):
     """The reasons a compiled scene lies outside the ported slices."""
     reasons = []
@@ -190,10 +181,11 @@ def spatial_fused_active(scene, settings: HikariSettings, tracer_kind: str,
 
 
 def carry_keys(settings: HikariSettings):
-    """The reservoir carries the frame of these settings reads."""
-    if not settings.temporal_reuse:
-        return ()
-    return TEMPORAL_KEYS + (SPATIAL_KEYS if any(_tracks(settings)) else ())
+    """The reservoir carries the frame of these settings reads: the
+    temporal ones with temporal reuse, the spatial ones with spatial reuse
+    (hikari_tpu carries them across frames without temporal reuse too)."""
+    return ((TEMPORAL_KEYS if settings.temporal_reuse else ())
+            + (SPATIAL_KEYS if any(_tracks(settings)) else ()))
 
 
 def post_carry_shapes(full_size, settings: HikariSettings) -> dict:
@@ -218,10 +210,9 @@ def post_carry_shapes(full_size, settings: HikariSettings) -> dict:
 
 
 def init_carry(full_size, settings: HikariSettings, device) -> dict:
-    """Persistent frame state: the previous view matrices; with temporal
-    reuse the three [h,16,w] temporal reservoir carries and the two spatial
-    ones at the render size; and the post chain's history
-    (post_carry_shapes). All zero: no history."""
+    """Persistent frame state: the previous view matrices; the [h,16,w]
+    reservoir carries of carry_keys at the render size; and the post
+    chain's history (post_carry_shapes). All zero: no history."""
     eye = torch.eye(4, dtype=torch.float32, device=device)
     carry = {"prev_view_proj": eye, "prev_inverse_view_proj": eye.clone()}
     h, w = scaled_size(full_size, settings.upscale_ratio)
@@ -256,6 +247,7 @@ def carry_from_jax(carry, settings: HikariSettings, device,
             + carry_keys(settings):
         a = np.asarray(carry[k])
         if k in SPATIAL_KEYS:
+            # hikari_tpu's carry holds every temporal key, used or not
             h, _, w = np.shape(carry[TEMPORAL_KEYS[0]])
             if w == rsv.PACKED_WIDTH:
                 raise ValueError(f"{k}: a 16-wide carry's layout is "
@@ -303,10 +295,12 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
     [H,W,4], albedo [H,W,4], carry), specialized on the static settings
     and scene facts (emissive count, sun presence) and on the scene's
     tracer (ops/trace.py), which serves the non-fused prepass and the
-    modular lighting path. Raises NotImplementedError for anything outside
+    modular lighting path. Raises NotImplementedError for a scene outside
     the ported slices."""
-    reasons = (unsupported_settings(settings)
-               + unsupported_scene(num_emissives))
+    reasons = unsupported_scene(num_emissives)
+    if reasons:
+        raise NotImplementedError(
+            "outside the ported slices: " + ", ".join(reasons))
     full_size = tuple(full_size)
     ratio = settings.upscale_ratio
     render_size = scaled_size(full_size, ratio)
@@ -334,12 +328,12 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         track_ind=track_ind and not fused_sp, tracer_kind=kind,
         has_sun=has_sun, bounces=bounces, ckb=ckb)
     modular = any_active and not use_fused
-    if modular and not reuse:
-        reasons.append("the modular lighting path without temporal_reuse "
-                       "(a scene beyond the fused lighting kernel's gate)")
-    if reasons:
-        raise NotImplementedError(
-            "outside the ported slices: " + ", ".join(reasons))
+    scramble = settings.spatial_tap_scramble
+    # the primary surface of the full-size G-buffer serves the lighting
+    # domain where the two are one (resample_deferred's identity): one
+    # kernel-14 launch
+    same_domain = (not ckb and ratio == 1.0
+                   and tuple(render_size) == full_size)
     light_size = (render_size[0], render_size[1] // 2) if ckb else render_size
     # the texture slots some material textures: the primary surfaces
     # sample only those (kernel 14 launches once per slot and domain)
@@ -370,21 +364,26 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                                      fl[f"{slot}_scatter"], prev_p)
         return prev_p
 
-    def modular_lighting(scene, g, g_l, view, frame, rand_l, reproj,
+    def modular_lighting(scene, g, g_l, view, frame, rand, rand_l, reproj,
                          gathered, carry, par, surf_l, surf_r):
         """direct_lit / indirect_lit_ambient of the active channels on the
         lighting domain, with the spatial tracking scatters and the spatial
         passes at the render size (hikari_tpu/frame.py:412-532), on the
         primary surfaces of the lighting domain (surf_l) and of the render
-        size (surf_r). Returns
+        size (surf_r); without temporal reuse on the empty reservoir
+        (hikari_tpu/frame.py:247). Returns
         ({slot: (render, variance)} on the lighting domain, the new
         reservoir carries, {slot: spatial pass result})."""
         slots = [slot for c, slot in enumerate("dei") if active[c]]
-        prev = {slot: _prev_fields(p, par)
-                for slot, p in zip(slots, gathered)}
-        reproj_l = (reproj if par is None
+        if reuse:
+            prev = {slot: _prev_fields(p, par)
+                    for slot, p in zip(slots, gathered)}
+        else:
+            prev = {slot: rsv.empty_reservoir(light_size, rand.device)
+                    for slot in slots}
+        reproj_l = (reproj if par is None or reproj is None
                     else restir.reprojection_ckb(g_l, render_size, par))
-        kw = dict(temporal_reuse=True, no_texture=no_texture,
+        kw = dict(temporal_reuse=reuse, no_texture=no_texture,
                   render_size=light_size, surface=surf_l, reproj=reproj_l)
         buf = {"spatial_de": carry.get("spatial_de"),
                "spatial_indirect": carry.get("spatial_indirect")}
@@ -407,14 +406,26 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                 bounces=bounces, prev_spatial=buf["spatial_indirect"],
                 track_spatial=track_ind, **kw)
             buf["spatial_indirect"] = out["i"]["prev_spatial"]
-        carries = {}
+        carries, merged = {}, {}
         for c, slot in enumerate("dei"):
-            if slot in out:
+            if slot not in out:
+                continue
+            key = TEMPORAL_KEYS[c]
+            if reuse:
                 planes = rsv.pack_reservoir_planes(out[slot]["temporal"])
                 if par is not None:
-                    planes = ckb_ops.merge_packed_planes(
-                        planes, carry[TEMPORAL_KEYS[c]], par)
-                carries[TEMPORAL_KEYS[c]] = planes
+                    planes = ckb_ops.merge_packed_planes(planes, carry[key],
+                                                         par)
+                carries[key] = merged[slot] = planes
+            elif par is not None and (track_de if slot == "e"
+                                      else slot == "i" and track_ind):
+                # the spatial pass's full-size field: the new lit pixels
+                # over hikari_tpu's never-written (zero) temporal carry
+                planes = rsv.pack_reservoir_planes(out[slot]["temporal"])
+                merged[slot] = ckb_ops.merge_packed_planes(
+                    planes, torch.zeros((render_size[0], rsv.PACKED_WIDTH,
+                                         render_size[1]),
+                                        device=planes.device), par)
         spatial = {}
         valid = g["position"][..., 3] >= F32_EPSILON
         for slot, key, on in (("e", "spatial_de", track_de),
@@ -427,12 +438,17 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
             # the spatial pass runs at the render size: under checkerboard
             # on the merged planes (new lit pixels, carried unlit ones)
             temporal_r = (out[slot]["temporal"] if par is None else
-                          rsv.unpack_reservoir_planes(
-                              carries[TEMPORAL_KEYS["dei".index(slot)]]))
+                          rsv.unpack_reservoir_planes(merged[slot]))
+            # the blue noise's fourth (emissive) or third (indirect)
+            # channel picks each pixel's rotation (hikari_tpu/frame.py:488,
+            # 527)
+            bits = (None if not scramble else
+                    (rand[..., 3 if slot == "e" else 2] * 4.0).to(torch.int32)
+                    & 3)
             res = restir.spatial_reuse(
                 scene, g, view, frame, temporal_r, buf[key], reproj,
                 emissive_lit=slot == "e", no_texture=no_texture,
-                render_size=render_size, surface=surf_r)
+                render_size=render_size, scramble_bits=bits, surface=surf_r)
             carries[key] = _zero_planes_where(
                 ~valid, rsv.pack_reservoir_planes(res["spatial"]))
             spatial[slot] = res
@@ -456,7 +472,7 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                      "inverse_view_proj": carry["prev_inverse_view_proj"]}
         number = frame["number"]
         jit = frame_jitter(number, settings.taa, settings.upscale.mode)
-        albedo_r = smaa_quads = None
+        albedo_r = smaa_quads = surf_full = None
         if fused_pre and exact_half:
             # the render-size G-buffer: kernel A's strided planes
             gbuf, albedo, g, albedo_r = _pf.prepass_fused(
@@ -467,10 +483,10 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                                              full_size)
         else:
             gbuf = prepass(scene, tracer, view, prev_view, jit, full_size)
-            albedo = restir.full_screen_albedo(
-                scene, gbuf, view, no_texture,
-                surface=restir.primary_surface(scene, gbuf, no_texture,
-                                               tex_slots))
+            surf_full = restir.primary_surface(scene, gbuf, no_texture,
+                                               tex_slots)
+            albedo = restir.full_screen_albedo(scene, gbuf, view, no_texture,
+                                               surface=surf_full)
         if not (fused_pre and exact_half):
             g = restir.resample_gbuffer(gbuf, render_size, number, ratio)
         if _smaa(settings):
@@ -494,11 +510,12 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         }
 
         gathered, sp_gathered, reproj = [], {}, None
+        if any_active and (reuse or track_de or track_ind):
+            reproj = restir.reprojection(g, render_size)
         if reuse and any_active:
             # one gather launch for every active temporal channel and
             # spatial source, at the render size (under checkerboard too);
             # pixels outside the strict unit box read -1
-            reproj = restir.reprojection(g, render_size)
             piy_m = torch.where(reproj["in_strict"], reproj["piy"],
                                 -1).to(torch.int32).contiguous()
             keys = [TEMPORAL_KEYS[c] for c in range(3) if active[c]]
@@ -506,10 +523,9 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                                  piy_m, reproj["pix"].contiguous())
             gathered = outs[:len(keys)]
             sp_gathered = dict(zip(sp_sources, outs[len(keys):]))
-        if reuse:
-            for k in TEMPORAL_KEYS + SPATIAL_KEYS:
-                if k in carry:
-                    new_carry[k] = carry[k]
+        for k in TEMPORAL_KEYS + SPATIAL_KEYS:
+            if k in carry:
+                new_carry[k] = carry[k]
 
         # {slot: (render, variance)} of the channels that trace rays, on
         # the lighting domain
@@ -518,16 +534,17 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         if modular:
             # one primary surface per G-buffer domain, shared by every
             # channel (hikari_tpu/frame.py:421-429)
-            surf_l = restir.primary_surface(scene, g_l, no_texture,
-                                            tex_slots)
+            surf_l = (surf_full if same_domain and surf_full is not None
+                      else restir.primary_surface(scene, g_l, no_texture,
+                                                  tex_slots))
             if par is None:
                 surf_r = surf_l
             elif not has_sun or (track_de and active[1]) or track_ind:
                 surf_r = restir.primary_surface(scene, g, no_texture,
                                                 tex_slots)
             lit, carries, spatial = modular_lighting(
-                scene, g, g_l, view, frame, rand_l, reproj, gathered, carry,
-                par, surf_l, surf_r)
+                scene, g, g_l, view, frame, rand, rand_l, reproj, gathered,
+                carry, par, surf_l, surf_r)
             new_carry.update(carries)
         elif any_active:
             fl = _lf.fused_lighting(

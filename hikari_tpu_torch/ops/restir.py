@@ -5,17 +5,20 @@ other ratio), the primary surface, the full-screen albedo
 of the non-fused prepass (textures through kernel 14), the sun-less
 direct channel, the per-frame
 reprojection (previous-frame coordinates) of the reuse paths, and the
-modular lighting channels `direct_lit` and `indirect_lit_ambient` in their
-temporal-reuse form with the spatial-reuse tracking, and `spatial_reuse`
-(the path of scenes beyond the fused lighting kernel, and of checkerboard
-lighting with temporal reuse).
+modular lighting channels `direct_lit` and `indirect_lit_ambient` with
+and without temporal reuse, with the spatial-reuse tracking, and
+`spatial_reuse` with the per-pixel tap scramble (the path of scenes beyond
+the fused lighting kernel, of textured scenes, of checkerboard lighting
+with temporal reuse, of spatial reuse without temporal reuse and of the
+tap scramble).
 
 The modular channels are tensor passes over the flattened [h*w] pixels;
 their rays go through the scene's tracer (ops/trace.py: kernels 5, 6, 7,
-or kernel 13). Their no-reuse specializations are not ported: they raise.
-The spatial buffers stay [h,16,w] channel planes across the frame, and
-the cross-pixel invalidation scatters into them resolve collisions by
-ops/reservoir.scatter_reservoir_planes' rule."""
+or kernel 13). Without temporal reuse or spatial tracking they take
+hikari_tpu's static no-reuse specializations (plain NEE, zero variance,
+the empty reservoir). The spatial buffers stay [h,16,w] channel planes
+across the frame, and the cross-pixel invalidation scatters into them
+resolve collisions by ops/reservoir.scatter_reservoir_planes' rule."""
 
 from __future__ import annotations
 
@@ -176,7 +179,7 @@ def emissive_surface_channel(scene, g, no_texture: bool, render_size,
 
 
 # ---------------------------------------------------------------------------
-# the modular lighting channels (light.wgsl:1045-1498), temporal reuse
+# the modular lighting channels (light.wgsl:1045-1498)
 # ---------------------------------------------------------------------------
 
 def cos_solar(frame) -> float:
@@ -240,31 +243,22 @@ def direct_lit(scene, tracer, g, view, frame, noise_rand, prev_r, *,
     """One direct-light channel (light.wgsl:1045-1261): the sun
     (emissive_lit=False, RENDER_EMISSIVE: the surface emission is added) or
     the emissives. g: the lighting domain's G-buffer; prev_r: the previous
-    temporal reservoir gathered at the reprojected coordinates. On the
-    channel's validation frames (frame number % interval == 0, a host
-    branch) the carried sample is re-traced. With track_spatial the
-    rejected and re-validated reservoirs are scattered into the spatial
-    buffer prev_spatial ([h,16,w] planes at the render size) at reproj's
-    coordinates (light.wgsl:1092-1095, 1199-1202). Returns {render [h,w,4],
-    variance [h,w], temporal (the new reservoir), prev_spatial}."""
-    if not temporal_reuse:
-        raise NotImplementedError(
-            "the no-reuse modular lighting path (scenes beyond the fused "
-            "lighting kernel) is not ported")
+    temporal reservoir gathered at the reprojected coordinates (the empty
+    reservoir without temporal reuse; unused without spatial tracking
+    either). With temporal reuse, on the channel's validation frames
+    (frame number % interval == 0, a host branch) the carried sample is
+    re-traced. With track_spatial the rejected and re-validated reservoirs
+    are scattered into the spatial buffer prev_spatial ([h,16,w] planes at
+    the render size) at reproj's coordinates (light.wgsl:1092-1095,
+    1199-1202). Without either, hikari_tpu's no-reuse specialization
+    (restir.py:332-382): plain NEE, zero variance, the empty reservoir.
+    Returns {render [h,w,4], variance [h,w], temporal (the new reservoir),
+    prev_spatial}."""
     depth = g["position"][..., 3]
     valid = depth >= F32_EPSILON
     s = make_sample_from_gbuffer(g, noise_rand, render_size)
     if surface is None:
         surface = primary_surface(scene, g, no_texture)
-    r, reproj_ok = rsv.check_previous_reservoir(prev_r, s)
-    if track_spatial:
-        prev_spatial = rsv.scatter_reservoir_planes(
-            prev_spatial, reproj["piy"], reproj["pix"], r,
-            ~reproj_ok & reproj["in_loose"] & valid)
-    interval = (frame["emissive_validate_interval"] if emissive_lit
-                else frame["direct_validate_interval"])
-    is_validation = int(frame["number"]) % max(int(interval), 1) == 0
-
     pos_f = _flat(s["visible_position"][..., :3])
     nrm_f = _flat(s["visible_normal"])
     rand_f = _flat(s["random"])
@@ -281,22 +275,53 @@ def direct_lit(scene, tracer, g, view, frame, noise_rand, prev_r, *,
         trace_ok = trace_ok & (cand["emissive_instance"] >= 0)
     rad, info = _trace_radiance(scene, tracer, cand, info, ro, rd, trace_ok,
                                 frame, not emissive_lit, no_texture)
+    lum = luminance(rad)
+    w_new = torch.where(cand["p"] > 0.0,
+                        div(lum, torch.clamp(cand["p"], min=1e-30)), 0.0)
+    if not temporal_reuse and not track_spatial:
+        # with an empty previous reservoir the update takes this sample and
+        # finalize gives w = w_new / lum: plain NEE, zero variance
+        w_f = torch.where(lum > 0.0, div(w_new, torch.clamp(lum, min=1e-30)),
+                          0.0)
+        l_dir = normalize(_unflat(info["position"], render_size)[..., :3]
+                          - s["visible_position"][..., :3])
+        out = shading(scene, calculate_view(view, g["position"]),
+                      s["visible_normal"], l_dir, surface,
+                      _unflat(rad, render_size)) * torch.where(
+                          valid, _unflat(w_f, render_size), 0.0)[..., None]
+        if not emissive_lit:
+            out = out + compute_emissive_radiance(surface["emissive"])
+        render = torch.where(valid[..., None], torch.cat(
+            [out, torch.ones_like(depth)[..., None]], -1), 0.0)
+        return {"render": render, "variance": torch.zeros_like(depth),
+                "temporal": rsv.empty_reservoir(render_size, depth.device),
+                "prev_spatial": prev_spatial}
+
+    r, reproj_ok = rsv.check_previous_reservoir(prev_r, s)
+    if track_spatial:
+        prev_spatial = rsv.scatter_reservoir_planes(
+            prev_spatial, reproj["piy"], reproj["pix"], r,
+            ~reproj_ok & reproj["in_loose"] & valid)
+    interval = (frame["emissive_validate_interval"] if emissive_lit
+                else frame["direct_validate_interval"])
+    is_validation = int(frame["number"]) % max(int(interval), 1) == 0
     s = dict(s)
     s["radiance"] = _unflat(rad, render_size)
     s["sample_position"] = _unflat(info["position"], render_size)
     s["sample_normal"] = _unflat(info["normal"], render_size)
-    w_new = _unflat(torch.where(cand["p"] > 0.0, div(
-        luminance(rad), torch.clamp(cand["p"], min=1e-30)), 0.0), render_size)
+    w_new = _unflat(w_new, render_size)
     gate = valid & (r["count"] < VALIDATION_COUNT_THRESHOLD) \
         if is_validation else valid
     r = rsv.temporal_restir(r, s, w_new, frame["max_temporal_reuse_count"],
                             gate)
 
-    if is_validation:
+    if is_validation and temporal_reuse:
         # re-trace the carried sample (light.wgsl:1156-1213): the candidate
         # from the reservoir's randoms, position and normal, the ray from
         # this pixel's point towards the reservoir's sample, excluding this
-        # pixel's instance
+        # pixel's instance. Without temporal reuse the reservoir holds only
+        # this frame's sample, which hikari_tpu skips statically
+        # (restir.py:437-445)
         r_nrm = _flat(r["visible_normal"])
         cand, info = select_light_candidate(
             scene, tracer, _flat(r["random"]),
@@ -358,12 +383,10 @@ def indirect_lit_ambient(scene, tracer, g, view, frame, noise_rand, prev_r,
     tracer's with_info), NEE at each bounce hit (its probe and shadow
     rays), the radiance clamp, then temporal ReSTIR of the gathered
     radiance; with track_spatial the rejected reservoirs are scattered into
-    prev_spatial as in direct_lit. Returns {render, variance, temporal,
-    prev_spatial}."""
-    if not temporal_reuse:
-        raise NotImplementedError(
-            "the no-reuse modular lighting path (scenes beyond the fused "
-            "lighting kernel) is not ported")
+    prev_spatial as in direct_lit. Without temporal reuse or spatial
+    tracking, hikari_tpu's no-reuse specialization (restir.py:631-643):
+    the sample's shaded radiance over its pdf, zero variance, the empty
+    reservoir. Returns {render, variance, temporal, prev_spatial}."""
     h, w = render_size
     dev = noise_rand.device
     depth = g["position"][..., 3]
@@ -468,8 +491,19 @@ def indirect_lit_ambient(scene, tracer, g, view, frame, noise_rand, prev_r,
         s["sample_position"][..., :3] - s["visible_position"][..., :3]),
         surface, s["radiance"])
     pdf2 = _unflat(pdf, render_size)
-    w_new = torch.where(pdf2 > 0.0, div(luminance(sample_rad),
-                                        torch.clamp(pdf2, min=1e-30)), 0.0)
+    lum_s = luminance(sample_rad)
+    w_new = torch.where(pdf2 > 0.0, div(lum_s, torch.clamp(pdf2, min=1e-30)),
+                        0.0)
+    if not temporal_reuse and not track_spatial:
+        w2d = torch.where(valid & (lum_s > 0.0),
+                          div(w_new, torch.clamp(lum_s, min=1e-30)), 0.0)
+        render = torch.where(valid[..., None], torch.cat(
+            [sample_rad * w2d[..., None], torch.ones((h, w, 1), device=dev)],
+            -1), 0.0)
+        return {"render": render,
+                "variance": torch.zeros((h, w), device=dev),
+                "temporal": rsv.empty_reservoir(render_size, dev),
+                "prev_spatial": prev_spatial}
     r, reproj_ok = rsv.check_previous_reservoir(prev_r, s)
     if track_spatial:
         prev_spatial = rsv.scatter_reservoir_planes(
@@ -514,9 +548,30 @@ def _roll2d(x, dy, dx):
     return torch.roll(x, shifts=(-dy, -dx), dims=(0, 1))
 
 
+def _rotations(oy, ox, steps):
+    """A tap's four 90-degree rotations (hikari_tpu's restir.py:744-750):
+    (off_y, off_x), (off_x, -off_y), (-off_y, -off_x), (-off_x, off_y),
+    the march steps with them. Rounding half to even is odd-symmetric, so
+    the rotated offsets are the frame's integers permuted and negated."""
+    def rot(k, y, x):
+        return ((y, x), (x, -y), (-y, -x), (-x, y))[k]
+
+    return [(*rot(k, oy, ox), [(*rot(k, ty, tx), fr) for ty, tx, fr in steps])
+            for k in range(4)]
+
+
+def _pick(scramble_bits, vals, mask):
+    """Each pixel's value from the rotation its scramble bits name (the one
+    value when the tap has no rotations)."""
+    out = vals[0]
+    for k in range(1, len(vals)):
+        out = torch.where(mask(scramble_bits == k), vals[k], out)
+    return out
+
+
 def spatial_reuse(scene, g, view, frame, temporal_r, prev_spatial, reproj, *,
                   emissive_lit: bool, no_texture: bool, render_size,
-                  surface=None):
+                  scramble_bits=None, surface=None):
     """The modular spatial ReSTIR pass of one channel at the render size:
     the previous spatial reservoir gathered at reproj's coordinates where
     the temporal lifetime is within max_reservoir_lifetime, this pixel's
@@ -524,6 +579,10 @@ def spatial_reuse(scene, g, view, frame, temporal_r, prev_spatial, reproj, *,
     rolls of the packed temporal reservoirs, the occlusion march over the
     depth) with the clamped GRIS Jacobian. temporal_r: this frame's
     temporal reservoirs (structured); prev_spatial: [h,16,w] planes.
+    scramble_bits ([h,w] integers in 0..3, HikariSettings.
+    spatial_tap_scramble): each tap is evaluated at the four 90-degree
+    rotations of the frame's spiral and each pixel takes the one its bits
+    name (hikari_tpu's restir.py:744-800).
     Returns {render [h,w,4], variance [h,w] (NaN where the frame keeps the
     temporal variance), spatial (the new reservoir)}."""
     h, w = render_size
@@ -562,19 +621,28 @@ def spatial_reuse(scene, g, view, frame, temporal_r, prev_spatial, reproj, *,
     temporal_planes = rsv.pack_reservoir_planes(temporal_r)
     ys = torch.arange(h, device=dev)[:, None]
     xs = torch.arange(w, device=dev)[None, :]
-    for oy, ox, steps in _sf.tap_offsets(*_sf.channel_taps(emissive_lit),
-                                         int(frame["number"])):
-        q = rsv.unpack_reservoir_planes(torch.roll(
-            temporal_planes, shifts=(-oy, -ox), dims=(0, 2)))
-        sample_depth = _roll2d(depth, oy, ox)
-        in_b = ((ys + oy >= 0) & (ys + oy < h) & (xs + ox >= 0)
-                & (xs + ox < w))
-        # screen-space depth ray-march occlusion (light.wgsl:1608-1628)
-        occluded = torch.zeros_like(valid)
-        for toy, tox, frac in steps:
-            ref_depth = depth + (sample_depth - depth) * float(frac)
-            occluded = occluded | (_roll2d(depth, toy, tox)
-                                   > ref_depth + 1e-5)
+    for tap in _sf.tap_offsets(*_sf.channel_taps(emissive_lit),
+                               int(frame["number"])):
+        variants = [tap] if scramble_bits is None else _rotations(*tap)
+        packs, depths, in_bs, occs = [], [], [], []
+        for oy, ox, steps in variants:
+            packs.append(torch.roll(temporal_planes, shifts=(-oy, -ox),
+                                    dims=(0, 2)))
+            sample_depth = _roll2d(depth, oy, ox)
+            depths.append(sample_depth)
+            in_bs.append((ys + oy >= 0) & (ys + oy < h) & (xs + ox >= 0)
+                         & (xs + ox < w))
+            # screen-space depth ray-march occlusion (light.wgsl:1608-1628)
+            occluded = torch.zeros_like(valid)
+            for toy, tox, frac in steps:
+                ref_depth = depth + (sample_depth - depth) * float(frac)
+                occluded = occluded | (_roll2d(depth, toy, tox)
+                                       > ref_depth + 1e-5)
+            occs.append(occluded)
+        q_planes = _pick(scramble_bits, packs, lambda m: m[:, None, :])
+        sample_depth, in_b, occluded = (_pick(scramble_bits, v, lambda m: m)
+                                        for v in (depths, in_bs, occs))
+        q = rsv.unpack_reservoir_planes(q_planes)
         ratio = div(depth, torch.where(sample_depth == 0.0, 1e-30,
                                        sample_depth))
         ok = in_b & (ratio >= 0.9) & (ratio <= 1.1)

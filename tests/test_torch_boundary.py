@@ -1,6 +1,7 @@
 """The port's boundaries: it imports neither JAX nor hikari_tpu, refuses
-what it has not ported, renders on CUDA unless asked for the CPU, and its
-kernel wrappers marshal their launches correctly."""
+what it has not ported (more than 8 emissives, the host refit), renders
+on CUDA unless asked for the CPU, and its kernel wrappers marshal their
+launches correctly."""
 
 from __future__ import annotations
 
@@ -82,11 +83,12 @@ def _textured(sc, pkg=None):
 
 
 @pytest.mark.parametrize("changes,scene", [
-    # a scene beyond the fused lighting kernel takes the modular path,
-    # whose no-reuse specializations are not ported
+    # a scene beyond the fused lighting kernel takes the modular path
+    # without reuse (hikari_tpu's no-reuse specializations)
     pytest.param({}, _with_sphere, id="large_scene_without_reuse"),
     # so does a textured scene (the fused kernels fetch no textures)
     pytest.param({}, _textured, id="textured_scene_without_reuse"),
+    # the per-pixel tap scramble keeps kernel 10 out: the modular path
     pytest.param({"temporal_reuse": True, "indirect_spatial_reuse": True,
                   "spatial_tap_scramble": True},
                  None, id="temporal_reuse_tap_scramble"),
@@ -97,12 +99,21 @@ def _textured(sc, pkg=None):
                  id="indirect_spatial_reuse"),
 ])
 def test_settings_outside_the_slice_raise(changes, scene):
+    """Settings and scenes the earlier slices refused (they raised
+    NotImplementedError) render on the CPU: a finite, non-black frame
+    after two frames, carrying the spatial reservoirs wherever spatial
+    reuse is on. Their whole frames are held against hikari_tpu's in
+    tests/test_torch_frame_{noreuse,spatial_noreuse,scramble}.py."""
     settings = dataclasses.replace(_flagship(), **changes)
-    cam = _camera()
     sc = build_cornell_box("hikari_tpu_torch")
-    with pytest.raises(NotImplementedError):
-        ht.Renderer(sc if scene is None else scene(sc), cam, settings,
+    r = ht.Renderer(sc if scene is None else scene(sc), _camera(), settings,
                     device="cpu")
+    img = r.render(2)
+    assert img.shape == (12, 16, 4) and np.isfinite(img).all()
+    assert img[..., :3].max() > 0.0
+    tracks = (settings.emissive_spatial_reuse
+              or settings.indirect_spatial_reuse)
+    assert set(ht.frame.SPATIAL_KEYS) <= set(r.carry) or not tracks
 
 
 @pytest.mark.parametrize("changes,size", [
@@ -766,9 +777,9 @@ def test_textured_box_takes_the_modular_path(monkeypatch):
     with temporal reuse: hikari_tpu's gates and the port's keep it off
     kernels A and B / 4; it takes the non-fused prepass over kernel 5 and
     the modular path over kernels 5, 6 and 7, and kernel 14 samples the one
-    textured slot (base colour) once per G-buffer domain: the full-size one
-    for the albedo, the lighting domain for the channels (ratio 1: one
-    surface serves the direct term too)."""
+    textured slot (base colour) once a frame: at ratio 1 the full-size
+    G-buffer is the lighting domain, so one surface serves the albedo, the
+    channels and the direct term."""
     import jax.numpy as jnp
 
     from hikari_tpu.ops import light_fused as lf_ref
@@ -826,8 +837,8 @@ def test_textured_box_takes_the_modular_path(monkeypatch):
         r.render_frame()
         emissive = ["hk_trace_full", "hk_trace_shadow"] * (1 + validation)
         assert fake.calls == (
-            ["hk_trace_closest", "hk_sample_atlas", "hk_reproj_gather",
-             "hk_sample_atlas"] + emissive
+            ["hk_trace_closest", "hk_sample_atlas", "hk_reproj_gather"]
+            + emissive
             + ["hk_trace_closest", "hk_trace_full", "hk_trace_shadow"]
             + ["hk_atrous_level"] * 4)
         for name, a in zip(fake.calls, fake.args):
@@ -835,7 +846,7 @@ def test_textured_box_takes_the_modular_path(monkeypatch):
                 call = _sample_call(a)
                 assert (call["n"], call["n_rect"], call["slots"]) == (
                     12 * 16, 1, (0,))
-    assert [fn.launches for fn in wrappers] == [0, 2, 0, 4, 5, 5, 4, 8]
+    assert [fn.launches for fn in wrappers] == [0, 2, 0, 4, 5, 5, 2, 8]
 
 
 def test_cuda_wrappers_marshal_and_count_on_path_t(monkeypatch):
@@ -899,3 +910,45 @@ def test_cuda_wrappers_marshal_and_count_on_path_t(monkeypatch):
                 for a in atlas] == [(12 * 16, (0, 1)), (6 * 8, (0, 1))]
     assert [fn.launches for fn in wrappers] == [
         0, 0, 2, 0, 0, 0, 0, 0, 0, 9, 8, 8, 4, 2, 4]
+
+
+def test_cuda_wrappers_marshal_and_count_on_path_tn(monkeypatch):
+    """Path TN's launches per frame (path T's scene at the flagship
+    settings: the modular path without reuse, chip_smoke.py
+    simple_noreuse_launches): kernel 13 full for the primary rays, the
+    emissive probe, the bounce and its probe, 13 shadow for the sun, the
+    emissive channel and the bounce's NEE, kernel 14 once (at ratio 1 one
+    surface serves the albedo and the channels, both textured slots), and
+    the four a-trous levels; no gather and no validation frames."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.examples import simple
+    from hikari_tpu_torch.ops import (denoise_fused, texture_pallas,
+                                      trace_cull)
+
+    fake = _TextureZeroingLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    wrappers = (trace_cull.bvh_full, trace_cull.bvh_shadow,
+                texture_pallas.sample_atlas_slots,
+                denoise_fused.atrous_level)
+    for mod in (trace_cull, texture_pallas, denoise_fused):
+        monkeypatch.setattr(mod, "on_cpu", lambda t: False)
+        monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", 0)
+    cam = ht.Camera.from_look_at(simple.EYE, simple.TARGET, width=16,
+                                 height=12)
+    r = ht.Renderer(simple.build_scene(simple.procedural_earth(0)), cam,
+                    _flagship(), device="cpu")
+    for _ in range(2):
+        fake.calls.clear()
+        fake.args.clear()
+        r.render_frame()
+        assert fake.calls == (
+            ["hk_bvh_full", "hk_sample_atlas", "hk_bvh_shadow",
+             "hk_bvh_full", "hk_bvh_shadow", "hk_bvh_full", "hk_bvh_full",
+             "hk_bvh_shadow"] + ["hk_atrous_level"] * 4)
+        atlas = [a for n, a in zip(fake.calls, fake.args)
+                 if n == "hk_sample_atlas"]
+        assert [(_sample_call(a)["n"], _sample_call(a)["slots"])
+                for a in atlas] == [(12 * 16, (0, 1))]
+    assert [fn.launches for fn in wrappers] == [8, 6, 2, 8]

@@ -200,10 +200,16 @@ def test_update_settings():
     r.update_settings(denoise=True)                 # static: rebuild+reset
     assert r._frame_index == 0
     assert not np.array_equal(r.render(1), raw)
-    with pytest.raises(NotImplementedError):
-        r.update_settings(temporal_reuse=True, spatial_tap_scramble=True)
+    # into temporal and spatial reuse with the tap scramble: a new frame
+    # function (the modular path) and carry
+    r.update_settings(temporal_reuse=True, indirect_spatial_reuse=True,
+                      spatial_tap_scramble=True)
+    assert r._frame_index == 0 and r.settings.spatial_tap_scramble
+    assert set(ht.frame.TEMPORAL_KEYS + ht.frame.SPATIAL_KEYS) <= set(r.carry)
+    assert torch.isfinite(r.render_frame()).all()
+    r.update_settings(temporal_reuse=False, indirect_spatial_reuse=False,
+                      spatial_tap_scramble=False)
     assert r.settings.upscale == ht.Upscale.none()
-    assert not r.settings.spatial_tap_scramble
     assert isinstance(r.render_frame(), torch.Tensor)
     # into FSR at ratio 2: a new frame and carry (TAA off: no history)
     r.render_frame()

@@ -57,6 +57,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 import hikari_tpu as hj
@@ -197,14 +198,15 @@ def reference_renderer(monkeypatch, case, exact=False):
     return ref_r
 
 
-def render_both(monkeypatch, case, frames, exact=False, rows=None):
+def render_both(monkeypatch, case, frames, exact=False, rows=None,
+                own_gbuffer=False):
     """`frames` frames of the panning camera (`camera`'s rows) through both
     renderers; with `exact`, the reference's as reference_renderer sets it
-    up and the port fed its G-buffer (reference_gbuffer). Returns (port
-    renderer, reference renderer, port image, reference image) after the
-    last."""
+    up and, unless `own_gbuffer`, the port fed its G-buffer
+    (reference_gbuffer). Returns (port renderer, reference renderer, port
+    image, reference image) after the last."""
     ref_r = reference_renderer(monkeypatch, case, exact)
-    if exact:
+    if exact and not own_gbuffer:
         monkeypatch.setattr(pf, "prepass_fused", reference_gbuffer(ref_r))
     port_r = ht.Renderer(build_cornell_box("hikari_tpu_torch"),
                          camera(ht, case, 0, rows), case_settings(ht, case),
@@ -257,3 +259,19 @@ def test_fsr_frame_matches_reference(monkeypatch):
     """FSR 1.0 at ratio 1.3: TAA's history at the render size."""
     port_r = check_case(monkeypatch, "fsr1_1.3")
     assert port_r.carry["prev_taa"].shape == (37, 128, 4)
+
+
+@pytest.mark.xfail(strict=True, reason=(
+    "kernel A's plain version differs from hikari_tpu's kernel A in the "
+    "last bits of its G-buffer words: XLA's CPU rsqrt (the rsqrtps "
+    "estimate and two Newton steps) and its FMA contraction of the kernel "
+    "body have no IEEE form in PyTorch (PERF.md section 7)"))
+def test_fsr_frame_one_output_pixel_pan_on_the_ports_gbuffer(monkeypatch):
+    """FSR 1.0 at ratio 1.3, the camera panning one output pixel a frame:
+    the port on its own G-buffer (kernel A's plain version) against the
+    exact reference (hikari_tpu's resample and post chain as written),
+    under the frame bar."""
+    size = CASES["fsr1_1.3"][3]
+    _, _, got, ref = render_both(monkeypatch, "fsr1_1.3", FRAMES, exact=True,
+                                 rows=size[0], own_gbuffer=True)
+    assert_frames_close(got, ref, size=size)

@@ -89,3 +89,21 @@ def test_camera_rays_are_unit_and_centered():
     torch.testing.assert_close(d.norm(dim=-1), torch.ones(size))
     torch.testing.assert_close(d[2, 3], torch.tensor([0.0, 0.0, -1.0]),
                                atol=1e-6, rtol=0)
+
+
+def test_prepass_words_with_xlas_rsqrt():
+    """Kernel A's plain version word for word against hikari_tpu's kernel A
+    (jitted, interpret mode) on the box's first panned frame of
+    tests/torch_pan_witness.py (48x166, a jittered ray grid), with the
+    port's torch.rsqrt replaced by XLA's (lax.rsqrt on the same values):
+    the ids and the normals (the winner's interpolated row and _rsqrt_n)
+    equal in every word. The other planes still part where XLA's CPU
+    compiler contracts the kernel's multiply-adds into FMAs (PERF.md
+    section 7)."""
+    from tests import torch_pan_witness as witness
+
+    words = witness.gbuffer_words("fsr1_1.3", 48, refs=("jit",),
+                                  ports=("xla_rsqrt",))
+    shares = words[("xla_rsqrt", "jit")]
+    assert shares["instance_material"] == 0.0, shares
+    assert shares["normal"] == 0.0, shares

@@ -23,12 +23,21 @@ more than 0.1 and their columns:
   out_pan_own  out_pan_exact with the port's own G-buffer
 
 Also prints the share of G-buffer words in which kernel A's plain version
-and hikari_tpu's kernel A differ on the first panned frame (compiled, and
-op by op), and how many of the indices of hikari_tpu's own generic
-resample change under jit on an even frame.
+and hikari_tpu's kernel A differ on the first panned frame, per plane and
+in all, with hikari_tpu jitted and under jax.disable_jit (its Pallas
+interpreter runs the kernel body as one compiled program in both), and
+again with the port's torch.rsqrt replaced by XLA's (lax.rsqrt on the
+same inputs): what is left is the multiply-adds XLA's CPU compiler
+contracts into FMAs in that program (|d|^2 of the camera ray, for one,
+is fma(dz, dz, fma(dx, dx, dy * dy)) there). It prints how often XLA's
+rsqrt differs from 1 / sqrt on 2^20 seeded floats, and how many of the
+indices of hikari_tpu's own generic resample change under jit on an even
+frame.
 
 Run from the repository root, on the CPU:
     JAX_PLATFORMS=cpu python -m tests.torch_pan_witness [case] [--all]
+    JAX_PLATFORMS=cpu python -m tests.torch_pan_witness [case] --words
+(--words: the G-buffer words and the rsqrt share only, ~1 min).
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import hikari_tpu as hj
 import hikari_tpu.ops.prepass_fused as pf_ref
@@ -77,27 +87,59 @@ def run(ref_r, case, rows, gbuf_from_ref):
     return out, np.abs(got - ref)[..., :3].max(-1)
 
 
-def gbuffer_words(case, rows):
+def xla_rsqrt(x):
+    """XLA's CPU rsqrt of a CPU float32 tensor (lax.rsqrt on its values)."""
+    return torch.from_numpy(np.array(jax.lax.rsqrt(jnp.asarray(x.numpy()))))
+
+
+def gbuffer_words(case, rows, refs=("jit", "disable_jit"),
+                  ports=("torch_rsqrt", "xla_rsqrt")):
     """Share of G-buffer words that differ between kernel A's plain version
-    and hikari_tpu's kernel A, compiled and op by op, on the first panned
-    frame's views."""
+    and hikari_tpu's kernel A on the first panned frame's views: {(port,
+    reference): {plane: share, "all": share}} for the port as it is and
+    with XLA's rsqrt (`ports`), against hikari_tpu jitted and under
+    disable_jit (`refs`)."""
     size = CASES[case][3]
     views = [camera(ht, case, i, rows).view_uniform() for i in (1, 0)]
     jitter = (0.25, -0.125)
-    got, _ = pf.prepass_fused(
-        build_cornell_box("hikari_tpu_torch").compile().as_pytree("cpu"),
-        *[view_to_device(v, "cpu") for v in views], jitter, size)
     args = (build_cornell_box("hikari_tpu").compile().as_pytree(),
             *[{k: jnp.asarray(a) for k, a in v.items()} for v in views],
             jnp.asarray(np.float32(jitter)), size)
-    compiled, _ = jax.jit(pf_ref.prepass_fused, static_argnums=(4,))(*args)
-    with jax.disable_jit():
-        eager, _ = pf_ref.prepass_fused(*args)
-    total = sum(v.numel() for v in got.values())
-    return {name: sum(int((got[k].numpy().view(np.uint32)
-                           != np.asarray(ref[k]).view(np.uint32)).sum())
-                      for k in got) / total
-            for name, ref in (("compiled", compiled), ("op_by_op", eager))}
+    wanted, refs = refs, {}
+    if "jit" in wanted:
+        refs["jit"] = jax.jit(pf_ref.prepass_fused,
+                              static_argnums=(4,))(*args)[0]
+    if "disable_jit" in wanted:
+        with jax.disable_jit():
+            refs["disable_jit"] = pf_ref.prepass_fused(*args)[0]
+    out = {}
+    for port in ports:
+        mp = pytest.MonkeyPatch()
+        if port == "xla_rsqrt":
+            mp.setattr(torch, "rsqrt", xla_rsqrt)
+        try:
+            got, _ = pf.prepass_fused(
+                build_cornell_box("hikari_tpu_torch").compile()
+                .as_pytree("cpu"),
+                *[view_to_device(v, "cpu") for v in views], jitter, size)
+        finally:
+            mp.undo()
+        for name, ref in refs.items():
+            diff = {k: (got[k].numpy().view(np.uint32)
+                        != np.asarray(ref[k]).view(np.uint32)) for k in got}
+            shares = {k: float(d.mean()) for k, d in diff.items()}
+            shares["all"] = (sum(int(d.sum()) for d in diff.values())
+                             / sum(d.size for d in diff.values()))
+            out[(port, name)] = shares
+    return out
+
+
+def rsqrt_share(n=1 << 20, seed=0):
+    """How often XLA's CPU rsqrt differs from torch.rsqrt (1 / sqrt,
+    each rounded) on n seeded floats in [0, 10)."""
+    x = np.random.default_rng(seed).random(n, dtype=np.float32) * 10
+    t = torch.from_numpy(x)
+    return float((xla_rsqrt(t) != torch.rsqrt(t)).float().mean())
 
 
 def jit_changes(case):
@@ -116,6 +158,9 @@ def main(argv):
     case = next((a for a in argv if not a.startswith("-")), "fsr1_1.3")
     every = "--all" in argv
     size = CASES[case][3]
+    if "--words" in argv:
+        print_words(case, size)
+        return
     rows = []
     for exact, setups in ((False, (("static", 0, False),
                                    ("taa_pan", taa_rows(case), False),
@@ -138,9 +183,17 @@ def main(argv):
         print(f"{'':14s} pixels off by > 0.1: {float(big.mean())!r}, in "
               "columns "
               f"{np.nonzero(big.any(0))[0].tolist()}")
-    print("gbuffer words differing, first panned frame:",
-          gbuffer_words(case, size[0]))
+    print_words(case, size)
     print("resample indices changed by jit (even frame):", jit_changes(case))
+
+
+def print_words(case, size):
+    print("gbuffer words differing, first panned frame (port, hikari_tpu):")
+    for key, shares in gbuffer_words(case, size[0]).items():
+        print(f"  {key}: " + ", ".join(f"{k} {v!r}" for k, v in
+                                       shares.items()))
+    print("XLA's rsqrt differs from 1 / sqrt on", rsqrt_share(),
+          "of 2^20 floats in [0, 10)")
 
 
 if __name__ == "__main__":
