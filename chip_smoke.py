@@ -92,11 +92,18 @@ Run from the repository root on a machine with an NVIDIA H100:
    the modular spatial pass at 960x540) and the box at HikariSettings()
    with the spatial tap scramble (the modular path over kernels 5, 6 and
    7), three frames each, every kernel call of the last two against its
-   plain version and a small render against the CPU;
+   plain version and a small render against the CPU; then path CL (the
+   city with 16 street lamps, tests/city_lamps.py: 154 instances, 3,002
+   triangles, 17 emissives, so the emissive channel walks the emissive
+   BVH and update_scene(fast=True) is the host refit) at 1920x1080 with
+   bloom, over two frames, every call of kernel 13 (full and shadow, the
+   probes in the 17 emitters' subtrees), 9, C, 11 and 12 against its
+   plain version, and the scene the Renderer uploaded after the host
+   refits against the host refit's arrays word for word;
 11. checks small CUDA renders of the seven paths against the plain
    versions on the CPU, KR on the box with a sun at 270x480 (the solar
-   branch of the modular path, kernel 7 on sun rays), and the city and
-   paths T, TN and F at 48x256;
+   branch of the modular path, kernel 7 on sun rays), and the city, CL
+   (4 frames, and 3 with FXAA) and paths T, TN and F at 48x256;
 12. renders the box through Renderer at 1920x1080 on the seven paths
    (no reuse; temporal reuse R; temporal + spatial reuse S; P; D;
    checkerboard K; checkerboard + temporal reuse KR): 3 warm-up frames,
@@ -104,13 +111,17 @@ Run from the repository root on a machine with an NVIDIA H100:
    by exactly the counts of PATHS below (per frame number: KR's, the
    city's and T's validation frames trace more); then the city the same
    way, each frame update_scene(rotate_sphere(...), fast=True) +
-   render_frame(); then path T, whose 1080p image must differ from the
-   untextured scene's on the spheres; then path TN; then path F (with
+   render_frame(); then path CL the same way (with --profile also
+   bloom's share of its device time and the emissive walk's calls,
+   PyTorch ops and host time per frame beside the city's); then path T,
+   whose 1080p image must differ from the untextured scene's on the
+   spheres; then path TN; then path F (with
    --profile also FSR's share of its device time); then P and D
    alternately, frame by frame;
 13. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
    frame_ms_smaa2, frame_ms_default, frame_ms_ckb, frame_ms_ckb_reuse,
-   frame_ms_city with city_refit_ms, frame_ms_simple (path T),
+   frame_ms_city with city_refit_ms, frame_ms_city_lamps with
+   city_lamps_refit_ms (path CL), frame_ms_simple (path T),
    frame_ms_simple_noreuse (path TN), frame_ms_scene (path F), P's and
    D's alternating medians, one JSON line of per-kernel numbers of the
    kernels the paths run, one of kernel 13's mode `hit` (no path traces
@@ -133,7 +144,8 @@ and mean abs diff < 1e-3.
 
 With --profile it also prints a torch.profiler table of device time by
 kernel over two frames of each path. With --ab it only times the frames of
-the nine paths (P and D alternately) before any check or profiler session,
+the ten paths (P and D alternately; CL among them) before any check or
+profiler session,
 then checks and times kernels 8, C, 11 and 12 on path D's calls, C on a
 synthetic 1080p field, kernel 4 on R's, S's (1080p) and D's (960x540)
 calls with and without the validation retrace, kernel B on the no-reuse
@@ -409,6 +421,18 @@ def city_launches(settings, number):
     vd = int(number % settings.direct_validate_interval == 0)
     ve = int(number % settings.emissive_validate_interval == 0)
     return (0, 0, 1, 0, 0, 4, 2, 1, 0, 0, 0, 0, 4 + ve, 3 + vd + ve, 0)
+
+
+def cl_launches(settings, number):
+    """Path CL's launches in frame `number` (the city with 16 street
+    lamps: 17 emissives, so the emissive channel walks the emissive BVH
+    and every update_scene(fast=True) is the host refit, which launches
+    no kernel): the city's. The lamp heads' 192 triangles join the
+    sphere's 1,224 in the emissive table (above kernel 6's 768: kernel 13
+    for every ray), and bloom launches no kernel of the port's. The same
+    calls as hikari_tpu's tracer makes per frame number on the CPU
+    (tests/test_torch_frame_city_lamps.py counts them)."""
+    return city_launches(settings, number)
 
 
 def simple_launches(settings, number):
@@ -1763,9 +1787,9 @@ def texture_ab(ht):
 
 
 def ab_only(ht, build_box):
-    """--ab: first the frames of the nine paths (P and D alternately, frame
-    by frame; then no-reuse, R, S, K, KR, the city and T, each with its
-    launch counts checked), before any check or profiler session; then
+    """--ab: first the frames of the ten paths (P and D alternately, frame
+    by frame; then no-reuse, R, S, K, KR, the city, CL and T, each with
+    its launch counts checked), before any check or profiler session; then
     kernels 8, C, 11 and 12 checked against their plain versions and timed
     on path D's calls at 1080p (frames 4 and 5 of a panning camera; C at
     960x540), kernel C timed on a synthetic 1080p field (2 channels, the
@@ -1800,6 +1824,9 @@ def ab_only(ht, build_box):
     times, refit, _ = city_path(ht, TIMED_FRAMES, False)
     frames.update(city=float(np.median(times)),
                   city_refit=float(np.median(refit)))
+    times, refit, _, _ = city_lamps_path(ht, TIMED_FRAMES, False)
+    frames.update(CL=float(np.median(times)),
+                  CL_refit=float(np.median(refit)))
     frames["T"] = float(np.median(simple_path(ht, TIMED_FRAMES, False)[0]))
 
     caps = [Capture(pf, "prepass_kernel"), Capture(pf, "prepass_quads_kernel"),
@@ -3010,17 +3037,21 @@ def compare_simple_render(ht, size, frames, settings=None, name="T"):
              "render")
 
 
-def compare_city_render(ht, size, frames, settings=None, name="city"):
-    """The city (at HikariSettings() unless `settings` says otherwise) at
-    `size` on CUDA against the plain versions on the CPU, the sphere
-    turning between frames: SSIM >= 0.98 and mean abs diff < 1e-3."""
+def compare_city_render(ht, size, frames, settings=None, name="city",
+                        build=None, **renderer_kw):
+    """The city (or the scene `build()` makes, the city's sphere in it; at
+    HikariSettings() unless `settings` says otherwise; Renderer keywords
+    `renderer_kw`) at `size` on CUDA against the plain versions on the
+    CPU, the sphere turning between frames: SSIM >= 0.98 and mean abs
+    diff < 1e-3."""
     from hikari_tpu_torch.examples import city
 
     images = []
     for device in (None, "cpu"):
-        sc = city.build_scene(3)
+        sc = build() if build else city.build_scene(3)
         r = ht.Renderer(sc, city_camera(ht, size),
-                        settings or ht.HikariSettings(), device=device)
+                        settings or ht.HikariSettings(), device=device,
+                        **renderer_kw)
         for f in range(frames):
             if f:
                 r.update_scene(city.rotate_sphere(sc, city_angle(f)),
@@ -3068,13 +3099,15 @@ def compare_renders(ht, scene_of, size, name, settings, frames):
 def check_small_render(ht, build_box):
     """Small CUDA renders of the seven paths against the plain versions on
     the CPU, KR on the box with a sun at 270x480 (the modular path's solar
-    channel), and the city and paths T, TN and F at 48x256."""
+    channel), and the city and paths CL (and CL with FXAA), T, TN and F at
+    48x256."""
     for name, (settings_of, _) in PATHS.items():
         compare_renders(ht, build_box, SMALL, name, settings_of(ht),
                         3 if name == "no-reuse" else 4)
     compare_renders(ht, lambda: sun_box(build_box), SUN, "KR with a sun",
                     PATHS["KR"][0](ht), 4)
     compare_city_render(ht, CITY_SMALL, 4)
+    compare_lamps_render(ht)
     compare_simple_render(ht, CITY_SMALL, 4)
     compare_simple_render(ht, CITY_SMALL, 3, flagship_settings(ht), "TN")
     compare_scene_render(ht, CITY_SMALL, 4)
@@ -3636,6 +3669,272 @@ def check_box_scramble(ht, build_box):
                     settings, 4)
 
 
+def load_lamps_module():
+    """tests/city_lamps.py by path (as load_box_module)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "city_lamps", os.path.join(HERE, "tests", "city_lamps.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def lamps_scene():
+    """Path CL's scene: the city after its three waves with 16 street
+    lamps (154 instances, 3,002 triangles, 17 emissives)."""
+    return load_lamps_module().build_city_lamps("hikari_tpu_torch")
+
+
+def lamps_renderer(ht, size, device=None, fxaa=False):
+    """(Renderer, host scene) of path CL at `size`: HikariSettings() (SMAA
+    2.0), the city's HDR camera and BloomSettings()."""
+    from hikari_tpu_torch.ops.bloom import BloomSettings
+
+    sc = lamps_scene()
+    r = ht.Renderer(sc, city_camera(ht, size), ht.HikariSettings(),
+                    device=device, bloom_settings=BloomSettings(), fxaa=fxaa)
+    return r, sc
+
+
+def compare_lamps_render(ht):
+    """Path CL at 48x256 on CUDA against the CPU, 4 frames (the host refit
+    between them), and CL with FXAA, 3 frames: SSIM >= 0.98 and mean abs
+    diff < 1e-3."""
+    from hikari_tpu_torch.ops.bloom import BloomSettings
+
+    compare_city_render(ht, CITY_SMALL, 4, name="CL", build=lamps_scene,
+                        bloom_settings=BloomSettings())
+    compare_city_render(ht, CITY_SMALL, 3, name="CL with FXAA",
+                        build=lamps_scene, bloom_settings=BloomSettings(),
+                        fxaa=True)
+
+
+def host_refit_reference(angles):
+    """Path CL's compiled scene after host refits to the sphere angles
+    `angles`, on the host alone: {name: numpy array} of every array and
+    kernel 13 table the Renderer uploads."""
+    from hikari_tpu_torch.examples import city
+
+    sc = lamps_scene()
+    gpu = sc.compile()
+    for a in angles:
+        gpu = gpu.update_transforms(city.rotate_sphere(sc, a))
+    return {**gpu.arrays, **gpu.tables}
+
+
+def check_city_lamps(ht):
+    """Path CL's calls at 1920x1080 over two frames, each after
+    update_scene(rotate_sphere(...), fast=True), the host refit (frame 0
+    validates both direct channels, frame 1 neither): kernel 13 full and
+    shadow (the probes in the 17 emitters' subtrees), 9 (3 sources), C,
+    11 and 12 against their plain versions; the uploaded scene after the
+    refits against the host refit's arrays word for word. Returns
+    {record name: its path CL numbers}."""
+    from contextlib import ExitStack
+
+    from hikari_tpu_torch import frame as fr
+    from hikari_tpu_torch.examples import city
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import reproj_gather as rg
+    from hikari_tpu_torch.ops import trace_cull as tc
+    from hikari_tpu_torch.ops import warp2 as w2
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    r, sc = lamps_renderer(ht, FULL)
+    settings = r.settings
+    emitters = sorted(int(i) for i in torch.nonzero(
+        r.scene_dev["bvh_sub_root"] > 0).flatten())
+    caps = [Capture(tc, "bvh_full"), Capture(tc, "bvh_shadow"),
+            Capture(fr, "reproj_gather"), Capture(dnf, "atrous_level"),
+            Capture(wb, "warp_band"), Capture(w2, "warp_multi")]
+    angles = [city_angle(f) for f in range(2)]
+    with ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+            c.on = True
+        for a in angles:
+            r.update_scene(city.rotate_sphere(sc, a), fast=True)
+            r.render_frame()
+        torch.cuda.synchronize()
+    full_calls, shadow_calls, g_calls, c_calls, wb_calls, wm_calls = (
+        c.calls for c in caps)
+    first = COUNTERS.index("bvh_full")
+    want = [sum(col) for col in zip(*(
+        cl_launches(settings, n)[first:first + 2] for n in (0, 1)))]
+    got = [len(full_calls), len(shadow_calls)]
+    included = sorted({int(i) for a, _ in full_calls
+                       for i in torch.unique(a[-1]) if i >= 0})
+    others = [len(g_calls), len(c_calls), len(wb_calls), len(wm_calls)]
+    print(f"path CL's two frames: kernel 13 calls {got} (need {want}), "
+          f"9, C, 11, 12 calls {others} (need [2, 8, 4, 2]); emissive "
+          f"subtrees of {len(emitters)} instances, probes included to "
+          f"{len(included)} of them")
+    if (got != want or others != [2, 8, 4, 2] or len(emitters) != 17
+            or not set(included) <= set(emitters) or len(included) < 3):
+        fail("path CL's two frames did not call its kernels as expected")
+    if r._refitter is not None:
+        fail("path CL's update_scene(fast=True) did not take the host refit")
+    check_walk_calls(tc, "full", full_calls, "path CL")
+    check_walk_calls(tc, "shadow", shadow_calls, "path CL")
+    if any(len(a[0]) != 3 for a, _ in g_calls):
+        fail("path CL's gather does not read 3 sources")
+    check_gather_calls(rg, g_calls, "path CL")
+    check_levels(dnf, c_calls[-4:], "path CL")
+    check_band_calls(wb, wb_calls)
+    check_multi_calls(w2, wm_calls)
+
+    host = host_refit_reference(angles)
+    dev = {k: v.cpu().numpy() for k, v in r.scene_dev.items()}
+    differ = sorted(k for k in set(dev) | set(host)
+                    if k not in dev or k not in host or not np.array_equal(
+                        np.ascontiguousarray(dev[k]).view(np.uint8),
+                        np.ascontiguousarray(host[k]).view(np.uint8)))
+    print(f"path CL's uploaded scene after two host refits: {len(dev)} "
+          f"tensors, equal word for word to the host refit's arrays but "
+          f"{differ} (need none)")
+    if differ:
+        fail("path CL's uploaded scene differs from the host refit's")
+
+    # frame 1's emissive probe (17 subtrees) and emissive shadow rays
+    extra = {}
+    for key, mode, a, name in (
+            ("trace_bvh_full", "full", full_calls[-3][0], "cl_probe"),
+            ("trace_bvh_shadow", "shadow", shadow_calls[-2][0],
+             "cl_emissive")):
+        extra[key] = {f"{k}_{name}": v for k, v in walk_record(
+            tc, mode, a, f"path CL {name}").items()
+            if k in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    return extra
+
+
+def walk_profile(step):
+    """The emissive walk's share of one step (--profile): its calls and
+    host milliseconds (the wrapper's time, no synchronize) in one step,
+    and its calls and PyTorch ops (aten ops, views included) in the
+    next."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from hikari_tpu_torch.ops import sampling
+
+    inner = sampling.walk_emissive_bvh
+    stats = dict(calls=0, host_ms=0.0, op_calls=0, ops=0)
+    counting = False
+
+    class Count(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            stats["ops"] += 1
+            return func(*args, **(kwargs or {}))
+
+    def wrapper(*a, **k):
+        if counting:
+            stats["op_calls"] += 1
+            with Count():
+                return inner(*a, **k)
+        t = time.perf_counter()
+        out = inner(*a, **k)
+        stats["host_ms"] += (time.perf_counter() - t) * 1e3
+        stats["calls"] += 1
+        return out
+
+    sampling.walk_emissive_bvh = wrapper
+    try:
+        step()
+        torch.cuda.synchronize()
+        counting = True
+        step()
+        torch.cuda.synchronize()
+    finally:
+        sampling.walk_emissive_bvh = inner
+    return stats
+
+
+def bloom_share(r, step):
+    """Bloom's share of a step's device time (--profile): bloom on the
+    overlay output the frame hands it, against the whole step (the host
+    refit's uploads and the frame), each by device_total_ms."""
+    from hikari_tpu_torch import renderer as ren
+
+    cap = Capture(ren, "bloom")
+    with cap:
+        cap.on = True
+        step()
+    (img, settings), _ = cap.calls[-1]
+    b_ms, b_n = device_total_ms(lambda: ren.bloom(img, settings))
+    frame_ms, frame_n = device_total_ms(step)
+    print(f"  path CL bloom ({img.shape[0]}x{img.shape[1]}): {b_ms:.4f} ms "
+          f"of device time, {b_n:.0f} device kernels; the frame "
+          f"{frame_ms:.4f} ms, {frame_n:.0f} kernels: bloom's share "
+          f"{b_ms / frame_ms:.4f}")
+    return dict(bloom_device_ms=b_ms, bloom_kernels=b_n,
+                frame_device_ms=frame_ms, frame_kernels=frame_n,
+                bloom_share=b_ms / frame_ms)
+
+
+def city_lamps_path(ht, timed, profile):
+    """Path CL through Renderer at 1920x1080 as the city's timing
+    (bench.py:159-196): each frame update_scene(rotate_sphere(...),
+    fast=True), the host refit above 8 emissives, + render_frame() with
+    bloom. Returns (frame times with the refit, refit times up to a
+    synchronize, launch counts per wrapper of COUNTERS over the timed
+    frames, with --profile bloom's device share and the emissive walk's
+    ops and host time per frame beside the city's, else None)."""
+    from hikari_tpu_torch.examples import city
+
+    r, sc = lamps_renderer(ht, FULL)
+    gpu = r.gpu_scene
+    if (gpu.num_instances, gpu.num_triangles, gpu.num_emissives) != (
+            154, 3002, 17):
+        fail("path CL is not the 154-instance, 3,002-triangle, "
+             "17-emissive scene")
+    r.update_scene(city.rotate_sphere(sc, 0.001), fast=True)
+    r.render_frame()
+    f = 0
+
+    def step():
+        nonlocal f
+        r.update_scene(city.rotate_sphere(sc, city_angle(f)), fast=True)
+        f += 1
+        return r.render_frame()
+
+    for _ in range(WARMUP_FRAMES):
+        step()
+    torch.cuda.synchronize()
+    wrappers = counter_wrappers()
+    for fn in wrappers:
+        fn.launches = 0
+    times, refit = [], []
+    img = None
+    for _ in range(timed):
+        t = time.perf_counter()
+        r.update_scene(city.rotate_sphere(sc, city_angle(f)), fast=True)
+        torch.cuda.synchronize()
+        refit.append((time.perf_counter() - t) * 1e3)
+        img = r.render_frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+        f += 1
+    counts = [fn.launches for fn in wrappers]
+    first = 1 + WARMUP_FRAMES
+    expected = [sum(col) for col in zip(*(
+        cl_launches(r.settings, n) for n in range(first, first + timed)))]
+    check_run("CL", counts, expected, img, timed)
+    if r._refitter is not None:
+        fail("path CL's update_scene(fast=True) did not take the host refit")
+    extra = None
+    if profile:
+        profile_frames(step)
+        extra = bloom_share(r, step)
+        extra["walk"] = walk_profile(step)
+        csc = city.build_scene(3)
+        cr = ht.Renderer(csc, city_camera(ht, FULL), ht.HikariSettings())
+        extra["walk_city"] = walk_profile(lambda: cr.update_scene(
+            city.rotate_sphere(csc, 0.1), fast=True) or cr.render_frame())
+        print(f"  emissive walk per frame: path CL {extra['walk']}, the "
+              f"city {extra['walk_city']}")
+    return times, refit, counts, extra
+
+
 def device_total_ms(fn, reps=2):
     """The device time in ms of everything fn() launches (kernels, copies
     and fills), per run over `reps` runs, and the number of device
@@ -3720,7 +4019,7 @@ def main():
                     help="also print device time by kernel over 2 frames "
                     "of each path")
     ap.add_argument("--ab", action="store_true",
-                    help="only time the frames of the nine paths, then "
+                    help="only time the frames of the ten paths, then "
                     "check and time kernels 8, C, 11 and 12 on path D's "
                     "calls, 4 and B on R's, S's, D's, the no-reuse "
                     "frame's, P's and K's, 9 on R's, S's, D's, KR's and "
@@ -3793,8 +4092,9 @@ def main():
     check_box_upscale(ht, build_box)
     check_city_spatial_noreuse(ht)
     check_box_scramble(ht, build_box)
+    at_cl = check_city_lamps(ht)
     for rec in records + [hit_record]:
-        for extra in (at_540p, at_ckb, at_city, at_scene, at_tn):
+        for extra in (at_540p, at_ckb, at_city, at_scene, at_tn, at_cl):
             rec.update(extra.get(rec["name"], {}))
         print(f"  {rec['name']}: {rec['ms']:.4f} ms per launch, plain "
               f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
@@ -3811,6 +4111,10 @@ def main():
     times, refit, counts = city_path(ht, TIMED_FRAMES, args.profile)
     frame_ms["city"] = (float(np.median(times)), times)
     launches["city"] = dict(zip(COUNTERS, counts))
+    times, cl_refit, counts, cl_extra = city_lamps_path(ht, TIMED_FRAMES,
+                                                        args.profile)
+    frame_ms["CL"] = (float(np.median(times)), times)
+    launches["CL"] = dict(zip(COUNTERS, counts))
     times, counts = simple_path(ht, TIMED_FRAMES, args.profile)
     frame_ms["T"] = (float(np.median(times)), times)
     launches["T"] = dict(zip(COUNTERS, counts))
@@ -3827,7 +4131,7 @@ def main():
 
     # launches over the timed frames of the paths running each kernel:
     # B runs on no-reuse, P and K, kernel 4 on R, S and D, 13 on the city,
-    # T, TN and F, 14 on T and TN
+    # CL, T, TN and F, 14 on T and TN
     by_name = {
         "prepass_fused": total("prepass"),
         "light_fused": total("lighting", ("no-reuse", "P", "K")),
@@ -3863,6 +4167,12 @@ def main():
         "city_refit_ms": float(np.median(refit)), "city_instances": 122,
         "city_triangles": 2618, "reps_ms": frame_ms["city"][1],
         "refit_reps_ms": refit, "card": card}))
+    print(json.dumps({
+        "frame_ms_city_lamps": frame_ms["CL"][0],
+        "city_lamps_refit_ms": float(np.median(cl_refit)),
+        "city_lamps_instances": 154, "city_lamps_triangles": 3002,
+        "city_lamps_emissives": 17, "reps_ms": frame_ms["CL"][1],
+        "refit_reps_ms": cl_refit, "profile": cl_extra, "card": card}))
     print(json.dumps({
         "frame_ms_simple": frame_ms["T"][0], "simple_triangles": 2510,
         "reps_ms": frame_ms["T"][1], "card": card}))

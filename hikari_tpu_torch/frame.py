@@ -54,8 +54,8 @@ the render size with SMAA, else the render size, FSR included).
 
 Every upscale hikari_tpu accepts renders: none, SMAA TU4X and FSR 1.0
 (ops/post.py) at any ratio in [1, 2] and any output size, and
-checkerboard lighting at any ratio. A scene with more than 8 emissives
-raises NotImplementedError when the frame function is built.
+checkerboard lighting at any ratio. Scenes of any emissive count render
+(ops/sampling.py walk_emissive_bvh).
 """
 
 from __future__ import annotations
@@ -77,7 +77,6 @@ from hikari_tpu_torch.ops.noise import sample_blue_noise
 from hikari_tpu_torch.ops.post import post_chain, post_sizes
 from hikari_tpu_torch.ops.prepass import frame_jitter, prepass
 from hikari_tpu_torch.ops.reproj_gather import reproj_gather
-from hikari_tpu_torch.ops.sampling import SMALL_EMISSIVE_MAX
 from hikari_tpu_torch.ops.shading import used_slots
 from hikari_tpu_torch.ops.smaa import parity_context
 from hikari_tpu_torch.ops.tonemap import tone_mapping
@@ -118,15 +117,6 @@ def checkerboard_active(settings: HikariSettings, full_size) -> bool:
     pixel."""
     render_size = scaled_size(full_size, settings.upscale_ratio)
     return settings.checkerboard_lighting and render_size[1] % 2 == 0
-
-
-def unsupported_scene(num_emissives: int):
-    """The reasons a compiled scene lies outside the ported slices."""
-    reasons = []
-    if num_emissives > SMALL_EMISSIVE_MAX:
-        reasons.append(f"{num_emissives} emissives > {SMALL_EMISSIVE_MAX} "
-                       "(the emissive BVH walk)")
-    return reasons
 
 
 def prepass_fused_eligible(scene, *, no_texture: bool,
@@ -295,12 +285,7 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
     [H,W,4], albedo [H,W,4], carry), specialized on the static settings
     and scene facts (emissive count, sun presence) and on the scene's
     tracer (ops/trace.py), which serves the non-fused prepass and the
-    modular lighting path. Raises NotImplementedError for a scene outside
-    the ported slices."""
-    reasons = unsupported_scene(num_emissives)
-    if reasons:
-        raise NotImplementedError(
-            "outside the ported slices: " + ", ".join(reasons))
+    modular lighting path."""
     full_size = tuple(full_size)
     ratio = settings.upscale_ratio
     render_size = scaled_size(full_size, ratio)

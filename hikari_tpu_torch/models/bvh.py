@@ -140,6 +140,30 @@ def _karras_ranges(keys: np.ndarray):
     return first, last, split
 
 
+def range_min_max(leaf_min, leaf_max, first, last):
+    """The union of the leaf boxes over each range [first, last] of leaf
+    positions: the min and max of two power-of-2 windows (length
+    2**floor(log2(last - first + 1)), from first and ending at last) of a
+    sparse-table pyramid, one level in memory at a time. Min and max only,
+    so the words equal a direct reduction's."""
+    cur_min = np.asarray(leaf_min, np.float32)
+    cur_max = np.asarray(leaf_max, np.float32)
+    klev = np.floor(np.log2(last - first + 1)).astype(np.int64)
+    lo = np.empty((len(first), 3), np.float32)
+    hi = np.empty((len(first), 3), np.float32)
+    for k in range(int(klev.max(initial=0)) + 1):
+        if k:
+            half = 1 << (k - 1)
+            cur_min = np.minimum(cur_min[:-half], cur_min[half:])
+            cur_max = np.maximum(cur_max[:-half], cur_max[half:])
+        sel = klev == k
+        if sel.any():
+            f, e = first[sel], last[sel] - (1 << k) + 1
+            lo[sel] = np.minimum(cur_min[f], cur_min[e])
+            hi[sel] = np.maximum(cur_max[f], cur_max[e])
+    return lo, hi
+
+
 def _preorder_flatten(first, last, prim_order, leaf_min, leaf_max) -> Bvh:
     """Closed-form DFS pre-order flatten.
 
@@ -177,34 +201,9 @@ def _preorder_flatten(first, last, prim_order, leaf_min, leaf_max) -> Bvh:
         (rank + 1).astype(np.uint32),
     )
 
-    # --- node AABBs: sparse-table range min/max, one level in memory at a time
-    lengths = all_last - all_first + 1
-    klev = np.zeros(total, dtype=np.int64)
-    ln = lengths.copy()
-    while (ln > 1).any():
-        klev += (ln > 1)
-        ln >>= 1
-    # klev = floor(log2(length))
-    klev = np.floor(np.log2(lengths)).astype(np.int64)
-
-    node_min = np.empty((total, 3), dtype=np.float32)
-    node_max = np.empty((total, 3), dtype=np.float32)
-    cur_min = leaf_min.astype(np.float32).copy()
-    cur_max = leaf_max.astype(np.float32).copy()
-    k = 0
-    while True:
-        sel = klev == k
-        if sel.any():
-            f = all_first[sel]
-            e = all_last[sel] - (1 << k) + 1
-            node_min[sel] = np.minimum(cur_min[f], cur_min[e])
-            node_max[sel] = np.maximum(cur_max[f], cur_max[e])
-        k += 1
-        if (1 << k) > n:
-            break
-        half = 1 << (k - 1)
-        cur_min = np.minimum(cur_min[:-half], cur_min[half:])
-        cur_max = np.maximum(cur_max[:-half], cur_max[half:])
+    # node AABBs: sparse-table range min/max
+    node_min, node_max = range_min_max(leaf_min, leaf_max, all_first,
+                                       all_last)
 
     # Reorder into pre-order storage.
     out_min = np.empty_like(node_min)
@@ -276,3 +275,16 @@ def build_bvh(aabb_min: np.ndarray, aabb_max: np.ndarray,
 
     first, last, _split = _karras_ranges(keys)
     return _preorder_flatten(first, last, order, leaf_min, leaf_max)
+
+
+def refit_bvh(bvh: Bvh, aabb_min: np.ndarray, aabb_max: np.ndarray) -> Bvh:
+    """Recompute node AABBs for new primitive bounds, keeping topology.
+
+    O(n log n) vectorized (range_min_max over each node's sorted-leaf
+    range); used for animated scenes in place of a full rebuild.
+    """
+    node_min, node_max = range_min_max(
+        np.asarray(aabb_min, np.float32)[bvh.prim_order],
+        np.asarray(aabb_max, np.float32)[bvh.prim_order],
+        bvh.first, bvh.last)
+    return dataclasses.replace(bvh, node_min=node_min, node_max=node_max)

@@ -23,11 +23,11 @@ no cluster tables).
    emissive-only probe tables are refreshed in their layouts; alias tables
    are scale-invariant under rigid motion and kept.
 
-With more than SMALL_EMISSIVE_MAX emissives hikari_tpu refits on the host
-(the emissive BVH's inner boxes are not refit here). The port has no host
-refit and never reaches one: building the frame of such a scene raises
-NotImplementedError (frame.py unsupported_scene), in Renderer() and in
-update_scene(fast=False), before any update_scene(fast=True) can run.
+The emissive BVH is kept as compiled (the walk reads no inner box, and
+its leaf order em_leaf_order stays). Above SMALL_EMISSIVE_MAX emissives
+Renderer.update_scene takes the host refit instead
+(GpuScene.update_transforms, which rebuilds the emissive BVH in LBVH
+leaf order), as hikari_tpu does.
 """
 
 from __future__ import annotations
@@ -158,7 +158,7 @@ class DeviceRefitter:
         # one pyramid over kernel 13's leaf positions (the world's leaves,
         # then each emissive subtree's) serves bvh_packed's rows and the
         # wide nodes' slots (models/walk_tables.py)
-        p = walk_tables.plan_of(a)
+        p = gpu.plan()
         self.walk_plan = p
         m = len(p.leaf_tri)
         self.num_nodes = len(p.node_first)

@@ -6,8 +6,9 @@ per-triangle instance/material ids, plus a world BVH, the emissive list,
 the emissive light BVH, per-instance alias tables (instance.rs:381-428)
 and the texture atlas with each texture's rect.
 Host code stays numpy; `GpuScene.as_pytree(device)` uploads the arrays as
-torch tensors, and `GpuScene.bvh` keeps the BVH's topology for the
-on-device refit (models/refit_device.py). hikari_tpu's cluster tables
+torch tensors, and `GpuScene.bvh` keeps the BVH's topology for the refits:
+on the host (`GpuScene.update_transforms`, hikari_tpu's numpy steps) and on
+the device (models/refit_device.py). hikari_tpu's cluster tables
 (models/clusters.py, built above 512 triangles for its tile-cull tracer)
 are replaced by kernel 13's tables, which `scene_from_arrays` derives from
 `bvh_packed` (models/walk_tables.py), and its bf16 atlas
@@ -26,7 +27,7 @@ import torch
 from hikari_tpu_torch.models import walk_tables
 from hikari_tpu_torch.models.alias_table import (build_alias_table,
                                                  triangle_areas)
-from hikari_tpu_torch.models.bvh import build_bvh
+from hikari_tpu_torch.models.bvh import build_bvh, refit_bvh
 from hikari_tpu_torch.models.material import StandardMaterial, pack_materials
 from hikari_tpu_torch.models.mesh import Mesh
 
@@ -133,20 +134,24 @@ class Scene:
         return compile_scene(self)
 
 
-def scene_from_arrays(arrays: Dict[str, np.ndarray], device) -> dict:
-    """A compiled scene's arrays (this package's, or hikari_tpu's
-    `GpuScene.arrays`) as the port's scene tensors on `device`, with
-    kernel 13's tables derived from them (models/walk_tables.py). Arrays
-    of other dtypes (hikari_tpu's bf16 `atlas_panels` and `atlas_quad`)
-    are left out."""
-    if "bvh_packed" in arrays:
-        arrays = {**arrays, **walk_tables.scene_tables(arrays)}
+def upload(arrays: Dict[str, np.ndarray], device) -> dict:
+    """numpy arrays as tensors on `device`; arrays of other dtypes
+    (hikari_tpu's bf16 `atlas_panels` and `atlas_quad`) are left out."""
     out = {}
     for k, v in arrays.items():
         a = np.asarray(v)
         if a.dtype.type in _TENSOR_DTYPES:
             out[k] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
     return out
+
+
+def scene_from_arrays(arrays: Dict[str, np.ndarray], device) -> dict:
+    """A compiled scene's arrays (this package's, or hikari_tpu's
+    `GpuScene.arrays`) as the port's scene tensors on `device` (`upload`),
+    with kernel 13's tables derived from them (models/walk_tables.py)."""
+    if "bvh_packed" in arrays:
+        arrays = {**arrays, **walk_tables.scene_tables(arrays)}
+    return upload(arrays, device)
 
 
 @dataclasses.dataclass
@@ -160,14 +165,144 @@ class GpuScene:
     num_emissives: int
     num_textures: int
     bvh: object  # the world BVH's topology (host-only, for refit)
+    # kernel 13's plan of the world BVH's topology and its tables of these
+    # arrays, each made at first use; update_transforms keeps the plan
+    walk_plan: Optional[walk_tables.WalkPlan] = None
+    tables: Optional[Dict[str, np.ndarray]] = None
 
     def as_pytree(self, device) -> dict:
-        return scene_from_arrays(self.arrays, device)
+        return upload({**self.arrays, **self.kernel_tables()}, device)
+
+    def plan(self) -> walk_tables.WalkPlan:
+        """Kernel 13's plan of this scene's topology, made once."""
+        if self.walk_plan is None:
+            self.walk_plan = walk_tables.plan_of(self.arrays)
+        return self.walk_plan
+
+    def kernel_tables(self) -> Dict[str, np.ndarray]:
+        """Kernel 13's tables of these arrays (models/walk_tables.py)."""
+        if self.tables is None:
+            self.tables = walk_tables.tables(
+                self.plan(), self.arrays["bvh_packed"],
+                self.arrays["tri_pos_flat"], self.arrays["tri_attr"])
+        return self.tables
 
     @property
     def has_sun(self) -> bool:
         """True iff the directional light contributes."""
         return bool(np.any(np.abs(self.arrays["dir_color"][:3]) > 0.0))
+
+    def update_transforms(self, scene: "Scene") -> "GpuScene":
+        """The host refit (hikari_tpu's GpuScene.update_transforms, the
+        analog of the reference's per-frame TLAS rebuild,
+        instance.rs:352-371): keep the topology, retransform the moved
+        instances' world triangles in float64, refit the BVH's boxes
+        (models/bvh.refit_bvh), refresh the instance, motion and emissive
+        tables and rebuild the emissive BVH (LBVH, so its leaf order may
+        differ from the compiled one's). Alias tables are kept (rigid
+        motion). Kernel 13's tables are recomputed from the plan made once
+        for the topology (in place of hikari_tpu's cluster tables). Every
+        array hikari_tpu writes is computed by its numpy steps in its
+        order; arrays it does not touch are the same objects."""
+        visible = [inst for inst in scene.instances if inst.visible]
+        if len(visible) != self.num_instances:
+            raise ValueError("the scene's topology changed: use compile()")
+        a = self.arrays
+        tri_pos = a["tri_pos"].copy()
+        tri_nrm = a["tri_normal"].copy()
+        offsets = a["inst_prim_offset"]
+        counts = a["inst_prim_count"]
+        inst_model = []
+        inst_motion = []
+        for iid, inst in enumerate(visible):
+            model = np.asarray(inst.transform, np.float64)
+            prev = (model if inst.prev_transform is None
+                    else np.asarray(inst.prev_transform, np.float64))
+            inst_model.append(model.astype(np.float32))
+            inst_motion.append((prev @ np.linalg.inv(model)).astype(
+                np.float32))
+            old = a["inst_model"][iid].astype(np.float64)
+            if np.allclose(model, old, atol=1e-9):
+                continue
+            rel = model @ np.linalg.inv(old)
+            o, c = offsets[iid], counts[iid]
+            sl = tri_pos[o:o + c].reshape(-1, 3)
+            tri_pos[o:o + c] = (sl @ rel[:3, :3].T + rel[:3, 3]).reshape(
+                -1, 3, 3).astype(np.float32)
+            itn = np.linalg.inv(rel[:3, :3]).T
+            nsl = tri_nrm[o:o + c].reshape(-1, 3) @ itn.T
+            nsl /= np.maximum(np.linalg.norm(nsl, axis=-1, keepdims=True),
+                              1e-20)
+            tri_nrm[o:o + c] = nsl.reshape(-1, 3, 3).astype(np.float32)
+
+        n = self.num_triangles
+        bvh2 = refit_bvh(self.bvh, tri_pos[:n].min(axis=1),
+                         tri_pos[:n].max(axis=1))
+
+        arrays = dict(a)
+        arrays["tri_pos"] = tri_pos
+        arrays["tri_normal"] = tri_nrm
+        arrays["inst_model"] = np.asarray(inst_model, np.float32)
+        arrays["inst_motion"] = np.asarray(inst_motion, np.float32).reshape(
+            -1, 16)
+        arrays["bvh_min"] = bvh2.node_min
+        arrays["bvh_max"] = bvh2.node_max
+        arrays["bvh_packed"] = _packed_bvh(bvh2.node_min, bvh2.node_max,
+                                           bvh2.entry, bvh2.exit)
+        arrays["tri_pos_flat"] = np.concatenate([
+            tri_pos.reshape(len(tri_pos), 9),
+            a["tri_instance"].astype(np.float32)[:, None],
+        ], axis=1).astype(np.float32)
+        arrays["tri_attr"] = np.concatenate([
+            tri_nrm.reshape(len(tri_nrm), 9),
+            a["tri_uv"].reshape(len(tri_nrm), 6),
+            a["tri_instance"].astype(np.float32)[:, None],
+            a["tri_material"].astype(np.float32)[:, None],
+        ], axis=1).astype(np.float32)
+        # instance boxes from the moved triangles
+        n_i = self.num_instances
+        amin = np.empty((n_i, 3), np.float32)
+        amax = np.empty((n_i, 3), np.float32)
+        for iid in range(n_i):
+            o, c = offsets[iid], counts[iid]
+            amin[iid] = tri_pos[o:o + c].reshape(-1, 3).min(axis=0)
+            amax[iid] = tri_pos[o:o + c].reshape(-1, 3).max(axis=0)
+        arrays["inst_aabb_min"] = amin
+        arrays["inst_aabb_max"] = amax
+        if self.num_emissives:
+            em_inst = a["em_instance"]
+            lo, hi = amin[em_inst], amax[em_inst]
+            # each radius keeps its intensity term, read against the old
+            # instance boxes
+            old_extra = (a["em_radius"]
+                         - 0.5 * np.linalg.norm(
+                             a["inst_aabb_max"][em_inst]
+                             - a["inst_aabb_min"][em_inst], axis=-1))
+            arrays["em_position"] = (0.5 * (lo + hi)).astype(np.float32)
+            arrays["em_radius"] = (0.5 * np.linalg.norm(hi - lo, axis=-1)
+                                   + old_extra).astype(np.float32)
+            em_pos = arrays["em_position"]
+            em_r = arrays["em_radius"][:, None]
+            em_bvh = build_bvh(em_pos - em_r, em_pos + em_r, method="lbvh")
+            arrays["em_bvh_packed"] = _packed_bvh(
+                em_bvh.node_min, em_bvh.node_max, em_bvh.entry, em_bvh.exit)
+            eleaf = (em_bvh.entry & np.uint32(0x80000000)) != 0
+            epay = np.where(eleaf, em_bvh.entry & np.uint32(0x7FFFFFFF),
+                            em_bvh.entry)
+            arrays["em_leaf_order"] = epay[eleaf].astype(np.int32)
+            arrays["em_packed"] = np.concatenate([
+                a["em_rgba"], arrays["em_position"],
+                arrays["em_radius"][:, None],
+                a["em_instance"].astype(np.float32)[:, None],
+                a["em_alias_offset"].astype(np.float32)[:, None],
+                a["em_alias_count"].astype(np.float32)[:, None],
+                a["em_surface_area"][:, None],
+            ], axis=1).astype(np.float32)
+        _add_emissive_tri_tables(arrays)
+        out = dataclasses.replace(self, arrays=arrays, bvh=bvh2,
+                                  walk_plan=self.plan(), tables=None)
+        out.kernel_tables()
+        return out
 
 
 def _pad_to(x: np.ndarray, n: int, fill=0):

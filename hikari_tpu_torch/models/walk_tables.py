@@ -40,6 +40,8 @@ import dataclasses
 
 import numpy as np
 
+from hikari_tpu_torch.models.bvh import range_min_max
+
 # slots per node: 3 beat 2 and 4 on the city's calls (PERF.md)
 WIDTH = 3
 # the kernel's per-thread stack (HK_STACK in csrc/trace_bvh.cu)
@@ -227,8 +229,9 @@ def node_rows(bvh_packed) -> np.ndarray:
 def tables(p: WalkPlan, bvh_packed, tri_pos_flat, tri_attr) -> dict:
     """The tables of plan p from the scene's current arrays: a world slot's
     box is its `bvh_packed` row, a subtree slot's the union of its leaves'
-    `bvh_packed` rows (numpy; the refit computes the same words with a
-    sparse-table pyramid)."""
+    `bvh_packed` rows (numpy, vectorized: the host refit recomputes them
+    every frame from a plan made once; the device refit computes the same
+    words with its own pyramid)."""
     bvh_packed = np.asarray(bvh_packed, np.float32)
     leaf_rows = np.nonzero(bvh_packed[:, 6] > 0.5)[0]
     # leaf position -> its bvh_packed row (the subtrees' leaves are world
@@ -236,17 +239,14 @@ def tables(p: WalkPlan, bvh_packed, tri_pos_flat, tri_attr) -> dict:
     row_of_tri = np.zeros(int(p.leaf_tri.max()) + 1, np.int64)
     row_of_tri[np.rint(bvh_packed[leaf_rows, 7]).astype(np.int64)] = leaf_rows
     leaf_box = bvh_packed[row_of_tri[p.leaf_tri], :6]
-    lo = np.empty((len(p.slot_ref), 3), np.float32)
-    hi = np.empty((len(p.slot_ref), 3), np.float32)
-    for s in range(len(p.slot_ref)):
-        if p.slot_ref[s] == 0:
-            lo[s] = hi[s] = 0.0
-        elif p.slot_node[s] >= 0:
-            lo[s] = bvh_packed[p.slot_node[s], 0:3]
-            hi[s] = bvh_packed[p.slot_node[s], 3:6]
-        else:
-            box = leaf_box[p.slot_first[s]:p.slot_last[s] + 1]
-            lo[s], hi[s] = box[:, 0:3].min(0), box[:, 3:6].max(0)
+    lo = np.zeros((len(p.slot_ref), 3), np.float32)
+    hi = np.zeros((len(p.slot_ref), 3), np.float32)
+    world = p.slot_node >= 0
+    lo[world] = bvh_packed[p.slot_node[world], 0:3]
+    hi[world] = bvh_packed[p.slot_node[world], 3:6]
+    sub = (p.slot_ref != 0) & ~world
+    lo[sub], hi[sub] = range_min_max(leaf_box[:, :3], leaf_box[:, 3:],
+                                     p.slot_first[sub], p.slot_last[sub])
     ref = p.slot_ref.astype(np.float32)[:, None]
     wide = np.concatenate([lo, ref, hi, np.zeros_like(ref)], 1)
     return {"bvh_nodes": node_rows(bvh_packed), "bvh_wide": wide,

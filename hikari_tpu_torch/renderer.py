@@ -4,8 +4,9 @@ hikari_tpu/renderer.py for the ported slices: no reuse, temporal reuse,
 temporal + spatial reuse, the post chain of TAA Jasmine, SMAA TU4X and
 FSR 1.0 at every upscale ratio in [1, 2], so HikariSettings() itself,
 checkerboard lighting with and without temporal reuse, scenes beyond the
-fused kernels' caps, such as the city, with their per-frame on-device
-refit, and textured scenes)."""
+fused kernels' caps, such as the city, with their per-frame refit on the
+device or on the host, scenes of any emissive count, textured scenes, and
+the post-overlay tail of bloom and FXAA)."""
 
 from __future__ import annotations
 
@@ -20,12 +21,18 @@ from hikari_tpu_torch.camera import Camera, view_to_device
 from hikari_tpu_torch.config import HikariSettings, make_frame_uniform
 from hikari_tpu_torch.frame import build_render_frame, init_carry
 from hikari_tpu_torch.models.refit_device import DeviceRefitter
-from hikari_tpu_torch.models.scene import GpuScene, Scene
+from hikari_tpu_torch.models.scene import GpuScene, Scene, upload
+from hikari_tpu_torch.ops.bloom import bloom
+from hikari_tpu_torch.ops.fxaa import fxaa as fxaa_op
 from hikari_tpu_torch.ops.noise import noise_constant
 from hikari_tpu_torch.ops.post import overlay_compose
 from hikari_tpu_torch.ops.trace import make_tracer
 from hikari_tpu_torch.utils.math import reinhard_luminance
 
+# above this many emissives a fast update_scene takes the host refit, as
+# hikari_tpu's does: it rebuilds the emissive BVH, so the emissive walk's
+# leaf order (em_leaf_order) stays the reference's
+SMALL_EMISSIVE_MAX = 8
 
 def _tree_map(fn, tree):
     """fn over the leaves of a carry (a dict of tensors and dicts)."""
@@ -48,13 +55,21 @@ def resolve_device(device=None) -> torch.device:
 
 class Renderer:
     """Renders a scene from a camera at the given settings, on `device`
-    (CUDA unless the caller asks for the CPU)."""
+    (CUDA unless the caller asks for the CPU).
+
+    After the frame's overlay comes the reference graph's tail (OVERLAY ->
+    BLOOM -> TONEMAPPING -> FXAA, lib.rs:342-365): on an HDR camera bloom
+    (with `bloom_settings`, ops/bloom.py) and the Reinhard tone map, then
+    FXAA when `fxaa` is set (ops/fxaa.py)."""
 
     def __init__(self, scene: Union[Scene, GpuScene], camera: Camera,
-                 settings: Optional[HikariSettings] = None, device=None):
+                 settings: Optional[HikariSettings] = None, device=None, *,
+                 bloom_settings=None, fxaa: bool = False):
         self.device = resolve_device(device)
         self.settings = settings or HikariSettings()
         self.camera = camera
+        self.bloom_settings = bloom_settings
+        self.fxaa = fxaa
         self.gpu_scene = scene.compile() if isinstance(scene, Scene) else scene
         self.scene_dev = self.gpu_scene.as_pytree(self.device)
         self.noise = noise_constant(self.device)
@@ -93,51 +108,46 @@ class Renderer:
         the carry at the new sizes."""
         old_key = self.settings.static_key()
         settings = dataclasses.replace(self.settings, **changes)
+        self.settings = settings
         if settings.static_key() != old_key:
-            old = self.settings
-            self.settings = settings
-            try:
-                self._frame_fn = self._build()
-            except NotImplementedError:
-                self.settings = old
-                raise
+            self._frame_fn = self._build()
             self.reset()
-        else:
-            self.settings = settings
 
     def update_scene(self, scene: Scene, fast: bool = False,
                      device: bool = True):
         """Refresh the device scene. fast=False recompiles the scene and
         rebuilds its tracer and the frame function (a change of topology,
-        such as the city's waves); fast=True keeps the topology and moves
-        the instances to their new transforms on the device
-        (models/refit_device.py: triangles, normals, BVH boxes, instance
-        boxes, motion and emissive tables; the atlas and the materials
-        stay). hikari_tpu's host refit (fast=True, device=False) is not
-        ported."""
+        such as the city's waves). fast=True keeps the topology and moves
+        the instances to their new transforms: with device=True on the
+        device (models/refit_device.py: triangles, normals, BVH boxes,
+        instance boxes, motion and emissive tables; the atlas and the
+        materials stay), with device=False on the host
+        (GpuScene.update_transforms), and on the host too above
+        SMALL_EMISSIVE_MAX emissives, since the device refit keeps the
+        emissive BVH and the host refit rebuilds it in another leaf order
+        (hikari_tpu's rule). The host refit re-uploads only the arrays it replaced, and kernel 13's
+        tables."""
         if not fast:
             gpu = scene.compile()
-            tracer = make_tracer(gpu.num_triangles)
-            old = (self.gpu_scene, self.scene_dev, self.tracer)
-            self.gpu_scene, self.tracer = gpu, tracer
+            self.gpu_scene, self.tracer = gpu, make_tracer(gpu.num_triangles)
             self.scene_dev = gpu.as_pytree(self.device)
-            try:
-                self._frame_fn = self._build()
-            except NotImplementedError:
-                self.gpu_scene, self.scene_dev, self.tracer = old
-                raise
+            self._frame_fn = self._build()
             self._refitter = None
             return
-        if not device:
-            raise NotImplementedError(
-                "the host refit (GpuScene.update_transforms) is not ported; "
-                "use update_scene(scene, fast=True)")
-        if self._refitter is None:
-            self._refitter = DeviceRefitter(self.gpu_scene, self.device)
         visible = [i for i in scene.instances if i.visible]
         if len(visible) != self.gpu_scene.num_instances:
             raise ValueError("the scene's topology changed: use "
                              "update_scene(scene, fast=False)")
+        if not device or self.gpu_scene.num_emissives > SMALL_EMISSIVE_MAX:
+            old = self.gpu_scene.arrays
+            self.gpu_scene = self.gpu_scene.update_transforms(scene)
+            fresh = {k: v for k, v in self.gpu_scene.arrays.items()
+                     if old.get(k) is not v}
+            self.scene_dev = {**self.scene_dev, **upload(
+                {**fresh, **self.gpu_scene.kernel_tables()}, self.device)}
+            return
+        if self._refitter is None:
+            self._refitter = DeviceRefitter(self.gpu_scene, self.device)
         mats = np.stack(
             [np.asarray(i.transform, np.float32) for i in visible]
             + [np.asarray(i.transform if i.prev_transform is None
@@ -162,10 +172,19 @@ class Renderer:
         image, albedo, self.carry = self._frame_fn(
             self.scene_dev, view, frame, self.noise, self.carry)
         self._frame_index += 1
+        return self._post_overlay(image, albedo)
+
+    def _post_overlay(self, image, albedo):
+        """The overlay, then on an HDR camera bloom (if set) and the
+        Reinhard tone map, then FXAA (if set)."""
         out = overlay_compose(image, albedo, self.camera.hdr)
         if self.camera.hdr:
+            if self.bloom_settings is not None:
+                out = bloom(out, self.bloom_settings)
             out = torch.cat([reinhard_luminance(out[..., :3]), out[..., 3:4]],
                             -1)
+        if self.fxaa:
+            out = fxaa_op(out)
         return out
 
     def render(self, frames: int = 1) -> np.ndarray:

@@ -221,7 +221,11 @@ def test_scene_beyond_the_caps_renders():
 
 
 def test_scene_beyond_the_caps_raises():
-    """More than 8 emissives: the emissive BVH walk is not ported."""
+    """The name is historical: a scene beyond the old cap of 8 emissives
+    no longer raises. Such a scene (10 emissives) builds, renders and
+    refits on the CPU: update_scene(fast=True) takes the host refit,
+    which rebuilds the emissive BVH and its leaf order (hikari_tpu's
+    rule)."""
     from hikari_tpu_torch.models import mesh as shapes
     from hikari_tpu_torch.models.material import StandardMaterial
     from hikari_tpu_torch.models.scene import make_transform
@@ -231,21 +235,36 @@ def test_scene_beyond_the_caps_raises():
     quad = sc.add_mesh(shapes.quad(0.1, 0.1))
     for i in range(9):
         sc.spawn(quad, light, make_transform((0.15 * i - 0.6, 0.5, 0.0)))
-    with pytest.raises(NotImplementedError):
-        ht.Renderer(sc, _camera(), _flagship(temporal_reuse=True),
+    r = ht.Renderer(sc, _camera(), _flagship(temporal_reuse=True),
                     device="cpu")
+    assert r.gpu_scene.num_emissives == 10
+    r.render_frame()
+    sc.instances[-1].transform = make_transform((0.6, 0.7, 0.1))
+    order = r.gpu_scene.arrays["em_leaf_order"]
+    r.update_scene(sc, fast=True)
+    assert r._refitter is None                  # the host refit
+    assert r.gpu_scene.arrays["em_leaf_order"] is not order
+    img = r.render(1)
+    assert img.shape == (12, 16, 4) and np.isfinite(img).all()
+    assert img[..., :3].max() > 0.0
 
 
 def test_host_refit_raises():
-    """update_scene(fast=True, device=False), hikari_tpu's host refit, is
-    not ported; the device refit and the recompile are."""
+    """The name is historical: the host refit no longer raises.
+    update_scene(fast=True, device=False), hikari_tpu's host refit,
+    refits on the host; the device refit and the recompile still
+    serve."""
     from hikari_tpu_torch.examples import city
 
     sc = city.build_scene(0)
     r = ht.Renderer(sc, _camera(), ht.HikariSettings(), device="cpu")
-    with pytest.raises(NotImplementedError):
-        r.update_scene(city.rotate_sphere(sc, 0.1), fast=True, device=False)
+    gpu = r.gpu_scene
+    r.update_scene(city.rotate_sphere(sc, 0.1), fast=True, device=False)
+    assert r.gpu_scene is not gpu and r._refitter is None
+    np.testing.assert_array_equal(r.scene_dev["tri_pos_flat"].numpy(),
+                                  r.gpu_scene.arrays["tri_pos_flat"])
     r.update_scene(city.rotate_sphere(sc, 0.2), fast=True)
+    assert r._refitter is not None
     r.update_scene(city.build_scene(1), fast=False)
     assert r.gpu_scene.num_instances == 42 and r.tracer.kind == "cull"
     assert np.isfinite(r.render(1)).all()
@@ -618,6 +637,61 @@ def test_cuda_wrappers_marshal_and_count_on_the_city(monkeypatch):
                 assert a[_TRACE_OUTPUTS[name][0]] == 6 * 8
     assert [fn.launches for fn in wrappers] == [
         0, 0, 2, 0, 0, 0, 0, 0, 0, 9, 8, 8, 4, 2]
+
+
+def test_cuda_wrappers_marshal_and_count_on_path_cl(monkeypatch):
+    """Path CL's launches per frame (the city with 16 street lamps, 17
+    emissives, HikariSettings() with BloomSettings(); chip_smoke.py
+    cl_launches): the city's sequence. Every update_scene(fast=True) is
+    the host refit and launches nothing, the emissive BVH walk and bloom
+    are tensor ops; the probes (kernel 13 full: the 1,416-row emissive
+    table is above kernel 6's 768) each go to their emitter's subtree."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.ops import (denoise_fused, light_fused,
+                                      prepass_fused, reproj_gather,
+                                      spatial_fused, trace_cull,
+                                      trace_pallas, warp2, warp_band)
+    from hikari_tpu_torch.ops.bloom import BloomSettings
+    from tests.city_lamps import build_city_lamps, city_module
+
+    fake = _ZeroingLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    mods = (prepass_fused, reproj_gather, light_fused, spatial_fused,
+            trace_pallas, trace_cull, denoise_fused, warp_band, warp2)
+    wrappers = (reproj_gather.reproj_gather, trace_cull.bvh_full,
+                trace_cull.bvh_shadow, denoise_fused.atrous_level,
+                warp_band.warp_band, warp2.warp_multi)
+    for mod in mods:
+        monkeypatch.setattr(mod, "on_cpu", lambda t: False)
+        monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
+    for fn in wrappers:
+        monkeypatch.setattr(fn, "launches", 0)
+    cam = ht.Camera.from_look_at((0.0, 2.5, 20.0), (0.0, 0.0, 0.0),
+                                 width=16, height=12, hdr=True)
+    sc = build_city_lamps("hikari_tpu_torch")
+    r = ht.Renderer(sc, cam, ht.HikariSettings(), device="cpu",
+                    bloom_settings=BloomSettings())
+    assert r.gpu_scene.num_emissives == 17
+    assert r.scene_dev["em_tri_pos_flat"].shape[0] == 1416
+    city = city_module("hikari_tpu_torch")
+    for validation in (True, False):
+        fake.calls.clear()
+        fake.args.clear()
+        if not validation:
+            r.update_scene(city.rotate_sphere(sc, 0.2 / 60.0), fast=True)
+            assert r._refitter is None and fake.calls == []
+        r.render_frame()
+        v = int(validation)
+        assert fake.calls == (
+            ["hk_bvh_full", "hk_reproj_gather"]
+            + ["hk_bvh_shadow"] * (1 + v)
+            + ["hk_bvh_full", "hk_bvh_shadow"] * (1 + v)
+            + ["hk_bvh_full", "hk_bvh_full", "hk_bvh_shadow"]
+            + ["hk_atrous_level"] * 4
+            + ["hk_warp_band", "hk_warp_multi", "hk_warp_band"])
+        assert _gather_sources(fake.args[1]) == 3
+        _assert_warp_tables(fake, (12, 16))
+    assert [fn.launches for fn in wrappers] == [2, 9, 8, 8, 4, 2]
 
 
 def test_cuda_wrappers_marshal_and_count_on_path_f(monkeypatch):
