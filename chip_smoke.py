@@ -99,7 +99,20 @@ Run from the repository root on a machine with an NVIDIA H100:
    bloom, over two frames, every call of kernel 13 (full and shadow, the
    probes in the 17 emitters' subtrees), 9, C, 11 and 12 against its
    plain version, and the scene the Renderer uploaded after the host
-   refits against the host refit's arrays word for word;
+   refits against the host refit's arrays word for word; then path M
+   (hikari_tpu_torch/examples/minimal.py's main at 1920x1080: a cube on a
+   plane, 14 triangles, a sun, HikariSettings()) over two frames, every
+   call of kernels A, 8, 9, 4 (the sun's and the indirect channels), 10,
+   C, 11 and 12 against its plain version, and its small render; then
+   check U: the city compiled without the mesh acceleration structure
+   (HikariUniversalSettings) and rendered with brute_force_max=4096 at
+   960x540, every call of kernels 5, 6 and 7 over its 2,618-row table
+   (and the 1,224-row emissive table) word for word against its plain
+   version over two frames (kernels 5, 6 and 7 stage a table above 768
+   rows chunk by chunk), with one record each; the box with
+   brute_force_max=0 (kernel 13 and the non-fused prepass), every kernel
+   call of a 1080p frame against its plain version; and small renders of
+   both against the CPU at SSIM >= 0.9999;
 11. checks small CUDA renders of the seven paths against the plain
    versions on the CPU, KR on the box with a sun at 270x480 (the solar
    branch of the modular path, kernel 7 on sun rays), and the city, CL
@@ -117,15 +130,24 @@ Run from the repository root on a machine with an NVIDIA H100:
    whose 1080p image must differ from the untextured scene's on the
    spheres; then path TN; then path F (with
    --profile also FSR's share of its device time); then P and D
-   alternately, frame by frame;
+   alternately, frame by frame; path M and path G
+   (hikari_tpu_torch/examples/cornell.py's main at 1920x1080 on the box
+   this script writes as a GLB with tests/torch_glb.py, read through the
+   glTF loader from $HIKARI_ASSETS: D's launches) the same way, after
+   which G's renderer runs render_dissection() three times (timed), a
+   fourth with every kernel call (A, 8, 9, 5, 6, 7, C, 11, 12; no 4 or
+   10) against its plain version and its launches checked, and a
+   render_frame() with D's launches;
 13. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
    frame_ms_smaa2, frame_ms_default, frame_ms_ckb, frame_ms_ckb_reuse,
    frame_ms_city with city_refit_ms, frame_ms_city_lamps with
    city_lamps_refit_ms (path CL), frame_ms_simple (path T),
-   frame_ms_simple_noreuse (path TN), frame_ms_scene (path F), P's and
-   D's alternating medians, one JSON line of per-kernel numbers of the
-   kernels the paths run, one of kernel 13's mode `hit` (no path traces
-   without attributes), and last {"ok": true, "device": {...}}.
+   frame_ms_simple_noreuse (path TN), frame_ms_scene (path F),
+   frame_ms_minimal (path M), frame_ms_cornell with dissection_ms (path
+   G), P's and D's alternating medians, one JSON line of per-kernel
+   numbers of the kernels the paths run (kernels 5, 6 and 7 also over
+   check U's 2,624-row table), one of kernel 13's mode `hit` (no path
+   traces without attributes), and last {"ok": true, "device": {...}}.
 
 Every check of kernels A, 4, 10 and B also prints the share of its output
 words equal to the plain version's.
@@ -142,10 +164,13 @@ pixels); the refit within 1e-6 * max(|ref|, 1), its BVH boxes bit for bit
 against the CPU pyramid of the CUDA triangles; small renders SSIM >= 0.98
 and mean abs diff < 1e-3.
 
+The examples write their images, and path G finds its GLB, in a
+temporary directory the script removes at its end.
+
 With --profile it also prints a torch.profiler table of device time by
 kernel over two frames of each path. With --ab it only times the frames of
-the ten paths (P and D alternately; CL among them) before any check or
-profiler session,
+the eleven paths (P and D alternately; CL and M among them) before any
+check or profiler session,
 then checks and times kernels 8, C, 11 and 12 on path D's calls, C on a
 synthetic 1080p field, kernel 4 on R's, S's (1080p) and D's (960x540)
 calls with and without the validation retrace, kernel B on the no-reuse
@@ -1787,9 +1812,10 @@ def texture_ab(ht):
 
 
 def ab_only(ht, build_box):
-    """--ab: first the frames of the ten paths (P and D alternately, frame
-    by frame; then no-reuse, R, S, K, KR, the city, CL and T, each with
-    its launch counts checked), before any check or profiler session; then
+    """--ab: first the frames of the eleven paths (P and D alternately,
+    frame by frame; then no-reuse, R, S, K, KR, the city, CL, T and M,
+    each with its launch counts checked), before any check or profiler
+    session; then
     kernels 8, C, 11 and 12 checked against their plain versions and timed
     on path D's calls at 1080p (frames 4 and 5 of a panning camera; C at
     960x540), kernel C timed on a synthetic 1080p field (2 channels, the
@@ -1828,6 +1854,7 @@ def ab_only(ht, build_box):
     frames.update(CL=float(np.median(times)),
                   CL_refit=float(np.median(refit)))
     frames["T"] = float(np.median(simple_path(ht, TIMED_FRAMES, False)[0]))
+    frames["M"] = float(np.median(minimal_path(ht, TIMED_FRAMES, False)[0]))
 
     caps = [Capture(pf, "prepass_kernel"), Capture(pf, "prepass_quads_kernel"),
             Capture(dnf, "atrous_level"), Capture(wb, "warp_band"),
@@ -2035,14 +2062,18 @@ TRACE_KERNELS = (
 FLOPS_INTERP = 25
 
 
-def trace_tests(tris, excl, incl):
+def trace_tests(tris, excl, incl, chunk=1 << 16):
     """Ray-triangle tests a tracer kernel runs on these rays: the real
-    triangles each ray's instance masks accept (the loop skips the rest)."""
+    triangles each ray's instance masks accept (the loop skips the rest),
+    counted `chunk` rays at a time."""
     inst = tris[:, 9][None]
-    ex = excl.float()[:, None]
-    inc = incl.float()[:, None]
-    accepted = (inst >= 0) & (inst != ex) & ((inc < 0) | (inst == inc))
-    return int(accepted.sum())
+    n = 0
+    for i in range(0, excl.shape[0], chunk):
+        ex = excl[i:i + chunk].float()[:, None]
+        inc = incl[i:i + chunk].float()[:, None]
+        accepted = (inst >= 0) & (inst != ex) & ((inc < 0) | (inst == inc))
+        n += int(accepted.sum())
+    return n
 
 
 def trace_bound(tp, name, a):
@@ -3077,21 +3108,25 @@ def sun_box(build_box):
     return sc
 
 
-def compare_renders(ht, scene_of, size, name, settings, frames):
-    """A CUDA render against the plain versions' render on the CPU: SSIM
-    >= 0.98 and mean abs diff < 1e-3."""
+def compare_renders(ht, scene_of, size, name, settings, frames,
+                    min_ssim=0.98, cam=None, **renderer_kw):
+    """A CUDA render against the plain versions' render on the CPU (the
+    box's camera unless `cam`; Renderer keywords `renderer_kw`): SSIM >=
+    min_ssim and mean abs diff < 1e-3."""
     box = load_box_module()
     h, w = size
-    cam = ht.Camera.from_look_at(box.EYE, box.TARGET, width=w, height=h)
-    img_gpu = ht.Renderer(scene_of(), cam, settings).render(frames)
-    img_cpu = ht.Renderer(scene_of(), cam, settings,
-                          device="cpu").render(frames)
+    if cam is None:
+        cam = ht.Camera.from_look_at(box.EYE, box.TARGET, width=w, height=h)
+    img_gpu = ht.Renderer(scene_of(), cam, settings,
+                          **renderer_kw).render(frames)
+    img_cpu = ht.Renderer(scene_of(), cam, settings, device="cpu",
+                          **renderer_kw).render(frames)
     s = ssim(np.clip(img_gpu[..., :3], 0, 1), np.clip(img_cpu[..., :3], 0, 1))
     mad = float(np.abs(img_gpu - img_cpu).mean())
     print(f"small render {name} {h}x{w}, {frames} frames, CUDA vs CPU "
-          f"plain: SSIM {s:.5f} (need >= 0.98), mean abs diff {mad:.3g} "
-          f"(need < 1e-3)")
-    if not np.isfinite(img_gpu).all() or s < 0.98 or mad >= 1e-3:
+          f"plain: SSIM {s:.5f} (need >= {min_ssim}), mean abs diff "
+          f"{mad:.3g} (need < 1e-3)")
+    if not np.isfinite(img_gpu).all() or s < min_ssim or mad >= 1e-3:
         fail(f"the CUDA render of {name} disagrees with the CPU plain "
              "render")
 
@@ -3124,22 +3159,7 @@ def main_path(ht, build_box, name, timed, profile):
     for _ in range(WARMUP_FRAMES):
         r.render_frame()
     torch.cuda.synchronize()
-    wrappers = counter_wrappers()
-    for fn in wrappers:
-        fn.launches = 0
-    times = []
-    img = None
-    for _ in range(timed):
-        t = time.perf_counter()
-        img = r.render_frame()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t) * 1e3)
-    counts = [fn.launches for fn in wrappers]
-    settings = settings_of(ht)
-    expected = [sum(col) for col in zip(*(
-        per_frame(settings, n)
-        for n in range(WARMUP_FRAMES, WARMUP_FRAMES + timed)))]
-    check_run(name, counts, expected, img, timed)
+    times, counts = time_frames(r, name, per_frame, timed, WARMUP_FRAMES)
     if profile:
         profile_frames(r.render_frame)
     return times, counts
@@ -4013,13 +4033,371 @@ def scene_path(ht, timed, profile):
     return times, counts, share
 
 
+# --- paths M and G and check U -------------------------------------------
+
+# where the examples write their images and path G finds its GLB: a
+# temporary directory main() makes and removes
+WORK = {"dir": None}
+
+
+def work_dir(*parts):
+    return os.path.join(WORK["dir"], *parts)
+
+
+def minimal_launches(settings, number):
+    """Path M's launches in frame `number` (examples/minimal.py: a cube on
+    a plane, 14 triangles, a sun and no emissive, at HikariSettings()):
+    hikari_tpu's gates take the fused kernels for a scene of at most 768
+    triangles without textures, so kernel A once (its decimated call at
+    ratio 2), 8 once (SMAA's parity quads), the gather once (3 sources:
+    the direct and indirect temporal carries, the emissive channel tracing
+    nothing without an emissive, and the indirect spatial carry), kernel 4
+    once (the sun's and the indirect channels), 10 once (indirect spatial
+    reuse), a-trous 4 (both channels in one pass a level), SMAA's two
+    warps and TAA's; no validation frame launches more. Path D's counts:
+    the box swaps the sun for an emissive."""
+    return (1, 1, 1, 1, 1, 4, 2, 1, 0, 0, 0, 0, 0, 0, 0)
+
+
+def dissection_launches(settings, number):
+    """The launches of one render_dissection of the box at HikariSettings()
+    (the modular lighting and spatial paths, hikari_tpu's debug frame):
+    kernel A once, 8 once, the gather once (the emissive and indirect
+    temporal carries; the spatial carry is the modular pass's), kernel 5
+    for the bounce, 6 and 7 for the emissive channel's probe and shadow
+    ray and the bounce's, both again on the emissive channel's validation
+    frames, a-trous 4, SMAA's two warps and TAA's; no 4 or 10."""
+    v = int(number % settings.emissive_validate_interval == 0)
+    return (1, 1, 1, 0, 0, 4, 2, 1, 1, 2 + v, 2 + v, 0, 0, 0, 0)
+
+
+def example_renderer(name, frames):
+    """The example `name`'s main at FULL (CUDA, its own settings) for
+    `frames` frames, its image written to the work directory. Returns its
+    (renderer, last image)."""
+    import importlib
+
+    mod = importlib.import_module(f"hikari_tpu_torch.examples.{name}")
+    h, w = FULL
+    return mod.main(["--width", str(w), "--height", str(h), "--frames",
+                     str(frames), "--out", work_dir(f"{name}.png")])
+
+
+def write_cornell_asset():
+    """tests/torch_glb.py's GLB of the procedural box at
+    <work>/assets/models/cornell.glb, with HIKARI_ASSETS pointing there
+    (examples/cornell.py reads it at call time)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_glb", os.path.join(HERE, "tests", "torch_glb.py"))
+    glb = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(glb)
+    path = glb.write_cornell_glb(work_dir("assets", "models", "cornell.glb"))
+    os.environ["HIKARI_ASSETS"] = work_dir("assets")
+    return path
+
+
+def frame_captures():
+    """Captures of every kernel wrapper a box frame reaches, in the order
+    of COUNTERS' first eight (A, 8, 9, B/4, 10, C, 11, 12), then 5, 6,
+    7."""
+    from hikari_tpu_torch import frame as fr
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import light_fused as lf
+    from hikari_tpu_torch.ops import prepass_fused as pf
+    from hikari_tpu_torch.ops import spatial_fused as sf
+    from hikari_tpu_torch.ops import trace_pallas as tp
+    from hikari_tpu_torch.ops import warp2 as w2
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    return ([Capture(pf, "prepass_kernel"),
+             Capture(pf, "prepass_quads_kernel"),
+             Capture(fr, "reproj_gather"), Capture(lf, "lighting_kernel"),
+             Capture(sf, "spatial_kernel"), Capture(dnf, "atrous_level"),
+             Capture(wb, "warp_band"), Capture(w2, "warp_multi")]
+            + [Capture(tp, name) for name, *_ in TRACE_KERNELS])
+
+
+def captured(step, caps):
+    """Runs step() with the captures installed and on. Returns the calls
+    of each."""
+    from contextlib import ExitStack
+
+    with ExitStack() as stack:
+        for c in caps:
+            stack.enter_context(c)
+            c.on = True
+        step()
+        torch.cuda.synchronize()
+    return [c.calls for c in caps]
+
+
+def check_frame_calls(calls, label, spatial_label=None):
+    """Every captured call of frame_captures() against its plain version
+    (kernel A and 4 / 10 within their tolerances, the others bit for
+    bit). Returns the max abs error of kernels 5, 6, 7."""
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import light_fused as lf
+    from hikari_tpu_torch.ops import prepass_fused as pf
+    from hikari_tpu_torch.ops import reproj_gather as rg
+    from hikari_tpu_torch.ops import spatial_fused as sf
+    from hikari_tpu_torch.ops import trace_pallas as tp
+    from hikari_tpu_torch.ops import warp2 as w2
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    a_calls, q_calls, g_calls, l_calls, s_calls, c_calls, wb_calls, \
+        wm_calls, *trace_calls = calls
+    for a, _ in a_calls:
+        check_prepass_call(pf, a, label)
+    quads_checks(pf, q_calls, a_calls)
+    check_gather_calls(rg, g_calls, label)
+    check_lighting_calls(lf, l_calls, label)
+    check_spatial_calls(sf, s_calls, spatial_label or label)
+    for i in range(0, len(c_calls), 4):
+        check_levels(dnf, c_calls[i:i + 4], label)
+    check_band_calls(wb, wb_calls)
+    check_multi_calls(w2, wm_calls)
+    return check_trace_calls(tp, trace_calls, label)
+
+
+def check_call_counts(label, calls, per_frame):
+    """The captured calls of frame_captures() (with a ray, for 5, 6 and 7)
+    against `per_frame` summed: A, 8, 9, B/4, 10, C, 11, 12, 5, 6, 7."""
+    counts = [len(c) for c in calls[:8]] + [
+        sum(1 for a, _ in c if a[-5].shape[0]) for c in calls[8:]]
+    need = [sum(col) for col in zip(*per_frame)]
+    need = need[:8] + need[8:11]
+    print(f"{label}: kernels A, 8, 9, B/4, 10, C, 11, 12, 5, 6, 7 calls "
+          f"{counts} (need {need})")
+    if counts != need:
+        fail(f"{label} did not call its kernels as expected")
+
+
+def check_minimal(ht):
+    """Path M's first frame through examples/minimal.py's main at
+    1920x1080, then every kernel call of its next two frames (A, 8, 9, 4
+    with the sun's and the indirect channels, 10, C, 11, 12) against its
+    plain version, and a small CUDA render against the CPU."""
+    from hikari_tpu_torch.examples import minimal
+
+    r, _ = example_renderer("minimal", 1)
+    settings = r.settings
+
+    def step():
+        for _ in range(2):
+            r.render_frame()
+
+    calls = captured(step, frame_captures())
+    # the column order of COUNTERS' first eight, then 5-7
+    check_call_counts("path M, 2 frames", calls,
+                      [minimal_launches(settings, n) for n in (1, 2)])
+    if not r.gpu_scene.has_sun or r.gpu_scene.num_emissives:
+        fail("the minimal scene is not a sun-lit scene without emissives")
+    check_frame_calls(calls, "path M")
+    h, w = SMALL
+    cam = ht.Camera.from_look_at(minimal.EYE, minimal.TARGET, width=w,
+                                 height=h)
+    compare_renders(ht, minimal.build_scene, SMALL, "M", settings, 4,
+                    cam=cam)
+
+
+def time_frames(r, name, per_frame, timed, first):
+    """`timed` frames of renderer r, each timed to a synchronize, with the
+    launch counters set to 0 before them; their counts must equal
+    per_frame's for frame numbers first.. (check_run). Returns (frame
+    times, counts)."""
+    wrappers = counter_wrappers()
+    for fn in wrappers:
+        fn.launches = 0
+    times, img = [], None
+    for _ in range(timed):
+        t = time.perf_counter()
+        img = r.render_frame()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    counts = [fn.launches for fn in wrappers]
+    expected = [sum(col) for col in zip(*(
+        per_frame(r.settings, n) for n in range(first, first + timed)))]
+    check_run(name, counts, expected, img, timed)
+    return times, counts
+
+
+def minimal_path(ht, timed, profile):
+    """Path M: examples/minimal.py's main at 1920x1080 for WARMUP_FRAMES
+    frames, then `timed` frames of its renderer. Returns (frame times,
+    launch counts of COUNTERS)."""
+    r, _ = example_renderer("minimal", WARMUP_FRAMES)
+    times, counts = time_frames(r, "M", minimal_launches, timed,
+                                WARMUP_FRAMES)
+    if profile:
+        profile_frames(r.render_frame)
+    return times, counts
+
+
+def cornell_path(ht, timed, profile):
+    """Path G: examples/cornell.py's main (the box from its GLB through
+    the glTF loader, HikariSettings() with a black clear colour) at
+    1920x1080 for WARMUP_FRAMES frames, then `timed` frames (D's
+    launches), then render_dissection() three times (timed to its numpy
+    planes), every kernel call of a fourth against its plain version with
+    its launches, and a render_frame after it with D's launches. Returns
+    (frame times, launch counts, dissection times)."""
+    r, _ = example_renderer("cornell", WARMUP_FRAMES)
+    if (r.gpu_scene.num_triangles, r.gpu_scene.num_emissives,
+            r.settings.clear_color) != (36, 1, (0.0, 0.0, 0.0, 1.0)):
+        fail("path G is not the box from its GLB at cornell's settings")
+    # the box read from its GLB is the procedural box (36 triangles, one
+    # emissive, no sun): path D's launches
+    d_launches = PATHS["D"][1]
+    times, counts = time_frames(r, "G", d_launches, timed, WARMUP_FRAMES)
+    dissection = []
+    for _ in range(3):
+        t = time.perf_counter()
+        planes = r.render_dissection()
+        dissection.append((time.perf_counter() - t) * 1e3)
+    print(f"path G dissection: {len(planes)} planes, "
+          f"{float(np.median(dissection)):.2f} ms median of {dissection}")
+    number = r._frame_index
+    out = {}
+    calls = captured(lambda: out.update(r.render_dissection()),
+                     frame_captures())
+    check_call_counts(f"path G dissection (frame {number})", calls,
+                      [dissection_launches(r.settings, number)])
+    check_frame_calls(calls, "path G dissection")
+    tone = out["tone_mapping"]
+    render = (FULL[0] // 2, FULL[1] // 2)
+    if not np.isfinite(tone).all() or tone.shape != render + (4,):
+        fail(f"the dissection's tone_mapping is not a finite {render} "
+             "image")
+    if not np.isfinite(out["final"]).all():
+        fail("the dissection's final image is not finite")
+    print(f"  dissection tone_mapping {tone.shape} finite, mean "
+          f"{float(tone[..., :3].mean()):.4f}")
+    time_frames(r, "G after the dissections", d_launches, 1, r._frame_index)
+    if profile:
+        profile_frames(r.render_frame)
+        # the dissection's device work and its device-to-host copies
+        profile_frames(r.render_dissection)
+    return times, counts, dissection
+
+
+U_SIZE = (540, 960)
+U_FRAMES = 2
+U_TRIS = 2618
+
+
+def check_universal(ht, build_box):
+    """Check U: (a) the city (2,618 triangles) compiled without the mesh
+    acceleration structure and rendered with brute_force_max=4096 at
+    960x540, HikariSettings(), the city's HDR camera: kernels 5, 6 and 7
+    over the whole table (and the 1,224-row emissive table), every call of
+    two frames word for word against its plain version, and kernel 6 on
+    the first frame's primary rays with the scene's 2,618 attribute rows;
+    one record each (events, device, host, bound, launches over the two
+    frames); (b) the box at HikariSettings() with brute_force_max=0:
+    kernel 13 and the non-fused prepass, every kernel call of its second
+    1080p frame against its plain version; (c) small CUDA renders of both
+    against the CPU at SSIM >= 0.9999. Returns the records."""
+    from hikari_tpu_torch.examples import city
+    from hikari_tpu_torch.ops import trace_cull as tc
+    from hikari_tpu_torch.ops import trace_pallas as tp
+
+    uni = ht.HikariUniversalSettings(build_mesh_acceleration_structure=False)
+
+    def city_gpu():
+        return city.build_scene(3).compile(uni)
+
+    gpu = city_gpu()
+    if (gpu.num_triangles, gpu.num_nodes) != (U_TRIS, 1):
+        fail("check U's city is not the 2,618-triangle single-leaf scene")
+    r = ht.Renderer(gpu, city_camera(ht, U_SIZE), ht.HikariSettings(),
+                    brute_force_max=4096)
+    if r.tracer.kind != "brute_force_pallas":
+        fail("brute_force_max=4096 did not take the brute-force engine")
+    caps = [Capture(tp, name) for name, *_ in TRACE_KERNELS]
+    launches = []
+
+    def step():
+        for _ in range(U_FRAMES):
+            r.render_frame()
+        launches.extend(getattr(tp, name).launches
+                        for name, *_ in TRACE_KERNELS)
+
+    trace_calls = captured(step, caps)
+    rows = [sorted({a[0].shape[0] for a, _ in c}) for c in trace_calls]
+    with_rays = [sum(1 for a, _ in c if a[-5].shape[0]) for c in trace_calls]
+    print(f"check U (a): kernels 5, 6, 7 launched {launches} times over "
+          f"{U_FRAMES} frames ({with_rays} calls with rays), tables of "
+          f"{rows} rows")
+    if rows[0] != [2624] or rows[2] != [2624] or min(with_rays) == 0:
+        fail("check U's kernels 5 and 7 did not trace the whole table")
+    # (a CPU rehearsal of this script runs the plain versions, which
+    # launch nothing)
+    if DEVICE == "cuda" and launches != with_rays:
+        fail("check U's kernels 5, 6 and 7 did not launch once a call")
+    errs = check_trace_calls(tp, trace_calls, "U (a)")
+    # kernel 6 over the scene table: the first frame's primary rays
+    a5 = trace_calls[0][0][0]
+    a6 = ((a5[0], r.scene_dev["tri_attr"], *a5[1:]), {})
+    errs[1] = max(errs[1], check_trace_calls(
+        tp, [[], [a6], []], "U (a) primary rays, scene table")[1])
+    records = []
+    for (name, plain, replaces, _), call, err, n in zip(
+            TRACE_KERNELS, (trace_calls[0][0], a6, trace_calls[2][0]), errs,
+            launches):
+        rec = trace_record(tp, name, plain, replaces, call)
+        rec.update(name=f"{name}_{U_TRIS}_rows", max_abs_err=err,
+                   launches=n, table_rows=call[0][0].shape[0])
+        records.append(rec)
+
+    # (b) the box through kernel 13
+    box_r = ht.Renderer(build_box(), ht.Camera.from_look_at(
+        load_box_module().EYE, load_box_module().TARGET, width=FULL[1],
+        height=FULL[0]), ht.HikariSettings(), brute_force_max=0)
+    if box_r.tracer.kind != "cull":
+        fail("brute_force_max=0 did not take kernel 13 on the box")
+    box_r.render_frame()
+    caps = frame_captures() + [Capture(tc, "bvh_full"),
+                               Capture(tc, "bvh_shadow")]
+    calls = captured(box_r.render_frame, caps)
+    counts = [len(c) for c in calls]
+    # A, 8, 9, B/4, 10, C, 11, 12, 5, 6, 7, 13 full, 13 shadow: the
+    # primary rays, the emissive probe and the bounce and its probe (13
+    # full), the emissive and bounce NEE shadow rays (13 shadow); frame 1
+    # validates nothing
+    need = [0, 0, 1, 0, 0, 4, 2, 1, 0, 0, 0, 4, 2]
+    print(f"check U (b), the box at brute_force_max=0, frame 1: kernels A, "
+          f"8, 9, B/4, 10, C, 11, 12, 5, 6, 7, 13 full, 13 shadow calls "
+          f"{counts} (need {need})")
+    if counts != need:
+        fail("the box at brute_force_max=0 did not call its kernels as "
+             "expected")
+    check_frame_calls(calls[:11], "U (b)")
+    check_walk_calls(tc, "full", calls[11], "U (b)")
+    check_walk_calls(tc, "shadow", calls[12], "U (b)")
+
+    # (c) small renders against the CPU
+    compare_renders(ht, city_gpu, CITY_SMALL, "U (a)", ht.HikariSettings(),
+                    U_FRAMES, min_ssim=0.9999,
+                    cam=city_camera(ht, CITY_SMALL), brute_force_max=4096)
+    compare_renders(ht, build_box, SMALL, "U (b)", ht.HikariSettings(), 4,
+                    min_ssim=0.9999, brute_force_max=0)
+    for rec in records:
+        print(f"  {rec['name']}: {rec['ms']:.4f} ms per launch, device "
+              f"{rec['device_ms']} ms, host {rec['host_us']:.1f} us, plain "
+              f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), {rec['launches']} launches")
+    return records
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel over 2 frames "
                     "of each path")
     ap.add_argument("--ab", action="store_true",
-                    help="only time the frames of the ten paths, then "
+                    help="only time the frames of the eleven paths, then "
                     "check and time kernels 8, C, 11 and 12 on path D's "
                     "calls, 4 and B on R's, S's, D's, the no-reuse "
                     "frame's, P's and K's, 9 on R's, S's, D's, KR's and "
@@ -4039,6 +4417,18 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    import shutil
+    import tempfile
+
+    WORK["dir"] = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        return run(args)
+    finally:
+        shutil.rmtree(WORK["dir"], ignore_errors=True)
+
+
+def run(args):
+    """main() on a machine with CUDA, WORK["dir"] made."""
     sys.path.insert(0, HERE)
     import hikari_tpu_torch as ht
     from hikari_tpu_torch.build import build_cuda
@@ -4068,6 +4458,7 @@ def main():
     instances_a10 = {name: kernel_instances(name)
                      for name in ("prepass_fused", "spatial_fused",
                                   "trace_bvh", "trace")}
+    write_cornell_asset()
     if args.ab:
         records, frames = ab_only(ht, build_box)
         print(json.dumps({"ab": list(records), "frames_ms": frames,
@@ -4093,6 +4484,8 @@ def main():
     check_city_spatial_noreuse(ht)
     check_box_scramble(ht, build_box)
     at_cl = check_city_lamps(ht)
+    check_minimal(ht)
+    u_records = check_universal(ht, build_box)
     for rec in records + [hit_record]:
         for extra in (at_540p, at_ckb, at_city, at_scene, at_tn, at_cl):
             rec.update(extra.get(rec["name"], {}))
@@ -4124,20 +4517,26 @@ def main():
     times, counts, fsr = scene_path(ht, TIMED_FRAMES, args.profile)
     frame_ms["F"] = (float(np.median(times)), times)
     launches["F"] = dict(zip(COUNTERS, counts))
+    times, counts = minimal_path(ht, TIMED_FRAMES, args.profile)
+    frame_ms["M"] = (float(np.median(times)), times)
+    launches["M"] = dict(zip(COUNTERS, counts))
+    times, counts, dissection = cornell_path(ht, TIMED_FRAMES, args.profile)
+    frame_ms["G"] = (float(np.median(times)), times)
+    launches["G"] = dict(zip(COUNTERS, counts))
     alt_ms, alt_times = alternate_post_paths(ht, build_box, TIMED_FRAMES)
 
     def total(counter, paths=tuple(launches)):
         return sum(launches[p][counter] for p in paths)
 
     # launches over the timed frames of the paths running each kernel:
-    # B runs on no-reuse, P and K, kernel 4 on R, S and D, 13 on the city,
-    # CL, T, TN and F, 14 on T and TN
+    # B runs on no-reuse, P and K, kernel 4 on R, S, D, M and G, 13 on the
+    # city, CL, T, TN and F, 14 on T and TN
     by_name = {
         "prepass_fused": total("prepass"),
         "light_fused": total("lighting", ("no-reuse", "P", "K")),
         "denoise_fused": total("a-trous"),
         "reproj_gather": total("gather"),
-        "light_fused_temporal": total("lighting", ("R", "S", "D")),
+        "light_fused_temporal": total("lighting", ("R", "S", "D", "M", "G")),
         "spatial_fused": total("spatial"),
         "prepass_quads": total("quads"),
         "warp_band": total("warp_band"),
@@ -4184,6 +4583,15 @@ def main():
         "frame_ms_scene": frame_ms["F"][0], "scene_triangles": 1226,
         "reps_ms": frame_ms["F"][1], "fsr": fsr, "card": card}))
     print(json.dumps({
+        "frame_ms_minimal": frame_ms["M"][0], "minimal_triangles": 14,
+        "reps_ms": frame_ms["M"][1], "launches": launches["M"],
+        "card": card}))
+    print(json.dumps({
+        "frame_ms_cornell": frame_ms["G"][0], "cornell_triangles": 36,
+        "reps_ms": frame_ms["G"][1],
+        "dissection_ms": float(np.median(dissection)),
+        "dissection_reps_ms": dissection, "card": card}))
+    print(json.dumps({
         "frame_ms_smaa2_alternating": alt_ms["P"],
         "frame_ms_default_alternating": alt_ms["D"],
         "reps_ms_smaa2": alt_times["P"], "reps_ms_default": alt_times["D"],
@@ -4191,7 +4599,7 @@ def main():
     print(json.dumps({"kernel_off_path": hit_record}))
     print(json.dumps({"light_instances": instances,
                       "kernel_instances": instances_a10}))
-    print(json.dumps({"kernels": records}))
+    print(json.dumps({"kernels": records + u_records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

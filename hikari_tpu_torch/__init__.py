@@ -12,7 +12,8 @@ caller passes device="cpu", where the plain versions run instead.
 """
 
 from hikari_tpu_torch.camera import Camera, PerspectiveProjection, look_at
-from hikari_tpu_torch.config import (HikariSettings, Taa, Upscale,
+from hikari_tpu_torch.config import (HikariSettings,
+                                     HikariUniversalSettings, Taa, Upscale,
                                      UpscaleMode)
 from hikari_tpu_torch.models.material import StandardMaterial
 from hikari_tpu_torch.models.mesh import Mesh
@@ -24,6 +25,7 @@ __version__ = "0.1.0"
 
 __all__ = [
     "HikariSettings",
+    "HikariUniversalSettings",
     "Taa",
     "Upscale",
     "UpscaleMode",

@@ -96,6 +96,18 @@ class HikariSettings:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class HikariUniversalSettings:
+    """Global toggles of the scene compile (reference src/lib.rs:375-397):
+    without `build_mesh_acceleration_structure` the world BVH covers
+    triangle 0 only, as hikari_tpu's debug toggle does, so only the
+    brute-force engine (make_tracer at a `brute_force_max` at or above
+    the triangle count) sees the whole scene."""
+
+    build_mesh_acceleration_structure: bool = True
+    build_instance_acceleration_structure: bool = True
+
+
 # 3x3 a-trous kernel (reference src/view.rs:125-129).
 ATROUS_KERNEL = np.array(
     [

@@ -7,8 +7,11 @@ emissive slots, as the reference does with the Earth image; without one the
 spheres are untextured. The image is not in the repository, so
 `procedural_earth(seed)` makes a seeded stand-in of the same size as the
 reference's thumbnail. `settings()` is the example's HikariSettings() with
-emissive spatial reuse, and EYE / TARGET its camera. The command-line entry
-point is not ported.
+emissive spatial reuse, and EYE / TARGET its camera. `main` is the
+example's entry point; like hikari_tpu's it textures the spheres with the
+Earth image when $HIKARI_ASSETS holds it (city.earth_texture).
+
+    python -m hikari_tpu_torch.examples.simple --width 1920 --height 1080
 """
 
 from __future__ import annotations
@@ -18,6 +21,8 @@ import dataclasses
 import numpy as np
 
 from hikari_tpu_torch.config import HikariSettings
+from hikari_tpu_torch.examples.city import earth_texture
+from hikari_tpu_torch.examples.common import parse_args, run
 from hikari_tpu_torch.models import mesh as shapes
 from hikari_tpu_torch.models.material import StandardMaterial, Texture
 from hikari_tpu_torch.models.scene import (DirectionalLight, Scene,
@@ -89,3 +94,16 @@ def build_scene(earth_tex: Texture | None = None) -> Scene:
     sc.directional_light = DirectionalLight.from_euler(
         -np.pi / 4, np.pi / 4, 0.0, illuminance=10000.0)
     return sc
+
+
+def main(argv=None):
+    """Render the scene from the command line's options; returns (renderer,
+    last image)."""
+    args = parse_args("simple: ReSTIR reuse + TAA + emissive spheres",
+                      argv=argv)
+    return run(build_scene(earth_texture()), dict(eye=EYE, target=TARGET),
+               settings(), args, "simple")
+
+
+if __name__ == "__main__":
+    main()

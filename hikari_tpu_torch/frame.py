@@ -52,6 +52,10 @@ SMAA or TAA the previous full-res G-buffer; with SMAA the previous tone
 image (render size); with TAA the previous TAA output (post size: twice
 the render size with SMAA, else the render size, FSR included).
 
+The debug frame (`debug=True`, behind Renderer.render_dissection) takes
+the modular lighting and spatial paths whatever the gates say, on the
+same carries, and also returns the per-pass planes (DEBUG_KEYS).
+
 Every upscale hikari_tpu accepts renders: none, SMAA TU4X and FSR 1.0
 (ops/post.py) at any ratio in [1, 2] and any output size, and
 checkerboard lighting at any ratio. Scenes of any emissive count render
@@ -278,14 +282,30 @@ def _zero_planes_where(mask, planes):
     return torch.where(mask[:, None, :], 0.0, planes)
 
 
+DEBUG_KEYS = ("gbuffer_position", "gbuffer_normal", "gbuffer_depth_gradient",
+              "gbuffer_velocity_uv", "albedo", "direct_raw", "emissive_raw",
+              "indirect_raw", "direct_denoised", "emissive_denoised",
+              "indirect_denoised", "direct_variance", "emissive_variance",
+              "indirect_variance", "tone_mapping")
+
+
 def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                        no_texture: bool, num_emissives: int = 1,
-                       has_sun: bool = True):
+                       has_sun: bool = True, debug: bool = False):
     """Returns render_frame(scene, view, frame, noise, carry) -> (image
     [H,W,4], albedo [H,W,4], carry), specialized on the static settings
     and scene facts (emissive count, sun presence) and on the scene's
     tracer (ops/trace.py), which serves the non-fused prepass and the
-    modular lighting path."""
+    modular lighting path.
+
+    debug=True (the per-pass dissection, hikari_tpu/frame.py:610-627):
+    the lighting takes the modular path and the spatial passes the
+    modular ones (never kernel B, 4 or 10), over the same [h,16,w]
+    carries, and render_frame also returns a fourth value, the dict of
+    DEBUG_KEYS: the full-size G-buffer planes and albedo, each channel's
+    raw render on the lighting domain (direct_variance too), its variance
+    and its render before tone mapping at the render size, and the tone
+    mapped image."""
     full_size = tuple(full_size)
     ratio = settings.upscale_ratio
     render_size = scaled_size(full_size, ratio)
@@ -304,9 +324,9 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
     kind = tracer.kind
     fused_pre = prepass_fused_eligible(scene, no_texture=no_texture,
                                        tracer_kind=kind)
-    fused_sp = spatial_fused_active(scene, settings, kind, no_texture,
-                                    num_emissives, has_sun, full_size)
-    use_fused = any_active and fused_eligible(
+    fused_sp = not debug and spatial_fused_active(
+        scene, settings, kind, no_texture, num_emissives, has_sun, full_size)
+    use_fused = any_active and not debug and fused_eligible(
         scene, no_texture=no_texture, num_emissives=num_emissives,
         temporal_reuse=reuse,
         track_de=track_de and not fused_sp,
@@ -514,7 +534,7 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
 
         # {slot: (render, variance)} of the channels that trace rays, on
         # the lighting domain
-        lit, fl, spatial = {}, {}, {}
+        lit, fl, spatial, raw = {}, {}, {}, {}
         surf_r = None
         if modular:
             # one primary surface per G-buffer domain, shared by every
@@ -530,6 +550,7 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
             lit, carries, spatial = modular_lighting(
                 scene, g, g_l, view, frame, rand, rand_l, reproj, gathered,
                 carry, par, surf_l, surf_r)
+            raw = dict(lit)
             new_carry.update(carries)
         elif any_active:
             fl = _lf.fused_lighting(
@@ -561,6 +582,7 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
             d = restir.emissive_surface_channel(scene, g, no_texture,
                                                 render_size, surface=surf_r)
             d_render, d_var = d["render"], d["variance"]
+            raw["d"] = (d_render, d_var)
         e_render, e_var = lit.get("e", (zero_render, zero_var))
         i_render, i_var = lit.get("i", (zero_render, zero_var))
 
@@ -615,6 +637,17 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         if post_history:
             new_carry["prev_gbuffer"] = {k: gbuf[k]
                                          for k in PREV_GBUFFER_KEYS}
+        if debug:
+            # a channel that traces nothing: hikari_tpu's zeros, at the
+            # render size (emissive) or the lighting domain (indirect)
+            e_raw = raw.get("e", (zero_render, zero_var))
+            i_raw = raw.get("i", (torch.zeros(light_size + (4,), device=dev),
+                                  None))
+            vals = (gbuf["position"], gbuf["normal"], gbuf["depth_gradient"],
+                    gbuf["velocity_uv"], albedo, raw["d"][0], e_raw[0],
+                    i_raw[0], d_render, e_render, i_render, raw["d"][1],
+                    e_var, i_var, tone)
+            return image, albedo, new_carry, dict(zip(DEBUG_KEYS, vals))
         return image, albedo, new_carry
 
     return render_frame

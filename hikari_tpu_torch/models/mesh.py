@@ -1,6 +1,9 @@
-"""Triangle meshes and the procedural shapes the port supports so far
-(plane, box/cube, quad, UV sphere), with Bevy's vertex layouts as in
-hikari_tpu/models/mesh.py."""
+"""Triangle meshes and procedural shapes (plane, box/cube, quad, UV sphere,
+icosphere), with Bevy's vertex layouts as in hikari_tpu/models/mesh.py.
+
+`Mesh.from_triangle_strip` follows the reference's `GpuMesh::try_from`
+(src/mesh_material/mod.rs:432-452): odd triangles of a strip swap v0 and
+v1."""
 
 from __future__ import annotations
 
@@ -30,6 +33,21 @@ class Mesh:
     @property
     def num_triangles(self) -> int:
         return len(self.indices)
+
+    @staticmethod
+    def from_triangle_strip(positions, normals, uvs, strip_indices) -> "Mesh":
+        """A strip as a triangle list: window i is (v_i, v_i+1, v_i+2),
+        its first two swapped when i is odd."""
+        idx = np.asarray(strip_indices, dtype=np.uint32)
+        tris = []
+        for i in range(len(idx) - 2):
+            v0, v1, v2 = idx[i], idx[i + 1], idx[i + 2]
+            tris.append([v1, v0, v2] if i & 1 else [v0, v1, v2])
+        return Mesh(positions, normals, uvs, np.asarray(tris, dtype=np.uint32))
+
+    def local_aabb(self):
+        """(min, max) of the positions, per axis."""
+        return self.positions.min(axis=0), self.positions.max(axis=0)
 
 
 def plane(size: float = 1.0) -> Mesh:
@@ -119,3 +137,53 @@ def uv_sphere(radius: float = 1.0, sectors: int = 36,
                 np.asarray(normals, np.float32),
                 np.asarray(uvs, np.float32),
                 np.asarray(indices, np.uint32))
+
+
+def icosphere(radius: float = 1.0, subdivisions: int = 2) -> Mesh:
+    """Subdivided icosahedron (Bevy shape::Icosphere equivalent), in
+    float64 cast to float32 as hikari_tpu builds it."""
+    t = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array(
+        [
+            [-1, t, 0], [1, t, 0], [-1, -t, 0], [1, -t, 0],
+            [0, -1, t], [0, 1, t], [0, -1, -t], [0, 1, -t],
+            [t, 0, -1], [t, 0, 1], [-t, 0, -1], [-t, 0, 1],
+        ],
+        dtype=np.float64,
+    )
+    verts /= np.linalg.norm(verts, axis=1, keepdims=True)
+    faces = [
+        (0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+        (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+        (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+        (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1),
+    ]
+    verts = [tuple(v) for v in verts]
+    cache = {tuple(np.round(v, 12)): i for i, v in enumerate(verts)}
+
+    def midpoint(a, b):
+        m = np.asarray(verts[a]) + np.asarray(verts[b])
+        m /= np.linalg.norm(m)
+        key = tuple(np.round(m, 12))
+        if key not in cache:
+            cache[key] = len(verts)
+            verts.append(tuple(m))
+        return cache[key]
+
+    for _ in range(subdivisions):
+        new_faces = []
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [(a, ab, ca), (b, bc, ab), (c, ca, bc), (ab, bc, ca)]
+        faces = new_faces
+
+    v = np.asarray(verts, dtype=np.float32)
+    n = v.copy()
+    u = np.stack(
+        [
+            0.5 + np.arctan2(v[:, 2], v[:, 0]) / (2 * np.pi),
+            0.5 - np.arcsin(np.clip(v[:, 1], -1, 1)) / np.pi,
+        ],
+        axis=-1,
+    ).astype(np.float32)
+    return Mesh(v * radius, n, u, np.asarray(faces, np.uint32))

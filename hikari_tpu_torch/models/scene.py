@@ -24,6 +24,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from hikari_tpu_torch.config import HikariUniversalSettings
 from hikari_tpu_torch.models import walk_tables
 from hikari_tpu_torch.models.alias_table import (build_alias_table,
                                                  triangle_areas)
@@ -130,8 +131,8 @@ class Scene:
             prev_transform))
         return len(self.instances) - 1
 
-    def compile(self) -> "GpuScene":
-        return compile_scene(self)
+    def compile(self, universal=None) -> "GpuScene":
+        return compile_scene(self, universal)
 
 
 def upload(arrays: Dict[str, np.ndarray], device) -> dict:
@@ -351,8 +352,14 @@ def _add_emissive_tri_tables(arrays) -> None:
     arrays["em_inst_tri_offset_f"] = offs
 
 
-def compile_scene(scene: Scene) -> GpuScene:
-    """Scene -> flat world-space SoA arrays + acceleration structures."""
+def compile_scene(scene: Scene, universal=None) -> GpuScene:
+    """Scene -> flat world-space SoA arrays + acceleration structures.
+
+    `universal`: HikariUniversalSettings; without
+    build_mesh_acceleration_structure the world BVH is a single leaf over
+    triangle 0, as hikari_tpu builds it (its debug toggle: only the
+    brute-force engine sees the other triangles)."""
+    universal = universal or HikariUniversalSettings()
     tri_pos, tri_nrm, tri_uv = [], [], []
     tri_inst, tri_mat = [], []
     inst_aabb_min, inst_aabb_max = [], []
@@ -399,7 +406,11 @@ def compile_scene(scene: Scene) -> GpuScene:
     tri_mat = np.concatenate(tri_mat)
     num_tris = len(tri_pos)
 
-    bvh = build_bvh(tri_pos.min(axis=1), tri_pos.max(axis=1))
+    aabb_min, aabb_max = tri_pos.min(axis=1), tri_pos.max(axis=1)
+    if universal.build_mesh_acceleration_structure:
+        bvh = build_bvh(aabb_min, aabb_max)
+    else:
+        bvh = build_bvh(aabb_min[:1], aabb_max[:1])
 
     # emissive list + per-instance alias tables (instance.rs:381-419)
     em_rgba, em_pos, em_radius, em_instance = [], [], [], []

@@ -1,9 +1,10 @@
 """The ray tracers of the modular lighting path and the non-fused
 prepass, the port of hikari_tpu/ops/trace.py's make_tracer on the TPU.
 
-Scenes of at most MAX_TRIS triangles take the small-scene engine (its
-Pallas branch, `kind` "brute_force_pallas") over kernels 5, 6 and 7
-(ops/trace_pallas.py):
+`make_tracer(num_triangles, brute_force_max=768)` picks the engine once
+per compiled scene. Scenes of at most `brute_force_max` triangles take the
+small-scene engine (its Pallas branch, `kind` "brute_force_pallas") over
+kernels 5, 6 and 7 (ops/trace_pallas.py), which take a table of any size:
 
 * `trace`: kernel 5 over the scene table;
 * `with_info`: kernel 5 plus the winner's attributes, `tri_attr[prim]`.
@@ -11,19 +12,19 @@ Pallas branch, `kind` "brute_force_pallas") over kernels 5, 6 and 7
   256 rows and takes kernel 6 above that, because the matmul grows with
   the table; the index does not, and interpolates the winner's row with
   kernel 6's expressions, so it serves every table size;
-* `shadow`: kernel 7 over the scene table;
-* `probe_info`: kernel 6 over the emissive-only table (the probe ray is
-  include-masked to one emitter, so only its triangles can win).
+* `shadow`: kernel 7 over the scene table.
 
 Larger scenes take the engine of `kind` "cull" over kernel 13
 (ops/trace_cull.py, a walk of the world BVH): `trace`, `with_info` and
-`shadow` are its modes hit, full and shadow, and `probe_info` is kernel 6
-over an emissive table of at most MAX_TRIS rows, else `with_info` with the
-include mask (hikari_tpu/ops/trace.py:301-311), whose rays kernel 13 walks
-through the emitter's own subtree (the reference's "emitter's own BLAS").
-The
-reference's `shape2d` / `incoherent` hints only reorder its rays, so the
-port has none.
+`shadow` are its modes hit, full and shadow.
+
+Both engines' `probe_info` is kernel 6 over the emissive-only table (the
+probe ray is include-masked to one emitter, so only its triangles can
+win) when that table has at most `brute_force_max` rows, else
+`with_info` with the include mask (hikari_tpu/ops/trace.py:301-311),
+whose rays kernel 13 walks through the emitter's own subtree (the
+reference's "emitter's own BLAS"). The reference's `shape2d` /
+`incoherent` hints only reorder its rays, so the port has none.
 """
 
 from __future__ import annotations
@@ -33,6 +34,10 @@ import torch
 from hikari_tpu_torch.ops import trace_cull as _tc
 from hikari_tpu_torch.ops import trace_pallas as _tp
 from hikari_tpu_torch.utils.math import normalize
+
+# hikari_tpu's default brute_force_max (its measured crossover of brute
+# force and its tile-cull engine on the TPU)
+BRUTE_FORCE_MAX = 768
 
 
 def _ids(ids, n, device):
@@ -69,10 +74,27 @@ def probe_emissive_table(scene, ro, rd, max_t, exclude_instance=None,
                                 _ids(include_instance, n, dev))
 
 
-class BruteForceTracer:
-    """The engine of scenes with at most `MAX_TRIS` triangles. Each call
-    takes the scene dict, ray origins and directions [N,3] f32, max_t [N]
-    f32 and optional int32 exclude / include instance ids [N] (None: -1)."""
+class _Tracer:
+    """An engine's probe rule: kernel 6 over an emissive table of at most
+    `brute_force_max` rows, else the engine's own `with_info`."""
+
+    def __init__(self, brute_force_max: int = BRUTE_FORCE_MAX):
+        self.brute_force_max = brute_force_max
+
+    def probe_info(self, scene, ro, rd, max_t, exclude_instance=None,
+                   include_instance=None):
+        if scene["em_tri_pos_flat"].shape[0] <= self.brute_force_max:
+            return probe_emissive_table(scene, ro, rd, max_t,
+                                        exclude_instance, include_instance)
+        return self.with_info(scene, ro, rd, max_t, exclude_instance,
+                              include_instance)
+
+
+class BruteForceTracer(_Tracer):
+    """The engine of scenes with at most `brute_force_max` triangles. Each
+    call takes the scene dict, ray origins and directions [N,3] f32, max_t
+    [N] f32 and optional int32 exclude / include instance ids [N] (None:
+    -1)."""
 
     kind = "brute_force_pallas"
 
@@ -99,15 +121,12 @@ class BruteForceTracer:
                           _ids(exclude_instance, n, dev),
                           _ids(include_instance, n, dev))
 
-    def probe_info(self, scene, ro, rd, max_t, exclude_instance=None,
-                   include_instance=None):
-        return probe_emissive_table(scene, ro, rd, max_t, exclude_instance,
-                                    include_instance)
 
-
-class BvhTracer:
-    """The engine of scenes above `MAX_TRIS` triangles: kernel 13. The
-    calls take BruteForceTracer's arguments."""
+class BvhTracer(_Tracer):
+    """The engine of scenes above `brute_force_max` triangles: kernel 13.
+    The calls take BruteForceTracer's arguments; `probe_info`'s
+    `with_info` walks the included emitter's own subtree
+    (models/walk_tables.py), and the -2 "no pick" rays walk the world."""
 
     kind = "cull"
 
@@ -136,20 +155,11 @@ class BvhTracer:
                              _ids(include_instance, n, dev))
         return {"t": raw["t"], "instance": raw["inst"]}
 
-    def probe_info(self, scene, ro, rd, max_t, exclude_instance=None,
-                   include_instance=None):
-        if scene["em_tri_pos_flat"].shape[0] <= _tp.MAX_TRIS:
-            return probe_emissive_table(scene, ro, rd, max_t,
-                                        exclude_instance, include_instance)
-        # kernel 13 walks the included emitter's own subtree
-        # (models/walk_tables.py); the -2 "no pick" rays walk the world
-        return self.with_info(scene, ro, rd, max_t, exclude_instance,
-                              include_instance)
 
-
-def make_tracer(num_triangles: int):
+def make_tracer(num_triangles: int, brute_force_max: int = BRUTE_FORCE_MAX):
     """The engine for a scene of `num_triangles` (built once per compiled
-    scene)."""
-    if num_triangles > _tp.MAX_TRIS:
-        return BvhTracer()
-    return BruteForceTracer()
+    scene): brute force up to `brute_force_max` triangles, else kernel
+    13's BVH walk (hikari_tpu/ops/trace.py:331-406 on the TPU)."""
+    if num_triangles <= brute_force_max:
+        return BruteForceTracer(brute_force_max)
+    return BvhTracer(brute_force_max)

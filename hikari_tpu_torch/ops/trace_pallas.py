@@ -12,7 +12,8 @@ modular lighting path:
   instance) below max_t, division-free in the loop.
 
 The contract: Moller-Trumbore over the triangle rows [P,10] (v0 v1 v2,
-instance; padding rows carry instance -1) in index order, a triangle
+instance; padding rows carry instance -1; any P, as the TPU kernels
+stream any table) in index order, a triangle
 winning only when strictly nearer, so the lowest index wins a tie; the
 masks compare float instance ids: inst >= 0, inst != exclude, and
 (include < 0) | (inst == include), so the probe's "no pick" include of -2
@@ -42,9 +43,10 @@ from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
 from hikari_tpu_torch.utils.math import F32_EPSILON, F32_MAX, normalize
 
 DISTANCE_MAX = 65535.0
-# the small-scene engine's cap (hikari_tpu's brute_force_max); make_tracer
-# raises above it
-MAX_TRIS = 768
+# the rows each block of kernels 5, 6 and 7 stages at once (csrc/trace.cu
+# HK_CHUNK); a larger table is swept chunk by chunk, the running best
+# carried across the chunks in index order
+CHUNK_ROWS = 768
 # csrc/trace.cu TraceCall, kernels 5, 6 and 7's argument table: tris,
 # attrs (0 for kernels 5 and 7), ro, rd, max_t, excl, incl, the output
 # allocation (pointers); n_tris, n (ints)
@@ -261,7 +263,7 @@ def _check_rays(tris, ro, rd, max_t, excl, incl, attrs=None):
             and ro.shape == rd.shape == (n, 3)
             and max_t.shape == excl.shape == incl.shape == (n,)
             and tris.dim() == 2 and tris.shape[1] == 10
-            and tris.shape[0] <= MAX_TRIS
+            and tris.shape[0] * 17 < 2 ** 31
             and tris.device == rd.device == max_t.device == excl.device
             == incl.device == dev
             and tris.is_contiguous() and ro.is_contiguous()
@@ -269,8 +271,9 @@ def _check_rays(tris, ro, rd, max_t, excl, incl, attrs=None):
             and excl.is_contiguous() and incl.is_contiguous()):
         return dev, n
     check("tris", tris, torch.float32, (tris.shape[0], 10), dev)
-    if tris.shape[0] > MAX_TRIS:
-        raise ValueError(f"{tris.shape[0]} triangles > {MAX_TRIS}")
+    if tris.shape[0] * 17 >= 2 ** 31:
+        raise ValueError(f"{tris.shape[0]} triangles: the kernels index "
+                         "them in 32 bits")
     check("ro", ro, torch.float32, (n, 3), dev)
     check("rd", rd, torch.float32, (n, 3), dev)
     check("max_t", max_t, torch.float32, (n,), dev)

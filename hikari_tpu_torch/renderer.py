@@ -1,16 +1,18 @@
 """Top-level Renderer: owns the device scene, its tracer, the frame
 function for the current settings, and the frame carry (the port of
-hikari_tpu/renderer.py for the ported slices: no reuse, temporal reuse,
-temporal + spatial reuse, the post chain of TAA Jasmine, SMAA TU4X and
-FSR 1.0 at every upscale ratio in [1, 2], so HikariSettings() itself,
-checkerboard lighting with and without temporal reuse, scenes beyond the
-fused kernels' caps, such as the city, with their per-frame refit on the
-device or on the host, scenes of any emissive count, textured scenes, and
-the post-overlay tail of bloom and FXAA)."""
+hikari_tpu/renderer.py: no reuse, temporal reuse, temporal + spatial
+reuse, the post chain of TAA Jasmine, SMAA TU4X and FSR 1.0 at every
+upscale ratio in [1, 2], so HikariSettings() itself, checkerboard
+lighting with and without temporal reuse, scenes beyond the fused
+kernels' caps, such as the city, with their per-frame refit on the device
+or on the host, scenes of any emissive count, textured scenes, the
+post-overlay tail of bloom and FXAA, the tracer's `brute_force_max`, the
+per-pass dissection and PNG output)."""
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import pickle
 from typing import Optional, Union
 
@@ -27,6 +29,7 @@ from hikari_tpu_torch.ops.fxaa import fxaa as fxaa_op
 from hikari_tpu_torch.ops.noise import noise_constant
 from hikari_tpu_torch.ops.post import overlay_compose
 from hikari_tpu_torch.ops.trace import make_tracer
+from hikari_tpu_torch.utils.image import save_png
 from hikari_tpu_torch.utils.math import reinhard_luminance
 
 # above this many emissives a fast update_scene takes the host refit, as
@@ -55,7 +58,9 @@ def resolve_device(device=None) -> torch.device:
 
 class Renderer:
     """Renders a scene from a camera at the given settings, on `device`
-    (CUDA unless the caller asks for the CPU).
+    (CUDA unless the caller asks for the CPU). The tracer of the
+    non-fused passes is brute force (kernels 5-7) for scenes of at most
+    `brute_force_max` triangles (768 when None), else kernel 13.
 
     After the frame's overlay comes the reference graph's tail (OVERLAY ->
     BLOOM -> TONEMAPPING -> FXAA, lib.rs:342-365): on an HDR camera bloom
@@ -63,7 +68,8 @@ class Renderer:
     FXAA when `fxaa` is set (ops/fxaa.py)."""
 
     def __init__(self, scene: Union[Scene, GpuScene], camera: Camera,
-                 settings: Optional[HikariSettings] = None, device=None, *,
+                 settings: Optional[HikariSettings] = None,
+                 brute_force_max: Optional[int] = None, device=None, *,
                  bloom_settings=None, fxaa: bool = False):
         self.device = resolve_device(device)
         self.settings = settings or HikariSettings()
@@ -74,18 +80,25 @@ class Renderer:
         self.scene_dev = self.gpu_scene.as_pytree(self.device)
         self.noise = noise_constant(self.device)
         self.full_size = (camera.height, camera.width)
-        # the ray tracer of the non-fused passes, once per compiled scene
-        self.tracer = make_tracer(self.gpu_scene.num_triangles)
+        # the ray tracer of the non-fused passes, once per compiled scene:
+        # brute force up to brute_force_max triangles (make_tracer's
+        # default when None), else kernel 13's BVH walk
+        self._tracer_kw = ({} if brute_force_max is None
+                           else dict(brute_force_max=brute_force_max))
+        self.tracer = make_tracer(self.gpu_scene.num_triangles,
+                                  **self._tracer_kw)
         self._refitter = None
         self._frame_fn = self._build()
+        # the dissection's frame function, made at its first call
+        self._debug_fn = None
         self.reset()
 
-    def _build(self):
+    def _build(self, debug: bool = False):
         return build_render_frame(
             self.settings, self.full_size, self.scene_dev, self.tracer,
             self.gpu_scene.num_textures == 0,
             num_emissives=self.gpu_scene.num_emissives,
-            has_sun=self.gpu_scene.has_sun)
+            has_sun=self.gpu_scene.has_sun, debug=debug)
 
     def _views(self):
         """The camera's view uniform on the device, cached on the pose."""
@@ -111,6 +124,7 @@ class Renderer:
         self.settings = settings
         if settings.static_key() != old_key:
             self._frame_fn = self._build()
+            self._debug_fn = None
             self.reset()
 
     def update_scene(self, scene: Scene, fast: bool = False,
@@ -129,9 +143,11 @@ class Renderer:
         tables."""
         if not fast:
             gpu = scene.compile()
-            self.gpu_scene, self.tracer = gpu, make_tracer(gpu.num_triangles)
+            self.gpu_scene = gpu
+            self.tracer = make_tracer(gpu.num_triangles, **self._tracer_kw)
             self.scene_dev = gpu.as_pytree(self.device)
             self._frame_fn = self._build()
+            self._debug_fn = None
             self._refitter = None
             return
         visible = [i for i in scene.instances if i.visible]
@@ -158,9 +174,9 @@ class Renderer:
         self.scene_dev = {**self.scene_dev,
                           **self._refitter.update(mats[:n], mats[n:])}
 
-    def render_frame(self) -> torch.Tensor:
-        """Render one frame; returns the final [H,W,4] image on the device.
-        The first frame seeds the previous view with the current one (zero
+    def _frame_inputs(self):
+        """The view uniform and the frame uniform of the next frame; the
+        first frame seeds the previous view with the current one (zero
         velocity)."""
         view = self._views()
         if not self._prev_view_initialized:
@@ -168,11 +184,64 @@ class Renderer:
             self.carry["prev_inverse_view_proj"] = (
                 view["inverse_view_proj"].clone())
             self._prev_view_initialized = True
-        frame = make_frame_uniform(self.settings, self._frame_index)
+        return view, make_frame_uniform(self.settings, self._frame_index)
+
+    def render_frame(self) -> torch.Tensor:
+        """Render one frame; returns the final [H,W,4] image on the
+        device."""
+        view, frame = self._frame_inputs()
         image, albedo, self.carry = self._frame_fn(
             self.scene_dev, view, frame, self.noise, self.carry)
         self._frame_index += 1
         return self._post_overlay(image, albedo)
+
+    def render_dissection(self, out_dir: Optional[str] = None) -> dict:
+        """Render one frame through the debug frame (frame.py
+        build_render_frame(debug=True): the modular lighting and spatial
+        paths) and return its per-pass planes (frame.DEBUG_KEYS) and the
+        final image under "final", as numpy arrays (the analog of the
+        reference's assets/screenshots/dissection images). The frame
+        advances the carry and the frame index as render_frame does. With
+        `out_dir`, each plane is also written to out_dir/<key>.png as
+        hikari_tpu writes it: one-channel planes grey, scaled by their
+        maximum, normals mapped from [-1, 1] to [0, 1]."""
+        if self._debug_fn is None:
+            self._debug_fn = self._build(debug=True)
+        view, frame = self._frame_inputs()
+        image, albedo, self.carry, dbg = self._debug_fn(
+            self.scene_dev, view, frame, self.noise, self.carry)
+        self._frame_index += 1
+        dbg = {k: v.cpu().numpy() for k, v in dbg.items()}
+        dbg["final"] = self._post_overlay(image, albedo).cpu().numpy()
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            for k, v in dbg.items():
+                if v.ndim == 2:
+                    v = np.repeat(v[..., None], 3, axis=-1) / max(v.max(),
+                                                                  1e-6)
+                if "normal" in k:
+                    v = v * 0.5 + 0.5
+                save_png(os.path.join(out_dir, f"{k}.png"), v)
+        return dbg
+
+    @staticmethod
+    def to_srgb_u8(img: np.ndarray) -> np.ndarray:
+        """[..., >= 3] linear RGB in [0, 1] (clipped) as sRGB bytes."""
+        rgb = np.clip(img[..., :3], 0.0, 1.0)
+        srgb = np.where(rgb <= 0.0031308, 12.92 * rgb,
+                        1.055 * rgb ** (1 / 2.4) - 0.055)
+        return (srgb * 255.0 + 0.5).astype(np.uint8)
+
+    def save_png(self, path: str, img: Optional[np.ndarray] = None):
+        """Write `img` ([H,W,>=3] linear, numpy or a tensor; the next frame
+        when None) as an sRGB PNG."""
+        from PIL import Image
+
+        if img is None:
+            img = self.render_frame()
+        if isinstance(img, torch.Tensor):
+            img = img.cpu().numpy()
+        Image.fromarray(self.to_srgb_u8(np.asarray(img))).save(path)
 
     def _post_overlay(self, image, albedo):
         """The overlay, then on an HDR camera bloom (if set) and the

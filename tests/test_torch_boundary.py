@@ -60,6 +60,55 @@ def test_sources_do_not_reference_jax_or_the_reference_package():
                 assert not pattern.search(line), f"{path}:{i}: {line}"
 
 
+_FORBIDDEN = ("bad = [m for m in sys.modules if m in ('jax', 'hikari_tpu', "
+              "'examples') or m.startswith(('jax.', 'hikari_tpu.', "
+              "'examples.'))];")
+
+
+def _port_modules():
+    """Every module of the port's package, its examples included, by
+    name."""
+    mods = []
+    for root, _, names in os.walk(PKG):
+        rel = os.path.relpath(root, REPO).replace(os.sep, ".")
+        for n in sorted(names):
+            if n.endswith(".py"):
+                mods.append(rel if n == "__init__.py" else f"{rel}.{n[:-3]}")
+    return sorted(mods)
+
+
+def test_every_module_leaves_jax_and_the_reference_out():
+    """Importing every module of hikari_tpu_torch (the examples, the glTF
+    loader, utils/image and utils/profiling among them) loads neither jax,
+    nor hikari_tpu, nor the reference's examples package."""
+    mods = _port_modules()
+    assert {"hikari_tpu_torch.examples.common",
+            "hikari_tpu_torch.examples.minimal",
+            "hikari_tpu_torch.examples.cornell",
+            "hikari_tpu_torch.models.gltf", "hikari_tpu_torch.utils.image",
+            "hikari_tpu_torch.utils.profiling"} <= set(mods)
+    code = ("import importlib, sys;"
+            f"[importlib.import_module(m) for m in {mods!r}];"
+            + _FORBIDDEN + "print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def test_sources_do_not_import_the_reference_examples():
+    """No source of the port and not chip_smoke.py names the reference's
+    `examples` package in an import (the port's examples are
+    hikari_tpu_torch.examples)."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PKG):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    pattern = re.compile(r"^\s*(from examples\b|import examples\b)")
+    for path in files:
+        with open(path) as f:
+            for i, line in enumerate(f, 1):
+                assert not pattern.search(line), f"{path}:{i}: {line}"
+
+
 def _with_sphere(sc):
     """The box plus a default uv_sphere (1,224 triangles, above 768)."""
     from hikari_tpu_torch.models import mesh as shapes

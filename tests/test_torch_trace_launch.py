@@ -134,7 +134,6 @@ def test_no_rays_launch_nothing(fake, kind):
 
 def _bad_calls():
     a = _inputs(9)
-    big = torch.zeros((tp.MAX_TRIS + 1, 10))
     return [
         ("float64 ro", dict(a, ro=a["ro"].double()), TypeError, "ro"),
         ("rd of another length", dict(a, rd=a["rd"][:8]), ValueError, "rd"),
@@ -144,8 +143,8 @@ def _bad_calls():
          "contiguous"),
         ("tris of 11 columns", dict(a, tris=torch.zeros((5, 11))),
          ValueError, "tris"),
-        ("769 triangles", dict(a, tris=big, attrs=torch.zeros(
-            (tp.MAX_TRIS + 1, 17))), ValueError, "769 triangles"),
+        ("int32 tris", dict(a, tris=a["tris"].to(torch.int32)), TypeError,
+         "tris"),
     ]
 
 
@@ -154,6 +153,24 @@ _FULL_ONLY = [("attrs of 16 columns", "attrs", torch.zeros((5, 16)),
               ("float64 attrs", "attrs", torch.zeros((5, 17),
                                                      dtype=torch.float64),
                TypeError)]
+
+
+@pytest.mark.parametrize("p", [tp.CHUNK_ROWS + 1, 2618])
+@pytest.mark.parametrize("kind", list(KERNELS))
+def test_tables_above_one_chunk_launch(fake, kind, p):
+    """A table of more rows than a block stages at once launches with its
+    whole row count (the kernels sweep it chunk by chunk), its outputs the
+    plain version's shapes and dtypes."""
+    name, _ = KERNELS[kind]
+    a = _inputs(9, p=p)
+    out = _call(kind, a)
+    assert fake.calls == [name]
+    args = dict(zip(FIELDS, tp.TRACE_TABLE.unpack(fake.args[0][0])))
+    assert (args["n_tris"], args["n"]) == (p, 9)
+    ref = _plain(kind, a)
+    assert {k: (v.shape, v.dtype) for k, v in out.items()} == {
+        k: (v.shape, v.dtype) for k, v in ref.items()}
+    assert _launches() == [int(k == kind) for k in WRAPPERS]
 
 
 @pytest.mark.parametrize("kind", list(KERNELS))
