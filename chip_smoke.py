@@ -137,14 +137,28 @@ Run from the repository root on a machine with an NVIDIA H100:
    which G's renderer runs render_dissection() three times (timed), a
    fourth with every kernel call (A, 8, 9, 5, 6, 7, C, 11, 12; no 4 or
    10) against its plain version and its launches checked, and a
-   render_frame() with D's launches;
+   render_frame() with D's launches; then path SM: examples/minimal.py's
+   scene, settings and camera at 1920x1080 under hikari_tpu_torch.parallel
+   shard_frame, one spawned rank per card over NCCL (on a machine with one
+   card 2 ranks on it over gloo, the collectives staged through the host),
+   3 warm-up and 10 timed frames with exact launches per rank (path M's),
+   every island call of two more frames (A, 8, 9, 4, C, 11, 12 on the
+   rank's rows; 10 whole) against its plain version on every rank, and
+   check SB (the box at the flagship settings, kernel B's island, and with
+   checkerboard + temporal reuse, the modular path with kernel 9's island,
+   3 frames each); rank 0 then renders every frame again on one card
+   without the mesh, and the image, albedo and carry must equal the
+   sharded ones word for word (the ranks' words are compared by a
+   digest);
 13. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
    frame_ms_smaa2, frame_ms_default, frame_ms_ckb, frame_ms_ckb_reuse,
    frame_ms_city with city_refit_ms, frame_ms_city_lamps with
    city_lamps_refit_ms (path CL), frame_ms_simple (path T),
    frame_ms_simple_noreuse (path TN), frame_ms_scene (path F),
    frame_ms_minimal (path M), frame_ms_cornell with dissection_ms (path
-   G), P's and D's alternating medians, one JSON line of per-kernel
+   G), P's and D's alternating medians, frame_ms_minimal_sharded (path
+   SM, with its ranks, backend, card and the bytes a rank receives a
+   frame), one JSON line of per-kernel
    numbers of the kernels the paths run (kernels 5, 6 and 7 also over
    check U's 2,624-row table), one of kernel 13's mode `hit` (no path
    traces without attributes), and last {"ok": true, "device": {...}}.
@@ -187,8 +201,9 @@ prints the records and the frame medians (no ok line): run it in two
 trees of the repository in one call, in turns, to compare them; `--ab-summary
 FILE...` (one file of --ab lines per tree) prints each metric's median
 and interquartile range over the runs.
-Any failed check raises: the exit code is then not 0 and the
-last line is not printed. Without CUDA it exits 1 at once.
+With --sharded it only builds the kernels and runs path SM and check SB
+(its line, no ok line). Any failed check raises: the exit code is then
+not 0 and the last line is not printed. Without CUDA it exits 1 at once.
 """
 
 from __future__ import annotations
@@ -4391,6 +4406,370 @@ def check_universal(ht, build_box):
     return records
 
 
+# ------------------------------------------------------------------ path SM
+
+SB_FRAMES = 3
+SM_CAPTURED = 2           # frames whose island calls are checked
+SM_TIMEOUT_S = 900        # a collective that waits longer fails the rank
+
+
+def sharded_layout():
+    """(ranks, backend, devices) of path SM: one rank per card over NCCL;
+    on a machine with one card two ranks on it over gloo, whose
+    collectives the port stages through the host (NCCL takes one rank a
+    card)."""
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        return cards, "nccl", [f"cuda:{r}" for r in range(cards)]
+    return 2, "gloo", ["cuda:0", "cuda:0"]
+
+
+def frame_program(ht, scene_host, cam, settings, dev):
+    """What a user of the row mesh builds (hikari_tpu_torch.frame
+    build_render_frame, as for hikari_tpu's shard_frame): (frame function,
+    scene, view, noise, carry) on `dev`, the carry's previous view seeded
+    with the camera's (Renderer's first frame)."""
+    from hikari_tpu_torch.camera import view_to_device
+    from hikari_tpu_torch.frame import build_render_frame, init_carry
+    from hikari_tpu_torch.ops.noise import noise_constant
+    from hikari_tpu_torch.ops.trace import make_tracer
+
+    gpu = scene_host.compile()
+    scene = gpu.as_pytree(dev)
+    size = (cam.height, cam.width)
+    fn = build_render_frame(settings, size, scene,
+                            make_tracer(gpu.num_triangles),
+                            gpu.num_textures == 0,
+                            num_emissives=gpu.num_emissives,
+                            has_sun=gpu.has_sun)
+    view = view_to_device(cam.view_uniform(), dev)
+    carry = init_carry(size, settings, dev)
+    carry["prev_view_proj"] = view["view_proj"].clone()
+    carry["prev_inverse_view_proj"] = view["inverse_view_proj"].clone()
+    return fn, scene, view, noise_constant(dev), carry
+
+
+def carry_leaves(carry, prefix=""):
+    out = {}
+    for k, v in carry.items():
+        if isinstance(v, dict):
+            out.update(carry_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def same_words(a, b):
+    return (a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().view(torch.uint8), b.contiguous().view(torch.uint8)))
+
+
+def word_digest(t):
+    """An int64 digest of a float32 tensor's words (position-weighted)."""
+    w = t.contiguous().view(-1).view(torch.int32).to(torch.int64)
+    return (w * (torch.arange(w.numel(), device=w.device) % 65521 + 1)).sum()
+
+
+def island_captures():
+    """Captures of the wrappers the islands call on their rank's block (A,
+    8, 9, B / 4, 10 (whole), C, 11, 12, then 5, 6, 7), in the order of
+    frame_captures(). The post chain calls 11 and 12 through the same
+    module names with its mesh: those outer calls are dropped
+    (island_calls)."""
+    from hikari_tpu_torch.ops import denoise_fused as dnf
+    from hikari_tpu_torch.ops import light_fused as lf
+    from hikari_tpu_torch.ops import prepass_fused as pf
+    from hikari_tpu_torch.ops import reproj_gather as rg
+    from hikari_tpu_torch.ops import spatial_fused as sf
+    from hikari_tpu_torch.ops import trace_pallas as tp
+    from hikari_tpu_torch.ops import warp2 as w2
+    from hikari_tpu_torch.ops import warp_band as wb
+
+    return ([Capture(pf, "prepass_kernel"),
+             Capture(pf, "prepass_quads_kernel"),
+             Capture(rg, "reproj_gather"), Capture(lf, "lighting_kernel"),
+             Capture(sf, "spatial_kernel"), Capture(dnf, "atrous_level"),
+             Capture(wb, "warp_band"), Capture(w2, "warp_multi")]
+            + [Capture(tp, name) for name, *_ in TRACE_KERNELS])
+
+
+def island_calls(calls):
+    return [[(a, k) for a, k in c if k.get("mesh") is None] for c in calls]
+
+
+class WireBytes:
+    """Counts the bytes a rank receives by the port's collectives while
+    installed: all_gather (every rank's block) and point-to-point halo
+    receives."""
+
+    def __init__(self):
+        import torch.distributed as dist
+
+        self.dist = dist
+        self.gathered = self.halo = 0
+
+    def __enter__(self):
+        dist = self.dist
+        self.all_gather, self.batch = dist.all_gather, dist.batch_isend_irecv
+
+        def all_gather(parts, t, *a, **k):
+            self.gathered += sum(p.numel() * p.element_size() for p in parts)
+            return self.all_gather(parts, t, *a, **k)
+
+        def batch(ops):
+            self.halo += sum(o.tensor.numel() * o.tensor.element_size()
+                             for o in ops if o.op is dist.irecv)
+            return self.batch(ops)
+
+        dist.all_gather, dist.batch_isend_irecv = all_gather, batch
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_gather = self.all_gather
+        self.dist.batch_isend_irecv = self.batch
+
+
+def sharded_frames(fn, state, settings, first, frames, mesh, times=None):
+    """`frames` frames (numbers first..) of a shard_frame'd frame function
+    over `mesh`, each to a synchronize (and timed into `times`). Returns
+    [(image, albedo)] and the carry."""
+    from hikari_tpu_torch.config import make_frame_uniform
+
+    scene, view, noise, carry = state
+    outs = []
+    for i in range(first, first + frames):
+        t = time.perf_counter()
+        image, albedo, carry = fn(scene, view,
+                                  make_frame_uniform(settings, i), noise,
+                                  carry)
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((time.perf_counter() - t) * 1e3)
+        outs.append((image, albedo))
+    return outs, carry
+
+
+def sharded_program(ht, scene_of, cam, settings, mesh):
+    """frame_program under shard_frame over `mesh`: (fn, (scene, view,
+    noise, carry))."""
+    from hikari_tpu_torch.config import make_frame_uniform
+    from hikari_tpu_torch.parallel import shard_frame
+
+    fn, scene, view, noise, carry = frame_program(ht, scene_of(), cam,
+                                                  settings, mesh.device)
+    fn, (scene, view, _, noise, carry) = shard_frame(
+        fn, mesh, scene, view, make_frame_uniform(settings, 0), noise, carry,
+        {cam.height})
+    return fn, (scene, view, noise, carry)
+
+
+def minimal_camera(ht):
+    from hikari_tpu_torch.examples import minimal
+
+    h, w = FULL
+    return ht.Camera.from_look_at(minimal.EYE, minimal.TARGET, width=w,
+                                  height=h)
+
+
+def box_camera(ht):
+    box = load_box_module()
+    h, w = FULL
+    return ht.Camera.from_look_at(box.EYE, box.TARGET, width=w, height=h)
+
+
+def sb_cases(ht):
+    """Check SB's configurations: (name, scene_of, camera, settings,
+    launches per frame)."""
+    box = load_box_module()
+
+    def scene_of():
+        return box.build_cornell_box("hikari_tpu_torch")
+
+    return [("SB no-reuse", scene_of, box_camera(ht), flagship_settings(ht),
+             PATHS["no-reuse"][1]),
+            ("SB KR", scene_of, box_camera(ht), PATHS["KR"][0](ht),
+             kr_launches)]
+
+
+def sm_rank_work(ht, mesh):
+    """Path SM and check SB on this rank. Returns (result for the parent,
+    [(name, scene_of, camera, settings, sharded outputs, final carry)]
+    for the single-card comparison)."""
+    from hikari_tpu_torch.examples import minimal
+
+    label = f"rank {mesh.rank}"
+    settings = minimal.settings()
+    cam = minimal_camera(ht)
+    fn, state = sharded_program(ht, minimal.build_scene, cam, settings, mesh)
+    wrappers = counter_wrappers()
+    outs, carry = sharded_frames(fn, state, settings, 0, WARMUP_FRAMES,
+                                 mesh)
+    for w in wrappers:
+        w.launches = 0
+    times = []
+    with WireBytes() as wire:
+        timed, carry = sharded_frames(fn, (*state[:3], carry), settings,
+                                      WARMUP_FRAMES, TIMED_FRAMES, mesh,
+                                      times)
+    outs += timed
+    counts = [w.launches for w in wrappers]
+    expected = [sum(col) for col in zip(*(
+        minimal_launches(settings, i)
+        for i in range(WARMUP_FRAMES, WARMUP_FRAMES + TIMED_FRAMES)))]
+    print(f"path SM {label}: launches over {TIMED_FRAMES} frames "
+          f"({', '.join(COUNTERS)}): {counts} (need {expected})")
+    if counts != expected:
+        fail(f"path SM {label} did not launch each kernel as expected")
+    first = WARMUP_FRAMES + TIMED_FRAMES
+    caps = island_captures()
+
+    def step():
+        nonlocal carry
+        more, carry = sharded_frames(fn, (*state[:3], carry), settings,
+                                     first, SM_CAPTURED, mesh)
+        outs.extend(more)
+
+    calls = island_calls(captured(step, caps))
+    check_call_counts(f"path SM {label}, {SM_CAPTURED} frames", calls,
+                      [minimal_launches(settings, i)
+                       for i in range(first, first + SM_CAPTURED)])
+    runs = [("SM", minimal.build_scene, cam, settings, outs, carry)]
+    sb_counts = {}
+    for name, scene_of, cam_b, settings_b, per_frame in sb_cases(ht):
+        fn_b, state_b = sharded_program(ht, scene_of, cam_b, settings_b,
+                                        mesh)
+        for w in wrappers:
+            w.launches = 0
+        outs_b, carry_b = sharded_frames(fn_b, state_b, settings_b, 0,
+                                         SB_FRAMES, mesh)
+        got = [w.launches for w in wrappers]
+        need = [sum(col) for col in zip(*(per_frame(settings_b, i)
+                                          for i in range(SB_FRAMES)))]
+        print(f"check {name} {label}: launches {got} (need {need})")
+        if got != need:
+            fail(f"check {name} {label} did not launch as expected")
+        sb_counts[name] = got
+        runs.append((name, scene_of, cam_b, settings_b, outs_b, carry_b))
+    # every rank holds the same words: a digest of each run's last image
+    # and albedo and its carry, gathered
+    import torch.distributed as dist
+
+    digest = torch.stack([word_digest(t) for run in runs for t in [
+        *run[4][-1], *carry_leaves(run[5]).values()]])
+    sent = digest.cpu() if mesh.staged else digest
+    parts = [torch.empty_like(sent) for _ in range(mesh.n)]
+    dist.all_gather(parts, sent)
+    if any(not torch.equal(p.cpu(), digest.cpu()) for p in parts):
+        fail(f"path SM {label}: the ranks hold different words")
+    # every island call of the captured frames against its plain version
+    check_frame_calls(calls, f"path SM {label}")
+    result = {"times": times, "counts": counts,
+              "gathered_bytes_per_frame": wire.gathered / TIMED_FRAMES,
+              "halo_bytes_per_frame": wire.halo / TIMED_FRAMES,
+              "sb_counts": sb_counts,
+              "calls": [len(c) for c in calls]}
+    return result, runs
+
+
+def compare_single_card(ht, runs, dev):
+    """Each sharded run against the same frames on one card without the
+    mesh, word for word: every frame's image and albedo, and the carry
+    after the last."""
+    for name, scene_of, cam, settings, outs, carry in runs:
+        fn, scene, view, noise, c1 = frame_program(ht, scene_of(), cam,
+                                                   settings, dev)
+        from hikari_tpu_torch.config import make_frame_uniform
+
+        for i, (image, albedo) in enumerate(outs):
+            img1, alb1, c1 = fn(scene, view, make_frame_uniform(settings, i),
+                                noise, c1)
+            if not (same_words(img1, image) and same_words(alb1, albedo)):
+                fail(f"{name}: sharded frame {i} differs from the single "
+                     "card's")
+        leaves, leaves1 = carry_leaves(carry), carry_leaves(c1)
+        bad = [k for k in leaves1 if not same_words(leaves[k], leaves1[k])]
+        if set(leaves) != set(leaves1) or bad:
+            fail(f"{name}: sharded carry differs from the single card's: "
+                 f"{bad}")
+        img = outs[-1][0].cpu()
+        if not torch.isfinite(img).all() or float(img[..., :3].mean()) \
+                <= 0.01:
+            fail(f"{name}: bad image")
+        print(f"{name}: {len(outs)} sharded frames equal the single card's "
+              f"word for word (image, albedo; the carry's "
+              f"{len(leaves)} tensors after the last)")
+
+
+def sm_rank(rank, n, backend, devices, store, out_dir):
+    """One rank of path SM (spawned): joins the process group, runs
+    sm_rank_work, rank 0 then compares with the single card, and writes
+    its result to out_dir/rank<r>.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    import hikari_tpu_torch as ht
+    from hikari_tpu_torch.parallel import make_mesh
+
+    dev = torch.device(devices[rank])
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="file://" + store,
+                            rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=SM_TIMEOUT_S))
+    try:
+        mesh = make_mesh(n, device=None if backend == "nccl" else dev)
+        if mesh.device != dev:
+            fail(f"rank {rank} on {mesh.device}, expected {dev}")
+        result, runs = sm_rank_work(ht, mesh)
+        dist.barrier(device_ids=[dev.index] if backend == "nccl" else None)
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        compare_single_card(ht, runs, dev)
+        result["single_card_equal"] = True
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def sharded_path(ht, card):
+    """Path SM (examples/minimal.py's scene, settings and camera at
+    1920x1080 under shard_frame over every card) and check SB (the box
+    without reuse, and with checkerboard + temporal reuse, 3 frames each),
+    one spawned process a rank. Returns the SM line's record and the
+    launches of COUNTERS over its timed frames, summed over the ranks."""
+    import torch.multiprocessing as mp
+
+    n, backend, devices = sharded_layout()
+    how = ("one rank per card over NCCL" if backend == "nccl" else
+           f"{n} ranks on one card over gloo, collectives staged through "
+           "the host")
+    print(f"path SM: {n} ranks ({how}) on {devices}")
+    out_dir = work_dir("sm")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(sm_rank, args=(n, backend, devices, work_dir("sm_store"),
+                            out_dir), nprocs=n, join=True)
+    res = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    if not res[0].get("single_card_equal"):
+        fail("path SM was not compared with the single card")
+    print(f"path SM and check SB took {time.perf_counter() - t0:.1f} s")
+    times = res[0]["times"]
+    return {"frame_ms_minimal_sharded": float(np.median(times)),
+            "reps_ms": times, "ranks": n, "backend": backend,
+            "placement": how, "devices": devices, "card": card,
+            "gathered_bytes_per_frame": res[0]["gathered_bytes_per_frame"],
+            "halo_bytes_per_frame": res[0]["halo_bytes_per_frame"],
+            "launches_per_rank": [dict(zip(COUNTERS, r["counts"]))
+                                  for r in res],
+            "sb_launches_per_rank": [r["sb_counts"] for r in res],
+            "minimal_triangles": 14}, [
+                sum(col) for col in zip(*(r["counts"] for r in res))]
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4407,6 +4786,10 @@ def main():
                     "KR's (to time two trees "
                     "of the repository in one call); prints their records "
                     "and no ok line")
+    ap.add_argument("--sharded", action="store_true",
+                    help="only build the kernels and run path SM and check "
+                    "SB (the row-sharded frame over every card); prints "
+                    "its line and no ok line")
     ap.add_argument("--ab-summary", nargs="+", metavar="FILE",
                     help="summarise the --ab lines of FILEs, one per tree "
                     "(medians, interquartile ranges; runs on any host)")
@@ -4459,6 +4842,9 @@ def run(args):
                      for name in ("prepass_fused", "spatial_fused",
                                   "trace_bvh", "trace")}
     write_cornell_asset()
+    if args.sharded:
+        print(json.dumps(sharded_path(ht, card)[0]))
+        return 0
     if args.ab:
         records, frames = ab_only(ht, build_box)
         print(json.dumps({"ab": list(records), "frames_ms": frames,
@@ -4524,19 +4910,22 @@ def run(args):
     frame_ms["G"] = (float(np.median(times)), times)
     launches["G"] = dict(zip(COUNTERS, counts))
     alt_ms, alt_times = alternate_post_paths(ht, build_box, TIMED_FRAMES)
+    sm_record, sm_counts = sharded_path(ht, card)
+    launches["SM"] = dict(zip(COUNTERS, sm_counts))
 
     def total(counter, paths=tuple(launches)):
         return sum(launches[p][counter] for p in paths)
 
     # launches over the timed frames of the paths running each kernel:
-    # B runs on no-reuse, P and K, kernel 4 on R, S, D, M and G, 13 on the
-    # city, CL, T, TN and F, 14 on T and TN
+    # B runs on no-reuse, P and K, kernel 4 on R, S, D, M, G and SM (every
+    # rank's), 13 on the city, CL, T, TN and F, 14 on T and TN
     by_name = {
         "prepass_fused": total("prepass"),
         "light_fused": total("lighting", ("no-reuse", "P", "K")),
         "denoise_fused": total("a-trous"),
         "reproj_gather": total("gather"),
-        "light_fused_temporal": total("lighting", ("R", "S", "D", "M", "G")),
+        "light_fused_temporal": total("lighting",
+                                      ("R", "S", "D", "M", "G", "SM")),
         "spatial_fused": total("spatial"),
         "prepass_quads": total("quads"),
         "warp_band": total("warp_band"),
@@ -4596,6 +4985,7 @@ def run(args):
         "frame_ms_default_alternating": alt_ms["D"],
         "reps_ms_smaa2": alt_times["P"], "reps_ms_default": alt_times["D"],
         "card": card}))
+    print(json.dumps(sm_record))
     print(json.dumps({"kernel_off_path": hit_record}))
     print(json.dumps({"light_instances": instances,
                       "kernel_instances": instances_a10}))

@@ -46,6 +46,13 @@
 // term (channels are a template parameter so the accumulators stay in
 // registers), so the words equal its. Results are rounded to bf16 to
 // nearest even, as XLA's astype does.
+//
+// Row sharding (parallel/shard.py, ops/denoise_fused.py levels_island): a
+// rank's call filters its block of rows with a halo of neighbour rows
+// above and below; `row0` is the image row of the planes' first row and
+// `rows` the image's rows, and a tap whose image row lies outside
+// [0, rows) is skipped as at the image's edge (the halo rows there are
+// zeros, never read). The whole image is row0 = 0, rows = h.
 
 #include <cuda_bf16.h>
 #include <cuda_pipeline.h>
@@ -95,7 +102,7 @@ __global__ void __launch_bounds__(TILE_W* THREADS_Y)
 atrous_kernel(const __nv_bfloat16* __restrict__ irr,
               const __nv_bfloat16* __restrict__ geo,
               const float* __restrict__ f32s, int ffs_mask, int h, int w,
-              int vec, __nv_bfloat16* __restrict__ out) {
+              int row0, int rows, int vec, __nv_bfloat16* __restrict__ out) {
   extern __shared__ float4 smem4[];
   const int step = STEP;
   const int sw = stage_width(STEP);
@@ -109,6 +116,8 @@ atrous_kernel(const __nv_bfloat16* __restrict__ irr,
   const int x0 = blockIdx.x * TILE_W;
   const int y0 = blockIdx.y % step + (blockIdx.y / step) * TILE_R * step;
   const int base = floor8(x0 - step);   // shared column 0
+  // the planes' rows that lie in the image: the taps' row range
+  const int y_lo = max(0, -row0), y_hi = min(h, rows - row0);
   const int c_lo = max(x0 - step, 0);
   const int c_hi = min(x0 + TILE_W + step, w);
 
@@ -202,7 +211,7 @@ atrous_kernel(const __nv_bfloat16* __restrict__ irr,
       for (int ox = -1; ox <= 1; ox++) {
         if (oy == 0 && ox == 0) continue;
         int ty = y + oy * step, tx = x + ox * step;
-        if (ty < 0 || ty >= h || tx < 0 || tx >= w) continue;
+        if (ty < y_lo || ty >= y_hi || tx < 0 || tx >= w) continue;
         int t = s0 + oy * sw + ox * step;
         float k_tap = K_ATROUS[oy + 1][ox + 1];
         float nw = fmaxf(0.0f, n0x * s_f[2 * np + t] +
@@ -262,8 +271,8 @@ atrous_kernel(const __nv_bfloat16* __restrict__ irr,
 
 template <int NCH, int STEP>
 static int launch_step(const void* irr, const void* geo, const float* f32s,
-                       int ffs_mask, int h, int w, void* out,
-                       cudaStream_t stream) {
+                       int ffs_mask, int h, int w, int row0, int rows,
+                       void* out, cudaStream_t stream) {
   // <= 30.4 KB: no opt-in above the default 48 KB
   const size_t smem =
       (size_t)HALO_R * stage_width(STEP) * (N_F32 * 4 + 3 * NCH * 2);
@@ -273,41 +282,50 @@ static int launch_step(const void* irr, const void* geo, const float* f32s,
   dim3 grid((w + TILE_W - 1) / TILE_W, STEP * groups);
   atrous_kernel<NCH, STEP><<<grid, dim3(TILE_W, THREADS_Y), smem, stream>>>(
       (const __nv_bfloat16*)irr, (const __nv_bfloat16*)geo, f32s, ffs_mask,
-      h, w, vec, (__nv_bfloat16*)out);
+      h, w, row0, rows, vec, (__nv_bfloat16*)out);
   return (int)cudaGetLastError();
 }
 
 template <int NCH>
 static int launch(const void* irr, const void* geo, const float* f32s,
-                  int ffs_mask, int step, int h, int w, void* out,
-                  cudaStream_t stream) {
+                  int ffs_mask, int step, int h, int w, int row0, int rows,
+                  void* out, cudaStream_t stream) {
   switch (step) {
     case 1:
-      return launch_step<NCH, 1>(irr, geo, f32s, ffs_mask, h, w, out, stream);
+      return launch_step<NCH, 1>(irr, geo, f32s, ffs_mask, h, w, row0, rows,
+                                 out, stream);
     case 2:
-      return launch_step<NCH, 2>(irr, geo, f32s, ffs_mask, h, w, out, stream);
+      return launch_step<NCH, 2>(irr, geo, f32s, ffs_mask, h, w, row0, rows,
+                                 out, stream);
     case 4:
-      return launch_step<NCH, 4>(irr, geo, f32s, ffs_mask, h, w, out, stream);
+      return launch_step<NCH, 4>(irr, geo, f32s, ffs_mask, h, w, row0, rows,
+                                 out, stream);
     case 8:
-      return launch_step<NCH, 8>(irr, geo, f32s, ffs_mask, h, w, out, stream);
+      return launch_step<NCH, 8>(irr, geo, f32s, ffs_mask, h, w, row0, rows,
+                                 out, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// row0, rows: the image row of the planes' first row and the image's
+// rows (0 and h for the whole image)
 extern "C" int hk_atrous_level(const void* irr, const void* geo,
                                const float* f32s, int nch, int ffs_mask,
-                               int step, int h, int w, void* out,
-                               void* stream) {
-  if (h < 1 || w < 1) return (int)cudaErrorInvalidValue;
+                               int step, int h, int w, int row0, int rows,
+                               void* out, void* stream) {
+  if (h < 1 || w < 1 || rows < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   switch (nch) {
     case 1:
-      return launch<1>(irr, geo, f32s, ffs_mask, step, h, w, out, s);
+      return launch<1>(irr, geo, f32s, ffs_mask, step, h, w, row0, rows, out,
+                       s);
     case 2:
-      return launch<2>(irr, geo, f32s, ffs_mask, step, h, w, out, s);
+      return launch<2>(irr, geo, f32s, ffs_mask, step, h, w, row0, rows, out,
+                       s);
     case 3:
-      return launch<3>(irr, geo, f32s, ffs_mask, step, h, w, out, s);
+      return launch<3>(irr, geo, f32s, ffs_mask, step, h, w, row0, rows, out,
+                       s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -30,6 +30,12 @@
 //   pixels: each staged row is read from shared memory once for both rays.
 // * The attribute row is read from global memory for the winner only.
 //
+// Row sharding (parallel/shard.py): a rank's call writes the planes of
+// its block of rows, h of them from image row params[P_ROW0] (0 for the
+// whole image), its rays through those image rows of the image of
+// params[P_WH] x params[P_WH + 1]; the words of a pixel do not depend on
+// the block.
+//
 // Kernel 8 replaces prepass_fused.py:_build_kernel_slim (launched by
 // prepass_fused_quads, once per parity there): depth, velocity and
 // instance (+0.5) at the image pixels (2y+a, 2x+b) of the four parities
@@ -58,7 +64,8 @@
 #define P_CAM 48
 #define P_JIT 51
 #define P_WH 53
-#define P_COUNT 55
+#define P_ROW0 55  // image row of the planes' first row (a row block)
+#define P_COUNT 56
 
 #define A_THREADS 256
 #define A_PIX 2  // pixels per thread
@@ -307,7 +314,10 @@ prepass_kernel(const float* __restrict__ params_g,
 #pragma unroll
   for (int k = 0; k < A_PIX; k++) {
     int pix = min(first + k * A_THREADS, npix - 1);
-    o = camera_ray(params, (float)(pix % w), (float)(pix / w), &d[k]);
+    // the image row: the block's first row + the plane row (integers
+    // below 2^24, so the sum is exact)
+    o = camera_ray(params, (float)(pix % w),
+                   params[P_ROW0] + (float)(pix / w), &d[k]);
     c[k] = closest_miss();
   }
   if (first >= npix) return;

@@ -56,6 +56,11 @@ The debug frame (`debug=True`, behind Renderer.render_dissection) takes
 the modular lighting and spatial paths whatever the gates say, on the
 same carries, and also returns the per-pass planes (DEBUG_KEYS).
 
+Under a row mesh (hikari_tpu_torch/parallel/: shard_frame enters it) the
+glue runs whole on every rank and kernels A, 8, 9, B / 4, C, 11 and 12 run
+on the rank's rows as islands, their outputs gathered whole, as
+hikari_tpu runs them as shard_map islands; 5-7, 10, 13 and 14 run whole.
+
 Every upscale hikari_tpu accepts renders: none, SMAA TU4X and FSR 1.0
 (ops/post.py) at any ratio in [1, 2] and any output size, and
 checkerboard lighting at any ratio. Scenes of any emissive count render
@@ -84,6 +89,7 @@ from hikari_tpu_torch.ops.reproj_gather import reproj_gather
 from hikari_tpu_torch.ops.shading import used_slots
 from hikari_tpu_torch.ops.smaa import parity_context
 from hikari_tpu_torch.ops.tonemap import tone_mapping
+from hikari_tpu_torch.parallel import shard as _sh
 from hikari_tpu_torch.utils.math import F32_EPSILON
 
 TEMPORAL_KEYS = ("direct_temporal", "emissive_temporal", "indirect_temporal")
@@ -477,15 +483,19 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                      "inverse_view_proj": carry["prev_inverse_view_proj"]}
         number = frame["number"]
         jit = frame_jitter(number, settings.taa, settings.upscale.mode)
+        # under a row mesh kernels A, 8 and 9 run as islands here, B / 4 and
+        # C in their modules, 11 and 12 in the post chain (hikari_tpu/
+        # frame.py:150-179, :274); 5-7, 10, 13 and 14 run whole
+        mesh = _sh.active_mesh()
         albedo_r = smaa_quads = surf_full = None
         if fused_pre and exact_half:
             # the render-size G-buffer: kernel A's strided planes
             gbuf, albedo, g, albedo_r = _pf.prepass_fused(
                 scene, view, prev_view, jit, full_size,
-                dec_parity=number & 1)
+                dec_parity=number & 1, mesh=mesh)
         elif fused_pre:
             gbuf, albedo = _pf.prepass_fused(scene, view, prev_view, jit,
-                                             full_size)
+                                             full_size, mesh=mesh)
         else:
             gbuf = prepass(scene, tracer, view, prev_view, jit, full_size)
             surf_full = restir.primary_surface(scene, gbuf, no_texture,
@@ -495,7 +505,7 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         if not (fused_pre and exact_half):
             g = restir.resample_gbuffer(gbuf, render_size, number, ratio)
         if _smaa(settings):
-            smaa_quads = (_pf.prepass_fused_quads(gbuf)
+            smaa_quads = (_pf.prepass_fused_quads(gbuf, mesh=mesh)
                           if fused_pre and exact_half
                           else parity_context(gbuf, render_size))
         rand = sample_blue_noise(noise, number, render_size)
@@ -525,7 +535,8 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                                 -1).to(torch.int32).contiguous()
             keys = [TEMPORAL_KEYS[c] for c in range(3) if active[c]]
             outs = reproj_gather([carry[k] for k in keys + sp_sources],
-                                 piy_m, reproj["pix"].contiguous())
+                                 piy_m, reproj["pix"].contiguous(),
+                                 mesh=mesh)
             gathered = outs[:len(keys)]
             sp_gathered = dict(zip(sp_sources, outs[len(keys):]))
         for k in TEMPORAL_KEYS + SPATIAL_KEYS:

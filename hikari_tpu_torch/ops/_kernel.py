@@ -100,6 +100,27 @@ def host_values(values, device) -> torch.Tensor:
     return t.to(device)
 
 
+# PyTorch's CPU loops compute a vectorized op's last partial vector with the
+# scalar function; for exp2 its last bit can differ from the vector
+# function's. Which elements fall there depends on the tensor's size, so a
+# row block of the image would round differently from the whole image.
+# exp2's inputs are therefore padded to whole vectors of this many floats.
+LANES = 64
+
+
+def exp2(x):
+    """torch.exp2(x), on the CPU with every element through the vector
+    function (a row block's words equal the whole image's); unchanged on
+    CUDA."""
+    if x.device.type != "cpu":
+        return torch.exp2(x)
+    n = x.numel()
+    flat = x.reshape(-1)
+    if n % LANES:
+        flat = torch.cat([flat, flat.new_zeros(LANES - n % LANES)])
+    return torch.exp2(flat)[:n].reshape(x.shape)
+
+
 def f32(x) -> float:
     """x rounded to float32, as a Python float (exact in torch's f32 ops)."""
     return float(np.float32(x))

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from hikari_tpu_torch.config import ATROUS_KERNEL
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
                                           on_cpu, ptr, stream)
+from hikari_tpu_torch.parallel import shard as _sh
 from hikari_tpu_torch.utils.math import F32_MAX
 
 _LUMA = (0.2126, 0.7152, 0.0722)
@@ -50,8 +51,14 @@ def _bad(rgb):
     return ~fin | over
 
 
-def atrous_plain(irr, geo, f32s, *, step: int, nch: int, ffs: tuple):
-    """Kernel C's body over whole planes; returns [3C,H,W] bf16."""
+def atrous_plain(irr, geo, f32s, *, step: int, nch: int, ffs: tuple,
+                 row0: int = 0, rows=None):
+    """Kernel C's body over whole planes; returns [3C,H,W] bf16. The planes
+    are the image rows row0 .. row0 + H - 1 of an image of `rows` rows (H
+    when None): taps outside the planes or outside the image are
+    skipped."""
+    h = irr.shape[1]
+    rows = h if rows is None else rows
     k_center = float(ATROUS_KERNEL[1, 1])
     irr_f = irr.to(torch.float32)
     gx, gy = geo[0].to(torch.float32), geo[1].to(torch.float32)
@@ -78,6 +85,9 @@ def atrous_plain(irr, geo, f32s, *, step: int, nch: int, ffs: tuple):
         k_tap = float(ATROUS_KERNEL[oy + 1, ox + 1])
         sf, ok = _shift(f32s, oy * step, ox * step)
         si, _ = _shift(irr_f, oy * step, ox * step)
+        if row0 != 0 or rows != h:
+            ty = torch.arange(h, device=ok.device) + (row0 + oy * step)
+            ok = ok & ((ty >= 0) & (ty < rows))[:, None]
         nw = torch.clamp(n0[0] * sf[2] + n0[1] * sf[3] + n0[2] * sf[4],
                          min=0.0)
         nw = nw * nw
@@ -119,15 +129,20 @@ def atrous_plain(irr, geo, f32s, *, step: int, nch: int, ffs: tuple):
     return torch.stack(out).to(torch.bfloat16)
 
 
-def atrous_level(irr, geo, f32s, *, step: int, nch: int, ffs: tuple):
+def atrous_level(irr, geo, f32s, *, step: int, nch: int, ffs: tuple,
+                 row0: int = 0, rows=None):
     """Kernel C: runs `atrous_plain` for CPU tensors and launches
-    csrc/denoise_fused.cu for CUDA tensors (step in KERNEL_STEPS)."""
+    csrc/denoise_fused.cu for CUDA tensors (step in KERNEL_STEPS). row0,
+    rows: the image row of the planes' first row and the image's rows (a
+    row block with its halo; the whole image by default)."""
     if on_cpu(irr):
-        return atrous_plain(irr, geo, f32s, step=step, nch=nch, ffs=ffs)
+        return atrous_plain(irr, geo, f32s, step=step, nch=nch, ffs=ffs,
+                            row0=row0, rows=rows)
     from hikari_tpu_torch.build import load_cuda
 
     dev = irr.device
     h, w = irr.shape[1:]
+    rows = h if rows is None else rows
     if (not 1 <= nch <= MAX_CHANNELS or len(ffs) != nch
             or step not in KERNEL_STEPS):
         raise ValueError(f"nch={nch}, ffs={ffs}, step={step}")
@@ -136,9 +151,9 @@ def atrous_level(irr, geo, f32s, *, step: int, nch: int, ffs: tuple):
     check("f32s", f32s, torch.float32, (5, h, w), dev)
     out = torch.empty_like(irr)
     mask = sum(1 << c for c in range(nch) if ffs[c])
-    fn = bind(load_cuda("denoise_fused"), "hk_atrous_level", "pppiiiiipp")
-    rc = fn(ptr(irr), ptr(geo), ptr(f32s), nch, mask, step, h, w, ptr(out),
-            stream(dev))
+    fn = bind(load_cuda("denoise_fused"), "hk_atrous_level", "pppiiiiiiipp")
+    rc = fn(ptr(irr), ptr(geo), ptr(f32s), nch, mask, step, h, w, row0,
+            rows, ptr(out), stream(dev))
     check_launch(rc, "denoise_fused")
     atrous_level.launches += 1
     return out
@@ -162,17 +177,48 @@ def level_stacks(irrs, variances, normal, gradient, depth, instance):
     return irr, geo, f32s
 
 
+def levels_island(irr, geo, f32s, *, nch: int, ffs: tuple, steps, mesh):
+    """The cascade as a row-sharded island (hikari_tpu/ops/denoise_fused.py
+    :271-305): each rank filters its block of rows, fetching 2 * max(steps)
+    halo rows from its neighbours before each level (each level reads its
+    neighbours' new values), with the block's first image row for the
+    out-of-image taps; the filtered rows are gathered whole."""
+    h = irr.shape[1]
+    halo = 2 * max(steps)
+    # at least `halo` rows a block: the halo is a single hop
+    hl = _sh.block_rows(h, mesh.n, halo)
+
+    def local(irr_l, geo_l, f32_l):
+        row0 = mesh.rank * hl - halo
+        geo_h = _sh.halo_rows(geo_l, halo, halo, mesh, axis=1)
+        f32_h = _sh.halo_rows(f32_l, halo, halo, mesh, axis=1)
+        for step in steps:
+            irr_h = _sh.halo_rows(irr_l, halo, halo, mesh, axis=1)
+            out = atrous_level(irr_h, geo_h, f32_h, step=step, nch=nch,
+                               ffs=ffs, row0=row0, rows=h)
+            irr_l = out[:, halo:halo + hl]
+        return irr_l
+
+    return _sh.island(local, mesh, h, hl, irr, geo, f32s, axis=1,
+                      out_axis=1)
+
+
 def denoise_levels_fused(irrs, variances, normal, gradient, depth, instance,
                          ffs, steps):
     """The a-trous cascade, one kernel C launch per level (inputs as
-    `level_stacks`). Returns a list of [h,w,3] f32 (filtered irradiance,
-    firefly clamp applied)."""
+    `level_stacks`), under a row mesh as `levels_island`. Returns a list
+    of [h,w,3] f32 (filtered irradiance, firefly clamp applied)."""
     nch = len(irrs)
     irr, geo, f32s = level_stacks(irrs, variances, normal, gradient, depth,
                                   instance)
-    for step in steps:
-        irr = atrous_level(irr, geo, f32s, step=step, nch=nch,
-                           ffs=tuple(ffs))
+    mesh = _sh.active_mesh()
+    if mesh is not None:
+        irr = levels_island(irr, geo, f32s, nch=nch, ffs=tuple(ffs),
+                            steps=steps, mesh=mesh)
+    else:
+        for step in steps:
+            irr = atrous_level(irr, geo, f32s, step=step, nch=nch,
+                               ffs=tuple(ffs))
     irr = irr.to(torch.float32)
     return [torch.stack([irr[3 * c + i] for i in range(3)], -1)
             for c in range(nch)]

@@ -30,10 +30,12 @@ import torch
 
 from hikari_tpu_torch import build as _build
 from hikari_tpu_torch.ops import reservoir as rsv
-from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div, f32,
-                                          host_values, on_cpu, stream)
+from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
+                                          exp2, f32, host_values, on_cpu,
+                                          stream)
 from hikari_tpu_torch.ops.trace_pallas import (DISTANCE_MAX, shadow_sweep,
                                                trace_full_sweep)
+from hikari_tpu_torch.parallel import shard as _sh
 from hikari_tpu_torch.utils.math import (F32_EPSILON, F32_MAX, GOLDEN_RATIO,
                                          INV_TAU, PI, TAU)
 
@@ -172,7 +174,7 @@ def _env_brdf_approx(f0r, f0g, f0b, pr, nov):
     r1 = 0.0425 - 0.0275 * pr
     r2 = 1.04 - 0.572 * pr
     r3 = 0.022 * pr - 0.04
-    a004 = torch.minimum(r0 * r0, torch.exp2(-9.28 * nov)) * r0 + r1
+    a004 = torch.minimum(r0 * r0, exp2(-9.28 * nov)) * r0 + r1
     ab_x = -1.04 * a004 + r2
     ab_y = 1.04 * a004 + r3
     return f0r * ab_x + ab_y, f0g * ab_x + ab_y, f0b * ab_x + ab_y
@@ -1009,7 +1011,8 @@ def fused_lighting(scene, g, view, frame, rand, *, has_sun: bool,
     channels in d/e/i order, and returns {d,e,i}_var, {d,e,i}_packed and,
     when tracking spatial reuse, {d,e}_flags, {d,e}_scatter, i_flags. The
     validation retrace runs only on frames where an active channel's
-    validate interval fires."""
+    validate interval fires. Under a row mesh (parallel/shard.py) the
+    launch runs on each rank's rows and its outputs are gathered whole."""
     err = lighting_caps_error(scene, num_emissives)
     if err is not None:
         raise NotImplementedError(f"scene beyond the lighting kernel: {err}")
@@ -1023,9 +1026,21 @@ def fused_lighting(scene, g, view, frame, rand, *, has_sun: bool,
         n_alias = 0
     params = pack_params(scene, view, frame, n_em, has_sun)
     validation = temporal and sum(validation_flags(frame, has_sun, n_em)) > 0
-    return lighting_kernel(
-        params, tris, attrs, em_tris, em_attrs, scene["mat_packed"],
-        g["position"], g["normal"], g["instance_material"], rand,
-        list(prev_planes) if temporal else [], has_sun=has_sun, n_em=n_em,
-        n_alias=n_alias, bounces=bounces, temporal=temporal,
-        validation=validation, track_de=track_de, track_ind=track_ind)
+    tables = (params, tris, attrs, em_tris, em_attrs, scene["mat_packed"])
+    planes = (g["position"], g["normal"], g["instance_material"], rand)
+    prev = list(prev_planes) if temporal else []
+    kw = dict(has_sun=has_sun, n_em=n_em, n_alias=n_alias, bounces=bounces,
+              temporal=temporal, validation=validation, track_de=track_de,
+              track_ind=track_ind)
+    mesh = _sh.active_mesh()
+    if mesh is None:
+        return lighting_kernel(*tables, *planes, prev, **kw)
+
+    # a row-sharded island (hikari_tpu/ops/light_fused.py:1546-1577):
+    # pixel-local, so equal blocks of rows, no halo and no coordinates
+    def local(*rows):
+        return lighting_kernel(*tables, *rows[:4], list(rows[4:]), **kw)
+
+    h = rand.shape[0]
+    return _sh.island(local, mesh, h, _sh.block_rows(h, mesh.n), *planes,
+                      *prev)

@@ -23,17 +23,22 @@ def frame_jitter(frame_number: int, taa: Taa, upscale_mode: UpscaleMode):
     return (0.0, 0.0)
 
 
-def camera_rays(view, size, jitter_pixels):
+def camera_rays(view, size, jitter_pixels, rows=None):
     """Primary rays for every pixel: (origins [H,W,3], unit directions
     [H,W,3]). Unprojects NDC depths 0.9 and 0.1 through inverse_view_proj,
-    term by term in the order kernel A evaluates them."""
+    term by term in the order kernel A evaluates them. rows: (first row,
+    count), the rays of those image rows only ([count,W,3]; a row sharded
+    kernel A's block)."""
     h, w = size
+    row0, count = (0, h) if rows is None else rows
     dev = view["inverse_view_proj"].device
     m = view["inverse_view_proj"].detach().cpu().numpy().astype(
         np.float32).reshape(16)
     jx, jy = (float(np.float32(j)) for j in jitter_pixels)
-    y = torch.arange(h, dtype=torch.float32, device=dev)[:, None].expand(h, w)
-    x = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(h, w)
+    y = (torch.arange(count, dtype=torch.float32, device=dev)
+         + float(row0))[:, None].expand(count, w)
+    x = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(
+        count, w)
     u = div(x + 0.5 + jx, float(w))
     v = div(y + 0.5 + jy, float(h))
     ndc_x = u * 2.0 - 1.0

@@ -26,6 +26,7 @@ from hikari_tpu_torch.ops.light_fused import (MAX_MATERIALS, MAX_TRIS,
 from hikari_tpu_torch.ops.prepass import camera_rays, depth_gradient
 from hikari_tpu_torch.ops.restir import parity_decimate
 from hikari_tpu_torch.ops.trace_pallas import closest_sweep, interpolate
+from hikari_tpu_torch.parallel import shard as _sh
 from hikari_tpu_torch.utils.math import F32_EPSILON, F32_MAX
 
 DISTANCE_MAX = 65535.0
@@ -40,7 +41,8 @@ _P_PREV_VP = 32   # previous view_proj 16
 _P_CAM = 48       # camera world position 3
 _P_JIT = 51       # jitter pixels x, y
 _P_WH = 53        # width, height (f32)
-_P_COUNT = 55
+_P_ROW0 = 55      # the image row of the planes' first row (a row block)
+_P_COUNT = 56
 
 
 def prepass_caps_error(scene):
@@ -54,11 +56,13 @@ def prepass_caps_error(scene):
     return None
 
 
-def pack_params(view, prev_view, jitter, size) -> torch.Tensor:
-    """[55] f32 parameter vector on the view's device."""
+def pack_params(view, prev_view, jitter, size, row0: int = 0
+                ) -> torch.Tensor:
+    """[56] f32 parameter vector on the view's device; row0: the image row
+    of the planes' first row (0: the whole image)."""
     h, w = size
     dev = view["view_proj"].device
-    tail = host_values([jitter[0], jitter[1], w, h], dev)
+    tail = host_values([jitter[0], jitter[1], w, h, row0], dev)
     return torch.cat([view["inverse_view_proj"].reshape(-1),
                       view["view_proj"].reshape(-1),
                       prev_view["view_proj"].reshape(-1),
@@ -113,14 +117,16 @@ def _params_view(params):
 
 
 def prepass_plain(params, tris, attrs, motion, mats, size):
-    """Kernel A's body over whole planes. Returns (position [h,w,4],
-    normal [h,w,3], instance_material [h,w,2], velocity_uv [h,w,4],
-    albedo [h,w,4])."""
+    """Kernel A's body over whole planes: the image rows params[_P_ROW0]
+    onwards, `size` (h, w) of them, of an image of params[_P_WH:_P_WH + 2]
+    (w, h). Returns (position [h,w,4], normal [h,w,3], instance_material
+    [h,w,2], velocity_uv [h,w,4], albedo [h,w,4])."""
     h, w = size
     dev = params.device
     p = params.cpu().numpy()
-    origin, direction = camera_rays(_params_view(params), size,
-                                    p[_P_JIT:_P_JIT + 2])
+    origin, direction = camera_rays(
+        _params_view(params), (int(p[_P_WH + 1]), int(p[_P_WH])),
+        p[_P_JIT:_P_JIT + 2], rows=(int(p[_P_ROW0]), h))
     o = origin.unbind(-1)
     d = direction.unbind(-1)
 
@@ -153,7 +159,8 @@ def prepass_plain(params, tris, attrs, motion, mats, size):
 
 def prepass_kernel(params, tris, attrs, motion, mats, size):
     """Kernel A: runs `prepass_plain` for CPU tensors and launches
-    csrc/prepass_fused.cu for CUDA tensors."""
+    csrc/prepass_fused.cu for CUDA tensors. size: the (h, w) planes to
+    write, the image rows params[_P_ROW0] onwards."""
     if on_cpu(params):
         return prepass_plain(params, tris, attrs, motion, mats, size)
     from hikari_tpu_torch.build import load_cuda
@@ -244,7 +251,31 @@ def _assemble(position, normal, inst_mat, vel_uv, albedo, grad_scale=1.0):
     return gbuf, albedo
 
 
-def prepass_fused(scene, view, prev_view, jitter, size, dec_parity=None):
+def block_rows(h: int, n: int) -> int:
+    """Rows of a rank's block of kernel A's planes of h rows over n ranks:
+    twice the block of the half-size planes, so that kernel 8's island of
+    the block is exactly the quads' block."""
+    return 2 * _sh.block_rows(-(-h // 2), n)
+
+
+def _planes_island(tables, view, prev_view, jitter, size, mesh):
+    """Kernel A as a row-sharded island (hikari_tpu/ops/prepass_fused.py
+    :401-424): each rank traces its own block of rows, from its first
+    global row in the parameters (pixel-local: no halo); the planes are
+    gathered whole."""
+    h, w = size
+    hl = block_rows(h, mesh.n)
+
+    def local():
+        params = pack_params(view, prev_view, jitter, size,
+                             row0=mesh.rank * hl)
+        return prepass_kernel(params, *tables, (hl, w))
+
+    return _sh.island(local, mesh, h, hl)
+
+
+def prepass_fused(scene, view, prev_view, jitter, size, dec_parity=None,
+                  mesh=None):
     """Returns (gbuf dict matching ops/prepass.py's contract, albedo
     [H,W,4]). jitter: (x, y) pixel jitter (ops/prepass.frame_jitter).
 
@@ -253,13 +284,20 @@ def prepass_fused(scene, view, prev_view, jitter, size, dec_parity=None):
     (2y+s, 2x+s) with the full frame's jitter and size, so here they are
     kernel A's strided planes [s::2, s::2] with no second launch. Only the
     depth gradient is not a view: forward differences of the decimated
-    depth over two image pixels."""
+    depth over two image pixels.
+
+    With a row mesh (parallel/shard.py) kernel A runs as an island over
+    the rows, its planes gathered whole on every rank."""
     err = prepass_caps_error(scene)
     if err is not None:
         raise NotImplementedError(f"scene beyond the prepass kernel: {err}")
-    params = pack_params(view, prev_view, jitter, size)
-    planes = prepass_kernel(params, scene["tri_pos_flat"], scene["tri_attr"],
-                            scene["inst_motion"], scene["mat_packed"], size)
+    tables = (scene["tri_pos_flat"], scene["tri_attr"], scene["inst_motion"],
+              scene["mat_packed"])
+    if mesh is not None:
+        planes = _planes_island(tables, view, prev_view, jitter, size, mesh)
+    else:
+        params = pack_params(view, prev_view, jitter, size)
+        planes = prepass_kernel(params, *tables, size)
     gbuf, albedo = _assemble(*planes)
     if dec_parity is None:
         return gbuf, albedo
@@ -268,14 +306,26 @@ def prepass_fused(scene, view, prev_view, jitter, size, dec_parity=None):
     return gbuf, albedo, g_dec, albedo_dec
 
 
-def prepass_fused_quads(gbuf):
+def prepass_fused_quads(gbuf, mesh=None):
     """The SMAA TU4X decimation context by kernel 8: {(a, b): {"depth"
     [h,w], "velocity" [h,w,2], "instance" [h,w]}} of image pixels
     (2y+a, 2x+b), h, w half of the size of `gbuf`, the full-size G-buffer
     `prepass_fused` returned for this frame (kernel A's planes).
     hikari_tpu traces these pixels again; their words equal kernel A's
-    planes [a::2, b::2]."""
-    depth, vel, inst = prepass_quads_kernel(
-        gbuf["position"], gbuf["velocity_uv"], gbuf["instance_material"])
+    planes [a::2, b::2].
+
+    With a row mesh kernel 8 runs as an island (hikari_tpu/ops/
+    prepass_fused.py:600-624): each rank moves the words of its block of
+    kernel A's rows (block_rows, twice its block of quad rows), and the
+    quads are gathered whole."""
+    planes = (gbuf["position"], gbuf["velocity_uv"],
+              gbuf["instance_material"])
+    if mesh is None:
+        depth, vel, inst = prepass_quads_kernel(*planes)
+    else:
+        hh = planes[0].shape[0]
+        depth, vel, inst = _sh.island(
+            prepass_quads_kernel, mesh, hh // 2, block_rows(hh, mesh.n),
+            *planes, out_axis=1)
     return {ab: {"depth": depth[i], "velocity": vel[i], "instance": inst[i]}
             for i, ab in enumerate(QUAD_PARITIES)}

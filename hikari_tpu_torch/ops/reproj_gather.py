@@ -23,11 +23,15 @@ import torch
 
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, on_cpu,
                                           stream)
+from hikari_tpu_torch.parallel import shard as _sh
 
 # the temporal reservoirs of the three channels + the two spatial ones
 MAX_SOURCES = 5
 # planes per pixel the kernel gathers: the 64 B packed reservoir's
 PLANES = 16
+# rows of neighbour context a row-sharded gather fetches (hikari_tpu's
+# SHARD_HALO): a source further away rejects
+SHARD_HALO = 16
 # csrc/reproj_gather.cu GatherCall: the sources' and the outputs' pointers
 # (MAX_SOURCES slots each, 0 past the last), piy, pix (pointers); n_src,
 # hs, h, w, f (ints), padded to 8 bytes
@@ -44,13 +48,44 @@ def gather_plain(sources, piy, pix):
             for s in sources]
 
 
-def reproj_gather(sources, piy, pix):
+def gather_island(sources, piy, pix, mesh):
+    """Kernel 9 as a row-sharded island (hikari_tpu/ops/reproj_gather.py
+    :278-330): each rank gathers its block of output rows from its block
+    of the sources plus SHARD_HALO rows of each neighbour's, the source
+    rows rebased into that halo-extended block. A source row beyond the
+    halo rejects (the empty reservoir), as in hikari_tpu's sharded gather;
+    within it every word equals the whole gather's. Pad rows carry -1
+    (reject)."""
+    h = piy.shape[0]
+    hl = _sh.block_rows(h, mesh.n)
+    halo = min(SHARD_HALO, hl)
+    base = mesh.rank * hl - halo
+    piy, _ = _sh.pad_rows_to(piy, mesh.n * hl, value=-1)
+    pix, _ = _sh.pad_rows_to(pix, mesh.n * hl, value=-1)
+
+    def local(piy_l, pix_l, *srcs):
+        srcs_h = [_sh.halo_rows(s, halo, halo, mesh) for s in srcs]
+        rows = srcs_h[0].shape[0]
+        # rejected pixels stay -1; a source beyond the block rejects
+        piy_b = piy_l - base
+        piy_b = torch.where((piy_l >= 0) & (piy_b < rows), piy_b,
+                            -1).to(torch.int32).contiguous()
+        return reproj_gather(srcs_h, piy_b, pix_l.contiguous())
+
+    return _sh.island(local, mesh, h, hl, piy, pix, *sources)
+
+
+def reproj_gather(sources, piy, pix, mesh=None):
     """Kernel 9: sources, a list of up to 5 [hs,F,w] float32 channel-plane
     tensors (F = PLANES for CUDA tensors); piy/pix [h,w] int32 source
     coordinates. Returns a list of
     [h,F,w], views of one allocation. Runs `gather_plain` for CPU tensors
     and launches csrc/reproj_gather.cu (all sources in one launch, its
-    arguments in one packed table, GATHER_TABLE) for CUDA tensors."""
+    arguments in one packed table, GATHER_TABLE) for CUDA tensors. With a
+    row mesh it runs as `gather_island` (the outputs gathered whole, one
+    tensor each)."""
+    if mesh is not None:
+        return gather_island(sources, piy, pix, mesh)
     if on_cpu(piy):
         return gather_plain(sources, piy, pix)
     from hikari_tpu_torch.build import load_cuda

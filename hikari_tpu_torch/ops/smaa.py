@@ -32,6 +32,7 @@ from hikari_tpu_torch.ops import warp_band as _wb
 from hikari_tpu_torch.ops._kernel import div
 from hikari_tpu_torch.ops.filters import shift_edge
 from hikari_tpu_torch.ops.taa import dilate_velocity, max_pool_edge
+from hikari_tpu_torch.parallel import shard as _sh
 from hikari_tpu_torch.utils.math import (TAU, clip_towards_aabb_center,
                                          luminance, rgb_to_ycocg,
                                          ycocg_to_rgb)
@@ -143,8 +144,11 @@ def smaa_tu4x(quads, prev_gbuf, prev_tone, tone, frame, render_size):
     boundary_miss = ((reproj_ux < 0.0) | (reproj_ux > 1.0)
                      | (reproj_uy < 0.0) | (reproj_uy > 1.0))
 
+    # the row mesh reaches kernels 11 and 12 (hikari_tpu/ops/smaa.py:203-209)
+    mesh = _sh.active_mesh()
     prev_color, = _wb.warp_band([prev_tone[..., :3]], ("nearest",),
-                                reproj_uy * rh - 0.5, reproj_ux * rw - 0.5)
+                                reproj_uy * rh - 0.5, reproj_ux * rw - 0.5,
+                                mesh=mesh)
 
     # the footprint max of the previous depth replaces the reference's
     # 5-bias x 4-corner probes (ANY over the footprint)
@@ -161,7 +165,7 @@ def smaa_tu4x(quads, prev_gbuf, prev_tone, tone, frame, render_size):
 
     aux, = _w2.warp_multi(pg, reproj_uy * oh - 0.5, reproj_ux * ow - 0.5,
                           [("nearest", (0.0, 0.0), (0, 4))],
-                          dtype=torch.bfloat16)
+                          dtype=torch.bfloat16, mesh=mesh)
     pmax = aux[..., 0]
     pinst = aux[..., 1]
     pvel = aux[..., 2:4]

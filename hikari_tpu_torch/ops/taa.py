@@ -18,6 +18,7 @@ import torch
 from hikari_tpu_torch.ops import warp_band as _wb
 from hikari_tpu_torch.ops._kernel import div, host_values
 from hikari_tpu_torch.ops.filters import resize_bilinear, shift_edge
+from hikari_tpu_torch.parallel import shard as _sh
 from hikari_tpu_torch.utils.math import (clip_towards_aabb_center,
                                          rgb_to_ycocg, ycocg_to_rgb)
 
@@ -109,7 +110,8 @@ def taa_jasmine(gbuf, prev_gbuf, prev_taa, current, frame, clear_color,
     aux_src = torch.cat([prev_pos[..., :3], pooled[..., None],
                          prev_vel[..., :2]], -1)
     pc, aux = _wb.warp_band([prev_taa[..., :3], aux_src],
-                            ("catmull", "nearest"), sy, sx)
+                            ("catmull", "nearest"), sy, sx,
+                            mesh=_sh.active_mesh())
     pmax = aux[..., 3]
 
     has_content = (cur_depth > 0.0) | (pmax > 0.0)

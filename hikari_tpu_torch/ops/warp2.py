@@ -36,9 +36,14 @@ from hikari_tpu_torch import build as _build
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, on_cpu,
                                           outputs, stream)
 from hikari_tpu_torch.ops.warp_band import KINDS, taps
+from hikari_tpu_torch.parallel import shard as _sh
 
 MAX_REDUCES = 4
 MAX_CHANNELS = 16
+# source rows of neighbour context a row-sharded call fetches (hikari_tpu's
+# 4 halo blocks of 8 rows): farther motion clamps to the halo-extended
+# block
+SHARD_HALO = 32
 # csrc/warp.cu MultiCall: src, dst[4], sy, sx (pointers); kind[4], lo[4],
 # hi[4] (ints); offy[4], offx[4] (floats); n_red, hs, ws, p, h, w, bf16,
 # unused (ints)
@@ -79,13 +84,50 @@ def multi_plain(src, sy, sx, reduces, bf16: bool):
     return outs
 
 
-def warp_multi(src, sy, sx, reduces, dtype=torch.float32):
+def multi_island(src, sy, sx, reduces, dtype, mesh):
+    """Kernel 12 as a row-sharded island (hikari_tpu/ops/warp2.py:165-222)
+    for a source of r times the output's rows (r an integer): each rank
+    samples its block of output rows from the proportional block of the
+    source (r times as many rows) plus SHARD_HALO source rows of each
+    neighbour's, the first and last blocks repeating their edge row (the
+    sampler clamps to the edge). The coords are clamped in global rows,
+    then rebased into the halo-extended block; there every word equals
+    the whole call's (`shard.sampler_rows`). Rows pad with copies of the
+    last."""
+    hh, h = src.shape[0], sy.shape[0]
+    r = hh // h
+    hl = _sh.block_rows(h, mesh.n)
+    hsl = r * hl
+    halo = min(SHARD_HALO, hsl)
+    src_p, _ = _sh.pad_rows_to(src, mesh.n * hsl, mode="edge")
+    sy_p, _ = _sh.pad_rows_to(sy, mesh.n * hl, mode="edge")
+    sx_p, _ = _sh.pad_rows_to(sx, mesh.n * hl, mode="edge")
+
+    def local(sy_l, sx_l):
+        src_h, base = _sh.sampler_rows(_sh.local_rows(src_p, mesh, hsl),
+                                       halo, mesh)
+        sy_b = (torch.clamp(sy_l, 0.0, hh - 1.0) - float(base)).contiguous()
+        return warp_multi(src_h, sy_b, sx_l.contiguous(), reduces,
+                          dtype=dtype)
+
+    return _sh.island(local, mesh, h, hl, sy_p, sx_p)
+
+
+def warp_multi(src, sy, sx, reduces, dtype=torch.float32, mesh=None):
     """Kernel 12. src: [H, W, F] float32 (channels contiguous, any pixel
     stride); sy, sx: [h, w] float32 source coords; reduces: up to 4
     (kind, (dy, dx), (lo, hi)); dtype: the window type, float32 or
     bfloat16. Returns a list of [h, w, hi - lo] float32. Runs `multi_plain`
     for CPU tensors and launches csrc/warp.cu (every reduce in one launch)
-    for CUDA tensors."""
+    for CUDA tensors. mesh: a row mesh (parallel/shard.py): a source of an
+    integer multiple of the output's rows runs as `multi_island`; at a
+    non-integral ratio the call runs whole (hikari_tpu/ops/warp2.py
+    :181-186), and so does a call with a reduce offset in rows (y + dy
+    rounds otherwise in a block's rows than in the image's; SMAA's call
+    has none)."""
+    if (mesh is not None and src.shape[0] % sy.shape[0] == 0
+            and all(float(dy) == 0.0 for _, (dy, _), _ in reduces)):
+        return multi_island(src, sy, sx, reduces, dtype, mesh)
     if dtype is not torch.float32 and dtype is not torch.bfloat16:
         raise TypeError(f"window dtype {dtype}: float32 or bfloat16")
     bf16 = dtype is torch.bfloat16

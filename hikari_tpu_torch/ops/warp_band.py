@@ -37,9 +37,13 @@ import torch
 from hikari_tpu_torch import build as _build
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, on_cpu,
                                           outputs, stream)
+from hikari_tpu_torch.parallel import shard as _sh
 
 KINDS = {"nearest": 0, "bilinear": 1, "catmull": 2}
 MAX_SOURCES = 4
+# rows of neighbour context a row-sharded warp fetches (hikari_tpu's
+# SHARD_HALO): farther motion clamps to the halo-extended block
+SHARD_HALO = 16
 # csrc/warp.cu BandCall: src[4], dst[4], sy, sx, blocks (pointers); kind[4],
 # f[4], stride[4], n_src, h, w, hs (ints)
 BAND_TABLE = struct.Struct("<11Q16i")
@@ -90,7 +94,35 @@ def band_plain(sources, kinds, sy, sx):
     return outs
 
 
-def warp_band(sources, kinds, sy, sx, blocks=None):
+def band_island(sources, kinds, sy, sx, mesh):
+    """Kernel 11 as a row-sharded island (hikari_tpu/ops/warp_band.py
+    :329-395), for sources on the output's row grid: each rank warps its
+    block of output rows from its block of the sources plus SHARD_HALO
+    rows of each neighbour's, the first and last blocks repeating their
+    edge row (the sampler clamps to the edge, so a zero halo would put
+    zeros under the border taps). The coords are clamped in global rows,
+    then rebased into the halo-extended block; there every word equals
+    the whole warp's (`shard.sampler_rows`). The blocks start at even
+    rows, so the nearest filter's round half to even rounds as in global
+    rows. Rows pad with copies of the last."""
+    h = sy.shape[0]
+    hl = _sh.block_rows(h, mesh.n, 2)
+    halo = min(SHARD_HALO, hl)
+    rows = mesh.n * hl
+    padded = [_sh.pad_rows_to(t, rows, mode="edge")[0]
+              for t in [sy, sx] + list(sources)]
+
+    def local(sy_l, sx_l, *srcs):
+        srcs_h, bases = zip(*(_sh.sampler_rows(s, halo, mesh)
+                              for s in srcs))
+        sy_b = (torch.clamp(sy_l, 0.0, h - 1.0)
+                - float(bases[0])).contiguous()
+        return warp_band(list(srcs_h), kinds, sy_b, sx_l.contiguous())
+
+    return _sh.island(local, mesh, h, hl, *padded)
+
+
+def warp_band(sources, kinds, sy, sx, blocks=None, mesh=None):
     """Kernel 11. sources: up to 4 float32 [hs, w, F] tensors (channels
     contiguous, any pixel stride, shared hs and w); kinds: a filter name per
     source; sy, sx: [h, w] float32 source coords. Returns a list of
@@ -99,7 +131,12 @@ def warp_band(sources, kinds, sy, sx, blocks=None):
 
     blocks: None, or an int32 [2] CUDA tensor to which each block of the
     staging instance adds 1 at [0] if it staged, at [1] if it read global
-    memory (a check that both branches run)."""
+    memory (a check that both branches run).
+
+    mesh: a row mesh (parallel/shard.py): sources on the output's row grid
+    run as `band_island`; others run whole."""
+    if mesh is not None and sources[0].shape[0] == sy.shape[0]:
+        return band_island(sources, kinds, sy, sx, mesh)
     if not sy.is_cuda and on_cpu(sy):
         return band_plain(sources, tuple(kinds), sy, sx)
     n = len(sources)

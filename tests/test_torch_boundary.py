@@ -48,7 +48,12 @@ def test_import_leaves_jax_and_reference_out():
 
 
 def test_sources_do_not_reference_jax_or_the_reference_package():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    """No source of the port (hikari_tpu_torch/parallel/ among them),
+    chip_smoke.py or tests/torch_dist.py (the rank functions that spawned
+    processes import) names jax or hikari_tpu."""
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_dist.py")]
+    assert os.path.isfile(os.path.join(PKG, "parallel", "shard.py"))
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", ".cu", ".cuh", ".cpp"))]
@@ -79,14 +84,18 @@ def _port_modules():
 
 def test_every_module_leaves_jax_and_the_reference_out():
     """Importing every module of hikari_tpu_torch (the examples, the glTF
-    loader, utils/image and utils/profiling among them) loads neither jax,
-    nor hikari_tpu, nor the reference's examples package."""
+    loader, utils/image, utils/profiling and the row sharding of parallel/
+    among them) and tests/torch_dist.py loads neither jax, nor hikari_tpu,
+    nor the reference's examples package."""
     mods = _port_modules()
     assert {"hikari_tpu_torch.examples.common",
             "hikari_tpu_torch.examples.minimal",
             "hikari_tpu_torch.examples.cornell",
             "hikari_tpu_torch.models.gltf", "hikari_tpu_torch.utils.image",
-            "hikari_tpu_torch.utils.profiling"} <= set(mods)
+            "hikari_tpu_torch.utils.profiling", "hikari_tpu_torch.parallel",
+            "hikari_tpu_torch.parallel.mesh",
+            "hikari_tpu_torch.parallel.shard"} <= set(mods)
+    mods = mods + ["tests.torch_dist"]
     code = ("import importlib, sys;"
             f"[importlib.import_module(m) for m in {mods!r}];"
             + _FORBIDDEN + "print(bad); sys.exit(1 if bad else 0)")
@@ -832,6 +841,48 @@ def test_quads_wrapper_rejects_bad_planes(monkeypatch, case):
     assert (depth.shape, vel.shape, inst.shape) == ((4, 6, 8), (4, 6, 8, 2),
                                                     (4, 6, 8))
     assert prepass_fused.prepass_quads_kernel.launches == 1
+
+
+def test_cuda_wrappers_marshal_row_blocks(monkeypatch):
+    """A row block's arguments reach the C calls: kernel A's first image
+    row in its parameters (params[_P_ROW0], beside the image's size) with
+    the block's rows as the launch size, and kernel C's first image row
+    and image rows after the block's size; the whole image's calls pass
+    row 0 and the planes' own rows."""
+    from hikari_tpu_torch import build
+    from hikari_tpu_torch.camera import view_to_device
+    from hikari_tpu_torch.ops import denoise_fused, prepass_fused
+
+    fake = _FakeLibrary()
+    monkeypatch.setattr(build, "load_cuda", lambda name: fake)
+    for mod in (prepass_fused, denoise_fused):
+        monkeypatch.setattr(mod, "on_cpu", lambda t: False)
+        monkeypatch.setattr(mod, "stream", lambda dev: ctypes.c_void_p(0))
+    scene = build_cornell_box("hikari_tpu_torch").compile().as_pytree("cpu")
+    tables = (scene["tri_pos_flat"], scene["tri_attr"], scene["inst_motion"],
+              scene["mat_packed"])
+    view = view_to_device(_camera().view_uniform(), "cpu")
+    for row0, rows in ((0, 12), (6, 4)):
+        params = prepass_fused.pack_params(view, view, (0.0, 0.0), (12, 16),
+                                           row0=row0)
+        assert params.shape == (prepass_fused._P_COUNT,)
+        assert params[prepass_fused._P_ROW0] == row0
+        assert params[prepass_fused._P_WH:prepass_fused._P_WH + 2] \
+            .tolist() == [16.0, 12.0]
+        prepass_fused.prepass_kernel(params, *tables, (rows, 16))
+        assert fake.calls[-1] == "hk_prepass_fused"
+        args = fake.args[-1]
+        assert args[0].value == params.data_ptr()
+        assert args[8:10] == (rows, 16)
+    irr = torch.zeros((3, 40, 8), dtype=torch.bfloat16)
+    geo = torch.zeros((3, 40, 8), dtype=torch.bfloat16)
+    f32s = torch.zeros((5, 40, 8))
+    for kw, want in (({}, (0, 40)), (dict(row0=-16, rows=42), (-16, 42))):
+        denoise_fused.atrous_level(irr, geo, f32s, step=8, nch=1,
+                                   ffs=(True,), **kw)
+        assert fake.calls[-1] == "hk_atrous_level"
+        # nch, firefly mask, step, h, w, row0, rows
+        assert fake.args[-1][3:10] == (1, 1, 8, 40, 8) + want
 
 
 def test_cuda_wrapper_rejects_bad_arguments(monkeypatch):

@@ -167,8 +167,9 @@ def reference_gbuffer(ref_r):
     scene."""
     call = jax.jit(pf_ref.prepass_fused, static_argnums=(4,))
 
-    def prepass(scene, view, prev_view, jitter, size, dec_parity=None):
-        assert dec_parity is None
+    def prepass(scene, view, prev_view, jitter, size, dec_parity=None,
+                mesh=None):
+        assert dec_parity is None and mesh is None
         g, a = call(ref_r.scene_dev,
                     {k: jnp.asarray(v.numpy()) for k, v in view.items()},
                     {k: jnp.asarray(v.numpy()) for k, v in prev_view.items()},
