@@ -150,7 +150,22 @@ Run from the repository root on a machine with an NVIDIA H100:
    without the mesh, and the image, albedo and carry must equal the
    sharded ones word for word (the ranks' words are compared by a
    digest);
-13. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
+13. runs the compiled-frame check: every single-card path (no-reuse, R,
+   S, P, D, K, KR, the city, CL, T, TN, F, M, G) at 1920x1080 from one
+   fresh state twice in lockstep, eagerly (compiled.eager()) and through
+   Renderer's captured CUDA graphs, the camera panning and, on the city
+   and CL, update_scene(fast=True) before every frame (the device refit's
+   own graph; the host refit), until every key of the path's frame
+   program has come twice (at least 8 frames without a capture): the
+   image, the albedo and every carry tensor equal word for word (NaNs
+   as words), each key's capture launching exactly the path's launches
+   of its frame number, a replayed frame launching nothing from Python;
+   it prints each path's eager and replayed frame medians and IQRs, host
+   times and capture times (with --profile the replayed frames' device
+   time and idle share of D, the city and F) in one line. Every check and
+   timed path before it runs its frames eagerly, inside
+   compiled.eager();
+14. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
    frame_ms_smaa2, frame_ms_default, frame_ms_ckb, frame_ms_ckb_reuse,
    frame_ms_city with city_refit_ms, frame_ms_city_lamps with
    city_lamps_refit_ms (path CL), frame_ms_simple (path T),
@@ -158,7 +173,9 @@ Run from the repository root on a machine with an NVIDIA H100:
    frame_ms_minimal (path M), frame_ms_cornell with dissection_ms (path
    G), P's and D's alternating medians, frame_ms_minimal_sharded (path
    SM, with its ranks, backend, card and the bytes a rank receives a
-   frame), one JSON line of per-kernel
+   frame), the compiled check's keys, eager and replayed medians and
+   replayed host times per path again (compiled_frame_ms), one JSON line
+   of per-kernel
    numbers of the kernels the paths run (kernels 5, 6 and 7 also over
    check U's 2,624-row table), one of kernel 13's mode `hit` (no path
    traces without attributes), and last {"ok": true, "device": {...}}.
@@ -202,6 +219,7 @@ trees of the repository in one call, in turns, to compare them; `--ab-summary
 FILE...` (one file of --ab lines per tree) prints each metric's median
 and interquartile range over the runs.
 With --sharded it only builds the kernels and runs path SM and check SB
+(its line, no ok line); with --compiled only the compiled-frame check
 (its line, no ok line). Any failed check raises: the exit code is then
 not 0 and the last line is not printed. Without CUDA it exits 1 at once.
 """
@@ -4770,6 +4788,242 @@ def sharded_path(ht, card):
                 sum(col) for col in zip(*(r["counts"] for r in res))]
 
 
+# ---------------------------------------------------------------------------
+# the compiled frame: Renderer's captured CUDA graphs against its eager frame
+# ---------------------------------------------------------------------------
+
+# every single-card path; with --profile the replayed frames' device idle
+# share of these
+COMPILED_PATHS = ("no-reuse", "R", "S", "P", "D", "K", "KR", "city", "CL",
+                  "T", "TN", "F", "M", "G")
+PROFILED_COMPILED = ("D", "city", "F")
+# at least this many frames without a capture are timed on each path
+COMPILED_TIMED = 8
+# the camera's sideways motion per frame in world units, off the box
+COMPILED_PAN = 0.02
+
+
+def panned(ht, eye, target, size, i, step, hdr=False):
+    """Camera.from_look_at(eye, target) moved sideways by i * step."""
+    d = np.array([step * i, 0.0, 0.0])
+    return ht.Camera.from_look_at(tuple(np.add(eye, d)),
+                                  tuple(np.add(target, d)), width=size[1],
+                                  height=size[0], hdr=hdr)
+
+
+def compiled_case(ht, build_box, name):
+    """Path `name` at FULL for the compiled check: (make() -> (a fresh
+    Renderer, its own host scene), camera(i), step(renderer, host scene,
+    i) run before frame i or None, launches(settings, number)). Each
+    renderer moves a host scene of its own: city.rotate_sphere moves the
+    scene it is given in place."""
+    from hikari_tpu_torch.examples import city, cornell, minimal, scene
+    from hikari_tpu_torch.examples import simple
+    from hikari_tpu_torch.ops.bloom import BloomSettings
+
+    if name in PATHS:
+        box = load_box_module()
+        settings_of, launches = PATHS[name]
+        step = PAN_PX * 2.0 * 3.2 * np.tan(np.pi / 8.0) / FULL[0]
+        return (lambda: (ht.Renderer(build_box(), panned(
+                    ht, box.EYE, box.TARGET, FULL, 0, step),
+                    settings_of(ht)), None),
+                lambda i: panned(ht, box.EYE, box.TARGET, FULL, i, step),
+                None, launches)
+    if name in ("city", "CL"):
+        kw = (dict(bloom_settings=BloomSettings()) if name == "CL"
+              else {})
+
+        def cam(i):
+            return panned(ht, CITY_EYE, CITY_TARGET, FULL, i, COMPILED_PAN,
+                          hdr=True)
+
+        def make():
+            sc = city.build_scene(3) if name == "city" else lamps_scene()
+            return ht.Renderer(sc, cam(0), ht.HikariSettings(), **kw), sc
+
+        def step(r, sc, i):
+            r.update_scene(city.rotate_sphere(sc, city_angle(i)), fast=True)
+
+        return (make, cam, step,
+                city_launches if name == "city" else cl_launches)
+    mods = {"T": (simple, simple_settings(ht), simple_launches),
+            "TN": (simple, flagship_settings(ht), simple_noreuse_launches),
+            "F": (scene, scene.settings(), scene_launches),
+            "M": (minimal, minimal.settings(), minimal_launches),
+            "G": (cornell, cornell.settings(), PATHS["D"][1])}
+    mod, settings, launches = mods[name]
+    sc = simple_scene() if name in ("T", "TN") else mod.build_scene()
+
+    def cam(i):
+        return panned(ht, mod.EYE, mod.TARGET, FULL, i, COMPILED_PAN)
+
+    return (lambda: (ht.Renderer(sc, cam(0), settings), None), cam, None,
+            launches)
+
+
+def compiled_frames(r):
+    """The fewest frames 0.. in which every key of r's frame program
+    comes at least twice (its keys repeat every 30 frames at most: the
+    parity, the validate intervals 3 and 5)."""
+    period = 2 * r.settings.direct_validate_interval \
+        * r.settings.emissive_validate_interval
+    keys = {r.frame_key(n) for n in range(period)}
+    seen, n = {}, 0
+    while any(seen.get(k, 0) < 2 for k in keys):
+        k = r.frame_key(n)
+        seen[k] = seen.get(k, 0) + 1
+        n += 1
+    return n, len(keys)
+
+
+class CaptureCounts:
+    """Entered around each capture (compiled.Graphs.capture_context): the
+    launch counts of COUNTERS that the capture made, in capture order."""
+
+    def __init__(self):
+        self.wrappers = counter_wrappers()
+        self.counts = []
+
+    def __call__(self):
+        return self
+
+    def __enter__(self):
+        self.before = [fn.launches for fn in self.wrappers]
+        return self
+
+    def __exit__(self, *exc):
+        self.counts.append([fn.launches - b for fn, b in
+                            zip(self.wrappers, self.before)])
+
+
+def iqr(times):
+    q1, q3 = np.percentile(times, [25, 75])
+    return float(q3 - q1)
+
+
+def compiled_path(ht, build_box, name, profile):
+    """Path `name` from one fresh state twice in lockstep, eagerly (inside
+    compiled.eager()) and replayed (Renderer's default on CUDA), the
+    camera panning and, on the city and CL, update_scene(fast=True)
+    before every frame (the device refit, its own graph; the host refit):
+    over compiled_frames() frames the image, the albedo and every carry
+    tensor equal word for word (NaNs as words); each frame key's capture
+    launches exactly the path's launches of its frame number; a replayed
+    frame launches nothing from Python. Returns the path's record: keys,
+    frames, eager and replayed frame medians and IQRs (frames without a
+    capture), capture times, and with --profile the replayed frames'
+    device time and idle share."""
+    make, cam, step, launches = compiled_case(ht, build_box, name)
+    (r_e, sc_e), (r_c, sc_c) = make(), make()
+    frames, n_keys = compiled_frames(r_c)
+    frames = max(frames, n_keys + COMPILED_TIMED)
+    counts = CaptureCounts()
+    r_c._graphs.capture_context = counts
+    wrappers = counts.wrappers
+    t_eager, t_replay, t_capture, keys = [], [], [], []
+    # host time to return from update_scene + render_frame, unsynchronized
+    h_eager, h_replay = [], []
+    for i in range(frames):
+        r_e.camera = r_c.camera = cam(i)
+        t = time.perf_counter()
+        with ht.renderer.eager():
+            if step is not None:
+                step(r_e, sc_e, i)
+            img_e = r_e.render_frame()
+        he = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        dt_e = (time.perf_counter() - t) * 1e3
+        before = r_c.graph_keys()
+        for fn in wrappers:
+            fn.launches = 0
+        t = time.perf_counter()
+        if step is not None:
+            step(r_c, sc_c, i)
+        img_c = r_c.render_frame()
+        hc = (time.perf_counter() - t) * 1e3
+        torch.cuda.synchronize()
+        dt_c = (time.perf_counter() - t) * 1e3
+        new = r_c.graph_keys()[len(before):]
+        caps, counts.counts = counts.counts, []
+        for key, got in zip(new, caps):
+            need = ([0] * len(COUNTERS) if key == "refit"
+                    else list(launches(r_c.settings, i)))
+            if got != need:
+                fail(f"compiled {name}: the capture of {key} at frame {i} "
+                     f"launched {got}, need {need}")
+            keys.append((i, key))
+        if not new and any(fn.launches for fn in wrappers):
+            fail(f"compiled {name}: replayed frame {i} launched "
+                 f"{[fn.launches for fn in wrappers]} from Python")
+        if new:
+            t_capture.append(dt_c)
+        else:
+            t_eager.append(dt_e)
+            t_replay.append(dt_c)
+            h_eager.append(he)
+            h_replay.append(hc)
+        pairs = [("image", img_e, img_c), ("albedo", r_e.albedo, r_c.albedo)]
+        ce, cc = carry_leaves(r_e.carry), carry_leaves(r_c.carry)
+        if set(ce) != set(cc):
+            fail(f"compiled {name}: carries of other keys")
+        pairs += [(f"carry {k}", ce[k], cc[k]) for k in ce]
+        for what, a, b in pairs:
+            if not same_words(a, b):
+                fail(f"compiled {name}: frame {i} {what} differs from the "
+                     "eager frame's words")
+    frame_keys = [k for _, k in keys if k != "refit"]
+    if len(frame_keys) != n_keys or len(set(frame_keys)) != n_keys:
+        fail(f"compiled {name}: captured {frame_keys}, {n_keys} keys")
+    rec = {"path": name, "keys": n_keys, "frames": frames,
+           "graphs": [str(k) for _, k in keys],
+           "eager_ms": float(np.median(t_eager)), "eager_iqr_ms": iqr(t_eager),
+           "replay_ms": float(np.median(t_replay)),
+           "replay_iqr_ms": iqr(t_replay), "timed_frames": len(t_replay),
+           "eager_host_ms": float(np.median(h_eager)),
+           "replay_host_ms": float(np.median(h_replay)),
+           "capture_ms": float(np.median(t_capture))}
+    if profile and name in PROFILED_COMPILED:
+        f = frames
+
+        def replayed():
+            nonlocal f
+            r_c.camera = cam(f)
+            if step is not None:
+                step(r_c, sc_c, f)
+            f += 1
+            return r_c.render_frame()
+
+        device_ms, kernels = device_total_ms(replayed, reps=4)
+        rec.update(replay_device_ms=device_ms, replay_device_kernels=kernels,
+                   replay_idle_share=1.0 - device_ms / rec["replay_ms"])
+    print(f"compiled {name}: {frames} frames, {n_keys} keys, words equal "
+          f"to the eager frames; eager {rec['eager_ms']:.3f} ms (IQR "
+          f"{rec['eager_iqr_ms']:.3f}), replayed {rec['replay_ms']:.3f} ms "
+          f"(IQR {rec['replay_iqr_ms']:.3f}) over {len(t_replay)} frames, "
+          f"host {rec['eager_host_ms']:.3f} / {rec['replay_host_ms']:.3f} "
+          f"ms a frame, capture {rec['capture_ms']:.1f} ms"
+          + (f", replayed device {rec['replay_device_ms']:.3f} ms, idle "
+             f"{rec['replay_idle_share']:.3f}" if "replay_device_ms" in rec
+             else ""))
+    del r_e, r_c
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def compiled_check(ht, build_box, card, profile):
+    """compiled_path over COMPILED_PATHS; prints and returns their
+    records."""
+    t0 = time.perf_counter()
+    recs = [compiled_path(ht, build_box, name, profile)
+            for name in COMPILED_PATHS]
+    out = {"compiled_frame": recs, "card": card,
+           "seconds": time.perf_counter() - t0}
+    print(json.dumps(out))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4790,6 +5044,10 @@ def main():
                     help="only build the kernels and run path SM and check "
                     "SB (the row-sharded frame over every card); prints "
                     "its line and no ok line")
+    ap.add_argument("--compiled", action="store_true",
+                    help="only build the kernels and run the compiled-frame "
+                    "check (every single-card path's replayed frames against "
+                    "its eager frames); prints its line and no ok line")
     ap.add_argument("--ab-summary", nargs="+", metavar="FILE",
                     help="summarise the --ab lines of FILEs, one per tree "
                     "(medians, interquartile ranges; runs on any host)")
@@ -4845,73 +5103,85 @@ def run(args):
     if args.sharded:
         print(json.dumps(sharded_path(ht, card)[0]))
         return 0
+    if args.compiled:
+        compiled_check(ht, build_box, card, args.profile)
+        return 0
     if args.ab:
-        records, frames = ab_only(ht, build_box)
+        with ht.renderer.eager():
+            records, frames = ab_only(ht, build_box)
         print(json.dumps({"ab": list(records), "frames_ms": frames,
                           "light_instances": instances,
                           "kernel_instances": instances_a10, "card": card}))
         return 0
-    t0 = time.perf_counter()
-    # path T's checks first: kernel 14's host time before any profiler
-    # session of the process (the host reads slower after one)
-    records = [check_textures(ht)]
-    records += check_kernels(ht, build_box())
-    records += check_reuse(ht, build_box)
-    post_records, at_540p = check_post(ht, build_box)
-    records += post_records
-    ckb_records, at_ckb = check_checkerboard(ht, build_box)
-    records += ckb_records
-    city_records, hit_record, at_city = check_city(ht, build_box)
-    records += city_records
-    check_simple_walk(ht)
-    at_scene = check_scene(ht)
-    at_tn = check_simple_noreuse(ht)
-    check_box_upscale(ht, build_box)
-    check_city_spatial_noreuse(ht)
-    check_box_scramble(ht, build_box)
-    at_cl = check_city_lamps(ht)
-    check_minimal(ht)
-    u_records = check_universal(ht, build_box)
-    for rec in records + [hit_record]:
-        for extra in (at_540p, at_ckb, at_city, at_scene, at_tn, at_cl):
-            rec.update(extra.get(rec["name"], {}))
-        print(f"  {rec['name']}: {rec['ms']:.4f} ms per launch, plain "
-              f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}), library {rec['library_ms']}")
-    check_small_render(ht, build_box)
-    print(f"checks took {time.perf_counter() - t0:.1f} s")
+    # the checks and the timed paths hold the kernels' calls against their
+    # plain versions and count their launches: their frames run eagerly
+    # (compiled_check holds the replayed frames against these)
+    with ht.renderer.eager():
+        t0 = time.perf_counter()
+        # path T's checks first: kernel 14's host time before any profiler
+        # session of the process (the host reads slower after one)
+        records = [check_textures(ht)]
+        records += check_kernels(ht, build_box())
+        records += check_reuse(ht, build_box)
+        post_records, at_540p = check_post(ht, build_box)
+        records += post_records
+        ckb_records, at_ckb = check_checkerboard(ht, build_box)
+        records += ckb_records
+        city_records, hit_record, at_city = check_city(ht, build_box)
+        records += city_records
+        check_simple_walk(ht)
+        at_scene = check_scene(ht)
+        at_tn = check_simple_noreuse(ht)
+        check_box_upscale(ht, build_box)
+        check_city_spatial_noreuse(ht)
+        check_box_scramble(ht, build_box)
+        at_cl = check_city_lamps(ht)
+        check_minimal(ht)
+        u_records = check_universal(ht, build_box)
+        for rec in records + [hit_record]:
+            for extra in (at_540p, at_ckb, at_city, at_scene, at_tn, at_cl):
+                rec.update(extra.get(rec["name"], {}))
+            print(f"  {rec['name']}: {rec['ms']:.4f} ms per launch, plain "
+                  f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+                  f"({rec['bound_by']}), library {rec['library_ms']}")
+        check_small_render(ht, build_box)
+        print(f"checks took {time.perf_counter() - t0:.1f} s")
 
-    frame_ms, launches = {}, {}
-    for name in PATHS:
-        times, counts = main_path(ht, build_box, name, TIMED_FRAMES,
-                                  args.profile)
-        frame_ms[name] = (float(np.median(times)), times)
-        launches[name] = dict(zip(COUNTERS, counts))
-    times, refit, counts = city_path(ht, TIMED_FRAMES, args.profile)
-    frame_ms["city"] = (float(np.median(times)), times)
-    launches["city"] = dict(zip(COUNTERS, counts))
-    times, cl_refit, counts, cl_extra = city_lamps_path(ht, TIMED_FRAMES,
-                                                        args.profile)
-    frame_ms["CL"] = (float(np.median(times)), times)
-    launches["CL"] = dict(zip(COUNTERS, counts))
-    times, counts = simple_path(ht, TIMED_FRAMES, args.profile)
-    frame_ms["T"] = (float(np.median(times)), times)
-    launches["T"] = dict(zip(COUNTERS, counts))
-    times, counts = simple_path(ht, TIMED_FRAMES, args.profile, noreuse=True)
-    frame_ms["TN"] = (float(np.median(times)), times)
-    launches["TN"] = dict(zip(COUNTERS, counts))
-    times, counts, fsr = scene_path(ht, TIMED_FRAMES, args.profile)
-    frame_ms["F"] = (float(np.median(times)), times)
-    launches["F"] = dict(zip(COUNTERS, counts))
-    times, counts = minimal_path(ht, TIMED_FRAMES, args.profile)
-    frame_ms["M"] = (float(np.median(times)), times)
-    launches["M"] = dict(zip(COUNTERS, counts))
-    times, counts, dissection = cornell_path(ht, TIMED_FRAMES, args.profile)
-    frame_ms["G"] = (float(np.median(times)), times)
-    launches["G"] = dict(zip(COUNTERS, counts))
-    alt_ms, alt_times = alternate_post_paths(ht, build_box, TIMED_FRAMES)
-    sm_record, sm_counts = sharded_path(ht, card)
-    launches["SM"] = dict(zip(COUNTERS, sm_counts))
+        frame_ms, launches = {}, {}
+        for name in PATHS:
+            times, counts = main_path(ht, build_box, name, TIMED_FRAMES,
+                                      args.profile)
+            frame_ms[name] = (float(np.median(times)), times)
+            launches[name] = dict(zip(COUNTERS, counts))
+        times, refit, counts = city_path(ht, TIMED_FRAMES, args.profile)
+        frame_ms["city"] = (float(np.median(times)), times)
+        launches["city"] = dict(zip(COUNTERS, counts))
+        times, cl_refit, counts, cl_extra = city_lamps_path(ht, TIMED_FRAMES,
+                                                            args.profile)
+        frame_ms["CL"] = (float(np.median(times)), times)
+        launches["CL"] = dict(zip(COUNTERS, counts))
+        times, counts = simple_path(ht, TIMED_FRAMES, args.profile)
+        frame_ms["T"] = (float(np.median(times)), times)
+        launches["T"] = dict(zip(COUNTERS, counts))
+        times, counts = simple_path(ht, TIMED_FRAMES, args.profile,
+                                    noreuse=True)
+        frame_ms["TN"] = (float(np.median(times)), times)
+        launches["TN"] = dict(zip(COUNTERS, counts))
+        times, counts, fsr = scene_path(ht, TIMED_FRAMES, args.profile)
+        frame_ms["F"] = (float(np.median(times)), times)
+        launches["F"] = dict(zip(COUNTERS, counts))
+        times, counts = minimal_path(ht, TIMED_FRAMES, args.profile)
+        frame_ms["M"] = (float(np.median(times)), times)
+        launches["M"] = dict(zip(COUNTERS, counts))
+        times, counts, dissection = cornell_path(ht, TIMED_FRAMES,
+                                                 args.profile)
+        frame_ms["G"] = (float(np.median(times)), times)
+        launches["G"] = dict(zip(COUNTERS, counts))
+        alt_ms, alt_times = alternate_post_paths(ht, build_box, TIMED_FRAMES)
+        sm_record, sm_counts = sharded_path(ht, card)
+        launches["SM"] = dict(zip(COUNTERS, sm_counts))
+
+    compiled = compiled_check(ht, build_box, card, args.profile)
 
     def total(counter, paths=tuple(launches)):
         return sum(launches[p][counter] for p in paths)
@@ -4986,6 +5256,12 @@ def run(args):
         "reps_ms_smaa2": alt_times["P"], "reps_ms_default": alt_times["D"],
         "card": card}))
     print(json.dumps(sm_record))
+    # the compiled check's medians again, near the end of the output
+    cols = ("keys", "eager_ms", "replay_ms", "replay_host_ms")
+    print(json.dumps({"compiled_frame_ms": {
+        rec["path"]: [rec[c] for c in cols]
+        for rec in compiled["compiled_frame"]}, "columns": cols,
+        "card": card}))
     print(json.dumps({"kernel_off_path": hit_record}))
     print(json.dumps({"light_instances": instances,
                       "kernel_instances": instances_a10}))

@@ -92,6 +92,31 @@ class Camera:
         }
 
 
+# the view uniform as one vector of words (view_words), each entry at a
+# multiple of 4 words: name, shape, offset
+VIEW_LAYOUT = (("view_proj", (4, 4), 0), ("inverse_view_proj", (4, 4), 16),
+               ("projection", (4, 4), 32), ("inverse_projection", (4, 4), 48),
+               ("view", (4, 4), 64), ("inverse_view", (4, 4), 80),
+               ("world_position", (3,), 96), ("viewport", (4,), 100))
+VIEW_WORDS = 104
+
+
+def view_words(view: dict) -> np.ndarray:
+    """A view-uniform dict (numpy) as [VIEW_WORDS] float32 words."""
+    out = np.zeros(VIEW_WORDS, np.float32)
+    for k, shape, at in VIEW_LAYOUT:
+        out[at:at + int(np.prod(shape))] = np.asarray(
+            view[k], np.float32).reshape(-1)
+    return out
+
+
+def view_from_words(words: torch.Tensor) -> dict:
+    """The view-uniform dict as views of [VIEW_WORDS] device words (a
+    static buffer that the renderer rewrites each frame)."""
+    return {k: words[at:at + int(np.prod(shape))].view(shape)
+            for k, shape, at in VIEW_LAYOUT}
+
+
 def view_to_device(view: dict, device) -> dict:
     """A view-uniform dict (this package's or hikari_tpu's, numpy or JAX
     arrays) as float32 tensors on `device`."""

@@ -3,7 +3,10 @@
 Fields that pick pipeline structure (taa, upscale, denoise, reuse toggles,
 bounce count) are static: they select which passes the frame runs. Numeric
 knobs ride the per-frame uniform dict (`make_frame_uniform`), which here is
-plain Python scalars: the kernels take them through their parameter vectors.
+plain Python scalars that stay the same from frame to frame, and the frame
+number, which picks the frame's branches (`frame_parity`, `validates`)
+only: the values that change with it reach the frame as device words
+(frame.frame_words).
 """
 
 from __future__ import annotations
@@ -135,6 +138,18 @@ def halton(base: int, index: int) -> float:
 HALTON_JITTER = np.array(
     [[halton(2, i), halton(3, i)] for i in range(16)], dtype=np.float32
 )
+
+
+def frame_parity(frame_number: int) -> int:
+    """The frame's parity in {0, 1}: the decimation's and checkerboard's
+    phase and SMAA's odd frame (a host integer, a branch of the frame)."""
+    return int(frame_number) & 1
+
+
+def validates(frame_number: int, interval: int) -> bool:
+    """A validation frame of a channel validated every `interval` frames
+    (light.wgsl's frame % interval == 0; a branch of the frame)."""
+    return int(frame_number) % max(int(interval), 1) == 0
 
 
 def make_frame_uniform(settings: HikariSettings, frame_number: int) -> dict:

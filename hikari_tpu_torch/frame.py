@@ -74,7 +74,8 @@ import math
 import numpy as np
 import torch
 
-from hikari_tpu_torch.config import HikariSettings, Taa, UpscaleMode
+from hikari_tpu_torch.config import (HikariSettings, Taa, UpscaleMode,
+                                     frame_parity, validates)
 from hikari_tpu_torch.ops import checkerboard as ckb_ops
 from hikari_tpu_torch.ops import light_fused as _lf
 from hikari_tpu_torch.ops import prepass_fused as _pf
@@ -82,7 +83,8 @@ from hikari_tpu_torch.ops import reservoir as rsv
 from hikari_tpu_torch.ops import restir
 from hikari_tpu_torch.ops import spatial_fused as _sf
 from hikari_tpu_torch.ops.denoise import denoise_channels
-from hikari_tpu_torch.ops.noise import sample_blue_noise
+from hikari_tpu_torch.ops.noise import (frame_advance, noise_index,
+                                        sample_blue_noise)
 from hikari_tpu_torch.ops.post import post_chain, post_sizes
 from hikari_tpu_torch.ops.prepass import frame_jitter, prepass
 from hikari_tpu_torch.ops.reproj_gather import reproj_gather
@@ -99,6 +101,49 @@ LIGHT_KEYS = ("position", "normal", "instance_material", "velocity_uv")
 # the planes of the previous full-res G-buffer the post chain carries
 PREV_GBUFFER_KEYS = ("position", "normal", "instance_material",
                      "velocity_uv")
+
+
+# the frame's words (frame_words): what changes from frame to frame, on the
+# device, so that one captured frame (renderer.py) serves every number
+W_JITTER = 0      # the camera's sub-pixel jitter x, y (prepass.frame_jitter)
+W_ADVANCE = 2     # frame * GOLDEN_RATIO (noise.frame_advance)
+W_NOISE = 3       # the blue noise's texture and shift (noise.noise_index)
+W_TAPS_E = 8      # the emissive channel's spiral taps (spatial_fused.
+#                   tap_table: 8 rows), then the indirect channel's (16)
+W_TAPS_I = W_TAPS_E + 8 * _sf._TAP_STRIDE
+FRAME_WORDS = W_TAPS_I + 16 * _sf._TAP_STRIDE
+
+
+def frame_words(settings: HikariSettings, number: int) -> np.ndarray:
+    """[FRAME_WORDS] float32 host words of frame `number`: the jitter, the
+    advance, the noise's texture and shift, and the spiral taps of the
+    spatial channels the settings track (zeros otherwise)."""
+    w = np.zeros(FRAME_WORDS, np.float32)
+    w[W_JITTER:W_JITTER + 2] = frame_jitter(number, settings.taa,
+                                            settings.upscale.mode)
+    w[W_ADVANCE] = frame_advance(number)
+    w[W_NOISE:W_NOISE + 2] = noise_index(number)
+    for on, at, lit in zip(_tracks(settings), (W_TAPS_E, W_TAPS_I),
+                           (True, False)):
+        if on:
+            n, reuse_range = _sf.channel_taps(lit)
+            w[at:at + n * _sf._TAP_STRIDE] = _sf.tap_table(
+                n, reuse_range, number).reshape(-1)
+    return w
+
+
+def with_words(frame: dict, words: torch.Tensor) -> dict:
+    """The frame dict with its device words (`words`, [FRAME_WORDS] float32
+    on the device) and views of them under the names the ops read:
+    jitter [2], advance [1], noise_index [2], taps_e [8, 18], taps_i
+    [16, 18]."""
+    stride = _sf._TAP_STRIDE
+    return {**frame, "words": words,
+            "jitter": words[W_JITTER:W_JITTER + 2],
+            "advance": words[W_ADVANCE:W_ADVANCE + 1],
+            "noise_index": words[W_NOISE:W_NOISE + 2],
+            "taps_e": words[W_TAPS_E:W_TAPS_I].view(-1, stride),
+            "taps_i": words[W_TAPS_I:FRAME_WORDS].view(-1, stride)}
 
 
 def scaled_size(full_size, ratio: float):
@@ -304,6 +349,13 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
     tracer (ops/trace.py), which serves the non-fused prepass and the
     modular lighting path.
 
+    render_frame reads what changes from frame to frame from the frame
+    dict's device words (with_words; fresh ones from frame["number"] when
+    it has none) and takes Python branches on the frame number only where
+    render_frame.key(number) says: frames of one key dispatch the same
+    operations, so one captured CUDA graph per key (renderer.py) serves
+    them all.
+
     debug=True (the per-pass dissection, hikari_tpu/frame.py:610-627):
     the lighting takes the modular path and the spatial passes the
     modular ones (never kernel B, 4 or 10), over the same [h,16,w]
@@ -478,11 +530,34 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         return {slot: (bf[..., 5 * i:5 * i + 4], bf[..., 5 * i + 4])
                 for i, slot in enumerate(lit)}
 
+    # the frame number picks these branches only (the values that change
+    # with it are the frame's device words): the parity of the decimation,
+    # the deferred lookup, SMAA and the checkerboard, and each traced
+    # channel's validation (hikari_tpu's lax.cond)
+    uses_parity = (ckb or _smaa(settings)
+                   or not (ratio == 1.0 and tuple(render_size) == full_size))
+    validating = any_active and (reuse if use_fused
+                                 else modular and (reuse or track_de))
+
+    def key(number: int) -> tuple:
+        """The frame's branches: (parity, direct validation, emissive
+        validation), None where the configuration takes no such branch.
+        Frames of one key run the same launches on the same shapes."""
+        return (frame_parity(number) if uses_parity else None,
+                validates(number, settings.direct_validate_interval)
+                if validating and has_sun else None,
+                validates(number, settings.emissive_validate_interval)
+                if validating and num_emissives > 0 else None)
+
     def render_frame(scene, view, frame, noise, carry):
+        if "words" not in frame:
+            # a caller outside the frame program: fresh device words
+            frame = with_words(frame, torch.from_numpy(frame_words(
+                settings, frame["number"])).to(noise.device))
         prev_view = {"view_proj": carry["prev_view_proj"],
                      "inverse_view_proj": carry["prev_inverse_view_proj"]}
         number = frame["number"]
-        jit = frame_jitter(number, settings.taa, settings.upscale.mode)
+        jit = frame["jitter"]
         # under a row mesh kernels A, 8 and 9 run as islands here, B / 4 and
         # C in their modules, 11 and 12 in the post chain (hikari_tpu/
         # frame.py:150-179, :274); 5-7, 10, 13 and 14 run whole
@@ -492,7 +567,7 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
             # the render-size G-buffer: kernel A's strided planes
             gbuf, albedo, g, albedo_r = _pf.prepass_fused(
                 scene, view, prev_view, jit, full_size,
-                dec_parity=number & 1, mesh=mesh)
+                dec_parity=frame_parity(number), mesh=mesh)
         elif fused_pre:
             gbuf, albedo = _pf.prepass_fused(scene, view, prev_view, jit,
                                              full_size, mesh=mesh)
@@ -508,12 +583,12 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
             smaa_quads = (_pf.prepass_fused_quads(gbuf, mesh=mesh)
                           if fused_pre and exact_half
                           else parity_context(gbuf, render_size))
-        rand = sample_blue_noise(noise, number, render_size)
+        rand = sample_blue_noise(noise, frame, render_size)
         par = None
         g_l, rand_l = g, rand
         if ckb:
             # the lighting domain: this frame's lit pixels, compressed
-            par = ckb_ops.frame_parity(number)
+            par = frame_parity(number)
             g_l = {k: ckb_ops.compress(g[k], par) for k in LIGHT_KEYS}
             rand_l = ckb_ops.compress(rand, par)
         dev = albedo.device
@@ -661,4 +736,5 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
             return image, albedo, new_carry, dict(zip(DEBUG_KEYS, vals))
         return image, albedo, new_carry
 
+    render_frame.key = key
     return render_frame

@@ -90,14 +90,60 @@ def bind(lib, name: str, signature: str):
     return fn
 
 
+def capturing(device) -> bool:
+    """True while the current stream of the CUDA `device` is captured into
+    a CUDA graph (renderer.py)."""
+    return (torch.device(device).type == "cuda"
+            and torch.cuda.is_current_stream_capturing())
+
+
 def host_values(values, device) -> torch.Tensor:
-    """A small float32 vector of host values on `device`. A CUDA copy goes
-    through pinned memory without blocking, so building per-frame
-    parameters does not stall the host on the stream."""
+    """A fresh small float32 vector of host values on `device`, for callers
+    outside the compiled frame. A CUDA copy goes through pinned memory
+    without blocking. Under a graph capture it raises: the graph would
+    replay a copy from a freed buffer, and a value that varies by frame
+    belongs in the frame's static buffers (frame.frame_words)."""
+    if capturing(device):
+        raise RuntimeError("host_values under a CUDA graph capture: a "
+                           "per-frame value must come from the frame's "
+                           "static buffers, a constant from const_values")
     t = torch.tensor(values, dtype=torch.float32)
     if torch.device(device).type == "cuda":
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
+
+
+def frame_value(frame, key: str, make, device) -> torch.Tensor:
+    """frame[key], one of the frame's device words (frame.with_words);
+    for a frame dict without them (a caller outside the frame program)
+    a fresh vector of make()'s host values."""
+    t = frame.get(key)
+    return host_values(make(), device) if t is None else t
+
+
+# {(values, device): tensor}, for the life of the process: a captured
+# graph keeps reading the tensors it was captured with, so none is freed
+_CONSTS = {}
+
+
+def const_values(values, device) -> torch.Tensor:
+    """A float32 vector of host values that stay the same from frame to
+    frame (a setting, a size), made once per values and device and then
+    shared: the compiled frame's warm-up makes it, its capture reads it.
+    A first use under a graph capture raises."""
+    values = np.asarray(values, np.float32)
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (values.shape, values.tobytes(), dev)
+    t = _CONSTS.get(key)
+    if t is None:
+        if capturing(dev):
+            raise RuntimeError("const_values: first use of a constant under "
+                               "a CUDA graph capture")
+        t = torch.from_numpy(values.copy()).to(dev)
+        _CONSTS[key] = t
+    return t
 
 
 # PyTorch's CPU loops compute a vectorized op's last partial vector with the

@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from hikari_tpu_torch.ops._kernel import div, f32, host_values
+from hikari_tpu_torch.ops._kernel import const_values, div, f32
 from hikari_tpu_torch.ops.filters import bilinear_sample
 from hikari_tpu_torch.ops.restir import pixel_uv
 
@@ -49,8 +49,8 @@ def _taps(img, size, texel, taps):
     """img sampled at the texel centres of an h x w target, each shifted
     by a tap's (dx, dy) * texel: a list in the order of `taps`."""
     uv = pixel_uv(size, img.device)
-    offs = host_values([[dx * texel[0], dy * texel[1]] for dx, dy in taps],
-                       img.device)
+    offs = const_values([[dx * texel[0], dy * texel[1]] for dx, dy in taps],
+                        img.device)
     return [bilinear_sample(img, uv + offs[k]) for k in range(len(taps))]
 
 

@@ -23,11 +23,6 @@ from hikari_tpu_torch.ops.filters import shift_edge
 NEIGHBOURS = ((0, 1), (0, -1), (1, 0), (-1, 0))
 
 
-def frame_parity(frame_number: int) -> int:
-    """The frame's parity in {0, 1} (a host integer)."""
-    return int(frame_number) & 1
-
-
 def _row_even(par: int, h: int, device) -> torch.Tensor:
     """[h] bool: True where the row's lit pixels sit at even x."""
     return (torch.arange(h, device=device) + par) % 2 == 0

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import torch
 
-from hikari_tpu_torch.ops._kernel import div, f32, host_values
+from hikari_tpu_torch.ops._kernel import const_values, div, f32
 from hikari_tpu_torch.ops.filters import bilinear_sample
 from hikari_tpu_torch.ops.restir import pixel_uv
 from hikari_tpu_torch.utils.math import luminance
@@ -27,8 +27,8 @@ def fxaa(img):
     h, w = img.shape[:2]
     uv = pixel_uv((h, w), img.device)
     texel = (f32(1.0 / w), f32(1.0 / h))
-    offs = host_values([[du * texel[0], dv * texel[1]]
-                        for du, dv in NEIGHBOURS], img.device)
+    offs = const_values([[du * texel[0], dv * texel[1]]
+                         for du, dv in NEIGHBOURS], img.device)
     l_d, l_u, l_l, l_r, l_dl, l_dr, l_ul, l_ur = (
         luminance(bilinear_sample(img, uv + offs[k])[..., :3])
         for k in range(len(NEIGHBOURS)))

@@ -29,10 +29,12 @@ import numpy as np
 import torch
 
 from hikari_tpu_torch import build as _build
+from hikari_tpu_torch.config import validates
 from hikari_tpu_torch.ops import reservoir as rsv
-from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
-                                          exp2, f32, host_values, on_cpu,
-                                          stream)
+from hikari_tpu_torch.ops._kernel import (bind, check, check_launch,
+                                          const_values, div, exp2, f32,
+                                          frame_value, on_cpu, stream)
+from hikari_tpu_torch.ops.noise import frame_advance
 from hikari_tpu_torch.ops.trace_pallas import (DISTANCE_MAX, shadow_sweep,
                                                trace_full_sweep)
 from hikari_tpu_torch.parallel import shard as _sh
@@ -91,28 +93,34 @@ def validation_flags(frame, has_sun: bool, n_em: int):
     integers: number % max(interval, 1) == 0, for active channels only
     (they pick the kernel variant, so an absent channel never forces the
     retrace)."""
-    num = int(frame["number"])
-    d = num % max(int(frame["direct_validate_interval"]), 1) == 0
-    e = num % max(int(frame["emissive_validate_interval"]), 1) == 0
+    num = frame["number"]
+    d = validates(num, frame["direct_validate_interval"])
+    e = validates(num, frame["emissive_validate_interval"])
     return float(d and has_sun), float(e and n_em > 0)
 
 
-def pack_params(scene, view, frame, n_em: int,
-                has_sun: bool = True) -> torch.Tensor:
-    """[228] f32 parameter vector on the scene's device."""
+def pack_params(scene, view, frame, n_em: int, has_sun: bool = True,
+                temporal: bool = True) -> torch.Tensor:
+    """[228] f32 parameter vector on the scene's device, every word on the
+    device: the scene's and the view's tensors, the frame's advance (its
+    device word `advance`), and constants of the settings and of the
+    frame's branch (the validation flags, zeros without temporal reuse,
+    which reads none)."""
     dev = scene["dir_to_light"].device
     cos_solar = np.cos(np.float32(frame["solar_angle"]))
-    adv = np.float32(frame["number"]) * np.float32(GOLDEN_RATIO)
+    adv = frame_value(frame, "advance",
+                      lambda: [frame_advance(frame["number"])], dev)
     maxcnt = min(np.float32(frame.get("max_temporal_reuse_count", 0.0)),
                  np.float32(1e30))
-    host = host_values([cos_solar, frame["max_indirect_luminance"], adv,
-                        maxcnt], dev)
-    val = host_values(list(validation_flags(frame, has_sun, n_em))
-                      + [0.0, 0.0], dev)
+    flags = (validation_flags(frame, has_sun, n_em) if temporal
+             else (0.0, 0.0))
+    val = const_values(list(flags) + [0.0, 0.0], dev)
     head = torch.cat([
         scene["dir_to_light"][:3], scene["dir_color"][:3],
-        scene["ambient_color"][:3], host[:1], view["world_position"][:3],
-        host[1:]])
+        scene["ambient_color"][:3], const_values([cos_solar], dev),
+        view["world_position"][:3],
+        const_values([frame["max_indirect_luminance"]], dev), adv.reshape(1),
+        const_values([maxcnt], dev)])
     em = torch.zeros(_P_ALIAS - _P_EM, dtype=torch.float32, device=dev)
     alias = torch.zeros(_P_VAL - _P_ALIAS, dtype=torch.float32, device=dev)
     if n_em > 0:
@@ -1024,7 +1032,7 @@ def fused_lighting(scene, g, view, frame, rand, *, has_sun: bool,
     else:
         em_tris, em_attrs = tris[:1], attrs[:1]
         n_alias = 0
-    params = pack_params(scene, view, frame, n_em, has_sun)
+    params = pack_params(scene, view, frame, n_em, has_sun, temporal)
     validation = temporal and sum(validation_flags(frame, has_sun, n_em)) > 0
     tables = (params, tris, attrs, em_tris, em_attrs, scene["mat_packed"])
     planes = (g["position"], g["normal"], g["instance_material"], rand)

@@ -2,7 +2,9 @@
 
 value = noise_texture[frame % 16][(pixel + frame) % 64].rgba, then shifted
 by frame * golden ratio (mod 1) so sequences decorrelate over time. There
-is no random generator: a frame's randoms depend only on its number.
+is no random generator: a frame's randoms depend only on its number, whose
+texture, shift and advance reach the frame as device words
+(frame.frame_words), so one captured frame serves every number.
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hikari_tpu_torch.ops._kernel import frame_value
 from hikari_tpu_torch.utils.bluenoise import load_blue_noise
 from hikari_tpu_torch.utils.math import GOLDEN_RATIO
 
@@ -22,15 +25,34 @@ def noise_constant(device) -> torch.Tensor:
     return torch.from_numpy(load_blue_noise()).to(device)
 
 
-def sample_blue_noise(noise: torch.Tensor, frame_number: int, size):
+def frame_advance(frame_number: int) -> np.float32:
+    """frame_number * GOLDEN_RATIO in float32: the noise's scramble and the
+    bounce randoms' advance (hikari_tpu's restir.py:608)."""
+    return np.float32(frame_number) * np.float32(GOLDEN_RATIO)
+
+
+def noise_index(frame_number: int):
+    """(texture, shift) of the frame: frame % 16 and frame % 64."""
+    return (frame_number % NOISE_TEXTURE_COUNT, frame_number % NOISE_SIZE)
+
+
+def sample_blue_noise(noise: torch.Tensor, frame, size):
     """[H, W, 4] randoms for this frame: the frame's texture rolled by the
-    frame shift and tiled over the screen."""
+    frame shift and tiled over the screen, as one gather at indices made
+    on the device. frame: the frame dict (its words `noise_index` and
+    `advance`), or a frame number."""
+    if not isinstance(frame, dict):
+        frame = {"number": int(frame)}
     h, w = size
-    tex = noise[frame_number % NOISE_TEXTURE_COUNT]
-    shift = frame_number % NOISE_SIZE
-    rolled = torch.roll(tex, shifts=(-shift, -shift), dims=(0, 1))
-    reps_y = -(-h // NOISE_SIZE)
-    reps_x = -(-w // NOISE_SIZE)
-    r = rolled.repeat(reps_y, reps_x, 1)[:h, :w]
-    scramble = float(np.float32(frame_number) * np.float32(GOLDEN_RATIO))
-    return torch.fmod(r + scramble, 1.0)
+    dev = noise.device
+    idx = frame_value(frame, "noise_index",
+                      lambda: noise_index(frame["number"]), dev).to(
+                          torch.int64)
+    adv = frame_value(frame, "advance",
+                      lambda: [frame_advance(frame["number"])], dev)
+    tex = noise.index_select(0, idx[:1])[0]
+    # rolled by the shift and tiled: texel ((y + shift) % 64, (x + ...))
+    ys = torch.remainder(torch.arange(h, device=dev) + idx[1], NOISE_SIZE)
+    xs = torch.remainder(torch.arange(w, device=dev) + idx[1], NOISE_SIZE)
+    r = tex.index_select(0, ys).index_select(1, xs)
+    return torch.fmod(r + adv, 1.0)

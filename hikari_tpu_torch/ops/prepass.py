@@ -9,7 +9,7 @@ import numpy as np
 import torch
 
 from hikari_tpu_torch.config import HALTON_JITTER, Taa, UpscaleMode
-from hikari_tpu_torch.ops._kernel import div
+from hikari_tpu_torch.ops._kernel import div, host_values
 
 
 def frame_jitter(frame_number: int, taa: Taa, upscale_mode: UpscaleMode):
@@ -23,18 +23,27 @@ def frame_jitter(frame_number: int, taa: Taa, upscale_mode: UpscaleMode):
     return (0.0, 0.0)
 
 
+def jitter_tensor(jitter, device) -> torch.Tensor:
+    """The frame's [2] float32 jitter on `device`: the frame's device words
+    as they are, or a fresh tensor of host values (a caller outside the
+    frame program)."""
+    if torch.is_tensor(jitter):
+        return jitter.reshape(2)
+    return host_values([float(np.float32(j)) for j in jitter], device)
+
+
 def camera_rays(view, size, jitter_pixels, rows=None):
     """Primary rays for every pixel: (origins [H,W,3], unit directions
     [H,W,3]). Unprojects NDC depths 0.9 and 0.1 through inverse_view_proj,
-    term by term in the order kernel A evaluates them. rows: (first row,
-    count), the rays of those image rows only ([count,W,3]; a row sharded
-    kernel A's block)."""
+    term by term in the order kernel A evaluates them; the matrix and the
+    jitter (jitter_tensor) stay on the device, their entries 0-d tensors.
+    rows: (first row, count), the rays of those image rows only
+    ([count,W,3]; a row sharded kernel A's block)."""
     h, w = size
     row0, count = (0, h) if rows is None else rows
     dev = view["inverse_view_proj"].device
-    m = view["inverse_view_proj"].detach().cpu().numpy().astype(
-        np.float32).reshape(16)
-    jx, jy = (float(np.float32(j)) for j in jitter_pixels)
+    m = view["inverse_view_proj"].reshape(16).to(torch.float32).unbind(0)
+    jx, jy = jitter_tensor(jitter_pixels, dev).unbind(0)
     y = (torch.arange(count, dtype=torch.float32, device=dev)
          + float(row0))[:, None].expand(count, w)
     x = torch.arange(w, dtype=torch.float32, device=dev)[None, :].expand(
@@ -45,9 +54,9 @@ def camera_rays(view, size, jitter_pixels, rows=None):
     ndc_y = (1.0 - v) * 2.0 - 1.0
 
     def unproject(z):
-        hs = [ndc_x * float(m[4 * r]) + ndc_y * float(m[4 * r + 1])
-              + float(m[4 * r + 2] * np.float32(z)) + float(m[4 * r + 3])
-              for r in range(4)]
+        z = float(np.float32(z))
+        hs = [ndc_x * m[4 * r] + ndc_y * m[4 * r + 1] + m[4 * r + 2] * z
+              + m[4 * r + 3] for r in range(4)]
         inv = div(1.0, hs[3])
         return hs[0] * inv, hs[1] * inv, hs[2] * inv
 
@@ -88,7 +97,8 @@ def prepass(scene, tracer, view, prev_view, jitter, size):
     from hikari_tpu_torch.ops import prepass_fused as _pf
 
     h, w = size
-    p = _pf.pack_params(view, prev_view, jitter, size).cpu().numpy()
+    jitter = jitter_tensor(jitter, view["view_proj"].device)
+    p = _pf.pack_params(view, prev_view, jitter, size)
     origin, direction = camera_rays(view, size, jitter)
     ro = origin.reshape(-1, 3).contiguous()
     rd = direction.reshape(-1, 3).contiguous()

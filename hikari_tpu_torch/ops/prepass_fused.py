@@ -18,12 +18,14 @@ from __future__ import annotations
 
 import torch
 
-from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
-                                          host_values, on_cpu, ptr, stream)
+from hikari_tpu_torch.ops._kernel import (bind, check, check_launch,
+                                          const_values, div, on_cpu, ptr,
+                                          stream)
 from hikari_tpu_torch.ops.light_fused import (MAX_MATERIALS, MAX_TRIS,
                                               _env_brdf_approx, _row_index,
                                               _rsqrt_n, _Surface)
-from hikari_tpu_torch.ops.prepass import camera_rays, depth_gradient
+from hikari_tpu_torch.ops.prepass import (camera_rays, depth_gradient,
+                                          jitter_tensor)
 from hikari_tpu_torch.ops.restir import parity_decimate
 from hikari_tpu_torch.ops.trace_pallas import closest_sweep, interpolate
 from hikari_tpu_torch.parallel import shard as _sh
@@ -58,27 +60,31 @@ def prepass_caps_error(scene):
 
 def pack_params(view, prev_view, jitter, size, row0: int = 0
                 ) -> torch.Tensor:
-    """[56] f32 parameter vector on the view's device; row0: the image row
-    of the planes' first row (0: the whole image)."""
+    """[56] f32 parameter vector on the view's device, every word on the
+    device: the view's matrices, the jitter (the frame's device words, or
+    host values: prepass.jitter_tensor) and the sizes (a constant); row0:
+    the image row of the planes' first row (0: the whole image)."""
     h, w = size
     dev = view["view_proj"].device
-    tail = host_values([jitter[0], jitter[1], w, h, row0], dev)
     return torch.cat([view["inverse_view_proj"].reshape(-1),
                       view["view_proj"].reshape(-1),
                       prev_view["view_proj"].reshape(-1),
-                      view["world_position"].reshape(-1)[:3], tail])
+                      view["world_position"].reshape(-1)[:3],
+                      jitter_tensor(jitter, dev),
+                      const_values([w, h, row0], dev)])
 
 
 def _project(m, px, py, pz):
-    """Rows of a row-major 4x4 (numpy f32 [16]) applied to (p, 1)."""
-    f = [float(x) for x in m]
+    """Rows of a row-major 4x4 (a [16] float32 tensor, its entries 0-d
+    tensors) applied to (p, 1)."""
+    f = m.unbind(0)
     return tuple(px * f[4 * r] + py * f[4 * r + 1] + pz * f[4 * r + 2]
                  + f[4 * r + 3] for r in range(4))
 
 
 def _surface_point(p, o, d, t_best, inst_f, motion):
     """World position, NDC depth and velocity of the nearest hit (kernel
-    A's tail). p: the numpy parameter vector.
+    A's tail). p: the parameter vector (a tensor on the planes' device).
     Returns (mask, (wx, wy, wz), depth, velocity u, velocity v)."""
     z = torch.zeros_like(t_best)
     dx, dy, dz = d
@@ -126,7 +132,7 @@ def prepass_plain(params, tris, attrs, motion, mats, size):
     p = params.cpu().numpy()
     origin, direction = camera_rays(
         _params_view(params), (int(p[_P_WH + 1]), int(p[_P_WH])),
-        p[_P_JIT:_P_JIT + 2], rows=(int(p[_P_ROW0]), h))
+        params[_P_JIT:_P_JIT + 2], rows=(int(p[_P_ROW0]), h))
     o = origin.unbind(-1)
     d = direction.unbind(-1)
 
@@ -136,7 +142,7 @@ def prepass_plain(params, tris, attrs, motion, mats, size):
     (nx, ny, nz), (uvx, uvy), mat_f = interpolate(attrs, prim, uu, vv)
     z = torch.zeros((h, w), device=dev)
     mask, (wx, wy, wz), depth, velu, velv = _surface_point(
-        p, o, d, t_best, inst_f, motion)
+        params, o, d, t_best, inst_f, motion)
     nx, ny, nz = (torch.where(mask, c, z) for c in _rsqrt_n(nx, ny, nz))
 
     valid = depth >= F32_EPSILON
@@ -277,7 +283,8 @@ def _planes_island(tables, view, prev_view, jitter, size, mesh):
 def prepass_fused(scene, view, prev_view, jitter, size, dec_parity=None,
                   mesh=None):
     """Returns (gbuf dict matching ops/prepass.py's contract, albedo
-    [H,W,4]). jitter: (x, y) pixel jitter (ops/prepass.frame_jitter).
+    [H,W,4]). jitter: the [2] pixel jitter, the frame's device words, or
+    host values (ops/prepass.frame_jitter).
 
     With dec_parity s (frame & 1) it also returns (g_dec, albedo_dec) at
     half the size: hikari_tpu's decimated second pass, which traces pixels

@@ -328,9 +328,11 @@ def scatter_reservoir_planes(dst, iy, ix, src: dict, mask) -> torch.Tensor:
         -1, PACKED_WIDTH)
     target = (iy.long() * w + ix.long()).reshape(-1)
     m = mask.reshape(-1)
-    source = torch.arange(m.numel(), device=dst.device)
+    # every source scatters (no compaction: the shapes stay the frame's);
+    # a masked-out one offers -1, the empty winner
+    source = torch.where(m, torch.arange(m.numel(), device=dst.device), -1)
     winner = torch.full((h * w,), -1, dtype=torch.int64, device=dst.device)
-    winner = winner.scatter_reduce(0, target[m], source[m], "amax")
+    winner = winner.scatter_reduce(0, target, source, "amax")
     hit = winner >= 0
     rows = dst.permute(0, 2, 1).reshape(h * w, PACKED_WIDTH)
     rows = torch.where(hit[:, None], src_rows[torch.clamp(winner, min=0)],

@@ -25,17 +25,19 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from hikari_tpu_torch.config import frame_parity, validates
 from hikari_tpu_torch.ops import checkerboard as ckb_ops
 from hikari_tpu_torch.ops import reservoir as rsv
 from hikari_tpu_torch.ops import spatial_fused as _sf
-from hikari_tpu_torch.ops._kernel import div, f32
+from hikari_tpu_torch.ops._kernel import div, f32, frame_value
+from hikari_tpu_torch.ops.noise import frame_advance
 from hikari_tpu_torch.ops.sampling import (RAY_BIAS, occlude_hit_info,
                                            select_light_candidate)
 from hikari_tpu_torch.ops.shading import (ALL_SLOTS, calculate_view,
                                           compute_emissive_radiance,
                                           env_brdf, input_radiance,
                                           retrieve_surface, shading)
-from hikari_tpu_torch.utils.math import (F32_EPSILON, F32_MAX, GOLDEN_RATIO,
+from hikari_tpu_torch.utils.math import (F32_EPSILON, F32_MAX,
                                          apply_normal_basis, dot3, luminance,
                                          normalize, sample_cosine_hemisphere)
 
@@ -109,7 +111,7 @@ def deferred_index(n: int, n_full: int, frame_number: int, ratio: float,
     for i < n, sign -0.25 on even frames and +0.25 on odd ones, in float32
     (the ratio rounded to float32, as JAX's weak typing does) and
     truncated toward zero, not floored."""
-    sign = -0.25 if frame_number & 1 == 0 else 0.25
+    sign = -0.25 if frame_parity(frame_number) == 0 else 0.25
     i = torch.arange(n, dtype=torch.float32, device=device)
     x = (i + 0.5) * float(np.float32(ratio)) + sign
     return torch.clamp(x.to(torch.int32).to(torch.int64), 0, n_full - 1)
@@ -125,7 +127,8 @@ def resample_deferred(img, render_size, frame_number: int, ratio: float):
     if ratio == 1.0 and (H, W) == (h, w):
         return img
     if ratio == 2.0 and H >= 2 * h and W >= 2 * w:
-        return parity_decimate([img[:2 * h, :2 * w]], frame_number & 1)[0]
+        return parity_decimate([img[:2 * h, :2 * w]],
+                               frame_parity(frame_number))[0]
     ys = deferred_index(h, H, frame_number, ratio, img.device)
     xs = deferred_index(w, W, frame_number, ratio, img.device)
     return img.index_select(0, ys).index_select(1, xs)
@@ -304,7 +307,7 @@ def direct_lit(scene, tracer, g, view, frame, noise_rand, prev_r, *,
             ~reproj_ok & reproj["in_loose"] & valid)
     interval = (frame["emissive_validate_interval"] if emissive_lit
                 else frame["direct_validate_interval"])
-    is_validation = int(frame["number"]) % max(int(interval), 1) == 0
+    is_validation = validates(frame["number"], interval)
     s = dict(s)
     s["radiance"] = _unflat(rad, render_size)
     s["sample_position"] = _unflat(info["position"], render_size)
@@ -408,8 +411,10 @@ def indirect_lit_ambient(scene, tracer, g, view, frame, noise_rand, prev_r,
     amb = scene["ambient_color"][:3]
     max_ind = frame["max_indirect_luminance"]
     cs = cos_solar(frame)
-    # frame_number * GOLDEN_RATIO in float32 (restir.py:608)
-    advance = f32(np.float32(frame["number"]) * np.float32(GOLDEN_RATIO))
+    # frame_number * GOLDEN_RATIO in float32 (restir.py:608): the frame's
+    # device word
+    advance = frame_value(frame, "advance",
+                          lambda: [frame_advance(frame["number"])], dev)
 
     for n_b in range(bounces):
         local, bounce_pdf = sample_cosine_hemisphere(b_rand[:, :2])
@@ -543,9 +548,36 @@ def compute_jacobian(q, s):
     return torch.clamp(term1 * term2, 1.0, 50.0)
 
 
-def _roll2d(x, dy, dx):
-    """out[y, x] = x[y + dy, x + dx], wrapping ([h,w,...] tensors)."""
-    return torch.roll(x, shifts=(-dy, -dx), dims=(0, 1))
+def _take2d(x, dy, dx, dims=(0, 1)):
+    """out[y, x] = x[y + dy, x + dx], wrapping around the dims' sizes: the
+    roll by (-dy, -dx) as one gather per dim, its indices made on the
+    device from the 0-d integer tensors dy, dx (the frame's taps), so a
+    captured frame serves every rotation. A selection: the words are the
+    roll's."""
+    for dim, off in zip(dims, (dy, dx)):
+        n = x.shape[dim]
+        idx = torch.remainder(torch.arange(n, device=x.device) + off, n)
+        x = x.index_select(dim, idx)
+    return x
+
+
+def frame_tap_offsets(frame, emissive_lit: bool, device):
+    """This frame's spiral taps of the channel as spatial_fused.tap_offsets
+    gives them, [(oy, ox, [(toy, tox, frac)...])], with the offsets 0-d
+    int64 tensors read from the frame's device words (spatial_fused.
+    frame_taps) and the march counts and fractions, which do not depend on
+    the frame, as host values."""
+    count_taps, reuse_range = _sf.channel_taps(emissive_lit)
+    rows = _sf.frame_taps(frame, emissive_lit, device).to(
+        torch.int64).unbind(0)
+    *_, count, _, frac = _sf._tap_arrays(count_taps, reuse_range)
+    out = []
+    for i, row in enumerate(rows):
+        row = row.unbind(0)
+        out.append((row[0], row[1],
+                    [(row[3 + 3 * j], row[4 + 3 * j], frac[i, j])
+                     for j in range(int(count[i]))]))
+    return out
 
 
 def _rotations(oy, ox, steps):
@@ -576,8 +608,9 @@ def spatial_reuse(scene, g, view, frame, temporal_r, prev_spatial, reproj, *,
     the previous spatial reservoir gathered at reproj's coordinates where
     the temporal lifetime is within max_reservoir_lifetime, this pixel's
     temporal reservoir merged in, then the frame's spiral taps (wrapping
-    rolls of the packed temporal reservoirs, the occlusion march over the
-    depth) with the clamped GRIS Jacobian. temporal_r: this frame's
+    gathers of the packed temporal reservoirs at the frame's tap offsets,
+    frame_tap_offsets, and the occlusion march over the depth) with the
+    clamped GRIS Jacobian. temporal_r: this frame's
     temporal reservoirs (structured); prev_spatial: [h,16,w] planes.
     scramble_bits ([h,w] integers in 0..3, HikariSettings.
     spatial_tap_scramble): each tap is evaluated at the four 90-degree
@@ -621,14 +654,12 @@ def spatial_reuse(scene, g, view, frame, temporal_r, prev_spatial, reproj, *,
     temporal_planes = rsv.pack_reservoir_planes(temporal_r)
     ys = torch.arange(h, device=dev)[:, None]
     xs = torch.arange(w, device=dev)[None, :]
-    for tap in _sf.tap_offsets(*_sf.channel_taps(emissive_lit),
-                               int(frame["number"])):
+    for tap in frame_tap_offsets(frame, emissive_lit, dev):
         variants = [tap] if scramble_bits is None else _rotations(*tap)
         packs, depths, in_bs, occs = [], [], [], []
         for oy, ox, steps in variants:
-            packs.append(torch.roll(temporal_planes, shifts=(-oy, -ox),
-                                    dims=(0, 2)))
-            sample_depth = _roll2d(depth, oy, ox)
+            packs.append(_take2d(temporal_planes, oy, ox, dims=(0, 2)))
+            sample_depth = _take2d(depth, oy, ox)
             depths.append(sample_depth)
             in_bs.append((ys + oy >= 0) & (ys + oy < h) & (xs + ox >= 0)
                          & (xs + ox < w))
@@ -636,7 +667,7 @@ def spatial_reuse(scene, g, view, frame, temporal_r, prev_spatial, reproj, *,
             occluded = torch.zeros_like(valid)
             for toy, tox, frac in steps:
                 ref_depth = depth + (sample_depth - depth) * float(frac)
-                occluded = occluded | (_roll2d(depth, toy, tox)
+                occluded = occluded | (_take2d(depth, toy, tox)
                                        > ref_depth + 1e-5)
             occs.append(occluded)
         q_planes = _pick(scramble_bits, packs, lambda m: m[:, None, :])

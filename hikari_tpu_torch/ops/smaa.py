@@ -27,6 +27,7 @@ import math
 import numpy as np
 import torch
 
+from hikari_tpu_torch.config import frame_parity
 from hikari_tpu_torch.ops import warp2 as _w2
 from hikari_tpu_torch.ops import warp_band as _wb
 from hikari_tpu_torch.ops._kernel import div
@@ -120,7 +121,7 @@ def smaa_tu4x(quads, prev_gbuf, prev_tone, tone, frame, render_size):
     rh, rw = render_size
     oh, ow = 2 * rh, 2 * rw
     dev = tone.device
-    even_frame = (frame["number"] & 1) == 0
+    even_frame = frame_parity(frame["number"]) == 0
     prev_j = 1 if even_frame else 0
 
     current_color = tone[..., :3]

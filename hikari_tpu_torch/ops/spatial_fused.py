@@ -17,8 +17,9 @@ pass) for one channel:
 
 The spiral rotates once per frame, so every pixel of a frame uses the same
 integer tap offsets. They are computed once per frame on the host in numpy
-float32, in the operation order of hikari_tpu's _tap_geometry and kernel,
-and handed to the kernel and to the plain version in the parameter vector:
+float32, in the operation order of hikari_tpu's _tap_geometry and kernel
+(tap_table), staged with the frame's device words (frame.frame_words) and
+handed to the kernel and to the plain version in the parameter vector:
 both use identical integers.
 """
 
@@ -30,8 +31,9 @@ import numpy as np
 import torch
 
 from hikari_tpu_torch.ops import reservoir as rsv
-from hikari_tpu_torch.ops._kernel import (bind, check, check_launch, div,
-                                          host_values, on_cpu, ptr, stream)
+from hikari_tpu_torch.ops._kernel import (bind, check, check_launch,
+                                          const_values, div, frame_value,
+                                          on_cpu, ptr, stream)
 from hikari_tpu_torch.ops.light_fused import (MAX_MATERIALS, _Surface, _dot,
                                               _lum, _rsqrt_n, _shade,
                                               material_ids, rsv_clamp,
@@ -144,19 +146,32 @@ def tap_offsets(count_taps: int, reuse_range: float, frame_number: int):
     return out
 
 
+def frame_taps(frame, emissive_lit: bool, device) -> torch.Tensor:
+    """This frame's tap_table of the channel on `device`: the frame's
+    device words (`taps_e`, `taps_i`; frame.frame_words), or a fresh copy
+    of the host's table (a caller outside the frame program)."""
+    count_taps, reuse_range = channel_taps(emissive_lit)
+    return frame_value(frame, "taps_e" if emissive_lit else "taps_i",
+                       lambda: tap_table(count_taps, reuse_range,
+                                         int(frame["number"])), device)
+
+
 def pack_params(scene, view, frame, emissive_lit: bool) -> torch.Tensor:
-    """[_S_COUNT] f32 parameter vector on the scene's device: one copy of
-    the host's values, the ambient colour and the camera position."""
+    """[_S_COUNT] f32 parameter vector on the scene's device, every word on
+    the device: the settings' values (a constant), the frame's taps
+    (frame_taps), zeros past them, the ambient colour and the camera
+    position."""
     dev = scene["ambient_color"].device
     life = frame["max_reservoir_lifetime"]
-    host = np.zeros(_S_AMB, np.float32)
-    host[_S_MAXLIFE] = F32_MAX if life <= 1.0 else life
-    host[_S_MAXCNT] = frame["max_spatial_reuse_count"]
-    count_taps, reuse_range = channel_taps(emissive_lit)
-    host[_S_TAPS:_S_TAPS + _TAP_STRIDE * count_taps] = tap_table(
-        count_taps, reuse_range, int(frame["number"])).reshape(-1)
-    return torch.cat([host_values(host, dev), scene["ambient_color"][:3],
-                      view["world_position"][:3]])
+    count_taps, _ = channel_taps(emissive_lit)
+    parts = [const_values([F32_MAX if life <= 1.0 else life,
+                           frame["max_spatial_reuse_count"]], dev),
+             frame_taps(frame, emissive_lit, dev).reshape(-1)]
+    if count_taps < MAX_TAPS:
+        parts.append(const_values(
+            np.zeros(_TAP_STRIDE * (MAX_TAPS - count_taps)), dev))
+    return torch.cat(parts + [scene["ambient_color"][:3],
+                              view["world_position"][:3]])
 
 
 def _shifted(x, oy, ox):

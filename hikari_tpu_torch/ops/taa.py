@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from hikari_tpu_torch.ops import warp_band as _wb
-from hikari_tpu_torch.ops._kernel import div, host_values
+from hikari_tpu_torch.ops._kernel import const_values, div
 from hikari_tpu_torch.ops.filters import resize_bilinear, shift_edge
 from hikari_tpu_torch.parallel import shard as _sh
 from hikari_tpu_torch.utils.math import (clip_towards_aabb_center,
@@ -146,4 +146,4 @@ def taa_jasmine(gbuf, prev_gbuf, prev_taa, current, frame, clear_color,
     out = prev_color + (current_color - prev_color) * blend
     out = torch.cat([out, alpha], -1)
     return torch.where(has_content[..., None], out,
-                       host_values(clear_color, dev))
+                       const_values(clear_color, dev))

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from hikari_tpu_torch.ops._kernel import host_values
+from hikari_tpu_torch.ops._kernel import const_values
 from hikari_tpu_torch.utils.math import reinhard_luminance
 
 
@@ -14,5 +14,5 @@ def tone_mapping(direct, emissive, indirect, clear_color):
     color = direct + emissive + indirect
     rgb = reinhard_luminance(torch.clamp(color[..., :3], min=0.0039))
     out = torch.cat([rgb, color[..., 3:4]], -1)
-    clear = host_values(clear_color, out.device)
+    clear = const_values(clear_color, out.device)
     return torch.where(color[..., 3:4] > 0.0, out, clear)

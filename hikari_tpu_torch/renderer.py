@@ -7,7 +7,19 @@ lighting with and without temporal reuse, scenes beyond the fused
 kernels' caps, such as the city, with their per-frame refit on the device
 or on the host, scenes of any emissive count, textured scenes, the
 post-overlay tail of bloom and FXAA, the tracer's `brute_force_max`, the
-per-pass dissection and PNG output)."""
+per-pass dissection and PNG output).
+
+On CUDA the frame and its post-overlay run as captured CUDA graphs
+(compiled.py), one per key of the frame's branches (frame.py
+`render_frame.key`), and so does the device refit: the counterpart of
+hikari_tpu's jitted frame (its carry donated), post-overlay and refit.
+Everything that changes from frame to frame reaches them through static
+device buffers (the view uniform, frame.frame_words, the transforms),
+written before each replay by one copy; the carry and the scene are
+written in place. `update_settings`, `update_scene(fast=False)`, `reset`
+and an assignment to `carry` drop the graphs: the next frame captures
+again. The CPU, a frame under a row mesh, the dissection and frames
+inside `compiled.eager()` run eagerly."""
 
 from __future__ import annotations
 
@@ -19,9 +31,13 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-from hikari_tpu_torch.camera import Camera, view_to_device
+from hikari_tpu_torch import compiled
+from hikari_tpu_torch.camera import (VIEW_WORDS, Camera, view_from_words,
+                                     view_words)
+from hikari_tpu_torch.compiled import eager  # noqa: F401 (the eager route)
 from hikari_tpu_torch.config import HikariSettings, make_frame_uniform
-from hikari_tpu_torch.frame import build_render_frame, init_carry
+from hikari_tpu_torch.frame import (FRAME_WORDS, build_render_frame,
+                                    frame_words, init_carry, with_words)
 from hikari_tpu_torch.models.refit_device import DeviceRefitter
 from hikari_tpu_torch.models.scene import GpuScene, Scene, upload
 from hikari_tpu_torch.ops.bloom import bloom
@@ -29,6 +45,7 @@ from hikari_tpu_torch.ops.fxaa import fxaa as fxaa_op
 from hikari_tpu_torch.ops.noise import noise_constant
 from hikari_tpu_torch.ops.post import overlay_compose
 from hikari_tpu_torch.ops.trace import make_tracer
+from hikari_tpu_torch.parallel import shard as _sh
 from hikari_tpu_torch.utils.image import save_png
 from hikari_tpu_torch.utils.math import reinhard_luminance
 
@@ -91,6 +108,14 @@ class Renderer:
         self._frame_fn = self._build()
         # the dissection's frame function, made at its first call
         self._debug_fn = None
+        # the static inputs: the view uniform and the frame's words
+        self._inputs = compiled.StaticInputs(VIEW_WORDS + FRAME_WORDS,
+                                             self.device)
+        self._view = view_from_words(self._inputs.dev[:VIEW_WORDS])
+        self._view_key = None
+        self._graphs = (compiled.Graphs(self.device)
+                        if self.device.type == "cuda" else None)
+        self.albedo = None
         self.reset()
 
     def _build(self, debug: bool = False):
@@ -100,15 +125,40 @@ class Renderer:
             num_emissives=self.gpu_scene.num_emissives,
             has_sun=self.gpu_scene.has_sun, debug=debug)
 
-    def _views(self):
-        """The camera's view uniform on the device, cached on the pose."""
+    def _view_words(self) -> np.ndarray:
+        """The camera's view uniform as words, cached on the pose."""
         cam = self.camera
         key = (cam.transform.tobytes(), cam.width, cam.height,
                cam.projection.fov_y, cam.projection.near)
-        if getattr(self, "_view_key", None) != key:
-            self._view = view_to_device(cam.view_uniform(), self.device)
+        if self._view_key != key:
+            self._view_np = view_words(cam.view_uniform())
             self._view_key = key
-        return self._view
+        return self._view_np
+
+    @property
+    def carry(self) -> dict:
+        """The frame carry: static tensors that each frame rewrites in
+        place. Assigning a new carry drops the graphs."""
+        return self._carry
+
+    @carry.setter
+    def carry(self, value: dict):
+        self._carry = value
+        self._drop_graphs()
+
+    def _drop_graphs(self):
+        if self._graphs is not None:
+            self._graphs.clear()
+
+    def _graphed(self) -> bool:
+        """The frame, post-overlay and refit replay graphs: on CUDA, outside
+        compiled.eager() and a row mesh."""
+        return (self._graphs is not None and not compiled.eager_active()
+                and _sh.active_mesh() is None)
+
+    def graph_keys(self) -> list:
+        """The keys of the captured graphs (frame keys and "refit")."""
+        return [] if self._graphs is None else self._graphs.keys()
 
     def reset(self):
         self.carry = init_carry(self.full_size, self.settings, self.device)
@@ -118,10 +168,12 @@ class Renderer:
     def update_settings(self, **changes):
         """Change settings; a change of a static-key field (the upscale
         mode and ratio among them) rebuilds the frame function and resets
-        the carry at the new sizes."""
+        the carry at the new sizes. Every change drops the graphs (the
+        settings' values are constants of a captured frame)."""
         old_key = self.settings.static_key()
         settings = dataclasses.replace(self.settings, **changes)
         self.settings = settings
+        self._drop_graphs()
         if settings.static_key() != old_key:
             self._frame_fn = self._build()
             self._debug_fn = None
@@ -140,7 +192,11 @@ class Renderer:
         SMALL_EMISSIVE_MAX emissives, since the device refit keeps the
         emissive BVH and the host refit rebuilds it in another leaf order
         (hikari_tpu's rule). The host refit re-uploads only the arrays it replaced, and kernel 13's
-        tables."""
+        tables. A fast update writes the scene's device tensors in place
+        (a captured frame keeps reading them; one whose size changed is
+        replaced, and the graphs dropped); the device refit reads the
+        transforms from a static buffer and, on CUDA, replays a graph of
+        its own. fast=False drops the graphs."""
         if not fast:
             gpu = scene.compile()
             self.gpu_scene = gpu
@@ -149,6 +205,7 @@ class Renderer:
             self._frame_fn = self._build()
             self._debug_fn = None
             self._refitter = None
+            self._drop_graphs()
             return
         visible = [i for i in scene.instances if i.visible]
         if len(visible) != self.gpu_scene.num_instances:
@@ -159,41 +216,90 @@ class Renderer:
             self.gpu_scene = self.gpu_scene.update_transforms(scene)
             fresh = {k: v for k, v in self.gpu_scene.arrays.items()
                      if old.get(k) is not v}
-            self.scene_dev = {**self.scene_dev, **upload(
-                {**fresh, **self.gpu_scene.kernel_tables()}, self.device)}
+            self._write_scene(upload(
+                {**fresh, **self.gpu_scene.kernel_tables()}, self.device))
             return
+        n = len(visible)
         if self._refitter is None:
             self._refitter = DeviceRefitter(self.gpu_scene, self.device)
-        mats = np.stack(
+            self._mats = compiled.StaticInputs(2 * n * 16, self.device)
+        self._mats.write(np.stack(
             [np.asarray(i.transform, np.float32) for i in visible]
             + [np.asarray(i.transform if i.prev_transform is None
                           else i.prev_transform, np.float32)
-               for i in visible])
-        mats = torch.from_numpy(mats).to(self.device)
-        n = len(visible)
-        self.scene_dev = {**self.scene_dev,
-                          **self._refitter.update(mats[:n], mats[n:])}
+               for i in visible]).reshape(-1))
+        mats = self._mats.dev.view(2 * n, 4, 4)
+
+        def refit(commit):
+            out = self._refitter.update(mats[:n], mats[n:])
+            if commit:
+                self._write_scene(out)
+
+        if self._graphed():
+            self._graphs.run("refit", refit)
+        else:
+            refit(True)
+
+    def _write_scene(self, tensors: dict):
+        """Writes updated scene tensors into the scene's device tensors in
+        place; a tensor whose size or dtype changed replaces the old one
+        and drops the graphs."""
+        for k, v in tensors.items():
+            dst = self.scene_dev.get(k)
+            if (dst is not None and dst.dtype == v.dtype
+                    and dst.numel() == v.numel()):
+                dst.copy_(v.reshape(dst.shape))
+            else:
+                self.scene_dev[k] = v
+                self._drop_graphs()
 
     def _frame_inputs(self):
-        """The view uniform and the frame uniform of the next frame; the
-        first frame seeds the previous view with the current one (zero
-        velocity)."""
-        view = self._views()
+        """Stages the view uniform and the frame's words of the next frame
+        into the static inputs (one copy) and returns (view, frame) over
+        them; the first frame seeds the previous view with the current one
+        (zero velocity)."""
+        n = self._frame_index
+        self._inputs.write(np.concatenate(
+            [self._view_words(), frame_words(self.settings, n)]))
+        view = self._view
         if not self._prev_view_initialized:
-            self.carry["prev_view_proj"] = view["view_proj"].clone()
-            self.carry["prev_inverse_view_proj"] = (
-                view["inverse_view_proj"].clone())
+            self.carry["prev_view_proj"].copy_(view["view_proj"])
+            self.carry["prev_inverse_view_proj"].copy_(
+                view["inverse_view_proj"])
             self._prev_view_initialized = True
-        return view, make_frame_uniform(self.settings, self._frame_index)
+        frame = with_words(make_frame_uniform(self.settings, n),
+                           self._inputs.dev[VIEW_WORDS:])
+        return view, frame
+
+    def _frame_program(self, view, frame, commit: bool):
+        """The frame and its post-overlay: (final image, albedo); with
+        `commit` the new carry is written into the carry's tensors in
+        place."""
+        image, albedo, carry = self._frame_fn(
+            self.scene_dev, view, frame, self.noise, self.carry)
+        if commit:
+            compiled.commit(self.carry, carry)
+        return self._post_overlay(image, albedo), albedo
+
+    def frame_key(self, number: int) -> tuple:
+        """The key of frame `number`: its branches (frame.py)."""
+        return self._frame_fn.key(number)
 
     def render_frame(self) -> torch.Tensor:
         """Render one frame; returns the final [H,W,4] image on the
-        device."""
+        device, a tensor of its own (on CUDA a clone of the graph's
+        output). `albedo` then holds the frame's [H,W,4] albedo (on CUDA
+        the graph's own output, which the next frame overwrites)."""
         view, frame = self._frame_inputs()
-        image, albedo, self.carry = self._frame_fn(
-            self.scene_dev, view, frame, self.noise, self.carry)
+        if self._graphed():
+            image, self.albedo = self._graphs.run(
+                self.frame_key(self._frame_index),
+                lambda commit: self._frame_program(view, frame, commit))
+            image = image.clone()
+        else:
+            image, self.albedo = self._frame_program(view, frame, True)
         self._frame_index += 1
-        return self._post_overlay(image, albedo)
+        return image
 
     def render_dissection(self, out_dir: Optional[str] = None) -> dict:
         """Render one frame through the debug frame (frame.py
@@ -208,8 +314,9 @@ class Renderer:
         if self._debug_fn is None:
             self._debug_fn = self._build(debug=True)
         view, frame = self._frame_inputs()
-        image, albedo, self.carry, dbg = self._debug_fn(
+        image, albedo, carry, dbg = self._debug_fn(
             self.scene_dev, view, frame, self.noise, self.carry)
+        compiled.commit(self.carry, carry)
         self._frame_index += 1
         dbg = {k: v.cpu().numpy() for k, v in dbg.items()}
         dbg["final"] = self._post_overlay(image, albedo).cpu().numpy()
@@ -280,6 +387,7 @@ class Renderer:
         with open(path, "rb") as f:
             state = pickle.load(f)
         self.carry = _tree_map(
-            lambda v: torch.as_tensor(v, device=self.device), state["carry"])
+            lambda v: torch.as_tensor(v, device=self.device).clone(),
+            state["carry"])
         self._frame_index = state["frame_index"]
         self._prev_view_initialized = True

@@ -199,23 +199,34 @@ def test_renderer_host_refit_matches_device_refit_image():
     assert np.abs(a - b).max() < 5e-2, np.abs(a - b).max()
 
 
-def test_host_refit_uploads_only_what_moved():
-    """The Renderer's host refit reuses the device tensors of every array
-    the refit did not replace and uploads the rest and kernel 13's
-    tables."""
+def test_host_refit_uploads_only_what_moved(monkeypatch):
+    """The Renderer's host refit uploads only the arrays the refit
+    replaced and kernel 13's tables, and writes them into the scene's
+    device tensors in place (a captured frame keeps reading them): every
+    device tensor stays the same object, the moved ones holding the
+    refit's arrays."""
+    from hikari_tpu_torch import renderer as renderer_mod
+
     sc = build_city_lamps("hikari_tpu_torch")
     cam = ht.Camera.from_look_at((0, 2.5, 20), (0, 0, 0), width=16,
                                  height=12, hdr=True)
     r = ht.Renderer(sc, cam, ht.HikariSettings(), device="cpu")
     before = dict(r.scene_dev)
+    uploaded, real_upload = set(), renderer_mod.upload
+
+    def spy(arrays, device):
+        uploaded.update(arrays)
+        return real_upload(arrays, device)
+
+    monkeypatch.setattr(renderer_mod, "upload", spy)
     r.update_scene(city_module("hikari_tpu_torch").rotate_sphere(sc, 0.1),
                    fast=True)
-    kept = {k for k in before if r.scene_dev[k] is before[k]}
+    assert all(r.scene_dev[k] is before[k] for k in before)
     for k in ("atlas", "mat_packed", "alias_packed", "tri_uv"):
-        assert k in kept
+        assert k not in uploaded
     for k in ("tri_pos_flat", "bvh_packed", "em_bvh_packed", "em_packed",
               *walk_tables.TABLE_KEYS):
-        assert k not in kept
+        assert k in uploaded
         np.testing.assert_array_equal(
             r.scene_dev[k].numpy(),
             {**r.gpu_scene.arrays, **r.gpu_scene.tables}[k], err_msg=k)

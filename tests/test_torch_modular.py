@@ -29,6 +29,7 @@ from hikari_tpu.ops import sampling as sampling_ref
 from hikari_tpu.ops import trace_pallas as tp_ref
 from hikari_tpu.ops.trace import hit_info_onehot
 import hikari_tpu_torch as ht
+from hikari_tpu_torch.camera import view_to_device
 from hikari_tpu_torch.ops import restir, sampling
 from hikari_tpu_torch.ops.trace import make_tracer
 from tests.cornell_box import EYE, TARGET, build_cornell_box
@@ -104,7 +105,7 @@ def inputs(sun: bool):
     r = ht.Renderer(box("hikari_tpu_torch", sun), cam, settings, device="cpu")
     from hikari_tpu_torch.ops import prepass_fused as pf
 
-    view = r._views()
+    view = view_to_device(cam.view_uniform(), "cpu")
     gbuf, _ = pf.prepass_fused(r.scene_dev, view, view, (0.0, 0.0),
                                r.full_size)
     g = {k: v.numpy() for k, v in gbuf.items()}
