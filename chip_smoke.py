@@ -162,9 +162,27 @@ Run from the repository root on a machine with an NVIDIA H100:
    of its frame number, a replayed frame launching nothing from Python;
    it prints each path's eager and replayed frame medians and IQRs, host
    times and capture times (with --profile the replayed frames' device
-   time and idle share of D, the city and F) in one line. Every check and
-   timed path before it runs its frames eagerly, inside
-   compiled.eager();
+   time and idle share of D, the city and F) in one line. Then, in the
+   same lockstep: the retunes (paths D and the city: every key captured,
+   then each dynamic field retuned by update_settings on both renderers,
+   both validation intervals so that old and new keys cross, the solar
+   angle, the indirect clamp, the clear colour, both reuse caps and the
+   lifetime, two frames after each: words equal, the graphs, carry and
+   frame index kept, no key captured again; the first replayed frame
+   after each retune timed beside a capture); the untimed settings
+   replayed (the box's upscale settings, the city without temporal reuse,
+   the tap scramble, check U's brute_force_max 4096 and 0, FXAA: every
+   key once and two frames more, words equal); the dissection replayed
+   (path G's render_dissection until every key has come twice: planes,
+   final image and carry equal; dissection_ms replayed beside eager);
+   path SM replayed (the sharded frame over NCCL, one graph per key on
+   every rank, against the eager sharded frames in lockstep until every
+   key has come twice, rank 0's frames against the single card's, word
+   for word; on a machine with one card over a one-rank NCCL mesh, since
+   path SM's gloo ranks run eagerly by rule: its islands' all-gathers are
+   captured there, the halo exchange only with two or more cards). Every
+   check and timed path before it runs its frames eagerly, inside
+   compiled.eager(), path SM's ranks too;
 14. prints frame_ms_1080p, frame_ms_reuse, frame_ms_spatial,
    frame_ms_smaa2, frame_ms_default, frame_ms_ckb, frame_ms_ckb_reuse,
    frame_ms_city with city_refit_ms, frame_ms_city_lamps with
@@ -200,8 +218,8 @@ temporary directory the script removes at its end.
 
 With --profile it also prints a torch.profiler table of device time by
 kernel over two frames of each path. With --ab it only times the frames of
-the eleven paths (P and D alternately; CL and M among them) before any
-check or profiler session,
+paths P and D (alternately), no-reuse, R, S, K, KR, the city, CL, T and M
+before any check or profiler session,
 then checks and times kernels 8, C, 11 and 12 on path D's calls, C on a
 synthetic 1080p field, kernel 4 on R's, S's (1080p) and D's (960x540)
 calls with and without the validation retrace, kernel B on the no-reuse
@@ -1845,8 +1863,8 @@ def texture_ab(ht):
 
 
 def ab_only(ht, build_box):
-    """--ab: first the frames of the eleven paths (P and D alternately,
-    frame by frame; then no-reuse, R, S, K, KR, the city, CL, T and M,
+    """--ab: first the frames of paths P and D (alternately, frame by
+    frame), then no-reuse, R, S, K, KR, the city, CL, T and M (eleven paths,
     each with its launch counts checked), before any check or profiler
     session; then
     kernels 8, C, 11 and 12 checked against their plain versions and timed
@@ -3449,6 +3467,30 @@ def check_scene(ht):
     return extra
 
 
+def box_upscale_cases(ht):
+    """The box's upscale settings beyond SMAA 2.0: {name: (settings, size,
+    small render size)} (check_box_upscale; replayed in the compiled
+    check)."""
+    return {
+        "fsr1_1.5": (flagship_settings(ht, upscale=ht.Upscale.fsr1(1.5)),
+                     FULL, SMALL),
+        "smaa_1.0": (dataclasses.replace(
+            ht.HikariSettings(), upscale=ht.Upscale.smaa_tu4x(1.0)), FULL,
+            SMALL),
+        "smaa_1.5": (dataclasses.replace(
+            ht.HikariSettings(), upscale=ht.Upscale.smaa_tu4x(1.5)), FULL,
+            SMALL),
+        "odd_2.0": (ht.HikariSettings(), ODD, (47, 63)),
+        "ckb_smaa_2.0": (flagship_settings(
+            ht, taa=ht.Taa.JASMINE, upscale=ht.Upscale.smaa_tu4x(2.0),
+            checkerboard_lighting=True), FULL, SMALL),
+        # the small render's width 66 keeps its render width (44) even
+        "ckb_fsr1_1.5": (flagship_settings(
+            ht, taa=ht.Taa.JASMINE, upscale=ht.Upscale.fsr1(1.5),
+            checkerboard_lighting=True), FULL, (48, 66)),
+    }
+
+
 def check_box_upscale(ht, build_box):
     """The box at 1080p on the upscale settings beyond SMAA 2.0, three
     frames each with the camera panning, every kernel call of the last two
@@ -3471,24 +3513,7 @@ def check_box_upscale(ht, build_box):
     from hikari_tpu_torch.ops import warp2 as w2
     from hikari_tpu_torch.ops import warp_band as wb
 
-    cases = {
-        "fsr1_1.5": (flagship_settings(ht, upscale=ht.Upscale.fsr1(1.5)),
-                     FULL, SMALL),
-        "smaa_1.0": (dataclasses.replace(
-            ht.HikariSettings(), upscale=ht.Upscale.smaa_tu4x(1.0)), FULL,
-            SMALL),
-        "smaa_1.5": (dataclasses.replace(
-            ht.HikariSettings(), upscale=ht.Upscale.smaa_tu4x(1.5)), FULL,
-            SMALL),
-        "odd_2.0": (ht.HikariSettings(), ODD, (47, 63)),
-        "ckb_smaa_2.0": (flagship_settings(
-            ht, taa=ht.Taa.JASMINE, upscale=ht.Upscale.smaa_tu4x(2.0),
-            checkerboard_lighting=True), FULL, SMALL),
-        # the small render's width 66 keeps its render width (44) even
-        "ckb_fsr1_1.5": (flagship_settings(
-            ht, taa=ht.Taa.JASMINE, upscale=ht.Upscale.fsr1(1.5),
-            checkerboard_lighting=True), FULL, (48, 66)),
-    }
+    cases = box_upscale_cases(ht)
     for name, (settings, size, small) in cases.items():
         caps = [Capture(pf, "prepass_kernel"),
                 Capture(pf, "prepass_quads_kernel"),
@@ -4517,8 +4542,9 @@ def island_calls(calls):
 
 class WireBytes:
     """Counts the bytes a rank receives by the port's collectives while
-    installed: all_gather (every rank's block) and point-to-point halo
-    receives."""
+    installed: all_gather and all_gather_into_tensor (every rank's block)
+    and point-to-point halo receives. Calls only: a replayed graph's
+    collectives are counted at its capture."""
 
     def __init__(self):
         import torch.distributed as dist
@@ -4529,10 +4555,15 @@ class WireBytes:
     def __enter__(self):
         dist = self.dist
         self.all_gather, self.batch = dist.all_gather, dist.batch_isend_irecv
+        self.into = dist.all_gather_into_tensor
 
         def all_gather(parts, t, *a, **k):
             self.gathered += sum(p.numel() * p.element_size() for p in parts)
             return self.all_gather(parts, t, *a, **k)
+
+        def into(out, t, *a, **k):
+            self.gathered += out.numel() * out.element_size()
+            return self.into(out, t, *a, **k)
 
         def batch(ops):
             self.halo += sum(o.tensor.numel() * o.tensor.element_size()
@@ -4540,11 +4571,13 @@ class WireBytes:
             return self.batch(ops)
 
         dist.all_gather, dist.batch_isend_irecv = all_gather, batch
+        dist.all_gather_into_tensor = into
         return self
 
     def __exit__(self, *exc):
         self.dist.all_gather = self.all_gather
         self.dist.batch_isend_irecv = self.batch
+        self.dist.all_gather_into_tensor = self.into
 
 
 def sharded_frames(fn, state, settings, first, frames, mesh, times=None):
@@ -4739,7 +4772,10 @@ def sm_rank(rank, n, backend, devices, store, out_dir):
         mesh = make_mesh(n, device=None if backend == "nccl" else dev)
         if mesh.device != dev:
             fail(f"rank {rank} on {mesh.device}, expected {dev}")
-        result, runs = sm_rank_work(ht, mesh)
+        # the eager sharded frame (sharded_replay holds the replayed one
+        # against it)
+        with ht.renderer.eager():
+            result, runs = sm_rank_work(ht, mesh)
         dist.barrier(device_ids=[dev.index] if backend == "nccl" else None)
     finally:
         dist.destroy_process_group()
@@ -4762,7 +4798,14 @@ def sharded_path(ht, card):
     how = ("one rank per card over NCCL" if backend == "nccl" else
            f"{n} ranks on one card over gloo, collectives staged through "
            "the host")
-    print(f"path SM: {n} ranks ({how}) on {devices}")
+    # the frames here run eagerly (sm_rank); over NCCL sharded_replay holds
+    # the captured graphs against them
+    route = ("eager here; replayed as captured graphs in path SM replayed"
+             if backend == "nccl" else
+             "eager by rule: gloo stages CUDA tensors through the host, "
+             "which no CUDA graph can capture (path SM replayed runs a "
+             "one-rank NCCL mesh instead)")
+    print(f"path SM: {n} ranks ({how}) on {devices}; {route}")
     out_dir = work_dir("sm")
     os.makedirs(out_dir, exist_ok=True)
     t0 = time.perf_counter()
@@ -4778,7 +4821,8 @@ def sharded_path(ht, card):
     times = res[0]["times"]
     return {"frame_ms_minimal_sharded": float(np.median(times)),
             "reps_ms": times, "ranks": n, "backend": backend,
-            "placement": how, "devices": devices, "card": card,
+            "placement": how, "route": route, "devices": devices,
+            "card": card,
             "gathered_bytes_per_frame": res[0]["gathered_bytes_per_frame"],
             "halo_bytes_per_frame": res[0]["halo_bytes_per_frame"],
             "launches_per_rank": [dict(zip(COUNTERS, r["counts"]))
@@ -4786,6 +4830,162 @@ def sharded_path(ht, card):
             "sb_launches_per_rank": [r["sb_counts"] for r in res],
             "minimal_triangles": 14}, [
                 sum(col) for col in zip(*(r["counts"] for r in res))]
+
+
+# ---------------------------------------------------------------------------
+# path SM replayed: the sharded frame's captured graphs over NCCL
+# ---------------------------------------------------------------------------
+
+def sm_replay_work(ht, mesh):
+    """Path SM's sharded frame (shard_frame over `mesh`) from one fresh
+    state twice in lockstep, inside compiled.eager() and replayed (one
+    graph per frame key on every rank), until every key has come twice:
+    the image, the albedo and every carry tensor equal word for word on
+    this rank. Returns (record, the replayed run for compare_single_card:
+    (name, scene_of, camera, settings, outputs, final carry))."""
+    from hikari_tpu_torch import compiled
+    from hikari_tpu_torch.config import make_frame_uniform
+    from hikari_tpu_torch.examples import minimal
+
+    label = f"rank {mesh.rank}"
+    settings = minimal.settings()
+    cam = minimal_camera(ht)
+    fn_e, (scene_e, view_e, noise_e, carry_e) = sharded_program(
+        ht, minimal.build_scene, cam, settings, mesh)
+    fn_c, (scene_c, view_c, noise_c, carry_c) = sharded_program(
+        ht, minimal.build_scene, cam, settings, mesh)
+    period = 2 * settings.direct_validate_interval \
+        * settings.emissive_validate_interval
+    keys = {fn_c.frame_fn.key(make_frame_uniform(settings, n))
+            for n in range(period)}
+    seen, outs, t_e, t_c, t_cap = {}, [], [], [], []
+    i = 0
+    while any(seen.get(k, 0) < 2 for k in keys):
+        frame = make_frame_uniform(settings, i)
+        k = fn_c.frame_fn.key(frame)
+        seen[k] = seen.get(k, 0) + 1
+        t = time.perf_counter()
+        with compiled.eager():
+            img_e, alb_e, carry_e = fn_e(scene_e, view_e, frame, noise_e,
+                                         carry_e)
+        torch.cuda.synchronize()
+        de = (time.perf_counter() - t) * 1e3
+        before = len(fn_c.graph_keys())
+        t = time.perf_counter()
+        img_c, alb_c, carry_c = fn_c(scene_c, view_c, frame, noise_c,
+                                     carry_c)
+        torch.cuda.synchronize()
+        dc = (time.perf_counter() - t) * 1e3
+        pairs = [("image", img_e, img_c), ("albedo", alb_e, alb_c)]
+        ce, cc = carry_leaves(carry_e), carry_leaves(carry_c)
+        pairs += [(f"carry {k}", ce[k], cc[k]) for k in ce]
+        for what, a, b in pairs:
+            if not same_words(a, b):
+                fail(f"path SM replayed {label}: frame {i} {what} differs "
+                     "from the eager sharded frame's words")
+        if len(fn_c.graph_keys()) > before:
+            t_cap.append(dc)
+        else:
+            t_e.append(de)
+            t_c.append(dc)
+        outs.append((img_c, alb_c))
+        i += 1
+    if sorted(map(str, fn_c.graph_keys())) != sorted(map(str, keys)):
+        fail(f"path SM replayed {label}: captured {fn_c.graph_keys()}, "
+             f"keys {keys}")
+    rec = {"frames": i, "keys": len(keys),
+           "replay_ms": float(np.median(t_c)), "eager_ms": float(np.median(t_e)),
+           "replay_reps_ms": t_c, "eager_reps_ms": t_e,
+           "capture_ms": float(np.median(t_cap))}
+    print(f"path SM replayed {label}: {i} frames, {len(keys)} keys, words "
+          f"equal to the eager sharded frames; replayed "
+          f"{rec['replay_ms']:.3f} ms, eager {rec['eager_ms']:.3f} ms, "
+          f"capture {rec['capture_ms']:.1f} ms")
+    return rec, ("SM replayed", minimal.build_scene, cam, settings, outs,
+                 carry_c)
+
+
+def sm_replay_rank(rank, n, devices, store, out_dir):
+    """One rank of the replayed path SM over NCCL (spawned): joins the
+    process group, runs sm_replay_work, rank 0 then compares the replayed
+    frames with the single card's, and writes its result to
+    out_dir/rank<r>.json."""
+    import datetime
+
+    import torch.distributed as dist
+
+    sys.path.insert(0, HERE)
+    import hikari_tpu_torch as ht
+    from hikari_tpu_torch.parallel import make_mesh
+
+    dev = torch.device(devices[rank])
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method="file://" + store,
+                            rank=rank, world_size=n,
+                            timeout=datetime.timedelta(seconds=SM_TIMEOUT_S))
+    try:
+        mesh = make_mesh(n)
+        if mesh.device != dev:
+            fail(f"rank {rank} on {mesh.device}, expected {dev}")
+        result, run = sm_replay_work(ht, mesh)
+        dist.barrier(device_ids=[dev.index])
+    finally:
+        dist.destroy_process_group()
+    if rank == 0:
+        compare_single_card(ht, [run], dev)
+        result["single_card_equal"] = True
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(result, f)
+
+
+def sharded_replay(ht, card):
+    """Path SM replayed (sm_replay_rank, one spawned process a rank): over
+    NCCL on every card when there are several; on a machine with one card
+    path SM runs two gloo ranks, whose frames run eagerly by rule (gloo
+    stages CUDA tensors through the host, which no graph can capture), so
+    the sharded frame replays over a one-rank NCCL mesh on that card
+    instead: its islands' NCCL all-gathers are captured, its halo exchange
+    (none with one rank) only with two or more cards. Returns the SM
+    replayed line's record."""
+    import torch.multiprocessing as mp
+
+    n, backend, devices = sharded_layout()
+    if backend == "nccl":
+        how = f"{n} ranks, one a card over NCCL: all-gathers and halo " \
+              "exchanges captured"
+    else:
+        n, devices = 1, devices[:1]
+        how = ("a one-rank NCCL mesh on the one card (path SM's two gloo "
+               "ranks run eagerly by rule: gloo stages CUDA tensors through "
+               "the host, which no graph can capture); its islands' NCCL "
+               "all-gathers are captured, the halo exchange only with two "
+               "or more cards")
+    print(f"path SM replayed: {how}")
+    out_dir = work_dir("sm_replay")
+    os.makedirs(out_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    mp.spawn(sm_replay_rank, args=(n, devices, work_dir("sm_replay_store"),
+                                   out_dir), nprocs=n, join=True)
+    res = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            res.append(json.load(f))
+    if not res[0].get("single_card_equal"):
+        fail("path SM replayed was not compared with the single card")
+    rec = {"frame_ms_minimal_sharded_replayed": res[0]["replay_ms"],
+           "frame_ms_minimal_sharded_eager": res[0]["eager_ms"],
+           "replay_reps_ms": res[0]["replay_reps_ms"],
+           "eager_reps_ms": res[0]["eager_reps_ms"],
+           "capture_ms": res[0]["capture_ms"], "frames": res[0]["frames"],
+           "keys": res[0]["keys"], "ranks": n, "devices": devices,
+           "placement": how, "seconds": time.perf_counter() - t0,
+           "card": card}
+    print(f"path SM replayed: {rec['frames']} frames on every rank equal "
+          "to the eager sharded frames and rank 0's to the single card's, "
+          f"word for word; frame_ms_minimal_sharded replayed "
+          f"{rec['frame_ms_minimal_sharded_replayed']:.3f} ms beside eager "
+          f"{rec['frame_ms_minimal_sharded_eager']:.3f} ms ({n} ranks)")
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -4862,15 +5062,16 @@ def compiled_case(ht, build_box, name):
             launches)
 
 
-def compiled_frames(r):
+def compiled_frames(r, times=2):
     """The fewest frames 0.. in which every key of r's frame program
-    comes at least twice (its keys repeat every 30 frames at most: the
-    parity, the validate intervals 3 and 5)."""
+    comes at least `times` times (its keys repeat every 30 frames at
+    most: the parity, the validate intervals 3 and 5), and the number of
+    keys."""
     period = 2 * r.settings.direct_validate_interval \
         * r.settings.emissive_validate_interval
     keys = {r.frame_key(n) for n in range(period)}
     seen, n = {}, 0
-    while any(seen.get(k, 0) < 2 for k in keys):
+    while any(seen.get(k, 0) < times for k in keys):
         k = r.frame_key(n)
         seen[k] = seen.get(k, 0) + 1
         n += 1
@@ -5012,13 +5213,239 @@ def compiled_path(ht, build_box, name, profile):
     return rec
 
 
+def replay_equal(name, i, r_e, r_c, out_e, out_c):
+    """Fails unless frame i's outputs of the eager renderer r_e and the
+    replayed r_c hold the same words: the image (or a dissection's planes
+    and final image), the albedo and every carry tensor."""
+    if isinstance(out_e, dict):
+        pairs = [(f"plane {k}", torch.from_numpy(np.ascontiguousarray(v)),
+                  torch.from_numpy(np.ascontiguousarray(out_c[k])))
+                 for k, v in out_e.items()]
+        if set(out_e) != set(out_c):
+            fail(f"{name}: frame {i} planes {sorted(out_c)}, eager "
+                 f"{sorted(out_e)}")
+    else:
+        pairs = [("image", out_e, out_c), ("albedo", r_e.albedo, r_c.albedo)]
+    ce, cc = carry_leaves(r_e.carry), carry_leaves(r_c.carry)
+    if set(ce) != set(cc):
+        fail(f"{name}: carries of other keys")
+    pairs += [(f"carry {k}", ce[k], cc[k]) for k in ce]
+    for what, a, b in pairs:
+        if not same_words(a, b):
+            fail(f"{name}: frame {i} {what} differs from the eager frame's "
+                 "words")
+
+
+def lockstep_frame(name, pair, cam, step, i, render="render_frame"):
+    """Frame i of a (eager, replayed) pair of (renderer, host scene): the
+    camera cam(i), step(renderer, host scene, i) first (if any), then
+    `render` on the first inside compiled.eager() and on the second
+    replayed; their words equal (replay_equal). Returns (eager ms,
+    replayed ms, the keys the replayed frame captured)."""
+    import hikari_tpu_torch as ht
+
+    (r_e, sc_e), (r_c, sc_c) = pair
+    r_e.camera = r_c.camera = cam(i)
+    t = time.perf_counter()
+    with ht.renderer.eager():
+        if step is not None:
+            step(r_e, sc_e, i)
+        out_e = getattr(r_e, render)()
+    torch.cuda.synchronize()
+    dt_e = (time.perf_counter() - t) * 1e3
+    before = len(r_c.graph_keys())
+    t = time.perf_counter()
+    if step is not None:
+        step(r_c, sc_c, i)
+    out_c = getattr(r_c, render)()
+    torch.cuda.synchronize()
+    dt_c = (time.perf_counter() - t) * 1e3
+    replay_equal(name, i, r_e, r_c, out_e, out_c)
+    return dt_e, dt_c, r_c.graph_keys()[before:]
+
+
+# the retune phase: each dynamic field in turn (both validation intervals
+# so that old and new keys cross), applied to both renderers before a
+# frame, RETUNE_FRAMES frames apart, after every key of the old intervals
+# has been captured
+RETUNES = (("emissive_validate_interval", 3), ("direct_validate_interval", 2),
+           ("solar_angle", 0.2), ("max_indirect_luminance", 2.0),
+           ("clear_color", (0.1, 0.2, 0.3, 1.0)),
+           ("max_temporal_reuse_count", 20), ("max_spatial_reuse_count", 300),
+           ("max_reservoir_lifetime", 4.0))
+RETUNE_FRAMES = 2
+# the paths retuned: D (the fused kernels) and the city (the modular path,
+# a sun and emissives: both intervals pick branches)
+RETUNED_PATHS = ("D", "city")
+
+
+def retune_path(ht, build_box, name):
+    """Path `name` eager and replayed in lockstep (lockstep_frame) until
+    every key of its frame program has been captured, then each field of
+    RETUNES retuned by update_settings on both renderers with
+    RETUNE_FRAMES frames after it: every frame's words equal; each retune
+    keeps the frame index, the carry's tensors and every captured graph,
+    and captures no key that was already captured. Returns the record:
+    frames, keys, captures after the retunes, the median of the first
+    replayed frame after each retune beside the median capture and
+    replayed frame."""
+    make, cam, step, _ = compiled_case(ht, build_box, name)
+    pair = (make(), make())
+    r_c = pair[1][0]
+    first, n_keys = compiled_frames(r_c, times=1)
+    t_capture, t_replay, t_retuned, late = [], [], [], []
+    for i in range(first):
+        _, dt, new = lockstep_frame(f"retune {name}", pair, cam, step, i)
+        (t_capture if new else t_replay).append(dt)
+    captured = r_c.graph_keys()
+    i = first
+    for field, value in RETUNES:
+        index = r_c._frame_index
+        ptrs = {k: v.data_ptr() for k, v in carry_leaves(r_c.carry).items()}
+        keys = r_c.graph_keys()
+        for r, _ in pair:
+            r.update_settings(**{field: value})
+        if (r_c._frame_index != index or r_c.graph_keys() != keys
+                or {k: v.data_ptr() for k, v in carry_leaves(
+                    r_c.carry).items()} != ptrs):
+            fail(f"retune {name}: update_settings({field}=...) dropped the "
+                 "graphs, the carry or the frame index")
+        for j in range(RETUNE_FRAMES):
+            _, dt, new = lockstep_frame(f"retune {name} ({field})", pair,
+                                        cam, step, i)
+            stale = [k for k in new if k in captured]
+            if stale:
+                fail(f"retune {name}: frame {i} captured {stale} again")
+            late += [str(k) for k in new]
+            (t_retuned if j == 0 else t_replay).append(dt)
+            i += 1
+    rec = {"path": name, "frames": i, "keys": n_keys,
+           "retuned": [f for f, _ in RETUNES],
+           "captures_after_retunes": late,
+           "retuned_ms": float(np.median(t_retuned)),
+           "retuned_reps_ms": t_retuned,
+           "replay_ms": float(np.median(t_replay)),
+           "capture_ms": float(np.median(t_capture))}
+    print(f"compiled retune {name}: {i} frames, {n_keys} keys captured "
+          f"before the retunes of {', '.join(rec['retuned'])}; every frame "
+          f"equal to the eager frame word for word; {len(late)} captures "
+          f"after the retunes {late}; retuned frame {rec['retuned_ms']:.3f} "
+          f"ms (replayed {rec['replay_ms']:.3f}, capture "
+          f"{rec['capture_ms']:.1f})")
+    del pair, r_c
+    torch.cuda.empty_cache()
+    return rec
+
+
+def untimed_cases(ht, build_box):
+    """The settings of the untimed checks, for replaying: [(name, make()
+    -> ((renderer, None), (renderer, None)) factory, camera(i))]: the box's
+    upscale settings (box_upscale_cases), the city without temporal reuse,
+    the box with the tap scramble, check U's city at brute_force_max=4096
+    (960x540, universal-off) and box at brute_force_max=0, and the box at
+    HikariSettings() with FXAA."""
+    from hikari_tpu_torch.examples import city
+
+    box = load_box_module()
+    cases = []
+
+    def box_case(name, settings, size, **kw):
+        step = PAN_PX * 2.0 * 3.2 * np.tan(np.pi / 8.0) / size[0]
+        cases.append((name, lambda: ht.Renderer(build_box(), panned(
+            ht, box.EYE, box.TARGET, size, 0, step), settings, **kw),
+            lambda i: panned(ht, box.EYE, box.TARGET, size, i, step)))
+
+    for name, (settings, size, _) in box_upscale_cases(ht).items():
+        box_case(name, settings, size)
+    cases.append((
+        "city no temporal reuse",
+        lambda: ht.Renderer(city.build_scene(3), city_camera(ht, FULL),
+                            dataclasses.replace(ht.HikariSettings(),
+                                                temporal_reuse=False)),
+        lambda i: panned(ht, CITY_EYE, CITY_TARGET, FULL, i, COMPILED_PAN,
+                         hdr=True)))
+    box_case("scramble", dataclasses.replace(ht.HikariSettings(),
+                                             spatial_tap_scramble=True), FULL)
+    uni = ht.HikariUniversalSettings(build_mesh_acceleration_structure=False)
+    cases.append((
+        "U brute_force_max=4096",
+        lambda: ht.Renderer(city.build_scene(3).compile(uni),
+                            city_camera(ht, U_SIZE), ht.HikariSettings(),
+                            brute_force_max=4096),
+        lambda i: panned(ht, CITY_EYE, CITY_TARGET, U_SIZE, i, COMPILED_PAN,
+                         hdr=True)))
+    box_case("U brute_force_max=0", ht.HikariSettings(), FULL,
+             brute_force_max=0)
+    box_case("FXAA", ht.HikariSettings(), FULL, fxaa=True)
+    return cases
+
+
+def untimed_replays(ht, build_box):
+    """Each of untimed_cases eager and replayed in lockstep until every
+    key has come once, then 2 frames more: every frame's words equal.
+    Returns {name: [frames, keys]}."""
+    out = {}
+    for name, make, cam in untimed_cases(ht, build_box):
+        pair = ((make(), None), (make(), None))
+        frames, n_keys = compiled_frames(pair[1][0], times=1)
+        for i in range(frames + 2):
+            lockstep_frame(f"replayed {name}", pair, cam, None, i)
+        out[name] = [frames + 2, n_keys]
+        print(f"compiled {name}: {frames + 2} frames, {n_keys} keys, words "
+              "equal to the eager frames")
+        del pair
+        torch.cuda.empty_cache()
+    return out
+
+
+def dissection_replay(ht, build_box):
+    """Path G's render_dissection eager and replayed in lockstep until
+    every key of its debug frame has come twice: every dissection's planes,
+    final image and carry equal word for word. Returns the record: the
+    eager and replayed dissection_ms medians (dissections without a
+    capture) and the capture times."""
+    make, cam, _, _ = compiled_case(ht, build_box, "G")
+    pair = (make(), make())
+    frames, n_keys = compiled_frames(pair[1][0])
+    t_e, t_c, t_cap = [], [], []
+    for i in range(frames):
+        de, dc, new = lockstep_frame("dissection G", pair, cam, None, i,
+                                     render="render_dissection")
+        if new:
+            t_cap.append(dc)
+        else:
+            t_e.append(de)
+            t_c.append(dc)
+    rec = {"frames": frames, "keys": n_keys,
+           "graphs": [str(k) for k in pair[1][0].graph_keys()],
+           "dissection_ms_eager": float(np.median(t_e)),
+           "dissection_ms_replayed": float(np.median(t_c)),
+           "eager_reps_ms": t_e, "replayed_reps_ms": t_c,
+           "capture_ms": float(np.median(t_cap))}
+    print(f"compiled dissection G: {frames} dissections, {n_keys} keys, "
+          f"planes and carry equal to the eager ones word for word; "
+          f"dissection_ms replayed {rec['dissection_ms_replayed']:.2f} "
+          f"beside eager {rec['dissection_ms_eager']:.2f} (capture "
+          f"{rec['capture_ms']:.1f})")
+    del pair
+    torch.cuda.empty_cache()
+    return rec
+
+
+
 def compiled_check(ht, build_box, card, profile):
-    """compiled_path over COMPILED_PATHS; prints and returns their
-    records."""
+    """compiled_path over COMPILED_PATHS, retune_path over RETUNED_PATHS,
+    untimed_replays, dissection_replay and sharded_replay (path SM
+    replayed); prints and returns their records."""
     t0 = time.perf_counter()
     recs = [compiled_path(ht, build_box, name, profile)
             for name in COMPILED_PATHS]
-    out = {"compiled_frame": recs, "card": card,
+    retunes = [retune_path(ht, build_box, name) for name in RETUNED_PATHS]
+    untimed = untimed_replays(ht, build_box)
+    dissection = dissection_replay(ht, build_box)
+    sharded = sharded_replay(ht, card)
+    out = {"compiled_frame": recs, "retune": retunes, "untimed": untimed,
+           "dissection": dissection, "sharded": sharded, "card": card,
            "seconds": time.perf_counter() - t0}
     print(json.dumps(out))
     return out
@@ -5030,7 +5457,9 @@ def main():
                     help="also print device time by kernel over 2 frames "
                     "of each path")
     ap.add_argument("--ab", action="store_true",
-                    help="only time the frames of the eleven paths, then "
+                    help="only time the frames of paths P and D "
+                    "(alternately), no-reuse, R, S, K, KR, the city, CL, T "
+                    "and M, then "
                     "check and time kernels 8, C, 11 and 12 on path D's "
                     "calls, 4 and B on R's, S's, D's, the no-reuse "
                     "frame's, P's and K's, 9 on R's, S's, D's, KR's and "
@@ -5042,12 +5471,14 @@ def main():
                     "and no ok line")
     ap.add_argument("--sharded", action="store_true",
                     help="only build the kernels and run path SM and check "
-                    "SB (the row-sharded frame over every card); prints "
-                    "its line and no ok line")
+                    "SB (the row-sharded frame over every card), then path "
+                    "SM replayed; prints their lines and no ok line")
     ap.add_argument("--compiled", action="store_true",
                     help="only build the kernels and run the compiled-frame "
                     "check (every single-card path's replayed frames against "
-                    "its eager frames); prints its line and no ok line")
+                    "its eager frames, the retunes, the untimed settings, "
+                    "the dissection and path SM replayed); prints its line "
+                    "and no ok line")
     ap.add_argument("--ab-summary", nargs="+", metavar="FILE",
                     help="summarise the --ab lines of FILEs, one per tree "
                     "(medians, interquartile ranges; runs on any host)")
@@ -5102,6 +5533,7 @@ def run(args):
     write_cornell_asset()
     if args.sharded:
         print(json.dumps(sharded_path(ht, card)[0]))
+        print(json.dumps(sharded_replay(ht, card)))
         return 0
     if args.compiled:
         compiled_check(ht, build_box, card, args.profile)
@@ -5261,6 +5693,18 @@ def run(args):
     print(json.dumps({"compiled_frame_ms": {
         rec["path"]: [rec[c] for c in cols]
         for rec in compiled["compiled_frame"]}, "columns": cols,
+        "card": card}))
+    print(json.dumps({
+        "retuned_frame_ms": {rec["path"]: [rec["retuned_ms"],
+                                           rec["capture_ms"]]
+                             for rec in compiled["retune"]},
+        "retuned_columns": ("retuned_ms", "capture_ms"),
+        "dissection_ms_replayed":
+            compiled["dissection"]["dissection_ms_replayed"],
+        "dissection_ms_eager": compiled["dissection"]["dissection_ms_eager"],
+        "frame_ms_minimal_sharded_replayed":
+            compiled["sharded"]["frame_ms_minimal_sharded_replayed"],
+        "sharded_replayed_ranks": compiled["sharded"]["ranks"],
         "card": card}))
     print(json.dumps({"kernel_off_path": hit_record}))
     print(json.dumps({"light_instances": instances,

@@ -1,11 +1,13 @@
-"""The compiled frame: what the jit of the frame, of the post-overlay and
-of the device refit is to hikari_tpu's Renderer, as captured CUDA graphs
-for the port's Renderer.
+"""The compiled frame: what the jit of the frame, of the post-overlay, of
+the debug frame and of the device refit is to hikari_tpu's Renderer, and
+the jit of the sharded frame to its parallel/mesh.py, as captured CUDA
+graphs for the port's Renderer and parallel/mesh.py ShardedFrame.
 
-* `StaticInputs`: the frame's per-frame values in one pinned staging
-  buffer and one device buffer, written before each frame by one
-  host-to-device copy; the captured frame reads the device buffer, so a
-  replay serves any frame number, camera pose or transform.
+* `StaticInputs`: the frame's per-frame values (and the settings'
+  dynamic values) in one pinned staging buffer and one device buffer,
+  written before each frame by one host-to-device copy; the captured
+  frame reads the device buffer, so a replay serves any frame number,
+  camera pose, transform or retune of a dynamic setting.
 * `Graphs`: one CUDA graph per key (the frame's branches, frame.py
   `render_frame.key`; the refit), captured at the key's first use after a
   warm-up run on a side stream, all in one shared memory pool, then
@@ -102,10 +104,15 @@ class Graphs:
         with torch.cuda.stream(side):
             program(False)
         current.wait_stream(side)
+        # the warm-up's work (its collectives too) done before the capture
+        torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
         ctx = (self.capture_context() if self.capture_context is not None
                else contextlib.nullcontext())
-        with ctx, torch.cuda.graph(graph, pool=self.pool):
+        # "thread_local": other threads (such as a sharded frame's NCCL
+        # watchdog) may call CUDA while this thread captures
+        with ctx, torch.cuda.graph(graph, pool=self.pool,
+                                   capture_error_mode="thread_local"):
             out = program(True)
         return graph, out
 

@@ -2,11 +2,12 @@
 
 Fields that pick pipeline structure (taa, upscale, denoise, reuse toggles,
 bounce count) are static: they select which passes the frame runs. Numeric
-knobs ride the per-frame uniform dict (`make_frame_uniform`), which here is
-plain Python scalars that stay the same from frame to frame, and the frame
-number, which picks the frame's branches (`frame_parity`, `validates`)
-only: the values that change with it reach the frame as device words
-(frame.frame_words).
+knobs ride the per-frame uniform dict (`make_frame_uniform`), here plain
+Python scalars. The frame reads them as device words (frame.frame_words):
+the settings' dynamic values (`dynamic_values`), so a retune changes words
+and no operation, and what changes with the frame number. The number and
+the validation intervals pick the frame's branches (`frame_parity`,
+`validates`) only.
 """
 
 from __future__ import annotations
@@ -150,6 +151,51 @@ def validates(frame_number: int, interval: int) -> bool:
     """A validation frame of a channel validated every `interval` frames
     (light.wgsl's frame % interval == 0; a branch of the frame)."""
     return int(frame_number) % max(int(interval), 1) == 0
+
+
+# the settings' dynamic values as the frame reads them: name -> (offset,
+# words) in the block of the frame's device words that carries them
+# (frame.frame_words), each derived on the host from the frame uniform by
+# dynamic_values, so that a retune reaches a captured frame as new words
+DYNAMIC_LAYOUT = {"cos_solar": (0, 1), "max_indirect_luminance": (1, 1),
+                  "temporal_cap": (2, 1), "spatial_caps": (3, 2),
+                  "clear_color": (5, 4)}
+DYNAMIC_WORDS = 9
+_F32_MAX = np.finfo(np.float32).max
+
+
+def dynamic_values(frame: dict, name: str) -> np.ndarray:
+    """The float32 words of one dynamic value of DYNAMIC_LAYOUT, from the
+    frame uniform's entries: cos(solar angle) in float32; the indirect
+    luminance clamp; the temporal reuse cap min(count, 1e30); the spatial
+    pair (the lifetime limit, F32_MAX for a lifetime <= 1, which never
+    expires, and the spatial reuse cap); the clear colour. A branch on a
+    value is taken here, on the host."""
+    f = np.float32
+    if name == "cos_solar":
+        v = [np.cos(f(frame["solar_angle"]))]
+    elif name == "max_indirect_luminance":
+        v = [frame["max_indirect_luminance"]]
+    elif name == "temporal_cap":
+        v = [min(f(frame.get("max_temporal_reuse_count", 0.0)), f(1e30))]
+    elif name == "spatial_caps":
+        life = frame["max_reservoir_lifetime"]
+        v = [_F32_MAX if life <= 1.0 else life,
+             frame["max_spatial_reuse_count"]]
+    elif name == "clear_color":
+        v = list(frame["clear_color"])
+    else:
+        raise KeyError(name)
+    return np.asarray(v, np.float32)
+
+
+def dynamic_words(frame: dict) -> np.ndarray:
+    """[DYNAMIC_WORDS] float32 words of every dynamic value, in
+    DYNAMIC_LAYOUT's order."""
+    out = np.zeros(DYNAMIC_WORDS, np.float32)
+    for name, (at, n) in DYNAMIC_LAYOUT.items():
+        out[at:at + n] = dynamic_values(frame, name)
+    return out
 
 
 def make_frame_uniform(settings: HikariSettings, frame_number: int) -> dict:

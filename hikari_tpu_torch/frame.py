@@ -74,7 +74,8 @@ import math
 import numpy as np
 import torch
 
-from hikari_tpu_torch.config import (HikariSettings, Taa, UpscaleMode,
+from hikari_tpu_torch.config import (DYNAMIC_WORDS, HikariSettings, Taa,
+                                     UpscaleMode, dynamic_words,
                                      frame_parity, validates)
 from hikari_tpu_torch.ops import checkerboard as ckb_ops
 from hikari_tpu_torch.ops import light_fused as _lf
@@ -82,6 +83,7 @@ from hikari_tpu_torch.ops import prepass_fused as _pf
 from hikari_tpu_torch.ops import reservoir as rsv
 from hikari_tpu_torch.ops import restir
 from hikari_tpu_torch.ops import spatial_fused as _sf
+from hikari_tpu_torch.ops._kernel import dynamic
 from hikari_tpu_torch.ops.denoise import denoise_channels
 from hikari_tpu_torch.ops.noise import (frame_advance, noise_index,
                                         sample_blue_noise)
@@ -103,21 +105,27 @@ PREV_GBUFFER_KEYS = ("position", "normal", "instance_material",
                      "velocity_uv")
 
 
-# the frame's words (frame_words): what changes from frame to frame, on the
-# device, so that one captured frame (renderer.py) serves every number
+# the frame's words (frame_words): what changes from frame to frame or with
+# a retune of the settings, on the device, so that one captured frame
+# (renderer.py) serves every number and every value of the dynamic settings
 W_JITTER = 0      # the camera's sub-pixel jitter x, y (prepass.frame_jitter)
 W_ADVANCE = 2     # frame * GOLDEN_RATIO (noise.frame_advance)
 W_NOISE = 3       # the blue noise's texture and shift (noise.noise_index)
 W_TAPS_E = 8      # the emissive channel's spiral taps (spatial_fused.
 #                   tap_table: 8 rows), then the indirect channel's (16)
 W_TAPS_I = W_TAPS_E + 8 * _sf._TAP_STRIDE
-FRAME_WORDS = W_TAPS_I + 16 * _sf._TAP_STRIDE
+W_DYNAMIC = W_TAPS_I + 16 * _sf._TAP_STRIDE   # config.DYNAMIC_LAYOUT
+FRAME_WORDS = W_DYNAMIC + DYNAMIC_WORDS
 
 
-def frame_words(settings: HikariSettings, number: int) -> np.ndarray:
-    """[FRAME_WORDS] float32 host words of frame `number`: the jitter, the
-    advance, the noise's texture and shift, and the spiral taps of the
-    spatial channels the settings track (zeros otherwise)."""
+def frame_words(settings: HikariSettings, frame: dict) -> np.ndarray:
+    """[FRAME_WORDS] float32 host words of the frame uniform `frame`
+    (config.make_frame_uniform): from its number the jitter, the advance,
+    the noise's texture and shift, and the spiral taps of the spatial
+    channels the settings track (zeros otherwise); from its entries the
+    settings' dynamic values (config.dynamic_words). `settings` gives the
+    static fields only."""
+    number = frame["number"]
     w = np.zeros(FRAME_WORDS, np.float32)
     w[W_JITTER:W_JITTER + 2] = frame_jitter(number, settings.taa,
                                             settings.upscale.mode)
@@ -129,6 +137,7 @@ def frame_words(settings: HikariSettings, number: int) -> np.ndarray:
             n, reuse_range = _sf.channel_taps(lit)
             w[at:at + n * _sf._TAP_STRIDE] = _sf.tap_table(
                 n, reuse_range, number).reshape(-1)
+    w[W_DYNAMIC:] = dynamic_words(frame)
     return w
 
 
@@ -136,14 +145,15 @@ def with_words(frame: dict, words: torch.Tensor) -> dict:
     """The frame dict with its device words (`words`, [FRAME_WORDS] float32
     on the device) and views of them under the names the ops read:
     jitter [2], advance [1], noise_index [2], taps_e [8, 18], taps_i
-    [16, 18]."""
+    [16, 18], dynamic [DYNAMIC_WORDS] (read through _kernel.dynamic)."""
     stride = _sf._TAP_STRIDE
     return {**frame, "words": words,
             "jitter": words[W_JITTER:W_JITTER + 2],
             "advance": words[W_ADVANCE:W_ADVANCE + 1],
             "noise_index": words[W_NOISE:W_NOISE + 2],
             "taps_e": words[W_TAPS_E:W_TAPS_I].view(-1, stride),
-            "taps_i": words[W_TAPS_I:FRAME_WORDS].view(-1, stride)}
+            "taps_i": words[W_TAPS_I:W_DYNAMIC].view(-1, stride),
+            "dynamic": words[W_DYNAMIC:FRAME_WORDS]}
 
 
 def scaled_size(full_size, ratio: float):
@@ -349,12 +359,14 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
     tracer (ops/trace.py), which serves the non-fused prepass and the
     modular lighting path.
 
-    render_frame reads what changes from frame to frame from the frame
-    dict's device words (with_words; fresh ones from frame["number"] when
-    it has none) and takes Python branches on the frame number only where
-    render_frame.key(number) says: frames of one key dispatch the same
-    operations, so one captured CUDA graph per key (renderer.py) serves
-    them all.
+    render_frame reads what changes from frame to frame, and the settings'
+    dynamic values, from the frame dict's device words (with_words; fresh
+    ones from the frame's entries when it has none, render_frame.words)
+    and takes Python branches on the frame number and the validation
+    intervals only where render_frame.key(frame) says: frames of one key
+    dispatch the same operations, so one captured CUDA graph per key
+    (renderer.py, parallel/mesh.py) serves them all, whatever the number
+    and the dynamic values.
 
     debug=True (the per-pass dissection, hikari_tpu/frame.py:610-627):
     the lighting takes the modular path and the spatial passes the
@@ -530,30 +542,38 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         return {slot: (bf[..., 5 * i:5 * i + 4], bf[..., 5 * i + 4])
                 for i, slot in enumerate(lit)}
 
-    # the frame number picks these branches only (the values that change
-    # with it are the frame's device words): the parity of the decimation,
-    # the deferred lookup, SMAA and the checkerboard, and each traced
-    # channel's validation (hikari_tpu's lax.cond)
+    # the frame number and the frame's validation intervals pick these
+    # branches only (the values are the frame's device words): the parity
+    # of the decimation, the deferred lookup, SMAA and the checkerboard,
+    # and each traced channel's validation (hikari_tpu's lax.cond)
     uses_parity = (ckb or _smaa(settings)
                    or not (ratio == 1.0 and tuple(render_size) == full_size))
     validating = any_active and (reuse if use_fused
                                  else modular and (reuse or track_de))
 
-    def key(number: int) -> tuple:
-        """The frame's branches: (parity, direct validation, emissive
-        validation), None where the configuration takes no such branch.
-        Frames of one key run the same launches on the same shapes."""
+    def key(frame: dict) -> tuple:
+        """The branches of the frame uniform `frame`: (parity, direct
+        validation, emissive validation), None where the configuration
+        takes no such branch, from the frame's own number and intervals by
+        the calls the frame makes (config.frame_parity, validates). Frames
+        of one key run the same launches on the same shapes."""
+        number = frame["number"]
         return (frame_parity(number) if uses_parity else None,
-                validates(number, settings.direct_validate_interval)
+                validates(number, frame["direct_validate_interval"])
                 if validating and has_sun else None,
-                validates(number, settings.emissive_validate_interval)
+                validates(number, frame["emissive_validate_interval"])
                 if validating and num_emissives > 0 else None)
+
+    def words(frame: dict) -> np.ndarray:
+        """The frame's device words for the frame uniform `frame` (to
+        stage before a replay)."""
+        return frame_words(settings, frame)
 
     def render_frame(scene, view, frame, noise, carry):
         if "words" not in frame:
             # a caller outside the frame program: fresh device words
-            frame = with_words(frame, torch.from_numpy(frame_words(
-                settings, frame["number"])).to(noise.device))
+            frame = with_words(frame, torch.from_numpy(
+                words(frame)).to(noise.device))
         prev_view = {"view_proj": carry["prev_view_proj"],
                      "inverse_view_proj": carry["prev_inverse_view_proj"]}
         number = frame["number"]
@@ -716,7 +736,7 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
                 i_render = outs.get("i", i_render)
 
         tone = tone_mapping(d_render, e_render, i_render,
-                            frame["clear_color"])
+                            dynamic(frame, "clear_color", dev))
         image, post_carry = post_chain(gbuf, carry, tone, frame, settings,
                                        full_size, render_size, smaa_quads)
         new_carry.update(post_carry)
@@ -737,4 +757,5 @@ def build_render_frame(settings: HikariSettings, full_size, scene, tracer,
         return image, albedo, new_carry
 
     render_frame.key = key
+    render_frame.words = words
     return render_frame

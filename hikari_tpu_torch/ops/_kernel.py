@@ -9,6 +9,8 @@ import ctypes
 import numpy as np
 import torch
 
+from hikari_tpu_torch.config import DYNAMIC_LAYOUT, dynamic_values
+
 
 def on_cpu(t: torch.Tensor) -> bool:
     """True for a CPU tensor (the plain version runs), False for a CUDA
@@ -113,12 +115,32 @@ def host_values(values, device) -> torch.Tensor:
     return t.to(device)
 
 
+def values_on(values, device) -> torch.Tensor:
+    """`values` as a float32 tensor on `device`: a tensor (such as one of
+    the frame's device words) as it is, host values as a fresh vector
+    (host_values)."""
+    return values if torch.is_tensor(values) else host_values(values, device)
+
+
 def frame_value(frame, key: str, make, device) -> torch.Tensor:
     """frame[key], one of the frame's device words (frame.with_words);
     for a frame dict without them (a caller outside the frame program)
     a fresh vector of make()'s host values."""
     t = frame.get(key)
     return host_values(make(), device) if t is None else t
+
+
+def dynamic(frame, name: str, device) -> torch.Tensor:
+    """The settings' dynamic value `name` (config.DYNAMIC_LAYOUT) as a
+    [words] float32 tensor: a view of the frame's device words
+    (frame.with_words), which a retune rewrites; for a frame dict without
+    them (a caller outside the frame program) fresh host values from the
+    frame's entries (config.dynamic_values)."""
+    words = frame.get("dynamic")
+    if words is None:
+        return host_values(dynamic_values(frame, name), device)
+    at, n = DYNAMIC_LAYOUT[name]
+    return words[at:at + n]
 
 
 # {(values, device): tensor}, for the life of the process: a captured
@@ -128,9 +150,12 @@ _CONSTS = {}
 
 def const_values(values, device) -> torch.Tensor:
     """A float32 vector of host values that stay the same from frame to
-    frame (a setting, a size), made once per values and device and then
-    shared: the compiled frame's warm-up makes it, its capture reads it.
-    A first use under a graph capture raises."""
+    frame, made once per values and device and then shared: the compiled
+    frame's warm-up makes it, its capture reads it. A first use under a
+    graph capture raises. The frame asks it only for values fixed by its
+    settings key and sizes (sizes, offsets, the validation flags of its
+    key; the settings' dynamic values are frame words, `dynamic`), so the
+    cache stays bounded however often the settings are retuned."""
     values = np.asarray(values, np.float32)
     dev = torch.device(device)
     if dev.type == "cuda" and dev.index is None:

@@ -32,8 +32,9 @@ from hikari_tpu_torch import build as _build
 from hikari_tpu_torch.config import validates
 from hikari_tpu_torch.ops import reservoir as rsv
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch,
-                                          const_values, div, exp2, f32,
-                                          frame_value, on_cpu, stream)
+                                          const_values, div, dynamic,
+                                          exp2, f32, frame_value, on_cpu,
+                                          stream)
 from hikari_tpu_torch.ops.noise import frame_advance
 from hikari_tpu_torch.ops.trace_pallas import (DISTANCE_MAX, shadow_sweep,
                                                trace_full_sweep)
@@ -103,24 +104,22 @@ def pack_params(scene, view, frame, n_em: int, has_sun: bool = True,
                 temporal: bool = True) -> torch.Tensor:
     """[228] f32 parameter vector on the scene's device, every word on the
     device: the scene's and the view's tensors, the frame's advance (its
-    device word `advance`), and constants of the settings and of the
-    frame's branch (the validation flags, zeros without temporal reuse,
-    which reads none)."""
+    device word `advance`), the settings' dynamic values (the frame's
+    words: cos(solar angle), the indirect clamp, the temporal cap) and
+    constants of the frame's branch (the validation flags, zeros without
+    temporal reuse, which reads none)."""
     dev = scene["dir_to_light"].device
-    cos_solar = np.cos(np.float32(frame["solar_angle"]))
     adv = frame_value(frame, "advance",
                       lambda: [frame_advance(frame["number"])], dev)
-    maxcnt = min(np.float32(frame.get("max_temporal_reuse_count", 0.0)),
-                 np.float32(1e30))
     flags = (validation_flags(frame, has_sun, n_em) if temporal
              else (0.0, 0.0))
     val = const_values(list(flags) + [0.0, 0.0], dev)
     head = torch.cat([
         scene["dir_to_light"][:3], scene["dir_color"][:3],
-        scene["ambient_color"][:3], const_values([cos_solar], dev),
+        scene["ambient_color"][:3], dynamic(frame, "cos_solar", dev),
         view["world_position"][:3],
-        const_values([frame["max_indirect_luminance"]], dev), adv.reshape(1),
-        const_values([maxcnt], dev)])
+        dynamic(frame, "max_indirect_luminance", dev), adv.reshape(1),
+        dynamic(frame, "temporal_cap", dev)])
     em = torch.zeros(_P_ALIAS - _P_EM, dtype=torch.float32, device=dev)
     alias = torch.zeros(_P_VAL - _P_ALIAS, dtype=torch.float32, device=dev)
     if n_em > 0:

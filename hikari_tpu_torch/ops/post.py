@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from hikari_tpu_torch.config import HikariSettings, Taa, UpscaleMode
+from hikari_tpu_torch.ops._kernel import dynamic
 from hikari_tpu_torch.ops.filters import resize_bilinear
 from hikari_tpu_torch.ops.fsr import easu, rcas
 from hikari_tpu_torch.ops.smaa import smaa_tu4x
@@ -46,7 +47,7 @@ def post_chain(gbuf, carry, tone, frame, settings: HikariSettings,
         post_carry["prev_tone"] = tone
     if settings.taa == Taa.JASMINE:
         cur = taa_jasmine(gbuf, carry["prev_gbuffer"], carry["prev_taa"], cur,
-                          frame, frame["clear_color"],
+                          frame, dynamic(frame, "clear_color", cur.device),
                           post_sizes(settings, render_size))
         post_carry["prev_taa"] = cur
     if settings.upscale.mode == UpscaleMode.FSR1:

@@ -29,7 +29,7 @@ from hikari_tpu_torch.config import frame_parity, validates
 from hikari_tpu_torch.ops import checkerboard as ckb_ops
 from hikari_tpu_torch.ops import reservoir as rsv
 from hikari_tpu_torch.ops import spatial_fused as _sf
-from hikari_tpu_torch.ops._kernel import div, f32, frame_value
+from hikari_tpu_torch.ops._kernel import div, dynamic, frame_value
 from hikari_tpu_torch.ops.noise import frame_advance
 from hikari_tpu_torch.ops.sampling import (RAY_BIAS, occlude_hit_info,
                                            select_light_candidate)
@@ -185,9 +185,10 @@ def emissive_surface_channel(scene, g, no_texture: bool, render_size,
 # the modular lighting channels (light.wgsl:1045-1498)
 # ---------------------------------------------------------------------------
 
-def cos_solar(frame) -> float:
-    """cos(solar angle) as float32 on the host."""
-    return f32(np.cos(np.float32(frame["solar_angle"])))
+def cos_solar(frame, device) -> torch.Tensor:
+    """cos(solar angle) in float32, [1] on `device` (the frame's dynamic
+    word)."""
+    return dynamic(frame, "cos_solar", device)
 
 
 def make_sample_from_gbuffer(g, noise_rand, render_size):
@@ -224,7 +225,7 @@ def _trace_radiance(scene, tracer, cand, info, ro, rd, trace_ok, frame,
         scene, rd, info["instance"], info["material"], info["uv"],
         sample_directional=directional,
         sample_emissive=cand["emissive_instance"], sample_ambient=False,
-        cos_solar=cos_solar(frame), no_texture=no_texture)
+        cos_solar=cos_solar(frame, rd.device), no_texture=no_texture)
     return torch.where(trace_ok[:, None], rad, 0.0), info
 
 
@@ -266,7 +267,7 @@ def direct_lit(scene, tracer, g, view, frame, noise_rand, prev_r, *,
     nrm_f = _flat(s["visible_normal"])
     rand_f = _flat(s["random"])
     inst_f = _flat(s["visible_instance"])
-    cs = cos_solar(frame)
+    cs = cos_solar(frame, depth.device)
 
     # this frame's candidate
     cand, info = select_light_candidate(scene, tracer, rand_f, pos_f, nrm_f,
@@ -315,7 +316,8 @@ def direct_lit(scene, tracer, g, view, frame, noise_rand, prev_r, *,
     w_new = _unflat(w_new, render_size)
     gate = valid & (r["count"] < VALIDATION_COUNT_THRESHOLD) \
         if is_validation else valid
-    r = rsv.temporal_restir(r, s, w_new, frame["max_temporal_reuse_count"],
+    r = rsv.temporal_restir(r, s, w_new,
+                            dynamic(frame, "temporal_cap", depth.device),
                             gate)
 
     if is_validation and temporal_reuse:
@@ -409,8 +411,8 @@ def indirect_lit_ambient(scene, tracer, g, view, frame, noise_rand, prev_r,
     pdf = torch.zeros((n_pix,), device=dev)
     alive = torch.ones((n_pix,), dtype=torch.bool, device=dev)
     amb = scene["ambient_color"][:3]
-    max_ind = frame["max_indirect_luminance"]
-    cs = cos_solar(frame)
+    max_ind = dynamic(frame, "max_indirect_luminance", dev)
+    cs = cos_solar(frame, dev)
     # frame_number * GOLDEN_RATIO in float32 (restir.py:608): the frame's
     # device word
     advance = frame_value(frame, "advance",
@@ -514,8 +516,8 @@ def indirect_lit_ambient(scene, tracer, g, view, frame, noise_rand, prev_r,
         prev_spatial = rsv.scatter_reservoir_planes(
             prev_spatial, reproj["piy"], reproj["pix"], r,
             ~reproj_ok & reproj["in_loose"] & valid)
-    r = rsv.temporal_restir(r, s, w_new, frame["max_temporal_reuse_count"],
-                            valid)
+    r = rsv.temporal_restir(r, s, w_new,
+                            dynamic(frame, "temporal_cap", dev), valid)
     out_rad = shading(scene, view_dir, r["visible_normal"], normalize(
         r["sample_position"][..., :3] - r["visible_position"][..., :3]),
         surface, r["radiance"])
@@ -634,9 +636,9 @@ def spatial_reuse(scene, g, view, frame, temporal_r, prev_spatial, reproj, *,
     use_spatial_variance = q0["count"] <= SPATIAL_VARIANCE_SAMPLE_THRESHOLD
     prev_sp = rsv.gather_reservoir_planes(prev_spatial, reproj["piy"],
                                           reproj["pix"], reproj["in_strict"])
-    life = frame["max_reservoir_lifetime"]
-    max_life = F32_MAX if life <= 1.0 else life
-    r = rsv.where_reservoir(q0["lifetime"] <= max_life, prev_sp, q0)
+    # the lifetime limit (F32_MAX for a lifetime <= 1) and the spatial cap
+    caps = dynamic(frame, "spatial_caps", dev)
+    r = rsv.where_reservoir(q0["lifetime"] <= caps[0:1], prev_sp, q0)
 
     def shade(l_dir, radiance):
         return shading(scene, view_dir, s["visible_normal"], l_dir, surface,
@@ -689,7 +691,7 @@ def spatial_reuse(scene, g, view, frame, temporal_r, prev_spatial, reproj, *,
             mw = div(luminance(shade(sample_dir, q["radiance"])), jac)
         r = rsv.merge_reservoir(r, q, mw, ok & valid)
 
-    r = rsv.clamp_reservoir(r, frame["max_spatial_reuse_count"])
+    r = rsv.clamp_reservoir(r, caps[1:2])
     out_rad = shade(normalize(r["sample_position"][..., :3] - s_vp),
                     r["radiance"])
     r = rsv.finalize_w(r, luminance(r["radiance"]) if emissive_lit

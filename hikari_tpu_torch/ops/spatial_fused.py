@@ -32,14 +32,14 @@ import torch
 
 from hikari_tpu_torch.ops import reservoir as rsv
 from hikari_tpu_torch.ops._kernel import (bind, check, check_launch,
-                                          const_values, div, frame_value,
-                                          on_cpu, ptr, stream)
+                                          const_values, div, dynamic,
+                                          frame_value, on_cpu, ptr, stream)
 from hikari_tpu_torch.ops.light_fused import (MAX_MATERIALS, _Surface, _dot,
                                               _lum, _rsqrt_n, _shade,
                                               material_ids, rsv_clamp,
                                               rsv_variance)
-from hikari_tpu_torch.utils.math import (F32_EPSILON, F32_MAX, GOLDEN_RATIO,
-                                         TAU, random_float)
+from hikari_tpu_torch.utils.math import (F32_EPSILON, GOLDEN_RATIO, TAU,
+                                         random_float)
 
 # light.wgsl:1505-1515 constants
 SPATIAL_TAPS = 4
@@ -158,14 +158,12 @@ def frame_taps(frame, emissive_lit: bool, device) -> torch.Tensor:
 
 def pack_params(scene, view, frame, emissive_lit: bool) -> torch.Tensor:
     """[_S_COUNT] f32 parameter vector on the scene's device, every word on
-    the device: the settings' values (a constant), the frame's taps
-    (frame_taps), zeros past them, the ambient colour and the camera
-    position."""
+    the device: the settings' lifetime limit and spatial cap (the frame's
+    dynamic words), the frame's taps (frame_taps), zeros past them, the
+    ambient colour and the camera position."""
     dev = scene["ambient_color"].device
-    life = frame["max_reservoir_lifetime"]
     count_taps, _ = channel_taps(emissive_lit)
-    parts = [const_values([F32_MAX if life <= 1.0 else life,
-                           frame["max_spatial_reuse_count"]], dev),
+    parts = [dynamic(frame, "spatial_caps", dev),
              frame_taps(frame, emissive_lit, dev).reshape(-1)]
     if count_taps < MAX_TAPS:
         parts.append(const_values(

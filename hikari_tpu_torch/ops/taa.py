@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from hikari_tpu_torch.ops import warp_band as _wb
-from hikari_tpu_torch.ops._kernel import const_values, div
+from hikari_tpu_torch.ops._kernel import div, values_on
 from hikari_tpu_torch.ops.filters import resize_bilinear, shift_edge
 from hikari_tpu_torch.parallel import shard as _sh
 from hikari_tpu_torch.utils.math import (clip_towards_aabb_center,
@@ -79,7 +79,8 @@ def taa_jasmine(gbuf, prev_gbuf, prev_taa, current, frame, clear_color,
                 size):
     """current: this frame's input at `size`; prev_taa: last frame's
     output. gbuf / prev_gbuf are full-res; `size` is the working
-    (post-SMAA) size."""
+    (post-SMAA) size; clear_color: 4 values, or the frame's 4 device
+    words."""
     h, w = size
     dev = current.device
     pos = _resample_to(gbuf["position"], size)
@@ -146,4 +147,4 @@ def taa_jasmine(gbuf, prev_gbuf, prev_taa, current, frame, clear_color,
     out = prev_color + (current_color - prev_color) * blend
     out = torch.cat([out, alpha], -1)
     return torch.where(has_content[..., None], out,
-                       const_values(clear_color, dev))
+                       values_on(clear_color, dev))

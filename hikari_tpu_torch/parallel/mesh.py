@@ -10,6 +10,13 @@ rank's rows as islands (parallel/shard.py), whose outputs are gathered
 back into whole tensors. So `shard_frame` returns the same image, albedo
 and carry on every rank.
 
+On CUDA over NCCL the frame `shard_frame` returns replays one captured
+CUDA graph per frame key on every rank, the islands' collectives inside
+it: the counterpart of hikari_tpu's `jax.jit` of the sharded frame
+(`ShardedFrame`). Under gloo (the CPU, or several ranks on one card) it
+runs eagerly by rule: gloo stages CUDA tensors through the host, which no
+graph can capture.
+
 The caller starts the processes and initialises the default process
 group (`torch.distributed.init_process_group`, with NCCL for one card per
 rank, gloo on the CPU or for several ranks on one card), then:
@@ -25,6 +32,7 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from hikari_tpu_torch import compiled
 from hikari_tpu_torch.parallel.shard import RowMesh, row_mesh
 
 
@@ -68,20 +76,86 @@ def replicated(mesh: RowMesh, tree):
     return tree
 
 
+class ShardedFrame:
+    """The sharded frame (what shard_frame returns as its function):
+    fn(scene, view, frame, noise, carry) -> (image, albedo, carry), whole
+    on every rank, frame_fn (frame.build_render_frame's function) run
+    under row_mesh(mesh).
+
+    Its inputs are static tensors (the arguments shard_frame returns): a
+    scene, view, noise or carry leaf the caller passes that is not the
+    static one is copied in. The frame uniform's words (frame_fn.words:
+    what changes with its number, the settings' dynamic values) are
+    staged into compiled.StaticInputs, one copy a frame. On CUDA over
+    NCCL, outside compiled.eager(), every rank then replays the graph of
+    the frame's key (frame_fn.key), captured at the key's first use
+    through compiled.Graphs (a warm-up on a side stream, whose
+    collectives make NCCL's communicator, then the capture); every rank
+    meets the same keys in the same order, so the collectives inside the
+    graphs pair up. Otherwise (gloo, the CPU, compiled.eager()) the frame
+    runs eagerly. Either way the new carry is written into the static
+    carry (compiled.commit), which is returned: a caller that passes it
+    back costs no copy, as hikari_tpu's donated carry. The image and the
+    albedo returned are tensors of their own."""
+
+    def __init__(self, frame_fn, mesh: RowMesh, scene, view, noise, carry):
+        from hikari_tpu_torch.frame import FRAME_WORDS
+
+        self.frame_fn, self.mesh = frame_fn, mesh
+        self.scene, self.view, self.noise = scene, view, noise
+        self.carry = carry
+        self._words = compiled.StaticInputs(FRAME_WORDS, mesh.device)
+        captured = mesh.device.type == "cuda" and mesh.backend == "nccl"
+        self._graphs = compiled.Graphs(mesh.device) if captured else None
+
+    def graphed(self) -> bool:
+        """Frames replay graphs: NCCL on CUDA, outside compiled.eager()."""
+        return self._graphs is not None and not compiled.eager_active()
+
+    def graph_keys(self) -> list:
+        return [] if self._graphs is None else self._graphs.keys()
+
+    def __call__(self, scene, view, frame, noise, carry):
+        from hikari_tpu_torch.frame import with_words
+
+        for static, given in ((self.scene, scene), (self.view, view),
+                              (self.noise, noise), (self.carry, carry)):
+            if given is not static:
+                compiled.commit(static, given)
+        self._words.write(self.frame_fn.words(frame))
+        staged = with_words(frame, self._words.dev)
+
+        def program(commit: bool):
+            with row_mesh(self.mesh):
+                image, albedo, new = self.frame_fn(
+                    self.scene, self.view, staged, self.noise, self.carry)
+            if commit:
+                compiled.commit(self.carry, new)
+            return image, albedo
+
+        if self.graphed():
+            image, albedo = self._graphs.run(self.frame_fn.key(frame),
+                                             program)
+            image, albedo = image.clone(), albedo.clone()
+        else:
+            image, albedo = program(True)
+        return image, albedo, self.carry
+
+
 def shard_frame(frame_fn, mesh: RowMesh, scene, view, frame, noise, carry,
                 row_sizes=None):
     """The frame function with its kernels row-sharded over the mesh.
 
     Returns (fn, args): args are the inputs on the mesh's device (all of
-    them on every rank, the carry too); fn(*args) runs frame_fn under
-    row_mesh(mesh) and returns (image, albedo, carry), whole on every
-    rank. row_sizes (hikari_tpu's rows to shard the carries by) is
-    accepted for the same call and unused: the port keeps the carries
-    whole."""
+    them on every rank, the carry too), fn a ShardedFrame over them:
+    fn(*args), or fn(scene, view, frame uniform, noise, carry) for the
+    next frame, runs frame_fn under row_mesh(mesh) and returns (image,
+    albedo, carry), whole on every rank; on CUDA over NCCL as captured
+    graphs, one per frame key (gloo runs eagerly by rule). row_sizes
+    (hikari_tpu's rows to shard the carries by) is accepted for the same
+    call and unused: the port keeps the carries whole."""
     del row_sizes
-
-    def fn_meshed(*a):
-        with row_mesh(mesh):
-            return frame_fn(*a)
-
-    return fn_meshed, replicated(mesh, (scene, view, frame, noise, carry))
+    scene, view, frame, noise, carry = replicated(
+        mesh, (scene, view, frame, noise, carry))
+    return (ShardedFrame(frame_fn, mesh, scene, view, noise, carry),
+            (scene, view, frame, noise, carry))

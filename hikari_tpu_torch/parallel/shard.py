@@ -25,9 +25,12 @@ the glue goes on with. The islands:
 A mesh is active inside `row_mesh(mesh)` (parallel/mesh.py shard_frame
 enters it around the frame); without one every wrapper runs whole.
 
-Collectives: the list form `dist.all_gather` and `dist.batch_isend_irecv`.
-Under gloo, CUDA tensors are staged through the host (gloo moves host
-tensors; two ranks on one card cannot use NCCL).
+Collectives: `dist.all_gather_into_tensor` under NCCL (into the whole
+tensor's rows; a captured frame replays it, parallel/mesh.py), the list
+form `dist.all_gather` under gloo, and `dist.batch_isend_irecv` for the
+halo rows. Under gloo, CUDA tensors are staged through the host (gloo
+moves host tensors; two ranks on one card cannot use NCCL), which no CUDA
+graph can capture.
 """
 
 from __future__ import annotations
@@ -208,16 +211,21 @@ def gather_rows(outs, mesh, h: int, axes=0):
     """All-gathers each rank's blocks `outs` (a list of tensors, each with
     its rows on `axes`, an int or one per tensor) into whole tensors of `h`
     rows, contiguous, in one collective: the blocks travel as the bytes of
-    one [hl, bytes] buffer."""
+    one [hl, bytes] buffer, gathered into one [n * hl, bytes] buffer
+    (all_gather_into_tensor; under gloo the list form and a cat)."""
     if isinstance(axes, int):
         axes = [axes] * len(outs)
     hl = outs[0].shape[axes[0]]
     rows = [o.movedim(a, 0).contiguous() for o, a in zip(outs, axes)]
     flat = [t.reshape(hl, -1).view(torch.uint8) for t in rows]
     buf = _to_wire(torch.cat(flat, 1) if len(flat) > 1 else flat[0], mesh)
-    parts = [torch.empty_like(buf) for _ in range(mesh.n)]
-    dist.all_gather(parts, buf, group=mesh.group)
-    whole = _from_wire(torch.cat(parts, 0), mesh)
+    if mesh.backend == "nccl":
+        whole = buf.new_empty((mesh.n * hl, buf.shape[1]))
+        dist.all_gather_into_tensor(whole, buf, group=mesh.group)
+    else:
+        parts = [torch.empty_like(buf) for _ in range(mesh.n)]
+        dist.all_gather(parts, buf, group=mesh.group)
+        whole = _from_wire(torch.cat(parts, 0), mesh)
     result, c0 = [], 0
     for t, f, a in zip(rows, flat, axes):
         c1 = c0 + f.shape[1]

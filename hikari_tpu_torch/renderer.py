@@ -11,15 +11,18 @@ per-pass dissection and PNG output).
 
 On CUDA the frame and its post-overlay run as captured CUDA graphs
 (compiled.py), one per key of the frame's branches (frame.py
-`render_frame.key`), and so does the device refit: the counterpart of
-hikari_tpu's jitted frame (its carry donated), post-overlay and refit.
-Everything that changes from frame to frame reaches them through static
-device buffers (the view uniform, frame.frame_words, the transforms),
-written before each replay by one copy; the carry and the scene are
-written in place. `update_settings`, `update_scene(fast=False)`, `reset`
-and an assignment to `carry` drop the graphs: the next frame captures
-again. The CPU, a frame under a row mesh, the dissection and frames
-inside `compiled.eager()` run eagerly."""
+`render_frame.key`), and so do the dissection (one graph per key of the
+debug frame) and the device refit: the counterpart of hikari_tpu's
+jitted frame (its carry donated), debug frame, post-overlay and refit.
+Everything that changes from frame to frame, and the settings' dynamic
+values, reach them through static device buffers (the view uniform,
+frame.frame_words, the transforms), written before each replay by one
+copy; the carry and the scene are written in place. So
+`update_settings` of dynamic fields only keeps the graphs, as
+hikari_tpu keeps its jitted frame; a change of a static-key field,
+`update_scene(fast=False)`, `reset` and an assignment to `carry` drop
+them: the next frame captures again. The CPU, a frame under a row mesh
+and frames inside `compiled.eager()` run eagerly."""
 
 from __future__ import annotations
 
@@ -37,7 +40,7 @@ from hikari_tpu_torch.camera import (VIEW_WORDS, Camera, view_from_words,
 from hikari_tpu_torch.compiled import eager  # noqa: F401 (the eager route)
 from hikari_tpu_torch.config import HikariSettings, make_frame_uniform
 from hikari_tpu_torch.frame import (FRAME_WORDS, build_render_frame,
-                                    frame_words, init_carry, with_words)
+                                    init_carry, with_words)
 from hikari_tpu_torch.models.refit_device import DeviceRefitter
 from hikari_tpu_torch.models.scene import GpuScene, Scene, upload
 from hikari_tpu_torch.ops.bloom import bloom
@@ -151,13 +154,14 @@ class Renderer:
             self._graphs.clear()
 
     def _graphed(self) -> bool:
-        """The frame, post-overlay and refit replay graphs: on CUDA, outside
-        compiled.eager() and a row mesh."""
+        """The frame, post-overlay, dissection and refit replay graphs: on
+        CUDA, outside compiled.eager() and a row mesh."""
         return (self._graphs is not None and not compiled.eager_active()
                 and _sh.active_mesh() is None)
 
     def graph_keys(self) -> list:
-        """The keys of the captured graphs (frame keys and "refit")."""
+        """The keys of the captured graphs (frame keys, ("dissection",) +
+        a debug frame's key, and "refit"), in capture order."""
         return [] if self._graphs is None else self._graphs.keys()
 
     def reset(self):
@@ -166,14 +170,17 @@ class Renderer:
         self._prev_view_initialized = False
 
     def update_settings(self, **changes):
-        """Change settings; a change of a static-key field (the upscale
-        mode and ratio among them) rebuilds the frame function and resets
-        the carry at the new sizes. Every change drops the graphs (the
-        settings' values are constants of a captured frame)."""
+        """Change settings. The dynamic fields (validation intervals, reuse
+        caps, lifetime, solar angle, indirect clamp, clear colour) apply
+        from the next frame with the graphs, the frame function, the carry
+        and the frame index kept: they reach the frame as device words
+        (frame.frame_words), and the intervals pick its key. A change of a
+        static-key field (the upscale mode and ratio among them) rebuilds
+        the frame function, resets the carry at the new sizes and drops
+        the graphs."""
         old_key = self.settings.static_key()
         settings = dataclasses.replace(self.settings, **changes)
         self.settings = settings
-        self._drop_graphs()
         if settings.static_key() != old_key:
             self._frame_fn = self._build()
             self._debug_fn = None
@@ -255,20 +262,20 @@ class Renderer:
 
     def _frame_inputs(self):
         """Stages the view uniform and the frame's words of the next frame
-        into the static inputs (one copy) and returns (view, frame) over
-        them; the first frame seeds the previous view with the current one
-        (zero velocity)."""
-        n = self._frame_index
+        (its number's and the current settings' dynamic values) into the
+        static inputs (one copy) and returns (view, frame) over them; the
+        first frame seeds the previous view with the current one (zero
+        velocity)."""
+        uniform = make_frame_uniform(self.settings, self._frame_index)
         self._inputs.write(np.concatenate(
-            [self._view_words(), frame_words(self.settings, n)]))
+            [self._view_words(), self._frame_fn.words(uniform)]))
         view = self._view
         if not self._prev_view_initialized:
             self.carry["prev_view_proj"].copy_(view["view_proj"])
             self.carry["prev_inverse_view_proj"].copy_(
                 view["inverse_view_proj"])
             self._prev_view_initialized = True
-        frame = with_words(make_frame_uniform(self.settings, n),
-                           self._inputs.dev[VIEW_WORDS:])
+        frame = with_words(uniform, self._inputs.dev[VIEW_WORDS:])
         return view, frame
 
     def _frame_program(self, view, frame, commit: bool):
@@ -282,8 +289,9 @@ class Renderer:
         return self._post_overlay(image, albedo), albedo
 
     def frame_key(self, number: int) -> tuple:
-        """The key of frame `number`: its branches (frame.py)."""
-        return self._frame_fn.key(number)
+        """The key of frame `number` at the current settings: its branches
+        (frame.py render_frame.key of its frame uniform)."""
+        return self._frame_fn.key(make_frame_uniform(self.settings, number))
 
     def render_frame(self) -> torch.Tensor:
         """Render one frame; returns the final [H,W,4] image on the
@@ -293,7 +301,7 @@ class Renderer:
         view, frame = self._frame_inputs()
         if self._graphed():
             image, self.albedo = self._graphs.run(
-                self.frame_key(self._frame_index),
+                self._frame_fn.key(frame),
                 lambda commit: self._frame_program(view, frame, commit))
             image = image.clone()
         else:
@@ -301,25 +309,40 @@ class Renderer:
         self._frame_index += 1
         return image
 
+    def _dissection_program(self, view, frame, commit: bool):
+        """The debug frame and its post-overlay: ({DEBUG_KEYS: plane,
+        "final": image}); with `commit` the new carry is written into the
+        carry's tensors in place."""
+        image, albedo, carry, dbg = self._debug_fn(
+            self.scene_dev, view, frame, self.noise, self.carry)
+        if commit:
+            compiled.commit(self.carry, carry)
+        return {**dbg, "final": self._post_overlay(image, albedo)}
+
     def render_dissection(self, out_dir: Optional[str] = None) -> dict:
         """Render one frame through the debug frame (frame.py
         build_render_frame(debug=True): the modular lighting and spatial
         paths) and return its per-pass planes (frame.DEBUG_KEYS) and the
         final image under "final", as numpy arrays (the analog of the
-        reference's assets/screenshots/dissection images). The frame
-        advances the carry and the frame index as render_frame does. With
-        `out_dir`, each plane is also written to out_dir/<key>.png as
-        hikari_tpu writes it: one-channel planes grey, scaled by their
-        maximum, normals mapped from [-1, 1] to [0, 1]."""
+        reference's assets/screenshots/dissection images). On CUDA it
+        replays one graph per key of the debug frame ("dissection", key),
+        captured at the key's first use in the frame's pool, and then
+        copies the planes to the host. The frame advances the carry and the
+        frame index as render_frame does. With `out_dir`, each plane is
+        also written to out_dir/<key>.png as hikari_tpu writes it:
+        one-channel planes grey, scaled by their maximum, normals mapped
+        from [-1, 1] to [0, 1]."""
         if self._debug_fn is None:
             self._debug_fn = self._build(debug=True)
         view, frame = self._frame_inputs()
-        image, albedo, carry, dbg = self._debug_fn(
-            self.scene_dev, view, frame, self.noise, self.carry)
-        compiled.commit(self.carry, carry)
+        if self._graphed():
+            dbg = self._graphs.run(
+                ("dissection",) + self._debug_fn.key(frame),
+                lambda commit: self._dissection_program(view, frame, commit))
+        else:
+            dbg = self._dissection_program(view, frame, True)
         self._frame_index += 1
         dbg = {k: v.cpu().numpy() for k, v in dbg.items()}
-        dbg["final"] = self._post_overlay(image, albedo).cpu().numpy()
         if out_dir:
             os.makedirs(out_dir, exist_ok=True)
             for k, v in dbg.items():

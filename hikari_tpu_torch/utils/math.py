@@ -91,17 +91,19 @@ def sample_cosine_hemisphere(rand2):
     return torch.cat([t, z[..., None]], -1), f32(2.0 * INV_TAU) * z
 
 
-def sample_uniform_cone(rand2, cos_angle: float):
-    """Cone sample around +z with cos(half-apex angle) `cos_angle` (a host
-    float32 value); returns (direction, pdf)."""
-    one_minus = f32(np.float32(1.0) - np.float32(cos_angle))
+def sample_uniform_cone(rand2, cos_angle):
+    """Cone sample around +z with cos(half-apex angle) `cos_angle` (a
+    float32 tensor of one word, such as a frame's dynamic word, or a host
+    float32 value); returns (direction, pdf), both tensors."""
+    cos_angle = torch.as_tensor(cos_angle, dtype=torch.float32,
+                                device=rand2.device)
+    one_minus = 1.0 - cos_angle
     z = 1.0 - one_minus * rand2[..., 0]
     theta = TAU * rand2[..., 1]
     r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
     direction = torch.stack([r * torch.cos(theta), r * torch.sin(theta), z],
                             -1)
-    return direction, f32(np.float32(INV_TAU)
-                          / max(np.float32(one_minus), np.float32(1e-7)))
+    return direction, div(f32(INV_TAU), torch.clamp(one_minus, min=1e-7))
 
 
 def sample_uniform_triangle_barycentric(rand2):

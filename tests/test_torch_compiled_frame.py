@@ -24,7 +24,6 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import hikari_tpu_torch as ht
 from hikari_tpu_torch.camera import view_to_device
@@ -32,14 +31,12 @@ from hikari_tpu_torch.config import make_frame_uniform
 from hikari_tpu_torch.examples import city
 from hikari_tpu_torch.models.refit_device import DeviceRefitter
 from hikari_tpu_torch.models.scene import upload
-from hikari_tpu_torch.ops import (denoise_fused, light_fused, prepass_fused,
-                                  reproj_gather, spatial_fused,
-                                  texture_pallas, trace_cull, trace_pallas,
-                                  warp2, warp_band)
 from tests.cornell_box import EYE, TARGET, build_cornell_box
 from tests.test_torch_frame import (PAN_PX, PATHS, REUSE_FRAMES, SIZE,
                                     assert_frames_close, port_renderer,
                                     reference_renderer)
+from tests.torch_recorder import (Recorder, first_difference, host_reads,
+                                  install_opaque)
 from tests.torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = (24, 32)
@@ -175,73 +172,10 @@ def test_static_inputs_equal_fresh_inputs(case):
 # (b) one key, one trace
 # ---------------------------------------------------------------------------
 
-PLAINS = ((denoise_fused, "atrous_plain"), (light_fused, "lighting_plain"),
-          (prepass_fused, "prepass_plain"), (prepass_fused, "quads_plain"),
-          (reproj_gather, "gather_plain"), (spatial_fused, "spatial_plain"),
-          (texture_pallas, "sample_atlas"), (trace_cull, "walk_plain"),
-          (trace_pallas, "closest_plain"), (trace_pallas, "full_plain"),
-          (trace_pallas, "shadow_plain"), (warp_band, "band_plain"),
-          (warp2, "multi_plain"))
-# operations that read a tensor back to the host or make one from host
-# data: none may run in the frame's glue
-HOST_OPS = ("aten._local_scalar_dense", "aten.nonzero", "aten.lift_fresh",
-            "aten.item")
-
-
-def masked_index(op, args):
-    """An indexing by a boolean mask: its shape depends on the data (and
-    on CUDA it reads the mask's count back to the host)."""
-    return (op.startswith(("aten.index.Tensor", "aten.index_put"))
-            and any(isinstance(i, tuple) and len(i) > 2
-                    and i[2] == torch.bool for i in args[1]))
-
-
-def signature(x):
-    if isinstance(x, torch.Tensor):
-        return ("T", tuple(x.shape), x.dtype, tuple(x.stride()),
-                x.storage_offset())
-    if isinstance(x, (list, tuple)):
-        return tuple(signature(v) for v in x)
-    if isinstance(x, dict):
-        return tuple((k, signature(v)) for k, v in sorted(x.items()))
-    if isinstance(x, float):
-        return ("f", repr(x))
-    return x
-
-
-class Recorder(TorchDispatchMode):
-    """Every dispatched operation (name, argument signatures); a plain
-    version of a kernel wrapper is one entry, its operations unrecorded."""
-
-    def __init__(self):
-        super().__init__()
-        self.ops = []
-        self.quiet = 0
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        if not self.quiet:
-            self.ops.append((str(func), signature(args), signature(kwargs)))
-        return func(*args, **kwargs)
-
-
 @pytest.fixture
 def recorder(monkeypatch):
     rec = Recorder()
-    for mod, name in PLAINS:
-        fn = getattr(mod, name)
-
-        def opaque(*a, _fn=fn, _name=name, **k):
-            if not rec.quiet:
-                rec.ops.append((f"plain:{_name}", signature(a),
-                                signature(k)))
-            rec.quiet += 1
-            try:
-                return _fn(*a, **k)
-            finally:
-                rec.quiet -= 1
-
-        monkeypatch.setattr(mod, name, opaque)
+    install_opaque(rec, monkeypatch.setattr)
     return rec
 
 
@@ -257,13 +191,6 @@ def record(rec, r, number, cam, step=None):
     return rec.ops
 
 
-def first_difference(a, b):
-    for i, (x, y) in enumerate(zip(a, b)):
-        if x != y:
-            return i, x, y
-    return len(a), len(a), len(b)
-
-
 def assert_one_trace(rec, r, same, other, cam_of, step_of=None):
     step_of = step_of or (lambda n: None)
     assert r.frame_key(same[0]) == r.frame_key(same[1])
@@ -277,8 +204,7 @@ def assert_one_trace(rec, r, same, other, cam_of, step_of=None):
     assert len(a) > 100
     c = record(rec, r, other, cam_of(other), step_of(other))
     assert a != c
-    host = [op for op, args, _ in a + c
-            if op.startswith(HOST_OPS) or masked_index(op, args)]
+    host = host_reads(a + c)
     assert not host, host[:5]
 
 

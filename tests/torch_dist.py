@@ -430,9 +430,17 @@ def frame_setup(config, size, modular=False):
     return fn, scene, view, noise_constant("cpu"), carry, settings
 
 
+def _snapshot(tree):
+    if isinstance(tree, dict):
+        return {k: _snapshot(v) for k, v in tree.items()}
+    return tree.clone()
+
+
 def render_frames(config, size, frames, mesh=None, modular=False):
     """`frames` frames (numbers 1..) of the configuration, under shard_frame
-    over `mesh` when given. Returns [(image, albedo, carry)] per frame."""
+    over `mesh` when given. Returns [(image, albedo, carry)] per frame (a
+    copy of each frame's carry: the sharded frame rewrites its static
+    carry in place, as hikari_tpu donates it)."""
     from hikari_tpu_torch.config import make_frame_uniform
     from hikari_tpu_torch.parallel import shard_frame
 
@@ -446,7 +454,7 @@ def render_frames(config, size, frames, mesh=None, modular=False):
     for i in range(1, frames + 1):
         image, albedo, carry = fn(scene, view, make_frame_uniform(settings, i),
                                   noise, carry)
-        out.append((image, albedo, carry))
+        out.append((image, albedo, _snapshot(carry)))
     return out
 
 
@@ -457,3 +465,111 @@ def frames(mesh, runs):
                                                    mod)
             for cfg, size, n, mod in runs}
 
+
+
+# ---------------------------------------------------------------- the
+# sharded frame's static inputs (parallel/mesh.py ShardedFrame)
+
+# the dynamic fields retuned before the third frame (the intervals so that
+# old and new validation frames cross)
+RETUNE = dict(direct_validate_interval=2, emissive_validate_interval=3,
+              max_temporal_reuse_count=20, max_spatial_reuse_count=300,
+              max_reservoir_lifetime=4.0, solar_angle=0.2,
+              max_indirect_luminance=2.0, clear_color=(0.1, 0.2, 0.3, 1.0))
+
+
+def _settings_at(settings, i):
+    return dataclasses.replace(settings, **RETUNE) if i >= 3 else settings
+
+
+def static_against_fresh(mesh, runs):
+    """Frames 1.. of each (config, size, frames, modular) of `runs` through
+    shard_frame's function (the frame's words staged into its static
+    inputs, the static carry written in place) and, beside it, through the
+    frame function under row_mesh on fresh inputs (a frame dict without
+    device words, the carry returned), the dynamic fields retuned before
+    frame 3: {(config, size, modular): [names of the image, albedo and
+    carry leaves that differ, per frame]}."""
+    from hikari_tpu_torch.config import make_frame_uniform
+    from hikari_tpu_torch.parallel import shard as sh
+    from hikari_tpu_torch.parallel import shard_frame
+
+    out = {}
+    for cfg, size, frames, modular in runs:
+        size = tuple(size)
+        fn, scene, view, noise, carry, settings = frame_setup(cfg, size,
+                                                              modular)
+        sfn, (s_scene, s_view, _, s_noise, s_carry) = shard_frame(
+            fn, mesh, scene, view, make_frame_uniform(settings, 1), noise,
+            _snapshot(carry), {size[0]})
+        diffs = []
+        for i in range(1, frames + 1):
+            frame = make_frame_uniform(_settings_at(settings, i), i)
+            image, albedo, s_carry = sfn(s_scene, s_view, frame, s_noise,
+                                         s_carry)
+            with sh.row_mesh(mesh):
+                f_image, f_albedo, carry = fn(scene, view, dict(frame),
+                                              noise, carry)
+            got = {"image": image, "albedo": albedo,
+                   **_flat_leaves(s_carry)}
+            want = {"image": f_image, "albedo": f_albedo,
+                    **_flat_leaves(carry)}
+            diffs.append(sorted(k for k in want if k not in got
+                                or not _words(got[k], want[k])))
+        out[(cfg, size, modular)] = diffs
+    return out
+
+
+def _flat_leaves(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat_leaves(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def sharded_trace(mesh, config, size, modular):
+    """The operations that frame 11, then the next frame of its key after
+    a retune of every dynamic field (RETUNE), then a frame of another key
+    dispatch through shard_frame's function, recorded after three
+    unrecorded frames (tests/torch_recorder.py: each kernel's plain
+    version one opaque call; the collectives recorded as c10d
+    operations): the three frames' keys, whether the first two dispatch
+    the same operations (else their first difference), whether the third
+    dispatches others, the first's operation names and the host reads."""
+    from hikari_tpu_torch.config import make_frame_uniform
+    from hikari_tpu_torch.parallel import shard_frame
+    from tests.torch_recorder import (Recorder, first_difference, host_reads,
+                                      install_opaque)
+
+    rec = Recorder()
+    install_opaque(rec, setattr)
+    size = tuple(size)
+    fn, scene, view, noise, carry, settings = frame_setup(config, size,
+                                                          modular)
+    sfn, (scene, view, _, noise, carry) = shard_frame(
+        fn, mesh, scene, view, make_frame_uniform(settings, 0), noise, carry,
+        {size[0]})
+    for i in range(3):
+        sfn(scene, view, make_frame_uniform(settings, i), noise, carry)
+    retuned = dataclasses.replace(settings, **RETUNE)
+    first = make_frame_uniform(settings, 11)
+    key = fn.key(first)
+    frames = [first] + [next(f for f in (make_frame_uniform(retuned, n)
+                                         for n in range(12, 60))
+                             if (fn.key(f) == key) == same)
+                        for same in (True, False)]
+    records = []
+    for frame in frames:
+        rec.ops = []
+        with rec:
+            sfn(scene, view, frame, noise, carry)
+        records.append(rec.ops)
+    a, b, c = records
+    # a summary (the records hold the process group, which cannot be saved)
+    return {"keys": [fn.key(f) for f in frames], "same": a == b,
+            "difference": None if a == b else repr(first_difference(a, b)),
+            "other_differs": a != c, "ops": [op for op, _, _ in a],
+            "host_reads": host_reads(a + c)}
